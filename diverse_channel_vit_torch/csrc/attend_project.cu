@@ -24,7 +24,9 @@
 //   the concatenated head outputs O (64 x D bf16, 48 KB at D = 384) stay in
 //   shared memory and feed the output projection directly: O never goes to
 //   device memory unless the caller asks for it (`o`, needed only by a
-//   backward pass).
+//   backward pass). With `o` the kernel also writes each row's per-head
+//   log-sum-exp of the scaled scores (`lse`, f32), which the backward
+//   (attend_project_bwd.cu) uses to recompute P one key tile at a time.
 // - Wp (D_out x D bf16, 288 KB) cannot be resident either: the projection
 //   streams 64 x 64 tiles of it through the same ring, reusing the K/V
 //   buffers, and adds bp and x_res in f32 before the single bf16 rounding.
@@ -51,8 +53,9 @@ __global__ void __launch_bounds__(kAPThreads)
                               const __nv_bfloat16* __restrict__ x_res,
                               const __nv_bfloat16* __restrict__ wp,
                               const __nv_bfloat16* __restrict__ bp,
-                              __nv_bfloat16* __restrict__ o_out, __nv_bfloat16* __restrict__ xo,
-                              int n, int heads, int d_out, int n_valid, float scale_log2) {
+                              __nv_bfloat16* __restrict__ o_out, float* __restrict__ lse_out,
+                              __nv_bfloat16* __restrict__ xo, int n, int heads, int d_out,
+                              int n_valid, float scale_log2) {
   static_assert(DH % 16 == 0, "head width must be a multiple of 16");
   static_assert(4 * kAPKeys * padded(DH) >= 2 * kAPWTile * padded(kAPWTile),
                 "the Wp tiles reuse the K/V buffers");
@@ -195,6 +198,11 @@ __global__ void __launch_bounds__(kAPThreads)
       l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
     }
     const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+    if (lse_out != nullptr && t4 == 0) {  // m is in the log2 domain
+      float* lrow = lse_out + ((long long)b * heads + h) * n + q0;
+      lrow[row_a] = (m_a + log2f(l_a)) * 0.6931471805599453f;
+      lrow[row_b] = (m_b + log2f(l_b)) * 0.6931471805599453f;
+    }
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
       const int col = hc + j * 8 + t4 * 2;
@@ -273,12 +281,13 @@ __global__ void __launch_bounds__(kAPThreads)
 
 // Plain C entry point (loaded with ctypes). Shapes: qkv (B, N, 3*H*DH),
 // x_res and xo (B, N, D_out) or x_res NULL, wp (D_out, H*DH) in nn.Linear
-// layout, bp (D_out,), o (B, N, H*DH) or NULL; all bf16 and contiguous.
+// layout, bp (D_out,), o (B, N, H*DH) or NULL; all bf16 and contiguous; lse
+// (B, H, N) f32, written when o is.
 // Returns a cudaError_t: the launch's, or cudaErrorInvalidValue for a shape
 // the kernel does not take.
 extern "C" int dcvit_attend_project_fwd(const void* qkv, const void* x_res, const void* wp,
-                                        const void* bp, void* o, void* xo, int batch, int n,
-                                        int heads, int head_dim, int d_out, int n_valid,
+                                        const void* bp, void* o, void* lse, void* xo, int batch,
+                                        int n, int heads, int head_dim, int d_out, int n_valid,
                                         float sm_scale, void* stream) {
   using namespace dcvit;
   if (head_dim != 64 || n % kAPRows != 0 || d_out % kAPWTile != 0 || n_valid < 1 ||
@@ -294,7 +303,7 @@ extern "C" int dcvit_attend_project_fwd(const void* qkv, const void* x_res, cons
   kernel<<<grid, kAPThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(x_res),
       static_cast<const __nv_bfloat16*>(wp), static_cast<const __nv_bfloat16*>(bp),
-      static_cast<__nv_bfloat16*>(o), static_cast<__nv_bfloat16*>(xo), n, heads, d_out, n_valid,
-      sm_scale * 1.4426950408889634f);
+      static_cast<__nv_bfloat16*>(o), o == nullptr ? nullptr : static_cast<float*>(lse),
+      static_cast<__nv_bfloat16*>(xo), n, heads, d_out, n_valid, sm_scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

@@ -41,17 +41,6 @@ __host__ __device__ constexpr int lm_smem_elems() {
          kLMRows * padded(kLMChunk);
 }
 
-DEV float gelu_tanh(float x) {
-  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.f + tanhf(inner));
-}
-
-DEV float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kLMThreads, 1)
     ln_mlp_fwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_scale,

@@ -1,0 +1,151 @@
+// Weight gradients of the backward kernels, without f32 atomics.
+//
+// A weight gradient is C = A^T B summed over every row of a batch (here up to
+// 64 x 1600 rows): dWp = dxo^T o in attend_project_bwd.cu, dW2 = do^T h and
+// dW1 = dh_pre^T y in ln_mlp_bwd.cu. The TPU kernels summed these across a
+// sequential grid in VMEM scratch; Hopper blocks run in no order, so:
+//
+// - `wgrad_kernel`: block (tile of 64 x 64 outputs, split s) sums the rows of
+//   split s in order, streaming 64-row stages of A and B through a
+//   double-buffered cp.async ring, and writes its f32 partial
+//   part[s][M1][M2]. Four warps hold 32 x 32 of the tile each in registers
+//   (bf16 mma.sync, f32 accumulation); A^T's fragments come from ldmatrix.trans.
+// - `reduce_partials_kernel`: out[i] = sum over s of part[s][i], with the
+//   splits cut into eight fixed ranges summed by eight threads, then added in
+//   range order. The order depends only on the shapes, so the result is the
+//   same from run to run.
+//
+// Split counts are chosen by the caller so that the grid fills the card a few
+// times over; rows past R are zero-filled.
+#pragma once
+
+#include "common.cuh"
+
+namespace dcvit {
+
+constexpr int kWGTile = 64;
+constexpr int kWGThreads = 128;
+constexpr int kReduceRanges = 8;
+
+__global__ void __launch_bounds__(kWGThreads)
+    wgrad_kernel(const __nv_bfloat16* __restrict__ a, int lda, const __nv_bfloat16* __restrict__ b,
+                 int ldb, float* __restrict__ part, long long rows, int m1, int m2,
+                 long long rows_per_split) {
+  constexpr int S = padded(kWGTile);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int i1 = blockIdx.y * kWGTile, i2 = blockIdx.x * kWGTile;
+  const long long r_begin = (long long)blockIdx.z * rows_per_split;
+  const long long r_end = r_begin + rows_per_split < rows ? r_begin + rows_per_split : rows;
+  const int n_steps = r_end > r_begin ? (int)((r_end - r_begin + kWGTile - 1) / kWGTile) : 0;
+
+  __shared__ __align__(16) __nv_bfloat16 sA[2 * kWGTile * S];
+  __shared__ __align__(16) __nv_bfloat16 sB[2 * kWGTile * S];
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  auto load_stage = [&](int st, int buf) {
+    const long long r0 = r_begin + (long long)st * kWGTile;
+    load_rows_zfill(sA + buf * kWGTile * S, a + r0 * lda + i1, kWGTile, lda, r_end - r0, tid,
+                    kWGThreads);
+    load_rows_zfill(sB + buf * kWGTile * S, b + r0 * ldb + i2, kWGTile, ldb, r_end - r0, tid,
+                    kWGThreads);
+    cp_async_commit();
+  };
+
+  if (n_steps > 0) load_stage(0, 0);
+  for (int st = 0; st < n_steps; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < n_steps) {
+      load_stage(st + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* a_t = sA + buf * kWGTile * S;
+    const __nv_bfloat16* b_t = sB + buf * kWGTile * S;
+#pragma unroll
+    for (int kk = 0; kk < kWGTile / 16; ++kk) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) load_a_frag_km(af[mi], a_t, S, wm * 32 + mi * 16, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bfr[4];
+        load_b_frag_kn(bfr, b_t, S, wn * 32 + np * 16, kk * 16, lane);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * np], af[mi], bfr[0], bfr[1]);
+          mma_bf16(acc[mi][2 * np + 1], af[mi], bfr[2], bfr[3]);
+        }
+      }
+    }
+    __syncthreads();  // `buf` is free for the stage after next
+  }
+
+  float* out = part + (long long)blockIdx.z * m1 * m2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = i1 + wm * 32 + mi * 16 + g + half * 8;
+        const int c = i2 + wn * 32 + j * 8 + t4 * 2;
+        *reinterpret_cast<float2*>(out + (long long)r * m2 + c) =
+            make_float2(acc[mi][j][2 * half], acc[mi][j][2 * half + 1]);
+      }
+}
+
+// out[i] = sum_s part[s * count + i], s in [0, splits), in a fixed order.
+__global__ void __launch_bounds__(32 * kReduceRanges)
+    reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int splits,
+                           long long count) {
+  __shared__ float sh[kReduceRanges][32];
+  const long long i = (long long)blockIdx.x * 32 + threadIdx.x;
+  const int s0 = (int)((long long)splits * threadIdx.y / kReduceRanges);
+  const int s1 = (int)((long long)splits * (threadIdx.y + 1) / kReduceRanges);
+  float acc = 0.f;
+  if (i < count) {
+#pragma unroll 8
+    for (int s = s0; s < s1; ++s) acc += part[(long long)s * count + i];
+  }
+  sh[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < count) {
+    float tot = sh[0][threadIdx.x];
+#pragma unroll
+    for (int y = 1; y < kReduceRanges; ++y) tot += sh[y][threadIdx.x];
+    out[i] = tot;
+  }
+}
+
+// Launch helpers; each returns the launch's cudaError_t.
+inline cudaError_t launch_wgrad(const __nv_bfloat16* a, int lda, const __nv_bfloat16* b, int ldb,
+                                float* part, long long rows, int m1, int m2, int splits,
+                                cudaStream_t stream) {
+  const long long per = (rows + splits - 1) / splits;
+  const long long rows_per_split = (per + kWGTile - 1) / kWGTile * kWGTile;
+  const dim3 grid(m2 / kWGTile, m1 / kWGTile, splits);
+  wgrad_kernel<<<grid, kWGThreads, 0, stream>>>(a, lda, b, ldb, part, rows, m1, m2,
+                                               rows_per_split);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_reduce(const float* part, float* out, int splits, long long count,
+                                 cudaStream_t stream) {
+  const long long blocks = (count + 31) / 32;
+  reduce_partials_kernel<<<(unsigned)blocks, dim3(32, kReduceRanges), 0, stream>>>(
+      part, out, splits, count);
+  return cudaGetLastError();
+}
+
+}  // namespace dcvit

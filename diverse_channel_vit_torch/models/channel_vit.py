@@ -1,12 +1,16 @@
-"""Channel Vision Transformer, inference forward (counterpart of the JAX
-package's ``models/channel_vit.py``).
+"""Channel Vision Transformer (counterpart of the JAX package's
+``models/channel_vit.py``).
 
 Tokens stay channel-grouped ``(B, C, N, D)`` through the patch embedding and
 enter the blocks as the flat ``(B, 1 + C*N, D)`` grid in channel-major order,
 padded once to the kernels' multiple (``ops/attention.maybe_pad_tokens``).
-The forward is the JAX module's ``train=False`` forward for
-``block_type="block"``: no dropout, no token dropping, no EViT, and the last
-block reads out the CLS row alone unless ``cls_only_readout`` is off.
+The forward is the JAX module's forward for ``block_type="block"`` with no
+dropout, no token dropping and no EViT; the last block reads out the CLS row
+alone unless ``cls_only_readout`` is off (exact in training too: the other
+rows of the last block feed nothing). In train mode (``module.train()``) it
+also returns DiChaViT's diversity losses: TDL on the projected tokens before
+the channel embedding, CDL of the selected channel embeddings against their
+proxies.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 
 from ..ops.attention import maybe_pad_tokens
 from ..ops.initializers import conv_patch_, normal_div8_, orthogonal_, trunc_normal_
+from ..ops.losses import orthogonal_projection_loss, proxy_loss
 from ..ops.patch_embed import add_channel_embedding, per_channel_patch_embed
 from .vit import Block
 
@@ -46,10 +51,14 @@ def _torch_bicubic_1d(size_in: int, size_out: int, scale: float) -> Tuple[np.nda
 
 @functools.lru_cache(maxsize=32)
 def _bicubic_tables(side: int, h0: int, w0: int, device: torch.device):
-    """(idx_h, w_h, idx_w, w_w) on ``device``, made once per geometry."""
+    """(idx_h, w_h, idx_w, w_w) on ``device``, made once per geometry. They
+    are made outside inference mode even when the first call comes from a
+    serving forward, so that a later training forward can save them for its
+    backward."""
     tables = _torch_bicubic_1d(side, h0, (h0 + 0.1) / side) + \
         _torch_bicubic_1d(side, w0, (w0 + 0.1) / side)
-    return tuple(torch.as_tensor(a, device=device) for a in tables)
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device) for a in tables)
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, h0: int, w0: int,
@@ -80,19 +89,19 @@ class _ConvProj(nn.Module):
     """Holds the reference's ``Conv3d(1, D, (1, p, p))`` weight and bias; the
     projection itself runs as im2col + matmul (``ops/patch_embed.py``)."""
 
-    def __init__(self, dim: int, patch_size: int, dtype: torch.dtype):
+    def __init__(self, dim: int, patch_size: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(dim, 1, 1, patch_size, patch_size, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
+        self.weight = nn.Parameter(torch.empty(dim, 1, 1, patch_size, patch_size))
+        self.bias = nn.Parameter(torch.zeros(dim))
 
 
 class PatchEmbedPerChannel(nn.Module):
     def __init__(self, num_total_channels: int, patch_size: int, dim: int,
-                 use_channelvit_channels: bool, with_proxies: bool, dtype: torch.dtype):
+                 use_channelvit_channels: bool, with_proxies: bool):
         super().__init__()
-        self.proj = _ConvProj(dim, patch_size, dtype)
+        self.proj = _ConvProj(dim, patch_size)
         if use_channelvit_channels:
-            self.channel_embed = nn.Embedding(num_total_channels, dim, dtype=dtype)
+            self.channel_embed = nn.Embedding(num_total_channels, dim)
             if with_proxies:  # CDL table (training only)
                 self.channel_emb_proxies = nn.Parameter(torch.empty(num_total_channels, dim))
 
@@ -120,14 +129,17 @@ def apply_preset_overrides(preset: dict, cfg_model) -> dict:
 
 class ChannelVisionTransformer(nn.Module):
     """Per-channel-token ViT backbone; ``forward`` returns the f32 CLS
-    embedding (B, D) and a zero extra loss (the diversity losses are
-    training-only)."""
+    embedding (B, D) and the f32 extra loss (0 in eval mode). Parameters are
+    f32; ``dtype`` is the compute dtype."""
 
     def __init__(self, num_total_channels: int, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  use_channelvit_channels: bool = True, orthogonal_channel_emb_init: bool = False,
-                 proxy_loss_lambda: float = 0.0, proxy_orthogonal_init: bool = False,
+                 proxy_loss_lambda: float = 0.0, ortho_loss_v1_lambda: float = 0.0,
+                 proxy_orthogonal_init: bool = False, gamma_s: float = 1.0,
+                 gamma_d: float = 0.5, reverse_pos_pairs: bool = False,
+                 use_square: bool = False, temperature: float = 0.11111,
                  cls_only_readout: bool = True, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -135,13 +147,18 @@ class ChannelVisionTransformer(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.use_channelvit_channels = use_channelvit_channels
+        self.proxy_loss_lambda = proxy_loss_lambda
+        self.ortho_loss_v1_lambda = ortho_loss_v1_lambda
+        self.tdl = dict(gamma_s=gamma_s, gamma_d=gamma_d, reverse_pos_pairs=reverse_pos_pairs,
+                        use_square=use_square)
+        self.channel_scale = math.sqrt(1.0 / temperature)  # CDL scale
         self.cls_only_readout = cls_only_readout
         self.dtype = dtype
         self.patch_embed = PatchEmbedPerChannel(
             num_total_channels, patch_size, embed_dim, use_channelvit_channels,
-            proxy_loss_lambda > 0, dtype,
+            proxy_loss_lambda > 0,
         )
-        self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim, dtype=dtype))
+        self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.empty(1, (img_size // patch_size) ** 2 + 1, embed_dim))
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype) for _ in range(depth)
@@ -182,8 +199,19 @@ class ChannelVisionTransformer(nn.Module):
         pe = self.patch_embed
         kernel = pe.proj.weight.reshape(dim, p * p).t().to(dt)
         tokens = per_channel_patch_embed(x.to(dt), kernel, pe.proj.bias.to(dt), patch_size=p)
+        extra_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.training and self.ortho_loss_v1_lambda > 0:
+            # TDL on the projected tokens, before the channel embedding
+            extra_loss = extra_loss + self.ortho_loss_v1_lambda * orthogonal_projection_loss(
+                tokens, **self.tdl)
         if self.use_channelvit_channels:
-            tokens = add_channel_embedding(tokens, pe.channel_embed.weight[channel_ids].to(dt))
+            sel_embed = pe.channel_embed.weight[channel_ids]  # (C, D) f32
+            if self.training and self.proxy_loss_lambda > 0:
+                # CDL: the selected channel embeddings against their proxies
+                extra_loss = extra_loss + self.proxy_loss_lambda * proxy_loss(
+                    pe.channel_emb_proxies[channel_ids], sel_embed,
+                    torch.eye(c, dtype=torch.float32, device=x.device), self.channel_scale)
+            tokens = add_channel_embedding(tokens, sel_embed.to(dt))
         tokens = tokens.reshape(b, c * n, dim)
         pos = interpolate_pos_embed(self.pos_embed, h // p, w // p, num_channels=c).to(dt)
         tokens = tokens + pos[:, 1:].repeat(1, c, 1)  # per-channel copy of the table
@@ -195,4 +223,4 @@ class ChannelVisionTransformer(nn.Module):
         # LayerNorm is per token: norm only the CLS row that is read
         cls_out = F.layer_norm(xseq[:, :1].float(), (dim,), self.norm.weight, self.norm.bias,
                                self.norm.eps)
-        return cls_out[:, 0], torch.zeros((), dtype=torch.float32, device=x.device)
+        return cls_out[:, 0], extra_loss

@@ -1,18 +1,21 @@
-"""ViT building blocks of the serving forward (counterpart of the JAX
-package's ``models/vit.py``).
+"""ViT building blocks (counterpart of the JAX package's ``models/vit.py``).
 
 Parameters sit in ``nn.Linear`` / ``nn.LayerNorm`` containers laid out as in
 the PyTorch reference (fused ``attn.qkv`` in [q | k | v] row order), so a
 reference ``state_dict`` loads with ``strict=True``. The blocks call the
-functional ops themselves. Matrix weights are stored in the compute dtype
-(the JAX package casts its f32 parameters to it at every use, which gives
-the same values); LayerNorm parameters stay f32.
+functional ops themselves. Every parameter is f32 (the master copy an
+optimizer updates) and is cast to the compute dtype at each use, as the JAX
+package casts its f32 parameters; without autograd the blocks' casts are
+made once and reused until the parameter changes (:func:`_wb`).
 
-A :class:`Block` runs one of two routes, the JAX package's inference routing
-(``Block.__call__`` at ``train=False``):
+A :class:`Block` runs one of two routes, the same in training and inference
+(the JAX package's ``Block.__call__`` routing with dropout, attention dropout
+and DropPath all 0, which is all the port takes):
 
-- the fused route: LN1 in f32 -> the wide qkv GEMM -> ``attend_project_fwd``
-  with the residual fused -> ``ln_mlp`` with the residual fused;
+- the fused route: LN1 in f32 -> the wide qkv GEMM -> ``attend_project``
+  with the residual fused -> ``ln_mlp`` with the residual fused (each an
+  autograd Function over its forward and backward kernels when a gradient
+  is wanted);
 - the CLS-only readout of the last block (``cls_query``): only the CLS row's
   query, attention row and MLP are computed, as dense ops.
 """
@@ -34,38 +37,49 @@ def _layer_norm_f32(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 
 
 def _wb(layer: nn.Linear, dtype: torch.dtype):
-    b = None if layer.bias is None else layer.bias.to(dtype)
-    return layer.weight.to(dtype), b
+    """The layer's weight and bias in ``dtype``. Without autograd (serving)
+    the cast copies stay on the layer and are reused until a parameter
+    changes: an in-place update (an optimizer step, ``load_state_dict``)
+    bumps its version, ``Module.to`` gives it new storage."""
+    params = (layer.weight, layer.bias)
+    if torch.is_grad_enabled():
+        return tuple(None if p is None else p.to(dtype) for p in params)
+    key = (dtype,) + tuple(None if p is None else (p.data_ptr(), p._version) for p in params)
+    cached = layer.__dict__.get("_cast_cache")
+    if cached is None or cached[0] != key:
+        cached = layer._cast_cache = (
+            key, tuple(None if p is None else p.detach().to(dtype) for p in params))
+    return cached[1]
 
 
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32):
+                 qk_scale: Optional[float] = None):
         super().__init__()
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
-        self.proj = nn.Linear(dim, dim, dtype=dtype)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden, dtype=dtype)
-        self.fc2 = nn.Linear(hidden, dim, dtype=dtype)
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block, inference forward."""
+    """Pre-norm transformer block; ``dtype`` is the compute dtype."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def _check_fused_route(self, x: torch.Tensor) -> None:
         if x.is_cuda:

@@ -44,3 +44,12 @@ class ChannelAdaptiveClassifier(nn.Module):
         emb, extra_loss = self.feature_extractor(x, channel_ids)
         out = emb if self.classifer_head is None else self.classifer_head(emb)
         return out, extra_loss
+
+
+def model_scale(model: ChannelAdaptiveClassifier, learnable_temp: bool,
+                temperature: float) -> torch.Tensor:
+    """The proxy-loss scale: exp(logit_scale) if learnable, else sqrt(1/T)."""
+    if learnable_temp:
+        return torch.exp(model.logit_scale)
+    return torch.tensor(math.sqrt(1.0 / temperature), dtype=torch.float32,
+                        device=model.proxies.device)

@@ -1,20 +1,27 @@
-"""Fused transformer-block ops, forward only (counterpart of the JAX
-package's ``ops/fused_block.py``).
+"""Fused transformer-block ops with their backward passes (counterpart of the
+JAX package's ``ops/fused_block.py``).
 
-- :func:`attend_project_fwd` — masked multi-head attention over a packed qkv,
-  then the output projection, its bias and the residual. Kernel:
-  ``csrc/attend_project.cu`` (replaces the TPU kernel ``_ap_fwd_kernel``).
-- :func:`ln_mlp` — LayerNorm, fc1, tanh-GELU, fc2, bias and the residual,
-  with the hidden activation kept on chip. Kernel: ``csrc/ln_mlp.cu``
-  (replaces ``_ln_mlp_fwd_kernel``).
+- :func:`attend_project` — the qkv projection, masked multi-head attention,
+  the output projection, its bias and the residual. Forward kernel
+  ``csrc/attend_project.cu`` (replaces the TPU kernel ``_ap_fwd_kernel``),
+  backward kernel ``csrc/attend_project_bwd.cu`` (replaces ``_ap_bwd_kernel``).
+- :func:`ln_mlp` — LayerNorm, fc1, tanh-GELU, fc2, bias and the residual.
+  Forward kernel ``csrc/ln_mlp.cu`` (replaces ``_ln_mlp_fwd_kernel``),
+  backward kernel ``csrc/ln_mlp_bwd.cu`` (replaces ``_ln_mlp_bwd_kernel``).
 
-Each is a dispatching wrapper over its kernel and a plain PyTorch version of
-the same arithmetic, kept in this module, with the TPU kernel's bf16 cast
-points (the plain version computes in f32 when given f32 inputs). On a CPU
-tensor a wrapper runs the plain version. On a CUDA tensor it launches the
-kernel or raises; it never falls back. :func:`plain_versions` routes CUDA
-tensors to the plain versions on explicit request, for holding a kernel
-against its plain version on the card.
+Each kernel has a dispatching wrapper and a plain PyTorch version of the same
+arithmetic, kept in this module, with the TPU kernel's bf16 cast points (the
+plain version computes in f32 when given f32 inputs). On a CPU tensor a
+wrapper runs the plain version. On a CUDA tensor it launches the kernel or
+raises; it never falls back. :func:`plain_versions` routes CUDA tensors to
+the plain versions on explicit request, for holding a kernel against its
+plain version on the card.
+
+When a gradient is wanted, :func:`attend_project` and :func:`ln_mlp` run as
+``torch.autograd.Function``\\ s that mirror the JAX custom VJPs
+(``_apa`` and ``ln_mlp``): the forward keeps what the backward kernel reads,
+the backward kernel returns the gradients, and each gradient comes back in
+its input's dtype.
 
 Weights are in ``nn.Linear`` layout (out_features, in_features), the layout
 the port's modules hold; the JAX functions take the transpose.
@@ -38,8 +45,9 @@ _C0 = 0.7978845608028654  # sqrt(2/pi)
 _C1 = 0.044715
 
 # launches of each kernel since the last reset_launches(); a wrapper counts
-# where it launches its kernel and nowhere else
-LAUNCHES = {"attend_project_fwd": 0, "ln_mlp_fwd": 0}
+# where it launches its kernel and nowhere else (a backward counts one per
+# call, however many CUDA launches it takes)
+LAUNCHES = {"attend_project_fwd": 0, "ln_mlp_fwd": 0, "attend_project_bwd": 0, "ln_mlp_bwd": 0}
 
 _ROUTE = threading.local()  # .plain: CUDA tensors take the plain versions
 
@@ -50,15 +58,21 @@ def reset_launches() -> None:
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Run CUDA tensors through the plain versions inside this block, in the
-    calling thread only (a comparison aid; the serving path never enters it)."""
+def _route(plain: bool):
     prev = getattr(_ROUTE, "plain", False)
-    _ROUTE.plain = True
+    _ROUTE.plain = plain
     try:
         yield
     finally:
         _ROUTE.plain = prev
+
+
+def plain_versions():
+    """Run CUDA tensors through the plain versions inside this block, in the
+    calling thread only (a comparison aid; the model's paths never enter it).
+    A backward takes the route its forward took, though autograd runs it on
+    a thread of its own."""
+    return _route(True)
 
 
 def _launches_kernel(t: torch.Tensor) -> bool:
@@ -83,9 +97,48 @@ def _check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
 
 
+def _wgrad_splits(rows: int, m1: int, m2: int, device: torch.device) -> int:
+    """Row splits of a weight-gradient GEMM (``csrc/wgrad.cuh``): enough
+    (64 x 64 tile, split) blocks to fill the card about four times over. The
+    count depends only on the shapes and the card, so the summation order is
+    the same from run to run."""
+    tiles = (m1 // 64) * (m2 // 64)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-rows // 64), -(-4 * sms // tiles)))
+
+
 def _gelu_tanh_f32(x: torch.Tensor) -> torch.Tensor:
     inner = _C0 * (x + _C1 * x * x * x)
     return 0.5 * x * (1.0 + torch.tanh(inner))
+
+
+def _dgelu_tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    inner = _C0 * (x + _C1 * x * x * x)
+    t = torch.tanh(inner)
+    dinner = _C0 * (1.0 + 3.0 * _C1 * x * x)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * dinner
+
+
+def _ln_f32(xf: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """LayerNorm in f32 with a two-pass mean and variance (eps 1e-6):
+    ``(y, xhat, rstd)``."""
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + _EPS)
+    xhat = xc * rstd
+    return xhat * scale.float() + bias.float(), xhat, rstd
+
+
+def _ln_bwd_f32(dy, xhat, rstd, scale):
+    """dx of y = xhat * scale + bias given dy (all f32)."""
+    dxhat = dy * scale
+    h1 = dxhat.mean(dim=-1, keepdim=True)
+    h2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return rstd * (dxhat - h1 - xhat * h2)
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
 
 
 def project(y: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
@@ -105,13 +158,14 @@ def attend_project_fwd_plain(qkv, x_res, wp, bp, num_heads: int, sm_scale: float
     """Plain version of :func:`attend_project_fwd`: per head,
     softmax(q k^T * scale, keys >= n_valid masked) v in f32 with P rounded to
     qkv's dtype before the product, (P v) / l rounded; then
-    o Wp^T + bp (+ x_res) in f32, rounded once."""
+    o Wp^T + bp (+ x_res) in f32, rounded once. With ``need_o`` also o and
+    the per-head log-sum-exp of the scaled, masked scores, (B, H, N) f32."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     dh = d // num_heads
     dt, f32 = qkv.dtype, torch.float32
     masked = torch.arange(n, device=qkv.device) >= n_valid
-    outs = []
+    outs, lses = [], []
     for h in range(num_heads):
         q, k, v = (qkv[..., j * d + h * dh: j * d + (h + 1) * dh].to(f32) for j in range(3))
         s = torch.matmul(q, k.transpose(1, 2))
@@ -119,29 +173,38 @@ def attend_project_fwd_plain(qkv, x_res, wp, bp, num_heads: int, sm_scale: float
             s = s * sm_scale
         if n_valid < n:
             s = s.masked_fill(masked, MASK_VALUE)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
         l = p.sum(dim=-1, keepdim=True)
         o = torch.matmul(p.to(dt).to(f32), v)
         outs.append((o / l).to(dt))
+        lses.append((m + torch.log(l))[..., 0])
     o = torch.cat(outs, dim=-1)
     xo = torch.matmul(o.to(f32), wp.to(f32).t()) + bp.to(f32)
     if x_res is not None:
         xo = xo + x_res.to(f32)
-    return (o if need_o else None), xo.to(dt)
+    if not need_o:
+        return None, None, xo.to(dt)
+    return o, torch.stack(lses, dim=1), xo.to(dt)
 
 
-def _attend_project_fwd_cuda(qkv, x_res, wp, bp, num_heads, sm_scale, n_valid, need_o):
+def _attend_project_check(qkv, wp, num_heads, n_valid, name):
     b, n, d3 = qkv.shape
     d = d3 // 3
     dh = d // num_heads
     d_out = wp.shape[0]
     if dh != 64:
         raise NotImplementedError(
-            f"attend_project kernel: head width {dh} (only 64 is built; ROADMAP B1)"
+            f"{name} kernel: head width {dh} (only 64 is built; ROADMAP B1/B2)"
         )
     if n % PAD_MULTIPLE or d_out % 64 or not 1 <= n_valid <= n:
-        raise ValueError(f"attend_project kernel: N={n} and D_out={d_out} must be multiples "
+        raise ValueError(f"{name} kernel: N={n} and D_out={d_out} must be multiples "
                          f"of 64 and 1 <= n_valid={n_valid} <= N")
+    return b, n, d, dh, d_out
+
+
+def _attend_project_fwd_cuda(qkv, x_res, wp, bp, num_heads, sm_scale, n_valid, need_o):
+    b, n, d, dh, d_out = _attend_project_check(qkv, wp, num_heads, n_valid, "attend_project")
     dev, bf16 = qkv.device, torch.bfloat16
     _check("qkv", qkv, bf16, (b, n, 3 * d), dev)
     _check("wp", wp, bf16, (d_out, d), dev)
@@ -149,28 +212,149 @@ def _attend_project_fwd_cuda(qkv, x_res, wp, bp, num_heads, sm_scale, n_valid, n
     if x_res is not None:
         _check("x_res", x_res, bf16, (b, n, d_out), dev)
     xo = torch.empty((b, n, d_out), dtype=bf16, device=dev)
-    o = torch.empty((b, n, d), dtype=bf16, device=dev) if need_o else None
+    o = lse = None
+    if need_o:
+        o = torch.empty((b, n, d), dtype=bf16, device=dev)
+        lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev)
     fn = kernels.function("attend_project")
     with torch.cuda.device(dev):
         err = fn(qkv.data_ptr(), None if x_res is None else x_res.data_ptr(), wp.data_ptr(),
-                 bp.data_ptr(), None if o is None else o.data_ptr(), xo.data_ptr(),
+                 bp.data_ptr(), None if o is None else o.data_ptr(),
+                 None if lse is None else lse.data_ptr(), xo.data_ptr(),
                  b, n, num_heads, dh, d_out, int(n_valid), float(sm_scale),
                  torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("attend_project_fwd", err)
     LAUNCHES["attend_project_fwd"] += 1
-    return o, xo
+    return o, lse, xo
 
 
 def attend_project_fwd(qkv: torch.Tensor, x_res: Optional[torch.Tensor], wp: torch.Tensor,
                        bp: torch.Tensor, num_heads: int, sm_scale: float, n_valid: int,
-                       need_o: bool = False) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """``(o, xo)``: o = concat_h softmax(q_h k_h^T * scale) v_h over keys
+                       need_o: bool = False):
+    """``(o, lse, xo)``: o = concat_h softmax(q_h k_h^T * scale) v_h over keys
     ``< n_valid``, xo = o Wp^T + bp (+ x_res). ``qkv`` is (B, N, 3D) packed
-    [q | k | v]; ``wp`` is (D_out, D). ``o`` is only produced with
-    ``need_o`` (a backward needs it; serving does not)."""
+    [q | k | v]; ``wp`` is (D_out, D). ``o`` and the per-head log-sum-exp
+    ``lse`` (B, H, N) f32 are only produced with ``need_o`` (the backward
+    needs them; serving does not), else both are None."""
     if _launches_kernel(qkv):
         return _attend_project_fwd_cuda(qkv, x_res, wp, bp, num_heads, sm_scale, n_valid, need_o)
     return attend_project_fwd_plain(qkv, x_res, wp, bp, num_heads, sm_scale, n_valid, need_o)
+
+
+def attend_project_bwd_plain(qkv, o, lse, wp, dxo, num_heads: int, sm_scale: float,
+                             n_valid: int):
+    """Plain version of :func:`attend_project_bwd`, the arithmetic of the TPU
+    kernel ``_ap_bwd_kernel`` plus the per-batch sums of ``_ap_bwd_impl``:
+    do = dxo Wp rounded to qkv's dtype; per head P = exp(s * scale - lse)
+    (masked keys 0), di = rowsum(o_h do_h), dS = P (do_h v_h^T - di) * scale;
+    P and dS rounded before their products; every accumulator f32. Returns
+    ``(dqkv, dwp, dbp, db_qkv)``: dqkv (B, N, 3D) packed [dq | dk | dv] in
+    qkv's dtype, dwp (D_out, D), dbp (D_out,) and db_qkv (3D,) in f32 (the q
+    bias sums the rounded dq, the k and v biases the f32 dk and dv, as the
+    TPU kernel does)."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // num_heads
+    dt, f32 = qkv.dtype, torch.float32
+    dxf = dxo.to(f32)
+    rows = dxf.reshape(-1, dxf.shape[-1])
+    dwp = torch.matmul(rows.t(), o.reshape(-1, d).to(f32))
+    dbp = rows.sum(dim=0)
+    do = torch.matmul(dxf, wp.to(f32)).to(dt)
+    masked = torch.arange(n, device=qkv.device) >= n_valid
+    dqkv = torch.empty_like(qkv)
+    db = torch.empty(3 * d, dtype=f32, device=qkv.device)
+    for h in range(num_heads):
+        sl = slice(h * dh, (h + 1) * dh)
+        q, k, v = (qkv[..., j * d + h * dh: j * d + (h + 1) * dh].to(f32) for j in range(3))
+        s = torch.matmul(q, k.transpose(1, 2))
+        if sm_scale != 1.0:
+            s = s * sm_scale
+        p = torch.exp(s - lse[:, h, :, None]).masked_fill(masked, 0.0)
+        doh = do[..., sl].to(f32)
+        di = (o[..., sl].to(f32) * doh).sum(dim=-1, keepdim=True)
+        ds = p * (torch.matmul(doh, v.transpose(1, 2)) - di) * sm_scale
+        dsb, pb = ds.to(dt).to(f32), p.to(dt).to(f32)
+        dq = torch.matmul(dsb, k).to(dt)
+        dk = torch.matmul(dsb.transpose(1, 2), q)
+        dv = torch.matmul(pb.transpose(1, 2), doh)
+        for j, g in enumerate((dq, dk, dv)):
+            dqkv[..., j * d + h * dh: j * d + (h + 1) * dh] = g.to(dt)
+            db[j * d + h * dh: j * d + (h + 1) * dh] = g.to(f32).sum(dim=(0, 1))
+    return dqkv, dwp, dbp, db
+
+
+def _attend_project_bwd_cuda(qkv, o, lse, wp, dxo, num_heads, sm_scale, n_valid):
+    b, n, d, dh, d_out = _attend_project_check(qkv, wp, num_heads, n_valid, "attend_project_bwd")
+    dev, bf16, f32 = qkv.device, torch.bfloat16, torch.float32
+    _check("qkv", qkv, bf16, (b, n, 3 * d), dev)
+    _check("o", o, bf16, (b, n, d), dev)
+    _check("lse", lse, f32, (b, num_heads, n), dev)
+    _check("wp", wp, bf16, (d_out, d), dev)
+    _check("dxo", dxo, bf16, (b, n, d_out), dev)
+    splits = _wgrad_splits(b * n, d_out, d, dev)
+    dqkv = torch.empty_like(qkv)
+    dwp = torch.empty((d_out, d), dtype=f32, device=dev)
+    bias = torch.empty(d_out + 3 * d, dtype=f32, device=dev)
+    do_buf = torch.empty((b, n, d), dtype=bf16, device=dev)
+    di = torch.empty((b, num_heads, n), dtype=f32, device=dev)
+    bias_part = torch.empty((b * n // 64, d_out + 3 * d), dtype=f32, device=dev)
+    wgrad_part = torch.empty((splits, d_out, d), dtype=f32, device=dev)
+    fn = kernels.function("attend_project_bwd")
+    with torch.cuda.device(dev):
+        err = fn(qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), wp.data_ptr(), dxo.data_ptr(),
+                 dqkv.data_ptr(), dwp.data_ptr(), bias.data_ptr(), do_buf.data_ptr(),
+                 di.data_ptr(), bias_part.data_ptr(), wgrad_part.data_ptr(),
+                 b, n, num_heads, dh, d_out, int(n_valid), float(sm_scale), splits,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch("attend_project_bwd", err)
+    LAUNCHES["attend_project_bwd"] += 1
+    return dqkv, dwp, bias[:d_out], bias[d_out:]
+
+
+def attend_project_bwd(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, wp: torch.Tensor,
+                       dxo: torch.Tensor, num_heads: int, sm_scale: float, n_valid: int):
+    """Gradients of :func:`attend_project_fwd` given dxo, from the forward's
+    ``qkv``, ``o`` and ``lse``: ``(dqkv, dwp, dbp, db_qkv)`` as described at
+    :func:`attend_project_bwd_plain`. Key rows at or past ``n_valid`` get
+    dk = dv = 0 exactly."""
+    if _launches_kernel(qkv):
+        return _attend_project_bwd_cuda(qkv, o, lse, wp, dxo, num_heads, sm_scale, n_valid)
+    return attend_project_bwd_plain(qkv, o, lse, wp, dxo, num_heads, sm_scale, n_valid)
+
+
+class AttendProjectFn(torch.autograd.Function):
+    """``y, w_qkv, b_qkv, wp, bp, x_res -> xo``, the JAX custom VJP ``_apa``:
+    forward = the qkv GEMM and the forward kernel with ``o`` and ``lse`` kept;
+    backward = the backward kernel, then the two plain GEMMs
+    dy = dqkv W_qkv and dW_qkv = dqkv^T y (left to XLA in the JAX package),
+    and dx_res = dxo."""
+
+    @staticmethod
+    def forward(ctx, y, w_qkv, b_qkv, wp, bp, x_res, num_heads, sm_scale, n_valid):
+        qkv = project(y, w_qkv, b_qkv)
+        o, lse, xo = attend_project_fwd(qkv, x_res, wp, bp, num_heads, sm_scale, n_valid,
+                                        need_o=True)
+        ctx.save_for_backward(y, w_qkv, wp, qkv, o, lse)
+        ctx.plain = getattr(_ROUTE, "plain", False)
+        ctx.cfg = (num_heads, sm_scale, n_valid)
+        ctx.b_dtype = None if b_qkv is None else b_qkv.dtype
+        ctx.bp_dtype = bp.dtype
+        ctx.has_res = x_res is not None
+        return xo
+
+    @staticmethod
+    def backward(ctx, dxo):
+        y, w, wp, qkv, o, lse = ctx.saved_tensors
+        with _route(ctx.plain):
+            dqkv, dwp, dbp, db = attend_project_bwd(qkv, o, lse, wp, dxo.contiguous(), *ctx.cfg)
+        d3 = dqkv.shape[-1]
+        dy = torch.matmul(dqkv, w)
+        dw = torch.matmul(dqkv.reshape(-1, d3).t(), y.reshape(-1, y.shape[-1]))
+        return (dy.to(y.dtype), dw.to(w.dtype),
+                None if ctx.b_dtype is None else db.to(ctx.b_dtype),
+                dwp.to(wp.dtype), dbp.to(ctx.bp_dtype), dxo if ctx.has_res else None,
+                None, None, None)
 
 
 def attend_project(y: torch.Tensor, w_qkv: torch.Tensor, b_qkv: Optional[torch.Tensor],
@@ -178,15 +362,19 @@ def attend_project(y: torch.Tensor, w_qkv: torch.Tensor, b_qkv: Optional[torch.T
                    num_heads: int, sm_scale: Optional[float] = None,
                    valid_len: Optional[int] = None) -> torch.Tensor:
     """[x_res +] proj(attention(split(y @ w_qkv^T + b_qkv))). The token grid
-    comes padded once by the model (``maybe_pad_tokens``); the kernel takes
-    N a multiple of :data:`PAD_MULTIPLE` and raises otherwise."""
+    comes padded once by the model (``maybe_pad_tokens``); the kernels take
+    N a multiple of :data:`PAD_MULTIPLE` and raise otherwise. Differentiable
+    through :class:`AttendProjectFn` when a gradient is wanted."""
     b, n, d = y.shape
     if sm_scale is None:
         sm_scale = (d // num_heads) ** -0.5
     n_valid = n if valid_len is None else int(valid_len)
+    if _wants_grad(y, w_qkv, b_qkv, w_proj, b_proj, x_res):
+        return AttendProjectFn.apply(y, w_qkv, b_qkv, w_proj, b_proj, x_res, num_heads,
+                                     float(sm_scale), n_valid)
     qkv = project(y, w_qkv, b_qkv)
-    _, xo = attend_project_fwd(qkv, x_res, w_proj, b_proj, num_heads, float(sm_scale), n_valid)
-    return xo
+    return attend_project_fwd(qkv, x_res, w_proj, b_proj, num_heads, float(sm_scale),
+                              n_valid)[2]
 
 
 # ---------------------------------------------------------------------------
@@ -195,15 +383,13 @@ def attend_project(y: torch.Tensor, w_qkv: torch.Tensor, b_qkv: Optional[torch.T
 
 
 def ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, residual: bool = False) -> torch.Tensor:
-    """Plain version of :func:`ln_mlp`: LayerNorm in f32 (two-pass mean and
-    variance, eps 1e-6) rounded to w1's dtype; h = GELU_tanh(y W1^T + b1) in
-    f32 rounded to w2's dtype; h W2^T + b2 (+ x) in f32, rounded once."""
+    """Plain version of the :func:`ln_mlp` forward: LayerNorm in f32
+    (two-pass mean and variance, eps 1e-6) rounded to w1's dtype;
+    h = GELU_tanh(y W1^T + b1) in f32 rounded to w2's dtype;
+    h W2^T + b2 (+ x) in f32, rounded once."""
     f32 = torch.float32
     xf = x.to(f32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    xc = xf - mu
-    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + _EPS)
-    y = (xc * rstd * scale.to(f32) + bias.to(f32)).to(w1.dtype)
+    y = _ln_f32(xf, scale, bias)[0].to(w1.dtype)
     h = torch.matmul(y.to(f32), w1.to(f32).t()) + b1.to(f32)
     h = _gelu_tanh_f32(h).to(w2.dtype)
     out = torch.matmul(h.to(f32), w2.to(f32).t()) + b2.to(f32)
@@ -212,13 +398,18 @@ def ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, residual: bool = False) -> torc
     return out.to(x.dtype)
 
 
-def _ln_mlp_fwd_cuda(x, scale, bias, w1, b1, w2, b2, residual):
+def _ln_mlp_check(x, w1, name):
     d = x.shape[-1]
     hid = w1.shape[0]
     if d != 384:
-        raise NotImplementedError(f"ln_mlp kernel: width {d} (only 384 is built; ROADMAP B3)")
-    if hid % 32:
-        raise ValueError(f"ln_mlp kernel: hidden width {hid} must be a multiple of 32")
+        raise NotImplementedError(f"{name} kernel: width {d} (only 384 is built; ROADMAP B3/B4)")
+    if hid % 64:
+        raise ValueError(f"{name} kernel: hidden width {hid} must be a multiple of 64")
+    return d, hid
+
+
+def _ln_mlp_fwd_cuda(x, scale, bias, w1, b1, w2, b2, residual):
+    d, hid = _ln_mlp_check(x, w1, "ln_mlp")
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, bf16, x.shape, dev)
     _check("ln_scale", scale, f32, (d,), dev)
@@ -238,12 +429,117 @@ def _ln_mlp_fwd_cuda(x, scale, bias, w1, b1, w2, b2, residual):
     return out
 
 
+def ln_mlp_fwd(x, scale, bias, w1, b1, w2, b2, residual: bool = False) -> torch.Tensor:
+    """The :func:`ln_mlp` forward without autograd: the kernel for a CUDA
+    tensor, the plain version for a CPU one."""
+    if _launches_kernel(x):
+        return _ln_mlp_fwd_cuda(x, scale, bias, w1, b1, w2, b2, residual)
+    return ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, residual)
+
+
+def ln_mlp_bwd_plain(x, scale, bias, w1, b1, w2, do, residual: bool = False):
+    """Plain version of :func:`ln_mlp_bwd`, the arithmetic of the TPU kernel
+    ``_ln_mlp_bwd_kernel``: LN, fc1 and GELU recomputed; h and dh_pre rounded
+    to w1's dtype before their products; every accumulator f32; dx by the
+    LayerNorm backward (+ do with the residual). Returns
+    ``(dx, dw1, db1, dw2, db2, ds, db)``: dx in x's dtype, the rest f32, dw1
+    (HID, D) and dw2 (D, HID) in ``nn.Linear`` layout."""
+    f32 = torch.float32
+    d = x.shape[-1]
+    xf = x.to(f32).reshape(-1, d)
+    y, xhat, rstd = _ln_f32(xf, scale, bias)
+    yb = y.to(w1.dtype).to(f32)
+    h_pre = torch.matmul(yb, w1.to(f32).t()) + b1.to(f32)
+    h = _gelu_tanh_f32(h_pre).to(w1.dtype).to(f32)
+    dof = do.to(f32).reshape(-1, d)
+    dw2 = torch.matmul(dof.t(), h)
+    db2 = dof.sum(dim=0)
+    dh_pre = torch.matmul(dof, w2.to(f32)) * _dgelu_tanh_f32(h_pre)
+    dh_pre_b = dh_pre.to(w1.dtype).to(f32)
+    dw1 = torch.matmul(dh_pre_b.t(), yb)
+    db1 = dh_pre.sum(dim=0)
+    dy = torch.matmul(dh_pre_b, w1.to(f32))
+    ds = (dy * xhat).sum(dim=0)
+    db = dy.sum(dim=0)
+    dx = _ln_bwd_f32(dy, xhat, rstd, scale.to(f32))
+    if residual:
+        dx = dx + dof
+    return dx.reshape(x.shape).to(x.dtype), dw1, db1, dw2, db2, ds, db
+
+
+def _ln_mlp_bwd_cuda(x, scale, bias, w1, b1, w2, do, residual):
+    d, hid = _ln_mlp_check(x, w1, "ln_mlp_bwd")
+    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
+    _check("x", x, bf16, x.shape, dev)
+    _check("ln_scale", scale, f32, (d,), dev)
+    _check("ln_bias", bias, f32, (d,), dev)
+    _check("w1", w1, bf16, (hid, d), dev)
+    _check("b1", b1, bf16, (hid,), dev)
+    _check("w2", w2, bf16, (d, hid), dev)
+    _check("do", do, bf16, x.shape, dev)
+    m = x.numel() // d
+    splits = _wgrad_splits(m, d, hid, dev)
+    dx = torch.empty_like(x)
+    dw1 = torch.empty((hid, d), dtype=f32, device=dev)
+    dw2 = torch.empty((d, hid), dtype=f32, device=dev)
+    bias_out = torch.empty(hid + 3 * d, dtype=f32, device=dev)
+    y_buf = torch.empty((m, d), dtype=bf16, device=dev)
+    h_buf = torch.empty((m, hid), dtype=bf16, device=dev)
+    dhp_buf = torch.empty((m, hid), dtype=bf16, device=dev)
+    bias_part = torch.empty((-(-m // 64), hid + 3 * d), dtype=f32, device=dev)
+    wgrad_part = torch.empty((splits, d, hid), dtype=f32, device=dev)
+    fn = kernels.function("ln_mlp_bwd")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                 w2.data_ptr(), do.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+                 bias_out.data_ptr(), y_buf.data_ptr(), h_buf.data_ptr(), dhp_buf.data_ptr(),
+                 bias_part.data_ptr(), wgrad_part.data_ptr(), m, d, hid, int(bool(residual)),
+                 splits, torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch("ln_mlp_bwd", err)
+    LAUNCHES["ln_mlp_bwd"] += 1
+    db1, db2, ds, db = bias_out.split((hid, d, d, d))
+    return dx, dw1, db1, dw2, db2, ds, db
+
+
+def ln_mlp_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, w1: torch.Tensor,
+               b1: torch.Tensor, w2: torch.Tensor, do: torch.Tensor, residual: bool = False):
+    """Gradients of :func:`ln_mlp` given do: ``(dx, dw1, db1, dw2, db2, ds,
+    db)`` as described at :func:`ln_mlp_bwd_plain`."""
+    if _launches_kernel(x):
+        return _ln_mlp_bwd_cuda(x, scale, bias, w1, b1, w2, do, residual)
+    return ln_mlp_bwd_plain(x, scale, bias, w1, b1, w2, do, residual)
+
+
+class LnMlpFn(torch.autograd.Function):
+    """``x, scale, bias, w1, b1, w2, b2 -> out``, the JAX custom VJP of
+    ``ln_mlp``: all seven gradients come from the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, residual):
+        out = ln_mlp_fwd(x, scale, bias, w1, b1, w2, b2, residual)
+        ctx.save_for_backward(x, scale, bias, w1, b1, w2)
+        ctx.plain = getattr(_ROUTE, "plain", False)
+        ctx.residual = residual
+        ctx.b2_dtype = b2.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        x, scale, bias, w1, b1, w2 = ctx.saved_tensors
+        with _route(ctx.plain):
+            dx, dw1, db1, dw2, db2, ds, db = ln_mlp_bwd(x, scale, bias, w1, b1, w2,
+                                                        do.contiguous(), ctx.residual)
+        return (dx, ds.to(scale.dtype), db.to(bias.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None)
+
+
 def ln_mlp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, w1: torch.Tensor,
            b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
            residual: bool = False) -> torch.Tensor:
     """fc2(tanh-GELU(fc1(LayerNorm(x)))) [+ x] over the last axis of x.
     ``scale``/``bias`` are the LayerNorm's (f32 on the kernel path); ``w1``
-    is (hidden, D) and ``w2`` (D, hidden)."""
-    if _launches_kernel(x):
-        return _ln_mlp_fwd_cuda(x, scale, bias, w1, b1, w2, b2, residual)
-    return ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, residual)
+    is (hidden, D) and ``w2`` (D, hidden). Differentiable through
+    :class:`LnMlpFn` when a gradient is wanted."""
+    if _wants_grad(x, scale, bias, w1, b1, w2, b2):
+        return LnMlpFn.apply(x, scale, bias, w1, b1, w2, b2, residual)
+    return ln_mlp_fwd(x, scale, bias, w1, b1, w2, b2, residual)

@@ -36,9 +36,13 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # kernel library -> (source, C function, argtypes)
 KERNELS = {
     "attend_project": ("attend_project.cu", "dcvit_attend_project_fwd",
-                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+                       [_P] * 7 + [_I] * 6 + [_F, _P]),
     "ln_mlp": ("ln_mlp.cu", "dcvit_ln_mlp_fwd",
-               [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
+               [_P] * 8 + [_LL, _I, _I, _I, _P]),
+    "attend_project_bwd": ("attend_project_bwd.cu", "dcvit_attend_project_bwd",
+                           [_P] * 12 + [_I] * 6 + [_F, _I, _P]),
+    "ln_mlp_bwd": ("ln_mlp_bwd.cu", "dcvit_ln_mlp_bwd",
+                   [_P] * 16 + [_LL, _I, _I, _I, _I, _P]),
 }
 
 # ptxas register / shared-memory / spill report of each build, by kernel
@@ -62,7 +66,7 @@ def nvcc_path() -> str:
 def _library_path(name: str) -> Path:
     src = KERNELS[name][0]
     h = hashlib.sha256()
-    for part in (src, "common.cuh"):
+    for part in [src] + sorted(p.name for p in CSRC.glob("*.cuh")):
         h.update((CSRC / part).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -90,12 +90,14 @@ def test_attend_project_fwd_o_matches_pallas_kernel():
     want_o, want_xo = jfb._ap_fwd_impl(jqkv, a["x"][0], a["wp"][0], a["bp"][0], H, 0.125,
                                        100, jfb._pick_block_fwd(N), True)
     tqkv = fb.project(a["y"][1], a["w"][1].t().contiguous(), a["b"][1])
-    got_o, got_xo = fb.attend_project_fwd(tqkv, a["x"][1], a["wp"][1].t().contiguous(),
-                                          a["bp"][1], H, 0.125, 100, need_o=True)
+    got_o, got_lse, got_xo = fb.attend_project_fwd(tqkv, a["x"][1], a["wp"][1].t().contiguous(),
+                                                   a["bp"][1], H, 0.125, 100, need_o=True)
     assert _rel(got_o, want_o) <= 1e-5
     assert _rel(got_xo, want_xo) <= 1e-5
-    assert fb.attend_project_fwd(tqkv, a["x"][1], a["wp"][1].t().contiguous(), a["bp"][1],
-                                 H, 0.125, 100)[0] is None
+    assert got_lse.shape == (B, H, N) and got_lse.dtype == torch.float32
+    o_none, lse_none, _ = fb.attend_project_fwd(tqkv, a["x"][1], a["wp"][1].t().contiguous(),
+                                                a["bp"][1], H, 0.125, 100)
+    assert o_none is None and lse_none is None
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -105,8 +107,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     args = (t(1, 64, 64), t(64), t(64), t(256, 64), t(256), t(64, 256), t(64), True)
     assert torch.equal(fb.ln_mlp(*args), fb.ln_mlp_plain(*args))
     qkv_args = (t(1, 64, 192), t(1, 64, 64), t(64, 64), t(64), 1, 0.125, 50)
-    assert torch.equal(fb.attend_project_fwd(*qkv_args)[1],
-                       fb.attend_project_fwd_plain(*qkv_args)[1])
+    assert torch.equal(fb.attend_project_fwd(*qkv_args)[2],
+                       fb.attend_project_fwd_plain(*qkv_args)[2])
     assert fb.LAUNCHES == before
 
 

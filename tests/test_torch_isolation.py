@@ -1,9 +1,10 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package.
 
-In a fresh interpreter with ``sys.modules["jax"] = None`` (so any
-``import jax`` fails), every module of ``diverse_channel_vit_torch`` and
-``chip_smoke`` must import, and no ``diverse_channel_vit_tpu`` module may
-appear in ``sys.modules``.
+In a fresh interpreter with ``jax``, ``flax`` and ``optax`` set to None in
+``sys.modules`` (so importing any of them fails), every module of
+``diverse_channel_vit_torch`` (``training/`` included) and ``chip_smoke``
+must import, and no ``diverse_channel_vit_tpu`` module may appear in
+``sys.modules``.
 """
 
 import os
@@ -16,6 +17,7 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["optax"] = None
 import diverse_channel_vit_torch
 names = [m.name for m in pkgutil.walk_packages(diverse_channel_vit_torch.__path__,
                                                "diverse_channel_vit_torch.")]
@@ -23,10 +25,11 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m.startswith(("diverse_channel_vit_tpu", "jax.", "flax.")))
+                if m.startswith(("diverse_channel_vit_tpu", "jax.", "flax.", "optax.")))
 print(len(names), leaked)
 assert not leaked, leaked
 assert sys.modules["jax"] is None
+assert "diverse_channel_vit_torch.training.steps" in sys.modules
 """
 
 

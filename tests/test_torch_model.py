@@ -34,6 +34,7 @@ from diverse_channel_vit_torch.models.channel_vit import (
     interpolate_pos_embed,
 )
 from diverse_channel_vit_torch.models.export import params_from_jax
+from diverse_channel_vit_torch.models.vit import _wb
 from diverse_channel_vit_torch.models.wrappers import ChannelAdaptiveClassifier
 from diverse_channel_vit_torch.ops import activations
 from diverse_channel_vit_torch.ops.patch_embed import per_channel_patch_embed
@@ -147,6 +148,31 @@ def test_gelu_matches_jax(exact):
     got = activations.gelu(torch.from_numpy(x), exact=exact)
     want = jax.nn.gelu(jnp.asarray(x), approximate=not exact)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_weight_casts_are_reused_until_a_parameter_changes():
+    """Without autograd a block casts its f32 weights to bf16 once and reuses
+    the copies; an in-place update of a weight makes the next forward cast
+    again, so the output follows the parameter (equal to a forward with
+    autograd on, which casts at every use)."""
+    torch.manual_seed(0)
+    bb = ChannelVisionTransformer(C, IMG, P, D, 2, H, dtype=torch.bfloat16)
+    model = ChannelAdaptiveClassifier(bb, D, NC, with_head=True).eval()
+    x, ids = torch.randn(2, 7, IMG, IMG), torch.tensor(SUBSETS["k7"])
+    qkv = bb.blocks[0].attn.qkv
+    with torch.inference_mode():
+        first = model(x, ids)[0]
+        w0 = _wb(qkv, torch.bfloat16)[0]
+        assert torch.equal(model(x, ids)[0], first)
+        assert _wb(qkv, torch.bfloat16)[0] is w0
+    with torch.no_grad():
+        qkv.weight.mul_(2.0)
+    with torch.inference_mode():
+        changed = model(x, ids)[0]
+        w1 = _wb(qkv, torch.bfloat16)[0]
+    assert w1 is not w0 and torch.equal(w1, qkv.weight.detach().to(torch.bfloat16))
+    assert not torch.equal(changed, first)
+    assert torch.equal(changed, model(x, ids)[0].detach())
 
 
 def test_gelu_exact_refuses_the_fused_route():
