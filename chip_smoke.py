@@ -9,25 +9,30 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    convolutions;
 2. build the CUDA kernels under ``diverse_channel_vit_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the build time;
-3. hold each kernel against its plain PyTorch version at the flagship shapes
-   (B = 64 images, N = 1600 tokens padded from 1569, D = 384, 6 heads,
-   hidden 1536, bf16) and time the kernel, the plain version and a PyTorch
-   library yardstick: the forwards B1 (attend_project) and B3 (ln_mlp), then
-   the backwards B2 and B4;
+3. hold each kernel against its plain PyTorch version and time the kernel,
+   the plain version and a PyTorch library yardstick: the forwards B1
+   (attend_project) and B3 (ln_mlp), then the backwards B2 and B4, at the
+   flagship shapes (B = 64 images, N = 1600 tokens padded from 1569,
+   D = 384, 6 heads, hidden 1536, bf16); then B5 and B6 (flash_packed,
+   forward and backward) at the three grids the EViT path gives them;
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
    ``ServingEngine`` (``predict``, ``submit``) and ``ServingHTTPServer`` on
    localhost, with the kernel launch counts set to 0 just before and read
    just after; time each batch bucket and profile one 64-image ``predict``;
    then hold the logits against the same model run through the plain
-   versions;
-5. train the same model (f32 parameters, bf16 compute) with the port's
+   versions. The same for the model with EViT pruning (keep_rate 0.7:
+   B5 at layers 3, 6 and 9, B1 / B3 at the other eight) and, for one
+   forward, with ``gelu_exact`` (every block unfused: B5 x 11);
+5. train the model (f32 parameters, bf16 compute) with the port's
    ``make_optimizer`` / ``make_lr_schedule`` / ``TrainState`` /
    ``make_train_step`` on one synthetic batch of 64 images: CE + CDL + TDL,
    AdamW with the JUMP-CP weight-decay schedule; counts set to 0 just before
-   2 warm-up and 10 timed steps and read just after (each kernel 11 launches
-   per step); profile one step; then 3 steps through the kernels against 3
-   steps through the plain versions from the same weights, at depth 4;
+   2 warm-up and 10 timed steps and read just after (B1-B4 11 launches per
+   step); profile one step; then 3 steps through the kernels against 3
+   steps through the plain versions from the same weights, at depth 4. The
+   same with EViT pruning (B5, B6 3 launches per step, B1-B4 8), and one
+   ``gelu_exact`` step at depth 3, kernels against plain versions;
 6. print the ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +59,13 @@ BUCKETS = (1, 4, 16, 64)
 # the plain-route training check runs at this depth (the plain attention
 # materialises every (N, N) score matrix); the timed steps run at DEPTH
 PARITY_DEPTH = 4
+# EViT (keep_rate 0.7): layers 3, 6 and 9 prune at DEPTH (1, 2 and 3 at
+# PARITY_DEPTH); the grids B5 meets there, (N, n_valid): 1569 -> 1 + 1097
+# tokens padded to 1152, -> 1 + 767 = 768 (no mask), -> 1 + 536 padded to 576
+KEEP_RATE = 0.7
+EVIT_GRIDS = ((1600, 1569), (1152, 1098), (768, 768))
+# the gelu_exact training check: blocks 0-1 unfused, block 2 the readout
+GELU_PARITY_DEPTH = 3
 # H100 SXM published dense peaks
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # kernel vs plain version, both bf16: they round at the same points but sum
@@ -295,6 +307,88 @@ def check_bwd_kernels(fb, torch, F):
     return results
 
 
+def check_flash_kernels(torch, F):
+    """Phase 3, B5 and B6 (flash_attention_packed) against their plain
+    versions at the grids the EViT path gives them (EVIT_GRIDS, B = 64, 6
+    heads of 64, bf16), q, k and v as the thirds of one packed qkv tensor, as
+    the model passes them. The last grid has no mask and no padded rows.
+    Each output within KERNEL_REL_TOL; B6's dk and dv exactly 0 on padded key
+    rows. Times are per call at each grid and summed over the three (one
+    EViT forward's or step's work), beside the same sums for the bound, the
+    plain version and the library call (SDPA; for B6 autograd through it)."""
+    from diverse_channel_vit_torch.ops import attention as at
+
+    rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(2))
+    dh, scale = D // HEADS, (D // HEADS) ** -0.5
+    fwd = dict(source="diverse_channel_vit_torch/csrc/flash_packed.cu",
+               replaces="diverse_channel_vit_tpu/ops/attention.py:243", grids=[])
+    bwd = dict(source="diverse_channel_vit_torch/csrc/flash_packed_bwd.cu",
+               replaces="diverse_channel_vit_tpu/ops/attention.py:297", grids=[])
+    for n, n_valid in EVIT_GRIDS:
+        label = f"N {n}, n_valid {n_valid}"
+        qkv = rnd(B, n, 3 * D)
+        q, k, v = qkv.split(D, dim=-1)
+        do = rnd(B, n, D)
+        o, lse = at.flash_packed_fwd(q, k, v, HEADS, scale, n_valid, need_lse=True)
+        o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, HEADS, scale, n_valid, need_lse=True)
+        err_f, rel_f = hold("flash_packed_fwd", label, (("o", o, o_p), ("lse", lse, lse_p)))
+        del o_p, lse_p
+        got = at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, n_valid)
+        want = at.flash_packed_bwd_plain(q, k, v, o, do, lse, HEADS, scale, n_valid)
+        err_b, rel_b = hold("flash_packed_bwd", label,
+                            (("dq", got[0], want[0]), ("dk", got[1], want[1]),
+                             ("dv", got[2], want[2])))
+        pad = int(torch.count_nonzero(got[1][:, n_valid:])) + \
+            int(torch.count_nonzero(got[2][:, n_valid:]))
+        if pad:
+            raise AssertionError(f"flash_packed_bwd ({label}): padded key rows have dk or dv != 0")
+        print(f"flash_packed_bwd ({label}): dk and dv exactly 0 on the {n - n_valid} padded "
+              "key rows")
+        del got, want
+        keep = (torch.arange(n, device="cuda") < n_valid)[None, None, None, :]
+        heads_view = qkv.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
+        timing_f = dict(
+            ms=cuda_ms(lambda: at.flash_packed_fwd(q, k, v, HEADS, scale, n_valid), 10),
+            plain_ms=cuda_ms(lambda: at.flash_packed_fwd_plain(q, k, v, HEADS, scale, n_valid),
+                             3, warmup=1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                *heads_view, attn_mask=keep), 10))
+        timing_b = dict(
+            ms=cuda_ms(lambda: at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, n_valid),
+                       10),
+            plain_ms=cuda_ms(lambda: at.flash_packed_bwd_plain(q, k, v, o, do, lse, HEADS, scale,
+                                                               n_valid), 2, warmup=1))
+        lq = qkv.detach().clone().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(
+            *lq.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4), attn_mask=keep)
+        do_h = do.view(B, n, HEADS, dh).transpose(1, 2)
+        timing_b["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(lib_out, lq, do_h, retain_graph=True), 10)
+        del lib_out, lq
+        rows = B * n_valid
+        for entry, err, rel, timing, flops, nbytes in (
+                (fwd, err_f, rel_f, timing_f, 4 * rows * n_valid * D, 2 * 4 * rows * D),
+                (bwd, err_b, rel_b, timing_b, 10 * rows * n_valid * D,
+                 2 * 8 * rows * D + 4 * rows * HEADS)):
+            entry["grids"].append(dict(n=n, n_valid=n_valid, max_abs_err=err, rel_err=rel,
+                                       flops=flops, bytes=nbytes, **timing,
+                                       bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS,
+                                                          nbytes / PEAK_BYTES)))
+        del qkv, q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    results = {}
+    for name, entry in (("flash_packed_fwd", fwd), ("flash_packed_bwd", bwd)):
+        grids = entry.pop("grids")
+        worst = max(grids, key=lambda g: g["rel_err"])
+        entry.update(max_abs_err=worst["max_abs_err"], rel_err=worst["rel_err"],
+                     **{key: sum(g[key] for g in grids)
+                        for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")},
+                     per_grid=[{k: g[k] for k in ("n", "n_valid", "ms", "bound_ms", "plain_ms",
+                                                  "library_ms")} for g in grids])
+        results[name] = entry
+    return results
+
+
 def post_npy(port: int, image: np.ndarray, cids) -> np.ndarray:
     buf = io.BytesIO()
     np.save(buf, image)
@@ -338,25 +432,82 @@ def profile_call(fn, label: str, torch):
         print(f"  {100 * dev / busy:5.1f}%  {dev / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
 
 
-def model_config(depth: int):
+def model_config(depth: int, **extra):
     from diverse_channel_vit_torch.config import Config
 
     return Config({
         "in_channel_names": [f"ch{i}" for i in range(CHANNELS)], "img_size": [IMG],
         "patch_size": PATCH, "pretrained_model_name": "small", "depth": depth,
         "proxy_loss_lambda": 1e-3, "ortho_loss_v1_lambda": 1e-3, "gamma_s": 1.0,
-        "gamma_d": 4.0,
+        "gamma_d": 4.0, **extra,
     })
+
+
+def build(depth: int, **extra):
+    """DiChaViT-S on the card, random weights from seed 0, bf16 compute."""
+    import torch
+
+    from diverse_channel_vit_torch.models import build_model
+
+    return build_model("dichavit", model_config(depth, **extra),
+                       {"JUMP-CP": list(range(CHANNELS))}, CLASSES, device="cuda",
+                       dtype=torch.bfloat16, seed=0)
+
+
+def check_counts(label: str, launches: dict, units: int, unit: str, want: dict) -> None:
+    """Raise unless every kernel launched ``want[name]`` times per ``unit``
+    (0 for a kernel ``want`` does not name) over ``units`` of them."""
+    for name, count in launches.items():
+        per = want.get(name, 0)
+        if units == 0 or count != per * units:
+            raise AssertionError(f"{label}: {name} launched {count} times in {units} {unit}s, "
+                                 f"want {per} per {unit}")
+    print(f"{label}: kernel launches {launches} in {units} {unit}s, as expected")
+
+
+def evit_blocks(model):
+    blocks = model.feature_extractor.blocks
+    depth = len(blocks)
+    return [blocks[i] for i in sorted({depth // 4, depth // 2, (3 * depth) // 4})]
+
+
+def kept_differences(own, ref, forced: bool) -> list:
+    """Per EViT layer, how many tokens of the unpruned grid that ``own``
+    kept ``ref`` did not, summed over the images. Each entry is a (B, keep)
+    index tensor into the grid the layer before left. With ``forced`` the
+    ``own`` route kept ``ref``'s tokens at every layer (its indices are its
+    own choice on ``ref``'s grids); otherwise each route's grids follow its
+    own choices."""
+    out, ids_own, ids_ref = [], None, None
+    for a, b in zip(own, ref):
+        base = ids_ref if forced else ids_own
+        a = a if base is None else base.gather(1, a)
+        b = b if ids_ref is None else ids_ref.gather(1, b)
+        out.append(int(sum(a.shape[1] - len(set(x.tolist()) & set(y.tolist()))
+                           for x, y in zip(a.cpu(), b.cpu()))))
+        ids_own, ids_ref = a, b
+    return out
+
+
+
+def logits_close(label: str, got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{label}: logits not finite")
+    err = float(np.abs(got - want).max())
+    rel = err / float(np.abs(want).max())
+    print(f"{label}: max_abs_err {err:.3e} rel {rel:.3e} (tolerance rel <= {LOGITS_REL_TOL})")
+    if not rel <= LOGITS_REL_TOL:
+        raise AssertionError(f"{label}: kernel route disagrees with the plain route")
+    return rel
 
 
 def serve(fb, torch):
     """Phase 4: full-width DiChaViT-S through the serving entry points."""
-    from diverse_channel_vit_torch.models import build_model
     from diverse_channel_vit_torch.serving import ServingEngine
     from diverse_channel_vit_torch.serving_http import ServingHTTPServer
 
-    model = build_model("dichavit", model_config(DEPTH), {"JUMP-CP": list(range(CHANNELS))},
-                        CLASSES, device="cuda", dtype=torch.bfloat16, seed=0)
+    model = build(DEPTH)
     engine = ServingEngine(model, buckets=BUCKETS, device="cuda")
     rng = np.random.default_rng(0)
     imgs = rng.standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)
@@ -396,16 +547,11 @@ def serve(fb, torch):
         }
     profile_call(lambda: engine.predict(imgs, full), "one 64-image predict", torch)
     launches, forwards = dict(fb.LAUNCHES), engine.n_forwards
-    print(f"main path: {forwards} forwards in {time.perf_counter() - t0:.1f} s, "
-          f"kernel launches {launches}; health {health}; stats {stats}")
-    per_layer = DEPTH - 1  # blocks 0-10 fused, block 11 the CLS readout
-    for name in ("attend_project_fwd", "ln_mlp_fwd"):
-        if forwards == 0 or launches[name] != per_layer * forwards:
-            raise AssertionError(f"{name}: {launches[name]} launches for {forwards} forwards, "
-                                 f"want {per_layer} per forward")
-    for name in ("attend_project_bwd", "ln_mlp_bwd"):
-        if launches[name]:
-            raise AssertionError(f"{name}: launched {launches[name]} times while serving")
+    print(f"main path: {forwards} forwards in {time.perf_counter() - t0:.1f} s; "
+          f"health {health}; stats {stats}")
+    # blocks 0-10 fused, block 11 the CLS readout; no flash_packed, no backward
+    check_counts("serving", launches, forwards, "forward",
+                 {"attend_project_fwd": DEPTH - 1, "ln_mlp_fwd": DEPTH - 1})
 
     outs = {"predict64": out64, "predict3": out3, "predict_subset": out_sub,
             "submit": out_submit, "http": out_http}
@@ -433,29 +579,131 @@ def serve(fb, torch):
     if dict(fb.LAUNCHES) != launches:
         raise AssertionError("the plain run launched a kernel")
     for key, got, want in (("predict64", out64, ref), ("predict_subset", out_sub, ref_sub)):
-        err = float(np.abs(got - want).max())
-        rel = err / float(np.abs(want).max())
-        print(f"logits {key} vs plain versions on the card: max_abs_err {err:.3e} rel {rel:.3e} "
-              f"(tolerance rel <= {LOGITS_REL_TOL})")
-        if rel > LOGITS_REL_TOL:
-            raise AssertionError(f"{key}: kernel route disagrees with the plain route")
+        logits_close(f"logits {key} vs plain versions on the card", got, want)
     engine.stop()
     print("serving " + json.dumps({"buckets": timings}))
     return launches, forwards
 
 
-def train_setup(depth: int, torch):
+def serve_evit(fb, torch):
+    """Phase 4b: EViT-pruned DiChaViT-S (keep_rate 0.7) through
+    ``ServingEngine`` and one HTTP request, the counts set to 0 just before
+    and read just after: per forward B5 at the three pruning layers and B1 /
+    B3 at the other eight non-readout blocks. The HTTP request (bucket 1)
+    keeps the tokens the 64-image forward kept for its image, so the two can
+    be held together; then the logits against the plain route on the card,
+    the kernel route keeping the plain route's tokens. How many tokens each
+    route would keep of its own accord is printed beside."""
+    from diverse_channel_vit_torch.serving import ServingEngine
+    from diverse_channel_vit_torch.serving_http import ServingHTTPServer
+
+    model = build(DEPTH, keep_rate=KEEP_RATE)
+    blocks = evit_blocks(model)
+    engine = ServingEngine(model, buckets=BUCKETS, device="cuda")
+    rng = np.random.default_rng(0)
+    imgs = rng.standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)
+    full = list(range(CHANNELS))
+
+    fb.reset_launches()
+    engine.n_forwards = 0
+    out64 = engine.predict(imgs, full)
+    kept64 = [blk.evit_kept.clone() for blk in blocks]
+    lats = []
+    for _ in range(8):
+        t = time.perf_counter()
+        engine.predict(imgs, full)
+        lats.append(time.perf_counter() - t)
+    engine.start()
+    server = ServingHTTPServer(engine, port=0).start()
+    try:
+        for blk, idx in zip(blocks, kept64):
+            blk.evit_forced = idx[7:8]
+        out_http = post_npy(server.port, imgs[7], full)
+        own_http = [blk.evit_kept.clone() for blk in blocks]
+    finally:
+        server.stop()
+        engine.stop()
+        for blk in blocks:
+            blk.evit_forced = None
+    launches, forwards = dict(fb.LAUNCHES), engine.n_forwards
+    check_counts("EViT serving", launches, forwards, "forward",
+                 {"attend_project_fwd": DEPTH - 4, "ln_mlp_fwd": DEPTH - 4,
+                  "flash_packed_fwd": 3})
+    print(f"EViT serving: kept tokens per pruning layer {[k.shape[1] for k in kept64]}; "
+          f"bucket 1 would keep otherwise "
+          f"{kept_differences(own_http, [k[7:8] for k in kept64], forced=True)}"
+          " tokens of image 7")
+    lats = np.sort(np.asarray(lats))
+    timing = {"imgs_per_s": B * len(lats) / float(lats.sum()),
+              "p50_ms": float(np.percentile(lats, 50)) * 1e3, "reps": len(lats)}
+    print("EViT serving bucket 64 " + json.dumps(timing))
+    profile_call(lambda: engine.predict(imgs, full), "one 64-image EViT predict", torch)
+    if out64.shape != (B, CLASSES) or out_http.shape != (CLASSES,):
+        raise AssertionError("unexpected logits shape")
+    rel = np.abs(out_http - out64[7]).max() / np.abs(out64).max()
+    print(f"EViT http vs the 64-bucket row, same kept tokens: rel {rel:.3e} "
+          f"(tolerance {KERNEL_REL_TOL})")
+    if not rel <= KERNEL_REL_TOL:
+        raise AssertionError("EViT http disagrees with the same image in the 64 bucket")
+
+    x = torch.from_numpy(imgs).cuda().to(torch.bfloat16)
+    cid = torch.arange(CHANNELS, device="cuda")
+    with fb.plain_versions(), torch.inference_mode():
+        ref = model(x, cid)[0].float().cpu().numpy()
+    kept_plain = [blk.evit_kept.clone() for blk in blocks]
+    print(f"EViT serving: the 64-image predict kept "
+          f"{kept_differences(kept64, kept_plain, forced=False)} tokens per pruning layer that "
+          "the plain route did not")
+    for blk, idx in zip(blocks, kept_plain):
+        blk.evit_forced = idx
+    with torch.inference_mode():
+        got = model(x, cid)[0].float().cpu().numpy()
+    for blk in blocks:
+        blk.evit_forced = None
+    logits_close("EViT logits vs plain versions on the card, same kept tokens", got, ref)
+    del model, engine
+    torch.cuda.empty_cache()
+    return launches, forwards, timing
+
+
+def serve_gelu_exact(fb, torch):
+    """Phase 4c: DiChaViT-S with ``gelu_exact`` at full width, one 64-image
+    ``predict``: every non-readout block takes the unfused route (B5 x 11,
+    no B1 / B3); the logits against the plain route on the card."""
+    from diverse_channel_vit_torch.serving import ServingEngine
+
+    model = build(DEPTH, gelu_exact=True)
+    engine = ServingEngine(model, buckets=BUCKETS, device="cuda")
+    imgs = np.random.default_rng(0).standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)
+    engine.predict(imgs[:1], list(range(CHANNELS)))  # first use, outside the count
+    fb.reset_launches()
+    engine.n_forwards = 0
+    t = time.perf_counter()
+    out = engine.predict(imgs, list(range(CHANNELS)))
+    secs = time.perf_counter() - t
+    launches, forwards = dict(fb.LAUNCHES), engine.n_forwards
+    check_counts("gelu_exact serving", launches, forwards, "forward",
+                 {"flash_packed_fwd": DEPTH - 1})
+    print(f"gelu_exact serving: one 64-image predict {secs * 1e3:.2f} ms")
+    with fb.plain_versions(), torch.inference_mode():
+        ref = model(torch.from_numpy(imgs).cuda().to(torch.bfloat16),
+                    torch.arange(CHANNELS, device="cuda"))[0].float().cpu().numpy()
+    logits_close("gelu_exact logits vs plain versions on the card", out, ref)
+    del model, engine
+    torch.cuda.empty_cache()
+    return launches, forwards
+
+
+def train_setup(depth: int, torch, **extra):
     """Model, train state and step as a user builds them: DiChaViT-S with
     f32 parameters from seed 0 and bf16 compute; AdamW with the JUMP-CP
     weight-decay schedule (optimizer/adamw_jumpcp.yaml) under the cosine lr
     schedule (scheduler/cosine.yaml); CE + CDL + TDL with
     extra_loss_lambda = 1."""
-    from diverse_channel_vit_torch.models import build_model
     from diverse_channel_vit_torch.training import (
         TrainState, make_lr_schedule, make_optimizer, make_train_step)
 
-    model = build_model("dichavit", model_config(depth), {"JUMP-CP": list(range(CHANNELS))},
-                        CLASSES, device="cuda", dtype=torch.bfloat16, seed=0)
+    model = build(depth, **extra)
     lr = make_lr_schedule("cosine", 2.5e-4, dict(
         t_initial="FILL_LATER", lr_min=1e-6, cycle_mul=1.0, cycle_decay=0.5, cycle_limit=1,
         warmup_t=3, warmup_lr_init=1e-5, warmup_prefix=False, t_in_epochs=True, k_decay=1.0,
@@ -476,10 +724,12 @@ def synthetic_batch(torch):
     return {"image": torch.from_numpy(imgs).cuda(), "label": torch.from_numpy(labels).cuda()}
 
 
-def train(fb, torch):
-    """Phase 5: the DiChaViT-S train step on the card."""
+def train(fb, torch, label: str, want: dict, **extra):
+    """The DiChaViT-S train step on the card at full width: counts set to 0
+    just before 2 warm-up and 10 timed steps and read just after, each kernel
+    ``want[name]`` launches per step; then one profiled step."""
     batch = synthetic_batch(torch)
-    model, state, step = train_setup(DEPTH, torch)
+    model, state, step = train_setup(DEPTH, torch, **extra)
     n_params = sum(p.numel() for p in model.parameters())
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("the model's parameters are not f32")
@@ -495,16 +745,11 @@ def train(fb, torch):
             lats.append(time.perf_counter() - t)
         losses.append({k: float(v) for k, v in m.items()})
     launches, steps = dict(fb.LAUNCHES), warm + timed
-    per_layer = DEPTH - 1
-    print(f"train: {steps} steps, kernel launches {launches}")
-    for name, count in launches.items():
-        if count != per_layer * steps:
-            raise AssertionError(f"{name}: {count} launches in {steps} train steps, "
-                                 f"want {per_layer} per step")
+    check_counts(label, launches, steps, "step", want)
     for i, m in enumerate(losses):
         if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"train step {i}: non-finite metrics {m}")
-    print(f"train metrics, step 0: {json.dumps(losses[0])}; step {steps - 1}: "
+            raise AssertionError(f"{label} step {i}: non-finite metrics {m}")
+    print(f"{label} metrics, step 0: {json.dumps(losses[0])}; step {steps - 1}: "
           f"{json.dumps(losses[-1])}")
     lats = np.asarray(lats)
     timing = {"imgs_per_s": B * timed / float(lats.sum()),
@@ -512,49 +757,67 @@ def train(fb, torch):
               "min_ms": float(lats.min()) * 1e3, "max_ms": float(lats.max()) * 1e3,
               "steps": timed, "batch": B, "params": n_params,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print("train " + json.dumps(timing))
-    profile_call(lambda: step(state, batch), "one train step (64 images)", torch)
+    print(f"{label} " + json.dumps(timing))
+    profile_call(lambda: step(state, batch), f"one {label} step (64 images)", torch)
     del model, state, step
     torch.cuda.empty_cache()
+    return launches, steps, timing
 
-    # kernel route vs plain route from the same weights, at PARITY_DEPTH
+
+def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, **extra):
+    """Kernel route against plain route from the same weights: ``n_steps``
+    steps at ``depth``, losses within TRAIN_LOSS_REL_TOL and step-0 gradients
+    within TRAIN_GRAD_REL_TOL of max|g|. The plain route runs first; its
+    EViT blocks' kept tokens are forced on the kernel route step by step
+    (near-equal CLS scores may otherwise keep another boundary token), and
+    how many tokens the kernel route would have kept otherwise is printed."""
+    batch = synthetic_batch(torch)
     runs = {}
-    for route in ("kernels", "plain"):
-        model, state, step = train_setup(PARITY_DEPTH, torch)
+    for route in ("plain", "kernels"):
+        model, state, step = train_setup(depth, torch, **extra)
+        blocks = evit_blocks(model) if extra.get("keep_rate") else []
         before = dict(fb.LAUNCHES)
         ctx = fb.plain_versions() if route == "plain" else contextlib.nullcontext()
-        route_losses, grads0 = [], None
+        route_losses, grads0, kept, flips = [], None, [], []
         with ctx:
-            for i in range(3):
+            for i in range(n_steps):
+                if route == "kernels":
+                    for blk, idx in zip(blocks, runs["plain"][3][i]):
+                        blk.evit_forced = idx
                 state, m = step(state, batch)
                 route_losses.append(float(m["loss"]))
+                kept.append([blk.evit_kept.clone() for blk in blocks])
+                if route == "kernels":
+                    flips.append(kept_differences(kept[-1], runs["plain"][3][i], forced=True))
                 if i == 0:
                     grads0 = {n: p.grad.float().clone() for n, p in model.named_parameters()}
         torch.cuda.synchronize()
-        runs[route] = (route_losses, grads0, {k: fb.LAUNCHES[k] - before[k] for k in before})
+        counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
+        runs[route] = (route_losses, grads0, counts, kept, flips)
         del model, state, step
         torch.cuda.empty_cache()
-    (lk, gk, nk), (lp, gp, np_) = runs["kernels"], runs["plain"]
+    (lk, gk, nk, _, flips), (lp, gp, np_, _, _) = runs["kernels"], runs["plain"]
     if any(np_.values()):
-        raise AssertionError(f"the plain training run launched kernels: {np_}")
-    if any(v != 3 * (PARITY_DEPTH - 1) for v in nk.values()):
-        raise AssertionError(f"the kernel training run launched {nk}")
+        raise AssertionError(f"{label}: the plain training run launched kernels: {np_}")
+    check_counts(f"{label}, kernel route", nk, n_steps, "step", want)
+    if extra.get("keep_rate"):
+        print(f"{label}: tokens the kernel route would have kept otherwise, per step and "
+              f"EViT layer, of {B} images: {flips}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
-    print(f"train parity (depth {PARITY_DEPTH}, 3 steps): losses kernels {lk} plain {lp}, "
+    print(f"{label} (depth {depth}, {n_steps} steps): losses kernels {lk} plain {lp}, "
           f"max rel {loss_rel:.3e} (tolerance {TRAIN_LOSS_REL_TOL})")
     if not loss_rel <= TRAIN_LOSS_REL_TOL:
-        raise AssertionError("train parity: losses of the kernel and plain routes disagree")
+        raise AssertionError(f"{label}: losses of the kernel and plain routes disagree")
     worst = (0.0, "")
     for name, g in gk.items():
         ref = gp[name]
         scale = ref.abs().max().item()
         rel = (g - ref).abs().max().item() / scale if scale else (g - ref).abs().max().item()
         worst = max(worst, (rel, name))
-    print(f"train parity: step-0 gradients of {len(gk)} parameter tensors, worst rel "
+    print(f"{label}: step-0 gradients of {len(gk)} parameter tensors, worst rel "
           f"{worst[0]:.3e} ({worst[1]}) (tolerance {TRAIN_GRAD_REL_TOL} of max|g|)")
     if not worst[0] <= TRAIN_GRAD_REL_TOL:
-        raise AssertionError(f"train parity: gradient of {worst[1]} disagrees")
-    return launches, steps, timing
+        raise AssertionError(f"{label}: gradient of {worst[1]} disagrees")
 
 
 def main() -> int:
@@ -583,6 +846,7 @@ def main() -> int:
 
     results = check_kernels(fb, torch, F)
     results.update(check_bwd_kernels(fb, torch, F))
+    results.update(check_flash_kernels(torch, F))
     for name, r in results.items():
         t_ops, t_bytes = r.pop("flops") / PEAK_BF16_FLOPS, r.pop("bytes") / PEAK_BYTES
         r["bound_ms"] = max(t_ops, t_bytes) * 1e3
@@ -590,25 +854,54 @@ def main() -> int:
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
+
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
     serve_launches, forwards = serve(fb, torch)
     torch.cuda.empty_cache()
-    train_launches, steps, _ = train(fb, torch)
+    evit_serve_launches, evit_forwards, _ = serve_evit(fb, torch)
+    serve_gelu_exact(fb, torch)
+    train_launches, steps, _ = train(fb, torch, "train", dict.fromkeys(fused4, DEPTH - 1))
+    train_parity(fb, torch, "train parity", PARITY_DEPTH, 3,
+                 dict.fromkeys(fused4, PARITY_DEPTH - 1))
+    evit_train_launches, evit_steps, _ = train(
+        fb, torch, "EViT train", {**dict.fromkeys(fused4, DEPTH - 4),
+                                  "flash_packed_fwd": 3, "flash_packed_bwd": 3},
+        keep_rate=KEEP_RATE)
+    # at PARITY_DEPTH the pruning layers are 1, 2 and 3: block 0 fused, no readout
+    train_parity(fb, torch, "EViT train parity", PARITY_DEPTH, 3,
+                 {**dict.fromkeys(fused4, 1), "flash_packed_fwd": 3, "flash_packed_bwd": 3},
+                 keep_rate=KEEP_RATE)
+    train_parity(fb, torch, "gelu_exact train parity", GELU_PARITY_DEPTH, 1,
+                 {"flash_packed_fwd": GELU_PARITY_DEPTH - 1,
+                  "flash_packed_bwd": GELU_PARITY_DEPTH - 1}, gelu_exact=True)
 
     line = []
     for name, r in results.items():
         entry = {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"]}
-        if name.endswith("_fwd"):  # main paths: serving, and the train step
+        if name in ("attend_project_fwd", "ln_mlp_fwd"):  # main paths: serving, training
             entry.update(launches=serve_launches[name],
                          launches_per_forward=serve_launches[name] / forwards,
                          train_launches=train_launches[name],
                          launches_per_step=train_launches[name] / steps)
+        elif name == "flash_packed_fwd":  # main paths: EViT serving and training
+            entry.update(launches=evit_serve_launches[name],
+                         launches_per_forward=evit_serve_launches[name] / evit_forwards,
+                         train_launches=evit_train_launches[name],
+                         launches_per_step=evit_train_launches[name] / evit_steps)
+        elif name == "flash_packed_bwd":  # main path: the EViT train step
+            entry.update(launches=evit_train_launches[name],
+                         launches_per_step=evit_train_launches[name] / evit_steps)
         else:  # main path: the train step
             entry.update(launches=train_launches[name],
                          launches_per_step=train_launches[name] / steps)
+        if name in fused4:
+            entry.update(evit_launches_per_step=evit_train_launches[name] / evit_steps)
         entry.update(max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],
                      tolerance=KERNEL_REL_TOL, ms=r["ms"], kernel_ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
+        if "per_grid" in r:
+            entry.update(per_grid=r["per_grid"])
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card_line())

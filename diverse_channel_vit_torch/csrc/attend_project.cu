@@ -33,22 +33,21 @@
 // - All products are bf16 `mma.sync.m16n8k16` with f32 accumulation; each of
 //   the four warps owns 16 query rows, so the softmax statistics never leave
 //   registers (only quad shuffles). wgmma and TMA are later work.
-#include "common.cuh"
+// - The attention loop is `flash_fwd_tile` (flash_tiles.cuh), shared with the
+//   flash_packed forward (flash_packed.cu).
+#include "flash_tiles.cuh"
 
 namespace dcvit {
 
-constexpr int kAPRows = 64;     // query rows per block
-constexpr int kAPKeys = 64;     // keys per K/V tile
-constexpr int kAPThreads = 128; // four warps, 16 query rows each
 constexpr int kAPWTile = 64;    // Wp tile edge (output columns x D)
 
 template <int DH>
 __host__ __device__ constexpr int ap_smem_elems(int d) {
-  return kAPRows * padded(DH) + 4 * kAPKeys * padded(DH) + kAPRows * padded(d);
+  return flash_fwd_smem_elems<DH>() + kFRows * padded(d);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kAPThreads)
+__global__ void __launch_bounds__(kFThreads)
     attend_project_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                               const __nv_bfloat16* __restrict__ x_res,
                               const __nv_bfloat16* __restrict__ wp,
@@ -56,11 +55,10 @@ __global__ void __launch_bounds__(kAPThreads)
                               __nv_bfloat16* __restrict__ o_out, float* __restrict__ lse_out,
                               __nv_bfloat16* __restrict__ xo, int n, int heads, int d_out,
                               int n_valid, float scale_log2) {
-  static_assert(DH % 16 == 0, "head width must be a multiple of 16");
-  static_assert(4 * kAPKeys * padded(DH) >= 2 * kAPWTile * padded(kAPWTile),
+  static_assert(4 * kFRows * padded(DH) >= 2 * kAPWTile * padded(kAPWTile),
                 "the Wp tiles reuse the K/V buffers");
   const int d = heads * DH;
-  const int q0 = blockIdx.x * kAPRows;
+  const int q0 = blockIdx.x * kFRows;
   const int b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -68,146 +66,30 @@ __global__ void __launch_bounds__(kAPThreads)
   const int row_b = row_a + 8;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int SDH = padded(DH);
   const int SD = padded(d);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kAPRows * SDH;
-  __nv_bfloat16* sV = sK + 2 * kAPKeys * SDH;
-  __nv_bfloat16* sO = sV + 2 * kAPKeys * SDH;
-  __nv_bfloat16* sW = sK;
+  __nv_bfloat16* sAttn = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sO = sAttn + flash_fwd_smem_elems<DH>();
+  __nv_bfloat16* sW = sAttn + kFRows * padded(DH);  // the K/V ring, once attention is done
 
   const long long row3 = 3LL * d;
   const __nv_bfloat16* base = qkv + (long long)b * n * row3;
-  const int n_tiles = (n_valid + kAPKeys - 1) / kAPKeys;
 
   for (int h = 0; h < heads; ++h) {
     const int hc = h * DH;
-    load_tile_async(sQ, base + (long long)q0 * row3 + hc, kAPRows, DH, row3, tid, kAPThreads);
-    load_tile_async(sK, base + d + hc, kAPKeys, DH, row3, tid, kAPThreads);
-    load_tile_async(sV, base + 2 * d + hc, kAPKeys, DH, row3, tid, kAPThreads);
-    cp_async_commit();
-
     float o_acc[DH / 8][4];
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o_acc[j][e] = 0.f;
-    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-    uint32_t qf[DH / 16][4];
-
-    for (int t = 0; t < n_tiles; ++t) {
-      const int buf = t & 1;
-      if (t + 1 < n_tiles) {
-        const long long off = (long long)(t + 1) * kAPKeys * row3 + hc;
-        load_tile_async(sK + (buf ^ 1) * kAPKeys * SDH, base + off + d, kAPKeys, DH, row3, tid,
-                        kAPThreads);
-        load_tile_async(sV + (buf ^ 1) * kAPKeys * SDH, base + off + 2 * d, kAPKeys, DH, row3,
-                        tid, kAPThreads);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (t == 0) {
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) load_a_frag(qf[kk], sQ, SDH, warp * 16, kk * 16, lane);
-      }
-      const __nv_bfloat16* k_t = sK + buf * kAPKeys * SDH;
-      const __nv_bfloat16* v_t = sV + buf * kAPKeys * SDH;
-
-      // S = Q K^T for this warp's 16 rows x 64 keys
-      float s[kAPKeys / 8][4];
-#pragma unroll
-      for (int j = 0; j < kAPKeys / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < kAPKeys / 16; ++np) {
-          uint32_t bfr[4];
-          load_b_frag_nk(bfr, k_t, SDH, np * 16, kk * 16, lane);
-          mma_bf16(s[2 * np], qf[kk], bfr[0], bfr[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
-        }
-      }
-
-      // scale into the log2 domain; mask keys at or past n_valid
-      const int kv0 = t * kAPKeys;
-      const bool ragged = kv0 + kAPKeys > n_valid;
-#pragma unroll
-      for (int j = 0; j < kAPKeys / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + j * 8 + t4 * 2 + (e & 1);
-          s[j][e] = (ragged && col >= n_valid) ? -1e30f : s[j][e] * scale_log2;
-        }
-
-      float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-      for (int j = 0; j < kAPKeys / 8; ++j) {
-        mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-      }
-      const float alpha_a = exp2f(m_a - mx_a), alpha_b = exp2f(m_b - mx_b);
-      m_a = mx_a;
-      m_b = mx_b;
-      l_a *= alpha_a;
-      l_b *= alpha_b;
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
-        o_acc[j][0] *= alpha_a;
-        o_acc[j][1] *= alpha_a;
-        o_acc[j][2] *= alpha_b;
-        o_acc[j][3] *= alpha_b;
-      }
-
-      // P = exp2(S - m), f32 row sums, bf16 A fragments for P V
-      uint32_t pf[kAPKeys / 16][4];
-#pragma unroll
-      for (int j = 0; j < kAPKeys / 8; ++j) {
-        const float p0 = exp2f(s[j][0] - mx_a), p1 = exp2f(s[j][1] - mx_a);
-        const float p2 = exp2f(s[j][2] - mx_b), p3 = exp2f(s[j][3] - mx_b);
-        l_a += p0 + p1;
-        l_b += p2 + p3;
-        pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kAPKeys / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < DH / 16; ++np) {
-          uint32_t bfr[4];
-          load_b_frag_kn(bfr, v_t, SDH, np * 16, kk * 16, lane);
-          mma_bf16(o_acc[2 * np], pf[kk], bfr[0], bfr[1]);
-          mma_bf16(o_acc[2 * np + 1], pf[kk], bfr[2], bfr[3]);
-        }
-      }
-      __syncthreads();  // every warp is done with `buf` before it is refilled
-    }
-
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-    }
-    const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-    if (lse_out != nullptr && t4 == 0) {  // m is in the log2 domain
+    float lse_a, lse_b;
+    flash_fwd_tile<DH>(base + (long long)q0 * row3 + hc, row3, base + d + hc, row3,
+                       base + 2 * d + hc, row3, n_valid, scale_log2, sAttn, o_acc, lse_a, lse_b);
+    if (lse_out != nullptr && t4 == 0) {
       float* lrow = lse_out + ((long long)b * heads + h) * n + q0;
-      lrow[row_a] = (m_a + log2f(l_a)) * 0.6931471805599453f;
-      lrow[row_b] = (m_b + log2f(l_b)) * 0.6931471805599453f;
+      lrow[row_a] = lse_a;
+      lrow[row_b] = lse_b;
     }
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
       const int col = hc + j * 8 + t4 * 2;
-      const uint32_t va = pack_bf16(o_acc[j][0] * inv_a, o_acc[j][1] * inv_a);
-      const uint32_t vb = pack_bf16(o_acc[j][2] * inv_b, o_acc[j][3] * inv_b);
+      const uint32_t va = pack_bf16(o_acc[j][0], o_acc[j][1]);
+      const uint32_t vb = pack_bf16(o_acc[j][2], o_acc[j][3]);
       *reinterpret_cast<uint32_t*>(sO + row_a * SD + col) = va;
       *reinterpret_cast<uint32_t*>(sO + row_b * SD + col) = vb;
       if (o_out != nullptr) {
@@ -230,13 +112,13 @@ __global__ void __launch_bounds__(kAPThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
     const __nv_bfloat16* wrow = wp + (long long)n0 * d;
-    load_tile_async(sW, wrow, kAPWTile, kAPWTile, d, tid, kAPThreads);
+    load_tile_async(sW, wrow, kAPWTile, kAPWTile, d, tid, kFThreads);
     cp_async_commit();
     for (int kc = 0; kc < n_kc; ++kc) {
       const int buf = kc & 1;
       if (kc + 1 < n_kc) {
         load_tile_async(sW + (buf ^ 1) * kAPWTile * SW, wrow + (kc + 1) * kAPWTile, kAPWTile,
-                        kAPWTile, d, tid, kAPThreads);
+                        kAPWTile, d, tid, kFThreads);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -290,7 +172,7 @@ extern "C" int dcvit_attend_project_fwd(const void* qkv, const void* x_res, cons
                                         int n, int heads, int head_dim, int d_out, int n_valid,
                                         float sm_scale, void* stream) {
   using namespace dcvit;
-  if (head_dim != 64 || n % kAPRows != 0 || d_out % kAPWTile != 0 || n_valid < 1 ||
+  if (head_dim != 64 || n % kFRows != 0 || d_out % kAPWTile != 0 || n_valid < 1 ||
       n_valid > n || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   const int d = heads * head_dim;
@@ -299,8 +181,8 @@ extern "C" int dcvit_attend_project_fwd(const void* qkv, const void* x_res, cons
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n / kAPRows, batch);
-  kernel<<<grid, kAPThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(n / kFRows, batch);
+  kernel<<<grid, kFThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(x_res),
       static_cast<const __nv_bfloat16*>(wp), static_cast<const __nv_bfloat16*>(bp),
       static_cast<__nv_bfloat16*>(o), o == nullptr ? nullptr : static_cast<float*>(lse),

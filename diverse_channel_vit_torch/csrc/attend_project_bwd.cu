@@ -40,24 +40,26 @@
 //   accumulators are f32. bf16 `mma.sync.m16n8k16` with `cp.async` tiles, as
 //   in the forward; each warp owns 16 rows (keys in (b), queries in (c)), so
 //   the products' fragments never leave registers between steps.
+#include "flash_tiles.cuh"
 #include "wgrad.cuh"
 
 namespace dcvit {
 
-constexpr int kBRows = 64;      // rows (queries or keys) per tile
-constexpr int kBThreads = 128;  // four warps of 16 rows
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBRows = kFRows;  // rows (queries or keys) per tile
+constexpr int kBThreads = kFThreads;
 
 __host__ __device__ constexpr int pre_smem_bytes(int d_out) {
   return 2 * (kBRows * padded(d_out) + 2 * kBRows * padded(64));
 }
+// the tile loops' shared memory, then [4 warps][2][DH] or [4 warps][DH] f32
+// for the bias column sums
 template <int DH>
 __host__ __device__ constexpr int kv_smem_bytes() {
-  return 2 * 6 * kBRows * padded(DH) + 4 * (2 * 2 * kBRows + 4 * 2 * DH);
+  return flash_bwd_kv_smem_bytes<DH>() + 4 * 4 * 2 * DH;
 }
 template <int DH>
 __host__ __device__ constexpr int q_smem_bytes() {
-  return 2 * 6 * kBRows * padded(DH) + 4 * 4 * DH;
+  return flash_bwd_q_smem_bytes<DH>() + 4 * 4 * DH;
 }
 
 // (a) do = dxo Wp, di, dbp partials. Grid (N / 64, B).
@@ -188,137 +190,14 @@ __global__ void __launch_bounds__(kBThreads)
   }
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int SDH = padded(DH);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kBRows * SDH;
-  __nv_bfloat16* sQ = sV + kBRows * SDH;       // two stages
-  __nv_bfloat16* sDO = sQ + 2 * kBRows * SDH;  // two stages
-  float* sL = reinterpret_cast<float*>(sDO + 2 * kBRows * SDH);  // [2][64] lse
-  float* sD = sL + 2 * kBRows;                                   // [2][64] di
-  float* sRed = sD + 2 * kBRows;                                 // [4 warps][2][DH]
-
-  const float* lrow = lse + ((long long)b * heads + h) * n;
-  const float* drow = di + ((long long)b * heads + h) * n;
-  auto load_q_tile = [&](int qt, int buf) {
-    const long long q0 = (long long)qt * kBRows;
-    load_tile_async(sQ + buf * kBRows * SDH, base + q0 * row3 + hc, kBRows, DH, row3, tid,
-                    kBThreads);
-    load_tile_async(sDO + buf * kBRows * SDH, dO + ((long long)b * n + q0) * d + hc, kBRows, DH,
-                    d, tid, kBThreads);
-    if (tid < 16) cp_async16(sL + buf * kBRows + tid * 4, lrow + q0 + tid * 4);
-    else if (tid < 32) cp_async16(sD + buf * kBRows + (tid - 16) * 4, drow + q0 + (tid - 16) * 4);
-    cp_async_commit();
-  };
-
-  load_tile_async(sK, base + (long long)k0 * row3 + d + hc, kBRows, DH, row3, tid, kBThreads);
-  load_tile_async(sV, base + (long long)k0 * row3 + 2 * d + hc, kBRows, DH, row3, tid, kBThreads);
-  load_q_tile(0, 0);
-
+  float* sRed = reinterpret_cast<float*>(smem_raw + flash_bwd_kv_smem_bytes<DH>());
   float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  flash_bwd_kv_tile<DH>(base + hc, row3, base + (long long)k0 * row3 + d + hc, row3,
+                        base + (long long)k0 * row3 + 2 * d + hc, row3,
+                        dO + (long long)b * n * d + hc, d, lse + ((long long)b * heads + h) * n,
+                        di + ((long long)b * heads + h) * n, n, k0, n_valid, scale_log2, sm_scale,
+                        smem_raw, dk, dv);
   const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
-  const bool valid_a = key_a < n_valid, valid_b = key_b < n_valid;
-
-  const int nq = n / kBRows;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int buf = qt & 1;
-    if (qt + 1 < nq) {
-      load_q_tile(qt + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* q_t = sQ + buf * kBRows * SDH;
-    const __nv_bfloat16* do_t = sDO + buf * kBRows * SDH;
-    const float* l_t = sL + buf * kBRows;
-    const float* d_t = sD + buf * kBRows;
-
-    // S^T = K Q^T: this warp's 16 keys x 64 queries
-    float st[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t a[4];
-      load_a_frag(a, sK, SDH, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_nk(bfr, q_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(st[2 * np], a, bfr[0], bfr[1]);
-        mma_bf16(st[2 * np + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    // P^T = exp(S^T * scale - lse[query]); padded keys exactly 0
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + t4 * 2 + (e & 1);
-        const bool valid = e < 2 ? valid_a : valid_b;
-        st[j][e] = valid ? exp2f(st[j][e] * scale_log2 - l_t[qc] * kLog2e) : 0.f;
-      }
-    // dV += P^T dO (P rounded to bf16)
-    {
-      uint32_t pf[4][4];
-      acc_to_a_frags(pf, st);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int np = 0; np < DH / 16; ++np) {
-          uint32_t bfr[4];
-          load_b_frag_kn(bfr, do_t, SDH, np * 16, kk * 16, lane);
-          mma_bf16(dv[2 * np], pf[kk], bfr[0], bfr[1]);
-          mma_bf16(dv[2 * np + 1], pf[kk], bfr[2], bfr[3]);
-        }
-    }
-    // dP^T = V dO^T
-    float dpt[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t a[4];
-      load_a_frag(a, sV, SDH, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_nk(bfr, do_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(dpt[2 * np], a, bfr[0], bfr[1]);
-        mma_bf16(dpt[2 * np + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    // dS^T = P^T (dP^T - di[query]) * scale; dK += dS^T Q (dS rounded to bf16)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + t4 * 2 + (e & 1);
-        st[j][e] = st[j][e] * (dpt[j][e] - d_t[qc]) * sm_scale;
-      }
-    {
-      uint32_t dsf[4][4];
-      acc_to_a_frags(dsf, st);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int np = 0; np < DH / 16; ++np) {
-          uint32_t bfr[4];
-          load_b_frag_kn(bfr, q_t, SDH, np * 16, kk * 16, lane);
-          mma_bf16(dk[2 * np], dsf[kk], bfr[0], bfr[1]);
-          mma_bf16(dk[2 * np + 1], dsf[kk], bfr[2], bfr[3]);
-        }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
 
   // write dk, dv (bf16); column sums of the f32 accumulators, as the TPU
   // summed its f32 scratch
@@ -368,97 +247,12 @@ __global__ void __launch_bounds__(kBThreads)
   const int row_a = warp * 16 + g, row_b = row_a + 8;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int SDH = padded(DH);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sDO = sQ + kBRows * SDH;
-  __nv_bfloat16* sK = sDO + kBRows * SDH;  // two stages
-  __nv_bfloat16* sV = sK + 2 * kBRows * SDH;
-  float* sRed = reinterpret_cast<float*>(sV + 2 * kBRows * SDH);  // [4 warps][DH]
-
-  load_tile_async(sQ, base + (long long)q0 * row3 + hc, kBRows, DH, row3, tid, kBThreads);
-  load_tile_async(sDO, dO + ((long long)b * n + q0) * d + hc, kBRows, DH, d, tid, kBThreads);
-  load_tile_async(sK, base + d + hc, kBRows, DH, row3, tid, kBThreads);
-  load_tile_async(sV, base + 2 * d + hc, kBRows, DH, row3, tid, kBThreads);
-  cp_async_commit();
-
+  float* sRed = reinterpret_cast<float*>(smem_raw + flash_bwd_q_smem_bytes<DH>());
   const long long stat = ((long long)b * heads + h) * n + q0;
-  const float l2_a = lse[stat + row_a] * kLog2e, l2_b = lse[stat + row_b] * kLog2e;
-  const float di_a = di[stat + row_a], di_b = di[stat + row_b];
-
   float dq[DH / 8][4];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-  uint32_t qf[DH / 16][4], dof[DH / 16][4];
-
-  const int n_tiles = (n_valid + kBRows - 1) / kBRows;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_tiles) {
-      const long long off = (long long)(kt + 1) * kBRows * row3 + hc;
-      load_tile_async(sK + (buf ^ 1) * kBRows * SDH, base + off + d, kBRows, DH, row3, tid,
-                      kBThreads);
-      load_tile_async(sV + (buf ^ 1) * kBRows * SDH, base + off + 2 * d, kBRows, DH, row3, tid,
-                      kBThreads);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        load_a_frag(qf[kk], sQ, SDH, warp * 16, kk * 16, lane);
-        load_a_frag(dof[kk], sDO, SDH, warp * 16, kk * 16, lane);
-      }
-    }
-    const __nv_bfloat16* k_t = sK + buf * kBRows * SDH;
-    const __nv_bfloat16* v_t = sV + buf * kBRows * SDH;
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_nk(bfr, k_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qf[kk], bfr[0], bfr[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
-        load_b_frag_nk(bfr, v_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], dof[kk], bfr[0], bfr[1]);
-        mma_bf16(dp[2 * np + 1], dof[kk], bfr[2], bfr[3]);
-      }
-    // dS = P (dP - di) * scale, P = exp(S * scale - lse); padded keys 0
-    const int kv0 = kt * kBRows;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + t4 * 2 + (e & 1);
-        const float p = key < n_valid ? exp2f(s[j][e] * scale_log2 - (e < 2 ? l2_a : l2_b)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? di_a : di_b)) * sm_scale;
-      }
-    // dQ += dS K (dS rounded to bf16)
-    uint32_t dsf[4][4];
-    acc_to_a_frags(dsf, s);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int np = 0; np < DH / 16; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_kn(bfr, k_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(dq[2 * np], dsf[kk], bfr[0], bfr[1]);
-        mma_bf16(dq[2 * np + 1], dsf[kk], bfr[2], bfr[3]);
-      }
-    __syncthreads();
-  }
+  flash_bwd_q_tile<DH>(base + (long long)q0 * row3 + hc, row3, base + d + hc, row3,
+                       base + 2 * d + hc, row3, dO + ((long long)b * n + q0) * d + hc, d,
+                       lse + stat, di + stat, n_valid, scale_log2, sm_scale, smem_raw, dq);
 
   // write dq (bf16); column sums of the rounded values
   __nv_bfloat16* drow = dqkv + ((long long)b * n + q0) * row3 + hc;

@@ -5,7 +5,11 @@ Tokens stay channel-grouped ``(B, C, N, D)`` through the patch embedding and
 enter the blocks as the flat ``(B, 1 + C*N, D)`` grid in channel-major order,
 padded once to the kernels' multiple (``ops/attention.maybe_pad_tokens``).
 The forward is the JAX module's forward for ``block_type="block"`` with no
-dropout, no token dropping and no EViT; the last block reads out the CLS row
+dropout and no token dropping. With ``keep_rate < 1`` the blocks at layers
+depth // 4, depth // 2 and 3 * depth // 4 run as EViT blocks
+(:meth:`~.vit.Block.evit`), each keeping the top ``int(keep_rate * (n_valid
+- 1))`` tokens, and the grid is padded again after each prune; an EViT layer
+takes precedence over the readout. The last block reads out the CLS row
 alone unless ``cls_only_readout`` is off (exact in training too: the other
 rows of the last block feed nothing). In train mode (``module.train()``) it
 also returns DiChaViT's diversity losses: TDL on the projected tokens before
@@ -140,7 +144,8 @@ class ChannelVisionTransformer(nn.Module):
                  proxy_orthogonal_init: bool = False, gamma_s: float = 1.0,
                  gamma_d: float = 0.5, reverse_pos_pairs: bool = False,
                  use_square: bool = False, temperature: float = 0.11111,
-                 cls_only_readout: bool = True, dtype: torch.dtype = torch.float32,
+                 cls_only_readout: bool = True, keep_rate: Optional[float] = None,
+                 gelu_exact: bool = False, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_total_channels = num_total_channels
@@ -153,6 +158,8 @@ class ChannelVisionTransformer(nn.Module):
                         use_square=use_square)
         self.channel_scale = math.sqrt(1.0 / temperature)  # CDL scale
         self.cls_only_readout = cls_only_readout
+        # EViT keep rate; a run-time knob, as the parameters do not depend on it
+        self.keep_rate = keep_rate
         self.dtype = dtype
         self.patch_embed = PatchEmbedPerChannel(
             num_total_channels, patch_size, embed_dim, use_channelvit_channels,
@@ -161,7 +168,8 @@ class ChannelVisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.empty(1, (img_size // patch_size) ** 2 + 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype) for _ in range(depth)
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, gelu_exact=gelu_exact)
+            for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
         self._init_weights(generator, orthogonal_channel_emb_init, proxy_orthogonal_init)
@@ -217,9 +225,17 @@ class ChannelVisionTransformer(nn.Module):
         tokens = tokens + pos[:, 1:].repeat(1, c, 1)  # per-channel copy of the table
         cls = (self.cls_token.to(dt) + pos[:, :1]).expand(b, 1, dim)
         xseq, valid_len = maybe_pad_tokens(torch.cat([cls, tokens], dim=1))
-        last = len(self.blocks) - 1
+        depth = len(self.blocks)
+        evit_on = self.keep_rate is not None and float(self.keep_rate) < 1.0
+        evit_layers = {depth // 4, depth // 2, (3 * depth) // 4} if evit_on else set()
         for i, blk in enumerate(self.blocks):
-            xseq = blk(xseq, valid_len=valid_len, cls_query=self.cls_only_readout and i == last)
+            if i in evit_layers:
+                xseq, valid_len = blk.evit(xseq, float(self.keep_rate), valid_len)
+                if valid_len is None:  # pruned: pad the fully valid grid again
+                    xseq, valid_len = maybe_pad_tokens(xseq)
+                continue
+            xseq = blk(xseq, valid_len=valid_len,
+                       cls_query=self.cls_only_readout and i == depth - 1)
         # LayerNorm is per token: norm only the CLS row that is read
         cls_out = F.layer_norm(xseq[:, :1].float(), (dim,), self.norm.weight, self.norm.bias,
                                self.norm.eps)

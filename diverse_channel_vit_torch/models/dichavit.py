@@ -27,14 +27,6 @@ def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.d
         if float(cfg_model.get(key, 0.0) or 0.0) > 0.0:
             raise NotImplementedError(
                 f"{key} > 0: dropout and DropPath are not ported (ROADMAP A4)")
-    keep_rate = cfg_model.get("keep_rate")
-    if keep_rate is not None and float(keep_rate) < 1.0:
-        raise NotImplementedError("EViT token pruning (keep_rate < 1, ROADMAP A8)")
-    if cfg_model.get("gelu_exact", False):
-        raise NotImplementedError(
-            "gelu_exact needs the unfused block route, which is not ported yet "
-            "(ROADMAP B5); the fused route computes tanh-GELU"
-        )
     preset = apply_preset_overrides(
         SIZE_PRESETS[cfg_model.get("pretrained_model_name", "small")], cfg_model
     )
@@ -54,6 +46,8 @@ def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.d
         use_square=cfg_model.get("use_square", False),
         temperature=cfg_model.get("temperature", 0.11111),
         cls_only_readout=bool(cfg_model.get("cls_only_readout", True)),
+        keep_rate=cfg_model.get("keep_rate"),
+        gelu_exact=bool(cfg_model.get("gelu_exact", False)),
         dtype=dtype,
         generator=generator,
         **preset,

@@ -8,28 +8,38 @@ optimizer updates) and is cast to the compute dtype at each use, as the JAX
 package casts its f32 parameters; without autograd the blocks' casts are
 made once and reused until the parameter changes (:func:`_wb`).
 
-A :class:`Block` runs one of two routes, the same in training and inference
-(the JAX package's ``Block.__call__`` routing with dropout, attention dropout
-and DropPath all 0, which is all the port takes):
+A :class:`Block` runs one of three routes, the same in training and
+inference (the JAX package's ``Block.__call__`` routing with dropout,
+attention dropout and DropPath all 0, which is all the port takes):
 
-- the fused route: LN1 in f32 -> the wide qkv GEMM -> ``attend_project``
-  with the residual fused -> ``ln_mlp`` with the residual fused (each an
-  autograd Function over its forward and backward kernels when a gradient
-  is wanted);
+- the fused route, where :func:`fused_route_ok` allows it (bf16, a width
+  that is a multiple of 128, head width a multiple of 64, tanh-GELU): LN1 in
+  f32 -> the wide qkv GEMM -> ``attend_project`` with the residual fused ->
+  ``ln_mlp`` with the residual fused (each an autograd Function over its
+  forward and backward kernels when a gradient is wanted);
+- the unfused route otherwise (f32, ``gelu_exact``, a width such as the
+  ``tiny`` preset's D = 192): LN1 in f32 -> :class:`Attention` (the qkv GEMM,
+  ``flash_attention_packed`` on the q/k/v views, the proj GEMM) -> residual
+  -> LN2 in f32 -> :class:`Mlp` (fc1, GELU, fc2) -> residual;
 - the CLS-only readout of the last block (``cls_query``): only the CLS row's
   query, attention row and MLP are computed, as dense ops.
+
+:meth:`Block.evit` is the JAX package's ``BlockEViT`` on the same parameters:
+the unfused attention, then the top ``int(keep_rate * (n_valid - 1))``
+tokens by head-mean CLS attention, then the dense MLP.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import activations, fused_block
-from ..ops.attention import plain_attention
+from ..ops.attention import MASK_VALUE, flash_attention_packed, plain_attention
+from ..ops.token_pruning import select_tokens, topk_token_select
 
 
 def _layer_norm_f32(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -52,7 +62,23 @@ def _wb(layer: nn.Linear, dtype: torch.dtype):
     return cached[1]
 
 
+def fused_route_ok(x: torch.Tensor, dtype: torch.dtype, num_heads: int,
+                   gelu_exact: bool) -> bool:
+    """The JAX package's ``Block._fused_ok`` without its TPU-only terms: the
+    fused kernels take bf16, a token count that is a multiple of 8, a width
+    that is a multiple of 128 with head width a multiple of 64, and tanh-GELU.
+    The gate is the same on the CPU and the card, so the port routes (and so
+    rounds) as the JAX package does."""
+    n, d = x.shape[1], x.shape[-1]
+    return (dtype == torch.bfloat16 and n % 8 == 0 and d % 128 == 0
+            and (d // num_heads) % 64 == 0 and not gelu_exact)
+
+
 class Attention(nn.Module):
+    """The unfused attention: the qkv GEMM, ``flash_attention_packed`` on the
+    q/k/v thirds of its output (strided views, no copy), the proj GEMM. The
+    weights are cast to the input's dtype."""
+
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None):
         super().__init__()
@@ -61,46 +87,64 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
+    def project_qkv(self, y: torch.Tensor):
+        """``(q, k, v)``, each (B, N, D), views of one (B, N, 3D) GEMM output."""
+        return F.linear(y, *_wb(self.qkv, y.dtype)).split(y.shape[-1], dim=-1)
+
+    def attend(self, q, k, v, valid_len: Optional[int] = None) -> torch.Tensor:
+        o = flash_attention_packed(q, k, v, self.num_heads, self.scale, valid_len)
+        return F.linear(o, *_wb(self.proj, q.dtype))
+
+    def forward(self, y: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+        return self.attend(*self.project_qkv(y), valid_len)
+
 
 class Mlp(nn.Module):
+    """The dense MLP of the unfused route: fc1, GELU (tanh, or erf when
+    ``exact``), fc2, the weights cast to the input's dtype."""
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def forward(self, y: torch.Tensor, exact: bool = False) -> torch.Tensor:
+        h = activations.gelu(F.linear(y, *_wb(self.fc1, y.dtype)), exact)
+        return F.linear(h, *_wb(self.fc2, y.dtype))
+
 
 class Block(nn.Module):
-    """Pre-norm transformer block; ``dtype`` is the compute dtype."""
+    """Pre-norm transformer block; ``dtype`` is the compute dtype and
+    ``gelu_exact`` picks the erf GELU (which only the unfused route and the
+    readout compute).
+
+    ``evit_kept`` and ``evit_forced`` are a seam for comparing two routes of
+    one model: :meth:`evit` leaves the indices of the tokens it chose in
+    ``evit_kept`` ((B, keep) int64, or None when it kept every token) and,
+    when ``evit_forced`` holds indices, keeps those instead."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32):
+                 qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32,
+                 gelu_exact: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.gelu_exact = gelu_exact
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
-
-    def _check_fused_route(self, x: torch.Tensor) -> None:
-        if x.is_cuda:
-            d = x.shape[-1]
-            if self.dtype != torch.bfloat16:
-                raise NotImplementedError(
-                    f"{self.dtype} on CUDA needs the unfused block route (ROADMAP B5); "
-                    "the kernels take bf16"
-                )
-            if d % 128 or (d // self.attn.num_heads) % 64:
-                raise NotImplementedError(
-                    f"D={d} with {self.attn.num_heads} heads needs the unfused block route "
-                    "(flash_attention_packed, ROADMAP B5)"
-                )
+        self.evit_kept: Optional[torch.Tensor] = None
+        self.evit_forced: Optional[torch.Tensor] = None
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
                 cls_query: bool = False) -> torch.Tensor:
         if cls_query:
             return self._cls_readout(x, valid_len)
-        self._check_fused_route(x)
         dt = self.dtype
+        if not fused_route_ok(x, dt, self.attn.num_heads, self.gelu_exact):
+            y = _layer_norm_f32(x, self.norm1).to(dt)
+            x = x + self.attn(y, valid_len)
+            return x + self.mlp(_layer_norm_f32(x, self.norm2).to(dt), self.gelu_exact)
         x = x.to(dt)
         y = _layer_norm_f32(x, self.norm1).to(dt)
         x = fused_block.attend_project(
@@ -111,6 +155,46 @@ class Block(nn.Module):
             x, self.norm2.weight, self.norm2.bias, *_wb(self.mlp.fc1, dt),
             *_wb(self.mlp.fc2, dt), residual=True,
         )
+
+    def evit(self, x: torch.Tensor, keep_rate: float,
+             valid_len: Optional[int] = None) -> Tuple[torch.Tensor, Optional[int]]:
+        """EViT block (the JAX package's ``BlockEViT``): attention and its
+        residual, then, when ``keep = int(keep_rate * (n_valid - 1))`` is below
+        ``n_valid - 1``, the CLS row and the top ``keep`` other tokens by
+        head-mean CLS attention in descending order; then LN2, the dense MLP
+        and its residual. Returns ``(x, valid_len)``: after a prune the grid
+        is fully valid (``None``) and the caller pads it again."""
+        dt = self.dtype
+        n = x.shape[1]
+        n_valid = n if valid_len is None else int(valid_len)
+        y = _layer_norm_f32(x, self.norm1).to(dt)
+        q, k, v = self.attn.project_qkv(y)
+        x = x + self.attn.attend(q, k, v, valid_len)
+        keep = int(keep_rate * (n_valid - 1))
+        self.evit_kept = None
+        if keep_rate < 1.0 and keep < n_valid - 1:
+            kept, self.evit_kept = topk_token_select(x, self._cls_scores(q, k, n_valid), keep)
+            x = kept if self.evit_forced is None else select_tokens(x, self.evit_forced)
+            valid_len = None
+        return x + self.mlp(_layer_norm_f32(x, self.norm2).to(dt), self.gelu_exact), valid_len
+
+    @torch.no_grad()
+    def _cls_scores(self, q: torch.Tensor, k: torch.Tensor, n_valid: int) -> torch.Tensor:
+        """Head-mean CLS attention over the non-CLS tokens, (B, N - 1) f32:
+        the CLS row of softmax(q k^T * scale) recomputed at O(N * dh) from q's
+        CLS row (keys at or past ``n_valid`` masked), padded tokens pinned to
+        -1 so that top-k never takes them. Only its order is used."""
+        b, n, d = k.shape
+        h = self.attn.num_heads
+        logits = torch.einsum("bhd,bnhd->bhn", q[:, 0].float().reshape(b, h, d // h),
+                              k.float().reshape(b, n, h, d // h)) * self.attn.scale
+        if n_valid < n:
+            pad = torch.arange(n, device=k.device) >= n_valid
+            logits = logits.masked_fill(pad, MASK_VALUE)
+        scores = torch.softmax(logits, dim=-1)[:, :, 1:].mean(dim=1)
+        if n_valid < n:
+            scores = scores.masked_fill(pad[1:], -1.0)
+        return scores
 
     def _cls_readout(self, x: torch.Tensor, valid_len: Optional[int]) -> torch.Tensor:
         """Last-block CLS readout: the queries and the MLP run on the CLS row
@@ -129,6 +213,4 @@ class Block(nn.Module):
         a = F.linear(o.transpose(1, 2).reshape(b, 1, d), *_wb(self.attn.proj, dt))
         xc = x[:, :1] + a
         y2 = _layer_norm_f32(xc, self.norm2).to(dt)
-        z = F.linear(activations.gelu(F.linear(y2, *_wb(self.mlp.fc1, dt))),
-                     *_wb(self.mlp.fc2, dt))
-        return xc + z
+        return xc + self.mlp(y2, self.gelu_exact)

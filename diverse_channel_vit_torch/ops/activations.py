@@ -2,8 +2,10 @@
 
 GELU defaults to the tanh approximation, as in the JAX package; the exact
 erf form (torch ``nn.GELU()``, the reference's choice) sits behind
-``exact``. The port's only block route, the fused one, computes tanh-GELU,
-so ``build_model`` refuses a config with ``gelu_exact`` set.
+``exact``. Where the JAX package reads a process-wide flag
+(``set_gelu_exact``), the port's blocks take ``gelu_exact`` from the model
+config; the fused block route computes tanh-GELU only, so a model with
+``gelu_exact`` set runs the unfused route (``models/vit.py``).
 """
 
 from __future__ import annotations

@@ -29,72 +29,31 @@ the port's modules hold; the JAX functions take the transpose.
 
 from __future__ import annotations
 
-import contextlib
-import threading
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import kernels
-from .attention import MASK_VALUE, PAD_MULTIPLE
+from .attention import PAD_MULTIPLE, attention_bwd_heads, flash_packed_fwd_plain
+# the launch counts and the route switch are shared with ops/attention.py;
+# re-exported here, where the model's callers and tests import them from
+from .dispatch import (  # noqa: F401
+    LAUNCHES,
+    _check,
+    _check_launch,
+    _launches_kernel,
+    _route,
+    _wants_grad,
+    current_route_plain,
+    plain_versions,
+    reset_launches,
+)
 
 _EPS = 1e-6
 # tanh-GELU constants (torch approximate="tanh")
 _C0 = 0.7978845608028654  # sqrt(2/pi)
 _C1 = 0.044715
-
-# launches of each kernel since the last reset_launches(); a wrapper counts
-# where it launches its kernel and nowhere else (a backward counts one per
-# call, however many CUDA launches it takes)
-LAUNCHES = {"attend_project_fwd": 0, "ln_mlp_fwd": 0, "attend_project_bwd": 0, "ln_mlp_bwd": 0}
-
-_ROUTE = threading.local()  # .plain: CUDA tensors take the plain versions
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-@contextlib.contextmanager
-def _route(plain: bool):
-    prev = getattr(_ROUTE, "plain", False)
-    _ROUTE.plain = plain
-    try:
-        yield
-    finally:
-        _ROUTE.plain = prev
-
-
-def plain_versions():
-    """Run CUDA tensors through the plain versions inside this block, in the
-    calling thread only (a comparison aid; the model's paths never enter it).
-    A backward takes the route its forward took, though autograd runs it on
-    a thread of its own."""
-    return _route(True)
-
-
-def _launches_kernel(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
-    return not getattr(_ROUTE, "plain", False)
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device: torch.device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want a contiguous {dtype} tensor of shape {tuple(shape)} on {device}, "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
-        )
-
-
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
 
 
 def _wgrad_splits(rows: int, m1: int, m2: int, device: torch.device) -> int:
@@ -137,10 +96,6 @@ def _ln_bwd_f32(dy, xhat, rstd, scale):
     return rstd * (dxhat - h1 - xhat * h2)
 
 
-def _wants_grad(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
-
-
 def project(y: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     """The wide qkv GEMM ``y @ [Wq|Wk|Wv]^T + b``: a plain matrix product
     outside any kernel (the JAX package leaves it to XLA). The GEMM accumulates
@@ -155,37 +110,20 @@ def project(y: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torc
 
 def attend_project_fwd_plain(qkv, x_res, wp, bp, num_heads: int, sm_scale: float,
                              n_valid: int, need_o: bool = False):
-    """Plain version of :func:`attend_project_fwd`: per head,
-    softmax(q k^T * scale, keys >= n_valid masked) v in f32 with P rounded to
-    qkv's dtype before the product, (P v) / l rounded; then
+    """Plain version of :func:`attend_project_fwd`: the attention of
+    :func:`~.attention.flash_packed_fwd_plain` on the thirds of qkv (P
+    rounded to qkv's dtype before the product, (P v) / l rounded); then
     o Wp^T + bp (+ x_res) in f32, rounded once. With ``need_o`` also o and
     the per-head log-sum-exp of the scaled, masked scores, (B, H, N) f32."""
-    b, n, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // num_heads
-    dt, f32 = qkv.dtype, torch.float32
-    masked = torch.arange(n, device=qkv.device) >= n_valid
-    outs, lses = [], []
-    for h in range(num_heads):
-        q, k, v = (qkv[..., j * d + h * dh: j * d + (h + 1) * dh].to(f32) for j in range(3))
-        s = torch.matmul(q, k.transpose(1, 2))
-        if sm_scale != 1.0:
-            s = s * sm_scale
-        if n_valid < n:
-            s = s.masked_fill(masked, MASK_VALUE)
-        m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp(s - m)
-        l = p.sum(dim=-1, keepdim=True)
-        o = torch.matmul(p.to(dt).to(f32), v)
-        outs.append((o / l).to(dt))
-        lses.append((m + torch.log(l))[..., 0])
-    o = torch.cat(outs, dim=-1)
-    xo = torch.matmul(o.to(f32), wp.to(f32).t()) + bp.to(f32)
+    d = qkv.shape[-1] // 3
+    o, lse = flash_packed_fwd_plain(*qkv.split(d, dim=-1), num_heads, sm_scale, n_valid,
+                                    need_lse=need_o)
+    xo = torch.matmul(o.float(), wp.float().t()) + bp.float()
     if x_res is not None:
-        xo = xo + x_res.to(f32)
+        xo = xo + x_res.float()
     if not need_o:
-        return None, None, xo.to(dt)
-    return o, torch.stack(lses, dim=1), xo.to(dt)
+        return None, None, xo.to(qkv.dtype)
+    return o, lse, xo.to(qkv.dtype)
 
 
 def _attend_project_check(qkv, wp, num_heads, n_valid, name):
@@ -245,42 +183,28 @@ def attend_project_bwd_plain(qkv, o, lse, wp, dxo, num_heads: int, sm_scale: flo
                              n_valid: int):
     """Plain version of :func:`attend_project_bwd`, the arithmetic of the TPU
     kernel ``_ap_bwd_kernel`` plus the per-batch sums of ``_ap_bwd_impl``:
-    do = dxo Wp rounded to qkv's dtype; per head P = exp(s * scale - lse)
-    (masked keys 0), di = rowsum(o_h do_h), dS = P (do_h v_h^T - di) * scale;
-    P and dS rounded before their products; every accumulator f32. Returns
-    ``(dqkv, dwp, dbp, db_qkv)``: dqkv (B, N, 3D) packed [dq | dk | dv] in
-    qkv's dtype, dwp (D_out, D), dbp (D_out,) and db_qkv (3D,) in f32 (the q
-    bias sums the rounded dq, the k and v biases the f32 dk and dv, as the
-    TPU kernel does)."""
-    b, n, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // num_heads
+    do = dxo Wp rounded to qkv's dtype; then per head the attention backward
+    of :func:`~.attention.attention_bwd_heads` (P = exp(s * scale - lse),
+    masked keys 0; P and dS rounded before their products; every accumulator
+    f32). Returns ``(dqkv, dwp, dbp, db_qkv)``: dqkv (B, N, 3D) packed
+    [dq | dk | dv] in qkv's dtype, dwp (D_out, D), dbp (D_out,) and db_qkv
+    (3D,) in f32 (the q bias sums the rounded dq, the k and v biases the f32
+    dk and dv, as the TPU kernel does)."""
+    d = qkv.shape[-1] // 3
     dt, f32 = qkv.dtype, torch.float32
-    dxf = dxo.to(f32)
+    dxf = dxo.float()
     rows = dxf.reshape(-1, dxf.shape[-1])
-    dwp = torch.matmul(rows.t(), o.reshape(-1, d).to(f32))
+    dwp = torch.matmul(rows.t(), o.reshape(-1, d).float())
     dbp = rows.sum(dim=0)
-    do = torch.matmul(dxf, wp.to(f32)).to(dt)
-    masked = torch.arange(n, device=qkv.device) >= n_valid
+    do = torch.matmul(dxf, wp.float()).to(dt)
     dqkv = torch.empty_like(qkv)
     db = torch.empty(3 * d, dtype=f32, device=qkv.device)
-    for h in range(num_heads):
-        sl = slice(h * dh, (h + 1) * dh)
-        q, k, v = (qkv[..., j * d + h * dh: j * d + (h + 1) * dh].to(f32) for j in range(3))
-        s = torch.matmul(q, k.transpose(1, 2))
-        if sm_scale != 1.0:
-            s = s * sm_scale
-        p = torch.exp(s - lse[:, h, :, None]).masked_fill(masked, 0.0)
-        doh = do[..., sl].to(f32)
-        di = (o[..., sl].to(f32) * doh).sum(dim=-1, keepdim=True)
-        ds = p * (torch.matmul(doh, v.transpose(1, 2)) - di) * sm_scale
-        dsb, pb = ds.to(dt).to(f32), p.to(dt).to(f32)
-        dq = torch.matmul(dsb, k).to(dt)
-        dk = torch.matmul(dsb.transpose(1, 2), q)
-        dv = torch.matmul(pb.transpose(1, 2), doh)
-        for j, g in enumerate((dq, dk, dv)):
-            dqkv[..., j * d + h * dh: j * d + (h + 1) * dh] = g.to(dt)
-            db[j * d + h * dh: j * d + (h + 1) * dh] = g.to(f32).sum(dim=(0, 1))
+    for sl, *gs in attention_bwd_heads(*qkv.split(d, dim=-1), o, do, lse, num_heads, sm_scale,
+                                       n_valid):
+        for j, g in enumerate(gs):
+            cols = slice(j * d + sl.start, j * d + sl.stop)
+            dqkv[..., cols] = g.to(dt)
+            db[cols] = g.float().sum(dim=(0, 1))
     return dqkv, dwp, dbp, db
 
 
@@ -336,7 +260,7 @@ class AttendProjectFn(torch.autograd.Function):
         o, lse, xo = attend_project_fwd(qkv, x_res, wp, bp, num_heads, sm_scale, n_valid,
                                         need_o=True)
         ctx.save_for_backward(y, w_qkv, wp, qkv, o, lse)
-        ctx.plain = getattr(_ROUTE, "plain", False)
+        ctx.plain = current_route_plain()
         ctx.cfg = (num_heads, sm_scale, n_valid)
         ctx.b_dtype = None if b_qkv is None else b_qkv.dtype
         ctx.bp_dtype = bp.dtype
@@ -518,7 +442,7 @@ class LnMlpFn(torch.autograd.Function):
     def forward(ctx, x, scale, bias, w1, b1, w2, b2, residual):
         out = ln_mlp_fwd(x, scale, bias, w1, b1, w2, b2, residual)
         ctx.save_for_backward(x, scale, bias, w1, b1, w2)
-        ctx.plain = getattr(_ROUTE, "plain", False)
+        ctx.plain = current_route_plain()
         ctx.residual = residual
         ctx.b2_dtype = b2.dtype
         return out

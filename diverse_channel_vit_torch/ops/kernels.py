@@ -43,6 +43,10 @@ KERNELS = {
                            [_P] * 12 + [_I] * 6 + [_F, _I, _P]),
     "ln_mlp_bwd": ("ln_mlp_bwd.cu", "dcvit_ln_mlp_bwd",
                    [_P] * 16 + [_LL, _I, _I, _I, _I, _P]),
+    "flash_packed": ("flash_packed.cu", "dcvit_flash_packed_fwd",
+                     [_P] * 5 + [_I] * 4 + [_LL] * 3 + [_I, _F, _P]),
+    "flash_packed_bwd": ("flash_packed_bwd.cu", "dcvit_flash_packed_bwd",
+                         [_P] * 8 + [_I] * 4 + [_LL] * 3 + [_I, _F, _P]),
 }
 
 # ptxas register / shared-memory / spill report of each build, by kernel

@@ -15,7 +15,9 @@ far past that; the cases with no residual and zero output bias let the
 kernel's products alone set max|plain|. The backward kernels B2 and B4 are
 held the same way, every output, and B2's padded key rows must come out with
 dk = dv = 0 exactly; the autograd Functions' gradients through the kernels
-are held against the same Functions under ``plain_versions()``.
+are held against the same Functions under ``plain_versions()``. B5 and B6
+(``flash_attention_packed``) are held the same way, on q, k and v given as
+the strided thirds of one packed qkv tensor, as the model passes them.
 """
 
 import contextlib
@@ -23,6 +25,7 @@ import contextlib
 import pytest
 import torch
 
+from diverse_channel_vit_torch.ops import attention as at
 from diverse_channel_vit_torch.ops import fused_block as fb
 
 pytestmark = pytest.mark.gpu
@@ -52,6 +55,7 @@ def _rel(a, b):
     (1, 192, 2, 129, True, 128, 1.0),    # two heads, D = 128
     (2, 128, 4, 1, True, 256, 1.0),      # only the CLS key is valid
     (2, 1600, 6, 1569, False, 384, 0.0),  # the flagship grid, products alone
+    (2, 768, 6, 768, True, 384, 1.0),    # the EViT grid after layer 6: no mask
 ])
 def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, residual, d_out,
                                              bias):
@@ -76,6 +80,7 @@ def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, resi
     ((3, 640, 384), False, 1.0),
     ((1, 100, 384), True, 1.0),   # a ragged last row tile
     ((2, 640, 384), False, 0.0),  # the MLP's products alone
+    ((4, 768, 384), True, 1.0),   # the EViT grid after layer 6
 ])
 def test_ln_mlp_kernel_matches_plain(gen, shape, residual, bias):
     d, hid = 384, 1536
@@ -112,6 +117,7 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(gen):
     (3, 640, 6, 589),    # B = 3, the k = 3 channel-subset grid
     (1, 192, 2, 129),    # two heads, D = 128
     (2, 1600, 6, 1569),  # the flagship grid
+    (2, 768, 6, 768),    # the EViT grid after layer 6: no mask
 ])
 def test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid):
     d = heads * 64
@@ -137,6 +143,7 @@ def test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid):
     ((3, 640, 384), False),
     ((1, 100, 384), True),   # a ragged last row tile
     ((2, 1600, 384), False),
+    ((4, 768, 384), True),   # the EViT grid after layer 6
 ])
 def test_ln_mlp_bwd_kernel_matches_plain(gen, shape, residual):
     d, hid = 384, 1536
@@ -228,3 +235,71 @@ def test_backward_wrappers_raise_on_what_they_do_not_take(gen):
     with pytest.raises(NotImplementedError):  # D = 256
         fb.ln_mlp_bwd(x, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
                       _rnd(gen, 1024, 256), _rnd(gen, 1024), _rnd(gen, 256, 1024), x)
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", [
+    (1, 64, 6, 64),      # one tile, nothing masked
+    (2, 640, 6, 70),     # n_valid far below N: 8 of 10 key tiles wholly padded
+    (2, 128, 2, 100),    # two heads, a ragged last key tile
+    (3, 576, 6, 537),    # the EViT grid after layer 9
+    (2, 1152, 6, 1098),  # the EViT grid after layer 3
+    (2, 1600, 6, 1569),  # the flagship grid
+])
+def test_flash_packed_kernels_match_plain(gen, batch, n, heads, n_valid):
+    d = heads * 64
+    q, k, v = _rnd(gen, batch, n, 3 * d).split(d, dim=-1)
+    before = dict(fb.LAUNCHES)
+    o, lse = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)
+    assert fb.LAUNCHES["flash_packed_fwd"] == before["flash_packed_fwd"] + 1
+    o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, 0.125, n_valid, need_lse=True)
+    assert _rel(o, o_p) <= TOL
+    assert _rel(lse, lse_p) <= 1e-5  # f32 statistics of the same scores
+    assert at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid)[1] is None
+    do = _rnd(gen, batch, n, d)
+    got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, 0.125, n_valid)
+    assert fb.LAUNCHES["flash_packed_bwd"] == before["flash_packed_bwd"] + 1
+    for name, g, w in zip("qkv", got, at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads,
+                                                                 0.125, n_valid)):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel(g, w) <= TOL, name
+    assert torch.count_nonzero(got[1][:, n_valid:]) == 0
+    assert torch.count_nonzero(got[2][:, n_valid:]) == 0
+
+
+@pytest.mark.parametrize("n_valid", [589, 640])
+def test_flash_packed_function_grads_match_plain_route(gen, n_valid):
+    """Gradients of the packed qkv through FlashPackedFn (B5 forward, B6
+    backward): the kernel route against the plain route, on the card."""
+    b, n, d, heads = 2, 640, 384, 6
+
+    def fn(qkv):
+        return at.flash_attention_packed(*qkv.split(d, dim=-1), heads, valid_len=n_valid)
+
+    qkv, cot = _rnd(gen, b, n, 3 * d), _rnd(gen, b, n, d)
+    before = dict(fb.LAUNCHES)
+    (got,) = _grads(fn, [qkv], cot, plain=False)
+    assert fb.LAUNCHES["flash_packed_fwd"] == before["flash_packed_fwd"] + 1
+    assert fb.LAUNCHES["flash_packed_bwd"] == before["flash_packed_bwd"] + 1
+    (want,) = _grads(fn, [qkv], cot, plain=True)
+    assert fb.LAUNCHES["flash_packed_bwd"] == before["flash_packed_bwd"] + 1
+    for j, name in enumerate("qkv"):
+        assert _rel(got[..., j * d:(j + 1) * d], want[..., j * d:(j + 1) * d]) <= TOL, name
+
+
+def test_flash_packed_wrappers_raise_on_what_they_do_not_take(gen):
+    q, k, v = _rnd(gen, 1, 64, 3 * 384).split(384, dim=-1)
+    with pytest.raises(NotImplementedError, match="B5"):  # f32
+        at.flash_packed_fwd(q.float(), k.float(), v.float(), 6, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="B5"):  # head width 128
+        at.flash_packed_fwd(q, k, v, 3, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="B5"):  # N not a multiple of 64
+        at.flash_packed_fwd(q[:, :60], k[:, :60], v[:, :60], 6, 0.125, 60)
+    qt = _rnd(gen, 1, 384, 64).transpose(1, 2)  # columns not contiguous
+    with pytest.raises(NotImplementedError, match="B5"):
+        at.flash_packed_fwd(qt, k, v, 6, 0.125, 64)
+    o, lse = at.flash_packed_fwd(q, k, v, 6, 0.125, 64, need_lse=True)
+    with pytest.raises(NotImplementedError, match="B5"):  # f32 backward
+        at.flash_packed_bwd(q.float(), k.float(), v.float(), o.float(), o.float(), lse, 6,
+                            0.125, 64)
+    with pytest.raises(NotImplementedError, match="B5"):
+        at.flash_packed_bwd(qt, k, v, o, o, lse, 6, 0.125, 64)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from diverse_channel_vit_tpu.models import channel_vit as jcv
 from diverse_channel_vit_tpu.models.wrappers import ChannelAdaptiveClassifier as JClassifier
+from diverse_channel_vit_tpu.ops import activations as jact
 from diverse_channel_vit_tpu.ops import fused_block as jfb
 from diverse_channel_vit_tpu.ops.patch_embed import per_channel_patch_embed as j_patch_embed
 from diverse_channel_vit_torch.config import Config
@@ -36,7 +37,7 @@ from diverse_channel_vit_torch.models.channel_vit import (
 from diverse_channel_vit_torch.models.export import params_from_jax
 from diverse_channel_vit_torch.models.vit import _wb
 from diverse_channel_vit_torch.models.wrappers import ChannelAdaptiveClassifier
-from diverse_channel_vit_torch.ops import activations
+from diverse_channel_vit_torch.ops import activations, fused_block
 from diverse_channel_vit_torch.ops.patch_embed import per_channel_patch_embed
 
 C, IMG, P, D, H, DEPTH, NC = 8, 48, 16, 128, 2, 3, 5
@@ -51,8 +52,9 @@ def _jax_model(dtype):
     return JClassifier(backbone=bb, embed_dim=D, num_classes=NC, with_head=True)
 
 
-def _port_model(dtype, state_dict):
-    bb = ChannelVisionTransformer(C, IMG, P, D, DEPTH, H, proxy_loss_lambda=1e-3, dtype=dtype)
+def _port_model(dtype, state_dict, **kw):
+    bb = ChannelVisionTransformer(C, IMG, P, D, DEPTH, H, proxy_loss_lambda=1e-3, dtype=dtype,
+                                  **kw)
     model = ChannelAdaptiveClassifier(bb, D, NC, with_head=True).eval()
     model.load_state_dict(state_dict, strict=True)
     return model
@@ -82,14 +84,14 @@ def _rel(got, want):
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
 
 
-def _logits(setup, jdtype, tdtype, ids):
+def _logits(setup, jdtype, tdtype, ids, **kw):
     x, params, sd = setup
     xs = x[:, : len(ids)]
     want, _ = _jax_model(jdtype).apply(
         {"params": params}, jnp.asarray(xs), jnp.asarray(ids), train=False
     )
     with torch.no_grad():
-        got, extra = _port_model(tdtype, sd)(torch.from_numpy(xs), torch.tensor(ids))
+        got, extra = _port_model(tdtype, sd, **kw)(torch.from_numpy(xs), torch.tensor(ids))
     assert got.dtype == torch.float32 and got.shape == (2, NC) and float(extra) == 0.0
     return got.numpy(), np.asarray(want)
 
@@ -175,8 +177,83 @@ def test_weight_casts_are_reused_until_a_parameter_changes():
     assert torch.equal(changed, model(x, ids)[0].detach())
 
 
-def test_gelu_exact_refuses_the_fused_route():
+def _count_fused_calls(monkeypatch):
+    """Count the blocks that take the fused route, in both packages."""
+    calls = {"jax": 0, "port": 0}
+    real_j, real_p = jfb.ln_mlp_sharded, fused_block.ln_mlp
+
+    def j_spy(*a):
+        calls["jax"] += 1
+        return real_j(*a)
+
+    def p_spy(*a, **kw):
+        calls["port"] += 1
+        return real_p(*a, **kw)
+
+    monkeypatch.setattr(jfb, "ln_mlp_sharded", j_spy)
+    monkeypatch.setattr(fused_block, "ln_mlp", p_spy)
+    return calls
+
+
+def test_gelu_exact_refuses_the_fused_route(setup, monkeypatch):
+    """``gelu_exact`` (the reference's erf GELU) takes the unfused route in
+    both packages, even in bf16 with the fused kernels allowed
+    (``FORCE_ON_CPU``), and the bf16 logits match the JAX ones (rel 3e-2, as
+    test_logits_bf16_match_jax). The JAX flag is process-wide, so it is set
+    for the call and restored after."""
+    calls = _count_fused_calls(monkeypatch)
+    monkeypatch.setattr(jfb, "FORCE_ON_CPU", True)
+    jact.set_gelu_exact(True)
+    try:
+        got, want = _logits(setup, jnp.bfloat16, torch.bfloat16, SUBSETS["k7"], gelu_exact=True)
+    finally:
+        jact.set_gelu_exact(False)
+    assert calls == {"jax": 0, "port": 0}
+    assert _rel(got, want) <= 3e-2
     cfg = Config({"in_channel_names": [f"c{i}" for i in range(C)], "img_size": [IMG],
                   "patch_size": P, "pretrained_model_name": "test", "gelu_exact": True})
-    with pytest.raises(NotImplementedError, match="B5"):
-        build_model("dichavit", cfg, {"JUMP-CP": list(range(C))}, NC, device="cpu")
+    model = build_model("dichavit", cfg, {"JUMP-CP": list(range(C))}, NC, device="cpu")
+    assert all(blk.gelu_exact for blk in model.feature_extractor.blocks)
+
+
+@pytest.mark.parametrize("subset", sorted(SUBSETS))
+def test_gelu_exact_logits_f32_match_jax(setup, subset):
+    """f32, erf GELU: rel 1e-4, as test_logits_f32_match_unfused_jax (the
+    erf and tanh forms differ by up to 3e-4 absolute, so the tanh model
+    would miss)."""
+    jact.set_gelu_exact(True)
+    try:
+        got, want = _logits(setup, jnp.float32, torch.float32, SUBSETS[subset], gelu_exact=True)
+    finally:
+        jact.set_gelu_exact(False)
+    assert _rel(got, want) <= 1e-4
+
+
+def test_width_192_takes_the_unfused_route(monkeypatch):
+    """The ``tiny`` preset's width, D = 192 with 3 heads of 64, is not a
+    multiple of 128: both packages run it unfused (the port's attention
+    through ``flash_attention_packed``), in bf16 with the fused kernels
+    allowed. Logits rel 3e-2 in bf16 (as test_logits_bf16_match_jax)."""
+    d, h = 192, 3
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 7, IMG, IMG)).astype(np.float32)
+    ids = SUBSETS["k7"]
+    bb = jcv.ChannelVisionTransformer(num_total_channels=C, img_size=IMG, patch_size=P,
+                                      embed_dim=d, depth=DEPTH, num_heads=h,
+                                      proxy_loss_lambda=1e-3, dtype=jnp.bfloat16)
+    jmodel = JClassifier(backbone=bb, embed_dim=d, num_classes=NC, with_head=True)
+    params = jax.jit(lambda xx: jmodel.init({"params": jax.random.key(1)}, xx,
+                                            jnp.asarray(ids), train=False))(jnp.asarray(x))
+    params = params["params"]
+    calls = _count_fused_calls(monkeypatch)
+    monkeypatch.setattr(jfb, "FORCE_ON_CPU", True)
+    want, _ = jax.jit(lambda p, xx: jmodel.apply({"params": p}, xx, jnp.asarray(ids),
+                                                 train=False))(params, jnp.asarray(x))
+    model = ChannelAdaptiveClassifier(
+        ChannelVisionTransformer(C, IMG, P, d, DEPTH, h, proxy_loss_lambda=1e-3,
+                                 dtype=torch.bfloat16), d, NC, with_head=True).eval()
+    model.load_state_dict(params_from_jax(params), strict=True)
+    with torch.no_grad():
+        got, _ = model(torch.from_numpy(x), torch.tensor(ids))
+    assert calls == {"jax": 0, "port": 0}
+    assert _rel(got.numpy(), want) <= 3e-2

@@ -41,6 +41,7 @@ import torch
 from diverse_channel_vit_tpu.models import channel_vit as jcv
 from diverse_channel_vit_tpu.models.wrappers import ChannelAdaptiveClassifier as JClassifier
 from diverse_channel_vit_tpu.ops import fused_block as jfb
+from diverse_channel_vit_tpu.ops import token_pruning as jtp
 from diverse_channel_vit_tpu.training import create_train_state
 from diverse_channel_vit_tpu.training import make_optimizer as j_make_optimizer
 from diverse_channel_vit_tpu.training import schedules as jsched
@@ -162,15 +163,15 @@ LR_PARAMS = dict(t_initial=4, lr_min=1e-6, warmup_t=0)
 LR = 1e-3
 
 
-def _jax_model(dtype):
+def _jax_model(dtype, **kw):
     bb = jcv.ChannelVisionTransformer(num_total_channels=C, img_size=IMG, patch_size=P,
                                       embed_dim=D, depth=DEPTH, num_heads=H, dtype=dtype,
-                                      **LOSS_KW)
+                                      **LOSS_KW, **kw)
     return JClassifier(backbone=bb, embed_dim=D, num_classes=NC, with_head=True)
 
 
-def _port_model(dtype, state_dict):
-    bb = ChannelVisionTransformer(C, IMG, P, D, DEPTH, H, dtype=dtype, **LOSS_KW)
+def _port_model(dtype, state_dict, **kw):
+    bb = ChannelVisionTransformer(C, IMG, P, D, DEPTH, H, dtype=dtype, **LOSS_KW, **kw)
     model = ChannelAdaptiveClassifier(bb, D, NC, with_head=True)
     model.load_state_dict(state_dict, strict=True)
     return model
@@ -204,15 +205,39 @@ def _port_lr():
     return make_lr_schedule("cosine", LR, dict(LR_PARAMS), num_epochs=4, steps_per_epoch=1)
 
 
-def test_three_train_steps_f32_match_jax(start):
+def test_three_train_steps_f32_match_jax(start, monkeypatch):
+    _three_steps_f32(start, None, monkeypatch)
+
+
+def test_three_evit_train_steps_f32_match_jax(start, monkeypatch):
+    """keep_rate 0.7: at depth 3 every block is an EViT block (layers 0, 1
+    and 2 keep 1 + 44, 1 + 30 and 1 + 21 of the 64 tokens), with the
+    attention's backward in ``flash_packed_bwd``; both packages must keep
+    the same tokens at every step (the JAX side's choice read by wrapping its
+    ``topk_token_select``; with these seeds the f32 boundary gaps exceed the
+    rounding noise) before the losses and parameters are compared, to the
+    bounds of the dense case."""
+    _three_steps_f32(start, 0.7, monkeypatch)
+
+
+def _three_steps_f32(start, keep_rate, monkeypatch):
     xs, ys, params = start
-    jmodel = _jax_model(jnp.float32)
+    jax_kept = []
+    real = jtp.topk_token_select
+
+    def spy(x, scores, keep):
+        jax.debug.callback(lambda i: jax_kept.append(np.asarray(i)),
+                           jax.lax.top_k(scores, keep)[1])
+        return real(x, scores, keep)
+
+    monkeypatch.setattr(jtp, "topk_token_select", spy)
+    jmodel = _jax_model(jnp.float32, keep_rate=keep_rate)
     jtx = j_make_optimizer("adamw", dict(OPT), lr_schedule=_jax_lr(), total_steps=3)
     jstate = create_train_state(jmodel, jtx, rng=jax.random.key(1), sample_input=None,
                                 sample_channel_ids=None, params=params)
     jstep = j_make_train_step(jmodel, channel_ids=IDS, loss_type="ce", extra_loss_lambda=1.0,
                               donate=False)
-    model = _port_model(torch.float32, params_from_jax(params))
+    model = _port_model(torch.float32, params_from_jax(params), keep_rate=keep_rate)
     state = TrainState(model, make_optimizer("adamw", dict(OPT), lr_schedule=_port_lr(),
                                                     total_steps=3))
     step = make_train_step(model, channel_ids=IDS, loss_type="ce", extra_loss_lambda=1.0)
@@ -222,6 +247,12 @@ def test_three_train_steps_f32_match_jax(start):
                            jax.random.key(t))
         state, m = step(state, {"image": torch.from_numpy(xs[t]),
                                 "label": torch.from_numpy(ys[t])})
+        if keep_rate is not None:
+            jax.effects_barrier()
+            kept = [blk.evit_kept.numpy() for blk in model.feature_extractor.blocks]
+            assert [k.shape[1] for k in kept] == [44, 30, 21]
+            for mine, theirs in zip(kept, jax_kept[-3:]):
+                np.testing.assert_array_equal(mine, theirs)
         want.append([float(jm[k]) for k in ("loss", "main_loss", "extra_loss", "grad_norm")])
         got.append([float(m[k]) for k in ("loss", "main_loss", "extra_loss", "grad_norm")])
     assert float(m["extra_loss"]) > 0  # CDL and TDL are on
