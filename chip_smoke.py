@@ -14,7 +14,9 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    (attend_project) and B3 (ln_mlp), then the backwards B2 and B4, at the
    flagship shapes (B = 64 images, N = 1600 tokens padded from 1569,
    D = 384, 6 heads, hidden 1536, bf16); then B5 and B6 (flash_packed,
-   forward and backward) at the three grids the EViT path gives them;
+   forward and backward) at the three grids the EViT path gives them; then
+   B7 and B8 (the int8 ln_mlp, forward and backward) at the flagship shapes,
+   with the share of int8 codes that differ from the plain version's;
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
    ``ServingEngine`` (``predict``, ``submit``) and ``ServingHTTPServer`` on
@@ -33,7 +35,15 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    steps through the plain versions from the same weights, at depth 4. The
    same with EViT pruning (B5, B6 3 launches per step, B1-B4 8), and one
    ``gelu_exact`` step at depth 3, kernels against plain versions;
-6. print the ``kernels`` JSON line, the card line, and last the result line
+6. int8 (``quantization="int8"``): serve buckets 1-64 through an int8
+   ``ServingEngine`` and HTTP (B7 and B1 x 11 per forward, no B3) beside an
+   unquantised engine on the same model; train 12 int8 steps (B1, B2, B7,
+   B8 x 11 per step) and 3 at depth 4 against the plain route;
+7. the DCS recipe: 48 steps at B = 64 with k drawn from the JAX benchmark's
+   mixture (``lowest_cosine_prob``, temperature 1000), each k warmed once
+   first, images/s and launches per step (B1-B4 x 11); 3 steps at k = 2, 5
+   and 8 at depth 4 against the plain route, both drawing the same channels;
+8. print the ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. Without a CUDA device, or outside a checkout of
@@ -67,7 +77,14 @@ EVIT_GRIDS = ((1600, 1569), (1152, 1098), (768, 768))
 # the gelu_exact training check: blocks 0-1 unfused, block 2 the readout
 GELU_PARITY_DEPTH = 3
 # H100 SXM published dense peaks
-PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+# the DCS recipe (bench.py:85-94): lowest_cosine_prob at temperature 1000
+HCS_METHOD, HCS_TEMP = "lowest_cosine_prob", 1000.0
+# int8 codes that may differ between an int8 kernel and its plain version: a
+# value within f32 noise of a .5 tie (the LayerNorm sums in another order,
+# the plain version's tanh comes from another library build) rounds the other
+# way; a wrong scale or product would flip most codes
+MAX_CODE_FLIPS = 1e-2
 # kernel vs plain version, both bf16: they round at the same points but sum
 # in other orders and the kernel's online softmax rounds P against a running
 # max, so an output may land one or two bf16 ulps (2^-7 relative) apart
@@ -303,6 +320,141 @@ def check_bwd_kernels(fb, torch, F):
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         flops=10 * rows * D * HID,
         bytes=2 * (3 * rows * D + 2 * D * HID + HID) + 4 * (2 * D + 2 * D * HID + HID + 3 * D),
+    )
+    return results
+
+
+def _quant_rows(torch, v):
+    s = torch.clamp_min(v.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    return torch.round(v / s).to(torch.int8), s
+
+
+def _int_mm(torch, a, w):
+    """a (..., K) int8 times w (N, K) int8 in int32, by cuBLASLt
+    (``torch._int_mm``), as f32: the library yardstick of the int8 GEMMs."""
+    out = torch._int_mm(a.reshape(-1, a.shape[-1]), w.t())
+    return out.reshape(*a.shape[:-1], w.shape[0]).float()
+
+
+def int8_library_ms(name: str, fn):
+    """``fn``'s time, or None (printed as not measured) if this PyTorch build
+    refuses ``torch._int_mm`` at these shapes."""
+    try:
+        return cuda_ms(fn, 10)
+    except RuntimeError as e:
+        print(f"{name}: library yardstick not measured: torch._int_mm raised {e}")
+        return None
+
+
+def code_flips(name: str, label: str, got, want) -> float:
+    share = (got != want.reshape(got.shape)).float().mean().item()
+    print(f"{name} ({label}): int8 codes differing from the plain version's: {share:.3e} "
+          f"of {got.numel()} (at most {MAX_CODE_FLIPS})")
+    if not share <= MAX_CODE_FLIPS:
+        raise AssertionError(f"{name} ({label}): too many int8 codes differ")
+    return share
+
+
+def check_q_kernels(fb, torch, F):
+    """Phase 3, the int8 ln_mlp: B7 and B8 against their plain versions at
+    flagship shapes, each output within KERNEL_REL_TOL and the codes of the
+    last int8 product (hq for B7, dh_pre's for B8) within MAX_CODE_FLIPS.
+    B7 runs with the residual fused and output biases at the residual's
+    scale, as the main path calls it, then with no residual and zero output
+    bias; B8 with the residual fused and without. The library yardstick is
+    the same arithmetic in PyTorch ops with ``torch._int_mm`` (cuBLASLt int8)
+    for the int8 GEMMs and, in B8, bf16 ``torch.matmul`` for the weight
+    gradients."""
+    n = -(-N_VALID // 64) * 64
+    rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(3))
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = B * N_VALID
+    x, do = rnd(B, n, D), rnd(B, n, D)
+    s, bb = rnd(D, scale=0.1, dtype=f32) + 1.0, rnd(D, scale=0.1, dtype=f32)
+    w1, b1 = rnd(HID, D, scale=D ** -0.5), rnd(HID)
+    w2, b2 = rnd(D, HID, scale=HID ** -0.5), rnd(D)
+    w1q, s1c, w2q, s2c, w1r, s1r, w2r, s2r = fb.quantize_mlp_weights(w1, w2, backward=True)
+    results = {}
+
+    # --- B7 ln_mlp_q_fwd
+    fargs = (x, s, bb, w1q, s1c, b1, w2q, s2c, b2, True)
+    flips = []
+    for label, a in (("main path", fargs),
+                     ("no residual, zero bias",
+                      (x, s, bb, w1q, s1c, b1, w2q, s2c, torch.zeros_like(b2), False))):
+        out, codes = fb.ln_mlp_q_fwd(*a, with_codes=True)
+        out_p, codes_p = fb.ln_mlp_q_plain(*a, with_codes=True)
+        worst = hold("ln_mlp_q_fwd", label, (("out", out, out_p),))
+        flips.append(code_flips("ln_mlp_q_fwd", label, codes, codes_p))
+        if label == "main path":
+            err, rel = worst
+        del out, codes, out_p, codes_p
+    ms = cuda_ms(lambda: fb.ln_mlp_q_fwd(*fargs), 10)
+    plain_ms = cuda_ms(lambda: fb.ln_mlp_q_plain(*fargs), 3, warmup=1)
+
+    def library():
+        xf = x.float()
+        yq, ys = _quant_rows(torch, F.layer_norm(xf, (D,), s, bb, 1e-6))
+        h = F.gelu(_int_mm(torch, yq, w1q) * ys * s1c + b1.float(), approximate="tanh")
+        hq, hs = _quant_rows(torch, h)
+        return (_int_mm(torch, hq, w2q) * hs * s2c + b2.float() + xf).to(bf16)
+
+    library_ms = int8_library_ms("ln_mlp_q_fwd", library)
+    results["ln_mlp_q_fwd"] = dict(
+        source="diverse_channel_vit_torch/csrc/ln_mlp_q.cu",
+        replaces="diverse_channel_vit_tpu/ops/fused_block.py:474",
+        max_abs_err=err, rel_err=rel, code_flips=max(flips), ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, int8_ops=4 * rows * D * HID, flops=0,
+        bytes=2 * 2 * rows * D + 2 * D * HID + 4 * (HID + D) + 2 * (HID + D) + 4 * 2 * D,
+    )
+
+    # --- B8 ln_mlp_q_bwd
+    names = ("dx", "dw1", "db1", "dw2", "db2", "ds", "db")
+    flips = []
+    for label, residual in (("main path, residual fused", True), ("no residual", False)):
+        a = (x, s, bb, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual)
+        got = fb.ln_mlp_q_bwd(*a, with_codes=True)
+        want = fb.ln_mlp_q_bwd_plain(*a, with_codes=True)
+        worst = hold("ln_mlp_q_bwd", label, list(zip(names, got[:7], want[:7])))
+        flips.append(code_flips("ln_mlp_q_bwd", label, got[7], want[7]))
+        if residual:
+            (err, rel), bargs = worst, a
+        del got, want
+    ms = cuda_ms(lambda: fb.ln_mlp_q_bwd(*bargs), 10)
+    plain_ms = cuda_ms(lambda: fb.ln_mlp_q_bwd_plain(*bargs), 2, warmup=1)
+
+    def library_bwd():
+        xf, dof = x.float().reshape(-1, D), do.float().reshape(-1, D)
+        mu = xf.mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt(((xf - mu) ** 2).mean(dim=-1, keepdim=True) + 1e-6)
+        xhat = (xf - mu) * rstd
+        y = xhat * s + bb
+        yq, ys = _quant_rows(torch, y)
+        h_pre = (_int_mm(torch, yq, w1q) * ys * s1c + b1.float()).requires_grad_()
+        with torch.enable_grad():
+            h = F.gelu(h_pre, approximate="tanh")
+        h16 = h.detach().to(bf16)
+        dw2 = torch.matmul(do.reshape(-1, D).t(), h16)
+        doq, dos = _quant_rows(torch, dof)
+        dh = _int_mm(torch, doq, w2r) * dos * s2r
+        (dh_pre,) = torch.autograd.grad(h, h_pre, dh)
+        dw1 = torch.matmul(dh_pre.to(bf16).t(), y.to(bf16))
+        dhq, dhs = _quant_rows(torch, dh_pre)
+        dy = _int_mm(torch, dhq, w1r) * dhs * s1r
+        dxhat = dy * s
+        dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                     - xhat * (dxhat * xhat).mean(-1, keepdim=True)) + dof
+        return (dx.to(bf16), dw1, dh_pre.sum(0), dw2, dof.sum(0), (dy * xhat).sum(0),
+                dy.sum(0))
+
+    library_ms = int8_library_ms("ln_mlp_q_bwd", library_bwd)
+    results["ln_mlp_q_bwd"] = dict(
+        source="diverse_channel_vit_torch/csrc/ln_mlp_q_bwd.cu",
+        replaces="diverse_channel_vit_tpu/ops/fused_block.py:525",
+        max_abs_err=err, rel_err=rel, code_flips=max(flips), ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, int8_ops=6 * rows * D * HID, flops=4 * rows * D * HID,
+        bytes=2 * 3 * rows * D + 3 * D * HID + 4 * (2 * HID + 3 * D) + 2 * HID
+        + 4 * (2 * D * HID + HID + 3 * D),
     )
     return results
 
@@ -585,6 +737,86 @@ def serve(fb, torch):
     return launches, forwards
 
 
+def serve_int8(fb, torch):
+    """Phase 4d: int8 serving of DiChaViT-S. One bf16 model behind two
+    engines: ``ServingEngine(quantization="int8")`` serves buckets 1-64
+    through ``predict``, ``submit`` and ``ServingHTTPServer``, the counts set
+    to 0 just before and read just after (per forward B7 and B1 x 11, no B3);
+    then a 64-image ``predict`` of the unquantised engine on the same model
+    must launch B3 x 11 and no B7, and give other logits. The int8 logits are
+    held against the plain route on the card."""
+    from diverse_channel_vit_torch.serving import ServingEngine
+    from diverse_channel_vit_torch.serving_http import ServingHTTPServer
+
+    model = build(DEPTH)
+    engine = ServingEngine(model, buckets=BUCKETS, device="cuda", quantization="int8")
+    dense_engine = ServingEngine(model, buckets=BUCKETS, device="cuda")
+    rng = np.random.default_rng(0)
+    imgs = rng.standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)
+    full = list(range(CHANNELS))
+
+    fb.reset_launches()
+    engine.n_forwards = 0
+    engine.warmup(full, (IMG, IMG))
+    out64 = engine.predict(imgs, full)
+    engine.start()
+    out_submit = np.stack([f.result(timeout=300)
+                           for f in [engine.submit(imgs[i], full) for i in range(5)]])
+    server = ServingHTTPServer(engine, port=0).start()
+    try:
+        out_http = post_npy(server.port, imgs[7], full)
+    finally:
+        server.stop()
+        engine.stop()
+    timings = {}
+    for bucket in BUCKETS:
+        reps = 8 if bucket == 64 else 20
+        lats = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            engine.predict(imgs[:bucket], full)
+            lats.append(time.perf_counter() - t)
+        lats = np.sort(np.asarray(lats))
+        timings[bucket] = {"imgs_per_s": bucket * reps / float(lats.sum()),
+                           "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+                           "p99_ms": float(np.percentile(lats, 99)) * 1e3, "reps": reps}
+    launches, forwards = dict(fb.LAUNCHES), engine.n_forwards
+    check_counts("int8 serving", launches, forwards, "forward",
+                 {"attend_project_fwd": DEPTH - 1, "ln_mlp_q_fwd": DEPTH - 1})
+    profile_call(lambda: engine.predict(imgs, full), "one 64-image int8 predict", torch)
+
+    fb.reset_launches()
+    dense_engine.n_forwards = 0
+    dense = dense_engine.predict(imgs, full)
+    check_counts("bf16 serving beside it", dict(fb.LAUNCHES), dense_engine.n_forwards,
+                 "forward", {"attend_project_fwd": DEPTH - 1, "ln_mlp_fwd": DEPTH - 1})
+    if {blk.quantization for blk in model.feature_extractor.blocks} != {"none"}:
+        raise AssertionError("the int8 engine changed the model's own quantization")
+    for key, val in (("predict64", out64), ("submit", out_submit), ("http", out_http)):
+        if not np.isfinite(val).all():
+            raise AssertionError(f"int8 {key}: logits not finite")
+    if out64.shape != (B, CLASSES) or out_http.shape != (CLASSES,):
+        raise AssertionError("unexpected int8 logits shape")
+    scale = np.abs(out64).max()
+    for key, got, want in (("submit", out_submit, out64[:5]), ("http", out_http, out64[7])):
+        rel = np.abs(got - want).max() / scale
+        print(f"int8 {key} vs the 64-bucket rows: rel {rel:.3e} (tolerance {KERNEL_REL_TOL})")
+        if rel > KERNEL_REL_TOL:
+            raise AssertionError(f"int8 {key} disagrees with the same images in the 64 bucket")
+    moved = float(np.abs(out64 - dense).max() / np.abs(dense).max())
+    print(f"int8 logits vs the bf16 engine's: rel {moved:.3e} (must differ)")
+    if moved == 0.0:
+        raise AssertionError("the int8 engine's logits equal the bf16 engine's")
+    with fb.plain_versions(), fb.quantization("int8"), torch.inference_mode():
+        ref = model(torch.from_numpy(imgs).cuda().to(torch.bfloat16),
+                    torch.arange(CHANNELS, device="cuda"))[0].float().cpu().numpy()
+    logits_close("int8 logits vs plain versions on the card", out64, ref)
+    print("int8 serving " + json.dumps({"buckets": timings}))
+    del model, engine, dense_engine
+    torch.cuda.empty_cache()
+    return launches, forwards, timings
+
+
 def serve_evit(fb, torch):
     """Phase 4b: EViT-pruned DiChaViT-S (keep_rate 0.7) through
     ``ServingEngine`` and one HTTP request, the counts set to 0 just before
@@ -694,12 +926,22 @@ def serve_gelu_exact(fb, torch):
     return launches, forwards
 
 
-def train_setup(depth: int, torch, **extra):
-    """Model, train state and step as a user builds them: DiChaViT-S with
+def recipe_ks(n_draws: int = 48) -> list:
+    """The JAX benchmark's k mixture of the DCS recipe (``bench.py:137``
+    ``_recipe_ks``): k ~ U[1, 8] from numpy's ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    return [int(rng.integers(1, CHANNELS + 1)) for _ in range(n_draws)]
+
+
+def train_setup(depth: int, torch, ks=None, **extra):
+    """Model, train state and steps as a user builds them: DiChaViT-S with
     f32 parameters from seed 0 and bf16 compute; AdamW with the JUMP-CP
     weight-decay schedule (optimizer/adamw_jumpcp.yaml) under the cosine lr
     schedule (scheduler/cosine.yaml); CE + CDL + TDL with
-    extra_loss_lambda = 1."""
+    extra_loss_lambda = 1. ``steps[i % len(steps)]`` is step i's function:
+    one all-channel step, or with ``ks`` the DCS recipe's step for k = ks[i]
+    (``HCS_METHOD`` at ``HCS_TEMP``, one step function per distinct k, all
+    drawing from one generator seeded with 0 on the card)."""
     from diverse_channel_vit_torch.training import (
         TrainState, make_lr_schedule, make_optimizer, make_train_step)
 
@@ -712,9 +954,13 @@ def train_setup(depth: int, torch, **extra):
                                       weight_decay=0.04, weight_decay_end=0.4, amsgrad=False),
                         lr_schedule=lr, total_steps=10_000)
     state = TrainState(model, tx)
-    step = make_train_step(model, channel_ids=range(CHANNELS), loss_type="ce",
-                           extra_loss_lambda=1.0)
-    return model, state, step
+    kw = dict(channel_ids=range(CHANNELS), loss_type="ce", extra_loss_lambda=1.0)
+    if ks is None:
+        return model, state, [make_train_step(model, **kw)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    by_k = {k: make_train_step(model, k=k, hcs_method=HCS_METHOD, hcs_temp=HCS_TEMP,
+                               generator=gen, **kw) for k in sorted(set(ks))}
+    return model, state, [by_k[k] for k in ks]
 
 
 def synthetic_batch(torch):
@@ -729,7 +975,7 @@ def train(fb, torch, label: str, want: dict, **extra):
     just before 2 warm-up and 10 timed steps and read just after, each kernel
     ``want[name]`` launches per step; then one profiled step."""
     batch = synthetic_batch(torch)
-    model, state, step = train_setup(DEPTH, torch, **extra)
+    model, state, (step,) = train_setup(DEPTH, torch, **extra)
     n_params = sum(p.numel() for p in model.parameters())
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("the model's parameters are not f32")
@@ -764,28 +1010,77 @@ def train(fb, torch, label: str, want: dict, **extra):
     return launches, steps, timing
 
 
-def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, **extra):
+def train_recipe(fb, torch, want: dict):
+    """The DCS recipe at full width: B = 64, k drawn per step from the JAX
+    benchmark's 48-draw mixture, one step function per k over one train
+    state. Each distinct k is warmed once and that pass discarded (a fresh
+    shape's first pass runs slow); then counts set to 0 just before the 48
+    timed steps and read just after, each kernel ``want[name]`` launches per
+    step, whatever k."""
+    batch = synthetic_batch(torch)
+    ks = recipe_ks()
+    model, state, steps = train_setup(DEPTH, torch, ks=ks)
+    first = {}
+    for i, k in enumerate(ks):
+        first.setdefault(k, i)
+    for k, i in sorted(first.items()):
+        state, m = steps[i](state, batch)
+    torch.cuda.synchronize()
+    fb.reset_launches()
+    t = time.perf_counter()
+    metrics = []
+    for i in range(len(ks)):
+        state, m = steps[i](state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(fb.LAUNCHES)
+    check_counts("DCS recipe train", launches, len(ks), "step", want)
+    sampled = [m["sampled_channels"].tolist() if "sampled_channels" in m else "all"
+               for m in metrics[:6]]
+    losses = [float(m["loss"]) for m in metrics]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"DCS recipe train: non-finite losses {losses}")
+    for k, m in zip(ks, metrics):
+        got = len(m["sampled_channels"]) if "sampled_channels" in m else CHANNELS
+        if got != k:
+            raise AssertionError(f"DCS recipe train: a k = {k} step trained on {got} channels")
+    timing = {"imgs_per_s": B * len(ks) / secs, "steps": len(ks), "batch": B,
+              "mean_k": float(np.mean(ks)), "secs": secs}
+    print(f"DCS recipe train: k of the first steps {ks[:6]}, channels drawn {sampled}; "
+          f"losses {losses[0]:.4f} .. {losses[-1]:.4f}")
+    print("DCS recipe train " + json.dumps(timing))
+    del model, state, steps
+    torch.cuda.empty_cache()
+    return launches, len(ks), timing
+
+
+def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks=None,
+                 **extra):
     """Kernel route against plain route from the same weights: ``n_steps``
-    steps at ``depth``, losses within TRAIN_LOSS_REL_TOL and step-0 gradients
-    within TRAIN_GRAD_REL_TOL of max|g|. The plain route runs first; its
-    EViT blocks' kept tokens are forced on the kernel route step by step
+    steps at ``depth`` (with ``ks``, the recipe's steps at those k, both
+    routes drawing from generators of the same seed), losses within
+    TRAIN_LOSS_REL_TOL and step-0 gradients within TRAIN_GRAD_REL_TOL of
+    max|g|, the channels drawn equal. The plain route runs first; its EViT
+    blocks' kept tokens are forced on the kernel route step by step
     (near-equal CLS scores may otherwise keep another boundary token), and
     how many tokens the kernel route would have kept otherwise is printed."""
     batch = synthetic_batch(torch)
     runs = {}
     for route in ("plain", "kernels"):
-        model, state, step = train_setup(depth, torch, **extra)
+        model, state, steps = train_setup(depth, torch, ks=ks, **extra)
         blocks = evit_blocks(model) if extra.get("keep_rate") else []
         before = dict(fb.LAUNCHES)
         ctx = fb.plain_versions() if route == "plain" else contextlib.nullcontext()
-        route_losses, grads0, kept, flips = [], None, [], []
+        route_losses, grads0, kept, flips, drawn = [], None, [], [], []
         with ctx:
             for i in range(n_steps):
                 if route == "kernels":
                     for blk, idx in zip(blocks, runs["plain"][3][i]):
                         blk.evit_forced = idx
-                state, m = step(state, batch)
+                state, m = steps[i % len(steps)](state, batch)
                 route_losses.append(float(m["loss"]))
+                drawn.append(m["sampled_channels"].tolist() if "sampled_channels" in m else None)
                 kept.append([blk.evit_kept.clone() for blk in blocks])
                 if route == "kernels":
                     flips.append(kept_differences(kept[-1], runs["plain"][3][i], forced=True))
@@ -793,16 +1088,20 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, **
                     grads0 = {n: p.grad.float().clone() for n, p in model.named_parameters()}
         torch.cuda.synchronize()
         counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
-        runs[route] = (route_losses, grads0, counts, kept, flips)
-        del model, state, step
+        runs[route] = (route_losses, grads0, counts, kept, flips, drawn)
+        del model, state, steps
         torch.cuda.empty_cache()
-    (lk, gk, nk, _, flips), (lp, gp, np_, _, _) = runs["kernels"], runs["plain"]
+    (lk, gk, nk, _, flips, dk), (lp, gp, np_, _, _, dp) = runs["kernels"], runs["plain"]
     if any(np_.values()):
         raise AssertionError(f"{label}: the plain training run launched kernels: {np_}")
     check_counts(f"{label}, kernel route", nk, n_steps, "step", want)
     if extra.get("keep_rate"):
         print(f"{label}: tokens the kernel route would have kept otherwise, per step and "
               f"EViT layer, of {B} images: {flips}")
+    if ks is not None:
+        print(f"{label}: channels drawn per step, kernel route {dk}, plain route {dp}")
+        if dk != dp:
+            raise AssertionError(f"{label}: the two routes drew other channels")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     print(f"{label} (depth {depth}, {n_steps} steps): losses kernels {lk} plain {lp}, "
           f"max rel {loss_rel:.3e} (tolerance {TRAIN_LOSS_REL_TOL})")
@@ -824,6 +1123,7 @@ def main() -> int:
     import torch
     import torch.nn.functional as F
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -847,12 +1147,16 @@ def main() -> int:
     results = check_kernels(fb, torch, F)
     results.update(check_bwd_kernels(fb, torch, F))
     results.update(check_flash_kernels(torch, F))
+    results.update(check_q_kernels(fb, torch, F))
     for name, r in results.items():
-        t_ops, t_bytes = r.pop("flops") / PEAK_BF16_FLOPS, r.pop("bytes") / PEAK_BYTES
+        # each product at the unit that runs it: bf16 FLOPs and int8 operations
+        t_ops = r.pop("flops") / PEAK_BF16_FLOPS + r.pop("int8_ops", 0) / PEAK_INT8_OPS
+        t_bytes = r.pop("bytes") / PEAK_BYTES
         r["bound_ms"] = max(t_ops, t_bytes) * 1e3
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        lib = "not measured" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
 
     fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
@@ -874,6 +1178,18 @@ def main() -> int:
     train_parity(fb, torch, "gelu_exact train parity", GELU_PARITY_DEPTH, 1,
                  {"flash_packed_fwd": GELU_PARITY_DEPTH - 1,
                   "flash_packed_bwd": GELU_PARITY_DEPTH - 1}, gelu_exact=True)
+    # int8: B7 / B8 in place of B3 / B4 in every fused block
+    int8_serve_launches, int8_forwards, _ = serve_int8(fb, torch)
+    int8_train = ("attend_project_fwd", "attend_project_bwd", "ln_mlp_q_fwd", "ln_mlp_q_bwd")
+    int8_train_launches, int8_steps, _ = train(fb, torch, "int8 train",
+                                               dict.fromkeys(int8_train, DEPTH - 1),
+                                               quantization="int8")
+    train_parity(fb, torch, "int8 train parity", PARITY_DEPTH, 3,
+                 dict.fromkeys(int8_train, PARITY_DEPTH - 1), quantization="int8")
+    # the DCS recipe: k of 8 channels per step, B1-B4 in every fused block
+    recipe_launches, recipe_steps, _ = train_recipe(fb, torch, dict.fromkeys(fused4, DEPTH - 1))
+    train_parity(fb, torch, "DCS recipe train parity", PARITY_DEPTH, 3,
+                 dict.fromkeys(fused4, PARITY_DEPTH - 1), ks=(2, 5, 8))
 
     line = []
     for name, r in results.items():
@@ -891,11 +1207,22 @@ def main() -> int:
         elif name == "flash_packed_bwd":  # main path: the EViT train step
             entry.update(launches=evit_train_launches[name],
                          launches_per_step=evit_train_launches[name] / evit_steps)
+        elif name == "ln_mlp_q_fwd":  # main paths: int8 serving and training
+            entry.update(launches=int8_serve_launches[name],
+                         launches_per_forward=int8_serve_launches[name] / int8_forwards,
+                         train_launches=int8_train_launches[name],
+                         launches_per_step=int8_train_launches[name] / int8_steps)
+        elif name == "ln_mlp_q_bwd":  # main path: the int8 train step
+            entry.update(launches=int8_train_launches[name],
+                         launches_per_step=int8_train_launches[name] / int8_steps)
         else:  # main path: the train step
             entry.update(launches=train_launches[name],
                          launches_per_step=train_launches[name] / steps)
         if name in fused4:
-            entry.update(evit_launches_per_step=evit_train_launches[name] / evit_steps)
+            entry.update(evit_launches_per_step=evit_train_launches[name] / evit_steps,
+                         recipe_launches_per_step=recipe_launches[name] / recipe_steps)
+        if "code_flips" in r:
+            entry.update(code_flips=r["code_flips"])
         entry.update(max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],
                      tolerance=KERNEL_REL_TOL, ms=r["ms"], kernel_ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -903,6 +1230,7 @@ def main() -> int:
         if "per_grid" in r:
             entry.update(per_grid=r["per_grid"])
         line.append(entry)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

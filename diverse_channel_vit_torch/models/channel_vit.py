@@ -145,7 +145,8 @@ class ChannelVisionTransformer(nn.Module):
                  gamma_d: float = 0.5, reverse_pos_pairs: bool = False,
                  use_square: bool = False, temperature: float = 0.11111,
                  cls_only_readout: bool = True, keep_rate: Optional[float] = None,
-                 gelu_exact: bool = False, dtype: torch.dtype = torch.float32,
+                 gelu_exact: bool = False, quantization: str = "none",
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_total_channels = num_total_channels
@@ -168,7 +169,8 @@ class ChannelVisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.empty(1, (img_size // patch_size) ** 2 + 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, gelu_exact=gelu_exact)
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, gelu_exact=gelu_exact,
+                  quantization=quantization)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)

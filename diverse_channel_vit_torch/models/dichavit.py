@@ -3,7 +3,10 @@
 
 DiChaViT is the ChannelViT backbone; its diversity mechanisms (channel
 sampling, CDL, TDL) act only in training. CDL and TDL are computed by the
-backbone in train mode; channel sampling (DCS/HCS) is not ported yet.
+backbone in train mode; channel sampling (DCS) happens in the train step
+(``training/steps.py``, ``ops/sampling.py``). ``quantization: int8`` in the
+model config runs the fused blocks' MLPs in int8 (the JAX config's
+``model.quantization``; ``"none"`` when unset).
 The JAX compile knobs ``scan_blocks`` and ``remat`` change nothing here: the
 port's parameters always use the reference layout.
 """
@@ -48,6 +51,7 @@ def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.d
         cls_only_readout=bool(cfg_model.get("cls_only_readout", True)),
         keep_rate=cfg_model.get("keep_rate"),
         gelu_exact=bool(cfg_model.get("gelu_exact", False)),
+        quantization=cfg_model.get("quantization") or "none",
         dtype=dtype,
         generator=generator,
         **preset,

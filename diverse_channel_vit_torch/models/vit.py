@@ -16,7 +16,11 @@ attention dropout and DropPath all 0, which is all the port takes):
   that is a multiple of 128, head width a multiple of 64, tanh-GELU): LN1 in
   f32 -> the wide qkv GEMM -> ``attend_project`` with the residual fused ->
   ``ln_mlp`` with the residual fused (each an autograd Function over its
-  forward and backward kernels when a gradient is wanted);
+  forward and backward kernels when a gradient is wanted). With
+  ``quantization="int8"`` (or inside ``fused_block.quantization("int8")``)
+  ``ln_mlp`` runs its int8 kernels; as in the JAX package, only this MLP is
+  quantised: the attention projections, the unfused ``Mlp``, the EViT blocks
+  and the readout stay in the compute dtype;
 - the unfused route otherwise (f32, ``gelu_exact``, a width such as the
   ``tiny`` preset's D = 192): LN1 in f32 -> :class:`Attention` (the qkv GEMM,
   ``flash_attention_packed`` on the q/k/v views, the proj GEMM) -> residual
@@ -46,20 +50,41 @@ def _layer_norm_f32(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
 
 
+def _cached(module: nn.Module, params, dtype: torch.dtype, make):
+    """``make()``, kept on ``module`` and reused until one of ``params``
+    changes: an in-place update (an optimizer step, ``load_state_dict``)
+    bumps its version, ``Module.to`` gives it new storage. For use without
+    autograd only."""
+    key = (dtype,) + tuple(None if p is None else (p.data_ptr(), p._version) for p in params)
+    cached = module.__dict__.get("_cast_cache")
+    if cached is None or cached[0] != key:
+        cached = module._cast_cache = (key, make())
+    return cached[1]
+
+
 def _wb(layer: nn.Linear, dtype: torch.dtype):
     """The layer's weight and bias in ``dtype``. Without autograd (serving)
-    the cast copies stay on the layer and are reused until a parameter
-    changes: an in-place update (an optimizer step, ``load_state_dict``)
-    bumps its version, ``Module.to`` gives it new storage."""
+    the cast copies are made once and reused (:func:`_cached`)."""
     params = (layer.weight, layer.bias)
     if torch.is_grad_enabled():
         return tuple(None if p is None else p.to(dtype) for p in params)
-    key = (dtype,) + tuple(None if p is None else (p.data_ptr(), p._version) for p in params)
-    cached = layer.__dict__.get("_cast_cache")
-    if cached is None or cached[0] != key:
-        cached = layer._cast_cache = (
-            key, tuple(None if p is None else p.detach().to(dtype) for p in params))
-    return cached[1]
+    return _cached(layer, params, dtype,
+                   lambda: tuple(None if p is None else p.detach().to(dtype) for p in params))
+
+
+def _quantized_mlp(mlp: "Mlp", dtype: torch.dtype):
+    """``(w1q, s1c, b1, w2q, s2c, b2)`` of the int8 MLP forward, quantised
+    from the ``dtype`` casts of the weights as the JAX package quantises its
+    compute-dtype casts. Serving only (no autograd): made once and reused
+    until a parameter changes. Training quantises at every call instead
+    (``ops/fused_block.LnMlpFn``)."""
+    def make():
+        (w1, b1), (w2, b2) = _wb(mlp.fc1, dtype), _wb(mlp.fc2, dtype)
+        w1q, s1c, w2q, s2c = fused_block.quantize_mlp_weights(w1, w2)
+        return w1q, s1c, b1, w2q, s2c, b2
+
+    return _cached(mlp, (mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias), dtype,
+                   make)
 
 
 def fused_route_ok(x: torch.Tensor, dtype: torch.dtype, num_heads: int,
@@ -125,10 +150,11 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32,
-                 gelu_exact: bool = False):
+                 gelu_exact: bool = False, quantization: str = "none"):
         super().__init__()
         self.dtype = dtype
         self.gelu_exact = gelu_exact
+        self.quantization = fused_block.check_quantization(quantization)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
@@ -151,9 +177,13 @@ class Block(nn.Module):
             y, *_wb(self.attn.qkv, dt), *_wb(self.attn.proj, dt), x, self.attn.num_heads,
             self.attn.scale, valid_len,
         )
+        mode = fused_block.quantization_override() or self.quantization
+        if mode == "int8" and not torch.is_grad_enabled():
+            return fused_block.ln_mlp_q_fwd(x, self.norm2.weight, self.norm2.bias,
+                                            *_quantized_mlp(self.mlp, dt), residual=True)
         return fused_block.ln_mlp(
             x, self.norm2.weight, self.norm2.bias, *_wb(self.mlp.fc1, dt),
-            *_wb(self.mlp.fc2, dt), residual=True,
+            *_wb(self.mlp.fc2, dt), residual=True, quantized=mode == "int8",
         )
 
     def evit(self, x: torch.Tensor, keep_rate: float,

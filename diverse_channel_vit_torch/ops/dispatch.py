@@ -18,7 +18,7 @@ import torch
 # where it launches its kernel and nowhere else (a backward counts one per
 # call, however many CUDA launches it takes)
 LAUNCHES = {"attend_project_fwd": 0, "ln_mlp_fwd": 0, "attend_project_bwd": 0, "ln_mlp_bwd": 0,
-            "flash_packed_fwd": 0, "flash_packed_bwd": 0}
+            "flash_packed_fwd": 0, "flash_packed_bwd": 0, "ln_mlp_q_fwd": 0, "ln_mlp_q_bwd": 0}
 
 _ROUTE = threading.local()  # .plain: CUDA tensors take the plain versions
 

@@ -8,6 +8,11 @@ JAX package's ``ops/fused_block.py``).
 - :func:`ln_mlp` — LayerNorm, fc1, tanh-GELU, fc2, bias and the residual.
   Forward kernel ``csrc/ln_mlp.cu`` (replaces ``_ln_mlp_fwd_kernel``),
   backward kernel ``csrc/ln_mlp_bwd.cu`` (replaces ``_ln_mlp_bwd_kernel``).
+  With ``quantized=True`` (``model.quantization = "int8"``) the int8 forward
+  kernel ``csrc/ln_mlp_q.cu`` (replaces ``_ln_mlp_q_fwd_kernel``) and
+  backward kernel ``csrc/ln_mlp_q_bwd.cu`` (replaces
+  ``_ln_mlp_q_bwd_kernel``), from the int8 weight copies of
+  :func:`quantize_mlp_weights`.
 
 Each kernel has a dispatching wrapper and a plain PyTorch version of the same
 arithmetic, kept in this module, with the TPU kernel's bf16 cast points (the
@@ -29,6 +34,8 @@ the port's modules hold; the JAX functions take the transpose.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -436,14 +443,23 @@ def ln_mlp_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, w1: tor
 
 class LnMlpFn(torch.autograd.Function):
     """``x, scale, bias, w1, b1, w2, b2 -> out``, the JAX custom VJP of
-    ``ln_mlp``: all seven gradients come from the backward kernel."""
+    ``ln_mlp`` (``quantized`` is its second non-differentiable argument):
+    all seven gradients come from the backward kernel. With ``quantized``
+    the weights are quantised from the given (compute-dtype) copies at every
+    call, forward and backward, as the JAX implementations do, so an
+    optimizer step is always seen."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, w1, b1, w2, b2, residual):
-        out = ln_mlp_fwd(x, scale, bias, w1, b1, w2, b2, residual)
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, residual, quantized):
+        if quantized:
+            w1q, s1c, w2q, s2c = quantize_mlp_weights(w1, w2)
+            out = ln_mlp_q_fwd(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual)
+        else:
+            out = ln_mlp_fwd(x, scale, bias, w1, b1, w2, b2, residual)
         ctx.save_for_backward(x, scale, bias, w1, b1, w2)
         ctx.plain = current_route_plain()
         ctx.residual = residual
+        ctx.quantized = quantized
         ctx.b2_dtype = b2.dtype
         return out
 
@@ -451,19 +467,271 @@ class LnMlpFn(torch.autograd.Function):
     def backward(ctx, do):
         x, scale, bias, w1, b1, w2 = ctx.saved_tensors
         with _route(ctx.plain):
-            dx, dw1, db1, dw2, db2, ds, db = ln_mlp_bwd(x, scale, bias, w1, b1, w2,
-                                                        do.contiguous(), ctx.residual)
+            if ctx.quantized:
+                w1q, s1c, w2q, s2c, w1r, s1r, w2r, s2r = quantize_mlp_weights(
+                    w1, w2, backward=True)
+                grads = ln_mlp_q_bwd(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r,
+                                     do.contiguous(), ctx.residual)
+            else:
+                grads = ln_mlp_bwd(x, scale, bias, w1, b1, w2, do.contiguous(), ctx.residual)
+        dx, dw1, db1, dw2, db2, ds, db = grads
         return (dx, ds.to(scale.dtype), db.to(bias.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
-                dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None)
+                dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None, None)
 
 
 def ln_mlp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, w1: torch.Tensor,
            b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-           residual: bool = False) -> torch.Tensor:
+           residual: bool = False, quantized: bool = False) -> torch.Tensor:
     """fc2(tanh-GELU(fc1(LayerNorm(x)))) [+ x] over the last axis of x.
     ``scale``/``bias`` are the LayerNorm's (f32 on the kernel path); ``w1``
-    is (hidden, D) and ``w2`` (D, hidden). Differentiable through
-    :class:`LnMlpFn` when a gradient is wanted."""
+    is (hidden, D) and ``w2`` (D, hidden). ``quantized`` runs both GEMMs in
+    int8 (:func:`ln_mlp_q_fwd`, the weights quantised from the given copies);
+    the backward then quantises the fc1 recompute and both dgrad GEMMs, and
+    the weight gradients stay bf16. Differentiable through :class:`LnMlpFn`
+    when a gradient is wanted."""
     if _wants_grad(x, scale, bias, w1, b1, w2, b2):
-        return LnMlpFn.apply(x, scale, bias, w1, b1, w2, b2, residual)
+        return LnMlpFn.apply(x, scale, bias, w1, b1, w2, b2, residual, quantized)
+    if quantized:
+        w1q, s1c, w2q, s2c = quantize_mlp_weights(w1, w2)
+        return ln_mlp_q_fwd(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual)
     return ln_mlp_fwd(x, scale, bias, w1, b1, w2, b2, residual)
+
+
+# ---------------------------------------------------------------------------
+# int8 ln_mlp (``model.quantization = "int8"``)
+# ---------------------------------------------------------------------------
+#
+# The arithmetic of the TPU kernels ``_ln_mlp_q_fwd_kernel`` and
+# ``_ln_mlp_q_bwd_kernel``: activations are quantised per row with a dynamic
+# scale, weights per output (forward) or input (backward dgrads) unit with a
+# static one, both symmetric to [-127, 127] with round-half-even; products
+# are int8 x int8 summed exactly in int32, then dequantised in f32. The JAX
+# package quantises the compute-dtype (bf16) cast of the f32 weights; so do
+# the callers here.
+
+QUANTIZATION_MODES = ("none", "int8")
+
+_QUANT = threading.local()  # .mode: this thread's override of the models' own setting
+
+
+def check_quantization(mode: str) -> str:
+    if mode not in QUANTIZATION_MODES:
+        raise ValueError(f"unknown quantization mode: {mode!r}")
+    return mode
+
+
+@contextlib.contextmanager
+def quantization(mode: str):
+    """Run this thread's model forwards with quantisation ``mode``
+    (``"none"`` or ``"int8"``) in place of each model's own setting, which
+    stays as it is (the JAX ``ServingEngine`` scopes its mode to its own
+    compiles the same way). A serving engine enters it around each of its
+    forwards, in whichever thread runs them."""
+    check_quantization(mode)
+    prev = getattr(_QUANT, "mode", None)
+    _QUANT.mode = mode
+    try:
+        yield
+    finally:
+        _QUANT.mode = prev
+
+
+def quantization_override() -> Optional[str]:
+    """The mode of an enclosing :func:`quantization` block in this thread,
+    else None."""
+    return getattr(_QUANT, "mode", None)
+
+
+def quant_rows_f32(x: torch.Tensor):
+    """Per-row symmetric int8 quantisation of f32 values (JAX
+    ``_quant_rows_f32``): ``(codes, scale)`` with scale = max(max|x| / 127,
+    1e-8) over the last axis (kept, size 1) and codes round-half-even(x /
+    scale) by true division."""
+    s = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    return torch.round(x / s).to(torch.int8), s
+
+
+def quantize_weight(w: torch.Tensor, dim: int):
+    """Static symmetric int8 quantisation of ``w`` reduced over ``dim`` (JAX
+    ``quantize_weight``; the floor is 1e-12): ``(codes in w's layout, scale
+    with dim removed)``. For a weight in ``nn.Linear`` layout (out, in),
+    ``dim=1`` gives a scale per output unit (JAX axis 0 of the transposed
+    weight) and ``dim=0`` one per input unit (JAX axis 1)."""
+    wf = w.float()
+    s = torch.clamp_min(wf.abs().amax(dim=dim, keepdim=True) / 127.0, 1e-12)
+    return torch.round(wf / s).to(torch.int8), s.squeeze(dim)
+
+
+def quantize_mlp_weights(w1: torch.Tensor, w2: torch.Tensor, backward: bool = False):
+    """The int8 copies of the MLP weights (``nn.Linear`` layout: w1 (HID, D),
+    w2 (D, HID)), each k-major in the layout its product reads:
+    ``(w1q (HID, D), s1c (HID,), w2q (D, HID), s2c (D,))`` for the forward
+    (a scale per output unit, JAX ``quantize_weight(w, 0)``), and with
+    ``backward`` also ``w1r (D, HID), s1r (D,), w2r (HID, D), s2r (HID,)``
+    for the dgrads (a scale per input unit, JAX ``quantize_weight(w, 1)``;
+    both equal the JAX arrays, whose layout is the transpose of
+    ``nn.Linear``'s)."""
+    w1q, s1c = quantize_weight(w1, 1)
+    w2q, s2c = quantize_weight(w2, 1)
+    if not backward:
+        return w1q, s1c, w2q, s2c
+    w1r, s1r = quantize_weight(w1, 0)
+    w2r, s2r = quantize_weight(w2, 0)
+    return w1q, s1c, w2q, s2c, w1r.t().contiguous(), s1r, w2r.t().contiguous(), s2r
+
+
+def _int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., K) int8 codes times b (N, K) int8 codes, summed exactly (every
+    partial sum is an integer below 2^53 in f64, as in int32) and rounded to
+    f32 once, as the int32 sum is."""
+    return torch.matmul(a.double(), b.double().t()).float()
+
+
+def ln_mlp_q_plain(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual: bool = False,
+                   with_codes: bool = False):
+    """Plain version of :func:`ln_mlp_q_fwd`, the arithmetic of the TPU kernel
+    ``_ln_mlp_q_fwd_kernel`` in its order: y = LayerNorm(x) in f32; y
+    quantised per row; h_pre = (acc * ys) * s1c + b1; h = GELU_tanh(h_pre);
+    h quantised per row; out = (acc2 * hs) * s2c + b2 (+ x) in f32, rounded to
+    x's dtype once. With ``with_codes`` also returns h's codes (M, HID)."""
+    f32 = torch.float32
+    d = x.shape[-1]
+    xf = x.to(f32).reshape(-1, d)
+    yq, ys = quant_rows_f32(_ln_f32(xf, scale, bias)[0])
+    h = _gelu_tanh_f32(_int_product(yq, w1q) * ys * s1c + b1.to(f32))
+    hq, hs = quant_rows_f32(h)
+    out = _int_product(hq, w2q) * hs * s2c + b2.to(f32)
+    if residual:
+        out = out + xf
+    out = out.reshape(x.shape).to(x.dtype)
+    return (out, hq) if with_codes else out
+
+
+def _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, with_codes):
+    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q")
+    dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
+    _check("x", x, bf16, x.shape, dev)
+    _check("ln_scale", scale, f32, (d,), dev)
+    _check("ln_bias", bias, f32, (d,), dev)
+    _check("w1q", w1q, i8, (hid, d), dev)
+    _check("s1c", s1c, f32, (hid,), dev)
+    _check("b1", b1, bf16, (hid,), dev)
+    _check("w2q", w2q, i8, (d, hid), dev)
+    _check("s2c", s2c, f32, (d,), dev)
+    _check("b2", b2, bf16, (d,), dev)
+    m = x.numel() // d
+    out = torch.empty_like(x)
+    codes = torch.empty((m, hid), dtype=i8, device=dev) if with_codes else None
+    fn = kernels.function("ln_mlp_q")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1q.data_ptr(),
+                 s1c.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2c.data_ptr(), b2.data_ptr(),
+                 out.data_ptr(), None if codes is None else codes.data_ptr(), m, d, hid,
+                 int(bool(residual)), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch("ln_mlp_q_fwd", err)
+    LAUNCHES["ln_mlp_q_fwd"] += 1
+    return (out, codes) if with_codes else out
+
+
+def ln_mlp_q_fwd(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual: bool = False,
+                 with_codes: bool = False):
+    """The int8 :func:`ln_mlp` forward without autograd, from the int8 weight
+    copies of :func:`quantize_mlp_weights`: the kernel ``csrc/ln_mlp_q.cu``
+    for a CUDA tensor, :func:`ln_mlp_q_plain` for a CPU one."""
+    if _launches_kernel(x):
+        return _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual,
+                                  with_codes)
+    return ln_mlp_q_plain(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, with_codes)
+
+
+def ln_mlp_q_bwd_plain(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do,
+                       residual: bool = False, with_codes: bool = False):
+    """Plain version of :func:`ln_mlp_q_bwd`, the arithmetic of the TPU kernel
+    ``_ln_mlp_q_bwd_kernel`` in its order and with its cast points: the int8
+    fc1 recompute of the forward; h rounded to bf16 for dW2 = do^T h; dh from
+    the f32 do quantised per row and w2r; dh_pre = dh * GELU'(h_pre); dW1 =
+    dh_pre^T y with both rounded to bf16; db1 the sum of the f32 dh_pre; dy
+    from the f32 dh_pre quantised per row and w1r; the LayerNorm backward
+    (+ do with the residual). Returns ``(dx, dw1, db1, dw2, db2, ds, db)`` as
+    :func:`ln_mlp_bwd_plain` does, and with ``with_codes`` also dh_pre's
+    codes (M, HID)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    d = x.shape[-1]
+    xf = x.to(f32).reshape(-1, d)
+    y, xhat, rstd = _ln_f32(xf, scale, bias)
+    yq, ys = quant_rows_f32(y)
+    h_pre = _int_product(yq, w1q) * ys * s1c + b1.to(f32)
+    h = _gelu_tanh_f32(h_pre).to(bf16).to(f32)
+    dof = do.to(f32).reshape(-1, d)
+    dw2 = torch.matmul(dof.t(), h)
+    db2 = dof.sum(dim=0)
+    doq, dos = quant_rows_f32(dof)
+    dh_pre = _int_product(doq, w2r) * dos * s2r * _dgelu_tanh_f32(h_pre)
+    dw1 = torch.matmul(dh_pre.to(bf16).to(f32).t(), y.to(bf16).to(f32))
+    db1 = dh_pre.sum(dim=0)
+    dhq, dhs = quant_rows_f32(dh_pre)
+    dy = _int_product(dhq, w1r) * dhs * s1r
+    ds = (dy * xhat).sum(dim=0)
+    db = dy.sum(dim=0)
+    dx = _ln_bwd_f32(dy, xhat, rstd, scale.to(f32))
+    if residual:
+        dx = dx + dof
+    grads = (dx.reshape(x.shape).to(x.dtype), dw1, db1, dw2, db2, ds, db)
+    return grads + (dhq,) if with_codes else grads
+
+
+def _ln_mlp_q_bwd_cuda(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual,
+                       with_codes):
+    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q_bwd")
+    dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
+    _check("x", x, bf16, x.shape, dev)
+    _check("ln_scale", scale, f32, (d,), dev)
+    _check("ln_bias", bias, f32, (d,), dev)
+    _check("w1q", w1q, i8, (hid, d), dev)
+    _check("s1c", s1c, f32, (hid,), dev)
+    _check("b1", b1, bf16, (hid,), dev)
+    _check("w1r", w1r, i8, (d, hid), dev)
+    _check("s1r", s1r, f32, (d,), dev)
+    _check("w2r", w2r, i8, (hid, d), dev)
+    _check("s2r", s2r, f32, (hid,), dev)
+    _check("do", do, bf16, x.shape, dev)
+    m = x.numel() // d
+    splits = _wgrad_splits(m, d, hid, dev)
+    dx = torch.empty_like(x)
+    dw1 = torch.empty((hid, d), dtype=f32, device=dev)
+    dw2 = torch.empty((d, hid), dtype=f32, device=dev)
+    bias_out = torch.empty(hid + 3 * d, dtype=f32, device=dev)
+    y_buf = torch.empty((m, d), dtype=bf16, device=dev)
+    h_buf = torch.empty((m, hid), dtype=bf16, device=dev)
+    dhp_buf = torch.empty((m, hid), dtype=bf16, device=dev)
+    bias_part = torch.empty((-(-m // 64), hid + 3 * d), dtype=f32, device=dev)
+    wgrad_part = torch.empty((splits, d, hid), dtype=f32, device=dev)
+    codes = torch.empty((m, hid), dtype=i8, device=dev) if with_codes else None
+    fn = kernels.function("ln_mlp_q_bwd")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1q.data_ptr(),
+                 s1c.data_ptr(), b1.data_ptr(), w1r.data_ptr(), s1r.data_ptr(), w2r.data_ptr(),
+                 s2r.data_ptr(), do.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+                 bias_out.data_ptr(), y_buf.data_ptr(), h_buf.data_ptr(), dhp_buf.data_ptr(),
+                 bias_part.data_ptr(), wgrad_part.data_ptr(),
+                 None if codes is None else codes.data_ptr(), m, d, hid, int(bool(residual)),
+                 splits, torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch("ln_mlp_q_bwd", err)
+    LAUNCHES["ln_mlp_q_bwd"] += 1
+    db1, db2, ds, db = bias_out.split((hid, d, d, d))
+    grads = (dx, dw1, db1, dw2, db2, ds, db)
+    return grads + (codes,) if with_codes else grads
+
+
+def ln_mlp_q_bwd(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual: bool = False,
+                 with_codes: bool = False):
+    """Gradients of :func:`ln_mlp_q_fwd` given do, from the int8 weight
+    copies of ``quantize_mlp_weights(w1, w2, backward=True)``: ``(dx, dw1,
+    db1, dw2, db2, ds, db)`` as described at :func:`ln_mlp_q_bwd_plain`. The
+    kernel ``csrc/ln_mlp_q_bwd.cu`` for a CUDA tensor, the plain version for
+    a CPU one."""
+    if _launches_kernel(x):
+        return _ln_mlp_q_bwd_cuda(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do,
+                                  residual, with_codes)
+    return ln_mlp_q_bwd_plain(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual,
+                              with_codes)

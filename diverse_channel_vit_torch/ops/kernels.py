@@ -47,6 +47,9 @@ KERNELS = {
                      [_P] * 5 + [_I] * 4 + [_LL] * 3 + [_I, _F, _P]),
     "flash_packed_bwd": ("flash_packed_bwd.cu", "dcvit_flash_packed_bwd",
                          [_P] * 8 + [_I] * 4 + [_LL] * 3 + [_I, _F, _P]),
+    "ln_mlp_q": ("ln_mlp_q.cu", "dcvit_ln_mlp_q_fwd", [_P] * 11 + [_LL, _I, _I, _I, _P]),
+    "ln_mlp_q_bwd": ("ln_mlp_q_bwd.cu", "dcvit_ln_mlp_q_bwd",
+                     [_P] * 21 + [_LL, _I, _I, _I, _I, _P]),
 }
 
 # ptxas register / shared-memory / spill report of each build, by kernel

@@ -14,6 +14,12 @@
 - Latency accounting: per-request wall time (submit -> result ready) feeds a
   bounded window; ``stats.summary()`` reports p50/p95/p99 and throughput.
 
+- Optional int8 serving (``quantization="int8"``): this engine's forwards
+  run the fused blocks' MLPs in int8 whatever the model's own setting, which
+  stays as it is for other engines and for training. The mode is entered
+  around each forward in the thread that runs it (the caller's for
+  ``predict``, the collector's for ``submit``).
+
 PyTorch runs eagerly, so there is nothing to compile per bucket; ``warmup``
 runs each bucket once (it builds the CUDA kernels on first use).
 """
@@ -21,6 +27,7 @@ runs each bucket once (it builds the CUDA kernels on first use).
 from __future__ import annotations
 
 import bisect
+import contextlib
 import queue
 import threading
 import time
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .ops import fused_block
 
 __all__ = ["ServingEngine", "ServingStats"]
 
@@ -69,12 +77,18 @@ class ServingEngine:
     ``model`` follows the zoo's call signature ``(x, channel_ids) ->
     (out, extra_loss)``; it is moved to ``device`` (the card unless
     ``"cpu"`` is asked for) and put in eval mode. Images go to the device as
-    f32; the model casts them to its own compute dtype.
+    f32; the model casts them to its own compute dtype. ``quantization``
+    (``"none"`` or ``"int8"``) pins this engine's forwards to that mode;
+    None keeps the model's own (``model.quantization`` of its config).
     """
 
     def __init__(self, model: torch.nn.Module, *, buckets: Sequence[int] = (1, 4, 16, 64),
                  max_batch: Optional[int] = None, max_wait_ms: float = 2.0,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 quantization: Optional[str] = None):
+        if quantization is not None:
+            fused_block.check_quantization(quantization)
+        self.quantization = quantization
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.buckets = sorted(set(int(b) for b in buckets))
@@ -103,7 +117,9 @@ class ServingEngine:
 
     def _forward(self, chunk: np.ndarray, cids: Sequence[int]) -> np.ndarray:
         cid = self._channel_ids(cids)
-        with self._lock, torch.inference_mode():
+        mode = (contextlib.nullcontext() if self.quantization is None
+                else fused_block.quantization(self.quantization))
+        with self._lock, torch.inference_mode(), mode:
             out, _ = self.model(torch.from_numpy(chunk).to(self.device), cid)
             self.n_forwards += 1
             return out.float().cpu().numpy()

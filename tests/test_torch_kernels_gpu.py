@@ -303,3 +303,89 @@ def test_flash_packed_wrappers_raise_on_what_they_do_not_take(gen):
                             0.125, 64)
     with pytest.raises(NotImplementedError, match="B5"):
         at.flash_packed_bwd(qt, k, v, o, o, lse, 6, 0.125, 64)
+
+
+def _mlp_inputs(gen, shape, bias=1.0):
+    d, hid = 384, 1536
+    x = _rnd(gen, *shape)
+    s = _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0
+    b = _rnd(gen, d, scale=0.1, dtype=torch.float32)
+    w1, b1 = _rnd(gen, hid, d, scale=d ** -0.5), _rnd(gen, hid)
+    w2, b2 = _rnd(gen, d, hid, scale=hid ** -0.5), _rnd(gen, d, scale=bias)
+    return x, s, b, w1, b1, w2, b2
+
+
+# int8 codes that differ between kernel and plain version: a value within f32
+# noise of a .5 tie may round the other way (the LayerNorm sums in another
+# order; the plain version's tanh comes from another library build, which
+# GELU' amplifies where tanh saturates). A wrong scale or product would flip
+# most codes.
+MAX_CODE_FLIPS = 1e-2
+
+
+@pytest.mark.parametrize("shape,residual,bias", [
+    ((1, 64, 384), True, 1.0),
+    ((3, 640, 384), False, 1.0),
+    ((1, 100, 384), True, 1.0),   # a ragged last row tile
+    ((2, 1600, 384), False, 0.0),  # the flagship grid, products alone
+])
+def test_ln_mlp_q_kernels_match_plain(gen, shape, residual, bias):
+    """B7 and B8 (the int8 ln_mlp) against their plain versions, every
+    output and the codes of their last int8 product."""
+    x, s, b, w1, b1, w2, b2 = _mlp_inputs(gen, shape, bias)
+    do = _rnd(gen, *shape)
+    w1q, s1c, w2q, s2c, w1r, s1r, w2r, s2r = fb.quantize_mlp_weights(w1, w2, backward=True)
+    fwd = (x, s, b, w1q, s1c, b1, w2q, s2c, b2, residual)
+    before = dict(fb.LAUNCHES)
+    out, codes = fb.ln_mlp_q_fwd(*fwd, with_codes=True)
+    assert fb.LAUNCHES["ln_mlp_q_fwd"] == before["ln_mlp_q_fwd"] + 1
+    out_p, codes_p = fb.ln_mlp_q_plain(*fwd, with_codes=True)
+    assert _rel(out, out_p) <= TOL
+    assert (codes != codes_p).float().mean().item() <= MAX_CODE_FLIPS
+    bwd = (x, s, b, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual)
+    got = fb.ln_mlp_q_bwd(*bwd, with_codes=True)
+    assert fb.LAUNCHES["ln_mlp_q_bwd"] == before["ln_mlp_q_bwd"] + 1
+    want = fb.ln_mlp_q_bwd_plain(*bwd, with_codes=True)
+    for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2", "ds", "db"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel(g, w) <= TOL, name
+    assert (got[7] != want[7]).float().mean().item() <= MAX_CODE_FLIPS
+    # the int8 path is not the bf16 one
+    assert not torch.equal(out, fb.ln_mlp(x, s, b, w1, b1, w2, b2, residual))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_ln_mlp_int8_function_grads_match_plain_route(gen, residual):
+    """Gradients of every input through LnMlpFn with ``quantized``: the
+    kernel route (B7 forward, B8 backward) against the plain route."""
+    inputs = list(_mlp_inputs(gen, (2, 640, 384)))
+
+    def fn(*a):
+        return fb.ln_mlp(*a, residual, quantized=True)
+
+    cot = _rnd(gen, 2, 640, 384)
+    before = dict(fb.LAUNCHES)
+    got = _grads(fn, inputs, cot, plain=False)
+    assert fb.LAUNCHES["ln_mlp_q_fwd"] == before["ln_mlp_q_fwd"] + 1
+    assert fb.LAUNCHES["ln_mlp_q_bwd"] == before["ln_mlp_q_bwd"] + 1
+    assert fb.LAUNCHES["ln_mlp_fwd"] == before["ln_mlp_fwd"]
+    want = _grads(fn, inputs, cot, plain=True)
+    assert fb.LAUNCHES["ln_mlp_q_bwd"] == before["ln_mlp_q_bwd"] + 1
+    for name, g, w in zip(("x", "scale", "bias", "w1", "b1", "w2", "b2"), got, want):
+        assert g.dtype == w.dtype and _rel(g, w) <= TOL, name
+
+
+def test_ln_mlp_q_wrappers_raise_on_what_they_do_not_take(gen):
+    x, s, b, w1, b1, w2, b2 = _mlp_inputs(gen, (1, 64, 384))
+    w1q, s1c, w2q, s2c, w1r, s1r, w2r, s2r = fb.quantize_mlp_weights(w1, w2, backward=True)
+    with pytest.raises(ValueError):  # bf16 weights where int8 codes are taken
+        fb.ln_mlp_q_fwd(x, s, b, w1, s1c, b1, w2q, s2c, b2)
+    with pytest.raises(ValueError):  # w1r in the forward copy's layout
+        fb.ln_mlp_q_bwd(x, s, b, w1q, s1c, b1, w1q, s1r, w2r, s2r, x)
+    with pytest.raises(ValueError):  # f32 input
+        fb.ln_mlp_q_fwd(x.float(), s, b, w1q, s1c, b1, w2q, s2c, b2)
+    x2 = _rnd(gen, 1, 64, 256)
+    q = fb.quantize_mlp_weights(_rnd(gen, 1024, 256), _rnd(gen, 256, 1024))
+    with pytest.raises(NotImplementedError):  # D = 256
+        fb.ln_mlp_q_fwd(x2, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
+                        q[0], q[1], _rnd(gen, 1024), q[2], q[3], _rnd(gen, 256))

@@ -123,8 +123,11 @@ def test_optimizers_not_ported_raise(name):
 
 
 def test_channel_sampling_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        make_train_step(torch.nn.Linear(1, 1), channel_ids=range(8), k=3)
+    """DCS is ported (tests/test_torch_sampling.py); the samplers that are
+    not yet raise when the step is made."""
+    for method in ("lowest_cosine_prob_proj", "lowest_cosine_prob_resnet34", "hcs_per_sample"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            make_train_step(torch.nn.Linear(1, 1), channel_ids=range(8), k=3, hcs_method=method)
 
 
 @pytest.mark.parametrize("key", ["drop_path_rate", "drop_rate", "attn_drop_rate"])
