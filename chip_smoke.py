@@ -16,7 +16,11 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    D = 384, 6 heads, hidden 1536, bf16); then B5 and B6 (flash_packed,
    forward and backward) at the three grids the EViT path gives them; then
    B7 and B8 (the int8 ln_mlp, forward and backward) at the flagship shapes,
-   with the share of int8 codes that differ from the plain version's;
+   with the share of int8 codes that differ from the plain version's; then
+   the benchmark scripts' kernels at the scripts' default shapes: S1
+   (``bwd_call``, both schedules), S2 (``qkv_flash_fwd``) and S3
+   (``int8_ln_mlp``), each also held against its package sibling on the same
+   inputs (the other schedule, B5, B7);
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
    ``ServingEngine`` (``predict``, ``submit``) and ``ServingHTTPServer`` on
@@ -43,7 +47,11 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    mixture (``lowest_cosine_prob``, temperature 1000), each k warmed once
    first, images/s and launches per step (B1-B4 x 11); 3 steps at k = 2, 5
    and 8 at depth 4 against the plain route, both drawing the same channels;
-8. print the ``kernels`` JSON line, the card line, and last the result line
+8. run the port's three benchmark scripts through their entry points at
+   their defaults (``bench_attn`` chain, bwd-variants, step and small-k,
+   ``bench_block_fusion``, ``bench_int8_lnmlp``), their output echoed, the
+   counts set to 0 just before each and read just after;
+9. print the ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. Without a CUDA device, or outside a checkout of
@@ -539,6 +547,199 @@ def check_flash_kernels(torch, F):
                                                   "library_ms")} for g in grids])
         results[name] = entry
     return results
+
+
+# the benchmark scripts' default geometry (scripts/bench_attn.py,
+# scripts/bench_block_fusion.py: N = 1569 padded to a multiple of 128;
+# scripts/bench_int8_lnmlp.py: N = 1600, every row real)
+SCRIPT_N, INT8_N = 1664, 1600
+
+
+def check_script_kernels(fb, torch, F):
+    """Phase 3, the benchmark scripts' kernels at their scripts' default
+    shapes, each against its plain version and its package sibling on the
+    same inputs (the difference printed):
+
+    - S1 ``bwd_call`` (B = 64, N = 1664, n_valid = 1569): both schedules,
+      every output, padded key rows exactly 0; ``pair_staged`` against
+      ``pair_batched`` must agree bit for bit. Library: autograd through
+      SDPA on q, k and v, the backward timed.
+    - S2 ``qkv_flash_fwd`` (the same grid): against B5 (``flash_packed_fwd``
+      on the three views of the same qkv). Library: SDPA on the views.
+    - S3 ``int8_ln_mlp`` (B = 64, N = 1600): residual fused with biases at
+      the residual's scale, then no residual and zero output bias; the
+      hidden codes within MAX_CODE_FLIPS of the plain version's; against B7
+      (``ln_mlp_q_fwd``) on the same codes and scales, outputs and hidden
+      codes. Library: B7's composition with ``torch._int_mm``."""
+    from diverse_channel_vit_torch.ops import attention as at
+    from diverse_channel_vit_torch.scripts import bench_attn as s1
+    from diverse_channel_vit_torch.scripts import bench_block_fusion as s2
+    from diverse_channel_vit_torch.scripts import bench_int8_lnmlp as s3
+
+    rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(4))
+    bf16, f32 = torch.bfloat16, torch.float32
+    n, dh = SCRIPT_N, D // HEADS
+    scale = dh ** -0.5
+    rows = B * n  # every query row is computed and read
+    keep = (torch.arange(n, device="cuda") < N_VALID)[None, None, None, :]
+    results = {}
+
+    # --- S1 bwd_call
+    q, k, v, o, do = (rnd(B, n, D) for _ in range(5))
+    args = (q, k, v, o, do, HEADS, scale, N_VALID)
+    want = s1.bwd_call_plain(*args)
+    got, ms = {}, {}
+    for variant in s1.VARIANTS:
+        got[variant] = s1.bwd_call(*args, variant)
+        worst = hold("bwd_call", variant, list(zip(("dq", "dk", "dv"), got[variant], want)))
+        if variant == "pair_staged":
+            err, rel = worst
+        pad = sum(int(torch.count_nonzero(t[:, N_VALID:])) for t in got[variant][1:])
+        if pad:
+            raise AssertionError(f"bwd_call ({variant}): padded key rows have dk or dv != 0")
+        ms[variant] = cuda_ms(lambda variant=variant: s1.bwd_call(*args, variant), 10)
+    print(f"bwd_call: dk and dv exactly 0 on the {n - N_VALID} padded key rows")
+    sibling = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got["pair_staged"], got["pair_batched"]))
+    print(f"bwd_call: max |pair_staged - pair_batched| over dq, dk, dv: {sibling:.3e} "
+          "(must be 0)")
+    if sibling != 0.0:
+        raise AssertionError("bwd_call: the two schedules disagree")
+    del got, want
+    plain_ms = cuda_ms(lambda: s1.bwd_call_plain(*args), 2, warmup=1)
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    heads_view = [t.view(B, n, HEADS, dh).transpose(1, 2) for t in (lq, lk, lv)]
+    lib_out = F.scaled_dot_product_attention(*heads_view, attn_mask=keep, scale=scale)
+    do_h = do.view(B, n, HEADS, dh).transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do_h,
+                                                     retain_graph=True), 10)
+    del lib_out, lq, lk, lv, heads_view
+    results["bwd_call"] = dict(
+        source="diverse_channel_vit_torch/csrc/bench_attn_bwd.cu",
+        replaces="scripts/bench_attn.py:94",
+        max_abs_err=err, rel_err=rel, ms=ms["pair_staged"], plain_ms=plain_ms,
+        library_ms=library_ms, per_variant=ms, sibling_max_abs_diff=sibling,
+        flops=10 * rows * N_VALID * D, bytes=2 * 8 * rows * D,
+    )
+    del q, k, v, o, do, args
+    torch.cuda.empty_cache()
+
+    # --- S2 qkv_flash_fwd
+    qkv = rnd(B, n, 3 * D)
+    out = s2.qkv_flash_fwd(qkv, HEADS, scale, N_VALID)
+    err, rel = hold("qkv_flash_fwd", "benchmark grid",
+                    (("o", out, s2.qkv_flash_fwd_plain(qkv, HEADS, scale, N_VALID)),))
+    views = qkv.split(D, dim=-1)
+    b5 = at.flash_packed_fwd(*views, HEADS, scale, N_VALID)[0]
+    sibling = (out.float() - b5.float()).abs().max().item()
+    b5_ms = cuda_ms(lambda: at.flash_packed_fwd(*views, HEADS, scale, N_VALID), 10)
+    ms = cuda_ms(lambda: s2.qkv_flash_fwd(qkv, HEADS, scale, N_VALID), 10)
+    print(f"qkv_flash_fwd: max |S2 - B5 (flash_packed_fwd)| on the same qkv {sibling:.3e}; "
+          f"B5 {b5_ms:.4f} ms, S2 {ms:.4f} ms")
+    plain_ms = cuda_ms(lambda: s2.qkv_flash_fwd_plain(qkv, HEADS, scale, N_VALID), 3, warmup=1)
+    heads_view = qkv.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads_view, attn_mask=keep), 10)
+    results["qkv_flash_fwd"] = dict(
+        source="diverse_channel_vit_torch/csrc/qkv_flash.cu",
+        replaces="scripts/bench_block_fusion.py:121",
+        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        sibling_max_abs_diff=sibling, sibling_ms=b5_ms,
+        flops=4 * rows * N_VALID * D, bytes=2 * 4 * rows * D,
+    )
+    del qkv, out, b5, views, heads_view
+    torch.cuda.empty_cache()
+
+    # --- S3 int8_ln_mlp
+    rows = B * INT8_N
+    x = rnd(B, INT8_N, D)
+    s, bb = rnd(D, scale=0.1, dtype=f32) + 1.0, rnd(D, scale=0.1, dtype=f32)
+    w1q, s1c = s3.quant_w(rnd(HID, D, scale=D ** -0.5))
+    w2q, s2c = s3.quant_w(rnd(D, HID, scale=HID ** -0.5))
+    b1, b2 = rnd(HID), rnd(D)
+    fargs = (x, s, bb, w1q, s1c, b1, w2q, s2c, b2, True)
+    flips = []
+    for label, a in (("main path", fargs),
+                     ("no residual, zero bias",
+                      (x, s, bb, w1q, s1c, b1, w2q, s2c, torch.zeros_like(b2), False))):
+        out, codes = s3.int8_ln_mlp(*a, with_codes=True)
+        out_p, codes_p = s3.int8_ln_mlp_plain(*a, with_codes=True)
+        worst = hold("int8_ln_mlp", label, (("out", out, out_p),))
+        flips.append(code_flips("int8_ln_mlp", label, codes, codes_p))
+        out7, codes7 = fb.ln_mlp_q_fwd(*a, with_codes=True)
+        diff = (out.float() - out7.float()).abs().max().item()
+        share = (codes != codes7).float().mean().item()
+        print(f"int8_ln_mlp ({label}): against B7 (ln_mlp_q_fwd) on the same codes and scales: "
+              f"max |out - out_B7| {diff:.3e}, hidden codes differing {share:.3e}")
+        if label == "main path":
+            (err, rel), sibling, sibling_codes = worst, diff, share
+        del out, codes, out_p, codes_p, out7, codes7
+    ms = cuda_ms(lambda: s3.int8_ln_mlp(*fargs), 10)
+    b7_ms = cuda_ms(lambda: fb.ln_mlp_q_fwd(*fargs), 10)
+    print(f"int8_ln_mlp: S3 (one pass) {ms:.4f} ms, B7 (two passes) {b7_ms:.4f} ms")
+    plain_ms = cuda_ms(lambda: s3.int8_ln_mlp_plain(*fargs), 3, warmup=1)
+
+    def library():
+        xf = x.float()
+        yq, ys = _quant_rows(torch, F.layer_norm(xf, (D,), s, bb, 1e-6))
+        h = F.gelu(_int_mm(torch, yq, w1q) * ys * s1c + b1.float(), approximate="tanh")
+        hq, hs = _quant_rows(torch, h)
+        return (_int_mm(torch, hq, w2q) * hs * s2c + b2.float() + xf).to(bf16)
+
+    library_ms = int8_library_ms("int8_ln_mlp", library)
+    results["int8_ln_mlp"] = dict(
+        source="diverse_channel_vit_torch/csrc/int8_ln_mlp.cu",
+        replaces="scripts/bench_int8_lnmlp.py:39",
+        max_abs_err=err, rel_err=rel, code_flips=max(flips), ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, sibling_max_abs_diff=sibling, sibling_code_share=sibling_codes,
+        sibling_ms=b7_ms, int8_ops=4 * rows * D * HID, flops=0,
+        bytes=2 * 2 * rows * D + 2 * D * HID + 4 * (HID + D) + 2 * (HID + D) + 4 * 2 * D,
+    )
+    del x, fargs
+    torch.cuda.empty_cache()
+    return results
+
+
+# which kernels each benchmark script run must launch: (module, argv, names)
+SCRIPT_RUNS = (
+    ("bench_attn", ["chain"], ("attend_project_fwd", "attend_project_bwd")),
+    ("bench_attn", ["bwd-variants"], ("bwd_call",)),
+    ("bench_attn", ["step"], ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd",
+                              "ln_mlp_bwd")),
+    ("bench_attn", ["small-k"], ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd",
+                                 "ln_mlp_bwd")),
+    ("bench_block_fusion", [], ("flash_packed_fwd", "flash_packed_bwd", "qkv_flash_fwd")),
+    ("bench_int8_lnmlp", [], ("ln_mlp_fwd", "int8_ln_mlp")),
+)
+
+
+def run_scripts(fb):
+    """Phase 8: each benchmark script through its entry point (``main``, what
+    ``python -m diverse_channel_vit_torch.scripts.<name>`` calls) at its
+    defaults, its output echoed; the counts set to 0 just before each run
+    and read just after, and each kernel the run exists for launched at
+    least once. An exception ends the smoke run. Returns the counts by
+    run."""
+    import importlib
+
+    counts = {}
+    for name, argv, names in SCRIPT_RUNS:
+        label = " ".join(["python -m", f"diverse_channel_vit_torch.scripts.{name}", *argv])
+        mod = importlib.import_module(f"diverse_channel_vit_torch.scripts.{name}")
+        print(f"== {label}", flush=True)
+        t = time.perf_counter()
+        fb.reset_launches()
+        if argv:
+            mod.main(argv)
+        else:
+            mod.main()
+        launches = {k: c for k, c in fb.LAUNCHES.items() if c}
+        print(f"== {label}: {time.perf_counter() - t:.1f} s; kernel launches {launches}",
+              flush=True)
+        missing = [k for k in names if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{label}: {missing} launched no time")
+        counts[label] = launches
+    return counts
 
 
 def post_npy(port: int, image: np.ndarray, cids) -> np.ndarray:
@@ -1148,6 +1349,7 @@ def main() -> int:
     results.update(check_bwd_kernels(fb, torch, F))
     results.update(check_flash_kernels(torch, F))
     results.update(check_q_kernels(fb, torch, F))
+    results.update(check_script_kernels(fb, torch, F))
     for name, r in results.items():
         # each product at the unit that runs it: bf16 FLOPs and int8 operations
         t_ops = r.pop("flops") / PEAK_BF16_FLOPS + r.pop("int8_ops", 0) / PEAK_INT8_OPS
@@ -1190,6 +1392,15 @@ def main() -> int:
     recipe_launches, recipe_steps, _ = train_recipe(fb, torch, dict.fromkeys(fused4, DEPTH - 1))
     train_parity(fb, torch, "DCS recipe train parity", PARITY_DEPTH, 3,
                  dict.fromkeys(fused4, PARITY_DEPTH - 1), ks=(2, 5, 8))
+    torch.cuda.empty_cache()
+    # the benchmark scripts: S1-S3 run only there
+    script_launches = run_scripts(fb)
+    script_runs = {"bwd_call": "python -m diverse_channel_vit_torch.scripts.bench_attn "
+                               "bwd-variants",
+                   "qkv_flash_fwd": "python -m diverse_channel_vit_torch.scripts."
+                                    "bench_block_fusion",
+                   "int8_ln_mlp": "python -m diverse_channel_vit_torch.scripts."
+                                  "bench_int8_lnmlp"}
 
     line = []
     for name, r in results.items():
@@ -1215,6 +1426,9 @@ def main() -> int:
         elif name == "ln_mlp_q_bwd":  # main path: the int8 train step
             entry.update(launches=int8_train_launches[name],
                          launches_per_step=int8_train_launches[name] / int8_steps)
+        elif name in script_runs:  # main path: its benchmark script
+            entry.update(launches=script_launches[script_runs[name]][name],
+                         launches_in=script_runs[name])
         else:  # main path: the train step
             entry.update(launches=train_launches[name],
                          launches_per_step=train_launches[name] / steps)
@@ -1227,8 +1441,10 @@ def main() -> int:
                      tolerance=KERNEL_REL_TOL, ms=r["ms"], kernel_ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
-        if "per_grid" in r:
-            entry.update(per_grid=r["per_grid"])
+        for key in ("per_grid", "per_variant", "sibling_max_abs_diff", "sibling_code_share",
+                    "sibling_ms"):
+            if key in r:
+                entry[key] = r[key]
         line.append(entry)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -256,14 +256,20 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nu
                            valid_len: Optional[int] = None) -> torch.Tensor:
     """Masked multi-head attention over lane-packed (B, N, H*dh) q, k, v;
     returns the same layout. Keys at or past ``valid_len`` are masked. The
-    token grid comes padded once by the model (:func:`maybe_pad_tokens`); the
-    kernels take N a multiple of :data:`PAD_MULTIPLE` and raise otherwise.
+    model pads its token grid once (:func:`maybe_pad_tokens`); any other N
+    is padded here with zero rows to a multiple of :data:`PAD_MULTIPLE`,
+    its keys masked, and the first N rows returned, as the JAX op does.
     Differentiable through :class:`FlashPackedFn` when a gradient is
     wanted."""
     b, n, d = q.shape
     if sm_scale is None:
         sm_scale = (d // num_heads) ** -0.5
     n_valid = n if valid_len is None else int(valid_len)
+    n_pad = -(-n // PAD_MULTIPLE) * PAD_MULTIPLE
+    if n_pad != n:
+        pad = (0, 0, 0, n_pad - n)
+        return flash_attention_packed(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), num_heads,
+                                      sm_scale, n_valid)[:, :n]
     if _wants_grad(q, k, v):
         return FlashPackedFn.apply(q, k, v, num_heads, float(sm_scale), n_valid)
     return flash_packed_fwd(q, k, v, num_heads, float(sm_scale), n_valid)[0]

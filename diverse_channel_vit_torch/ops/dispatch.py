@@ -1,7 +1,8 @@
 """The kernel wrappers' shared dispatch: launch counts and the route switch.
 
 Every kernel wrapper of the port (``ops/fused_block.py``,
-``ops/attention.py``) follows one rule: a CPU tensor takes the kernel's plain
+``ops/attention.py``, and the benchmark scripts' ``scripts/bench_*.py``)
+follows one rule: a CPU tensor takes the kernel's plain
 PyTorch version; a CUDA tensor launches the kernel or raises, and never falls
 back. :func:`plain_versions` routes CUDA tensors to the plain versions on
 explicit request, for holding a kernel against its plain version on the card.
@@ -18,7 +19,9 @@ import torch
 # where it launches its kernel and nowhere else (a backward counts one per
 # call, however many CUDA launches it takes)
 LAUNCHES = {"attend_project_fwd": 0, "ln_mlp_fwd": 0, "attend_project_bwd": 0, "ln_mlp_bwd": 0,
-            "flash_packed_fwd": 0, "flash_packed_bwd": 0, "ln_mlp_q_fwd": 0, "ln_mlp_q_bwd": 0}
+            "flash_packed_fwd": 0, "flash_packed_bwd": 0, "ln_mlp_q_fwd": 0, "ln_mlp_q_bwd": 0,
+            # the benchmark scripts' kernels (diverse_channel_vit_torch/scripts/)
+            "bwd_call": 0, "qkv_flash_fwd": 0, "int8_ln_mlp": 0}
 
 _ROUTE = threading.local()  # .plain: CUDA tensors take the plain versions
 

@@ -292,14 +292,21 @@ def attend_project(y: torch.Tensor, w_qkv: torch.Tensor, b_qkv: Optional[torch.T
                    w_proj: torch.Tensor, b_proj: torch.Tensor, x_res: Optional[torch.Tensor],
                    num_heads: int, sm_scale: Optional[float] = None,
                    valid_len: Optional[int] = None) -> torch.Tensor:
-    """[x_res +] proj(attention(split(y @ w_qkv^T + b_qkv))). The token grid
-    comes padded once by the model (``maybe_pad_tokens``); the kernels take
-    N a multiple of :data:`PAD_MULTIPLE` and raise otherwise. Differentiable
-    through :class:`AttendProjectFn` when a gradient is wanted."""
+    """[x_res +] proj(attention(split(y @ w_qkv^T + b_qkv))). The model pads
+    its token grid once (``maybe_pad_tokens``); any other N is padded here
+    with zero rows to a multiple of :data:`PAD_MULTIPLE`, its keys masked,
+    and the first N rows returned, as the JAX op does. Differentiable through
+    :class:`AttendProjectFn` when a gradient is wanted."""
     b, n, d = y.shape
     if sm_scale is None:
         sm_scale = (d // num_heads) ** -0.5
     n_valid = n if valid_len is None else int(valid_len)
+    n_pad = -(-n // PAD_MULTIPLE) * PAD_MULTIPLE
+    if n_pad != n:
+        pad = (0, 0, 0, n_pad - n)
+        return attend_project(F.pad(y, pad), w_qkv, b_qkv, w_proj, b_proj,
+                              None if x_res is None else F.pad(x_res, pad), num_heads,
+                              sm_scale, n_valid)[:, :n]
     if _wants_grad(y, w_qkv, b_qkv, w_proj, b_proj, x_res):
         return AttendProjectFn.apply(y, w_qkv, b_qkv, w_proj, b_proj, x_res, num_heads,
                                      float(sm_scale), n_valid)

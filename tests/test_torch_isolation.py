@@ -3,8 +3,8 @@
 In a fresh interpreter with ``jax``, ``flax`` and ``optax`` set to None in
 ``sys.modules`` (so importing any of them fails), every module of
 ``diverse_channel_vit_torch`` (``training/`` included) and ``chip_smoke``
-must import, and no ``diverse_channel_vit_tpu`` module may appear in
-``sys.modules``.
+must import (the benchmark scripts of ``scripts/`` and ``bench`` too), and
+no ``diverse_channel_vit_tpu`` module may appear in ``sys.modules``.
 """
 
 import os
@@ -31,6 +31,8 @@ assert not leaked, leaked
 assert sys.modules["jax"] is None
 assert "diverse_channel_vit_torch.training.steps" in sys.modules
 assert "diverse_channel_vit_torch.ops.sampling" in sys.modules
+assert "diverse_channel_vit_torch.scripts.bench_attn" in sys.modules
+assert "diverse_channel_vit_torch.bench" in sys.modules
 """
 
 
@@ -39,4 +41,4 @@ def test_port_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 24, proc.stdout
+    assert n_modules >= 33, proc.stdout

@@ -18,6 +18,17 @@ dk = dv = 0 exactly; the autograd Functions' gradients through the kernels
 are held against the same Functions under ``plain_versions()``. B5 and B6
 (``flash_attention_packed``) are held the same way, on q, k and v given as
 the strided thirds of one packed qkv tensor, as the model passes them.
+
+The benchmark scripts' kernels (``diverse_channel_vit_torch/scripts/``) are
+held the same way against their plain versions and against their package
+siblings on the same inputs, with which each must agree bit for bit: S1
+(``bwd_call``) in both schedules, with padded key rows exactly 0; S2
+(``qkv_flash_fwd``) against B5 on the three views of the same qkv; S3
+(``int8_ln_mlp``) against B7 on the same weight codes and scales, outputs and
+hidden codes. The public
+``attend_project`` and ``flash_attention_packed`` pad an N that is not a
+multiple of 64 and are held at N = 1569 against the plain route, forward and
+gradient.
 """
 
 import contextlib
@@ -27,6 +38,9 @@ import torch
 
 from diverse_channel_vit_torch.ops import attention as at
 from diverse_channel_vit_torch.ops import fused_block as fb
+from diverse_channel_vit_torch.scripts import bench_attn as s1
+from diverse_channel_vit_torch.scripts import bench_block_fusion as s2
+from diverse_channel_vit_torch.scripts import bench_int8_lnmlp as s3
 
 pytestmark = pytest.mark.gpu
 
@@ -389,3 +403,132 @@ def test_ln_mlp_q_wrappers_raise_on_what_they_do_not_take(gen):
     with pytest.raises(NotImplementedError):  # D = 256
         fb.ln_mlp_q_fwd(x2, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
                         q[0], q[1], _rnd(gen, 1024), q[2], q[3], _rnd(gen, 256))
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", [
+    (1, 128, 2, 100),    # two heads, a ragged last key tile
+    (2, 640, 6, 589),    # the k=3 channel-subset grid: one wholly padded key tile
+    (2, 1664, 6, 1569),  # the benchmark's grid
+])
+def test_bwd_call_kernel_matches_plain(gen, batch, n, heads, n_valid):
+    """S1 in both schedules against its plain version; the two schedules
+    agree bit for bit, and padded key rows get dk = dv = 0 exactly."""
+    d = heads * 64
+    q, k, v, o, do = (_rnd(gen, batch, n, d) for _ in range(5))
+    args = (q, k, v, o, do, heads, 0.125, n_valid)
+    want = s1.bwd_call_plain(*args)
+    got = {}
+    for variant in s1.VARIANTS:
+        before = fb.LAUNCHES["bwd_call"]
+        got[variant] = s1.bwd_call(*args, variant)
+        assert fb.LAUNCHES["bwd_call"] == before + 1
+        for name, g, w in zip(("dq", "dk", "dv"), got[variant], want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert _rel(g, w) <= TOL, (variant, name)
+        assert torch.count_nonzero(got[variant][1][:, n_valid:]) == 0
+        assert torch.count_nonzero(got[variant][2][:, n_valid:]) == 0
+    for a, b in zip(got["pair_staged"], got["pair_batched"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", [
+    (1, 128, 2, 128),    # nothing masked
+    (2, 640, 6, 589),
+    (2, 1664, 6, 1569),  # the benchmark's grid
+])
+def test_qkv_flash_kernel_matches_plain_and_b5(gen, batch, n, heads, n_valid):
+    """S2 against its plain version, and against B5 (flash_packed_fwd) on the
+    three column blocks of the same qkv."""
+    d = heads * 64
+    qkv = _rnd(gen, batch, n, 3 * d)
+    before = fb.LAUNCHES["qkv_flash_fwd"]
+    o = s2.qkv_flash_fwd(qkv, heads, 0.125, n_valid)
+    assert fb.LAUNCHES["qkv_flash_fwd"] == before + 1
+    assert o.shape == (batch, n, d) and o.dtype == qkv.dtype
+    assert _rel(o, s2.qkv_flash_fwd_plain(qkv, heads, 0.125, n_valid)) <= TOL
+    # the same tile loop (flash_tiles.cuh) on the same operands, another grid
+    assert torch.equal(o, at.flash_packed_fwd(*qkv.split(d, dim=-1), heads, 0.125, n_valid)[0])
+
+
+@pytest.mark.parametrize("shape,residual,bias", [
+    ((1, 64, 384), True, 1.0),
+    ((1, 100, 384), True, 1.0),    # a ragged last row tile
+    ((3, 640, 384), False, 1.0),
+    ((2, 1600, 384), False, 0.0),  # the benchmark's grid, products alone
+])
+def test_int8_ln_mlp_kernel_matches_plain_and_b7(gen, shape, residual, bias):
+    """S3 against its plain version (output, and the hidden codes fc2 read),
+    and against B7 (ln_mlp_q_fwd) on the same weight codes and scales."""
+    x, s, b, w1, b1, w2, b2 = _mlp_inputs(gen, shape, bias)
+    w1q, sc1 = s3.quant_w(w1)
+    w2q, sc2 = s3.quant_w(w2)
+    args = (x, s, b, w1q, sc1, b1, w2q, sc2, b2, residual)
+    before = fb.LAUNCHES["int8_ln_mlp"]
+    out, codes = s3.int8_ln_mlp(*args, with_codes=True)
+    assert fb.LAUNCHES["int8_ln_mlp"] == before + 1
+    out_p, codes_p = s3.int8_ln_mlp_plain(*args, with_codes=True)
+    assert _rel(out, out_p) <= TOL
+    assert (codes != codes_p).float().mean().item() <= MAX_CODE_FLIPS
+    # B7's instructions on the same codes and scales: the same codes and outputs
+    out7, codes7 = fb.ln_mlp_q_fwd(*args, with_codes=True)
+    assert torch.equal(codes, codes7) and torch.equal(out, out7)
+
+
+@pytest.mark.parametrize("op", ["attend_project", "flash_attention_packed"])
+def test_public_ops_pad_an_unpadded_grid(gen, op):
+    """attend_project and flash_attention_packed at N = 1569 (not a multiple
+    of 64) on the card: padded inside, the first N rows returned, forward
+    and gradients against the plain route."""
+    b, n, d, heads = 2, 1569, 384, 6
+    if op == "attend_project":
+        inputs = [_rnd(gen, b, n, d), _rnd(gen, 3 * d, d, scale=d ** -0.5), _rnd(gen, 3 * d),
+                  _rnd(gen, d, d, scale=d ** -0.5), _rnd(gen, d), _rnd(gen, b, n, d)]
+
+        def fn(y, w, bq, wp, bp, x):
+            return fb.attend_project(y, w, bq, wp, bp, x, heads)
+    else:
+        inputs = [_rnd(gen, b, n, 3 * d)]
+
+        def fn(qkv):
+            return at.flash_attention_packed(*qkv.split(d, dim=-1), heads)
+
+    with torch.no_grad():
+        out = fn(*inputs)
+        with fb.plain_versions():
+            ref = fn(*inputs)
+    assert out.shape == (b, n, d)
+    assert _rel(out, ref) <= TOL
+    cot = _rnd(gen, b, n, d)
+    got = _grads(fn, inputs, cot, plain=False)
+    want = _grads(fn, inputs, cot, plain=True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == inputs[i].shape and _rel(g, w) <= TOL, i
+
+
+def test_bench_script_wrappers_raise_on_what_they_do_not_take(gen):
+    q, k, v, o, do = (_rnd(gen, 1, 64, 384) for _ in range(5))
+    with pytest.raises(NotImplementedError, match="S1"):  # f32
+        s1.bwd_call(q.float(), k.float(), v.float(), o.float(), do.float(), 6, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="S1"):  # head width 128
+        s1.bwd_call(q, k, v, o, do, 3, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="S1"):  # an odd head count in pairs
+        q5, k5, v5, o5, do5 = (_rnd(gen, 1, 64, 320) for _ in range(5))
+        s1.bwd_call(q5, k5, v5, o5, do5, 5, 0.125, 64, "pair_batched")
+    with pytest.raises(ValueError):
+        s1.bwd_call(q, k, v, o, do, 6, 0.125, 64, "pair_unknown")
+    qkv = _rnd(gen, 1, 64, 3 * 384)
+    with pytest.raises(NotImplementedError, match="S2"):  # f32
+        s2.qkv_flash_fwd(qkv.float(), 6, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="S2"):  # head width 128
+        s2.qkv_flash_fwd(qkv, 3, 0.125, 64)
+    x, s, b, w1, b1, w2, b2 = _mlp_inputs(gen, (1, 64, 384))
+    w1q, sc1 = s3.quant_w(w1)
+    w2q, sc2 = s3.quant_w(w2)
+    with pytest.raises(NotImplementedError, match="S3"):  # f32 input
+        s3.int8_ln_mlp(x.float(), s, b, w1q, sc1, b1, w2q, sc2, b2)
+    x2 = _rnd(gen, 1, 64, 256)
+    c1, t1 = s3.quant_w(_rnd(gen, 1024, 256))
+    c2, t2 = s3.quant_w(_rnd(gen, 256, 1024))
+    with pytest.raises(NotImplementedError, match="S3"):  # D = 256
+        s3.int8_ln_mlp(x2, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
+                       c1, t1, _rnd(gen, 1024), c2, t2, _rnd(gen, 256))
