@@ -13,7 +13,9 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    the plain version and a PyTorch library yardstick: the forwards B1
    (attend_project) and B3 (ln_mlp), then the backwards B2 and B4, at the
    flagship shapes (B = 64 images, N = 1600 tokens padded from 1569,
-   D = 384, 6 heads, hidden 1536, bf16); then B5 and B6 (flash_packed,
+   D = 384, 6 heads, hidden 1536, bf16), B3 and B4 also at the recipe's,
+   EViT's and ragged grids, and B4 twice on the same inputs, bit for bit;
+   then B5 and B6 (flash_packed,
    forward and backward) at the three grids the EViT path gives them; then
    B7 and B8 (the int8 ln_mlp, forward and backward) at the flagship shapes,
    with the share of int8 codes that differ from the plain version's; then
@@ -104,6 +106,12 @@ LOGITS_REL_TOL = 5e-2
 # differences above, carried through 4 layers forward and back)
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
+
+
+# the other grids B3 and B4 meet, (images, tokens): a last 128-row tile half
+# full (192 rows), the recipe's smallest grid (k = 1: N = 256), the EViT grid
+# after layer 6 (N = 768), and a token count that is no multiple of 64
+LN_MLP_GRIDS = ((3, 64), (8, 256), (8, 768), (1, 100))
 
 
 def card_line() -> str:
@@ -218,6 +226,9 @@ def check_kernels(fb, torch, F):
 
     err, rel = hold_ln("main path", largs)
     hold_ln("no residual, zero bias", bare)
+    for (nb, nn), res in zip(LN_MLP_GRIDS, (True, False, True, False)):
+        hold_ln(f"{nb} x {nn} tokens, residual {res}",
+                (rnd(nb, nn, D), s, bb, w1, b1, w2, b2 if res else torch.zeros_like(b2), res))
     ms = cuda_ms(lambda: fb.ln_mlp(*largs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_plain(*largs), 3, warmup=1)
     sb, bbb = s.to(bf16), bb.to(bf16)
@@ -313,6 +324,15 @@ def check_bwd_kernels(fb, torch, F):
 
     (err, rel), largs = hold_ln("main path, residual fused", True)
     hold_ln("no residual", False)
+    for (nb, nn), res in zip(LN_MLP_GRIDS, (False, True, False, True)):
+        a = (rnd(nb, nn, D), s, bb, w1, b1, w2, rnd(nb, nn, D), res)
+        hold("ln_mlp_bwd", f"{nb} x {nn} tokens, residual {res}",
+             list(zip(names, fb.ln_mlp_bwd(*a), fb.ln_mlp_bwd_plain(*a))))
+    first, second = fb.ln_mlp_bwd(*largs), fb.ln_mlp_bwd(*largs)
+    if not all(torch.equal(p, q) for p, q in zip(first, second)):
+        raise AssertionError("ln_mlp_bwd: two calls on the same inputs differ")
+    print("ln_mlp_bwd: two calls on the same inputs agree bit for bit")
+    del first, second
     ms = cuda_ms(lambda: fb.ln_mlp_bwd(*largs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_bwd_plain(*largs), 2, warmup=1)
     lib_in = [t.detach().clone().requires_grad_()

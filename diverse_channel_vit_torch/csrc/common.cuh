@@ -145,12 +145,6 @@ DEV void acc_to_a_frags(uint32_t (&a)[4][4], const float (&c)[8][4]) {
   }
 }
 
-// tanh-GELU (torch approximate="tanh") in f32.
-DEV float gelu_tanh(float x) {
-  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.f + tanhf(inner));
-}
-
 // Sum over all 32 lanes of a warp.
 DEV float warp_sum(float v) {
 #pragma unroll

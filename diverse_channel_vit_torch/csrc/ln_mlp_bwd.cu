@@ -9,322 +9,460 @@
 // DiChaViT-S flagship (1569 real rows, D = 384, hidden 1536) it needs
 // 10 * rows * D * hidden = 9.3 GFLOP of bf16 products against about 4 MB of
 // compulsory traffic (x, do and dx, the weights and their f32 gradients).
+// This design adds the scratch y, h and dh_pre (B * N * (384 + 2 * 1536) bf16,
+// 0.70 GB at B = 64 and N = 1600), written once and read by the later GEMMs:
+// about 0.5 ms of traffic at 3.35 TB/s, spread over GEMMs that run at the
+// tensor cores' rate, so the products stay the bound.
 //
-// Design, and what differs from the TPU kernel:
+// Design (wgmma_core.cuh), and what differs from the TPU kernel:
 // - The TPU recomputed LN / fc1 / GELU per row block and summed all six
 //   weight and bias gradients in f32 VMEM scratch over one sequential sweep
 //   of the grid. On Hopper a block's f32 partial of dW1 + dW2 is 4.7 MB, far
-//   beyond its shared memory, and blocks run in no order. Of the two sound
-//   splits (persistent blocks with private partials, or blocks split by
-//   hidden chunk with partial dy sums) neither keeps the hidden activation on
-//   chip without per-block weight partials of megabytes. This first version
-//   takes the decomposition that needs neither: one row-parallel pass that
-//   writes the bf16 operands of the weight gradients once, then the
-//   weight-gradient products as split-row GEMMs (wgrad.cuh):
-//   (a) `ln_mlp_bwd_rows_kernel`, one block per 64 rows (8 warps): LayerNorm
-//       in f32 (two-pass, eps 1e-6) -> y (bf16, kept in shared memory and
-//       written to `y_buf`); then per hidden chunk of 32, h_pre = y W1_c^T +
-//       b1_c and dh = do W2_c in registers, h = GELU_tanh(h_pre) and dh_pre =
-//       dh * GELU'(h_pre) rounded to bf16 (the TPU's cast points) and written
-//       to `h_buf` / `dhp_buf`, db1's column sums of the f32 dh_pre, and
-//       dy += dh_pre_c W1_c with the 64 x D f32 accumulator held in registers
-//       across all chunks (as the forward holds its output). Then the
-//       LayerNorm backward in f32 (row sums over D across two warps), dx
-//       (+ do with the fused residual), and the column sums of dy * xhat (ds),
-//       dy (db) and do (db2) as per-block partials;
-//   (b) dW2 = do^T h and dW1 = dh_pre^T y by the split-row GEMM;
-//   (c) every partial summed in a fixed order (no atomics).
-//   The hidden activation goes to device memory twice over (h and dh_pre,
-//   B * N * 1536 bf16 each, 315 MB at B = 64): keeping it on chip is later
-//   work.
-// - All products are bf16 `mma.sync.m16n8k16` with f32 accumulation.
-#include "wgrad.cuh"
+//   beyond its shared memory, and blocks run in no order. So the backward is
+//   four GEMMs, each on the wgmma + TMA core at full tile sizes with its
+//   element-wise work fused into its epilogue, all on the caller's stream:
+//   (a) `ln_rows_kernel`: LayerNorm in f32 (two-pass, eps 1e-6) -> y (bf16)
+//       and each row's mean and rstd (f32);
+//   (b) `dual_kernel`, per (128 rows, 128 hidden): h_pre = y W1^T and
+//       dh = do W2 (K = 384) in two accumulators, then h = GELU_tanh(h_pre +
+//       b1) and dh_pre = dh * GELU'(h_pre + b1) from one tanh (the SFU's,
+//       wgmma_core.cuh), both rounded to bf16 (the TPU's cast points) and
+//       stored by TMA, and db1's per-block column sums of the f32 dh_pre. (A
+//       persistent version that streamed the next tile's stages during this
+//       tile's epilogue, storing from registers, was slower on an H100);
+//   (c) `dy_kernel`, per 64 rows: dy = dh_pre W1 (K = 1536), the two
+//       consumer warpgroups splitting the 384 columns (96 accumulator
+//       registers each) and exchanging their row sums through shared memory
+//       for the LayerNorm backward in the epilogue. (128-row blocks of four
+//       consumer warpgroups read half as much of W1 per row, but leave no
+//       room for a producer warp at 128 registers a thread, and with inline
+//       refills were slower on an H100): dx (+ do with the fused
+//       residual) and the per-block column sums of do (db2), dy * xhat (ds)
+//       and dy (db);
+//   (d) `wgrad_kernel`: dW2 = do^T h and dW1 = dh_pre^T y as split-row GEMMs
+//       in one launch, on 128 x 192 output tiles, both operands MN-major
+//       (wgmma's transposed layout, straight from the row-major scratch);
+//   (e) every partial summed in a fixed order (reduce.cuh). No atomics: two
+//       calls on the same inputs agree bit for bit.
+#include "reduce.cuh"
+#include "wgmma_core.cuh"
 
 namespace dcvit {
 
-constexpr int kLBRows = 64;      // rows per block
-constexpr int kLBThreads = 256;  // eight warps: 4 row groups x 2 column halves
-constexpr int kLBChunk = 32;     // hidden columns per chunk
+constexpr int kLBD = 384;        // model width (the one built)
+constexpr int kLBTile = 128;     // rows, hidden columns or output columns of a tile
 
-template <int D>
-__host__ __device__ constexpr int lb_smem_bytes() {
-  // sY, sW1 (two stages), sW2 (two stages), sDH, sDO in bf16; row stats and
-  // the db1 chunk sums in f32
-  return 2 * (2 * kLBRows * padded(D) + 2 * kLBChunk * padded(D) + 2 * D * padded(kLBChunk) +
-              kLBRows * padded(kLBChunk)) +
-         4 * (2 * kLBRows + 4 * kLBChunk);
-}
+// (b): per stage y, do (K-major [128 rows][64]), W1 (K-major [128 hidden][64]),
+// W2 (MN-major, two [64 d][64 hidden] boxes)
+constexpr int kDualStages = 3;
+constexpr int kDualStageBytes = 4 * 2 * wg::kBoxBytes;
+constexpr int kDualSmem = kDualStages * kDualStageBytes + 8 * kLBTile * 4 +
+                          2 * kDualStages * 8 + wg::kAlign;
+// (c): per stage dh_pre (K-major [64 rows][64]) and W1 (MN-major, six
+// [64 hidden][64 d] boxes)
+constexpr int kLBDyRows = 64;  // rows per dy block
+constexpr int kDyStages = 4;
+constexpr int kDyStageBytes = 7 * wg::kBoxBytes;
+constexpr int kDySmem = kDyStages * kDyStageBytes + 2 * kLBDyRows * 2 * 4 + 2 * kDyStages * 8 +
+                        wg::kAlign;
+// (d): per stage A (two MN-major [64 rows][64] boxes) and B (three)
+constexpr int kWgN = 192;  // output columns of a weight-gradient tile
+constexpr int kWgStages = 4;
+constexpr int kWgStageBytes = (2 + kWgN / wg::kBox) * wg::kBoxBytes;
+constexpr int kWgSmem = kWgStages * kWgStageBytes + 2 * kWgStages * 8 + wg::kAlign;
 
-DEV float dgelu_tanh(float x) {
-  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  const float t = tanhf(inner);
-  const float dinner = 0.7978845608028654f * (1.f + 3.f * 0.044715f * x * x);
-  return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * dinner;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kLBThreads, 1)
-    ln_mlp_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                           const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-                           const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
-                           const __nv_bfloat16* __restrict__ w2,
-                           const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dx,
-                           __nv_bfloat16* __restrict__ y_buf, __nv_bfloat16* __restrict__ h_buf,
-                           __nv_bfloat16* __restrict__ dhp_buf, float* __restrict__ bias_part,
-                           long long m, int hid, int residual) {
-  static_assert(D % 64 == 0, "D must be a multiple of 64");
-  constexpr int SD = padded(D), SH = padded(kLBChunk);
-  constexpr int WN = D / 2;          // dy columns per warp
-  constexpr int HN = kLBChunk / 2;   // hidden columns per warp in a chunk
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rg = warp & 3, cg = warp >> 2;
-  const long long m0 = (long long)blockIdx.x * kLBRows;
-  const long long rows_here = m - m0;  // >= 1; rows at or past it are padding
-  const int stride = hid + 3 * D;
-  float* part = bias_part + (long long)blockIdx.x * stride;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sY = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sW1 = sY + kLBRows * SD;
-  __nv_bfloat16* sW2 = sW1 + 2 * kLBChunk * SD;
-  __nv_bfloat16* sDH = sW2 + 2 * D * SH;
-  __nv_bfloat16* sDO = sDH + kLBRows * SH;
-  float* sStat = reinterpret_cast<float*>(sDO + kLBRows * SD);  // [64][mean, rstd]
-  float* sRed1 = sStat + 2 * kLBRows;                           // [4 row groups][32]
-
-  // chunk 0's weights and the do tile load while the LayerNorm runs
-  load_tile_async(sW1, w1, kLBChunk, D, D, tid, kLBThreads);
-  load_tile_async(sW2, w2, D, kLBChunk, hid, tid, kLBThreads);
-  load_rows_zfill(sDO, dout + m0 * D, D, D, rows_here, tid, kLBThreads);
-  cp_async_commit();
-
-  for (int r = warp; r < kLBRows; r += kLBThreads / 32) {
-    uint32_t* yrow = reinterpret_cast<uint32_t*>(sY + r * SD);
-    if (r >= rows_here) {
-#pragma unroll
-      for (int i = 0; i < D / 64; ++i) yrow[lane + 32 * i] = 0u;
-      if (lane == 0) sStat[2 * r] = sStat[2 * r + 1] = 0.f;
-      continue;
+// The ring's barriers, initialised by thread 0 before the roles split.
+DEV void init_ring(uint64_t* full, uint64_t* empty, int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], wg::kConsumers);
     }
-    const uint32_t* xrow = reinterpret_cast<const uint32_t*>(x + (m0 + r) * D);
-    uint32_t* yglob = reinterpret_cast<uint32_t*>(y_buf + (m0 + r) * D);
-    float2 v[D / 64];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < D / 64; ++i) {
-      v[i] = unpack_bf16(xrow[lane + 32 * i]);
-      sum += v[i].x + v[i].y;
-    }
-    const float mean = warp_sum(sum) / D;
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < D / 64; ++i) {
-      const float a = v[i].x - mean, c = v[i].y - mean;
-      sq += a * a + c * c;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / D + 1e-6f);
-#pragma unroll
-    for (int i = 0; i < D / 64; ++i) {
-      const int col = 2 * (lane + 32 * i);
-      const uint32_t yv =
-          pack_bf16((v[i].x - mean) * rstd * ln_scale[col] + ln_bias[col],
-                    (v[i].y - mean) * rstd * ln_scale[col + 1] + ln_bias[col + 1]);
-      yrow[lane + 32 * i] = yv;
-      yglob[lane + 32 * i] = yv;
-    }
-    if (lane == 0) {
-      sStat[2 * r] = mean;
-      sStat[2 * r + 1] = rstd;
-    }
-  }
-
-  float acc[WN / 8][4];  // dy: rows [16 rg, 16 rg + 16) x columns [WN cg, WN cg + WN)
-#pragma unroll
-  for (int j = 0; j < WN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const int n_chunks = hid / kLBChunk;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < n_chunks) {
-      load_tile_async(sW1 + (buf ^ 1) * kLBChunk * SD, w1 + (long long)(c + 1) * kLBChunk * D,
-                      kLBChunk, D, D, tid, kLBThreads);
-      load_tile_async(sW2 + (buf ^ 1) * D * SH, w2 + (c + 1) * kLBChunk, D, kLBChunk, hid, tid,
-                      kLBThreads);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk c's weights (and, at c == 0, y, the stats and do) are visible
-    const __nv_bfloat16* w1t = sW1 + buf * kLBChunk * SD;
-    const __nv_bfloat16* w2t = sW2 + buf * D * SH;
-
-    // h_pre = y W1_c^T and dh = do W2_c: rows [16 rg, +16) x hidden [HN cg, +HN)
-    float hacc[HN / 8][4], dhacc[HN / 8][4];
-#pragma unroll
-    for (int j = 0; j < HN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hacc[j][e] = dhacc[j][e] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4], bfr[4];
-      load_a_frag(a, sY, SD, rg * 16, kk * 16, lane);
-      load_b_frag_nk(bfr, w1t, SD, cg * HN, kk * 16, lane);
-      mma_bf16(hacc[0], a, bfr[0], bfr[1]);
-      mma_bf16(hacc[1], a, bfr[2], bfr[3]);
-      load_a_frag(a, sDO, SD, rg * 16, kk * 16, lane);
-      load_b_frag_kn(bfr, w2t, SH, cg * HN, kk * 16, lane);
-      mma_bf16(dhacc[0], a, bfr[0], bfr[1]);
-      mma_bf16(dhacc[1], a, bfr[2], bfr[3]);
-    }
-#pragma unroll
-    for (int j = 0; j < HN / 8; ++j) {
-      const int lc = cg * HN + j * 8 + t4 * 2;  // column within the chunk
-      const int hc = c * kLBChunk + lc;
-      const float bb0 = bf(b1[hc]), bb1 = bf(b1[hc + 1]);
-      float cs0 = 0.f, cs1 = 0.f;  // db1: column sums of the f32 dh_pre
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = rg * 16 + g + half * 8;
-        const float hp0 = hacc[j][2 * half] + bb0, hp1 = hacc[j][2 * half + 1] + bb1;
-        const float dp0 = dhacc[j][2 * half] * dgelu_tanh(hp0);
-        const float dp1 = dhacc[j][2 * half + 1] * dgelu_tanh(hp1);
-        cs0 += dp0;
-        cs1 += dp1;
-        const uint32_t dv = pack_bf16(dp0, dp1);
-        *reinterpret_cast<uint32_t*>(sDH + r * SH + lc) = dv;
-        if (r < rows_here) {
-          const long long gi = (m0 + r) * hid + hc;
-          *reinterpret_cast<uint32_t*>(h_buf + gi) = pack_bf16(gelu_tanh(hp0), gelu_tanh(hp1));
-          *reinterpret_cast<uint32_t*>(dhp_buf + gi) = dv;
-        }
-      }
-      cs0 = sum_over_rows(cs0);
-      cs1 = sum_over_rows(cs1);
-      if (g == 0) {
-        sRed1[rg * kLBChunk + lc] = cs0;
-        sRed1[rg * kLBChunk + lc + 1] = cs1;
-      }
-    }
-    __syncthreads();  // the 64 x 32 dh_pre tile and the chunk's column sums are written
-    if (tid < kLBChunk)
-      part[c * kLBChunk + tid] = sRed1[tid] + sRed1[kLBChunk + tid] +
-                                 sRed1[2 * kLBChunk + tid] + sRed1[3 * kLBChunk + tid];
-
-    // dy += dh_pre_c W1_c: rows [16 rg, +16) x columns [WN cg, +WN)
-#pragma unroll
-    for (int kk = 0; kk < kLBChunk / 16; ++kk) {
-      uint32_t a[4];
-      load_a_frag(a, sDH, SH, rg * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < WN / 16; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_kn(bfr, w1t, SD, cg * WN + np * 16, kk * 16, lane);
-        mma_bf16(acc[2 * np], a, bfr[0], bfr[1]);
-        mma_bf16(acc[2 * np + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();  // `buf`, sDH and sRed1 are free for the next chunk
-  }
-
-  // LayerNorm backward. The weight stages are free now: they hold the row
-  // sums [2 column halves][64 rows][2] and the column sums [4 row groups][2][D].
-  float* sRow = reinterpret_cast<float*>(sW1);
-  float* sCol = sRow + 2 * kLBRows * 2;
-  const int ra = rg * 16 + g, rb = ra + 8;
-  const bool va = ra < rows_here, vb = rb < rows_here;
-  const float mean_a = sStat[2 * ra], rstd_a = sStat[2 * ra + 1];
-  const float mean_b = sStat[2 * rb], rstd_b = sStat[2 * rb + 1];
-  const uint32_t* xa_row = reinterpret_cast<const uint32_t*>(x + (m0 + ra) * D);
-  const uint32_t* xb_row = reinterpret_cast<const uint32_t*>(x + (m0 + rb) * D);
-  auto xhat_pair = [&](const uint32_t* row, bool valid, float mean, float rstd, int col) {
-    if (!valid) return make_float2(0.f, 0.f);
-    const float2 xv = unpack_bf16(row[col / 2]);
-    return make_float2((xv.x - mean) * rstd, (xv.y - mean) * rstd);
-  };
-
-  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
-#pragma unroll
-  for (int j = 0; j < WN / 8; ++j) {
-    const int col = cg * WN + j * 8 + t4 * 2;
-    const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
-    const float2 xa = xhat_pair(xa_row, va, mean_a, rstd_a, col);
-    const float2 xb = xhat_pair(xb_row, vb, mean_b, rstd_b, col);
-    const float da0 = acc[j][0] * sc0, da1 = acc[j][1] * sc1;
-    const float db0 = acc[j][2] * sc0, db1 = acc[j][3] * sc1;
-    s1a += da0 + da1;
-    s2a += da0 * xa.x + da1 * xa.y;
-    s1b += db0 + db1;
-    s2b += db0 * xb.x + db1 * xb.y;
-    // ds = sum dy * xhat, db = sum dy over this warp's 16 rows
-    const float ds0 = sum_over_rows(acc[j][0] * xa.x + acc[j][2] * xb.x);
-    const float ds1 = sum_over_rows(acc[j][1] * xa.y + acc[j][3] * xb.y);
-    const float dbs0 = sum_over_rows(acc[j][0] + acc[j][2]);
-    const float dbs1 = sum_over_rows(acc[j][1] + acc[j][3]);
-    if (g == 0) {
-      sCol[(rg * 2) * D + col] = ds0;
-      sCol[(rg * 2) * D + col + 1] = ds1;
-      sCol[(rg * 2 + 1) * D + col] = dbs0;
-      sCol[(rg * 2 + 1) * D + col + 1] = dbs1;
-    }
-  }
-  s1a = sum_over_quad(s1a);
-  s2a = sum_over_quad(s2a);
-  s1b = sum_over_quad(s1b);
-  s2b = sum_over_quad(s2b);
-  if (t4 == 0) {
-    sRow[(cg * kLBRows + ra) * 2] = s1a;
-    sRow[(cg * kLBRows + ra) * 2 + 1] = s2a;
-    sRow[(cg * kLBRows + rb) * 2] = s1b;
-    sRow[(cg * kLBRows + rb) * 2 + 1] = s2b;
+    wg::bar_init_fence();
   }
   __syncthreads();
-  const float m1a = (sRow[ra * 2] + sRow[(kLBRows + ra) * 2]) / D;
-  const float m2a = (sRow[ra * 2 + 1] + sRow[(kLBRows + ra) * 2 + 1]) / D;
-  const float m1b = (sRow[rb * 2] + sRow[(kLBRows + rb) * 2]) / D;
-  const float m2b = (sRow[rb * 2 + 1] + sRow[(kLBRows + rb) * 2 + 1]) / D;
+}
 
-  // dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) (+ do)
+// ---- (a) LayerNorm rows --------------------------------------------------------------
+
+__global__ void __launch_bounds__(256)
+    ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_scale,
+                   const float* __restrict__ ln_bias, __nv_bfloat16* __restrict__ y,
+                   float* __restrict__ stats, long long m) {
+  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= m) return;
+  const uint32_t* xrow = reinterpret_cast<const uint32_t*>(x + r * kLBD);
+  uint32_t* yrow = reinterpret_cast<uint32_t*>(y + r * kLBD);
+  float2 v[kLBD / 64];
+  float sum = 0.f;
 #pragma unroll
-  for (int j = 0; j < WN / 8; ++j) {
-    const int col = cg * WN + j * 8 + t4 * 2;
-    const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const bool valid = half ? vb : va;
-      if (!valid) continue;
-      const int r = half ? rb : ra;
-      const float2 xh = half ? xhat_pair(xb_row, vb, mean_b, rstd_b, col)
-                             : xhat_pair(xa_row, va, mean_a, rstd_a, col);
-      const float rstd = half ? rstd_b : rstd_a;
-      const float mu1 = half ? m1b : m1a, mu2 = half ? m2b : m2a;
-      float v0 = rstd * (acc[j][2 * half] * sc0 - mu1 - xh.x * mu2);
-      float v1 = rstd * (acc[j][2 * half + 1] * sc1 - mu1 - xh.y * mu2);
-      if (residual) {
-        const float2 dov = unpack_bf16(*reinterpret_cast<const uint32_t*>(sDO + r * SD + col));
-        v0 += dov.x;
-        v1 += dov.y;
-      }
-      *reinterpret_cast<uint32_t*>(dx + (m0 + r) * D + col) = pack_bf16(v0, v1);
-    }
+  for (int i = 0; i < kLBD / 64; ++i) {
+    v[i] = unpack_bf16(xrow[lane + 32 * i]);
+    sum += v[i].x + v[i].y;
   }
-
-  // per-block partials of db2 (column sums of do), ds and db, in a fixed order
-  for (int col = tid; col < D; col += kLBThreads) {
-    float s = 0.f;
-    for (int r = 0; r < kLBRows; ++r) s += bf(sDO[r * SD + col]);
-    part[hid + col] = s;
-    float ds = 0.f, db = 0.f;
+  const float mean = warp_sum(sum) / kLBD;
+  float sq = 0.f;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      ds += sCol[(w * 2) * D + col];
-      db += sCol[(w * 2 + 1) * D + col];
+  for (int i = 0; i < kLBD / 64; ++i) {
+    const float a = v[i].x - mean, c = v[i].y - mean;
+    sq += a * a + c * c;
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / kLBD + 1e-6f);
+#pragma unroll
+  for (int i = 0; i < kLBD / 64; ++i) {
+    const int col = 2 * (lane + 32 * i);
+    yrow[lane + 32 * i] = pack_bf16((v[i].x - mean) * rstd * ln_scale[col] + ln_bias[col],
+                                    (v[i].y - mean) * rstd * ln_scale[col + 1] + ln_bias[col + 1]);
+  }
+  if (lane == 0) {
+    stats[2 * r] = mean;
+    stats[2 * r + 1] = rstd;
+  }
+}
+
+// ---- (b) h and dh_pre ---------------------------------------------------------------
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    dual_kernel(const __grid_constant__ CUtensorMap y_map, const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap w1_map,
+                const __grid_constant__ CUtensorMap w2_map,
+                const __grid_constant__ CUtensorMap h_map,
+                const __grid_constant__ CUtensorMap dhp_map,
+                const __nv_bfloat16* __restrict__ b1, float* __restrict__ db1_part, int hid) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = wg::align(smem_raw);
+  float* sCol = reinterpret_cast<float*>(ring + kDualStages * kDualStageBytes);  // [8 warps][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sCol + 8 * kLBTile);
+  uint64_t* empty = full + kDualStages;
+  const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
+  const int h0 = blockIdx.x * kLBTile;
+  const int m0 = blockIdx.y * kLBTile;
+  constexpr int kSteps = kLBD / wg::kBox;
+  constexpr int kPart = 2 * wg::kBoxBytes;  // one 16 KB operand of a stage
+  init_ring(full, empty, kDualStages);
+
+  if (wgi == wg::kConsumers) {
+    wg::regs_dealloc<wg::kProducerRegs>();
+    if (t == 0) {
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int s = ks % kDualStages;
+        wg::bar_wait(&empty[s], ((ks / kDualStages) & 1) ^ 1);
+        wg::bar_expect_tx(&full[s], kDualStageBytes);
+        uint8_t* st = ring + s * kDualStageBytes;
+        wg::tma_load(st, &y_map, &full[s], ks * wg::kBox, m0);
+        wg::tma_load(st + kPart, &do_map, &full[s], ks * wg::kBox, m0);
+        wg::tma_load(st + 2 * kPart, &w1_map, &full[s], ks * wg::kBox, h0);
+        wg::tma_load(st + 3 * kPart, &w2_map, &full[s], h0, ks * wg::kBox);
+        wg::tma_load(st + 3 * kPart + wg::kBoxBytes, &w2_map, &full[s], h0 + wg::kBox,
+                     ks * wg::kBox);
+      }
     }
-    part[hid + D + col] = ds;
-    part[hid + 2 * D + col] = db;
+  } else {
+    wg::regs_alloc<wg::kConsumerRegs>();
+    float ha[64], da[64];  // h_pre and dh: 64 rows x 128 hidden
+    const uint32_t ring_s = smem_addr(ring);
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int s = ks % kDualStages;
+      wg::bar_wait(&full[s], (ks / kDualStages) & 1);
+      const uint32_t st = wg::opaque(ring_s) + s * kDualStageBytes;
+      wg::mma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        wg::mma_m64n128<0, 0>(ha, wg::desc_k(st + wgi * wg::kBoxBytes, k4),
+                              wg::desc_k(st + 2 * kPart, k4), ks + k4 > 0);
+        wg::mma_m64n128<0, 1>(da, wg::desc_k(st + kPart + wgi * wg::kBoxBytes, k4),
+                              wg::desc_mn(st + 3 * kPart, k4, wg::kBoxBytes), ks + k4 > 0);
+      }
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      if (t == 0) wg::bar_arrive(&empty[s]);
+    }
+    wg::acc_fence(ha);
+    wg::acc_fence(da);
+    wg::sync_named(3, 256);  // both warpgroups are past the ring: stage 0 is free
+
+    // epilogue: h and dh_pre into two swizzled [64][128] tiles of stage 0
+    uint8_t* stH = ring + wgi * 2 * kPart;
+    uint8_t* stD = stH + kPart;
+    const int warp = t >> 5, lane = t & 31;
+    float cs[32];  // db1: this thread's two rows, per column it holds
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int col = wg::acc_col(t, i), row = wg::acc_row(t, i);
+      const float2 bb = unpack_bf16(*reinterpret_cast<const uint32_t*>(b1 + h0 + col));
+      float hv0, g0, hv1, g1;
+      wg::gelu_and_grad(ha[i] + bb.x, hv0, g0);
+      wg::gelu_and_grad(ha[i + 1] + bb.y, hv1, g1);
+      const float dp0 = da[i] * g0, dp1 = da[i + 1] * g1;
+      uint8_t* box = (col >> 6) ? wg::kBoxBytes + stH : stH;
+      wg::st_pair(box, row, col & 63, hv0, hv1);
+      wg::st_pair(box + kPart, row, col & 63, dp0, dp1);
+      const int j = ((i >> 2) << 1);
+      if ((i >> 1) & 1) {
+        cs[j] += dp0;
+        cs[j + 1] += dp1;
+      } else {
+        cs[j] = dp0;
+        cs[j + 1] = dp1;
+      }
+    }
+    wg::fence_async_smem();
+    wg::sync_named(1 + wgi, 128);
+    if (t == 0) {
+      for (int b = 0; b < 2; ++b) {
+        wg::tma_store(&h_map, stH + b * wg::kBoxBytes, h0 + b * wg::kBox, m0 + 64 * wgi);
+        wg::tma_store(&dhp_map, stD + b * wg::kBoxBytes, h0 + b * wg::kBox, m0 + 64 * wgi);
+      }
+      wg::tma_store_commit();
+    }
+    // db1 partial: sum over the lanes that share columns, then over the
+    // eight warps in order (rows past the end hold dh = 0, so dh_pre = 0)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float v = sum_over_rows(cs[j]);
+      if (lane < 4) sCol[(4 * wgi + warp) * kLBTile + 8 * (j >> 1) + 2 * lane + (j & 1)] = v;
+    }
+    wg::sync_named(3, 256);
+    if (tid < kLBTile) {
+      float tot = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) tot += sCol[w * kLBTile + tid];
+      db1_part[(long long)blockIdx.y * hid + h0 + tid] = tot;
+    }
+    if (t == 0) wg::tma_store_wait();
+  }
+}
+
+// ---- (c) dy and the LayerNorm backward ----------------------------------------------
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    dy_kernel(const __grid_constant__ CUtensorMap dhp_map, const __grid_constant__ CUtensorMap w1_map,
+              const __grid_constant__ CUtensorMap dx_map, const __nv_bfloat16* __restrict__ x,
+              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ ln_scale,
+              const float* __restrict__ stats, float* __restrict__ ln_part, long long m, int hid,
+              int residual) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = wg::align(smem_raw);
+  float* sRow = reinterpret_cast<float*>(ring + kDyStages * kDyStageBytes);  // [2][64][2]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sRow + 2 * kLBDyRows * 2);
+  uint64_t* empty = full + kDyStages;
+  const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
+  const long long m0 = (long long)blockIdx.x * kLBDyRows;
+  const int n_steps = hid / wg::kBox;
+  constexpr int kHalf = kLBD / 2;  // dy columns per warpgroup
+  init_ring(full, empty, kDyStages);
+
+  if (wgi == wg::kConsumers) {
+    // producer: stage = dh_pre rows [m0, m0 + 64) x hidden [64 ks, + 64)
+    // (K-major) and W1 rows [64 ks, + 64) x all 384 columns (six MN-major boxes)
+    wg::regs_dealloc<wg::kProducerRegs>();
+    if (t == 0) {
+      for (int ks = 0; ks < n_steps; ++ks) {
+        const int s = ks % kDyStages;
+        wg::bar_wait(&empty[s], ((ks / kDyStages) & 1) ^ 1);
+        wg::bar_expect_tx(&full[s], kDyStageBytes);
+        uint8_t* st = ring + s * kDyStageBytes;
+        wg::tma_load(st, &dhp_map, &full[s], ks * wg::kBox, (int)m0);
+        for (int j = 0; j < kLBD / wg::kBox; ++j)
+          wg::tma_load(st + (1 + j) * wg::kBoxBytes, &w1_map, &full[s], j * wg::kBox,
+                       ks * wg::kBox);
+      }
+    }
+  } else {
+    wg::regs_alloc<wg::kConsumerRegs>();
+    float acc[96];  // dy: 64 rows x columns [192 wgi, 192 wgi + 192)
+    const uint32_t ring_s = smem_addr(ring);
+    for (int ks = 0; ks < n_steps; ++ks) {
+      const int s = ks % kDyStages;
+      wg::bar_wait(&full[s], (ks / kDyStages) & 1);
+      const uint32_t st = wg::opaque(ring_s) + s * kDyStageBytes;
+      wg::mma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+        wg::mma_m64n192<0, 1>(
+            acc, wg::desc_k(st, k4),
+            wg::desc_mn(st + (1 + 3 * wgi) * wg::kBoxBytes, k4, wg::kBoxBytes), ks + k4 > 0);
+      wg::mma_commit();
+      wg::mma_wait<1>();
+      if (ks > 0 && t == 0) wg::bar_arrive(&empty[(ks - 1) % kDyStages]);
+    }
+    wg::mma_wait<0>();
+    wg::acc_fence(acc);
+    wg::sync_named(3, 256);  // both warpgroups are past the ring: stages 0 and 1 are free
+
+    const int warp = t >> 5, lane = t & 31;
+    const int ra = wg::acc_row(t, 0), rb = ra + 8;
+    const bool va = m0 + ra < m, vb = m0 + rb < m;
+    const float mean_a = va ? stats[2 * (m0 + ra)] : 0.f;
+    const float rstd_a = va ? stats[2 * (m0 + ra) + 1] : 0.f;
+    const float mean_b = vb ? stats[2 * (m0 + rb)] : 0.f;
+    const float rstd_b = vb ? stats[2 * (m0 + rb) + 1] : 0.f;
+    auto pair = [&](const __nv_bfloat16* p, bool valid, int row, int col) {
+      return valid ? unpack_bf16(*reinterpret_cast<const uint32_t*>(p + (m0 + row) * kLBD + col))
+                   : make_float2(0.f, 0.f);
+    };
+    // column sums [4 warps][db2, ds, db][192] of this warpgroup, in stage 1
+    float* sCol = reinterpret_cast<float*>(ring + kDyStageBytes) + wgi * 4 * 3 * kHalf;
+
+    // pass 1: row sums of dxhat and dxhat * xhat; column sums of do, dy * xhat, dy
+    float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 96; i += 4) {
+      const int col = kHalf * wgi + wg::acc_col(t, i);
+      const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
+      const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
+      const float2 oa = pair(dout, va, ra, col), ob = pair(dout, vb, rb, col);
+      const float xa0 = (xa.x - mean_a) * rstd_a, xa1 = (xa.y - mean_a) * rstd_a;
+      const float xb0 = (xb.x - mean_b) * rstd_b, xb1 = (xb.y - mean_b) * rstd_b;
+      const float da0 = acc[i] * sc0, da1 = acc[i + 1] * sc1;
+      const float db0 = acc[i + 2] * sc0, db1 = acc[i + 3] * sc1;
+      s1a += da0 + da1;
+      s2a += da0 * xa0 + da1 * xa1;
+      s1b += db0 + db1;
+      s2b += db0 * xb0 + db1 * xb1;
+      const float c[6] = {oa.x + ob.x, oa.y + ob.y,
+                          acc[i] * xa0 + acc[i + 2] * xb0, acc[i + 1] * xa1 + acc[i + 3] * xb1,
+                          acc[i] + acc[i + 2], acc[i + 1] + acc[i + 3]};
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        const float v = sum_over_rows(c[q]);
+        if (lane < 4) sCol[(warp * 3 + (q >> 1)) * kHalf + (col - kHalf * wgi) + (q & 1)] = v;
+      }
+    }
+    s1a = sum_over_quad(s1a);
+    s2a = sum_over_quad(s2a);
+    s1b = sum_over_quad(s1b);
+    s2b = sum_over_quad(s2b);
+    if ((lane & 3) == 0) {
+      float* mine = sRow + wgi * kLBDyRows * 2;
+      mine[2 * ra] = s1a;
+      mine[2 * ra + 1] = s2a;
+      mine[2 * rb] = s1b;
+      mine[2 * rb + 1] = s2b;
+    }
+    wg::sync_named(3, 256);
+    const float m1a = (sRow[2 * ra] + sRow[2 * (kLBDyRows + ra)]) / kLBD;
+    const float m2a = (sRow[2 * ra + 1] + sRow[2 * (kLBDyRows + ra) + 1]) / kLBD;
+    const float m1b = (sRow[2 * rb] + sRow[2 * (kLBDyRows + rb)]) / kLBD;
+    const float m2b = (sRow[2 * rb + 1] + sRow[2 * (kLBDyRows + rb) + 1]) / kLBD;
+
+    // pass 2: dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) (+ do),
+    // into three swizzled boxes of stage 0
+    uint8_t* stX = ring + wgi * 3 * wg::kBoxBytes;
+#pragma unroll
+    for (int i = 0; i < 96; i += 4) {
+      const int lc = wg::acc_col(t, i), col = kHalf * wgi + lc;
+      const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
+      const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
+      float a0 = rstd_a * (acc[i] * sc0 - m1a - (xa.x - mean_a) * rstd_a * m2a);
+      float a1 = rstd_a * (acc[i + 1] * sc1 - m1a - (xa.y - mean_a) * rstd_a * m2a);
+      float b0 = rstd_b * (acc[i + 2] * sc0 - m1b - (xb.x - mean_b) * rstd_b * m2b);
+      float b1 = rstd_b * (acc[i + 3] * sc1 - m1b - (xb.y - mean_b) * rstd_b * m2b);
+      if (residual) {
+        const float2 oa = pair(dout, va, ra, col), ob = pair(dout, vb, rb, col);
+        a0 += oa.x;
+        a1 += oa.y;
+        b0 += ob.x;
+        b1 += ob.y;
+      }
+      uint8_t* box = stX + (lc >> 6) * wg::kBoxBytes;
+      wg::st_pair(box, ra, lc & 63, a0, a1);
+      wg::st_pair(box, rb, lc & 63, b0, b1);
+    }
+    wg::fence_async_smem();
+    wg::sync_named(1 + wgi, 128);
+    if (t == 0) {
+      for (int b = 0; b < 3; ++b)
+        wg::tma_store(&dx_map, stX + b * wg::kBoxBytes, kHalf * wgi + b * wg::kBox, (int)m0);
+      wg::tma_store_commit();
+    }
+    // per-block partials [db2 | ds | db], the four warps summed in order
+    float* part = ln_part + (long long)blockIdx.x * 3 * kLBD;
+    for (int c = t; c < kHalf; c += 128) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        float tot = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) tot += sCol[(w * 3 + q) * kHalf + c];
+        part[q * kLBD + kHalf * wgi + c] = tot;
+      }
+    }
+    if (t == 0) wg::tma_store_wait();
+  }
+}
+
+// ---- (d) weight gradients -----------------------------------------------------------
+
+// Both weight gradients in one launch: dW2 (D x HID) = do^T h and dW1 (HID
+// x D) = dh_pre^T y, on 128 x 192 output tiles, dW2's tiles first. Block
+// (tile, split z) writes part[z][g][i1][i2] = sum over the rows of split z
+// of a_g[r][i1] * b_g[r][i2] for its GEMM g; rows past the end load as zeros.
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    wgrad_kernel(const __grid_constant__ CUtensorMap do_map, const __grid_constant__ CUtensorMap h_map,
+                 const __grid_constant__ CUtensorMap dhp_map,
+                 const __grid_constant__ CUtensorMap y_map, float* __restrict__ part,
+                 long long rows, int hid, long long rows_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = wg::align(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * kWgStageBytes);
+  uint64_t* empty = full + kWgStages;
+  const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
+  // dW2: m1 = D, m2 = HID; dW1: m1 = HID, m2 = D
+  const int tiles2 = (kLBD / kLBTile) * (hid / kWgN);
+  const bool g1 = (int)blockIdx.x >= tiles2;
+  const int tile = g1 ? blockIdx.x - tiles2 : blockIdx.x;
+  const int m1 = g1 ? hid : kLBD, m2 = g1 ? kLBD : hid;
+  const CUtensorMap* a_map = g1 ? &dhp_map : &do_map;
+  const CUtensorMap* b_map = g1 ? &y_map : &h_map;
+  const int i1 = (tile / (m2 / kWgN)) * kLBTile, i2 = (tile % (m2 / kWgN)) * kWgN;
+  const long long r_begin = (long long)blockIdx.y * rows_per_split;
+  const long long r_end = r_begin + rows_per_split < rows ? r_begin + rows_per_split : rows;
+  const int n_steps = r_end > r_begin ? (int)((r_end - r_begin + wg::kBox - 1) / wg::kBox) : 0;
+  init_ring(full, empty, kWgStages);
+
+  if (wgi == wg::kConsumers) {
+    wg::regs_dealloc<wg::kProducerRegs>();
+    if (t == 0) {
+      for (int st = 0; st < n_steps; ++st) {
+        const int s = st % kWgStages;
+        const int r = (int)(r_begin + (long long)st * wg::kBox);
+        wg::bar_wait(&empty[s], ((st / kWgStages) & 1) ^ 1);
+        wg::bar_expect_tx(&full[s], kWgStageBytes);
+        uint8_t* stg = ring + s * kWgStageBytes;
+        for (int b = 0; b < 2; ++b)
+          wg::tma_load(stg + b * wg::kBoxBytes, a_map, &full[s], i1 + b * wg::kBox, r);
+        for (int b = 0; b < kWgN / wg::kBox; ++b)
+          wg::tma_load(stg + (2 + b) * wg::kBoxBytes, b_map, &full[s], i2 + b * wg::kBox, r);
+      }
+    }
+  } else {
+    wg::regs_alloc<wg::kConsumerRegs>();
+    float acc[kWgN / 2];  // rows [i1 + 64 wgi, + 64) x columns [i2, i2 + 192)
+    wg::acc_zero(acc);
+    const uint32_t ring_s = smem_addr(ring);
+    for (int st = 0; st < n_steps; ++st) {
+      const int s = st % kWgStages;
+      wg::bar_wait(&full[s], (st / kWgStages) & 1);
+      const uint32_t stg = wg::opaque(ring_s) + s * kWgStageBytes;
+      wg::mma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+        wg::mma_m64n192<1, 1>(acc, wg::desc_mn(stg + wgi * wg::kBoxBytes, k4, wg::kBoxBytes),
+                              wg::desc_mn(stg + 2 * wg::kBoxBytes, k4, wg::kBoxBytes), 1);
+      wg::mma_commit();
+      wg::mma_wait<1>();
+      if (st > 0 && t == 0) wg::bar_arrive(&empty[(st - 1) % kWgStages]);
+    }
+    wg::mma_wait<0>();
+    wg::acc_fence(acc);
+    float* out = part + ((long long)blockIdx.y * 2 + g1) * kLBD * hid;
+#pragma unroll
+    for (int i = 0; i < kWgN / 2; i += 2) {
+      const long long r = i1 + 64 * wgi + wg::acc_row(t, i);
+      *reinterpret_cast<float2*>(out + r * m2 + i2 + wg::acc_col(t, i)) =
+          make_float2(acc[i], acc[i + 1]);
+    }
   }
 }
 
@@ -332,48 +470,89 @@ __global__ void __launch_bounds__(kLBThreads, 1)
 
 // Plain C entry point (loaded with ctypes). Shapes: x, do and dx (M, D) bf16;
 // ln_scale, ln_bias (D,) f32; w1 (HID, D), b1 (HID,), w2 (D, HID) bf16 in
-// nn.Linear layout; dw1 (HID, D) and dw2 (D, HID) f32; bias_out (HID + 3D)
-// f32 = [db1 | db2 | ds | db]; scratch: y_buf (M, D), h_buf and dhp_buf
-// (M, HID) bf16, bias_part (ceil(M / 64), HID + 3D) f32, wgrad_part (splits,
-// D, HID) f32. All contiguous. Returns a cudaError_t: the first failed
-// launch's, or cudaErrorInvalidValue for a shape the kernels do not take.
+// nn.Linear layout (HID a multiple of 384); dw (D * HID + HID * D) f32 =
+// [dW2 (D, HID) | dW1 (HID, D)]; bias_out (HID + 3D)
+// f32 = [db1 | db2 | ds | db]; scratch: y_buf (M, D) bf16, stats (M, 2) f32,
+// h_buf and dhp_buf (M, HID) bf16, db1_part (ceil(M / 128), HID) f32,
+// ln_part (ceil(M / 64), 3D) f32, wgrad_part (splits, 2, D, HID) f32. All
+// contiguous. Returns a cudaError_t: the first failed launch's (or TMA
+// descriptor's), or cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int dcvit_ln_mlp_bwd(const void* x, const void* ln_scale, const void* ln_bias,
                                 const void* w1, const void* b1, const void* w2, const void* dout,
-                                void* dx, void* dw1, void* dw2, void* bias_out, void* y_buf,
-                                void* h_buf, void* dhp_buf, void* bias_part, void* wgrad_part,
-                                long long m, int d, int hid, int residual, int splits,
-                                void* stream) {
+                                void* dx, void* dw, void* bias_out, void* y_buf,
+                                void* stats, void* h_buf, void* dhp_buf, void* db1_part,
+                                void* ln_part, void* wgrad_part, long long m, int d, int hid,
+                                int residual, int splits, void* stream) {
   using namespace dcvit;
   using bf16 = __nv_bfloat16;
-  if (d != 384 || hid % 64 != 0 || m < 1 || splits < 1) return (int)cudaErrorInvalidValue;
-  const long long blocks = (m + kLBRows - 1) / kLBRows;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (d != kLBD || hid % kWgN != 0 || hid % kLBTile != 0 || m < 1 || splits < 1 ||
+      (m + kLBTile - 1) / kLBTile > 65535 || m > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = lb_smem_bytes<384>();
-  auto kernel = ln_mlp_bwd_rows_kernel<384>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kLBThreads, smem, st>>>(
+  const long long tiles128 = (m + kLBTile - 1) / kLBTile;
+  const long long tiles64 = (m + kLBDyRows - 1) / kLBDyRows;
+  cudaError_t err;
+
+  ln_rows_kernel<<<(unsigned)((m + 7) / 8), 256, 0, st>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dx), static_cast<bf16*>(y_buf), static_cast<bf16*>(h_buf),
-      static_cast<bf16*>(dhp_buf), static_cast<float*>(bias_part), m, hid, residual);
+      static_cast<const float*>(ln_bias), static_cast<bf16*>(y_buf), static_cast<float*>(stats),
+      m);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  float* wpart = static_cast<float*>(wgrad_part);
-  // dW2 (D, HID) = do^T h; dW1 (HID, D) = dh_pre^T y; one scratch, used in turn
-  err = launch_wgrad(static_cast<const bf16*>(dout), d, static_cast<const bf16*>(h_buf), hid,
-                     wpart, m, d, hid, splits, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_reduce(wpart, static_cast<float*>(dw2), splits, (long long)d * hid, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_wgrad(static_cast<const bf16*>(dhp_buf), hid, static_cast<const bf16*>(y_buf), d,
-                     wpart, m, hid, d, splits, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_reduce(wpart, static_cast<float*>(dw1), splits, (long long)hid * d, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(static_cast<const float*>(bias_part), static_cast<float*>(bias_out),
-                            (int)blocks, hid + 3 * d, st);
+  CUtensorMap y128, do128, w1_k128, w2_mn, h64, dhp64, w1_mn, dx64, do64, y64;
+
+  const struct {
+    CUtensorMap* map;
+    const void* ptr;
+    long long rows;
+    int cols, box_rows;
+  } maps[] = {
+      {&y128, y_buf, m, kLBD, kLBTile},   {&do128, dout, m, kLBD, kLBTile},
+      {&w1_k128, w1, hid, kLBD, kLBTile}, {&w2_mn, w2, kLBD, hid, wg::kBox},
+      {&h64, h_buf, m, hid, wg::kBox},    {&dhp64, dhp_buf, m, hid, wg::kBox},
+      {&w1_mn, w1, hid, kLBD, wg::kBox},  {&dx64, dx, m, kLBD, wg::kBox},
+      {&do64, dout, m, kLBD, wg::kBox},   {&y64, y_buf, m, kLBD, wg::kBox},
+  };
+  for (const auto& mp : maps)
+    if ((err = tensor_map(mp.map, mp.ptr, mp.rows, mp.cols, mp.box_rows)) != cudaSuccess)
+      return (int)err;
+  const struct {
+    const void* fn;
+    int smem;
+  } attrs[] = {{(const void*)dual_kernel, kDualSmem},
+               {(const void*)dy_kernel, kDySmem},
+               {(const void*)wgrad_kernel, kWgSmem}};
+  for (const auto& a : attrs)
+    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    a.smem)) != cudaSuccess)
+      return (int)err;
+
+  dual_kernel<<<dim3(hid / kLBTile, (unsigned)tiles128), wg::kThreads, kDualSmem, st>>>(
+      y128, do128, w1_k128, w2_mn, h64, dhp64, static_cast<const bf16*>(b1),
+      static_cast<float*>(db1_part), hid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  dy_kernel<<<(unsigned)tiles64, wg::kThreads, kDySmem, st>>>(
+      dhp64, w1_mn, dx64, static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
+      static_cast<const float*>(ln_scale), static_cast<const float*>(stats),
+      static_cast<float*>(ln_part), m, hid, residual);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  // dW2 and dW1 in one launch, then every split summed in order into dw,
+  // which holds dW2 (D, HID) and then dW1 (HID, D)
+  const long long per = (m + splits - 1) / splits;
+  const long long rows_per_split = (per + wg::kBox - 1) / wg::kBox * wg::kBox;
+  const int wg_tiles = 2 * (kLBD / kLBTile) * (hid / kWgN);
+  wgrad_kernel<<<dim3(wg_tiles, splits), wg::kThreads, kWgSmem, st>>>(
+      do64, h64, dhp64, y64, static_cast<float*>(wgrad_part), m, hid, rows_per_split);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_reduce<1>(static_cast<const float*>(wgrad_part), static_cast<float*>(dw),
+                              splits, 2LL * kLBD * hid, st)) != cudaSuccess)
+    return (int)err;
+  float* bias = static_cast<float*>(bias_out);
+  // the bias partials: few columns, hundreds of blocks' rows
+  if ((err = launch_reduce<32>(static_cast<const float*>(db1_part), bias, (int)tiles128, hid,
+                               st)) != cudaSuccess)
+    return (int)err;
+  return (int)launch_reduce<32>(static_cast<const float*>(ln_part), bias + hid, (int)tiles64,
+                                3 * kLBD, st);
 }

@@ -10,22 +10,19 @@
 //   double-buffered cp.async ring, and writes its f32 partial
 //   part[s][M1][M2]. Four warps hold 32 x 32 of the tile each in registers
 //   (bf16 mma.sync, f32 accumulation); A^T's fragments come from ldmatrix.trans.
-// - `reduce_partials_kernel`: out[i] = sum over s of part[s][i], with the
-//   splits cut into eight fixed ranges summed by eight threads, then added in
-//   range order. The order depends only on the shapes, so the result is the
-//   same from run to run.
+// - `reduce_partials_kernel` (reduce.cuh) sums the partials in a fixed
+//   order, so the result is the same from run to run.
 //
 // Split counts are chosen by the caller so that the grid fills the card a few
 // times over; rows past R are zero-filled.
 #pragma once
 
-#include "common.cuh"
+#include "reduce.cuh"
 
 namespace dcvit {
 
 constexpr int kWGTile = 64;
 constexpr int kWGThreads = 128;
-constexpr int kReduceRanges = 8;
 
 __global__ void __launch_bounds__(kWGThreads)
     wgrad_kernel(const __nv_bfloat16* __restrict__ a, int lda, const __nv_bfloat16* __restrict__ b,
@@ -105,30 +102,7 @@ __global__ void __launch_bounds__(kWGThreads)
       }
 }
 
-// out[i] = sum_s part[s * count + i], s in [0, splits), in a fixed order.
-__global__ void __launch_bounds__(32 * kReduceRanges)
-    reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int splits,
-                           long long count) {
-  __shared__ float sh[kReduceRanges][32];
-  const long long i = (long long)blockIdx.x * 32 + threadIdx.x;
-  const int s0 = (int)((long long)splits * threadIdx.y / kReduceRanges);
-  const int s1 = (int)((long long)splits * (threadIdx.y + 1) / kReduceRanges);
-  float acc = 0.f;
-  if (i < count) {
-#pragma unroll 8
-    for (int s = s0; s < s1; ++s) acc += part[(long long)s * count + i];
-  }
-  sh[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && i < count) {
-    float tot = sh[0][threadIdx.x];
-#pragma unroll
-    for (int y = 1; y < kReduceRanges; ++y) tot += sh[y][threadIdx.x];
-    out[i] = tot;
-  }
-}
-
-// Launch helpers; each returns the launch's cudaError_t.
+// Returns the launch's cudaError_t.
 inline cudaError_t launch_wgrad(const __nv_bfloat16* a, int lda, const __nv_bfloat16* b, int ldb,
                                 float* part, long long rows, int m1, int m2, int splits,
                                 cudaStream_t stream) {
@@ -137,14 +111,6 @@ inline cudaError_t launch_wgrad(const __nv_bfloat16* a, int lda, const __nv_bflo
   const dim3 grid(m2 / kWGTile, m1 / kWGTile, splits);
   wgrad_kernel<<<grid, kWGThreads, 0, stream>>>(a, lda, b, ldb, part, rows, m1, m2,
                                                rows_per_split);
-  return cudaGetLastError();
-}
-
-inline cudaError_t launch_reduce(const float* part, float* out, int splits, long long count,
-                                 cudaStream_t stream) {
-  const long long blocks = (count + 31) / 32;
-  reduce_partials_kernel<<<(unsigned)blocks, dim3(32, kReduceRanges), 0, stream>>>(
-      part, out, splits, count);
   return cudaGetLastError();
 }
 

@@ -73,6 +73,17 @@ def _wgrad_splits(rows: int, m1: int, m2: int, device: torch.device) -> int:
     return max(1, min(-(-rows // 64), -(-4 * sms // tiles)))
 
 
+def _ln_mlp_wgrad_splits(rows: int, d: int, hid: int, device: torch.device) -> int:
+    """Row splits of B4's weight-gradient GEMMs (``csrc/ln_mlp_bwd.cu``: dW2
+    and dW1 in one launch of 128 x 192 output tiles, one block per SM):
+    whole waves, four of them on an H100. The count depends only on the
+    shapes and the card, so the summation order is the same from run to
+    run."""
+    tiles = 2 * (d // 128) * (hid // 192)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-rows // 64), 4 * sms // tiles))
+
+
 def _gelu_tanh_f32(x: torch.Tensor) -> torch.Tensor:
     inner = _C0 * (x + _C1 * x * x * x)
     return 0.5 * x * (1.0 + torch.tanh(inner))
@@ -336,13 +347,13 @@ def ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, residual: bool = False) -> torc
     return out.to(x.dtype)
 
 
-def _ln_mlp_check(x, w1, name):
+def _ln_mlp_check(x, w1, name, multiple=64):
     d = x.shape[-1]
     hid = w1.shape[0]
     if d != 384:
         raise NotImplementedError(f"{name} kernel: width {d} (only 384 is built; ROADMAP B3/B4)")
-    if hid % 64:
-        raise ValueError(f"{name} kernel: hidden width {hid} must be a multiple of 64")
+    if hid % multiple or hid == 0:
+        raise ValueError(f"{name} kernel: hidden width {hid} must be a multiple of {multiple}")
     return d, hid
 
 
@@ -406,7 +417,7 @@ def ln_mlp_bwd_plain(x, scale, bias, w1, b1, w2, do, residual: bool = False):
 
 
 def _ln_mlp_bwd_cuda(x, scale, bias, w1, b1, w2, do, residual):
-    d, hid = _ln_mlp_check(x, w1, "ln_mlp_bwd")
+    d, hid = _ln_mlp_check(x, w1, "ln_mlp_bwd", multiple=384)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, bf16, x.shape, dev)
     _check("ln_scale", scale, f32, (d,), dev)
@@ -416,23 +427,26 @@ def _ln_mlp_bwd_cuda(x, scale, bias, w1, b1, w2, do, residual):
     _check("w2", w2, bf16, (d, hid), dev)
     _check("do", do, bf16, x.shape, dev)
     m = x.numel() // d
-    splits = _wgrad_splits(m, d, hid, dev)
+    splits = _ln_mlp_wgrad_splits(m, d, hid, dev)
     dx = torch.empty_like(x)
-    dw1 = torch.empty((hid, d), dtype=f32, device=dev)
-    dw2 = torch.empty((d, hid), dtype=f32, device=dev)
+    dw = torch.empty(2 * d * hid, dtype=f32, device=dev)  # [dW2 | dW1]
+    dw2, dw1 = dw[:d * hid].view(d, hid), dw[d * hid:].view(hid, d)
     bias_out = torch.empty(hid + 3 * d, dtype=f32, device=dev)
     y_buf = torch.empty((m, d), dtype=bf16, device=dev)
+    stats = torch.empty((m, 2), dtype=f32, device=dev)
     h_buf = torch.empty((m, hid), dtype=bf16, device=dev)
     dhp_buf = torch.empty((m, hid), dtype=bf16, device=dev)
-    bias_part = torch.empty((-(-m // 64), hid + 3 * d), dtype=f32, device=dev)
-    wgrad_part = torch.empty((splits, d, hid), dtype=f32, device=dev)
+    db1_part = torch.empty((-(-m // 128), hid), dtype=f32, device=dev)
+    ln_part = torch.empty((-(-m // 64), 3 * d), dtype=f32, device=dev)
+    wgrad_part = torch.empty((splits, 2, d, hid), dtype=f32, device=dev)
     fn = kernels.function("ln_mlp_bwd")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                 w2.data_ptr(), do.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-                 bias_out.data_ptr(), y_buf.data_ptr(), h_buf.data_ptr(), dhp_buf.data_ptr(),
-                 bias_part.data_ptr(), wgrad_part.data_ptr(), m, d, hid, int(bool(residual)),
-                 splits, torch.cuda.current_stream(dev).cuda_stream)
+                 w2.data_ptr(), do.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                 bias_out.data_ptr(), y_buf.data_ptr(), stats.data_ptr(), h_buf.data_ptr(),
+                 dhp_buf.data_ptr(), db1_part.data_ptr(), ln_part.data_ptr(),
+                 wgrad_part.data_ptr(), m, d, hid, int(bool(residual)), splits,
+                 torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("ln_mlp_bwd", err)
     LAUNCHES["ln_mlp_bwd"] += 1
     db1, db2, ds, db = bias_out.split((hid, d, d, d))

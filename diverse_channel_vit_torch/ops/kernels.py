@@ -42,7 +42,7 @@ KERNELS = {
     "attend_project_bwd": ("attend_project_bwd.cu", "dcvit_attend_project_bwd",
                            [_P] * 12 + [_I] * 6 + [_F, _I, _P]),
     "ln_mlp_bwd": ("ln_mlp_bwd.cu", "dcvit_ln_mlp_bwd",
-                   [_P] * 16 + [_LL, _I, _I, _I, _I, _P]),
+                   [_P] * 17 + [_LL, _I, _I, _I, _I, _P]),
     "flash_packed": ("flash_packed.cu", "dcvit_flash_packed_fwd",
                      [_P] * 5 + [_I] * 4 + [_LL] * 3 + [_I, _F, _P]),
     "flash_packed_bwd": ("flash_packed_bwd.cu", "dcvit_flash_packed_bwd",

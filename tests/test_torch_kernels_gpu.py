@@ -12,10 +12,13 @@ against a running maximum, so an output may land a bf16 ulp or two (2^-7
 relative) apart: max|kernel - plain| <= 2e-2 * max|plain|. Output biases are
 drawn at the residual's scale, so a dropped or misplaced bias moves the output
 far past that; the cases with no residual and zero output bias let the
-kernel's products alone set max|plain|. The backward kernels B2 and B4 are
-held the same way, every output, and B2's padded key rows must come out with
-dk = dv = 0 exactly; the autograd Functions' gradients through the kernels
-are held against the same Functions under ``plain_versions()``. B5 and B6
+kernel's products alone set max|plain|. B3 and B4 are also held at the
+recipe's and EViT's grids and with a half-full last 128-row tile. The
+backward kernels B2 and B4 are held the same way, every output, B2's padded
+key rows must come out with dk = dv = 0 exactly, and two B4 calls on the
+same inputs must agree bit for bit; the autograd Functions' gradients
+through the kernels are held against the same Functions under
+``plain_versions()``. B5 and B6
 (``flash_attention_packed``) are held the same way, on q, k and v given as
 the strided thirds of one packed qkv tensor, as the model passes them.
 
@@ -95,6 +98,11 @@ def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, resi
     ((1, 100, 384), True, 1.0),   # a ragged last row tile
     ((2, 640, 384), False, 0.0),  # the MLP's products alone
     ((4, 768, 384), True, 1.0),   # the EViT grid after layer 6
+    ((3, 64, 384), True, 1.0),    # M = 192: a last 128-row tile half full
+    ((3, 64, 384), False, 0.0),   # the same, products alone
+    ((4, 256, 384), True, 1.0),   # the recipe's smallest grid (k = 1)
+    ((2, 1152, 384), False, 1.0),  # the EViT grid after layer 3
+    ((2, 1600, 384), True, 1.0),  # the flagship grid
 ])
 def test_ln_mlp_kernel_matches_plain(gen, shape, residual, bias):
     d, hid = 384, 1536
@@ -158,6 +166,10 @@ def test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid):
     ((1, 100, 384), True),   # a ragged last row tile
     ((2, 1600, 384), False),
     ((4, 768, 384), True),   # the EViT grid after layer 6
+    ((3, 64, 384), True),    # M = 192: a last 128-row tile half full
+    ((3, 64, 384), False),
+    ((4, 256, 384), False),  # the recipe's smallest grid (k = 1)
+    ((2, 1152, 384), True),  # the EViT grid after layer 3
 ])
 def test_ln_mlp_bwd_kernel_matches_plain(gen, shape, residual):
     d, hid = 384, 1536
@@ -174,6 +186,22 @@ def test_ln_mlp_bwd_kernel_matches_plain(gen, shape, residual):
                           fb.ln_mlp_bwd_plain(*args)):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert _rel(g, w) <= TOL, name
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 384), (8, 1600, 384)])
+def test_ln_mlp_bwd_kernel_is_bit_identical_across_calls(gen, shape):
+    """B4 sums every partial in a fixed order and uses no atomics: two calls
+    on the same inputs agree bit for bit, every output."""
+    d, hid = 384, 1536
+    x, do = _rnd(gen, *shape), _rnd(gen, *shape)
+    s = _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0
+    b = _rnd(gen, d, scale=0.1, dtype=torch.float32)
+    args = (x, s, b, _rnd(gen, hid, d, scale=d ** -0.5), _rnd(gen, hid),
+            _rnd(gen, d, hid, scale=hid ** -0.5), do, True)
+    first = fb.ln_mlp_bwd(*args)
+    second = fb.ln_mlp_bwd(*args)
+    for name, g1, g2 in zip(("dx", "dw1", "db1", "dw2", "db2", "ds", "db"), first, second):
+        assert torch.equal(g1, g2), name
 
 
 def _grads(fn, inputs, cotangent, plain):
@@ -210,19 +238,24 @@ def test_attend_project_function_grads_match_plain_route(gen, with_residual):
         assert _rel(g, w) <= TOL, name
 
 
-@pytest.mark.parametrize("residual", [False, True])
-def test_ln_mlp_function_grads_match_plain_route(gen, residual):
+@pytest.mark.parametrize("residual,grid", [
+    (False, (2, 640)),
+    (True, (2, 640)),
+    (True, (3, 64)),    # M = 192: a ragged last 128-row tile
+    (False, (2, 256)),  # the recipe's smallest grid
+])
+def test_ln_mlp_function_grads_match_plain_route(gen, residual, grid):
     """Gradients of every input through LnMlpFn: the kernel route (B3
     forward, B4 backward) against the plain route, on the card."""
     d, hid = 384, 1536
-    inputs = [_rnd(gen, 2, 640, d), _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0,
+    inputs = [_rnd(gen, *grid, d), _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0,
               _rnd(gen, d, scale=0.1, dtype=torch.float32), _rnd(gen, hid, d, scale=d ** -0.5),
               _rnd(gen, hid), _rnd(gen, d, hid, scale=hid ** -0.5), _rnd(gen, d)]
 
     def fn(*a):
         return fb.ln_mlp(*a, residual)
 
-    cot = _rnd(gen, 2, 640, d)
+    cot = _rnd(gen, *grid, d)
     before = fb.LAUNCHES["ln_mlp_bwd"]
     got = _grads(fn, inputs, cot, plain=False)
     assert fb.LAUNCHES["ln_mlp_bwd"] == before + 1
