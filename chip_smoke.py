@@ -14,7 +14,8 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    (attend_project) and B3 (ln_mlp), then the backwards B2 and B4, at the
    flagship shapes (B = 64 images, N = 1600 tokens padded from 1569,
    D = 384, 6 heads, hidden 1536, bf16), B3 and B4 also at the recipe's,
-   EViT's and ragged grids, and B4 twice on the same inputs, bit for bit;
+   EViT's and ragged grids, and B2 and B4 each twice on the same inputs,
+   bit for bit;
    then B5 and B6 (flash_packed,
    forward and backward) at the three grids the EViT path gives them; then
    B7 and B8 (the int8 ln_mlp, forward and backward) at the flagship shapes,
@@ -257,7 +258,8 @@ def check_bwd_kernels(fb, torch, F):
     residual (the autograd Function passes dxo to the residual itself). B4
     runs with the residual fused, as the main path calls it, and without.
     dxo and do are drawn at scale 1. Padded key rows must come out of B2 with
-    dk = dv = 0 exactly."""
+    dk = dv = 0 exactly, and two calls of B2, as of B4, on the same inputs
+    must agree bit for bit."""
     n = -(-N_VALID // 64) * 64
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(1))
     bf16 = torch.bfloat16
@@ -290,6 +292,11 @@ def check_bwd_kernels(fb, torch, F):
         raise AssertionError("attend_project_bwd: padded key rows have dk or dv != 0")
     print(f"attend_project_bwd: dk and dv exactly 0 on the {n - N_VALID} padded key rows")
     hold_ap("every key valid", n)
+    first, second = fb.attend_project_bwd(*args), fb.attend_project_bwd(*args)
+    if not all(torch.equal(p, q) for p, q in zip(first, second)):
+        raise AssertionError("attend_project_bwd: two calls on the same inputs differ")
+    print("attend_project_bwd: two calls on the same inputs agree bit for bit")
+    del first, second
     ms = cuda_ms(lambda: fb.attend_project_bwd(*args), 10)
     plain_ms = cuda_ms(lambda: fb.attend_project_bwd_plain(*args), 2, warmup=1)
     keep = (torch.arange(n, device="cuda") < N_VALID)[None, None, None, :]
@@ -1364,6 +1371,12 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # the flash wgmma core's kernels: their registers, spills, stack frames
+    # and ptxas notes (C75xx: wgmma serialised, setmaxnreg ignored)
+    for name in ("attend_project", "attend_project_bwd"):
+        for line in kernels.BUILD_LOG.get(name, "").splitlines():
+            if any(k in line for k in ("Compiling entry", "registers", "stack frame", "C75")):
+                print(f"  ptxas {name}: {line.strip()}")
 
     results = check_kernels(fb, torch, F)
     results.update(check_bwd_kernels(fb, torch, F))

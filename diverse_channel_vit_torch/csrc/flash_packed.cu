@@ -17,8 +17,8 @@
 //   One head's K+V at N = 1600 is 400 KB, above the 227 KB of shared memory
 //   a block may use, so one block owns one (64-query tile, head, image) and
 //   streams K/V through a double-buffered cp.async ring in 64-key tiles with
-//   an online softmax (`flash_fwd_tile`, flash_tiles.cuh, the loop of the
-//   attend_project forward, B1). The TPU normalised once after the P.V
+//   an online softmax (`flash_fwd_tile`, flash_tiles.cuh). The TPU
+//   normalised once after the P.V
 //   product; so does this kernel, against the final running sum.
 // - Without B1's output projection a block needs only 46 KB of shared
 //   memory, so several blocks share an SM and the grid (N / 64 x H x B)

@@ -1,6 +1,7 @@
-// Tile loops of masked multi-head attention, shared by the attend_project
-// kernels (attend_project.cu, attend_project_bwd.cu) and the flash_packed
-// kernels (flash_packed.cu, flash_packed_bwd.cu).
+// Tile loops of masked multi-head attention on `mma.sync`, shared by the
+// flash_packed kernels B5 and B6 (flash_packed.cu, flash_packed_bwd.cu) and
+// the benchmark scripts' S1 and S2 (bench_attn_bwd.cu, qkv_flash.cu) only.
+// The attend_project kernels B1 and B2 run on flash_wgmma.cuh.
 //
 // Each loop runs in one block of four warps; each warp owns 16 rows of a
 // 64-row tile (rows warp * 16 + g and warp * 16 + g + 8, g = lane / 4), so a

@@ -17,8 +17,8 @@
 //   through BlockSpec index maps (:155-157), with one image's whole K and V
 //   resident in VMEM. Here the block computes the three column offsets (0,
 //   D, 2D) itself and streams K/V in 64-key tiles with an online softmax
-//   (`flash_fwd_tile`, flash_tiles.cuh, the loop of the attend_project and
-//   flash_packed forwards): one head's K+V at N = 1664 is 416 KB, above the
+//   (`flash_fwd_tile`, flash_tiles.cuh, the loop of the flash_packed
+//   forward): one head's K+V at N = 1664 is 416 KB, above the
 //   227 KB of shared memory a block may use.
 // - The grid is the TPU's, (q tile, image), and the heads loop inside the
 //   block, one after the other through the same 46 KB of shared memory. The

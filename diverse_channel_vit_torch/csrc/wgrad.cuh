@@ -1,9 +1,11 @@
-// Weight gradients of the backward kernels, without f32 atomics.
+// Weight gradients of the int8 ln_mlp backward (ln_mlp_q_bwd.cu), without
+// f32 atomics. (The bf16 backwards, ln_mlp_bwd.cu and attend_project_bwd.cu,
+// have `wgmma` weight-gradient kernels of their own.)
 //
 // A weight gradient is C = A^T B summed over every row of a batch (here up to
-// 64 x 1600 rows): dWp = dxo^T o in attend_project_bwd.cu, dW2 = do^T h and
-// dW1 = dh_pre^T y in ln_mlp_bwd.cu. The TPU kernels summed these across a
-// sequential grid in VMEM scratch; Hopper blocks run in no order, so:
+// 64 x 1600 rows): dW2 = do^T h and dW1 = dh_pre^T y. The TPU kernel summed
+// these across a sequential grid in VMEM scratch; Hopper blocks run in no
+// order, so:
 //
 // - `wgrad_kernel`: block (tile of 64 x 64 outputs, split s) sums the rows of
 //   split s in order, streaming 64-row stages of A and B through a

@@ -73,6 +73,16 @@ def _wgrad_splits(rows: int, m1: int, m2: int, device: torch.device) -> int:
     return max(1, min(-(-rows // 64), -(-4 * sms // tiles)))
 
 
+def _ap_wgrad_splits(rows: int, d_out: int, d: int, device: torch.device) -> int:
+    """Row splits of B2's dWp GEMM (``csrc/attend_project_bwd.cu``: 128 x 128
+    output tiles, one block per SM): two whole waves on an H100. The count
+    depends only on the shapes and the card, so the summation order is the
+    same from run to run."""
+    tiles = -(-d_out // 128) * -(-d // 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-rows // 64), 2 * sms // tiles))
+
+
 def _ln_mlp_wgrad_splits(rows: int, d: int, hid: int, device: torch.device) -> int:
     """Row splits of B4's weight-gradient GEMMs (``csrc/ln_mlp_bwd.cu``: dW2
     and dW1 in one launch of 128 x 192 output tiles, one block per SM):
@@ -234,7 +244,7 @@ def _attend_project_bwd_cuda(qkv, o, lse, wp, dxo, num_heads, sm_scale, n_valid)
     _check("lse", lse, f32, (b, num_heads, n), dev)
     _check("wp", wp, bf16, (d_out, d), dev)
     _check("dxo", dxo, bf16, (b, n, d_out), dev)
-    splits = _wgrad_splits(b * n, d_out, d, dev)
+    splits = _ap_wgrad_splits(b * n, d_out, d, dev)
     dqkv = torch.empty_like(qkv)
     dwp = torch.empty((d_out, d), dtype=f32, device=dev)
     bias = torch.empty(d_out + 3 * d, dtype=f32, device=dev)

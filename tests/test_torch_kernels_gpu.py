@@ -13,10 +13,11 @@ relative) apart: max|kernel - plain| <= 2e-2 * max|plain|. Output biases are
 drawn at the residual's scale, so a dropped or misplaced bias moves the output
 far past that; the cases with no residual and zero output bias let the
 kernel's products alone set max|plain|. B3 and B4 are also held at the
-recipe's and EViT's grids and with a half-full last 128-row tile. The
+recipe's and EViT's grids and with a half-full last 128-row tile, B1 and B2
+at D = 768 and with one head (D_out = 64). The
 backward kernels B2 and B4 are held the same way, every output, B2's padded
-key rows must come out with dk = dv = 0 exactly, and two B4 calls on the
-same inputs must agree bit for bit; the autograd Functions' gradients
+key rows must come out with dk = dv = 0 exactly, and two B2 calls, as two B4
+calls, on the same inputs must agree bit for bit; the autograd Functions' gradients
 through the kernels are held against the same Functions under
 ``plain_versions()``. B5 and B6
 (``flash_attention_packed``) are held the same way, on q, k and v given as
@@ -73,6 +74,10 @@ def _rel(a, b):
     (2, 128, 4, 1, True, 256, 1.0),      # only the CLS key is valid
     (2, 1600, 6, 1569, False, 384, 0.0),  # the flagship grid, products alone
     (2, 768, 6, 768, True, 384, 1.0),    # the EViT grid after layer 6: no mask
+    (2, 192, 6, 150, True, 384, 1.0),    # N = 192, a ragged last key tile, 6 heads
+    (2, 640, 12, 589, True, 768, 1.0),   # D = 768: 12 heads
+    (2, 640, 12, 589, False, 768, 0.0),  # the same, products alone
+    (2, 128, 1, 100, True, 64, 1.0),     # one head, D_out = 64: half a Wp box
 ])
 def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, residual, d_out,
                                              bias):
@@ -140,6 +145,9 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(gen):
     (1, 192, 2, 129),    # two heads, D = 128
     (2, 1600, 6, 1569),  # the flagship grid
     (2, 768, 6, 768),    # the EViT grid after layer 6: no mask
+    (1, 192, 6, 150),    # B N = 192 rows: the row pass's last 128-row block half full
+    (2, 640, 12, 589),   # D = 768
+    (2, 128, 1, 100),    # one head, D = D_out = 64: half-empty 128-column tiles
 ])
 def test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid):
     d = heads * 64
@@ -201,6 +209,21 @@ def test_ln_mlp_bwd_kernel_is_bit_identical_across_calls(gen, shape):
     first = fb.ln_mlp_bwd(*args)
     second = fb.ln_mlp_bwd(*args)
     for name, g1, g2 in zip(("dx", "dw1", "db1", "dw2", "db2", "ds", "db"), first, second):
+        assert torch.equal(g1, g2), name
+
+
+@pytest.mark.parametrize("batch,n,heads", [(3, 64, 6), (8, 1600, 6)])
+def test_attend_project_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, heads):
+    """B2 sums every partial in a fixed order and uses no atomics: two calls
+    on the same inputs agree bit for bit, every output."""
+    d, n_valid = heads * 64, n - n // 50
+    qkv, x_res = _rnd(gen, batch, n, 3 * d), _rnd(gen, batch, n, d)
+    wp, bp = _rnd(gen, d, d, scale=d ** -0.5), _rnd(gen, d)
+    o, lse, _ = fb.attend_project_fwd(qkv, x_res, wp, bp, heads, 0.125, n_valid, need_o=True)
+    args = (qkv, o, lse, wp, _rnd(gen, batch, n, d), heads, 0.125, n_valid)
+    first = fb.attend_project_bwd(*args)
+    second = fb.attend_project_bwd(*args)
+    for name, g1, g2 in zip(("dqkv", "dwp", "dbp", "db_qkv"), first, second):
         assert torch.equal(g1, g2), name
 
 
