@@ -17,7 +17,10 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    EViT's and ragged grids, and B2 and B4 each twice on the same inputs,
    bit for bit;
    then B5 and B6 (flash_packed,
-   forward and backward) at the three grids the EViT path gives them; then
+   forward and backward) at the three grids the EViT path gives them, B5's
+   lse within 1e-5 and B6 twice on the same inputs, bit for bit, with B1's
+   and B2's times printed beside theirs (all four run on one flash core,
+   ``flash_wgmma.cuh``); then
    B7 and B8 (the int8 ln_mlp, forward and backward) at the flagship shapes,
    with the share of int8 codes that differ from the plain version's; then
    the benchmark scripts' kernels at the scripts' default shapes: S1
@@ -32,7 +35,8 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    then hold the logits against the same model run through the plain
    versions. The same for the model with EViT pruning (keep_rate 0.7:
    B5 at layers 3, 6 and 9, B1 / B3 at the other eight) and, for one
-   forward, with ``gelu_exact`` (every block unfused: B5 x 11);
+   forward and its profile, with ``gelu_exact`` (every block unfused:
+   B5 x 11);
 5. train the model (f32 parameters, bf16 compute) with the port's
    ``make_optimizer`` / ``make_lr_schedule`` / ``TrainState`` /
    ``make_train_step`` on one synthetic batch of 64 images: CE + CDL + TDL,
@@ -100,6 +104,9 @@ MAX_CODE_FLIPS = 1e-2
 # in other orders and the kernel's online softmax rounds P against a running
 # max, so an output may land one or two bf16 ulps (2^-7 relative) apart
 KERNEL_REL_TOL = 2e-2
+# B5's log-sum-exp against its plain version: f32 statistics of the same
+# scores (the kernel's ex2 and log2 against the plain version's exp and log)
+LSE_REL_TOL = 1e-5
 # logits after 12 layers of such differences
 LOGITS_REL_TOL = 5e-2
 # kernel route vs plain route over 3 train steps at PARITY_DEPTH: losses, and
@@ -494,15 +501,19 @@ def check_q_kernels(fb, torch, F):
     return results
 
 
-def check_flash_kernels(torch, F):
+def check_flash_kernels(torch, F, core):
     """Phase 3, B5 and B6 (flash_attention_packed) against their plain
     versions at the grids the EViT path gives them (EVIT_GRIDS, B = 64, 6
     heads of 64, bf16), q, k and v as the thirds of one packed qkv tensor, as
     the model passes them. The last grid has no mask and no padded rows.
-    Each output within KERNEL_REL_TOL; B6's dk and dv exactly 0 on padded key
-    rows. Times are per call at each grid and summed over the three (one
-    EViT forward's or step's work), beside the same sums for the bound, the
-    plain version and the library call (SDPA; for B6 autograd through it)."""
+    Each output within KERNEL_REL_TOL, B5's lse within LSE_REL_TOL; B6's dk
+    and dv exactly 0 on padded key rows, and two B6 calls on the same inputs
+    equal bit for bit. Times are per call at each grid and summed over the
+    three (one EViT forward's or step's work), beside the same sums for the
+    bound, the plain version and the library call (SDPA; for B6 autograd
+    through it), and printed beside B1's and B2's from ``core`` (the
+    results of check_kernels and check_bwd_kernels), which run on the same
+    flash core."""
     from diverse_channel_vit_torch.ops import attention as at
 
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(2))
@@ -519,6 +530,12 @@ def check_flash_kernels(torch, F):
         o, lse = at.flash_packed_fwd(q, k, v, HEADS, scale, n_valid, need_lse=True)
         o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, HEADS, scale, n_valid, need_lse=True)
         err_f, rel_f = hold("flash_packed_fwd", label, (("o", o, o_p), ("lse", lse, lse_p)))
+        rel_lse = ((lse - lse_p).abs().max() / lse_p.abs().max()).item()
+        print(f"flash_packed_fwd ({label}): lse rel {rel_lse:.3e} (tolerance rel <= "
+              f"{LSE_REL_TOL})")
+        if not rel_lse <= LSE_REL_TOL:
+            raise AssertionError(f"flash_packed_fwd ({label}): lse disagrees with its plain "
+                                 "version")
         del o_p, lse_p
         got = at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, n_valid)
         want = at.flash_packed_bwd_plain(q, k, v, o, do, lse, HEADS, scale, n_valid)
@@ -531,7 +548,12 @@ def check_flash_kernels(torch, F):
             raise AssertionError(f"flash_packed_bwd ({label}): padded key rows have dk or dv != 0")
         print(f"flash_packed_bwd ({label}): dk and dv exactly 0 on the {n - n_valid} padded "
               "key rows")
-        del got, want
+        again = at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, n_valid)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_packed_bwd ({label}): two calls on the same inputs "
+                                 "differ")
+        print(f"flash_packed_bwd ({label}): two calls on the same inputs agree bit for bit")
+        del got, want, again
         keep = (torch.arange(n, device="cuda") < n_valid)[None, None, None, :]
         heads_view = qkv.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
         timing_f = dict(
@@ -573,6 +595,13 @@ def check_flash_kernels(torch, F):
                      per_grid=[{k: g[k] for k in ("n", "n_valid", "ms", "bound_ms", "plain_ms",
                                                   "library_ms")} for g in grids])
         results[name] = entry
+    per_grid = {name: ", ".join(f"{g['ms']:.4f}" for g in results[name]["per_grid"])
+                for name in results}
+    print(f"flash core (flash_wgmma.cuh): B1 {core['attend_project_fwd']['ms']:.4f} ms and B2 "
+          f"{core['attend_project_bwd']['ms']:.4f} ms at N 1600; B5 "
+          f"{results['flash_packed_fwd']['ms']:.4f} ms ({per_grid['flash_packed_fwd']}) and B6 "
+          f"{results['flash_packed_bwd']['ms']:.4f} ms ({per_grid['flash_packed_bwd']}) over "
+          "the EViT grids")
     return results
 
 
@@ -787,7 +816,8 @@ def get_json(port: int, path: str) -> dict:
 
 def profile_call(fn, label: str, torch):
     """Device time by kernel over one call of ``fn``, and the device's busy
-    share of its wall time."""
+    share of its wall time: the 16 largest items, then every other kernel of
+    the port (``dcvit::``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -808,8 +838,9 @@ def profile_call(fn, label: str, torch):
     rows.sort(reverse=True)
     print(f"profile of {label}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)")
-    for dev, key, count in rows[:16]:
-        print(f"  {100 * dev / busy:5.1f}%  {dev / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
+    for i, (dev, key, count) in enumerate(rows):
+        if i < 16 or "dcvit::" in key:
+            print(f"  {100 * dev / busy:5.1f}%  {dev / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
 
 
 def model_config(depth: int, **extra):
@@ -1129,7 +1160,8 @@ def serve_evit(fb, torch):
 def serve_gelu_exact(fb, torch):
     """Phase 4c: DiChaViT-S with ``gelu_exact`` at full width, one 64-image
     ``predict``: every non-readout block takes the unfused route (B5 x 11,
-    no B1 / B3); the logits against the plain route on the card."""
+    no B1 / B3); a profile of a second predict; the logits against the plain
+    route on the card."""
     from diverse_channel_vit_torch.serving import ServingEngine
 
     model = build(DEPTH, gelu_exact=True)
@@ -1145,6 +1177,8 @@ def serve_gelu_exact(fb, torch):
     check_counts("gelu_exact serving", launches, forwards, "forward",
                  {"flash_packed_fwd": DEPTH - 1})
     print(f"gelu_exact serving: one 64-image predict {secs * 1e3:.2f} ms")
+    profile_call(lambda: engine.predict(imgs, list(range(CHANNELS))),
+                 "one 64-image gelu_exact predict", torch)
     with fb.plain_versions(), torch.inference_mode():
         ref = model(torch.from_numpy(imgs).cuda().to(torch.bfloat16),
                     torch.arange(CHANNELS, device="cuda"))[0].float().cpu().numpy()
@@ -1373,14 +1407,14 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     # the flash wgmma core's kernels: their registers, spills, stack frames
     # and ptxas notes (C75xx: wgmma serialised, setmaxnreg ignored)
-    for name in ("attend_project", "attend_project_bwd"):
+    for name in ("attend_project", "attend_project_bwd", "flash_packed", "flash_packed_bwd"):
         for line in kernels.BUILD_LOG.get(name, "").splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "stack frame", "C75")):
                 print(f"  ptxas {name}: {line.strip()}")
 
     results = check_kernels(fb, torch, F)
     results.update(check_bwd_kernels(fb, torch, F))
-    results.update(check_flash_kernels(torch, F))
+    results.update(check_flash_kernels(torch, F, results))
     results.update(check_q_kernels(fb, torch, F))
     results.update(check_script_kernels(fb, torch, F))
     for name, r in results.items():

@@ -26,7 +26,8 @@
 //   -1e30 before the max. The softmax normalises once at the end, where the
 //   TPU divided the unnormalised P.V by the row sum.
 // - A block owns 64 query rows of one image, one consumer warpgroup, and
-//   loops over all heads. S = Q K^T is a `wgmma` m64n64 from shared memory;
+//   loops over all heads (the tile loop is `fw::attend_tiles`, which the
+//   flash_packed forward B5 runs too). S = Q K^T is a `wgmma` m64n64 from shared memory;
 //   P, rounded to bf16 against the running max, is the register A operand of
 //   O += P V (V the MN-major operand of the same box). Tile kt's S product
 //   is issued together with tile kt-1's P V, so the row maxima of S_kt are
@@ -65,62 +66,12 @@ constexpr int kMaxSmem = 232448;          // dynamic shared memory a block may u
 
 constexpr int kApRows = fw::kWgRows;      // query rows of a block, and keys of a tile
 constexpr int kApBox = kApRows * 128;      // one head's Q (then O) box, or a K or V tile
-constexpr int kApStageBytes = 2 * kApBox;  // K + V, or one Wp box
-constexpr int kApStages = 3;
-constexpr int kApThreads = 128 + 32;       // a consumer warpgroup and a producer warp
+constexpr int kApStageBytes = fw::kFwdStageBytes;  // K + V, or one Wp box
+constexpr int kApStages = fw::kFwdStages;
+constexpr int kApThreads = fw::kFwdThreads;
 static_assert(kApStageBytes >= kWpBox, "a Wp box fits a stage");
 __host__ __device__ constexpr int ap_smem(int heads) {
   return heads * kApBox + kApStages * kApStageBytes + (2 * kApStages + 1) * 8 + wg::kAlign;
-}
-
-// S = Q_h K^T: 64 rows x 64 keys, K-major Q rows at `qa`, the K tile at
-// `kt_box`.
-DEV void ap_scores(float (&sc)[32], uint32_t qa, uint32_t kt_box) {
-#pragma unroll
-  for (int k4 = 0; k4 < 4; ++k4)
-    wg::mma_m64n64<0, 0>(sc, wg::desc_k(qa, k4), wg::desc_k(kt_box, k4), k4 > 0);
-}
-
-// The row maxima of the raw scores of keys kv0 .. kv0 + 64, in the log2
-// domain (times scale_log2 > 0), into mx_a / mx_b (quad shuffles); in the
-// ragged last tile, keys at or past n_valid get -1e30 first.
-DEV void ap_row_max(float (&sc)[32], int kv0, int n_valid, float scale_log2, int t,
-                    float& mx_a, float& mx_b) {
-  if (kv0 + kApRows > n_valid) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if (kv0 + wg::acc_col(t, i) >= n_valid) sc[i] = -1e30f;
-  }
-  // two chains a row, to halve the dependent fmax latency
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int k = ((i >> 1) & 1) + 2 * ((i >> 2) & 1);  // row b: odd k
-    m[k] = fmaxf(m[k], sc[i]);
-  }
-  float ra = fmaxf(m[0], m[2]), rb = fmaxf(m[1], m[3]);
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    ra = fmaxf(ra, __shfl_xor_sync(0xffffffffu, ra, off));
-    rb = fmaxf(rb, __shfl_xor_sync(0xffffffffu, rb, off));
-  }
-  mx_a = fmaxf(mx_a, ra * scale_log2);
-  mx_b = fmaxf(mx_b, rb * scale_log2);
-}
-
-// P = exp2(S scale_log2 - m) in place, one FMA and one ex2 each (f32, for
-// the row sums added to l_a / l_b; packed to bf16 for P V by the caller)
-DEV void ap_exp(float (&sc)[32], float scale_log2, float m_a, float m_b, float& l_a,
-                float& l_b) {
-  float l[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const bool rb = (i >> 1) & 1;
-    sc[i] = fw::ex2(fmaf(sc[i], scale_log2, rb ? -m_b : -m_a));
-    l[(rb ? 1 : 0) + 2 * ((i >> 2) & 1)] += sc[i];
-  }
-  l_a += l[0] + l[2];
-  l_b += l[1] + l[3];
 }
 
 __global__ void __launch_bounds__(kApThreads, 2)
@@ -162,14 +113,8 @@ __global__ void __launch_bounds__(kApThreads, 2)
         fw::tma_load3(sO + h * kApBox, &qkv_map, qbar, h * fw::kHd, q0, b);
       int it = 0;
       for (int h = 0; h < heads; ++h)
-        for (int kt = 0; kt < n_kt; ++kt, ++it) {
-          const int s = it % kApStages;
-          wg::bar_wait(&empty[s], ((it / kApStages) & 1) ^ 1);
-          wg::bar_expect_tx(&full[s], kApStageBytes);
-          uint8_t* st = ring + s * kApStageBytes;
-          fw::tma_load3(st, &qkv_map, &full[s], d + h * fw::kHd, kt * kApRows, b);
-          fw::tma_load3(st + kApBox, &qkv_map, &full[s], 2 * d + h * fw::kHd, kt * kApRows, b);
-        }
+        fw::load_kv_tiles(ring, full, empty, it, &qkv_map, d + h * fw::kHd, &qkv_map,
+                          2 * d + h * fw::kHd, n_kt, b);
       for (int c = 0; c < n_chunks; ++c)
         for (int kc = 0; kc < n_kc; ++kc, ++it) {
           const int s = it % kApStages;
@@ -184,93 +129,14 @@ __global__ void __launch_bounds__(kApThreads, 2)
     wg::bar_wait(qbar, 0);
     int it = 0;
     for (int h = 0; h < heads; ++h) {
-      // Tile kt > 0 issues S_kt = Q_h K_kt^T together with O += P_{kt-1}
-      // V_{kt-1}, then takes S_kt's row maxima while that P V runs. Tile 0 is
-      // peeled off, so that the loop body issues the same products and waits
-      // every time: ptxas serialises every product of a loop whose groups
-      // and waits depend on a branch.
-      const uint32_t qa = sO_s + h * kApBox;
-      float o[32];
-      wg::acc_zero(o);
-      float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-      uint32_t p[4][4];  // P of the previous tile, bf16
-      float sc[32];
-      int s = it % kApStages;
-      wg::bar_wait(&full[s], (it / kApStages) & 1);
-      uint32_t st = wg::opaque(ring_s) + s * kApStageBytes;
-      wg::mma_fence();
-      ap_scores(sc, wg::opaque(qa), st);
-      wg::mma_commit();
-      wg::mma_wait<0>();
-      wg::acc_fence(sc);
-      ap_row_max(sc, 0, n_valid, scale_log2, t, m_a, m_b);
-      ap_exp(sc, scale_log2, m_a, m_b, l_a, l_b);
-      fw::pack_a(p, sc);
-      for (int kt = 1; kt < n_kt; ++kt) {
-        const int s_prev = s;
-        const uint32_t v_prev = st + kApBox;
-        ++it;
-        s = it % kApStages;
-        wg::bar_wait(&full[s], (it / kApStages) & 1);
-        st = wg::opaque(ring_s) + s * kApStageBytes;
-        wg::mma_fence();
-        ap_scores(sc, wg::opaque(qa), st);
-        wg::mma_commit();
-        // a pipeline stage of its own, so that S_kt's registers may change
-        // while this product runs
-        wg::mma_fence();
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          fw::mma_rs_m64n64<1>(o, p[ks], wg::desc_mn(v_prev, ks, wg::kBoxBytes), 1);
-        wg::mma_commit();
-        wg::mma_wait<1>();
-        wg::acc_fence(sc);
-        float mx_a = m_a, mx_b = m_b;
-        ap_row_max(sc, kt * kApRows, n_valid, scale_log2, t, mx_a, mx_b);
-        const float alpha_a = fw::ex2(m_a - mx_a), alpha_b = fw::ex2(m_b - mx_b);
-        m_a = mx_a;
-        m_b = mx_b;
-        wg::mma_wait<0>();  // the previous tile's P V has ended: its stage is free
-        wg::acc_fence(o);
-        fw::frag_fence(p);
-        if (t == 0) wg::bar_arrive(&empty[s_prev]);
-        l_a *= alpha_a;
-        l_b *= alpha_b;
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? alpha_b : alpha_a;
-        ap_exp(sc, scale_log2, m_a, m_b, l_a, l_b);
-        fw::pack_a(p, sc);
-      }
-      // the last tile's P V
-      wg::mma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        fw::mma_rs_m64n64<1>(o, p[ks], wg::desc_mn(st + kApBox, ks, wg::kBoxBytes), 1);
-      wg::mma_commit();
-      wg::mma_wait<0>();
-      wg::acc_fence(o);
-      fw::frag_fence(p);
-      if (t == 0) wg::bar_arrive(&empty[s]);
-      ++it;
-
+      float o[32], m_a, m_b, l_a, l_b;
+      fw::attend_tiles(o, m_a, m_b, l_a, l_b, sO_s + h * kApBox, ring_s, full, empty, it, n_kt,
+                       n_valid, scale_log2, t);
       // normalise; lse; O_h (bf16) over Q_h
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-        l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-      }
-      if (need_o && (t & 3) == 0) {
-        float* lrow = lse_out + ((long long)b * heads + h) * n;
-        if (row_a < n) lrow[row_a] = (m_a + log2f(l_a)) * fw::kLn2;  // m in the log2 domain
-        if (row_b < n) lrow[row_b] = (m_b + log2f(l_b)) * fw::kLn2;
-      }
-      const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? inv_b : inv_a;
       uint8_t* obox = sO + h * kApBox;
-      fw::store_tile(obox, o, t);
-      wg::fence_async_smem();
-      wg::sync_named(1, 128);
+      fw::finish_rows(o, m_a, m_b, l_a, l_b,
+                      need_o ? lse_out + ((long long)b * heads + h) * n : nullptr, row_a, row_b,
+                      n, obox, t);
       if (need_o && t == 0) {
         fw::tma_store3(&o_map, obox, h * fw::kHd, q0, b);
         wg::tma_store_commit();
@@ -334,11 +200,11 @@ extern "C" int dcvit_attend_project_fwd(const void* qkv, const void* x_res, cons
   const int d = heads * fw::kHd;
   CUtensorMap qkv_map, wp_map, o_map;
   cudaError_t err;
-  if ((err = tensor_map3(&qkv_map, qkv, batch, n, 3 * d, kApRows)) != cudaSuccess ||
+  if ((err = tensor_map3(&qkv_map, qkv, batch, n, 3 * d, kApRows, 3 * d)) != cudaSuccess ||
       (err = tensor_map(&wp_map, wp, d_out, d, kApN)) != cudaSuccess)
     return (int)err;
   if (o != nullptr) {
-    if ((err = tensor_map3(&o_map, o, batch, n, d, kApRows)) != cudaSuccess) return (int)err;
+    if ((err = tensor_map3(&o_map, o, batch, n, d, kApRows, d)) != cudaSuccess) return (int)err;
   } else {
     o_map = qkv_map;  // never read
   }

@@ -26,16 +26,19 @@
 //   (a) `ap_bwd_pre_kernel`, per 128 rows: do = dxo Wp (rounded to bf16, as
 //       the TPU rounded it) in chunks of two heads, di = rowsum(o_h * do_h)
 //       per head in f32, and the per-64-row column sums of dxo (dbp);
-//   (b) `ap_bwd_kv_kernel`, one block per (64 keys, head, image), K and V
-//       resident, the (Q, dO, lse, di) tiles of 64 queries streamed through
-//       a four-stage ring: S^T = K Q^T and dP^T = V dO^T from shared memory,
+//   (b) `flash_bwd_kv_kernel` (flash_wgmma.cuh, shared with the
+//       flash_packed backward B6, which skips the bias sums), one block per
+//       (64 keys, head, image), K and V resident, the (Q, dO, lse, di) tiles
+//       of 64 queries streamed through a three-stage ring: S^T = K Q^T and
+//       dP^T = V dO^T from shared memory,
 //       P^T = exp2(S^T scale log2e - lse log2e) (lse from the forward
 //       kernel), dS^T = P^T (dP^T - di) * scale, then dV += P^T dO and
 //       dK += dS^T Q with P^T and dS^T packed to bf16 as the register A
 //       operands. dk and dv stay in f32 registers and are written once, with
 //       their column sums (the k and v bias gradients);
-//   (c) `ap_bwd_q_kernel`, one block per (64 queries, head, image), Q and
-//       dO resident, the (K, V) tiles of 64 keys below `n_valid` streamed:
+//   (c) `flash_bwd_q_kernel` (flash_wgmma.cuh, shared in the same way), one
+//       block per (64 queries, head, image), Q and dO resident, the (K, V)
+//       tiles of 64 keys below `n_valid` streamed:
 //       S = Q K^T and dP = dO V^T recomputed, dQ += dS K with dS from
 //       registers, issued with the next tile's S and dP; and the column sums
 //       of the rounded dq (the q bias gradient, as the TPU summed its
@@ -186,363 +189,6 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   }
 }
 
-// (b) and (c): blocks of one warpgroup (128 threads), three an SM. Thread 0
-// issues the TMA loads: a stage is refilled as soon as the warpgroup has
-// finished with it. (A producer warp beside the warpgroup, 160 threads and
-// two blocks an SM within the 168 registers a thread that (b) needs, was
-// slower on an H100.) (b): K and V of the block's 64 keys resident; a stage
-// holds the (Q, dO) boxes of 64 queries and their 64 lse and 64 di values.
-// (c): Q and dO of the block's 64 queries resident; a stage holds the (K, V)
-// boxes of 64 keys.
-constexpr int kFlashThreads = 128;
-constexpr int kKvStages = 3;
-constexpr int kKvStageBytes = 17 * 1024;
-constexpr int kKvSmem = 2 * wg::kBoxBytes + kKvStages * kKvStageBytes + 4 * 2 * 64 * 4 +
-                        (kKvStages + 1) * 8 + wg::kAlign;
-constexpr int kQStages = 3;
-constexpr int kQStageBytes = 2 * wg::kBoxBytes;
-constexpr int kQSmem = 2 * wg::kBoxBytes + kQStages * kQStageBytes + 4 * 64 * 4 +
-                       (kQStages + 1) * 8 + wg::kAlign;
-
-// The stages' full barriers and one more for the resident boxes, initialised
-// by thread 0 before any load.
-DEV void init_bars(uint64_t* full, int stages) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s <= stages; ++s) wg::bar_init(&full[s], 1);
-    wg::bar_init_fence();
-  }
-  __syncthreads();
-}
-
-// (b) dk, dv and their column sums. Grid (N / 64, heads, B).
-__global__ void __launch_bounds__(kFlashThreads, 3)
-    ap_bwd_kv_kernel(const __grid_constant__ CUtensorMap qkv64,
-                     const __grid_constant__ CUtensorMap do64,
-                     const __grid_constant__ CUtensorMap dqkv64, const float* __restrict__ lse,
-                     const float* __restrict__ di, __nv_bfloat16* __restrict__ dqkv,
-                     float* __restrict__ bias_part, int n, int n_valid, float scale_log2,
-                     float sm_scale, int d_out, int bias_stride) {
-  const int heads = gridDim.y, d = heads * fw::kHd;
-  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * fw::kWgRows, hc = h * fw::kHd;
-  float* part = bias_part + ((long long)b * (n / kBRows) + blockIdx.x) * bias_stride + d_out;
-  const int tid = threadIdx.x;
-
-  if (k0 >= n_valid) {  // wholly padded keys: exact zeros
-    const long long row3 = 3LL * d;
-    __nv_bfloat16* dbase = dqkv + ((long long)b * n + k0) * row3 + hc;
-    for (int i = tid; i < fw::kWgRows * (fw::kHd / 2); i += kFlashThreads) {
-      const long long off = (long long)(i / (fw::kHd / 2)) * row3 + (i % (fw::kHd / 2)) * 2;
-      *reinterpret_cast<uint32_t*>(dbase + off + d) = 0u;
-      *reinterpret_cast<uint32_t*>(dbase + off + 2 * d) = 0u;
-    }
-    for (int c = tid; c < fw::kHd; c += kFlashThreads) {
-      part[d + hc + c] = 0.f;
-      part[2 * d + hc + c] = 0.f;
-    }
-    return;
-  }
-
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sK = wg::align(smem_raw);
-  uint8_t* sV = sK + wg::kBoxBytes;
-  uint8_t* ring = sV + wg::kBoxBytes;
-  float* red = reinterpret_cast<float*>(ring + kKvStages * kKvStageBytes);  // [4 warps][2][64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * 2 * fw::kHd);
-  uint64_t* kvbar = full + kKvStages;
-  const int t = tid;
-  const int nq = n / fw::kWgRows;
-  init_bars(full, kKvStages);
-
-  const float* lrow = lse + ((long long)b * heads + h) * n;
-  const float* drow = di + ((long long)b * heads + h) * n;
-  auto load_q = [&](int qt) {
-    const int s = qt % kKvStages;
-    wg::bar_expect_tx(&full[s], 2 * wg::kBoxBytes + 2 * 256);
-    uint8_t* st = ring + s * kKvStageBytes;
-    fw::tma_load3(st, &qkv64, &full[s], hc, qt * fw::kWgRows, b);
-    fw::tma_load3(st + wg::kBoxBytes, &do64, &full[s], hc, qt * fw::kWgRows, b);
-    fw::bulk_load(st + 2 * wg::kBoxBytes, lrow + qt * fw::kWgRows, 256, &full[s]);
-    fw::bulk_load(st + 2 * wg::kBoxBytes + 256, drow + qt * fw::kWgRows, 256, &full[s]);
-  };
-  if (t == 0) {
-    wg::bar_expect_tx(kvbar, 2 * wg::kBoxBytes);
-    fw::tma_load3(sK, &qkv64, kvbar, d + hc, k0, b);
-    fw::tma_load3(sV, &qkv64, kvbar, 2 * d + hc, k0, b);
-    for (int qt = 0; qt < kKvStages && qt < nq; ++qt) load_q(qt);
-  }
-  float dk[32], dv[32];
-  wg::acc_zero(dk);
-  wg::acc_zero(dv);
-  const int key_a = k0 + wg::acc_row(t, 0);
-  const bool valid_a = key_a < n_valid, valid_b = key_a + 8 < n_valid;
-  const uint32_t ring_s = smem_addr(ring), k_s = smem_addr(sK), v_s = smem_addr(sV);
-  wg::bar_wait(kvbar, 0);
-  // Two product groups a query tile, each waited in the same tile: issuing
-  // a tile's dV and dK with the next tile's S^T and dP^T would hold dk, dv,
-  // both score tiles and both packed operands live at once, past the 168
-  // registers a thread that three blocks an SM allow.
-  for (int qt = 0; qt < nq; ++qt) {
-    const int s = qt % kKvStages;
-    wg::bar_wait(&full[s], (qt / kKvStages) & 1);
-    const uint32_t st = wg::opaque(ring_s) + s * kKvStageBytes;
-    const float* l_t = reinterpret_cast<const float*>(ring + s * kKvStageBytes + 2 * wg::kBoxBytes);
-    const float* d_t = l_t + fw::kWgRows;
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
-    float sc[32], dp[32];
-    wg::mma_fence();
-#pragma unroll
-    for (int k4 = 0; k4 < 4; ++k4)
-      wg::mma_m64n64<0, 0>(sc, wg::desc_k(wg::opaque(k_s), k4), wg::desc_k(st, k4), k4 > 0);
-    wg::mma_commit();
-#pragma unroll
-    for (int k4 = 0; k4 < 4; ++k4)
-      wg::mma_m64n64<0, 0>(dp, wg::desc_k(wg::opaque(v_s), k4),
-                           wg::desc_k(st + wg::kBoxBytes, k4), k4 > 0);
-    wg::mma_commit();
-    // P^T = exp2(S^T scale log2e - lse log2e); padded keys exactly 0
-    wg::mma_wait<1>();
-    wg::acc_fence(sc);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(l_t + wg::acc_col(t, 4 * j));
-      const float la = l2.x * fw::kLog2e, lb = l2.y * fw::kLog2e;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = (e & 2) ? valid_b : valid_a;
-        const int i = 4 * j + e;
-        sc[i] = valid ? fw::ex2(sc[i] * scale_log2 - ((e & 1) ? lb : la)) : 0.f;
-      }
-    }
-    // dS^T = P^T (dP^T - di) * scale
-    wg::mma_wait<0>();
-    wg::acc_fence(dp);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 d2 = *reinterpret_cast<const float2*>(d_t + wg::acc_col(t, 4 * j));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * j + e;
-        dp[i] = sc[i] * (dp[i] - ((e & 1) ? d2.y : d2.x)) * sm_scale;
-      }
-    }
-    uint32_t pp[4][4], dsp[4][4];
-    fw::pack_a(pp, sc);
-    fw::pack_a(dsp, dp);
-    // dV += P^T dO and dK += dS^T Q, P^T and dS^T from registers
-    wg::mma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      fw::mma_rs_m64n64<1>(dv, pp[ks], wg::desc_mn(st + wg::kBoxBytes, ks, wg::kBoxBytes), 1);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      fw::mma_rs_m64n64<1>(dk, dsp[ks], wg::desc_mn(st, ks, wg::kBoxBytes), 1);
-    wg::mma_commit();
-    wg::mma_wait<0>();
-    wg::acc_fence(dv);
-    wg::acc_fence(dk);
-    fw::frag_fence(pp);
-    fw::frag_fence(dsp);
-    wg::sync_named(1, 128);  // every warp is done with the stage
-    if (t == 0 && qt + kKvStages < nq) load_q(qt + kKvStages);
-  }
-
-  // dk and dv (bf16) into the K and V boxes, then out by TMA
-  fw::store_tile(sK, dk, t);
-  fw::store_tile(sV, dv, t);
-  wg::fence_async_smem();
-  wg::sync_named(1, 128);
-  if (t == 0) {
-    fw::tma_store3(&dqkv64, sK, d + hc, k0, b);
-    fw::tma_store3(&dqkv64, sV, 2 * d + hc, k0, b);
-    wg::tma_store_commit();
-  }
-  // column sums of the f32 accumulators, as the TPU summed its f32
-  // scratch: over the thread's two rows, the warp's eight row groups, then
-  // the four warps in order
-  const int warp = t >> 5, lane = t & 31;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float sk = sum_over_rows(dk[4 * j + e] + dk[4 * j + 2 + e]);
-      const float sv = sum_over_rows(dv[4 * j + e] + dv[4 * j + 2 + e]);
-      if (lane < 4) {
-        red[(warp * 2) * fw::kHd + 8 * j + 2 * lane + e] = sk;
-        red[(warp * 2 + 1) * fw::kHd + 8 * j + 2 * lane + e] = sv;
-      }
-    }
-  wg::sync_named(1, 128);
-  {
-    const int which = t >> 6, c = t & 63;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) sum += red[(w * 2 + which) * fw::kHd + c];
-    part[(1 + which) * d + hc + c] = sum;
-  }
-  if (t == 0) wg::tma_store_wait();
-}
-
-// (c)'s products S = Q K^T and dP = dO V^T: 64 queries x 64 keys, the Q and
-// dO boxes at `qa` and `doa`, the (K, V) stage at `st`.
-DEV void ap_q_scores(float (&sc)[32], float (&dp)[32], uint32_t qa, uint32_t doa, uint32_t st) {
-#pragma unroll
-  for (int k4 = 0; k4 < 4; ++k4)
-    wg::mma_m64n64<0, 0>(sc, wg::desc_k(qa, k4), wg::desc_k(st, k4), k4 > 0);
-#pragma unroll
-  for (int k4 = 0; k4 < 4; ++k4)
-    wg::mma_m64n64<0, 0>(dp, wg::desc_k(doa, k4), wg::desc_k(st + wg::kBoxBytes, k4), k4 > 0);
-}
-
-// (c)'s dS = P (dP - di) * scale into sc, P = exp2(S scale log2e - lse
-// log2e), keys kv0 + column at or past n_valid 0; the thread's rows' lse
-// (times log2e) and di in l2_* and di_*.
-DEV void ap_q_ds(float (&sc)[32], const float (&dp)[32], int kv0, int n_valid, float scale_log2,
-                 float sm_scale, float l2_a, float l2_b, float di_a, float di_b, int t) {
-  const bool ragged = kv0 + fw::kWgRows > n_valid;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const bool rb = (i >> 1) & 1;
-    const bool valid = !ragged || kv0 + wg::acc_col(t, i) < n_valid;
-    const float p = valid ? fw::ex2(sc[i] * scale_log2 - (rb ? l2_b : l2_a)) : 0.f;
-    sc[i] = p * (dp[i] - (rb ? di_b : di_a)) * sm_scale;
-  }
-}
-
-// (c) dq and its column sums. Grid (N / 64, heads, B).
-__global__ void __launch_bounds__(kFlashThreads, 3)
-    ap_bwd_q_kernel(const __grid_constant__ CUtensorMap qkv64,
-                    const __grid_constant__ CUtensorMap do64,
-                    const __grid_constant__ CUtensorMap dqkv64, const float* __restrict__ lse,
-                    const float* __restrict__ di, float* __restrict__ bias_part, int n,
-                    int n_valid, float scale_log2, float sm_scale, int d_out, int bias_stride) {
-  const int heads = gridDim.y;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * fw::kWgRows, hc = h * fw::kHd;
-
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = wg::align(smem_raw);
-  uint8_t* sDO = sQ + wg::kBoxBytes;
-  uint8_t* ring = sDO + wg::kBoxBytes;
-  float* red = reinterpret_cast<float*>(ring + kQStages * kQStageBytes);  // [4 warps][64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * fw::kHd);
-  uint64_t* qbar = full + kQStages;
-  const int t = threadIdx.x;
-  const int d = heads * fw::kHd;
-  const int n_kt = (n_valid + fw::kWgRows - 1) / fw::kWgRows;
-  init_bars(full, kQStages);
-
-  auto load_k = [&](int kt) {
-    const int s = kt % kQStages;
-    wg::bar_expect_tx(&full[s], kQStageBytes);
-    uint8_t* st = ring + s * kQStageBytes;
-    fw::tma_load3(st, &qkv64, &full[s], d + hc, kt * fw::kWgRows, b);
-    fw::tma_load3(st + wg::kBoxBytes, &qkv64, &full[s], 2 * d + hc, kt * fw::kWgRows, b);
-  };
-  if (t == 0) {
-    wg::bar_expect_tx(qbar, 2 * wg::kBoxBytes);
-    fw::tma_load3(sQ, &qkv64, qbar, hc, q0, b);
-    fw::tma_load3(sDO, &do64, qbar, hc, q0, b);
-    for (int kt = 0; kt < kQStages && kt < n_kt; ++kt) load_k(kt);
-  }
-  const int row_a = q0 + wg::acc_row(t, 0), row_b = row_a + 8;
-  const long long stat = ((long long)b * heads + h) * n;
-  const float l2_a = lse[stat + row_a] * fw::kLog2e, l2_b = lse[stat + row_b] * fw::kLog2e;
-  const float di_a = di[stat + row_a], di_b = di[stat + row_b];
-  float dq[32];
-  wg::acc_zero(dq);
-  const uint32_t ring_s = smem_addr(ring), q_s = smem_addr(sQ), do_s = smem_addr(sDO);
-  wg::bar_wait(qbar, 0);
-  // Key tile kt > 0 issues S_kt and dP_kt together with dQ += dS_{kt-1}
-  // K_{kt-1}, and computes dS_kt while that product runs. Tile 0 is peeled
-  // off, so that the loop body issues the same products and waits every
-  // time (ptxas serialises the products of a loop whose groups and waits
-  // depend on a branch).
-  uint32_t dsp[4][4];  // dS of the previous tile, bf16
-  float sc[32], dp[32];
-  int s = 0;
-  wg::bar_wait(&full[0], 0);
-  uint32_t st = wg::opaque(ring_s);
-  wg::mma_fence();
-  ap_q_scores(sc, dp, wg::opaque(q_s), wg::opaque(do_s), st);
-  wg::mma_commit();
-  wg::mma_wait<0>();
-  wg::acc_fence(sc);
-  wg::acc_fence(dp);
-  ap_q_ds(sc, dp, 0, n_valid, scale_log2, sm_scale, l2_a, l2_b, di_a, di_b, t);
-  fw::pack_a(dsp, sc);
-  for (int kt = 1; kt < n_kt; ++kt) {
-    const uint32_t k_prev = st;
-    s = kt % kQStages;
-    wg::bar_wait(&full[s], (kt / kQStages) & 1);
-    st = wg::opaque(ring_s) + s * kQStageBytes;
-    wg::mma_fence();
-    ap_q_scores(sc, dp, wg::opaque(q_s), wg::opaque(do_s), st);
-    wg::mma_commit();
-    // dQ += dS K of the previous tile, a pipeline stage of its own
-    wg::mma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      fw::mma_rs_m64n64<1>(dq, dsp[ks], wg::desc_mn(k_prev, ks, wg::kBoxBytes), 1);
-    wg::mma_commit();
-    wg::mma_wait<1>();
-    wg::acc_fence(sc);
-    wg::acc_fence(dp);
-    ap_q_ds(sc, dp, kt * fw::kWgRows, n_valid, scale_log2, sm_scale, l2_a, l2_b, di_a, di_b, t);
-    wg::mma_wait<0>();  // the previous tile's product has ended: its stage is free
-    wg::acc_fence(dq);
-    fw::frag_fence(dsp);
-    wg::sync_named(1, 128);  // every warp is done with the previous tile's stage
-    if (t == 0 && kt - 1 + kQStages < n_kt) load_k(kt - 1 + kQStages);
-    fw::pack_a(dsp, sc);
-  }
-  // the last tile's dQ
-  wg::mma_fence();
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    fw::mma_rs_m64n64<1>(dq, dsp[ks], wg::desc_mn(st, ks, wg::kBoxBytes), 1);
-  wg::mma_commit();
-  wg::mma_wait<0>();
-  wg::acc_fence(dq);
-  fw::frag_fence(dsp);
-
-  // dq rounded to bf16 into the Q box, out by TMA; column sums of the
-  // rounded values
-  float cs[16];
-#pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const uint32_t v = pack_bf16(dq[i], dq[i + 1]);
-    *reinterpret_cast<uint32_t*>(sQ + wg::swz(wg::acc_row(t, i), wg::acc_col(t, i))) = v;
-    const float2 f = unpack_bf16(v);
-    const int j = ((i >> 2) << 1);  // column pair (i / 4), element (i & 1)
-    if ((i >> 1) & 1) {
-      cs[j] += f.x;
-      cs[j + 1] += f.y;
-    } else {
-      cs[j] = f.x;
-      cs[j + 1] = f.y;
-    }
-  }
-  wg::fence_async_smem();
-  wg::sync_named(1, 128);
-  if (t == 0) {
-    fw::tma_store3(&dqkv64, sQ, hc, q0, b);
-    wg::tma_store_commit();
-  }
-  const int warp = t >> 5, lane = t & 31;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const float v = sum_over_rows(cs[j]);
-    if (lane < 4) red[warp * fw::kHd + 8 * (j >> 1) + 2 * lane + (j & 1)] = v;
-  }
-  wg::sync_named(1, 128);
-  if (t < fw::kHd) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) sum += red[w * fw::kHd + t];
-    bias_part[((long long)b * (n / kBRows) + blockIdx.x) * bias_stride + d_out + hc + t] = sum;
-  }
-  if (t == 0) wg::tma_store_wait();
-}
-
 // (d) dWp = dxo^T o over every row: block (128 x 128 output tile, split z)
 // writes part[z] = the sum over the rows of split z, in order; rows past the
 // end load as zeros. Grid (ceil(D_out / 128) ceil(D / 128), splits).
@@ -635,9 +281,9 @@ extern "C" int dcvit_attend_project_bwd(const void* qkv, const void* o, const vo
       (err = tensor_map(&dxo64, dxo, rows, d_out, wg::kBox)) != cudaSuccess ||
       (err = tensor_map(&wp64, wp, d_out, d, wg::kBox)) != cudaSuccess ||
       (err = tensor_map(&o64, o, rows, d, wg::kBox)) != cudaSuccess ||
-      (err = tensor_map3(&qkv64, qkv, batch, n, 3 * d, fw::kWgRows)) != cudaSuccess ||
-      (err = tensor_map3(&do64, do_buf, batch, n, d, fw::kWgRows)) != cudaSuccess ||
-      (err = tensor_map3(&dqkv64, dqkv, batch, n, 3 * d, fw::kWgRows)) != cudaSuccess)
+      (err = tensor_map3(&qkv64, qkv, batch, n, 3 * d, fw::kWgRows, 3 * d)) != cudaSuccess ||
+      (err = tensor_map3(&do64, do_buf, batch, n, d, fw::kWgRows, d)) != cudaSuccess ||
+      (err = tensor_map3(&dqkv64, dqkv, batch, n, 3 * d, fw::kWgRows, 3 * d)) != cudaSuccess)
     return (int)err;
   const struct {
     const void* fn;
@@ -656,20 +302,23 @@ extern "C" int dcvit_attend_project_bwd(const void* qkv, const void* o, const vo
   const struct {
     const void* fn;
     int smem;
-  } flash[] = {{(const void*)ap_bwd_kv_kernel, kKvSmem}, {(const void*)ap_bwd_q_kernel, kQSmem}};
+  } flash[] = {{(const void*)flash_bwd_kv_kernel<true>, kKvSmem},
+               {(const void*)flash_bwd_q_kernel<true>, kQSmem}};
   for (const auto& a : flash)
     if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     a.smem)) != cudaSuccess)
       return (int)err;
+  // q, k and v: the packed qkv's columns 0, D and 2D
   const dim3 grid(tiles, heads, batch);
-  ap_bwd_kv_kernel<<<grid, kFlashThreads, kKvSmem, st>>>(
-      qkv64, do64, dqkv64, static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<bf16*>(dqkv), static_cast<float*>(bias_part), n, n_valid, scale_log2, sm_scale,
-      d_out, stride);
+  flash_bwd_kv_kernel<true><<<grid, kFlashThreads, kKvSmem, st>>>(
+      qkv64, qkv64, qkv64, do64, dqkv64, 0, d, 2 * d, static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<bf16*>(dqkv), static_cast<float*>(bias_part), n,
+      n_valid, scale_log2, sm_scale, d_out, stride);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ap_bwd_q_kernel<<<grid, kFlashThreads, kQSmem, st>>>(
-      qkv64, do64, dqkv64, static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<float*>(bias_part), n, n_valid, scale_log2, sm_scale, d_out, stride);
+  flash_bwd_q_kernel<true><<<grid, kFlashThreads, kQSmem, st>>>(
+      qkv64, qkv64, qkv64, do64, dqkv64, 0, d, 2 * d, static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<float*>(bias_part), n, n_valid, scale_log2,
+      sm_scale, d_out, stride);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // dWp = dxo^T o over all B * N rows, then the fixed-order sums

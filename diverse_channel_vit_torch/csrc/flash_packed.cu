@@ -5,70 +5,99 @@
 // (diverse_channel_vit_tpu/ops/attention.py:243), reached through
 // `_packed_fwd_impl` (:268) and `flash_attention_packed` (:426).
 //
-// What bounds it on an H100: operations. The function does
+// What bounds it on an H100: operations, of two kinds. The function does
 // 4 * B * n_valid^2 * D FLOP of bf16 products (the TPU kernel's
 // `CostEstimate`, :288, counted over the real keys); at the DiChaViT-S
 // flagship (B = 64, n_valid = 1569, D = 384) that is 242 GFLOP, 0.245 ms at
-// 989 TFLOP/s, against 308 MB of compulsory traffic (q, k, v read once, o
-// written once), 0.092 ms at 3.35 TB/s.
+// 989 TFLOP/s, beside 9.45e8 exponentials, about 0.24 ms at the
+// special-function units' ~3.9 T exp2/s, against 308 MB of compulsory
+// traffic (q, k, v read once, o written once), 0.092 ms at 3.35 TB/s.
 //
-// Design, and what differs from the TPU kernel:
+// Design (flash_wgmma.cuh on wgmma_core.cuh): the attend_project forward's
+// (B1's) tile loop, one head a block, without the projection.
 // - The TPU kept each batch row's whole K and V resident in VMEM (:279-280).
 //   One head's K+V at N = 1600 is 400 KB, above the 227 KB of shared memory
-//   a block may use, so one block owns one (64-query tile, head, image) and
-//   streams K/V through a double-buffered cp.async ring in 64-key tiles with
-//   an online softmax (`flash_fwd_tile`, flash_tiles.cuh). The TPU
-//   normalised once after the P.V
-//   product; so does this kernel, against the final running sum.
-// - Without B1's output projection a block needs only 46 KB of shared
-//   memory, so several blocks share an SM and the grid (N / 64 x H x B)
-//   spreads one image's heads over the card.
-// - q, k and v come as strided views (rows `sq`, `sk`, `sv` elements apart),
-//   so the thirds of the packed qkv GEMM output go in without a copy. o is
-//   written contiguous, (B, N, D). With `lse` the kernel also writes each
-//   row's per-head log-sum-exp of the scaled scores (f32), which the
-//   backward (flash_packed_bwd.cu) uses to recompute P tile by tile.
-#include "flash_tiles.cuh"
+//   a block may use, so K/V stream by TMA through a three-stage mbarrier
+//   ring in tiles of 64 keys, fed by a producer warp, with an online softmax
+//   (`fw::attend_tiles`). S = Q K^T is a `wgmma` m64n64 from shared memory;
+//   P, rounded to bf16 against the running max, is the register A operand
+//   of O += P V, and tile kt's S is issued together with tile kt-1's P V.
+//   The scale is folded into each `ex2`; the row is normalised once at the
+//   end, as the TPU divided its unnormalised P V by the row sum.
+// - A block owns (64 query rows, head, image): one consumer warpgroup and a
+//   producer warp. At 57 KB of shared memory and (ptxas, nvcc 12.9) 106
+//   registers a thread, three blocks share an SM, so one block's
+//   exponentials run while another's products do. The grid (N / 64, H, B)
+//   keeps the card full at the small EViT grids too (4608 blocks at N = 768,
+//   against B1's 768 all-heads blocks).
+// - q, k and v come as strided views, each through a rank-3 TMA map
+//   (columns, rows, images) with its own row stride, so the thirds of the
+//   packed qkv GEMM output, or three tensors of their own, go in without a
+//   copy and a box never reads past its image. O, rounded to bf16, replaces
+//   Q in the Q box and leaves by TMA store into a contiguous (B, N, D) o.
+//   With `lse` the kernel also writes each row's per-head log-sum-exp of
+//   the scaled scores (f32), which the backward (flash_packed_bwd.cu) uses to
+//   recompute P tile by tile.
+#include "flash_wgmma.cuh"
 
 namespace dcvit {
 
-// Grid (N / 64, heads, B).
-template <int DH>
-__global__ void __launch_bounds__(kFThreads)
-    flash_packed_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            float* __restrict__ lse, int n, long long sq, long long sk,
-                            long long sv, int n_valid, float scale_log2) {
-  const int heads = gridDim.y;
-  const int d = heads * DH;
-  const int q0 = blockIdx.x * kFRows, h = blockIdx.y, b = blockIdx.z;
-  const int hc = h * DH;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row_a = warp * 16 + g, row_b = row_a + 8;
+// the Q (then O) box, the ring, its full and empty barriers and the Q barrier
+constexpr int kFpSmem = wg::kBoxBytes + fw::kFwdStages * fw::kFwdStageBytes +
+                        (2 * fw::kFwdStages + 1) * 8 + wg::kAlign;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const long long img = (long long)b * n;
-  float o_acc[DH / 8][4];
-  float lse_a, lse_b;
-  flash_fwd_tile<DH>(q + (img + q0) * sq + hc, sq, k + img * sk + hc, sk, v + img * sv + hc, sv,
-                     n_valid, scale_log2, reinterpret_cast<__nv_bfloat16*>(smem_raw), o_acc,
-                     lse_a, lse_b);
+// Grid (N / 64, heads, B). The launch bound asks for two blocks an SM, as
+// B1's does, which leaves ptxas B1's register budget for the shared tile
+// loop; the 106 registers it uses let three run.
+__global__ void __launch_bounds__(fw::kFwdThreads, 2)
+    flash_packed_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
+                            int n, int n_valid, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = wg::align(smem_raw);  // Q, then O
+  uint8_t* ring = sQ + wg::kBoxBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + fw::kFwdStages * fw::kFwdStageBytes);
+  uint64_t* empty = full + fw::kFwdStages;
+  uint64_t* qbar = empty + fw::kFwdStages;
+  const int tid = threadIdx.x, t = tid & 127;
+  const int q0 = blockIdx.x * fw::kWgRows, h = blockIdx.y, b = blockIdx.z, hc = h * fw::kHd;
+  const int n_kt = (n_valid + fw::kWgRows - 1) / fw::kWgRows;
 
-  if (lse != nullptr && t4 == 0) {
-    float* lrow = lse + ((long long)b * heads + h) * n + q0;
-    lrow[row_a] = lse_a;
-    lrow[row_b] = lse_b;
+  if (tid == 0) {
+    for (int s = 0; s < fw::kFwdStages; ++s) {
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], 1);
+    }
+    wg::bar_init(qbar, 1);
+    wg::bar_init_fence();
   }
-  __nv_bfloat16* orow = o + (img + q0) * d + hc;
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    *reinterpret_cast<uint32_t*>(orow + (long long)row_a * d + col) =
-        pack_bf16(o_acc[j][0], o_acc[j][1]);
-    *reinterpret_cast<uint32_t*>(orow + (long long)row_b * d + col) =
-        pack_bf16(o_acc[j][2], o_acc[j][3]);
+  __syncthreads();
+
+  if (wg::warpgroup() == 1) {
+    // producer: the Q rows, then the head's (K, V) tiles
+    if (t == 0) {
+      wg::bar_expect_tx(qbar, wg::kBoxBytes);
+      fw::tma_load3(sQ, &q_map, qbar, hc, q0, b);
+      int it = 0;
+      fw::load_kv_tiles(ring, full, empty, it, &k_map, hc, &v_map, hc, n_kt, b);
+    }
+  } else {
+    const int row_a = q0 + wg::acc_row(t, 0);  // this thread's rows
+    wg::bar_wait(qbar, 0);
+    int it = 0;
+    float o[32], m_a, m_b, l_a, l_b;
+    fw::attend_tiles(o, m_a, m_b, l_a, l_b, smem_addr(sQ), smem_addr(ring), full, empty, it, n_kt,
+                     n_valid, scale_log2, t);
+    fw::finish_rows(o, m_a, m_b, l_a, l_b,
+                    lse != nullptr ? lse + ((long long)b * gridDim.y + h) * n : nullptr, row_a,
+                    row_a + 8, n, sQ, t);
+    if (t == 0) {
+      fw::tma_store3(&o_map, sQ, hc, q0, b);
+      wg::tma_store_commit();
+      wg::tma_store_wait();
+    }
   }
 }
 
@@ -76,27 +105,33 @@ __global__ void __launch_bounds__(kFThreads)
 
 // Plain C entry point (loaded with ctypes). q, k, v: (B, N, H * head_dim)
 // bf16 views whose rows are contiguous and 16-byte aligned, rows `stride_*`
-// elements apart and images N rows apart; o (B, N, H * head_dim) bf16
-// contiguous; lse (B, H, N) f32 contiguous, or NULL. Returns a cudaError_t:
-// the launch's, or cudaErrorInvalidValue for a shape the kernel does not
-// take.
+// elements apart (a multiple of 8) and images N rows apart; o
+// (B, N, H * head_dim) bf16 contiguous; lse (B, H, N) f32 contiguous, or
+// NULL. Returns a cudaError_t: the launch's (or a TMA descriptor's), or
+// cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int dcvit_flash_packed_fwd(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int batch, int n, int heads, int head_dim,
                                       long long stride_q, long long stride_k, long long stride_v,
                                       int n_valid, float sm_scale, void* stream) {
   using namespace dcvit;
   const long long d = (long long)heads * head_dim;
-  if (head_dim != 64 || n % kFRows != 0 || n_valid < 1 || n_valid > n || batch < 1 ||
+  if (head_dim != fw::kHd || n % fw::kWgRows != 0 || n_valid < 1 || n_valid > n || batch < 1 ||
       batch > 65535 || heads < 1 || heads > 65535 || stride_q < d || stride_k < d ||
       stride_v < d || (stride_q | stride_k | stride_v) % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(__nv_bfloat16) * flash_fwd_smem_elems<64>();
-  auto kernel = flash_packed_fwd_kernel<64>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n / kFRows, heads, batch), kFThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), n, stride_q, stride_k, stride_v, n_valid, sm_scale * kLog2e);
+  CUtensorMap q_map, k_map, v_map, o_map;
+  cudaError_t err;
+  if ((err = tensor_map3(&q_map, q, batch, n, (int)d, fw::kWgRows, stride_q)) != cudaSuccess ||
+      (err = tensor_map3(&k_map, k, batch, n, (int)d, fw::kWgRows, stride_k)) != cudaSuccess ||
+      (err = tensor_map3(&v_map, v, batch, n, (int)d, fw::kWgRows, stride_v)) != cudaSuccess ||
+      (err = tensor_map3(&o_map, o, batch, n, (int)d, fw::kWgRows, d)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaFuncSetAttribute(flash_packed_fwd_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kFpSmem)) !=
+      cudaSuccess)
+    return (int)err;
+  flash_packed_fwd_kernel<<<dim3(n / fw::kWgRows, heads, batch), fw::kFwdThreads, kFpSmem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, o_map, static_cast<float*>(lse), n, n_valid, sm_scale * fw::kLog2e);
   return (int)cudaGetLastError();
 }

@@ -1,19 +1,19 @@
-// Tile loops of masked multi-head attention on `mma.sync`, shared by the
-// flash_packed kernels B5 and B6 (flash_packed.cu, flash_packed_bwd.cu) and
-// the benchmark scripts' S1 and S2 (bench_attn_bwd.cu, qkv_flash.cu) only.
-// The attend_project kernels B1 and B2 run on flash_wgmma.cuh.
+// The `mma.sync` attention tile loop of the benchmark scripts' kernels only:
+// S2's forward (qkv_flash.cu) runs `flash_fwd_tile`, and S1 (bench_attn_bwd.cu)
+// takes this file's tile constants for loops of its own. Every kernel of the
+// package runs on flash_wgmma.cuh: B1 and B2 (attend_project*.cu), B5 and B6
+// (flash_packed*.cu).
 //
-// Each loop runs in one block of four warps; each warp owns 16 rows of a
+// The loop runs in one block of four warps; each warp owns 16 rows of a
 // 64-row tile (rows warp * 16 + g and warp * 16 + g + 8, g = lane / 4), so a
 // row's softmax statistics and accumulators stay in the registers of one
-// quad of lanes. The operand the loop walks over streams through a
-// double-buffered cp.async ring in tiles of 64 rows. Every product is bf16
-// `mma.sync.m16n8k16` with f32 accumulation; P and dS are rounded to bf16
-// before their products, as the TPU kernels round them.
+// quad of lanes. K and V stream through a double-buffered cp.async ring in
+// tiles of 64 rows. Every product is bf16 `mma.sync.m16n8k16` with f32
+// accumulation; P is rounded to bf16 before its product, as the TPU kernels
+// round it.
 //
 // Operands are head slices of (B, N, *) tensors: a pointer to the slice's
-// first row and a row stride in elements, so q, k and v may be the thirds of
-// one packed qkv tensor or tensors of their own.
+// first row and a row stride in elements.
 #pragma once
 
 #include "common.cuh"
@@ -177,271 +177,6 @@ DEV void flash_fwd_tile(const __nv_bfloat16* __restrict__ q, long long sq,
   // m is in the log2 domain
   lse_a = (m_a + log2f(l_a)) * 0.6931471805599453f;
   lse_b = (m_b + log2f(l_b)) * 0.6931471805599453f;
-}
-
-// Shared memory of flash_bwd_kv_tile, in bytes: K, V, two stages of Q and
-// dO, two stages of 64 lse and 64 di values.
-template <int DH>
-__host__ __device__ constexpr int flash_bwd_kv_smem_bytes() {
-  return 2 * 6 * kFRows * padded(DH) + 4 * 2 * 2 * kFRows;
-}
-
-// dK and dV of one 64-key tile for one head, looping over all n / 64 query
-// tiles: S^T = K Q^T, P^T = exp(S^T * scale - lse[query]) (keys at or past
-// n_valid exactly 0), dV += bf16(P^T) dO, dP^T = V dO^T,
-// dS^T = P^T (dP^T - di[query]) * scale, dK += bf16(dS^T) Q. `k` and `v`
-// point at the tile's first key row (the tile starts below n_valid), `q` and
-// `dO` at query row 0, `lrow` / `drow` at the head's lse / di row (n f32
-// each). On return dk and dv hold this thread's two key rows (f32) and
-// every thread has passed a final __syncthreads.
-template <int DH>
-DEV void flash_bwd_kv_tile(const __nv_bfloat16* __restrict__ q, long long sq,
-                           const __nv_bfloat16* __restrict__ k, long long sk,
-                           const __nv_bfloat16* __restrict__ v, long long sv,
-                           const __nv_bfloat16* __restrict__ dO, long long sdo,
-                           const float* __restrict__ lrow, const float* __restrict__ drow, int n,
-                           int k0, int n_valid, float scale_log2,
-                           float sm_scale, unsigned char* smem, float (&dk)[DH / 8][4],
-                           float (&dv)[DH / 8][4]) {
-  constexpr int SDH = padded(DH);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kFRows * SDH;
-  __nv_bfloat16* sQ = sV + kFRows * SDH;       // two stages
-  __nv_bfloat16* sDO = sQ + 2 * kFRows * SDH;  // two stages
-  float* sL = reinterpret_cast<float*>(sDO + 2 * kFRows * SDH);  // [2][64] lse
-  float* sD = sL + 2 * kFRows;                                   // [2][64] di
-
-  auto load_q_tile = [&](int qt, int buf) {
-    const long long q0 = (long long)qt * kFRows;
-    load_tile_async(sQ + buf * kFRows * SDH, q + q0 * sq, kFRows, DH, sq, tid, kFThreads);
-    load_tile_async(sDO + buf * kFRows * SDH, dO + q0 * sdo, kFRows, DH, sdo, tid, kFThreads);
-    if (tid < 16) cp_async16(sL + buf * kFRows + tid * 4, lrow + q0 + tid * 4);
-    else if (tid < 32) cp_async16(sD + buf * kFRows + (tid - 16) * 4, drow + q0 + (tid - 16) * 4);
-    cp_async_commit();
-  };
-
-  load_tile_async(sK, k, kFRows, DH, sk, tid, kFThreads);
-  load_tile_async(sV, v, kFRows, DH, sv, tid, kFThreads);
-  load_q_tile(0, 0);
-
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
-  const bool valid_a = key_a < n_valid, valid_b = key_b < n_valid;
-
-  const int nq = n / kFRows;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int buf = qt & 1;
-    if (qt + 1 < nq) {
-      load_q_tile(qt + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* q_t = sQ + buf * kFRows * SDH;
-    const __nv_bfloat16* do_t = sDO + buf * kFRows * SDH;
-    const float* l_t = sL + buf * kFRows;
-    const float* d_t = sD + buf * kFRows;
-
-    // S^T = K Q^T: this warp's 16 keys x 64 queries
-    float st[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t a[4];
-      load_a_frag(a, sK, SDH, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_nk(bfr, q_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(st[2 * np], a, bfr[0], bfr[1]);
-        mma_bf16(st[2 * np + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    // P^T = exp(S^T * scale - lse[query]); padded keys exactly 0
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + t4 * 2 + (e & 1);
-        const bool valid = e < 2 ? valid_a : valid_b;
-        st[j][e] = valid ? exp2f(st[j][e] * scale_log2 - l_t[qc] * kLog2e) : 0.f;
-      }
-    // dV += P^T dO (P rounded to bf16)
-    {
-      uint32_t pf[4][4];
-      acc_to_a_frags(pf, st);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int np = 0; np < DH / 16; ++np) {
-          uint32_t bfr[4];
-          load_b_frag_kn(bfr, do_t, SDH, np * 16, kk * 16, lane);
-          mma_bf16(dv[2 * np], pf[kk], bfr[0], bfr[1]);
-          mma_bf16(dv[2 * np + 1], pf[kk], bfr[2], bfr[3]);
-        }
-    }
-    // dP^T = V dO^T
-    float dpt[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t a[4];
-      load_a_frag(a, sV, SDH, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_nk(bfr, do_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(dpt[2 * np], a, bfr[0], bfr[1]);
-        mma_bf16(dpt[2 * np + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    // dS^T = P^T (dP^T - di[query]) * scale; dK += dS^T Q (dS rounded to bf16)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + t4 * 2 + (e & 1);
-        st[j][e] = st[j][e] * (dpt[j][e] - d_t[qc]) * sm_scale;
-      }
-    {
-      uint32_t dsf[4][4];
-      acc_to_a_frags(dsf, st);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int np = 0; np < DH / 16; ++np) {
-          uint32_t bfr[4];
-          load_b_frag_kn(bfr, q_t, SDH, np * 16, kk * 16, lane);
-          mma_bf16(dk[2 * np], dsf[kk], bfr[0], bfr[1]);
-          mma_bf16(dk[2 * np + 1], dsf[kk], bfr[2], bfr[3]);
-        }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-}
-
-// Shared memory of flash_bwd_q_tile, in bytes: Q, dO and two stages of K
-// and V.
-template <int DH>
-__host__ __device__ constexpr int flash_bwd_q_smem_bytes() {
-  return 2 * 6 * kFRows * padded(DH);
-}
-
-// dQ of one 64-query tile for one head, looping over the key tiles below
-// n_valid: S = Q K^T and dP = dO V^T recomputed, P = exp(S * scale - lse)
-// (keys at or past n_valid 0), dS = P (dP - di) * scale, dQ += bf16(dS) K.
-// `q` and `dO` point at the tile's first row, `k` and `v` at key row 0,
-// `lse_rows` / `di_rows` at the tile's first row of the head's lse / di. On
-// return dq holds this thread's two rows (f32).
-template <int DH>
-DEV void flash_bwd_q_tile(const __nv_bfloat16* __restrict__ q, long long sq,
-                          const __nv_bfloat16* __restrict__ k, long long sk,
-                          const __nv_bfloat16* __restrict__ v, long long sv,
-                          const __nv_bfloat16* __restrict__ dO, long long sdo,
-                          const float* __restrict__ lse_rows, const float* __restrict__ di_rows,
-                          int n_valid, float scale_log2, float sm_scale,
-                          unsigned char* smem, float (&dq)[DH / 8][4]) {
-  constexpr int SDH = padded(DH);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row_a = warp * 16 + g, row_b = row_a + 8;
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sDO = sQ + kFRows * SDH;
-  __nv_bfloat16* sK = sDO + kFRows * SDH;  // two stages
-  __nv_bfloat16* sV = sK + 2 * kFRows * SDH;
-
-  load_tile_async(sQ, q, kFRows, DH, sq, tid, kFThreads);
-  load_tile_async(sDO, dO, kFRows, DH, sdo, tid, kFThreads);
-  load_tile_async(sK, k, kFRows, DH, sk, tid, kFThreads);
-  load_tile_async(sV, v, kFRows, DH, sv, tid, kFThreads);
-  cp_async_commit();
-
-  const float l2_a = lse_rows[row_a] * kLog2e, l2_b = lse_rows[row_b] * kLog2e;
-  const float di_a = di_rows[row_a], di_b = di_rows[row_b];
-
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-  uint32_t qf[DH / 16][4], dof[DH / 16][4];
-
-  const int n_tiles = (n_valid + kFRows - 1) / kFRows;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_tiles) {
-      const long long r = (long long)(kt + 1) * kFRows;
-      load_tile_async(sK + (buf ^ 1) * kFRows * SDH, k + r * sk, kFRows, DH, sk, tid, kFThreads);
-      load_tile_async(sV + (buf ^ 1) * kFRows * SDH, v + r * sv, kFRows, DH, sv, tid, kFThreads);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        load_a_frag(qf[kk], sQ, SDH, warp * 16, kk * 16, lane);
-        load_a_frag(dof[kk], sDO, SDH, warp * 16, kk * 16, lane);
-      }
-    }
-    const __nv_bfloat16* k_t = sK + buf * kFRows * SDH;
-    const __nv_bfloat16* v_t = sV + buf * kFRows * SDH;
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_nk(bfr, k_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qf[kk], bfr[0], bfr[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
-        load_b_frag_nk(bfr, v_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], dof[kk], bfr[0], bfr[1]);
-        mma_bf16(dp[2 * np + 1], dof[kk], bfr[2], bfr[3]);
-      }
-    // dS = P (dP - di) * scale, P = exp(S * scale - lse); padded keys 0
-    const int kv0 = kt * kFRows;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + t4 * 2 + (e & 1);
-        const float p = key < n_valid ? exp2f(s[j][e] * scale_log2 - (e < 2 ? l2_a : l2_b)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? di_a : di_b)) * sm_scale;
-      }
-    // dQ += dS K (dS rounded to bf16)
-    uint32_t dsf[4][4];
-    acc_to_a_frags(dsf, s);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int np = 0; np < DH / 16; ++np) {
-        uint32_t bfr[4];
-        load_b_frag_kn(bfr, k_t, SDH, np * 16, kk * 16, lane);
-        mma_bf16(dq[2 * np], dsf[kk], bfr[0], bfr[1]);
-        mma_bf16(dq[2 * np + 1], dsf[kk], bfr[2], bfr[3]);
-      }
-    __syncthreads();
-  }
 }
 
 }  // namespace dcvit

@@ -1,6 +1,10 @@
 // The Hopper flash-attention core of the attend_project kernels
-// (attend_project.cu, B1; attend_project_bwd.cu, B2), on top of
-// wgmma_core.cuh's mbarrier ring, TMA and `wgmma` helpers.
+// (attend_project.cu, B1; attend_project_bwd.cu, B2) and of the
+// flash_packed kernels (flash_packed.cu, B5; flash_packed_bwd.cu, B6), on
+// top of wgmma_core.cuh's mbarrier ring, TMA and `wgmma` helpers. B1 and B5
+// share the forward's tile loop (`attend_tiles`), B2 and B6 the backward's
+// two attention passes (`flash_bwd_kv_kernel`, `flash_bwd_q_kernel`; B2's
+// with its bias partials, B6's without).
 //
 // What bounds attention at head width 64 on an H100 is two floors of about
 // the same height: the bf16 products, and the exponentials. The SM's
@@ -12,9 +16,10 @@
 // dq passes each recompute P). A warpgroup that alternates products and
 // softmax cannot go below the sum of the two. What this core does about it:
 // - every product is `wgmma` on 64-row tiles of one warpgroup, with the
-//   operands brought into shared memory by TMA: head slices of the packed
-//   (B, N, 3D) qkv and of (B, N, D) tensors through rank-3 tensor maps
-//   (columns, rows, images), so a row box never runs into the next image and
+//   operands brought into shared memory by TMA: head slices of (B, N, *)
+//   tensors through rank-3 tensor maps (columns, rows, images) with a row
+//   stride of their own, so q, k and v may be the thirds of one packed qkv
+//   or tensors of their own, a row box never runs into the next image, and
 //   TMA's zero fill and clipped stores take the ragged last tile;
 // - P and dS go from the f32 accumulator of one product into the A operand
 //   of the next as packed bf16 registers (`wgmma` with A from registers):
@@ -22,14 +27,16 @@
 //   an m64k16 one, so no tile goes through shared memory on the way;
 // - the exponentials of one warpgroup run while another's products do: each
 //   block is one consumer warpgroup of 64 rows, and several blocks share an
-//   SM: B1's (with a producer warp, 160 threads) two, B2's attention passes'
-//   (thread 0 issuing the loads, 128 threads) three. On an H100 that beat
-//   blocks of two consumer warpgroups that take turns issuing their products
-//   (FlashAttention-3's ping-pong, named barriers, one block an SM), in the
-//   forward and in the backward, where dropping the producer warp for a
-//   third block an SM gained more. (ptxas holds consumer code to 168 registers a thread in every
-//   one of these shapes, `setmaxnreg` notwithstanding, so none can hold a
-//   deeper pipeline in the dk/dv pass.) The forward and the backward's dq
+//   SM: the forward's (with a producer warp, 160 threads) two in B1, whose
+//   shared memory holds every head's Q, and three in B5; the backward's
+//   attention passes' (thread 0 issuing the loads, 128 threads) three. On
+//   an H100 that beat blocks of two consumer warpgroups that take turns
+//   issuing their products (FlashAttention-3's ping-pong, named barriers,
+//   one block an SM), in the forward and in the backward, where dropping
+//   the producer warp for a third block an SM gained more. (ptxas
+//   holds consumer code to 168 registers a thread in every one of these
+//   shapes, `setmaxnreg` notwithstanding, so none can hold a deeper
+//   pipeline in the dk/dv pass.) The forward and the backward's dq
 //   pass also issue each tile's first products together with the previous
 //   tile's last, in a pipeline stage of its own;
 // - the softmax scale is folded into the exponent (exp2 of s * scale * log2 e
@@ -131,20 +138,586 @@ DEV void store_tile(uint8_t* box, const float (&c)[32], int t) {
   for (int i = 0; i < 32; i += 2) wg::st_pair(box, wg::acc_row(t, i), wg::acc_col(t, i), c[i], c[i + 1]);
 }
 
+// ---- the forward's tile loop (B1, B5) -------------------------------------------
+//
+// Blocks of one consumer warpgroup (64 query rows) and one producer warp,
+// several an SM. The producer streams one head's K and V tiles of 64 keys by TMA
+// through a ring of kFwdStages stages; the consumer runs an online softmax
+// over them (running max and sum in f32 registers, quad shuffles), keys at
+// or past n_valid masked, key tiles wholly past it skipped.
+
+constexpr int kFwdStages = 3;
+constexpr int kFwdStageBytes = 2 * wg::kBoxBytes;  // a K and a V tile
+constexpr int kFwdThreads = 128 + 32;              // a consumer warpgroup and a producer warp
+
+// S = Q_h K^T: 64 rows x 64 keys, K-major Q rows at `qa`, the K tile at
+// `kt_box`.
+DEV void scores(float (&sc)[32], uint32_t qa, uint32_t kt_box) {
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4)
+    wg::mma_m64n64<0, 0>(sc, wg::desc_k(qa, k4), wg::desc_k(kt_box, k4), k4 > 0);
+}
+
+// The row maxima of the raw scores of keys kv0 .. kv0 + 64, in the log2
+// domain (times scale_log2 > 0), into mx_a / mx_b (quad shuffles); in the
+// ragged last tile, keys at or past n_valid get -1e30 first.
+DEV void row_max(float (&sc)[32], int kv0, int n_valid, float scale_log2, int t, float& mx_a,
+                 float& mx_b) {
+  if (kv0 + kWgRows > n_valid) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (kv0 + wg::acc_col(t, i) >= n_valid) sc[i] = -1e30f;
+  }
+  // two chains a row, to halve the dependent fmax latency
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int k = ((i >> 1) & 1) + 2 * ((i >> 2) & 1);  // row b: odd k
+    m[k] = fmaxf(m[k], sc[i]);
+  }
+  float ra = fmaxf(m[0], m[2]), rb = fmaxf(m[1], m[3]);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    ra = fmaxf(ra, __shfl_xor_sync(0xffffffffu, ra, off));
+    rb = fmaxf(rb, __shfl_xor_sync(0xffffffffu, rb, off));
+  }
+  mx_a = fmaxf(mx_a, ra * scale_log2);
+  mx_b = fmaxf(mx_b, rb * scale_log2);
+}
+
+// P = exp2(S scale_log2 - m) in place, one FMA and one ex2 each (f32, for
+// the row sums added to l_a / l_b; packed to bf16 for P V by the caller)
+DEV void exp_scores(float (&sc)[32], float scale_log2, float m_a, float m_b, float& l_a,
+                    float& l_b) {
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool rb = (i >> 1) & 1;
+    sc[i] = ex2(fmaf(sc[i], scale_log2, rb ? -m_b : -m_a));
+    l[(rb ? 1 : 0) + 2 * ((i >> 2) & 1)] += sc[i];
+  }
+  l_a += l[0] + l[2];
+  l_b += l[1] + l[3];
+}
+
+// The producer: K and V tiles 0 .. n_kt of one head of image `img`, each
+// into the next stage of the ring, from columns k_col / v_col of k_map /
+// v_map. `it` counts the ring's fills across calls.
+DEV void load_kv_tiles(uint8_t* ring, uint64_t* full, uint64_t* empty, int& it,
+                       const CUtensorMap* k_map, int k_col, const CUtensorMap* v_map, int v_col,
+                       int n_kt, int img) {
+  for (int kt = 0; kt < n_kt; ++kt, ++it) {
+    const int s = it % kFwdStages;
+    wg::bar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
+    wg::bar_expect_tx(&full[s], kFwdStageBytes);
+    uint8_t* st = ring + s * kFwdStageBytes;
+    tma_load3(st, k_map, &full[s], k_col, kt * kWgRows, img);
+    tma_load3(st + wg::kBoxBytes, v_map, &full[s], v_col, kt * kWgRows, img);
+  }
+}
+
+// The consumer: o = P V unnormalised, with the running row max (log2
+// domain) and row sums of the thread's two rows, for the 64 query rows of
+// one head whose K-major Q box is at `qa`, over the n_kt key tiles that
+// load_kv_tiles puts into the ring at shared address `ring_s`; `it` as
+// there. Tile kt > 0 issues S_kt = Q K_kt^T together with O += P_{kt-1}
+// V_{kt-1}, then takes S_kt's row maxima while that P V runs. Tile 0 is
+// peeled off, so that the loop body issues the same products and waits every
+// time: ptxas serialises every product of a loop whose groups and waits
+// depend on a branch.
+DEV void attend_tiles(float (&o)[32], float& m_a, float& m_b, float& l_a, float& l_b, uint32_t qa,
+                      uint32_t ring_s, uint64_t* full, uint64_t* empty, int& it, int n_kt,
+                      int n_valid, float scale_log2, int t) {
+  wg::acc_zero(o);
+  m_a = -INFINITY;
+  m_b = -INFINITY;
+  l_a = 0.f;
+  l_b = 0.f;
+  uint32_t p[4][4];  // P of the previous tile, bf16
+  float sc[32];
+  int s = it % kFwdStages;
+  wg::bar_wait(&full[s], (it / kFwdStages) & 1);
+  uint32_t st = wg::opaque(ring_s) + s * kFwdStageBytes;
+  wg::mma_fence();
+  scores(sc, wg::opaque(qa), st);
+  wg::mma_commit();
+  wg::mma_wait<0>();
+  wg::acc_fence(sc);
+  row_max(sc, 0, n_valid, scale_log2, t, m_a, m_b);
+  exp_scores(sc, scale_log2, m_a, m_b, l_a, l_b);
+  pack_a(p, sc);
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const int s_prev = s;
+    const uint32_t v_prev = st + wg::kBoxBytes;
+    ++it;
+    s = it % kFwdStages;
+    wg::bar_wait(&full[s], (it / kFwdStages) & 1);
+    st = wg::opaque(ring_s) + s * kFwdStageBytes;
+    wg::mma_fence();
+    scores(sc, wg::opaque(qa), st);
+    wg::mma_commit();
+    // a pipeline stage of its own, so that S_kt's registers may change
+    // while this product runs
+    wg::mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      mma_rs_m64n64<1>(o, p[ks], wg::desc_mn(v_prev, ks, wg::kBoxBytes), 1);
+    wg::mma_commit();
+    wg::mma_wait<1>();
+    wg::acc_fence(sc);
+    float mx_a = m_a, mx_b = m_b;
+    row_max(sc, kt * kWgRows, n_valid, scale_log2, t, mx_a, mx_b);
+    const float alpha_a = ex2(m_a - mx_a), alpha_b = ex2(m_b - mx_b);
+    m_a = mx_a;
+    m_b = mx_b;
+    wg::mma_wait<0>();  // the previous tile's P V has ended: its stage is free
+    wg::acc_fence(o);
+    frag_fence(p);
+    if (t == 0) wg::bar_arrive(&empty[s_prev]);
+    l_a *= alpha_a;
+    l_b *= alpha_b;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? alpha_b : alpha_a;
+    exp_scores(sc, scale_log2, m_a, m_b, l_a, l_b);
+    pack_a(p, sc);
+  }
+  // the last tile's P V
+  wg::mma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    mma_rs_m64n64<1>(o, p[ks], wg::desc_mn(st + wg::kBoxBytes, ks, wg::kBoxBytes), 1);
+  wg::mma_commit();
+  wg::mma_wait<0>();
+  wg::acc_fence(o);
+  frag_fence(p);
+  if (t == 0) wg::bar_arrive(&empty[s]);
+  ++it;
+}
+
+// attend_tiles' epilogue: the row sums over the quad; with `lrow` (the
+// head's (N,) f32 log-sum-exp row) each row's log-sum-exp of the scaled
+// scores, rows row_a and row_b if below n; o normalised, rounded to bf16
+// into the warpgroup's 64-row box `obox`, made visible to TMA, and the
+// warpgroup synchronised, so that thread 0 may store the box.
+DEV void finish_rows(float (&o)[32], float m_a, float m_b, float l_a, float l_b, float* lrow,
+                     int row_a, int row_b, int n, uint8_t* obox, int t) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  if (lrow != nullptr && (t & 3) == 0) {
+    if (row_a < n) lrow[row_a] = (m_a + log2f(l_a)) * kLn2;  // m in the log2 domain
+    if (row_b < n) lrow[row_b] = (m_b + log2f(l_b)) * kLn2;
+  }
+  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? inv_b : inv_a;
+  store_tile(obox, o, t);
+  wg::fence_async_smem();
+  wg::sync_named(1, 128);
+}
+
 }  // namespace fw
+
+// ---- the backward's attention passes (B2, B6) -------------------------------------
+//
+// Blocks of one warpgroup (128 threads), three an SM. Thread 0 issues the
+// TMA loads: a stage is refilled as soon as the warpgroup has finished with
+// it. (A producer warp beside the warpgroup, 160 threads and two blocks an SM
+// within the 168 registers a thread that the dk/dv pass needs, was slower on
+// an H100.) The dk/dv pass holds K and V of the block's 64 keys; a stage
+// holds the (Q, dO) boxes of 64 queries and their 64 lse and 64 di values.
+// The dq pass holds Q and dO of the block's 64 queries; a stage holds the
+// (K, V) boxes of 64 keys.
+//
+// q, k and v come through maps of their own, each head's columns at
+// q_col + 64 h, k_col + 64 h, v_col + 64 h (B2: one packed qkv map three
+// times, columns 0, D and 2D; B6: three maps, columns 0); dO through a
+// (B, N, D) map. dq, dk and dv leave by TMA into one (B, N, 3D) map,
+// [dq | dk | dv]. With kBias (B2) each block also writes the column sums of
+// its dq, or of its dk and dv, as the bias partials of its 64-row tile:
+// bias_part row (image * N / 64 + tile), columns d_out + [0, 3D).
+
+constexpr int kFlashThreads = 128;
+constexpr int kKvStages = 3;
+constexpr int kKvStageBytes = 17 * 1024;
+constexpr int kKvSmem = 2 * wg::kBoxBytes + kKvStages * kKvStageBytes + 4 * 2 * 64 * 4 +
+                        (kKvStages + 1) * 8 + wg::kAlign;
+constexpr int kQStages = 3;
+constexpr int kQStageBytes = 2 * wg::kBoxBytes;
+constexpr int kQSmem = 2 * wg::kBoxBytes + kQStages * kQStageBytes + 4 * 64 * 4 +
+                       (kQStages + 1) * 8 + wg::kAlign;
+
+// The stages' full barriers and one more for the resident boxes, initialised
+// by thread 0 before any load.
+DEV void init_bars(uint64_t* full, int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= stages; ++s) wg::bar_init(&full[s], 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+}
+
+// dk, dv (and with kBias their column sums). Grid (N / 64, heads, B).
+template <bool kBias>
+__global__ void __launch_bounds__(kFlashThreads, 3)
+    flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const __grid_constant__ CUtensorMap dqkv_map, int q_col, int k_col,
+                        int v_col, const float* __restrict__ lse, const float* __restrict__ di,
+                        __nv_bfloat16* __restrict__ dqkv, float* __restrict__ bias_part, int n,
+                        int n_valid, float scale_log2, float sm_scale, int d_out,
+                        int bias_stride) {
+  const int heads = gridDim.y, d = heads * fw::kHd;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * fw::kWgRows, hc = h * fw::kHd;
+  [[maybe_unused]] float* part = nullptr;
+  if constexpr (kBias)
+    part = bias_part + ((long long)b * (n / fw::kWgRows) + blockIdx.x) * bias_stride + d_out;
+  const int tid = threadIdx.x;
+
+  if (k0 >= n_valid) {  // wholly padded keys: exact zeros
+    const long long row3 = 3LL * d;
+    __nv_bfloat16* dbase = dqkv + ((long long)b * n + k0) * row3 + hc;
+    for (int i = tid; i < fw::kWgRows * (fw::kHd / 2); i += kFlashThreads) {
+      const long long off = (long long)(i / (fw::kHd / 2)) * row3 + (i % (fw::kHd / 2)) * 2;
+      *reinterpret_cast<uint32_t*>(dbase + off + d) = 0u;
+      *reinterpret_cast<uint32_t*>(dbase + off + 2 * d) = 0u;
+    }
+    if constexpr (kBias)
+      for (int c = tid; c < fw::kHd; c += kFlashThreads) {
+        part[d + hc + c] = 0.f;
+        part[2 * d + hc + c] = 0.f;
+      }
+    return;
+  }
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = wg::align(smem_raw);
+  uint8_t* sV = sK + wg::kBoxBytes;
+  uint8_t* ring = sV + wg::kBoxBytes;
+  float* red = reinterpret_cast<float*>(ring + kKvStages * kKvStageBytes);  // [4 warps][2][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * 2 * fw::kHd);
+  uint64_t* kvbar = full + kKvStages;
+  const int t = tid;
+  const int nq = n / fw::kWgRows;
+  init_bars(full, kKvStages);
+
+  const float* lrow = lse + ((long long)b * heads + h) * n;
+  const float* drow = di + ((long long)b * heads + h) * n;
+  auto load_q = [&](int qt) {
+    const int s = qt % kKvStages;
+    wg::bar_expect_tx(&full[s], 2 * wg::kBoxBytes + 2 * 256);
+    uint8_t* st = ring + s * kKvStageBytes;
+    fw::tma_load3(st, &q_map, &full[s], q_col + hc, qt * fw::kWgRows, b);
+    fw::tma_load3(st + wg::kBoxBytes, &do_map, &full[s], hc, qt * fw::kWgRows, b);
+    fw::bulk_load(st + 2 * wg::kBoxBytes, lrow + qt * fw::kWgRows, 256, &full[s]);
+    fw::bulk_load(st + 2 * wg::kBoxBytes + 256, drow + qt * fw::kWgRows, 256, &full[s]);
+  };
+  if (t == 0) {
+    wg::bar_expect_tx(kvbar, 2 * wg::kBoxBytes);
+    fw::tma_load3(sK, &k_map, kvbar, k_col + hc, k0, b);
+    fw::tma_load3(sV, &v_map, kvbar, v_col + hc, k0, b);
+    for (int qt = 0; qt < kKvStages && qt < nq; ++qt) load_q(qt);
+  }
+  float dk[32], dv[32];
+  wg::acc_zero(dk);
+  wg::acc_zero(dv);
+  const int key_a = k0 + wg::acc_row(t, 0);
+  const bool valid_a = key_a < n_valid, valid_b = key_a + 8 < n_valid;
+  const uint32_t ring_s = smem_addr(ring), k_s = smem_addr(sK), v_s = smem_addr(sV);
+  wg::bar_wait(kvbar, 0);
+  // Two product groups a query tile, each waited in the same tile: issuing
+  // a tile's dV and dK with the next tile's S^T and dP^T would hold dk, dv,
+  // both score tiles and both packed operands live at once, past the 168
+  // registers a thread that three blocks an SM allow.
+  for (int qt = 0; qt < nq; ++qt) {
+    const int s = qt % kKvStages;
+    wg::bar_wait(&full[s], (qt / kKvStages) & 1);
+    const uint32_t st = wg::opaque(ring_s) + s * kKvStageBytes;
+    const float* l_t = reinterpret_cast<const float*>(ring + s * kKvStageBytes + 2 * wg::kBoxBytes);
+    const float* d_t = l_t + fw::kWgRows;
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+    float sc[32], dp[32];
+    wg::mma_fence();
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4)
+      wg::mma_m64n64<0, 0>(sc, wg::desc_k(wg::opaque(k_s), k4), wg::desc_k(st, k4), k4 > 0);
+    wg::mma_commit();
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4)
+      wg::mma_m64n64<0, 0>(dp, wg::desc_k(wg::opaque(v_s), k4),
+                           wg::desc_k(st + wg::kBoxBytes, k4), k4 > 0);
+    wg::mma_commit();
+    // P^T = exp2(S^T scale log2e - lse log2e); padded keys exactly 0
+    wg::mma_wait<1>();
+    wg::acc_fence(sc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(l_t + wg::acc_col(t, 4 * j));
+      const float la = l2.x * fw::kLog2e, lb = l2.y * fw::kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = (e & 2) ? valid_b : valid_a;
+        const int i = 4 * j + e;
+        sc[i] = valid ? fw::ex2(sc[i] * scale_log2 - ((e & 1) ? lb : la)) : 0.f;
+      }
+    }
+    // dS^T = P^T (dP^T - di) * scale
+    wg::mma_wait<0>();
+    wg::acc_fence(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(d_t + wg::acc_col(t, 4 * j));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        dp[i] = sc[i] * (dp[i] - ((e & 1) ? d2.y : d2.x)) * sm_scale;
+      }
+    }
+    uint32_t pp[4][4], dsp[4][4];
+    fw::pack_a(pp, sc);
+    fw::pack_a(dsp, dp);
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T from registers
+    wg::mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      fw::mma_rs_m64n64<1>(dv, pp[ks], wg::desc_mn(st + wg::kBoxBytes, ks, wg::kBoxBytes), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      fw::mma_rs_m64n64<1>(dk, dsp[ks], wg::desc_mn(st, ks, wg::kBoxBytes), 1);
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::acc_fence(dv);
+    wg::acc_fence(dk);
+    fw::frag_fence(pp);
+    fw::frag_fence(dsp);
+    wg::sync_named(1, 128);  // every warp is done with the stage
+    if (t == 0 && qt + kKvStages < nq) load_q(qt + kKvStages);
+  }
+
+  // dk and dv (bf16) into the K and V boxes, then out by TMA
+  fw::store_tile(sK, dk, t);
+  fw::store_tile(sV, dv, t);
+  wg::fence_async_smem();
+  wg::sync_named(1, 128);
+  if (t == 0) {
+    fw::tma_store3(&dqkv_map, sK, d + hc, k0, b);
+    fw::tma_store3(&dqkv_map, sV, 2 * d + hc, k0, b);
+    wg::tma_store_commit();
+  }
+  if constexpr (kBias) {
+    // column sums of the f32 accumulators, as the TPU summed its f32
+    // scratch: over the thread's two rows, the warp's eight row groups, then
+    // the four warps in order
+    const int warp = t >> 5, lane = t & 31;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float sk = sum_over_rows(dk[4 * j + e] + dk[4 * j + 2 + e]);
+        const float sv = sum_over_rows(dv[4 * j + e] + dv[4 * j + 2 + e]);
+        if (lane < 4) {
+          red[(warp * 2) * fw::kHd + 8 * j + 2 * lane + e] = sk;
+          red[(warp * 2 + 1) * fw::kHd + 8 * j + 2 * lane + e] = sv;
+        }
+      }
+    wg::sync_named(1, 128);
+    const int which = t >> 6, c = t & 63;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) sum += red[(w * 2 + which) * fw::kHd + c];
+    part[(1 + which) * d + hc + c] = sum;
+  }
+  if (t == 0) wg::tma_store_wait();
+}
+
+// The dq pass's products S = Q K^T and dP = dO V^T: 64 queries x 64 keys,
+// the Q and dO boxes at `qa` and `doa`, the (K, V) stage at `st`.
+DEV void q_scores(float (&sc)[32], float (&dp)[32], uint32_t qa, uint32_t doa, uint32_t st) {
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4)
+    wg::mma_m64n64<0, 0>(sc, wg::desc_k(qa, k4), wg::desc_k(st, k4), k4 > 0);
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4)
+    wg::mma_m64n64<0, 0>(dp, wg::desc_k(doa, k4), wg::desc_k(st + wg::kBoxBytes, k4), k4 > 0);
+}
+
+// The dq pass's dS = P (dP - di) * scale into sc, P = exp2(S scale log2e -
+// lse log2e), keys kv0 + column at or past n_valid 0; the thread's rows'
+// lse (times log2e) and di in l2_* and di_*.
+DEV void q_ds(float (&sc)[32], const float (&dp)[32], int kv0, int n_valid, float scale_log2,
+              float sm_scale, float l2_a, float l2_b, float di_a, float di_b, int t) {
+  const bool ragged = kv0 + fw::kWgRows > n_valid;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool rb = (i >> 1) & 1;
+    const bool valid = !ragged || kv0 + wg::acc_col(t, i) < n_valid;
+    const float p = valid ? fw::ex2(sc[i] * scale_log2 - (rb ? l2_b : l2_a)) : 0.f;
+    sc[i] = p * (dp[i] - (rb ? di_b : di_a)) * sm_scale;
+  }
+}
+
+// dq (and with kBias its column sums). Grid (N / 64, heads, B).
+template <bool kBias>
+__global__ void __launch_bounds__(kFlashThreads, 3)
+    flash_bwd_q_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap do_map,
+                       const __grid_constant__ CUtensorMap dqkv_map, int q_col, int k_col,
+                       int v_col, const float* __restrict__ lse, const float* __restrict__ di,
+                       float* __restrict__ bias_part, int n, int n_valid, float scale_log2,
+                       float sm_scale, int d_out, int bias_stride) {
+  const int heads = gridDim.y;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * fw::kWgRows, hc = h * fw::kHd;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = wg::align(smem_raw);
+  uint8_t* sDO = sQ + wg::kBoxBytes;
+  uint8_t* ring = sDO + wg::kBoxBytes;
+  float* red = reinterpret_cast<float*>(ring + kQStages * kQStageBytes);  // [4 warps][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * fw::kHd);
+  uint64_t* qbar = full + kQStages;
+  const int t = threadIdx.x;
+  const int n_kt = (n_valid + fw::kWgRows - 1) / fw::kWgRows;
+  init_bars(full, kQStages);
+
+  auto load_k = [&](int kt) {
+    const int s = kt % kQStages;
+    wg::bar_expect_tx(&full[s], kQStageBytes);
+    uint8_t* st = ring + s * kQStageBytes;
+    fw::tma_load3(st, &k_map, &full[s], k_col + hc, kt * fw::kWgRows, b);
+    fw::tma_load3(st + wg::kBoxBytes, &v_map, &full[s], v_col + hc, kt * fw::kWgRows, b);
+  };
+  if (t == 0) {
+    wg::bar_expect_tx(qbar, 2 * wg::kBoxBytes);
+    fw::tma_load3(sQ, &q_map, qbar, q_col + hc, q0, b);
+    fw::tma_load3(sDO, &do_map, qbar, hc, q0, b);
+    for (int kt = 0; kt < kQStages && kt < n_kt; ++kt) load_k(kt);
+  }
+  const int row_a = q0 + wg::acc_row(t, 0), row_b = row_a + 8;
+  const long long stat = ((long long)b * heads + h) * n;
+  const float l2_a = lse[stat + row_a] * fw::kLog2e, l2_b = lse[stat + row_b] * fw::kLog2e;
+  const float di_a = di[stat + row_a], di_b = di[stat + row_b];
+  float dq[32];
+  wg::acc_zero(dq);
+  const uint32_t ring_s = smem_addr(ring), q_s = smem_addr(sQ), do_s = smem_addr(sDO);
+  wg::bar_wait(qbar, 0);
+  // Key tile kt > 0 issues S_kt and dP_kt together with dQ += dS_{kt-1}
+  // K_{kt-1}, and computes dS_kt while that product runs. Tile 0 is peeled
+  // off, so that the loop body issues the same products and waits every
+  // time (ptxas serialises the products of a loop whose groups and waits
+  // depend on a branch).
+  uint32_t dsp[4][4];  // dS of the previous tile, bf16
+  float sc[32], dp[32];
+  int s = 0;
+  wg::bar_wait(&full[0], 0);
+  uint32_t st = wg::opaque(ring_s);
+  wg::mma_fence();
+  q_scores(sc, dp, wg::opaque(q_s), wg::opaque(do_s), st);
+  wg::mma_commit();
+  wg::mma_wait<0>();
+  wg::acc_fence(sc);
+  wg::acc_fence(dp);
+  q_ds(sc, dp, 0, n_valid, scale_log2, sm_scale, l2_a, l2_b, di_a, di_b, t);
+  fw::pack_a(dsp, sc);
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const uint32_t k_prev = st;
+    s = kt % kQStages;
+    wg::bar_wait(&full[s], (kt / kQStages) & 1);
+    st = wg::opaque(ring_s) + s * kQStageBytes;
+    wg::mma_fence();
+    q_scores(sc, dp, wg::opaque(q_s), wg::opaque(do_s), st);
+    wg::mma_commit();
+    // dQ += dS K of the previous tile, a pipeline stage of its own
+    wg::mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      fw::mma_rs_m64n64<1>(dq, dsp[ks], wg::desc_mn(k_prev, ks, wg::kBoxBytes), 1);
+    wg::mma_commit();
+    wg::mma_wait<1>();
+    wg::acc_fence(sc);
+    wg::acc_fence(dp);
+    q_ds(sc, dp, kt * fw::kWgRows, n_valid, scale_log2, sm_scale, l2_a, l2_b, di_a, di_b, t);
+    wg::mma_wait<0>();  // the previous tile's product has ended: its stage is free
+    wg::acc_fence(dq);
+    fw::frag_fence(dsp);
+    wg::sync_named(1, 128);  // every warp is done with the previous tile's stage
+    if (t == 0 && kt - 1 + kQStages < n_kt) load_k(kt - 1 + kQStages);
+    fw::pack_a(dsp, sc);
+  }
+  // the last tile's dQ
+  wg::mma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    fw::mma_rs_m64n64<1>(dq, dsp[ks], wg::desc_mn(st, ks, wg::kBoxBytes), 1);
+  wg::mma_commit();
+  wg::mma_wait<0>();
+  wg::acc_fence(dq);
+  fw::frag_fence(dsp);
+
+  // dq rounded to bf16 into the Q box, out by TMA; with kBias the column
+  // sums of the rounded values
+  [[maybe_unused]] float cs[16];
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const uint32_t v = pack_bf16(dq[i], dq[i + 1]);
+    *reinterpret_cast<uint32_t*>(sQ + wg::swz(wg::acc_row(t, i), wg::acc_col(t, i))) = v;
+    if constexpr (kBias) {
+      const float2 f = unpack_bf16(v);
+      const int j = ((i >> 2) << 1);  // column pair (i / 4), element (i & 1)
+      if ((i >> 1) & 1) {
+        cs[j] += f.x;
+        cs[j + 1] += f.y;
+      } else {
+        cs[j] = f.x;
+        cs[j + 1] = f.y;
+      }
+    }
+  }
+  wg::fence_async_smem();
+  wg::sync_named(1, 128);
+  if (t == 0) {
+    fw::tma_store3(&dqkv_map, sQ, hc, q0, b);
+    wg::tma_store_commit();
+  }
+  if constexpr (kBias) {
+    const int warp = t >> 5, lane = t & 31;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float v = sum_over_rows(cs[j]);
+      if (lane < 4) red[warp * fw::kHd + 8 * (j >> 1) + 2 * lane + (j & 1)] = v;
+    }
+    wg::sync_named(1, 128);
+    if (t < fw::kHd) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) sum += red[w * fw::kHd + t];
+      bias_part[((long long)b * (n / fw::kWgRows) + blockIdx.x) * bias_stride + d_out + hc + t] =
+          sum;
+    }
+  }
+  if (t == 0) wg::tma_store_wait();
+}
 
 // ---- host: rank-3 TMA descriptors --------------------------------------------------
 
-// A (imgs, rows, cols) row-major bf16 tensor read or written in boxes of
-// box_rows x 64 columns of one image, 128-byte swizzle, zero fill past the
-// ends (rows past `rows` belong to no image).
+// An (imgs, rows, cols) bf16 tensor whose rows are contiguous and
+// `row_stride` elements apart (>= cols; images rows * row_stride apart), read
+// or written in boxes of box_rows x 64 columns of one image, 128-byte
+// swizzle, zero fill past the ends (rows past `rows` belong to no image).
+// TMA takes a 16-byte-aligned base and a row stride that is a multiple of 8
+// elements; the encoding fails otherwise.
 inline cudaError_t tensor_map3(CUtensorMap* map, const void* ptr, int imgs, int rows, int cols,
-                               int box_rows) {
+                               int box_rows, long long row_stride) {
   EncodeTiledFn encode;
   cudaError_t err = encode_fn(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)imgs};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)rows * row_stride * 2};
   const cuuint32_t box[3] = {(cuuint32_t)wg::kBox, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),

@@ -17,14 +17,13 @@
 //   through BlockSpec index maps (:155-157), with one image's whole K and V
 //   resident in VMEM. Here the block computes the three column offsets (0,
 //   D, 2D) itself and streams K/V in 64-key tiles with an online softmax
-//   (`flash_fwd_tile`, flash_tiles.cuh, the loop of the flash_packed
-//   forward): one head's K+V at N = 1664 is 416 KB, above the
-//   227 KB of shared memory a block may use.
+//   (`flash_fwd_tile`, flash_tiles.cuh, `mma.sync`): one head's K+V at
+//   N = 1664 is 416 KB, above the 227 KB of shared memory a block may use.
 // - The grid is the TPU's, (q tile, image), and the heads loop inside the
 //   block, one after the other through the same 46 KB of shared memory. The
-//   package's flash_packed forward (B5, flash_packed.cu) spreads the heads
-//   over the grid instead, (q tile, head, image), so the two time the same
-//   arithmetic on two schedules.
+//   package's flash_packed forward (B5, flash_packed.cu) computes the same
+//   function on `wgmma` and TMA with one head per block (flash_wgmma.cuh),
+//   so the two round at the same points but sum in other orders.
 // - o is written contiguous (B, N, D); nothing else is written.
 #include "flash_tiles.cuh"
 

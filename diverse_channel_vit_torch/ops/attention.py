@@ -12,10 +12,12 @@ are never read, so the padding does not change any real row.
 ``csrc/flash_packed.cu`` (replaces the TPU kernel ``_packed_fwd_kernel``),
 backward kernel ``csrc/flash_packed_bwd.cu`` (replaces
 ``_packed_bwd_kernel``), inside :class:`FlashPackedFn` when a gradient is
-wanted. The wrappers follow ``ops/dispatch.py``: the plain version for a CPU
+wanted; both run on the ``wgmma`` + TMA flash core ``csrc/flash_wgmma.cuh``
+that the attend_project kernels share. The wrappers follow ``ops/dispatch.py``: the plain version for a CPU
 tensor; the kernel, or an exception, for a CUDA one. The kernels take q, k
 and v as strided views (each row contiguous, rows ``stride`` elements apart),
-so the three thirds of one packed (B, N, 3D) qkv tensor go in without a copy.
+each through a TMA map of its own, so the three thirds of one packed
+(B, N, 3D) qkv tensor, or three tensors of their own, go in without a copy.
 """
 
 from __future__ import annotations
@@ -204,6 +206,8 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, num_heads, sm_scale, n_valid):
     _check("o", o, q.dtype, (b, n, d), dev)
     _check("do", do, q.dtype, (b, n, d), dev)
     _check("lse", lse, f32, (b, num_heads, n), dev)
+    if lse.data_ptr() % 16:  # the kernel copies lse rows in 16-byte units
+        lse = lse.clone()
     # dq | dk | dv in one (B, N, 3D) buffer, as the qkv GEMM's backward reads it
     grads = torch.empty((b, n, 3 * d), dtype=q.dtype, device=dev)
     di = torch.empty((b, num_heads, n), dtype=f32, device=dev)

@@ -21,15 +21,17 @@ calls, on the same inputs must agree bit for bit; the autograd Functions' gradie
 through the kernels are held against the same Functions under
 ``plain_versions()``. B5 and B6
 (``flash_attention_packed``) are held the same way, on q, k and v given as
-the strided thirds of one packed qkv tensor, as the model passes them.
+the strided thirds of one packed qkv tensor, as the model passes them, and
+as tensors of their own (``bench_block_fusion``'s layout, and a mix of row
+strides); two B6 calls on the same inputs must agree bit for bit.
 
 The benchmark scripts' kernels (``diverse_channel_vit_torch/scripts/``) are
 held the same way against their plain versions and against their package
-siblings on the same inputs, with which each must agree bit for bit: S1
-(``bwd_call``) in both schedules, with padded key rows exactly 0; S2
-(``qkv_flash_fwd``) against B5 on the three views of the same qkv; S3
-(``int8_ln_mlp``) against B7 on the same weight codes and scales, outputs and
-hidden codes. The public
+siblings on the same inputs: S1 (``bwd_call``) in both schedules, bit for
+bit, with padded key rows exactly 0; S2 (``qkv_flash_fwd``) against B5 on
+the three views of the same qkv, within the tolerance (the two sum in other
+orders); S3 (``int8_ln_mlp``) against B7 on the same weight codes and
+scales, outputs and hidden codes, bit for bit. The public
 ``attend_project`` and ``flash_attention_packed`` pad an N that is not a
 multiple of 64 and are held at N = 1569 against the plain route, forward and
 gradient.
@@ -314,6 +316,8 @@ def test_backward_wrappers_raise_on_what_they_do_not_take(gen):
     (3, 576, 6, 537),    # the EViT grid after layer 9
     (2, 1152, 6, 1098),  # the EViT grid after layer 3
     (2, 1600, 6, 1569),  # the flagship grid
+    (2, 640, 12, 589),   # D = 768: 12 heads (the base preset's width)
+    (2, 768, 12, 768),   # 12 heads, nothing masked
 ])
 def test_flash_packed_kernels_match_plain(gen, batch, n, heads, n_valid):
     d = heads * 64
@@ -334,6 +338,55 @@ def test_flash_packed_kernels_match_plain(gen, batch, n, heads, n_valid):
         assert _rel(g, w) <= TOL, name
     assert torch.count_nonzero(got[1][:, n_valid:]) == 0
     assert torch.count_nonzero(got[2][:, n_valid:]) == 0
+
+
+def _qkv_views(gen, layout, batch, n, d):
+    """q, k and v of one layout: "separate", three contiguous tensors
+    (bench_block_fusion's); "mixed", q contiguous and k, v the halves of one
+    (B, N, 2D) tensor, so that each has a row stride of its own."""
+    if layout == "separate":
+        return tuple(_rnd(gen, batch, n, d) for _ in range(3))
+    return (_rnd(gen, batch, n, d), *_rnd(gen, batch, n, 2 * d).split(d, dim=-1))
+
+
+@pytest.mark.parametrize("layout", ["separate", "mixed"])
+@pytest.mark.parametrize("batch,n,heads,n_valid", [
+    (2, 128, 2, 100),    # two heads, a ragged last key tile
+    (2, 1152, 6, 1098),  # the EViT grid after layer 3
+    (2, 640, 12, 589),   # 12 heads
+])
+def test_flash_packed_kernels_match_plain_on_other_layouts(gen, layout, batch, n, heads,
+                                                          n_valid):
+    d = heads * 64
+    q, k, v = _qkv_views(gen, layout, batch, n, d)
+    o, lse = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)
+    o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, 0.125, n_valid, need_lse=True)
+    assert _rel(o, o_p) <= TOL
+    assert _rel(lse, lse_p) <= 1e-5
+    do = _rnd(gen, batch, n, d)
+    got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, 0.125, n_valid)
+    for name, g, w in zip("qkv", got, at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads,
+                                                                 0.125, n_valid)):
+        assert _rel(g, w) <= TOL, name
+    assert torch.count_nonzero(got[1][:, n_valid:]) == 0
+    assert torch.count_nonzero(got[2][:, n_valid:]) == 0
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", [
+    (2, 1600, 6, 1569),  # the flagship grid
+    (3, 576, 6, 537),    # the EViT grid after layer 9
+])
+def test_flash_packed_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid):
+    """B6 sums in a fixed order and uses no atomics: two calls on the same
+    inputs agree bit for bit, dq, dk and dv."""
+    d = heads * 64
+    q, k, v = _rnd(gen, batch, n, 3 * d).split(d, dim=-1)
+    o, lse = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)
+    args = (q, k, v, o, _rnd(gen, batch, n, d), lse, heads, 0.125, n_valid)
+    first = at.flash_packed_bwd(*args)
+    second = at.flash_packed_bwd(*args)
+    for name, g1, g2 in zip("qkv", first, second):
+        assert torch.equal(g1, g2), name
 
 
 @pytest.mark.parametrize("n_valid", [589, 640])
@@ -494,16 +547,20 @@ def test_bwd_call_kernel_matches_plain(gen, batch, n, heads, n_valid):
 ])
 def test_qkv_flash_kernel_matches_plain_and_b5(gen, batch, n, heads, n_valid):
     """S2 against its plain version, and against B5 (flash_packed_fwd) on the
-    three column blocks of the same qkv."""
+    three column blocks of the same qkv: S2 runs `mma.sync`, B5 `wgmma`, so
+    they round at the same points but sum in other orders, and each is held
+    to the tolerance against the plain version and against the other."""
     d = heads * 64
     qkv = _rnd(gen, batch, n, 3 * d)
     before = fb.LAUNCHES["qkv_flash_fwd"]
     o = s2.qkv_flash_fwd(qkv, heads, 0.125, n_valid)
     assert fb.LAUNCHES["qkv_flash_fwd"] == before + 1
     assert o.shape == (batch, n, d) and o.dtype == qkv.dtype
-    assert _rel(o, s2.qkv_flash_fwd_plain(qkv, heads, 0.125, n_valid)) <= TOL
-    # the same tile loop (flash_tiles.cuh) on the same operands, another grid
-    assert torch.equal(o, at.flash_packed_fwd(*qkv.split(d, dim=-1), heads, 0.125, n_valid)[0])
+    plain = s2.qkv_flash_fwd_plain(qkv, heads, 0.125, n_valid)
+    b5 = at.flash_packed_fwd(*qkv.split(d, dim=-1), heads, 0.125, n_valid)[0]
+    assert _rel(o, plain) <= TOL
+    assert _rel(b5, plain) <= TOL
+    assert _rel(o, b5) <= TOL
 
 
 @pytest.mark.parametrize("shape,residual,bias", [
