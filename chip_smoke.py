@@ -26,7 +26,8 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    the benchmark scripts' kernels at the scripts' default shapes: S1
    (``bwd_call``, both schedules), S2 (``qkv_flash_fwd``) and S3
    (``int8_ln_mlp``), each also held against its package sibling on the same
-   inputs (the other schedule, B5, B7);
+   inputs (the other schedule and B6 given B5's lse, B5, B7), S1 and S2 bit
+   for bit, S1 also across two calls;
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
    ``ServingEngine`` (``predict``, ``submit``) and ``ServingHTTPServer`` on
@@ -618,10 +619,12 @@ def check_script_kernels(fb, torch, F):
 
     - S1 ``bwd_call`` (B = 64, N = 1664, n_valid = 1569): both schedules,
       every output, padded key rows exactly 0; ``pair_staged`` against
-      ``pair_batched`` must agree bit for bit. Library: autograd through
-      SDPA on q, k and v, the backward timed.
+      ``pair_batched``, against B6 (``flash_packed_bwd``) given B5's lse on
+      the same inputs, and against a second call must agree bit for bit.
+      Library: autograd through SDPA on q, k and v, the backward timed.
     - S2 ``qkv_flash_fwd`` (the same grid): against B5 (``flash_packed_fwd``
-      on the three views of the same qkv). Library: SDPA on the views.
+      on the three views of the same qkv), bit for bit. Library: SDPA on the
+      views.
     - S3 ``int8_ln_mlp`` (B = 64, N = 1600): residual fused with biases at
       the residual's scale, then no residual and zero output bias; the
       hidden codes within MAX_CODE_FLIPS of the plain version's; against B7
@@ -661,7 +664,22 @@ def check_script_kernels(fb, torch, F):
           "(must be 0)")
     if sibling != 0.0:
         raise AssertionError("bwd_call: the two schedules disagree")
-    del got, want
+    # S1 = its statistics pass (B5's lse, recomputed) + B6's passes
+    lse = at.flash_packed_fwd(q, k, v, HEADS, scale, N_VALID, need_lse=True)[1]
+    b6 = at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, N_VALID)
+    b6_diff = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got["pair_staged"], b6))
+    b6_ms = cuda_ms(lambda: at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, N_VALID), 10)
+    print(f"bwd_call: max |S1 - B6 given B5's lse| over dq, dk, dv: {b6_diff:.3e} (must be 0); "
+          f"B6 {b6_ms:.4f} ms, S1 {ms['pair_staged']:.4f} ms")
+    if b6_diff != 0.0:
+        raise AssertionError("bwd_call: S1 disagrees with B6 given B5's lse")
+    for variant in s1.VARIANTS:
+        again = s1.bwd_call(*args, variant)
+        if not all(torch.equal(a, b) for a, b in zip(got[variant], again)):
+            raise AssertionError(f"bwd_call ({variant}): two calls on the same inputs differ")
+    print("bwd_call: two calls on the same inputs agree bit for bit in both schedules")
+    del got, want, lse, b6, again
     plain_ms = cuda_ms(lambda: s1.bwd_call_plain(*args), 2, warmup=1)
     lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
     heads_view = [t.view(B, n, HEADS, dh).transpose(1, 2) for t in (lq, lk, lv)]
@@ -675,6 +693,7 @@ def check_script_kernels(fb, torch, F):
         replaces="scripts/bench_attn.py:94",
         max_abs_err=err, rel_err=rel, ms=ms["pair_staged"], plain_ms=plain_ms,
         library_ms=library_ms, per_variant=ms, sibling_max_abs_diff=sibling,
+        b6_max_abs_diff=b6_diff, sibling_ms=b6_ms,
         flops=10 * rows * N_VALID * D, bytes=2 * 8 * rows * D,
     )
     del q, k, v, o, do, args
@@ -690,8 +709,10 @@ def check_script_kernels(fb, torch, F):
     sibling = (out.float() - b5.float()).abs().max().item()
     b5_ms = cuda_ms(lambda: at.flash_packed_fwd(*views, HEADS, scale, N_VALID), 10)
     ms = cuda_ms(lambda: s2.qkv_flash_fwd(qkv, HEADS, scale, N_VALID), 10)
-    print(f"qkv_flash_fwd: max |S2 - B5 (flash_packed_fwd)| on the same qkv {sibling:.3e}; "
-          f"B5 {b5_ms:.4f} ms, S2 {ms:.4f} ms")
+    print(f"qkv_flash_fwd: max |S2 - B5 (flash_packed_fwd)| on the same qkv {sibling:.3e} "
+          f"(must be 0); B5 {b5_ms:.4f} ms, S2 {ms:.4f} ms")
+    if sibling != 0.0:
+        raise AssertionError("qkv_flash_fwd: S2 disagrees with B5 on the same qkv")
     plain_ms = cuda_ms(lambda: s2.qkv_flash_fwd_plain(qkv, HEADS, scale, N_VALID), 3, warmup=1)
     heads_view = qkv.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads_view, attn_mask=keep), 10)
@@ -1407,7 +1428,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     # the flash wgmma core's kernels: their registers, spills, stack frames
     # and ptxas notes (C75xx: wgmma serialised, setmaxnreg ignored)
-    for name in ("attend_project", "attend_project_bwd", "flash_packed", "flash_packed_bwd"):
+    for name in ("attend_project", "attend_project_bwd", "flash_packed", "flash_packed_bwd",
+                 "bench_attn_bwd", "qkv_flash"):
         for line in kernels.BUILD_LOG.get(name, "").splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "stack frame", "C75")):
                 print(f"  ptxas {name}: {line.strip()}")
@@ -1508,8 +1530,8 @@ def main() -> int:
                      tolerance=KERNEL_REL_TOL, ms=r["ms"], kernel_ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
-        for key in ("per_grid", "per_variant", "sibling_max_abs_diff", "sibling_code_share",
-                    "sibling_ms"):
+        for key in ("per_grid", "per_variant", "sibling_max_abs_diff", "b6_max_abs_diff",
+                    "sibling_code_share", "sibling_ms"):
             if key in r:
                 entry[key] = r[key]
         line.append(entry)

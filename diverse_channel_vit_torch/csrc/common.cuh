@@ -1,7 +1,8 @@
 // Shared device helpers for the hand-written Hopper kernels of this package.
 //
-// The kernels use the warp-level tensor-core path that every sm_80+ card
-// has: bf16 `mma.sync.m16n8k16` with f32 accumulators, operands staged in
+// The int8 kernels (int8.cuh; B7, B8, S3) and the weight-gradient GEMM
+// (wgrad.cuh) use the warp-level tensor-core path that every sm_80+ card
+// has: `mma.sync` with int32 or f32 accumulators, operands staged in
 // shared memory by `cp.async` and read into fragments by `ldmatrix`.
 // Shared-memory tiles keep a row stride of (width + 8) bf16 values, so the
 // eight row addresses of one `ldmatrix` 8x8 matrix fall in eight different
@@ -43,23 +44,10 @@ DEV void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy a rows x cols bf16 tile (cols % 8 == 0) from global memory with row
+// Copy a 64 x cols bf16 tile (cols % 8 == 0) from global memory with row
 // stride `gstride` into shared memory with row stride padded(cols), spread
-// over `nthreads` threads in 16-byte pieces.
-DEV void load_tile_async(__nv_bfloat16* smem, const __nv_bfloat16* gmem, int rows, int cols,
-                         long long gstride, int tid, int nthreads) {
-  const int chunks_per_row = cols / 8;
-  const int total = rows * chunks_per_row;
-  const int sstride = padded(cols);
-  for (int i = tid; i < total; i += nthreads) {
-    const int r = i / chunks_per_row;
-    const int c = (i - r * chunks_per_row) * 8;
-    cp_async16(smem + r * sstride + c, gmem + r * gstride + c);
-  }
-}
-
-// load_tile_async for a 64-row tile whose rows at or past `rows_valid` are
-// zero-filled instead of read.
+// over `nthreads` threads in 16-byte pieces; rows at or past `rows_valid`
+// are zero-filled instead of read.
 DEV void load_rows_zfill(__nv_bfloat16* smem, const __nv_bfloat16* gmem, int cols,
                          long long gstride, long long rows_valid, int tid, int nthreads) {
   const int chunks_per_row = cols / 8;
@@ -109,14 +97,7 @@ DEV void load_a_frag_km(uint32_t (&a)[4], const __nv_bfloat16* tile, int stride,
 }
 
 // B fragments of two adjacent n-tiles (16 n x 16 k) from a shared tile
-// stored [n][k] (k contiguous): b[0], b[1] feed n-tile n0, b[2], b[3] n0 + 8.
-DEV void load_b_frag_nk(uint32_t (&b)[4], const __nv_bfloat16* tile, int stride, int n0, int k0,
-                        int lane) {
-  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * stride + k0 +
-                     ((lane >> 3) & 1) * 8);
-}
-
-// The same fragments from a shared tile stored [k][n] (n contiguous).
+// stored [k][n] (n contiguous): b[0], b[1] feed n-tile n0, b[2], b[3] n0 + 8.
 DEV void load_b_frag_kn(uint32_t (&b)[4], const __nv_bfloat16* tile, int stride, int n0, int k0,
                         int lane) {
   ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * stride + n0 +
@@ -133,17 +114,6 @@ DEV float2 unpack_bf16(uint32_t v) {
 }
 
 DEV float bf(const __nv_bfloat16 v) { return __bfloat162float(v); }
-
-// A fragments of a 16-row x 64-column f32 accumulator (as mma leaves it) for
-// the next product, where those 64 columns are the reduction axis: four
-// k-steps of 16, rounded to bf16.
-DEV void acc_to_a_frags(uint32_t (&a)[4][4], const float (&c)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a[j >> 1][(j & 1) * 2] = pack_bf16(c[j][0], c[j][1]);
-    a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(c[j][2], c[j][3]);
-  }
-}
 
 // Sum over all 32 lanes of a warp.
 DEV float warp_sum(float v) {

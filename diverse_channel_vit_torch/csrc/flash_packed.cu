@@ -13,8 +13,10 @@
 // special-function units' ~3.9 T exp2/s, against 308 MB of compulsory
 // traffic (q, k, v read once, o written once), 0.092 ms at 3.35 TB/s.
 //
-// Design (flash_wgmma.cuh on wgmma_core.cuh): the attend_project forward's
-// (B1's) tile loop, one head a block, without the projection.
+// Design (flash_packed.cuh on flash_wgmma.cuh and wgmma_core.cuh): the
+// attend_project forward's (B1's) tile loop, one head a block, without the
+// projection; the benchmark scripts' qkv_flash forward (S2) launches the same
+// kernel on one packed qkv map.
 // - The TPU kept each batch row's whole K and V resident in VMEM (:279-280).
 //   One head's K+V at N = 1600 is 400 KB, above the 227 KB of shared memory
 //   a block may use, so K/V stream by TMA through a three-stage mbarrier
@@ -38,70 +40,7 @@
 //   With `lse` the kernel also writes each row's per-head log-sum-exp of
 //   the scaled scores (f32), which the backward (flash_packed_bwd.cu) uses to
 //   recompute P tile by tile.
-#include "flash_wgmma.cuh"
-
-namespace dcvit {
-
-// the Q (then O) box, the ring, its full and empty barriers and the Q barrier
-constexpr int kFpSmem = wg::kBoxBytes + fw::kFwdStages * fw::kFwdStageBytes +
-                        (2 * fw::kFwdStages + 1) * 8 + wg::kAlign;
-
-// Grid (N / 64, heads, B). The launch bound asks for two blocks an SM, as
-// B1's does, which leaves ptxas B1's register budget for the shared tile
-// loop; the 106 registers it uses let three run.
-__global__ void __launch_bounds__(fw::kFwdThreads, 2)
-    flash_packed_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
-                            const __grid_constant__ CUtensorMap k_map,
-                            const __grid_constant__ CUtensorMap v_map,
-                            const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
-                            int n, int n_valid, float scale_log2) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = wg::align(smem_raw);  // Q, then O
-  uint8_t* ring = sQ + wg::kBoxBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + fw::kFwdStages * fw::kFwdStageBytes);
-  uint64_t* empty = full + fw::kFwdStages;
-  uint64_t* qbar = empty + fw::kFwdStages;
-  const int tid = threadIdx.x, t = tid & 127;
-  const int q0 = blockIdx.x * fw::kWgRows, h = blockIdx.y, b = blockIdx.z, hc = h * fw::kHd;
-  const int n_kt = (n_valid + fw::kWgRows - 1) / fw::kWgRows;
-
-  if (tid == 0) {
-    for (int s = 0; s < fw::kFwdStages; ++s) {
-      wg::bar_init(&full[s], 1);
-      wg::bar_init(&empty[s], 1);
-    }
-    wg::bar_init(qbar, 1);
-    wg::bar_init_fence();
-  }
-  __syncthreads();
-
-  if (wg::warpgroup() == 1) {
-    // producer: the Q rows, then the head's (K, V) tiles
-    if (t == 0) {
-      wg::bar_expect_tx(qbar, wg::kBoxBytes);
-      fw::tma_load3(sQ, &q_map, qbar, hc, q0, b);
-      int it = 0;
-      fw::load_kv_tiles(ring, full, empty, it, &k_map, hc, &v_map, hc, n_kt, b);
-    }
-  } else {
-    const int row_a = q0 + wg::acc_row(t, 0);  // this thread's rows
-    wg::bar_wait(qbar, 0);
-    int it = 0;
-    float o[32], m_a, m_b, l_a, l_b;
-    fw::attend_tiles(o, m_a, m_b, l_a, l_b, smem_addr(sQ), smem_addr(ring), full, empty, it, n_kt,
-                     n_valid, scale_log2, t);
-    fw::finish_rows(o, m_a, m_b, l_a, l_b,
-                    lse != nullptr ? lse + ((long long)b * gridDim.y + h) * n : nullptr, row_a,
-                    row_a + 8, n, sQ, t);
-    if (t == 0) {
-      fw::tma_store3(&o_map, sQ, hc, q0, b);
-      wg::tma_store_commit();
-      wg::tma_store_wait();
-    }
-  }
-}
-
-}  // namespace dcvit
+#include "flash_packed.cuh"
 
 // Plain C entry point (loaded with ctypes). q, k, v: (B, N, H * head_dim)
 // bf16 views whose rows are contiguous and 16-byte aligned, rows `stride_*`
@@ -126,12 +65,7 @@ extern "C" int dcvit_flash_packed_fwd(const void* q, const void* k, const void* 
       (err = tensor_map3(&v_map, v, batch, n, (int)d, fw::kWgRows, stride_v)) != cudaSuccess ||
       (err = tensor_map3(&o_map, o, batch, n, (int)d, fw::kWgRows, d)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaFuncSetAttribute(flash_packed_fwd_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kFpSmem)) !=
-      cudaSuccess)
-    return (int)err;
-  flash_packed_fwd_kernel<<<dim3(n / fw::kWgRows, heads, batch), fw::kFwdThreads, kFpSmem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, o_map, static_cast<float*>(lse), n, n_valid, sm_scale * fw::kLog2e);
-  return (int)cudaGetLastError();
+  return (int)launch_flash_fwd<true>(q_map, k_map, v_map, o_map, 0, 0, 0,
+                                     static_cast<float*>(lse), batch, n, heads, n_valid,
+                                     sm_scale, static_cast<cudaStream_t>(stream));
 }

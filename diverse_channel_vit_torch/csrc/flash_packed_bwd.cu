@@ -14,8 +14,10 @@
 // against 617 MB of compulsory traffic (q, k, v, o, do read once, dq, dk, dv
 // written once; the lse read is 2.4 MB), 0.18 ms at 3.35 TB/s.
 //
-// Design (flash_wgmma.cuh on wgmma_core.cuh): the attend_project backward's
-// (B2's) two attention passes, without its projection and bias sums.
+// Design (flash_packed.cuh on flash_wgmma.cuh and wgmma_core.cuh): the
+// attend_project backward's (B2's) two attention passes, without its
+// projection and bias sums; the benchmark scripts' attention backward (S1)
+// runs the same three passes after a statistics pass of its own.
 // - The TPU ran grid (b, q-block) with the whole K/V row resident in VMEM
 //   and accumulated dk and dv in f32 VMEM scratch across a sequential q axis
 //   (:304-356), recomputing the softmax's max and sum. Here K+V of one head
@@ -49,32 +51,7 @@
 //   rank-3 TMA map with its own row stride; dq, dk and dv leave by TMA into
 //   one (B, N, 3D) buffer, [dq | dk | dv], the layout the qkv GEMM's
 //   backward reads.
-#include "flash_wgmma.cuh"
-
-namespace dcvit {
-
-constexpr int kDiRows = 8;  // rows per block of the di pass, one per warp
-
-// (a) di[b, h, r] = sum over the head's columns of o * do, f32. Grid
-// (B * N / 8), 256 threads.
-__global__ void __launch_bounds__(32 * kDiRows)
-    flash_bwd_di_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dO,
-                        float* __restrict__ di, int n, int heads) {
-  static_assert(fw::kHd == 64, "one bf16 pair per lane and head");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long row = (long long)blockIdx.x * kDiRows + warp;  // b * n + r
-  const long long b = row / n, r = row - b * n;
-  const int d = heads * fw::kHd;
-  for (int h = 0; h < heads; ++h) {
-    const long long off = row * d + h * fw::kHd + lane * 2;
-    const float2 ov = unpack_bf16(*reinterpret_cast<const uint32_t*>(o + off));
-    const float2 dv = unpack_bf16(*reinterpret_cast<const uint32_t*>(dO + off));
-    const float s = warp_sum(ov.x * dv.x + ov.y * dv.y);
-    if (lane == 0) di[(b * heads + h) * n + r] = s;
-  }
-}
-
-}  // namespace dcvit
+#include "flash_packed.cuh"
 
 // Plain C entry point (loaded with ctypes). q, k, v: (B, N, H * head_dim)
 // bf16 views whose rows are contiguous and 16-byte aligned, rows `stride_*`
@@ -107,30 +84,10 @@ extern "C" int dcvit_flash_packed_bwd(const void* q, const void* k, const void* 
       (err = tensor_map3(&grads_map, grads, batch, n, 3 * dc, fw::kWgRows, 3 * d)) !=
           cudaSuccess)
     return (int)err;
-  const struct {
-    const void* fn;
-    int smem;
-  } attrs[] = {{(const void*)flash_bwd_kv_kernel<false>, kKvSmem},
-               {(const void*)flash_bwd_q_kernel<false>, kQSmem}};
-  for (const auto& a : attrs)
-    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    a.smem)) != cudaSuccess)
-      return (int)err;
-
-  flash_bwd_di_kernel<<<(unsigned)((long long)batch * n / kDiRows), 32 * kDiRows, 0, st>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(di), n,
-      heads);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // q, k and v: maps of their own, each head's columns from 0
-  const float scale_log2 = sm_scale * fw::kLog2e;
-  const dim3 grid(n / fw::kWgRows, heads, batch);
-  flash_bwd_kv_kernel<false><<<grid, kFlashThreads, kKvSmem, st>>>(
-      q_map, k_map, v_map, do_map, grads_map, 0, 0, 0, static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(grads), nullptr, n, n_valid, scale_log2,
-      sm_scale, 0, 0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  flash_bwd_q_kernel<false><<<grid, kFlashThreads, kQSmem, st>>>(
-      q_map, k_map, v_map, do_map, grads_map, 0, 0, 0, static_cast<const float*>(lse),
-      static_cast<const float*>(di), nullptr, n, n_valid, scale_log2, sm_scale, 0, 0);
-  return (int)cudaGetLastError();
+  return (int)launch_flash_bwd<1>(q_map, k_map, v_map, do_map, grads_map, 0, 0, 0,
+                                  static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+                                  static_cast<const float*>(lse), static_cast<float*>(di),
+                                  static_cast<bf16*>(grads), batch, n, heads, n_valid, sm_scale,
+                                  st);
 }

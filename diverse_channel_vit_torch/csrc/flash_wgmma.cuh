@@ -1,10 +1,12 @@
-// The Hopper flash-attention core of the attend_project kernels
-// (attend_project.cu, B1; attend_project_bwd.cu, B2) and of the
-// flash_packed kernels (flash_packed.cu, B5; flash_packed_bwd.cu, B6), on
-// top of wgmma_core.cuh's mbarrier ring, TMA and `wgmma` helpers. B1 and B5
-// share the forward's tile loop (`attend_tiles`), B2 and B6 the backward's
-// two attention passes (`flash_bwd_kv_kernel`, `flash_bwd_q_kernel`; B2's
-// with its bias partials, B6's without).
+// The Hopper flash-attention core of every attention kernel of the port, on
+// top of wgmma_core.cuh's mbarrier ring, TMA and `wgmma` helpers: the
+// attend_project kernels (attend_project.cu, B1; attend_project_bwd.cu, B2),
+// the flash_packed kernels (flash_packed.cu, B5; flash_packed_bwd.cu, B6) and
+// the benchmark scripts' two (qkv_flash.cu, S2; bench_attn_bwd.cu, S1). B1,
+// B5 and S2 share the forward's tile loop (`attend_tiles`), S1's statistics
+// pass its online max and sum; B2, B6 and S1 share the backward's two
+// attention passes (`flash_bwd_kv_kernel`, `flash_bwd_q_kernel`; B2's with
+// its bias partials, S1's also with two heads a block).
 //
 // What bounds attention at head width 64 on an H100 is two floors of about
 // the same height: the bf16 products, and the exponentials. The SM's
@@ -138,7 +140,7 @@ DEV void store_tile(uint8_t* box, const float (&c)[32], int t) {
   for (int i = 0; i < 32; i += 2) wg::st_pair(box, wg::acc_row(t, i), wg::acc_col(t, i), c[i], c[i + 1]);
 }
 
-// ---- the forward's tile loop (B1, B5) -------------------------------------------
+// ---- the forward's tile loop (B1, B5, S2) and S1's statistics pass -----------------
 //
 // Blocks of one consumer warpgroup (64 query rows) and one producer warp,
 // several an SM. The producer streams one head's K and V tiles of 64 keys by TMA
@@ -200,6 +202,20 @@ DEV void exp_scores(float (&sc)[32], float scale_log2, float m_a, float m_b, flo
   l_b += l[1] + l[3];
 }
 
+// The online softmax's step for the key tile at kv0: the running row maxima
+// m_a / m_b (log2 domain) take the tile's (row_max), and alpha_a / alpha_b
+// get the factors ex2(old - new) that rescale what was summed against the
+// old maxima.
+DEV void update_max(float (&sc)[32], int kv0, int n_valid, float scale_log2, int t, float& m_a,
+                    float& m_b, float& alpha_a, float& alpha_b) {
+  float mx_a = m_a, mx_b = m_b;
+  row_max(sc, kv0, n_valid, scale_log2, t, mx_a, mx_b);
+  alpha_a = ex2(m_a - mx_a);
+  alpha_b = ex2(m_b - mx_b);
+  m_a = mx_a;
+  m_b = mx_b;
+}
+
 // The producer: K and V tiles 0 .. n_kt of one head of image `img`, each
 // into the next stage of the ring, from columns k_col / v_col of k_map /
 // v_map. `it` counts the ring's fills across calls.
@@ -213,6 +229,18 @@ DEV void load_kv_tiles(uint8_t* ring, uint64_t* full, uint64_t* empty, int& it,
     uint8_t* st = ring + s * kFwdStageBytes;
     tma_load3(st, k_map, &full[s], k_col, kt * kWgRows, img);
     tma_load3(st + wg::kBoxBytes, v_map, &full[s], v_col, kt * kWgRows, img);
+  }
+}
+
+// The K tiles alone (the statistics pass's ring: stages of one box), as
+// load_kv_tiles.
+DEV void load_k_tiles(uint8_t* ring, uint64_t* full, uint64_t* empty, int& it,
+                      const CUtensorMap* k_map, int k_col, int n_kt, int img) {
+  for (int kt = 0; kt < n_kt; ++kt, ++it) {
+    const int s = it % kFwdStages;
+    wg::bar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
+    wg::bar_expect_tx(&full[s], wg::kBoxBytes);
+    tma_load3(ring + s * wg::kBoxBytes, k_map, &full[s], k_col, kt * kWgRows, img);
   }
 }
 
@@ -265,11 +293,8 @@ DEV void attend_tiles(float (&o)[32], float& m_a, float& m_b, float& l_a, float&
     wg::mma_commit();
     wg::mma_wait<1>();
     wg::acc_fence(sc);
-    float mx_a = m_a, mx_b = m_b;
-    row_max(sc, kt * kWgRows, n_valid, scale_log2, t, mx_a, mx_b);
-    const float alpha_a = ex2(m_a - mx_a), alpha_b = ex2(m_b - mx_b);
-    m_a = mx_a;
-    m_b = mx_b;
+    float alpha_a, alpha_b;
+    update_max(sc, kt * kWgRows, n_valid, scale_log2, t, m_a, m_b, alpha_a, alpha_b);
     wg::mma_wait<0>();  // the previous tile's P V has ended: its stage is free
     wg::acc_fence(o);
     frag_fence(p);
@@ -294,13 +319,44 @@ DEV void attend_tiles(float (&o)[32], float& m_a, float& m_b, float& l_a, float&
   ++it;
 }
 
-// attend_tiles' epilogue: the row sums over the quad; with `lrow` (the
-// head's (N,) f32 log-sum-exp row) each row's log-sum-exp of the scaled
-// scores, rows row_a and row_b if below n; o normalised, rounded to bf16
-// into the warpgroup's 64-row box `obox`, made visible to TMA, and the
-// warpgroup synchronised, so that thread 0 may store the box.
-DEV void finish_rows(float (&o)[32], float m_a, float m_b, float l_a, float l_b, float* lrow,
-                     int row_a, int row_b, int n, uint8_t* obox, int t) {
+// The statistics pass's loop (S1): the running row max (log2 domain) and
+// row sums of the 64 query rows of one head whose K-major Q box is at `qa`,
+// over the n_kt key tiles that load_k_tiles puts into the ring at `ring_s`,
+// `it` as there. The same products, maxima, rescaling and sums, in the same
+// order, as attend_tiles, without P V: so its statistics, and the
+// log-sum-exp that row_sums writes from them, equal the forward's bit for
+// bit. (At tile 0 update_max's alpha is ex2(-inf) = 0 and l is 0, so the
+// one body serves every tile.)
+DEV void stat_tiles(float& m_a, float& m_b, float& l_a, float& l_b, uint32_t qa, uint32_t ring_s,
+                    uint64_t* full, uint64_t* empty, int& it, int n_kt, int n_valid,
+                    float scale_log2, int t) {
+  m_a = -INFINITY;
+  m_b = -INFINITY;
+  l_a = 0.f;
+  l_b = 0.f;
+  float sc[32];
+  for (int kt = 0; kt < n_kt; ++kt, ++it) {
+    const int s = it % kFwdStages;
+    wg::bar_wait(&full[s], (it / kFwdStages) & 1);
+    wg::mma_fence();
+    scores(sc, wg::opaque(qa), wg::opaque(ring_s) + s * wg::kBoxBytes);
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::acc_fence(sc);
+    if (t == 0) wg::bar_arrive(&empty[s]);
+    float alpha_a, alpha_b;
+    update_max(sc, kt * kWgRows, n_valid, scale_log2, t, m_a, m_b, alpha_a, alpha_b);
+    l_a *= alpha_a;
+    l_b *= alpha_b;
+    exp_scores(sc, scale_log2, m_a, m_b, l_a, l_b);
+  }
+}
+
+// The row sums over the quad, into l_a / l_b; with `lrow` (the head's (N,)
+// f32 log-sum-exp row) each row's log-sum-exp of the scaled scores, rows
+// row_a and row_b if below n.
+DEV void row_sums(float& l_a, float& l_b, float m_a, float m_b, float* lrow, int row_a,
+                  int row_b, int n, int t) {
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
@@ -310,6 +366,14 @@ DEV void finish_rows(float (&o)[32], float m_a, float m_b, float l_a, float l_b,
     if (row_a < n) lrow[row_a] = (m_a + log2f(l_a)) * kLn2;  // m in the log2 domain
     if (row_b < n) lrow[row_b] = (m_b + log2f(l_b)) * kLn2;
   }
+}
+
+// attend_tiles' epilogue: row_sums; o normalised, rounded to bf16 into the
+// warpgroup's 64-row box `obox`, made visible to TMA, and the warpgroup
+// synchronised, so that thread 0 may store the box.
+DEV void finish_rows(float (&o)[32], float m_a, float m_b, float l_a, float l_b, float* lrow,
+                     int row_a, int row_b, int n, uint8_t* obox, int t) {
+  row_sums(l_a, l_b, m_a, m_b, lrow, row_a, row_b, n, t);
   const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? inv_b : inv_a;
@@ -320,7 +384,7 @@ DEV void finish_rows(float (&o)[32], float m_a, float m_b, float l_a, float l_b,
 
 }  // namespace fw
 
-// ---- the backward's attention passes (B2, B6) -------------------------------------
+// ---- the backward's attention passes (B2, B6, S1) ---------------------------------
 //
 // Blocks of one warpgroup (128 threads), three an SM. Thread 0 issues the
 // TMA loads: a stage is refilled as soon as the warpgroup has finished with
@@ -338,16 +402,46 @@ DEV void finish_rows(float (&o)[32], float m_a, float m_b, float l_a, float l_b,
 // [dq | dk | dv]. With kBias (B2) each block also writes the column sums of
 // its dq, or of its dk and dv, as the bias partials of its 64-row tile:
 // bias_part row (image * N / 64 + tile), columns d_out + [0, 3D).
+//
+// HP = 2 (S1's "pair_batched" schedule) gives a block a head pair: two
+// warpgroups of 128 threads, warpgroup g taking head 2 blockIdx.y + g with
+// the very instructions a one-head block runs. Resident boxes and ring stages
+// hold both heads' boxes (head g's at the same offsets within its half), each
+// stage filled under one barrier, refilled once all 256 threads are done
+// with it. At 137 KiB (dk/dv) and 130 KiB (dq) of shared memory one such
+// block fits an SM.
 
 constexpr int kFlashThreads = 128;
 constexpr int kKvStages = 3;
 constexpr int kKvStageBytes = 17 * 1024;
-constexpr int kKvSmem = 2 * wg::kBoxBytes + kKvStages * kKvStageBytes + 4 * 2 * 64 * 4 +
-                        (kKvStages + 1) * 8 + wg::kAlign;
+constexpr int kv_smem(int hp) {
+  return hp * (2 * wg::kBoxBytes + kKvStages * kKvStageBytes) + 4 * 2 * 64 * 4 +
+         (kKvStages + 1) * 8 + wg::kAlign;
+}
+constexpr int kKvSmem = kv_smem(1);
 constexpr int kQStages = 3;
 constexpr int kQStageBytes = 2 * wg::kBoxBytes;
-constexpr int kQSmem = 2 * wg::kBoxBytes + kQStages * kQStageBytes + 4 * 64 * 4 +
-                       (kQStages + 1) * 8 + wg::kAlign;
+constexpr int q_smem(int hp) {
+  return hp * (2 * wg::kBoxBytes + kQStages * kQStageBytes) + 4 * 64 * 4 + (kQStages + 1) * 8 +
+         wg::kAlign;
+}
+constexpr int kQSmem = q_smem(1);
+
+// The thread's index in its warpgroup and the warpgroup's head within the
+// block (0 with one head a block).
+template <int HP>
+DEV int wg_thread() {
+  return HP == 1 ? (int)threadIdx.x : (int)threadIdx.x & 127;
+}
+template <int HP>
+DEV int wg_head() {
+  return HP == 1 ? 0 : wg::warpgroup();
+}
+// The named barrier of a warpgroup's own epilogue (id 1 is the block's).
+template <int HP>
+DEV void wg_sync(int g) {
+  wg::sync_named(HP == 1 ? 1 : 2 + g, 128);
+}
 
 // The stages' full barriers and one more for the resident boxes, initialised
 // by thread 0 before any load.
@@ -359,9 +453,9 @@ DEV void init_bars(uint64_t* full, int stages) {
   __syncthreads();
 }
 
-// dk, dv (and with kBias their column sums). Grid (N / 64, heads, B).
-template <bool kBias>
-__global__ void __launch_bounds__(kFlashThreads, 3)
+// dk, dv (and with kBias their column sums). Grid (N / 64, heads / HP, B).
+template <bool kBias, int HP = 1>
+__global__ void __launch_bounds__(kFlashThreads * HP, HP == 1 ? 3 : 1)
     flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map,
@@ -371,55 +465,65 @@ __global__ void __launch_bounds__(kFlashThreads, 3)
                         __nv_bfloat16* __restrict__ dqkv, float* __restrict__ bias_part, int n,
                         int n_valid, float scale_log2, float sm_scale, int d_out,
                         int bias_stride) {
-  const int heads = gridDim.y, d = heads * fw::kHd;
-  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * fw::kWgRows, hc = h * fw::kHd;
+  static_assert(HP == 1 || !kBias, "bias partials come from one-head blocks");
+  const int heads = gridDim.y * HP, d = heads * fw::kHd, g = wg_head<HP>(), t = wg_thread<HP>();
+  const int h0 = blockIdx.y * HP, h = h0 + g, b = blockIdx.z, k0 = blockIdx.x * fw::kWgRows,
+            hc = h * fw::kHd;
   [[maybe_unused]] float* part = nullptr;
   if constexpr (kBias)
     part = bias_part + ((long long)b * (n / fw::kWgRows) + blockIdx.x) * bias_stride + d_out;
-  const int tid = threadIdx.x;
 
   if (k0 >= n_valid) {  // wholly padded keys: exact zeros
     const long long row3 = 3LL * d;
     __nv_bfloat16* dbase = dqkv + ((long long)b * n + k0) * row3 + hc;
-    for (int i = tid; i < fw::kWgRows * (fw::kHd / 2); i += kFlashThreads) {
+    for (int i = t; i < fw::kWgRows * (fw::kHd / 2); i += kFlashThreads) {
       const long long off = (long long)(i / (fw::kHd / 2)) * row3 + (i % (fw::kHd / 2)) * 2;
       *reinterpret_cast<uint32_t*>(dbase + off + d) = 0u;
       *reinterpret_cast<uint32_t*>(dbase + off + 2 * d) = 0u;
     }
     if constexpr (kBias)
-      for (int c = tid; c < fw::kHd; c += kFlashThreads) {
+      for (int c = t; c < fw::kHd; c += kFlashThreads) {
         part[d + hc + c] = 0.f;
         part[2 * d + hc + c] = 0.f;
       }
     return;
   }
 
+  // head j's K and V at base + 2 j boxes; stage s of head j at
+  // ring + (s HP + j) kKvStageBytes
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sK = wg::align(smem_raw);
+  uint8_t* base = wg::align(smem_raw);
+  uint8_t* sK = base + g * 2 * wg::kBoxBytes;
   uint8_t* sV = sK + wg::kBoxBytes;
-  uint8_t* ring = sV + wg::kBoxBytes;
-  float* red = reinterpret_cast<float*>(ring + kKvStages * kKvStageBytes);  // [4 warps][2][64]
+  uint8_t* ring = base + HP * 2 * wg::kBoxBytes;
+  float* red = reinterpret_cast<float*>(ring + kKvStages * HP * kKvStageBytes);  // [4 warps][2][64]
   uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * 2 * fw::kHd);
   uint64_t* kvbar = full + kKvStages;
-  const int t = tid;
   const int nq = n / fw::kWgRows;
   init_bars(full, kKvStages);
 
-  const float* lrow = lse + ((long long)b * heads + h) * n;
-  const float* drow = di + ((long long)b * heads + h) * n;
+  const float* lrow = lse + ((long long)b * heads + h0) * n;  // the block's first head's
+  const float* drow = di + ((long long)b * heads + h0) * n;
   auto load_q = [&](int qt) {
     const int s = qt % kKvStages;
-    wg::bar_expect_tx(&full[s], 2 * wg::kBoxBytes + 2 * 256);
-    uint8_t* st = ring + s * kKvStageBytes;
-    fw::tma_load3(st, &q_map, &full[s], q_col + hc, qt * fw::kWgRows, b);
-    fw::tma_load3(st + wg::kBoxBytes, &do_map, &full[s], hc, qt * fw::kWgRows, b);
-    fw::bulk_load(st + 2 * wg::kBoxBytes, lrow + qt * fw::kWgRows, 256, &full[s]);
-    fw::bulk_load(st + 2 * wg::kBoxBytes + 256, drow + qt * fw::kWgRows, 256, &full[s]);
+    wg::bar_expect_tx(&full[s], HP * (2 * wg::kBoxBytes + 2 * 256));
+    for (int j = 0; j < HP; ++j) {
+      uint8_t* st = ring + (s * HP + j) * kKvStageBytes;
+      const int cj = (h0 + j) * fw::kHd;
+      fw::tma_load3(st, &q_map, &full[s], q_col + cj, qt * fw::kWgRows, b);
+      fw::tma_load3(st + wg::kBoxBytes, &do_map, &full[s], cj, qt * fw::kWgRows, b);
+      fw::bulk_load(st + 2 * wg::kBoxBytes, lrow + j * n + qt * fw::kWgRows, 256, &full[s]);
+      fw::bulk_load(st + 2 * wg::kBoxBytes + 256, drow + j * n + qt * fw::kWgRows, 256,
+                    &full[s]);
+    }
   };
-  if (t == 0) {
-    wg::bar_expect_tx(kvbar, 2 * wg::kBoxBytes);
-    fw::tma_load3(sK, &k_map, kvbar, k_col + hc, k0, b);
-    fw::tma_load3(sV, &v_map, kvbar, v_col + hc, k0, b);
+  if (threadIdx.x == 0) {
+    wg::bar_expect_tx(kvbar, HP * 2 * wg::kBoxBytes);
+    for (int j = 0; j < HP; ++j) {
+      const int cj = (h0 + j) * fw::kHd;
+      fw::tma_load3(base + j * 2 * wg::kBoxBytes, &k_map, kvbar, k_col + cj, k0, b);
+      fw::tma_load3(base + (j * 2 + 1) * wg::kBoxBytes, &v_map, kvbar, v_col + cj, k0, b);
+    }
     for (int qt = 0; qt < kKvStages && qt < nq; ++qt) load_q(qt);
   }
   float dk[32], dv[32];
@@ -436,8 +540,9 @@ __global__ void __launch_bounds__(kFlashThreads, 3)
   for (int qt = 0; qt < nq; ++qt) {
     const int s = qt % kKvStages;
     wg::bar_wait(&full[s], (qt / kKvStages) & 1);
-    const uint32_t st = wg::opaque(ring_s) + s * kKvStageBytes;
-    const float* l_t = reinterpret_cast<const float*>(ring + s * kKvStageBytes + 2 * wg::kBoxBytes);
+    const uint32_t st = wg::opaque(ring_s) + (s * HP + g) * kKvStageBytes;
+    const float* l_t =
+        reinterpret_cast<const float*>(ring + (s * HP + g) * kKvStageBytes + 2 * wg::kBoxBytes);
     const float* d_t = l_t + fw::kWgRows;
     // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
     float sc[32], dp[32];
@@ -494,15 +599,15 @@ __global__ void __launch_bounds__(kFlashThreads, 3)
     wg::acc_fence(dk);
     fw::frag_fence(pp);
     fw::frag_fence(dsp);
-    wg::sync_named(1, 128);  // every warp is done with the stage
-    if (t == 0 && qt + kKvStages < nq) load_q(qt + kKvStages);
+    wg::sync_named(1, kFlashThreads * HP);  // every warp is done with the stage
+    if (threadIdx.x == 0 && qt + kKvStages < nq) load_q(qt + kKvStages);
   }
 
   // dk and dv (bf16) into the K and V boxes, then out by TMA
   fw::store_tile(sK, dk, t);
   fw::store_tile(sV, dv, t);
   wg::fence_async_smem();
-  wg::sync_named(1, 128);
+  wg_sync<HP>(g);
   if (t == 0) {
     fw::tma_store3(&dqkv_map, sK, d + hc, k0, b);
     fw::tma_store3(&dqkv_map, sV, 2 * d + hc, k0, b);
@@ -560,9 +665,9 @@ DEV void q_ds(float (&sc)[32], const float (&dp)[32], int kv0, int n_valid, floa
   }
 }
 
-// dq (and with kBias its column sums). Grid (N / 64, heads, B).
-template <bool kBias>
-__global__ void __launch_bounds__(kFlashThreads, 3)
+// dq (and with kBias its column sums). Grid (N / 64, heads / HP, B).
+template <bool kBias, int HP = 1>
+__global__ void __launch_bounds__(kFlashThreads * HP, HP == 1 ? 3 : 1)
     flash_bwd_q_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
@@ -571,31 +676,41 @@ __global__ void __launch_bounds__(kFlashThreads, 3)
                        int v_col, const float* __restrict__ lse, const float* __restrict__ di,
                        float* __restrict__ bias_part, int n, int n_valid, float scale_log2,
                        float sm_scale, int d_out, int bias_stride) {
-  const int heads = gridDim.y;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * fw::kWgRows, hc = h * fw::kHd;
+  static_assert(HP == 1 || !kBias, "bias partials come from one-head blocks");
+  const int heads = gridDim.y * HP, g = wg_head<HP>(), t = wg_thread<HP>();
+  const int h0 = blockIdx.y * HP, h = h0 + g, b = blockIdx.z, q0 = blockIdx.x * fw::kWgRows,
+            hc = h * fw::kHd;
 
+  // head j's Q and dO at base + 2 j boxes; stage s of head j at
+  // ring + (s HP + j) kQStageBytes
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = wg::align(smem_raw);
+  uint8_t* base = wg::align(smem_raw);
+  uint8_t* sQ = base + g * 2 * wg::kBoxBytes;
   uint8_t* sDO = sQ + wg::kBoxBytes;
-  uint8_t* ring = sDO + wg::kBoxBytes;
-  float* red = reinterpret_cast<float*>(ring + kQStages * kQStageBytes);  // [4 warps][64]
+  uint8_t* ring = base + HP * 2 * wg::kBoxBytes;
+  float* red = reinterpret_cast<float*>(ring + kQStages * HP * kQStageBytes);  // [4 warps][64]
   uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * fw::kHd);
   uint64_t* qbar = full + kQStages;
-  const int t = threadIdx.x;
   const int n_kt = (n_valid + fw::kWgRows - 1) / fw::kWgRows;
   init_bars(full, kQStages);
 
   auto load_k = [&](int kt) {
     const int s = kt % kQStages;
-    wg::bar_expect_tx(&full[s], kQStageBytes);
-    uint8_t* st = ring + s * kQStageBytes;
-    fw::tma_load3(st, &k_map, &full[s], k_col + hc, kt * fw::kWgRows, b);
-    fw::tma_load3(st + wg::kBoxBytes, &v_map, &full[s], v_col + hc, kt * fw::kWgRows, b);
+    wg::bar_expect_tx(&full[s], HP * kQStageBytes);
+    for (int j = 0; j < HP; ++j) {
+      uint8_t* st = ring + (s * HP + j) * kQStageBytes;
+      const int cj = (h0 + j) * fw::kHd;
+      fw::tma_load3(st, &k_map, &full[s], k_col + cj, kt * fw::kWgRows, b);
+      fw::tma_load3(st + wg::kBoxBytes, &v_map, &full[s], v_col + cj, kt * fw::kWgRows, b);
+    }
   };
-  if (t == 0) {
-    wg::bar_expect_tx(qbar, 2 * wg::kBoxBytes);
-    fw::tma_load3(sQ, &q_map, qbar, q_col + hc, q0, b);
-    fw::tma_load3(sDO, &do_map, qbar, hc, q0, b);
+  if (threadIdx.x == 0) {
+    wg::bar_expect_tx(qbar, HP * 2 * wg::kBoxBytes);
+    for (int j = 0; j < HP; ++j) {
+      const int cj = (h0 + j) * fw::kHd;
+      fw::tma_load3(base + j * 2 * wg::kBoxBytes, &q_map, qbar, q_col + cj, q0, b);
+      fw::tma_load3(base + (j * 2 + 1) * wg::kBoxBytes, &do_map, qbar, cj, q0, b);
+    }
     for (int kt = 0; kt < kQStages && kt < n_kt; ++kt) load_k(kt);
   }
   const int row_a = q0 + wg::acc_row(t, 0), row_b = row_a + 8;
@@ -615,7 +730,7 @@ __global__ void __launch_bounds__(kFlashThreads, 3)
   float sc[32], dp[32];
   int s = 0;
   wg::bar_wait(&full[0], 0);
-  uint32_t st = wg::opaque(ring_s);
+  uint32_t st = wg::opaque(ring_s) + g * kQStageBytes;
   wg::mma_fence();
   q_scores(sc, dp, wg::opaque(q_s), wg::opaque(do_s), st);
   wg::mma_commit();
@@ -628,7 +743,7 @@ __global__ void __launch_bounds__(kFlashThreads, 3)
     const uint32_t k_prev = st;
     s = kt % kQStages;
     wg::bar_wait(&full[s], (kt / kQStages) & 1);
-    st = wg::opaque(ring_s) + s * kQStageBytes;
+    st = wg::opaque(ring_s) + (s * HP + g) * kQStageBytes;
     wg::mma_fence();
     q_scores(sc, dp, wg::opaque(q_s), wg::opaque(do_s), st);
     wg::mma_commit();
@@ -645,8 +760,8 @@ __global__ void __launch_bounds__(kFlashThreads, 3)
     wg::mma_wait<0>();  // the previous tile's product has ended: its stage is free
     wg::acc_fence(dq);
     fw::frag_fence(dsp);
-    wg::sync_named(1, 128);  // every warp is done with the previous tile's stage
-    if (t == 0 && kt - 1 + kQStages < n_kt) load_k(kt - 1 + kQStages);
+    wg::sync_named(1, kFlashThreads * HP);  // every warp is done with the previous tile's stage
+    if (threadIdx.x == 0 && kt - 1 + kQStages < n_kt) load_k(kt - 1 + kQStages);
     fw::pack_a(dsp, sc);
   }
   // the last tile's dQ
@@ -679,7 +794,7 @@ __global__ void __launch_bounds__(kFlashThreads, 3)
     }
   }
   wg::fence_async_smem();
-  wg::sync_named(1, 128);
+  wg_sync<HP>(g);
   if (t == 0) {
     fw::tma_store3(&dqkv_map, sQ, hc, q0, b);
     wg::tma_store_commit();

@@ -52,7 +52,7 @@ KERNELS = {
                      [_P] * 21 + [_LL, _I, _I, _I, _I, _P]),
     # the benchmark scripts' kernels (diverse_channel_vit_torch/scripts/)
     "bench_attn_bwd": ("bench_attn_bwd.cu", "dcvit_bench_attn_bwd",
-                       [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
+                       [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
     "qkv_flash": ("qkv_flash.cu", "dcvit_qkv_flash_fwd", [_P] * 2 + [_I] * 5 + [_F, _P]),
     "int8_ln_mlp": ("int8_ln_mlp.cu", "dcvit_int8_ln_mlp", [_P] * 11 + [_LL, _I, _I, _I, _P]),
 }

@@ -13,9 +13,10 @@ Every chain runs L = 12 layers. ``bwd-variants`` times :func:`bwd_call`,
 whose CUDA kernel ``csrc/bench_attn_bwd.cu`` (replaces the TPU kernel
 ``_bwd_kernel``) recomputes the softmax statistics from q and k and runs in
 two schedules: ``pair_staged`` (one head per block) and ``pair_batched`` (a
-head pair per block on shared 128-column tiles); they compute the same
-function. The JAX script's ``smap`` experiment (a shard_map at mesh
-{data: 1}) waits for the multi-GPU port (ROADMAP A10). ``--heads 3``
+head pair per block of its dk/dv and dq passes, one warpgroup per head
+sharing one ring of tiles); they agree bit for bit. The JAX script's
+``smap`` experiment (a shard_map at mesh {data: 1}) waits for the multi-GPU
+port (ROADMAP A10). ``--heads 3``
 (head width 128) raises ``NotImplementedError`` from the kernels, which are
 built for head width 64. An experiment that fails raises; the JAX script
 prints FAILED and goes on.
@@ -145,17 +146,16 @@ def _bwd_call_cuda(q, k, v, o, do, num_heads, sm_scale, n_valid, variant):
     dev, f32 = q.device, torch.float32
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, t, torch.bfloat16, (b, n, d), dev)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lse2, di = (torch.empty((b, num_heads, n), dtype=f32, device=dev) for _ in range(2))
+    grads = torch.empty((b, n, 3 * d), dtype=q.dtype, device=dev)  # [dq | dk | dv]
+    lse, di = (torch.empty((b, num_heads, n), dtype=f32, device=dev) for _ in range(2))
     fn = kernels.function("bench_attn_bwd")
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(), di.data_ptr(),
-                 b, n, num_heads, dh, int(n_valid), float(sm_scale), hp,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 grads.data_ptr(), lse.data_ptr(), di.data_ptr(), b, n, num_heads, dh,
+                 int(n_valid), float(sm_scale), hp, torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("bwd_call", err)
     LAUNCHES["bwd_call"] += 1
-    return dq, dk, dv
+    return grads.split(d, dim=-1)
 
 
 def bwd_call(q, k, v, o, do, num_heads: int, sm_scale: float, n_valid: int,
@@ -165,8 +165,9 @@ def bwd_call(q, k, v, o, do, num_heads: int, sm_scale: float, n_valid: int,
     q and k (no log-sum-exp input); keys at or past ``n_valid`` masked, and
     their dk and dv rows exactly 0. ``variant`` picks the kernel's schedule
     (``pair_staged`` or ``pair_batched``). The kernel
-    ``csrc/bench_attn_bwd.cu`` for a CUDA tensor, the plain version for a
-    CPU one."""
+    ``csrc/bench_attn_bwd.cu`` for a CUDA tensor (dq, dk and dv then the
+    column views of one (B, N, 3D) buffer), the plain version for a CPU
+    one."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; want one of {sorted(VARIANTS)}")
     if _launches_kernel(q):

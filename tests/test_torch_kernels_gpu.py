@@ -28,10 +28,11 @@ strides); two B6 calls on the same inputs must agree bit for bit.
 The benchmark scripts' kernels (``diverse_channel_vit_torch/scripts/``) are
 held the same way against their plain versions and against their package
 siblings on the same inputs: S1 (``bwd_call``) in both schedules, bit for
-bit, with padded key rows exactly 0; S2 (``qkv_flash_fwd``) against B5 on
-the three views of the same qkv, within the tolerance (the two sum in other
-orders); S3 (``int8_ln_mlp``) against B7 on the same weight codes and
-scales, outputs and hidden codes, bit for bit. The public
+bit, with padded key rows exactly 0, bit for bit against B6 given B5's lse
+(its statistics pass recomputes that lse with B5's instructions) and across
+two calls; S2 (``qkv_flash_fwd``) against B5 on the three views of the same
+qkv, bit for bit (one kernel, two maps); S3 (``int8_ln_mlp``) against B7 on
+the same weight codes and scales, outputs and hidden codes, bit for bit. The public
 ``attend_project`` and ``flash_attention_packed`` pad an N that is not a
 multiple of 64 and are held at N = 1569 against the plain route, forward and
 gradient.
@@ -540,6 +541,41 @@ def test_bwd_call_kernel_matches_plain(gen, batch, n, heads, n_valid):
         assert torch.equal(a, b)
 
 
+S1_GRIDS = [
+    (1, 128, 2, 100),    # two heads, a ragged last key tile
+    (2, 640, 6, 589),    # one wholly padded key tile
+    (2, 1664, 6, 1569),  # the benchmark's grid
+]
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", S1_GRIDS)
+def test_bwd_call_kernel_matches_b6_given_b5_lse(gen, batch, n, heads, n_valid):
+    """S1 (pair_staged) against B6 (flash_packed_bwd) fed the lse of B5
+    (flash_packed_fwd) on the same q, k, v, o and do: S1's statistics pass
+    recomputes that lse with B5's instructions and then runs B6's passes, so
+    dq, dk and dv agree bit for bit."""
+    d = heads * 64
+    q, k, v, o, do = (_rnd(gen, batch, n, d) for _ in range(5))
+    lse = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)[1]
+    want = at.flash_packed_bwd(q, k, v, o, do, lse, heads, 0.125, n_valid)
+    got = s1.bwd_call(q, k, v, o, do, heads, 0.125, n_valid, "pair_staged")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", S1_GRIDS)
+def test_bwd_call_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid):
+    """Two S1 calls on the same inputs, in each schedule, agree bit for bit
+    (every reduction in a fixed order, no atomics)."""
+    d = heads * 64
+    args = tuple(_rnd(gen, batch, n, d) for _ in range(5)) + (heads, 0.125, n_valid)
+    for variant in s1.VARIANTS:
+        first = s1.bwd_call(*args, variant)
+        again = s1.bwd_call(*args, variant)
+        for name, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), (variant, name)
+
+
 @pytest.mark.parametrize("batch,n,heads,n_valid", [
     (1, 128, 2, 128),    # nothing masked
     (2, 640, 6, 589),
@@ -547,9 +583,8 @@ def test_bwd_call_kernel_matches_plain(gen, batch, n, heads, n_valid):
 ])
 def test_qkv_flash_kernel_matches_plain_and_b5(gen, batch, n, heads, n_valid):
     """S2 against its plain version, and against B5 (flash_packed_fwd) on the
-    three column blocks of the same qkv: S2 runs `mma.sync`, B5 `wgmma`, so
-    they round at the same points but sum in other orders, and each is held
-    to the tolerance against the plain version and against the other."""
+    three column blocks of the same qkv: S2 is B5's kernel on one packed qkv
+    map at column offsets 0, D and 2D, so the two agree bit for bit."""
     d = heads * 64
     qkv = _rnd(gen, batch, n, 3 * d)
     before = fb.LAUNCHES["qkv_flash_fwd"]
@@ -560,7 +595,7 @@ def test_qkv_flash_kernel_matches_plain_and_b5(gen, batch, n, heads, n_valid):
     b5 = at.flash_packed_fwd(*qkv.split(d, dim=-1), heads, 0.125, n_valid)[0]
     assert _rel(o, plain) <= TOL
     assert _rel(b5, plain) <= TOL
-    assert _rel(o, b5) <= TOL
+    assert torch.equal(o, b5)
 
 
 @pytest.mark.parametrize("shape,residual,bias", [
