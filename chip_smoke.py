@@ -22,7 +22,10 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    and B2's times printed beside theirs (all four run on one flash core,
    ``flash_wgmma.cuh``); then
    B7 and B8 (the int8 ln_mlp, forward and backward) at the flagship shapes,
-   with the share of int8 codes that differ from the plain version's; then
+   with the share of int8 codes that differ from the plain version's; B8's
+   recomputed h held bit for bit against B7's, B8's time split by launch
+   (profiler) beside each launch's bound, and an estimate of both kernels'
+   epilogue time from a SASS count of their helpers; then
    the benchmark scripts' kernels at the scripts' default shapes: S1
    (``bwd_call``, both schedules), S2 (``qkv_flash_fwd``) and S3
    (``int8_ln_mlp``), each also held against its package sibling on the same
@@ -398,7 +401,115 @@ def code_flips(name: str, label: str, got, want) -> float:
     return share
 
 
-def check_q_kernels(fb, torch, F):
+# B8's launches, by the kernel names the profiler reports, and what each is
+B8_PARTS = (("q_rows_kernel", "LN pass"), ("q_dual_kernel", "dual"), ("q_dy_kernel", "dy"),
+            ("wgrad_kernel", "wgrad"), ("reduce_partials_kernel", "reductions"))
+
+# One hidden element of each int8 kernel's epilogue, built from int8.cuh's
+# helpers alone, for counting its instructions in the SASS: B7's pass 1
+# (h_pre into the row max) and pass 2 (GELU, quantisation), B8's GELU and
+# GELU' from one tanhf with both dequantisations (dual) and the quantisation
+# of dh_pre (dy). Inputs come from memory so that nothing folds.
+EPILOGUE_PROBE = r"""
+#include "int8.cuh"
+using namespace dcvit;
+extern "C" __global__ void b7_element(const int* a, const float* f, float* o, int8_t* q) {
+  const int i = threadIdx.x;
+  o[i] = fmaxf(o[i], __fadd_rn(dequant(a[i], f[0], f[1]), f[2]));
+  const float h = gelu_tanh_rn(__fadd_rn(dequant(a[i + 1024], f[0], f[3]), f[4]));
+  q[i] = quant_s8(h, f[5]);
+}
+extern "C" __global__ void b8_element(const int* a, const float* f, float* o, int8_t* q) {
+  const int i = threadIdx.x;
+  float g, dg;
+  gelu_dgelu_tanh_rn(__fadd_rn(dequant(a[i], f[0], f[1]), f[2]), g, dg);
+  const float dp = __fmul_rn(dequant(a[i + 1024], f[3], f[4]), dg);
+  o[i] = g;
+  o[i + 1024] = dp;
+  q[i] = quant_s8(o[i + 2048], f[5]);
+}
+"""
+# SASS opcodes that move data or steer control, not counted as epilogue work
+PROBE_SKIP = ("LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "EXIT", "BRA", "NOP", "CS2R",
+              "CALL", "RET", "BSSY", "BSYNC")
+
+
+def epilogue_instructions(kernels) -> dict:
+    """Static SASS instruction count of one hidden element of B7's and B8's
+    epilogues (``EPILOGUE_PROBE`` built with the kernels' flags, read with
+    ``cuobjdump -sass``), memory and control opcodes left out, up to each
+    function's first unpredicated EXIT: the subroutines placed after it
+    (``__fdiv_rn``'s slow path, reached by CALL) are left out, both sides of
+    a branch in the body still count. {} (printed as not measured) where the
+    toolkit lacks cuobjdump."""
+    import os
+    import re
+
+    nvcc = kernels.nvcc_path()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("int8 epilogue instructions: not measured (no cuobjdump beside nvcc)")
+        return {}
+    probe_dir = kernels.BUILD_DIR / "probe"
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    src, cubin = probe_dir / "epilogue_probe.cu", probe_dir / "epilogue_probe.cubin"
+    src.write_text(EPILOGUE_PROBE)
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-cubin", "-I", str(kernels.CSRC), "-o", str(cubin), str(src)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+        if not (name and m):
+            continue
+        op = m.group(2).split(".")[0]
+        if op == "EXIT" and not m.group(1):
+            name = None  # the rest is subroutines off the fast path
+        elif op not in PROBE_SKIP:
+            counts[name] += 1
+    print(f"int8 epilogue instructions per hidden element (static SASS count to the first "
+          f"EXIT, memory and control left out): {counts}")
+    return counts
+
+
+def issue_rate() -> float:
+    """Thread-instructions a second the card could issue at the SM clock's
+    maximum (nvidia-smi): SMs x 4 schedulers x 32 lanes x that clock. The
+    clock under load may be lower."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32 * mhz * 1e6
+
+
+def device_ms_by_kernel(fn, calls: int, torch) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, over ``calls`` calls,
+    from the profiler; {} if it recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", 0) or 0
+        if dev > 0 and getattr(e, "device_type", None) != torch.autograd.DeviceType.CPU:
+            out[e.key] = out.get(e.key, 0.0) + dev / 1e3 / calls
+    return out
+
+
+def check_q_kernels(fb, torch, F, kernels):
     """Phase 3, the int8 ln_mlp: B7 and B8 against their plain versions at
     flagship shapes, each output within KERNEL_REL_TOL and the codes of the
     last int8 product (hq for B7, dh_pre's for B8) within MAX_CODE_FLIPS.
@@ -407,7 +518,10 @@ def check_q_kernels(fb, torch, F):
     bias; B8 with the residual fused and without. The library yardstick is
     the same arithmetic in PyTorch ops with ``torch._int_mm`` (cuBLASLt int8)
     for the int8 GEMMs and, in B8, bf16 ``torch.matmul`` for the weight
-    gradients."""
+    gradients. B8's recomputed h must equal B7's bit for bit; B8's time is
+    split by its launches (profiler) beside each one's bound; and the
+    epilogue's instruction count (SASS) gives an estimate of its issue time,
+    printed beside the bound: neither a bound nor a measured time."""
     n = -(-N_VALID // 64) * 64
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(3))
     bf16, f32 = torch.bfloat16, torch.float32
@@ -434,6 +548,16 @@ def check_q_kernels(fb, torch, F):
         del out, codes, out_p, codes_p
     ms = cuda_ms(lambda: fb.ln_mlp_q_fwd(*fargs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_q_plain(*fargs), 3, warmup=1)
+    insns = epilogue_instructions(kernels)
+    rate = issue_rate()
+
+    def epilogue_estimate(name, key, elements):
+        """Printed only: an estimate from a static count at the maximum
+        clock, which may lie above or below the epilogue's real issue time."""
+        if key in insns:
+            print(f"{name}: epilogue estimate {insns[key] * elements / rate * 1e3:.4f} ms "
+                  f"({insns[key]} instructions x {elements} hidden elements / {rate:.4g} "
+                  f"thread-instructions/s at the maximum SM clock; not a bound)")
 
     def library():
         xf = x.float()
@@ -450,6 +574,7 @@ def check_q_kernels(fb, torch, F):
         library_ms=library_ms, int8_ops=4 * rows * D * HID, flops=0,
         bytes=2 * 2 * rows * D + 2 * D * HID + 4 * (HID + D) + 2 * (HID + D) + 4 * 2 * D,
     )
+    epilogue_estimate("ln_mlp_q_fwd", "b7_element", rows * HID)
 
     # --- B8 ln_mlp_q_bwd
     names = ("dx", "dw1", "db1", "dw2", "db2", "ds", "db")
@@ -463,8 +588,37 @@ def check_q_kernels(fb, torch, F):
         if residual:
             (err, rel), bargs = worst, a
         del got, want
+    # B7's h comes from its instantiation that also stores h (ln_mlp_q.cu),
+    # whose output must be the main path's
+    out7, h7 = fb.ln_mlp_q_fwd(*fargs, with_h=True)
+    if not torch.equal(out7, fb.ln_mlp_q_fwd(*fargs)):
+        raise AssertionError("ln_mlp_q_fwd: the output with h differs from the main path's")
+    h8 = fb.ln_mlp_q_bwd(*bargs, with_h=True)[7]
+    if not torch.equal(h7, h8):
+        raise AssertionError("ln_mlp_q_bwd: the recomputed h differs from ln_mlp_q_fwd's")
+    print("ln_mlp_q_bwd: the recomputed h equals ln_mlp_q_fwd's, bit for bit (and "
+          "ln_mlp_q_fwd's output with h is the main path's)")
+    del out7, h7, h8
     ms = cuda_ms(lambda: fb.ln_mlp_q_bwd(*bargs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_q_bwd_plain(*bargs), 2, warmup=1)
+    # B8's launches, each beside its bound (max of operations and bytes)
+    parts = device_ms_by_kernel(lambda: fb.ln_mlp_q_bwd(*bargs), 3, torch)
+    m = B * n
+    splits = fb._ln_mlp_wgrad_splits(m, D, HID, torch.device("cuda"))
+    part_bounds = {
+        "LN pass": 8 * rows * D / PEAK_BYTES,
+        "dual": max(4 * rows * D * HID / PEAK_INT8_OPS, (2 * rows * D + 8 * rows * HID) / PEAK_BYTES),
+        "dy": max(2 * rows * D * HID / PEAK_INT8_OPS, (4 * rows * HID + 6 * rows * D) / PEAK_BYTES),
+        "wgrad": 4 * rows * D * HID / PEAK_BF16_FLOPS,
+        "reductions": 4 * (splits * 2 * D * HID + -(-m // 128) * HID
+                           + -(-m // 64) * 3 * D) / PEAK_BYTES,
+    }
+    split = {}
+    for key, label in B8_PARTS:
+        split[label] = sum(v for k, v in parts.items() if key in k) if parts else None
+        shown = "not measured" if split[label] is None else f"{split[label]:.4f} ms"
+        print(f"ln_mlp_q_bwd part {label}: {shown} a call, bound "
+              f"{part_bounds[label] * 1e3:.4f} ms")
 
     def library_bwd():
         xf, dof = x.float().reshape(-1, D), do.float().reshape(-1, D)
@@ -497,8 +651,9 @@ def check_q_kernels(fb, torch, F):
         max_abs_err=err, rel_err=rel, code_flips=max(flips), ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, int8_ops=6 * rows * D * HID, flops=4 * rows * D * HID,
         bytes=2 * 3 * rows * D + 3 * D * HID + 4 * (2 * HID + 3 * D) + 2 * HID
-        + 4 * (2 * D * HID + HID + 3 * D),
+        + 4 * (2 * D * HID + HID + 3 * D), sub_ms=split,
     )
+    epilogue_estimate("ln_mlp_q_bwd", "b8_element", rows * HID)
     return results
 
 
@@ -1426,10 +1581,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    # the flash wgmma core's kernels: their registers, spills, stack frames
-    # and ptxas notes (C75xx: wgmma serialised, setmaxnreg ignored)
+    # the wgmma core's kernels: their registers, spills, stack frames and
+    # ptxas notes (C75xx: wgmma serialised, setmaxnreg ignored)
     for name in ("attend_project", "attend_project_bwd", "flash_packed", "flash_packed_bwd",
-                 "bench_attn_bwd", "qkv_flash"):
+                 "bench_attn_bwd", "qkv_flash", "ln_mlp", "ln_mlp_bwd", "ln_mlp_q",
+                 "ln_mlp_q_bwd"):
         for line in kernels.BUILD_LOG.get(name, "").splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "stack frame", "C75")):
                 print(f"  ptxas {name}: {line.strip()}")
@@ -1437,7 +1593,7 @@ def main() -> int:
     results = check_kernels(fb, torch, F)
     results.update(check_bwd_kernels(fb, torch, F))
     results.update(check_flash_kernels(torch, F, results))
-    results.update(check_q_kernels(fb, torch, F))
+    results.update(check_q_kernels(fb, torch, F, kernels))
     results.update(check_script_kernels(fb, torch, F))
     for name, r in results.items():
         # each product at the unit that runs it: bf16 FLOPs and int8 operations
@@ -1531,7 +1687,7 @@ def main() -> int:
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
         for key in ("per_grid", "per_variant", "sibling_max_abs_diff", "b6_max_abs_diff",
-                    "sibling_code_share", "sibling_ms"):
+                    "sibling_code_share", "sibling_ms", "sub_ms"):
             if key in r:
                 entry[key] = r[key]
         line.append(entry)

@@ -1,26 +1,31 @@
-// Shared device helpers of the int8 ln_mlp kernels (ln_mlp_q.cu, ln_mlp_q_bwd.cu).
+// Shared device helpers of the int8 ln_mlp kernels: B7 (ln_mlp_q.cu), B8
+// (ln_mlp_q_bwd.cu) and the benchmark script's S3 (int8_ln_mlp.cu).
 //
-// Tensor-core int8: `mma.sync.m16n8k32.row.col.s32.s8.s8.s32`, exact int32
-// accumulation. Its fragments, counted in bytes, are laid out as the bf16
-// m16n8k16 fragments of common.cuh are: A is 16 rows x 32 bytes in four
-// 32-bit registers (rows g / g + 8, bytes 4 t .. 4 t + 3 and 16 + 4 t ..), B
-// is 8 columns x 32 bytes of k in two registers, C is the same 16 x 8 layout
-// as the f32 accumulator. So `ldmatrix` (which moves 8 x 8 tiles of 16-bit
-// values, i.e. 8 rows x 16 bytes) loads both operands from int8 tiles whose k
-// axis is contiguous in shared memory. There is no transposing ldmatrix for
-// 8-bit values: every int8 operand is stored k-major (the weight copies come
-// from `quantize_mlp_weights` in the layout their product reads).
+// The exact-rounding arithmetic all three share, so that they write the same
+// int8 codes as each other and as the plain versions: quantisation and
+// dequantisation follow ops/fused_block.py operation by operation, with the
+// round-to-nearest intrinsics, which the compiler never contracts into fused
+// multiply-adds: the scale of a row is max(max|v| / 127, 1e-8) by IEEE
+// division, a code is round-half-even(v / s), and a dequantised product is
+// (float(acc) * row_scale) * col_scale (+ bias); tanh-GELU and its
+// derivative use tanhf, never the core's faster tanh (wgmma_core.cuh), which
+// would change codes; LayerNorm runs one warp a row (`ln_row`).
 //
-// Int8 shared tiles keep a row stride of (width + 16) bytes: row addresses
-// of one 8 x 8 ldmatrix tile fall in eight different 16-byte bank groups for
-// the widths used here (32 and 384), and every row stays 16-byte aligned.
-//
-// Quantisation and dequantisation follow the plain versions in
-// ops/fused_block.py operation by operation, with the round-to-nearest
-// intrinsics, which the compiler never contracts into fused multiply-adds:
-// the scale of a row is max(max|v| / 127, 1e-8) by IEEE division, a code is
-// round-half-even(v / s), and a dequantised product is
-// (float(acc) * row_scale) * col_scale (+ bias).
+// The warp-level int8 tensor-core path below (`mma.sync.m16n8k32`, operands
+// staged by `cp.async` and read by `ldmatrix`) serves S3 only: B7 and B8 run
+// their int8 products as `wgmma` (wgmma_core.cuh). Its fragments, counted in
+// bytes, are laid out as the bf16 m16n8k16 fragments of common.cuh are: A is
+// 16 rows x 32 bytes in four 32-bit registers (rows g / g + 8, bytes 4 t ..
+// 4 t + 3 and 16 + 4 t ..), B is 8 columns x 32 bytes of k in two registers,
+// C is the same 16 x 8 layout as the f32 accumulator. So `ldmatrix` (which
+// moves 8 x 8 tiles of 16-bit values, i.e. 8 rows x 16 bytes) loads both
+// operands from int8 tiles whose k axis is contiguous in shared memory.
+// There is no transposing ldmatrix for 8-bit values: every int8 operand is
+// stored k-major (the weight copies come from `quantize_mlp_weights` in the
+// layout their product reads). Int8 shared tiles keep a row stride of
+// (width + 16) bytes: row addresses of one 8 x 8 ldmatrix tile fall in eight
+// different 16-byte bank groups for the widths used here (64 and 384),
+// and every row stays 16-byte aligned.
 #pragma once
 
 #include <stdint.h>
@@ -28,10 +33,6 @@
 #include "common.cuh"
 
 namespace dcvit {
-
-constexpr int kQChunk = 32;        // hidden columns per chunk (one int8 k-step)
-constexpr int kQRows = 64;         // rows per block
-constexpr int kQThreads = 256;     // eight warps: 4 row groups x 2 column halves
 
 // Row stride in bytes of an int8 shared tile `width` bytes wide.
 __host__ __device__ constexpr int padded_s8(int width) { return width + 16; }
@@ -122,24 +123,33 @@ DEV float dequant(int acc, float rs, float cs) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs);
 }
 
-// tanh-GELU and its derivative in f32, in the plain versions' order of
-// operations (ops/fused_block.py `_gelu_tanh_f32`, `_dgelu_tanh_f32`), each
-// step rounded.
+// tanh-GELU in f32, in the plain versions' order of operations
+// (ops/fused_block.py `_gelu_tanh_f32`), each step rounded.
 DEV float gelu_tanh_rn(float x) {
   const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
   const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(x, cube));
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
 }
 
-DEV float dgelu_tanh_rn(float x) {
+// Where |gelu_tanh_rn| over the negative numbers (at most 0.1700408, near
+// x = -0.7524) is below its value: gelu_tanh_rn(0.3f) = 0.1854. With
+// gelu_tanh_rn non-decreasing on [0, inf), a row whose largest input reaches
+// this has its max |GELU| at that input. (Both facts hold for every float;
+// a gpu test checks them with `dcvit_gelu_tanh_rn_table` of ln_mlp_q.cu.)
+constexpr float kGeluPosDominates = 0.3f;
+
+// gelu_tanh_rn(x) (bit for bit the one above) and its derivative, in the
+// plain version's order of operations (`_dgelu_tanh_f32`), from one tanhf.
+DEV void gelu_dgelu_tanh_rn(float x, float& g, float& dg) {
   const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
   const float t = tanhf(__fmul_rn(0.7978845608028654f, __fadd_rn(x, cube)));
+  g = __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, t));
   const float dinner =
       __fmul_rn(0.7978845608028654f, __fadd_rn(1.f, __fmul_rn(__fmul_rn(0.134145f, x), x)));
   const float left = __fmul_rn(0.5f, __fadd_rn(1.f, t));
   const float right =
       __fmul_rn(__fmul_rn(__fmul_rn(0.5f, x), __fsub_rn(1.f, __fmul_rn(t, t))), dinner);
-  return __fadd_rn(left, right);
+  dg = __fadd_rn(left, right);
 }
 
 // LayerNorm of one bf16 row by one warp, f32, two-pass mean and variance,
@@ -172,18 +182,27 @@ DEV void ln_row(const __nv_bfloat16* xrow, const float* scale, const float* bias
   }
 }
 
-// Quantise a warp's row held as D / 64 pairs per lane into int8 codes at
-// `dst` (lane's pairs at byte offsets 2 (lane + 32 i)); returns the row's scale.
+// Quantise a warp's row held as D / 64 pairs per lane (ln_row's layout) into
+// the lane's int8 code pairs; returns the row's scale.
 template <int NP>
-DEV float quant_row(const float2 (&v)[NP], int8_t* dst, int lane) {
+DEV float quant_pairs(const float2 (&v)[NP], char2 (&q)[NP]) {
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < NP; ++i) amax = fmaxf(amax, fmaxf(fabsf(v[i].x), fabsf(v[i].y)));
   const float s = row_scale(warp_max(amax));
 #pragma unroll
-  for (int i = 0; i < NP; ++i)
-    *reinterpret_cast<char2*>(dst + 2 * (lane + 32 * i)) =
-        make_char2(quant_s8(v[i].x, s), quant_s8(v[i].y, s));
+  for (int i = 0; i < NP; ++i) q[i] = make_char2(quant_s8(v[i].x, s), quant_s8(v[i].y, s));
+  return s;
+}
+
+// The same, the codes stored at `dst` (lane's pairs at byte offsets
+// 2 (lane + 32 i)).
+template <int NP>
+DEV float quant_row(const float2 (&v)[NP], int8_t* dst, int lane) {
+  char2 q[NP];
+  const float s = quant_pairs(v, q);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) *reinterpret_cast<char2*>(dst + 2 * (lane + 32 * i)) = q[i];
   return s;
 }
 

@@ -19,340 +19,466 @@
 //   f32 values, W1r the per-input-unit int8 copy of W1, stored (D, HID);
 // - the LayerNorm backward: ds = sum dy * xhat, db = sum dy,
 //   dx = rstd (dy scale - mean(dy scale) - xhat mean(dy scale xhat)) (+ do).
+// The rounding steps are int8.cuh's exact helpers (tanhf, IEEE division),
+// as in B7: the recompute's codes are the forward's, bit for bit.
 //
-// What bounds it on an H100: operations. Per image and layer at the
-// DiChaViT-S flagship (1569 real rows, D = 384, hidden 1536) it needs
-// 6 rows D hidden = 5.6 G int8 operations (2.8 us at the int8 peak) and
-// 4 rows D hidden = 3.7 GFLOP of bf16 weight-gradient products (3.7 us at
-// the bf16 peak).
+// What bounds it on an H100. The products: 6 M D HID int8 operations and
+// 4 M D HID bf16 FLOP of weight gradients, 0.42 ms at the dense peaks for
+// B = 64, N = 1600 (1569 real rows), D = 384, HID = 1536. Beside them an
+// epilogue on the FP32 pipes that the bound does not count: a GELU and its
+// derivative with tanhf and a quantisation by IEEE division per hidden
+// element (chip_smoke.py counts their instructions from the SASS and prints
+// an estimate of their issue time), and the f32 dh_pre scratch below (1.26 GB of traffic
+// a call, about 0.4 ms at 3.35 TB/s).
 //
-// Design. As in the forward, the per-row scale of dh_pre needs max|dh_pre|
-// over all 1536 hidden units of a row before any product of the dy GEMM can
-// start, and it must come from the f32 dh_pre (a bf16-rounded one gives
-// other codes). B4's decomposition (ln_mlp_bwd.cu) is kept: one row-parallel
-// kernel writes the bf16 operands of the weight gradients, then split-row
-// weight-gradient GEMMs (wgrad.cuh) with fixed-order sums. Its row kernel
-// (64 rows per block, eight warps, hidden chunks of 32) runs two passes:
-// - pass 1: per chunk, h_pre (int8 GEMM over D) and dh (int8 GEMM over D),
-//   dh_pre; writes h and dh_pre in bf16 to `h_buf` / `dhp_buf`, db1's
-//   column sums of the f32 dh_pre, and keeps the running max|dh_pre| of
-//   each row;
-// - pass 2: per chunk, the same two GEMMs and dh_pre again, bit-identical
-//   (exact int32 sums, the same f32 instructions); dh_pre quantised with the
-//   now-known row scale into a 64 x 32 int8 tile; dy += dhq_c W1r_c^T in
-//   int32 registers across all chunks.
-// Then the LayerNorm backward on the dequantised dy, as in B4. The recompute
-// costs two more int8 GEMMs per row (int8 runs at twice the bf16 rate).
-// W1q, W2r and W1r stream through double-buffered cp.async rings (0.6 MB in
-// all, resident in L2). With `codes` set the kernel also writes dhq
-// (M, HID), the codes of the dy GEMM, for counting code differences.
+// Design (wgmma_core.cuh), and what differs from the TPU kernel. The TPU
+// recomputed fc1 per row block and summed every weight and bias gradient in
+// VMEM over one sequential sweep. Here, as in B4 (ln_mlp_bwd.cu), the
+// backward is a row pass and three GEMMs, every partial summed in a fixed
+// order (reduce.cuh) without atomics, so two calls agree bit for bit:
+//   (a) `q_rows_kernel`, one warp a row (`ln_row`, `quant_row`, the
+//       forward's instructions): y in bf16 (for dW1), yq and ys (the
+//       forward's codes), doq and dos, the LayerNorm's mean and rstd;
+//   (b) `q_dual_kernel`, per (128 rows, 128 hidden units): h_pre = yq W1q^T
+//       and dh = doq W2r^T (K = 384, int8 `wgmma`, every operand K-major) in
+//       two s32 accumulators; in the epilogue h and dh_pre from one tanhf,
+//       h and dh_pre in bf16 (the weight gradients' operands) and dh_pre in
+//       f32, each stored by TMA; db1's column partials of the f32 dh_pre;
+//       and each row's max|dh_pre| over the tile;
+//   (c) `q_dy_kernel`, per 64 rows: the row scale dhs from the twelve
+//       maxima (max is order-free, so it is exact); each k-step the two
+//       consumer warpgroups quantise an f32 dh_pre tile (32 rows each) into
+//       a swizzled int8 A box, then dy += dhq W1r^T (K = HID, each
+//       warpgroup 192 columns, 96 s32 registers); the epilogue runs B4's
+//       LayerNorm backward on the dequantised dy: dx (+ do), and the column
+//       partials of do (db2), dy * xhat (ds) and dy (db);
+//   (d) B4's `wgrad_kernel` (ln_mlp_wgrad.cuh) on the same bf16 operands:
+//       dW2 = do^T h and dW1 = dh_pre^T y in one launch, then the splits
+//       summed in order.
+// Why the f32 scratch: dh_pre's row scale needs the whole row (HID units)
+// before any product of (c). Recomputing h_pre and dh in (c) instead would
+// need 64 + 96 accumulator registers beside dy's 96, past the 168 a thread
+// that ptxas allots the consumers (wgmma_core.cuh).
+// On an H100 it runs at about 5x its bound; the dual GEMM (tanhf and three
+// stores a value) and the dy GEMM (the f32 read, quantisation and the LN
+// backward after its products) each at about 2.2x theirs (PERF.md).
+// With `codes` set, (c) also writes dhq (M, HID), the codes of the dy GEMM,
+// for counting code differences.
 #include "int8.cuh"
-#include "wgrad.cuh"
+#include "ln_mlp_wgrad.cuh"
 
 namespace dcvit {
 
-template <int D>
-struct QBwdLayout {
-  static constexpr int SY = padded_s8(D), SC = padded_s8(kQChunk);
-  static constexpr int doq = kQRows * SY;                 // yq [64][SY], then doq
-  static constexpr int w1 = doq + kQRows * SY;            // W1q [2][kQChunk][SY]
-  static constexpr int w2 = w1 + 2 * kQChunk * SY;        // W2r [2][kQChunk][SY]
-  static constexpr int w1r = w2 + 2 * kQChunk * SY;       // W1r [2][D][SC]
-  static constexpr int dhq = w1r + 2 * D * SC;            // [64][SC]
-  // f32: ys, dos, mean, rstd [64] each, rmax [2][64], db1 chunk sums [4][32]
-  static constexpr int stats = dhq + kQRows * SC;
-  static constexpr int bytes = stats + 4 * (6 * kQRows + 4 * kQChunk);
-  // the LayerNorm backward reuses the W1r stages: row sums [2][64][2] and
-  // column sums [4][2][D] in f32
-  static_assert(4 * (2 * kQRows * 2 + 4 * 2 * D) <= 2 * D * SC, "LN scratch");
-};
+// (b): a stage per 128-byte k-step: yq and doq [128 rows][128 B], W1q and
+// W2r [128 hidden][128 B]; all three k-steps of K = 384 load at once
+constexpr int kQDualSteps = kLBD / 128;
+constexpr int kQDualStageBytes = 4 * 2 * wg::kBoxBytes;
+constexpr int kQDualSmem =
+    kQDualSteps * kQDualStageBytes + 8 * kLBTile * 4 + kQDualSteps * 8 + wg::kAlign;
+// (c): a ring of f32 dh_pre tiles [64 rows][128 hidden] (four [64][32]
+// boxes) and one of W1r tiles [384 d][128 hidden] (two [192][128 B] boxes);
+// the producer runs kQDyLead f32 tiles ahead of the W1r tiles; the
+// quantised A boxes [64][128 B] are used in turn
+constexpr int kQDyRows = 64;
+constexpr int kQDyFStages = 3;
+constexpr int kQDyFBytes = 4 * wg::kBoxBytes;
+constexpr int kQDyWStages = 2;
+constexpr int kQDyWBytes = 6 * wg::kBoxBytes;
+constexpr int kQDyQBufs = 3;
+constexpr int kQDyLead = 2;
+constexpr int kQDySmem = kQDyFStages * kQDyFBytes + kQDyWStages * kQDyWBytes +
+                         kQDyQBufs * wg::kBoxBytes + 4 * (2 * kQDyRows * 2 + kQDyRows) +
+                         2 * (kQDyFStages + kQDyWStages) * 8 + wg::kAlign;
 
-template <int D>
-__global__ void __launch_bounds__(kQThreads, 1)
-    ln_mlp_q_bwd_rows_kernel(
-        const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_scale,
-        const float* __restrict__ ln_bias, const int8_t* __restrict__ w1q,
-        const float* __restrict__ s1c, const __nv_bfloat16* __restrict__ b1,
-        const int8_t* __restrict__ w1r, const float* __restrict__ s1r,
-        const int8_t* __restrict__ w2r, const float* __restrict__ s2r,
-        const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dx,
-        __nv_bfloat16* __restrict__ y_buf, __nv_bfloat16* __restrict__ h_buf,
-        __nv_bfloat16* __restrict__ dhp_buf, float* __restrict__ bias_part,
-        int8_t* __restrict__ codes, long long m, int hid, int residual) {
-  static_assert(D % 64 == 0, "D must be a multiple of 64");
-  using L = QBwdLayout<D>;
-  constexpr int SY = L::SY, SC = L::SC;
-  constexpr int WN = D / 2;          // dy columns per warp
-  constexpr int HN = kQChunk / 2;    // hidden columns per warp in a chunk
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rg = warp & 3, cg = warp >> 2;
-  const int ra = rg * 16 + g, rb = ra + 8;
-  const long long m0 = (long long)blockIdx.x * kQRows;
-  const long long rows_here = m - m0;  // >= 1; rows at or past it are padding
-  const bool va = ra < rows_here, vb = rb < rows_here;
-  const int stride = hid + 3 * D;
-  float* part = bias_part + (long long)blockIdx.x * stride;
+// ---- (a) LayerNorm and row quantisation -------------------------------------------------
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* sY = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* sDO = sY + L::doq;
-  int8_t* sW1 = sY + L::w1;
-  int8_t* sW2 = sY + L::w2;
-  int8_t* sW1r = sY + L::w1r;
-  int8_t* sDHq = sY + L::dhq;
-  float* sYs = reinterpret_cast<float*>(smem_raw + L::stats);
-  float* sDOs = sYs + kQRows;
-  float* sMean = sDOs + kQRows;
-  float* sRstd = sMean + kQRows;
-  float* sMax = sRstd + kQRows;      // [2 column halves][64 rows]
-  float* sRed1 = sMax + 2 * kQRows;  // [4 row groups][kQChunk]
-
-  const int n_chunks = hid / kQChunk;
-  // step s < n_chunks is pass 1 over chunk s, step n_chunks + c pass 2 over chunk c
-  auto load_step = [&](int s, int buf) {
-    const int c = s % n_chunks;
-    load_s8_async(sW1 + buf * kQChunk * SY, w1q + (long long)c * kQChunk * D, kQChunk, D, D, SY,
-                  tid, kQThreads);
-    load_s8_async(sW2 + buf * kQChunk * SY, w2r + (long long)c * kQChunk * D, kQChunk, D, D, SY,
-                  tid, kQThreads);
-    if (s >= n_chunks)
-      load_s8_async(sW1r + buf * D * SC, w1r + c * kQChunk, D, kQChunk, hid, SC, tid, kQThreads);
-    cp_async_commit();
-  };
-  load_step(0, 0);  // chunk 0's weights load while the LayerNorm runs
-
-  for (int r = warp; r < kQRows; r += kQThreads / 32) {
-    int8_t* yrow = sY + r * SY;
-    int8_t* dorow = sDO + r * SY;
-    if (r >= rows_here) {
+__global__ void __launch_bounds__(256)
+    q_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_scale,
+                  const float* __restrict__ ln_bias, const __nv_bfloat16* __restrict__ dout,
+                  __nv_bfloat16* __restrict__ y_buf, int8_t* __restrict__ yq,
+                  int8_t* __restrict__ doq, float* __restrict__ stats, long long m) {
+  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= m) return;
+  float2 v[kLBD / 64];
+  float mean, rstd;
+  ln_row<kLBD>(x + r * kLBD, ln_scale, ln_bias, lane, v, mean, rstd);
+  uint32_t* yrow = reinterpret_cast<uint32_t*>(y_buf + r * kLBD);
 #pragma unroll
-      for (int i = 0; i < D / 64; ++i) {
-        *reinterpret_cast<char2*>(yrow + 2 * (lane + 32 * i)) = make_char2(0, 0);
-        *reinterpret_cast<char2*>(dorow + 2 * (lane + 32 * i)) = make_char2(0, 0);
-      }
-      if (lane == 0) sYs[r] = sDOs[r] = 1.f, sMean[r] = sRstd[r] = 0.f;
-      continue;
-    }
-    float2 v[D / 64];
-    float mean, rstd;
-    ln_row<D>(x + (m0 + r) * D, ln_scale, ln_bias, lane, v, mean, rstd);
-    uint32_t* yglob = reinterpret_cast<uint32_t*>(y_buf + (m0 + r) * D);
+  for (int i = 0; i < kLBD / 64; ++i) yrow[lane + 32 * i] = pack_bf16(v[i].x, v[i].y);
+  const float ys = quant_row(v, yq + r * kLBD, lane);
+  const uint32_t* drow = reinterpret_cast<const uint32_t*>(dout + r * kLBD);
 #pragma unroll
-    for (int i = 0; i < D / 64; ++i) yglob[lane + 32 * i] = pack_bf16(v[i].x, v[i].y);
-    const float ys = quant_row(v, yrow, lane);
-    const uint32_t* drow = reinterpret_cast<const uint32_t*>(dout + (m0 + r) * D);
-#pragma unroll
-    for (int i = 0; i < D / 64; ++i) v[i] = unpack_bf16(drow[lane + 32 * i]);
-    const float dos = quant_row(v, dorow, lane);
-    if (lane == 0) {
-      sYs[r] = ys;
-      sDOs[r] = dos;
-      sMean[r] = mean;
-      sRstd[r] = rstd;
-    }
-  }
+  for (int i = 0; i < kLBD / 64; ++i) v[i] = unpack_bf16(drow[lane + 32 * i]);
+  const float dos = quant_row(v, doq + r * kLBD, lane);
+  if (lane == 0) *reinterpret_cast<float4*>(stats + 4 * r) = make_float4(ys, dos, mean, rstd);
+}
 
-  int acc[WN / 8][4];  // dy: rows [16 rg, +16) x columns [WN cg, +WN)
-  zero_acc(acc);
-  float rmax_a = 0.f, rmax_b = 0.f, dhs_a = 1.f, dhs_b = 1.f;
+// ---- (b) h and dh_pre ---------------------------------------------------------------------
 
-  for (int s = 0; s < 2 * n_chunks; ++s) {
-    const int buf = s & 1, c = s % n_chunks;
-    const bool pass2 = s >= n_chunks;
-    if (s + 1 < 2 * n_chunks) {
-      load_step(s + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // step s's weights (and, at s == 0, the codes and row stats) are visible
-    if (s == n_chunks) {  // every warp's pass-1 row maxima are in sMax
-      dhs_a = row_scale(fmaxf(sMax[ra], sMax[kQRows + ra]));
-      dhs_b = row_scale(fmaxf(sMax[rb], sMax[kQRows + rb]));
-    }
-
-    // h_pre = yq W1q_c^T and dh = doq W2r_c^T: rows [16 rg, +16) x hidden [HN cg, +HN)
-    int hacc[HN / 8][4], dhacc[HN / 8][4];
-    zero_acc(hacc);
-    zero_acc(dhacc);
-    mma_s8_rows<D / 32, HN / 16>(hacc, sY, SY, rg * 16, sW1 + buf * kQChunk * SY, SY, cg * HN,
-                                 lane);
-    mma_s8_rows<D / 32, HN / 16>(dhacc, sDO, SY, rg * 16, sW2 + buf * kQChunk * SY, SY, cg * HN,
-                                 lane);
-    const float ys_a = sYs[ra], ys_b = sYs[rb], dos_a = sDOs[ra], dos_b = sDOs[rb];
-#pragma unroll
-    for (int j = 0; j < HN / 8; ++j) {
-      const int lc = cg * HN + j * 8 + t4 * 2;  // column within the chunk
-      const int hc = c * kQChunk + lc;
-      const float cs[2] = {s1c[hc], s1c[hc + 1]};
-      const float rs[2] = {s2r[hc], s2r[hc + 1]};
-      const float bb[2] = {bf(b1[hc]), bf(b1[hc + 1])};
-      float hp[4], dp[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lower = e >= 2;
-        hp[e] = __fadd_rn(dequant(hacc[j][e], lower ? ys_b : ys_a, cs[e & 1]), bb[e & 1]);
-        dp[e] = __fmul_rn(dequant(dhacc[j][e], lower ? dos_b : dos_a, rs[e & 1]),
-                          dgelu_tanh_rn(hp[e]));
-      }
-      if (!pass2) {
-        rmax_a = fmaxf(rmax_a, fmaxf(fabsf(dp[0]), fabsf(dp[1])));
-        rmax_b = fmaxf(rmax_b, fmaxf(fabsf(dp[2]), fabsf(dp[3])));
-        // db1: column sums of the f32 dh_pre (padding rows give 0: their do codes are 0)
-        const float cs0 = sum_over_rows(dp[0] + dp[2]), cs1 = sum_over_rows(dp[1] + dp[3]);
-        if (g == 0) {
-          sRed1[rg * kQChunk + lc] = cs0;
-          sRed1[rg * kQChunk + lc + 1] = cs1;
-        }
-        if (va) {
-          const long long gi = (m0 + ra) * hid + hc;
-          *reinterpret_cast<uint32_t*>(h_buf + gi) =
-              pack_bf16(gelu_tanh_rn(hp[0]), gelu_tanh_rn(hp[1]));
-          *reinterpret_cast<uint32_t*>(dhp_buf + gi) = pack_bf16(dp[0], dp[1]);
-        }
-        if (vb) {
-          const long long gi = (m0 + rb) * hid + hc;
-          *reinterpret_cast<uint32_t*>(h_buf + gi) =
-              pack_bf16(gelu_tanh_rn(hp[2]), gelu_tanh_rn(hp[3]));
-          *reinterpret_cast<uint32_t*>(dhp_buf + gi) = pack_bf16(dp[2], dp[3]);
-        }
-        continue;
-      }
-      const char2 qa = make_char2(quant_s8(dp[0], dhs_a), quant_s8(dp[1], dhs_a));
-      const char2 qb = make_char2(quant_s8(dp[2], dhs_b), quant_s8(dp[3], dhs_b));
-      *reinterpret_cast<char2*>(sDHq + ra * SC + lc) = qa;
-      *reinterpret_cast<char2*>(sDHq + rb * SC + lc) = qb;
-      if (codes != nullptr) {
-        if (va) *reinterpret_cast<char2*>(codes + (m0 + ra) * hid + hc) = qa;
-        if (vb) *reinterpret_cast<char2*>(codes + (m0 + rb) * hid + hc) = qb;
-      }
-    }
-    if (s == n_chunks - 1) {  // this warp's row maxima over its half of every chunk
-      rmax_a = quad_max(rmax_a);
-      rmax_b = quad_max(rmax_b);
-      if (t4 == 0) {
-        sMax[cg * kQRows + ra] = rmax_a;
-        sMax[cg * kQRows + rb] = rmax_b;
-      }
-    }
-    __syncthreads();  // pass 1: the chunk's column sums; pass 2: the 64 x 32 dhq tile
-    if (!pass2) {
-      if (tid < kQChunk)
-        part[c * kQChunk + tid] = sRed1[tid] + sRed1[kQChunk + tid] +
-                                  sRed1[2 * kQChunk + tid] + sRed1[3 * kQChunk + tid];
-    } else {
-      // dy += dhq_c W1r_c^T: rows [16 rg, +16) x columns [WN cg, +WN), one k-step of 32
-      mma_s8_rows<1, WN / 16>(acc, sDHq, SC, rg * 16, sW1r + buf * D * SC, SC, cg * WN, lane);
-    }
-    __syncthreads();  // `buf`, sDHq and sRed1 are free for the next step
-  }
-
-  // dy dequantised, then the LayerNorm backward. The W1r stages are free
-  // now: they hold the row sums [2 column halves][64 rows][2] and the column
-  // sums [4 row groups][2][D].
-  float dy[WN / 8][4];
-#pragma unroll
-  for (int j = 0; j < WN / 8; ++j) {
-    const int col = cg * WN + j * 8 + t4 * 2;
-    const float s0 = s1r[col], s1 = s1r[col + 1];
-    dy[j][0] = dequant(acc[j][0], dhs_a, s0);
-    dy[j][1] = dequant(acc[j][1], dhs_a, s1);
-    dy[j][2] = dequant(acc[j][2], dhs_b, s0);
-    dy[j][3] = dequant(acc[j][3], dhs_b, s1);
-  }
-  float* sRow = reinterpret_cast<float*>(sW1r);
-  float* sCol = sRow + 2 * kQRows * 2;
-  const float mean_a = sMean[ra], rstd_a = sRstd[ra];
-  const float mean_b = sMean[rb], rstd_b = sRstd[rb];
-  const uint32_t* xa_row = reinterpret_cast<const uint32_t*>(x + (m0 + ra) * D);
-  const uint32_t* xb_row = reinterpret_cast<const uint32_t*>(x + (m0 + rb) * D);
-  auto xhat_pair = [&](const uint32_t* row, bool valid, float mean, float rstd, int col) {
-    if (!valid) return make_float2(0.f, 0.f);
-    const float2 xv = unpack_bf16(row[col / 2]);
-    return make_float2((xv.x - mean) * rstd, (xv.y - mean) * rstd);
-  };
-
-  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
-#pragma unroll
-  for (int j = 0; j < WN / 8; ++j) {
-    const int col = cg * WN + j * 8 + t4 * 2;
-    const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
-    const float2 xa = xhat_pair(xa_row, va, mean_a, rstd_a, col);
-    const float2 xb = xhat_pair(xb_row, vb, mean_b, rstd_b, col);
-    const float da0 = dy[j][0] * sc0, da1 = dy[j][1] * sc1;
-    const float db0 = dy[j][2] * sc0, db1 = dy[j][3] * sc1;
-    s1a += da0 + da1;
-    s2a += da0 * xa.x + da1 * xa.y;
-    s1b += db0 + db1;
-    s2b += db0 * xb.x + db1 * xb.y;
-    // ds = sum dy * xhat, db = sum dy over this warp's 16 rows (padding rows: dy = 0)
-    const float ds0 = sum_over_rows(dy[j][0] * xa.x + dy[j][2] * xb.x);
-    const float ds1 = sum_over_rows(dy[j][1] * xa.y + dy[j][3] * xb.y);
-    const float dbs0 = sum_over_rows(dy[j][0] + dy[j][2]);
-    const float dbs1 = sum_over_rows(dy[j][1] + dy[j][3]);
-    if (g == 0) {
-      sCol[(rg * 2) * D + col] = ds0;
-      sCol[(rg * 2) * D + col + 1] = ds1;
-      sCol[(rg * 2 + 1) * D + col] = dbs0;
-      sCol[(rg * 2 + 1) * D + col + 1] = dbs1;
-    }
-  }
-  s1a = sum_over_quad(s1a);
-  s2a = sum_over_quad(s2a);
-  s1b = sum_over_quad(s1b);
-  s2b = sum_over_quad(s2b);
-  if (t4 == 0) {
-    sRow[(cg * kQRows + ra) * 2] = s1a;
-    sRow[(cg * kQRows + ra) * 2 + 1] = s2a;
-    sRow[(cg * kQRows + rb) * 2] = s1b;
-    sRow[(cg * kQRows + rb) * 2 + 1] = s2b;
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    q_dual_kernel(const __grid_constant__ CUtensorMap yq_map,
+                  const __grid_constant__ CUtensorMap doq_map,
+                  const __grid_constant__ CUtensorMap w1q_map,
+                  const __grid_constant__ CUtensorMap w2r_map,
+                  const __grid_constant__ CUtensorMap h_map,
+                  const __grid_constant__ CUtensorMap dhp_map,
+                  const __grid_constant__ CUtensorMap dhpf_map, const float* __restrict__ stats,
+                  const float* __restrict__ s1c, const __nv_bfloat16* __restrict__ b1,
+                  const float* __restrict__ s2r, float* __restrict__ db1_part,
+                  float* __restrict__ rmax_part, long long m, int hid) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = wg::align(smem_raw);
+  float* sCol = reinterpret_cast<float*>(ring + kQDualSteps * kQDualStageBytes);  // [8 warps][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sCol + 8 * kLBTile);
+  const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
+  const int h0 = blockIdx.x * kLBTile;
+  const long long m0 = (long long)blockIdx.y * kLBTile;
+  constexpr int kPart = 2 * wg::kBoxBytes;  // one 16 KB operand of a stage
+  if (tid == 0) {
+    for (int s = 0; s < kQDualSteps; ++s) wg::bar_init(&full[s], 1);
+    wg::bar_init_fence();
   }
   __syncthreads();
-  const float m1a = (sRow[ra * 2] + sRow[(kQRows + ra) * 2]) / D;
-  const float m2a = (sRow[ra * 2 + 1] + sRow[(kQRows + ra) * 2 + 1]) / D;
-  const float m1b = (sRow[rb * 2] + sRow[(kQRows + rb) * 2]) / D;
-  const float m2b = (sRow[rb * 2 + 1] + sRow[(kQRows + rb) * 2 + 1]) / D;
 
-  // dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) (+ do)
-#pragma unroll
-  for (int j = 0; j < WN / 8; ++j) {
-    const int col = cg * WN + j * 8 + t4 * 2;
-    const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const bool valid = half ? vb : va;
-      if (!valid) continue;
-      const int r = half ? rb : ra;
-      const float2 xh = half ? xhat_pair(xb_row, vb, mean_b, rstd_b, col)
-                             : xhat_pair(xa_row, va, mean_a, rstd_a, col);
-      const float rstd = half ? rstd_b : rstd_a;
-      const float mu1 = half ? m1b : m1a, mu2 = half ? m2b : m2a;
-      float v0 = rstd * (dy[j][2 * half] * sc0 - mu1 - xh.x * mu2);
-      float v1 = rstd * (dy[j][2 * half + 1] * sc1 - mu1 - xh.y * mu2);
-      if (residual) {
-        const float2 dov =
-            unpack_bf16(*reinterpret_cast<const uint32_t*>(dout + (m0 + r) * D + col));
-        v0 += dov.x;
-        v1 += dov.y;
+  if (wgi == wg::kConsumers) {
+    wg::regs_dealloc<wg::kProducerRegs>();
+    if (t == 0) {
+      for (int ks = 0; ks < kQDualSteps; ++ks) {
+        wg::bar_expect_tx(&full[ks], kQDualStageBytes);
+        uint8_t* st = ring + ks * kQDualStageBytes;
+        wg::tma_load(st, &yq_map, &full[ks], 128 * ks, (int)m0);
+        wg::tma_load(st + kPart, &doq_map, &full[ks], 128 * ks, (int)m0);
+        wg::tma_load(st + 2 * kPart, &w1q_map, &full[ks], 128 * ks, h0);
+        wg::tma_load(st + 3 * kPart, &w2r_map, &full[ks], 128 * ks, h0);
       }
-      *reinterpret_cast<uint32_t*>(dx + (m0 + r) * D + col) = pack_bf16(v0, v1);
     }
-  }
-
-  // per-block partials of db2 (column sums of do), ds and db, in a fixed order
-  for (int col = tid; col < D; col += kQThreads) {
-    float s = 0.f;
-    for (long long r = 0; r < kQRows && r < rows_here; ++r) s += bf(dout[(m0 + r) * D + col]);
-    part[hid + col] = s;
-    float ds = 0.f, db = 0.f;
+  } else {
+    wg::regs_alloc<wg::kConsumerRegs>();
+    int ha[64], da[64];  // h_pre and dh sums: 64 rows x 128 hidden
+    const uint32_t ring_s = smem_addr(ring);
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      ds += sCol[(w * 2) * D + col];
-      db += sCol[(w * 2 + 1) * D + col];
+    for (int ks = 0; ks < kQDualSteps; ++ks) {
+      wg::bar_wait(&full[ks], 0);
+      const uint32_t st = wg::opaque(ring_s) + ks * kQDualStageBytes;
+      wg::mma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        wg::mma_s8_m64n128(ha, wg::desc_k(st + wgi * wg::kBoxBytes, k4),
+                           wg::desc_k(st + 2 * kPart, k4), ks + k4 > 0);
+        wg::mma_s8_m64n128(da, wg::desc_k(st + kPart + wgi * wg::kBoxBytes, k4),
+                           wg::desc_k(st + 3 * kPart, k4), ks + k4 > 0);
+      }
+      wg::mma_commit();
     }
-    part[hid + D + col] = ds;
-    part[hid + 2 * D + col] = db;
+    wg::mma_wait<0>();
+    wg::acc_fence(ha);
+    wg::acc_fence(da);
+    wg::sync_named(3, 256);  // both warpgroups' products are done: every stage is free
+
+    // epilogue, staged in stage wgi: h and dh_pre in bf16 (two [64][64]
+    // boxes each), dh_pre in f32 (four [64][32] boxes)
+    uint8_t* stH = ring + wgi * kQDualStageBytes;
+    uint8_t* stD = stH + kPart;
+    uint8_t* stF = stD + kPart;
+    const int warp = t >> 5, lane = t & 31;
+    const long long ra = m0 + 64 * wgi + wg::acc_row(t, 0), rb = ra + 8;  // this thread's rows
+    const bool va = ra < m, vb = rb < m;
+    // ys and dos of each row (rows past the end: their codes load as zeros)
+    const float4 sa = va ? *reinterpret_cast<const float4*>(stats + 4 * ra)
+                         : make_float4(1.f, 1.f, 0.f, 0.f);
+    const float4 sb = vb ? *reinterpret_cast<const float4*>(stats + 4 * rb)
+                         : make_float4(1.f, 1.f, 0.f, 0.f);
+    float cs[32];  // db1: this thread's two rows, per column it holds
+    float rmax_a = 0.f, rmax_b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int col = wg::acc_col(t, i), row = wg::acc_row(t, i), hc = h0 + col;
+      const bool lower = (i >> 1) & 1;
+      const float ys = lower ? sb.x : sa.x, dos = lower ? sb.y : sa.y;
+      const float2 bb = unpack_bf16(*reinterpret_cast<const uint32_t*>(b1 + hc));
+      float g0, g1, dg0, dg1;
+      gelu_dgelu_tanh_rn(__fadd_rn(dequant(ha[i], ys, s1c[hc]), bb.x), g0, dg0);
+      gelu_dgelu_tanh_rn(__fadd_rn(dequant(ha[i + 1], ys, s1c[hc + 1]), bb.y), g1, dg1);
+      const float dp0 = __fmul_rn(dequant(da[i], dos, s2r[hc]), dg0);
+      const float dp1 = __fmul_rn(dequant(da[i + 1], dos, s2r[hc + 1]), dg1);
+      uint8_t* box = stH + (col >> 6) * wg::kBoxBytes;
+      wg::st_pair(box, row, col & 63, g0, g1);
+      wg::st_pair(box + kPart, row, col & 63, dp0, dp1);
+      *reinterpret_cast<float2*>(stF + (col >> 5) * wg::kBoxBytes + wg::swz_b(row, 4 * (col & 31))) =
+          make_float2(dp0, dp1);
+      const float a = fmaxf(fabsf(dp0), fabsf(dp1));
+      const int j = ((i >> 2) << 1);
+      if (lower) {
+        rmax_b = fmaxf(rmax_b, a);
+        cs[j] += dp0;
+        cs[j + 1] += dp1;
+      } else {
+        rmax_a = fmaxf(rmax_a, a);
+        cs[j] = dp0;
+        cs[j + 1] = dp1;
+      }
+    }
+    wg::fence_async_smem();
+    wg::sync_named(1 + wgi, 128);
+    if (t == 0) {
+      const int r0 = (int)m0 + 64 * wgi;
+      for (int b = 0; b < 2; ++b) {
+        wg::tma_store(&h_map, stH + b * wg::kBoxBytes, h0 + b * wg::kBox, r0);
+        wg::tma_store(&dhp_map, stD + b * wg::kBoxBytes, h0 + b * wg::kBox, r0);
+      }
+      for (int b = 0; b < 4; ++b) wg::tma_store(&dhpf_map, stF + b * wg::kBoxBytes, h0 + 32 * b, r0);
+      wg::tma_store_commit();
+    }
+    // each row's max|dh_pre| over this tile's 128 units, for (c)'s row scales
+    rmax_a = quad_max(rmax_a);
+    rmax_b = quad_max(rmax_b);
+    if ((t & 3) == 0) {
+      if (va) rmax_part[blockIdx.x * m + ra] = rmax_a;
+      if (vb) rmax_part[blockIdx.x * m + rb] = rmax_b;
+    }
+    // db1 partial: sum over the lanes that share columns, then over the
+    // eight warps in order (rows past the end hold dh = 0, so dh_pre = 0)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float v = sum_over_rows(cs[j]);
+      if (lane < 4) sCol[(4 * wgi + warp) * kLBTile + 8 * (j >> 1) + 2 * lane + (j & 1)] = v;
+    }
+    wg::sync_named(3, 256);
+    if (tid < kLBTile) {
+      float tot = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) tot += sCol[w * kLBTile + tid];
+      db1_part[(long long)blockIdx.y * hid + h0 + tid] = tot;
+    }
+    if (t == 0) wg::tma_store_wait();
+  }
+}
+
+// ---- (c) dy and the LayerNorm backward ----------------------------------------------------
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    q_dy_kernel(const __grid_constant__ CUtensorMap dhpf_map,
+                const __grid_constant__ CUtensorMap w1r_map,
+                const __grid_constant__ CUtensorMap dx_map, const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ dout, const float* __restrict__ ln_scale,
+                const float* __restrict__ s1r, const float* __restrict__ stats,
+                const float* __restrict__ rmax_part, float* __restrict__ ln_part,
+                int8_t* __restrict__ codes, long long m, int hid, int residual) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ringF = wg::align(smem_raw);
+  uint8_t* ringW = ringF + kQDyFStages * kQDyFBytes;
+  uint8_t* sQ = ringW + kQDyWStages * kQDyWBytes;
+  float* sRow = reinterpret_cast<float*>(sQ + kQDyQBufs * wg::kBoxBytes);  // [2][64][2]
+  float* sDhs = sRow + 2 * kQDyRows * 2;                                   // dh_pre's row scales
+  uint64_t* fullF = reinterpret_cast<uint64_t*>(sDhs + kQDyRows);
+  uint64_t* emptyF = fullF + kQDyFStages;
+  uint64_t* fullW = emptyF + kQDyFStages;
+  uint64_t* emptyW = fullW + kQDyWStages;
+  const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
+  const long long m0 = (long long)blockIdx.x * kQDyRows;
+  const int n_steps = hid / 128;
+  constexpr int kHalf = kLBD / 2;  // dy columns per warpgroup
+  if (tid == 0) {
+    for (int s = 0; s < kQDyFStages; ++s) {
+      wg::bar_init(&fullF[s], 1);
+      wg::bar_init(&emptyF[s], 1);  // after both warpgroups quantised the tile
+    }
+    for (int s = 0; s < kQDyWStages; ++s) {
+      wg::bar_init(&fullW[s], 1);
+      wg::bar_init(&emptyW[s], wg::kConsumers);
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == wg::kConsumers) {
+    // producer: f32 dh_pre rows [m0, + 64) x hidden [128 i, + 128), and
+    // kQDyLead steps behind it W1r rows [0, 384) x the same hidden units
+    wg::regs_dealloc<wg::kProducerRegs>();
+    if (t == 0) {
+      for (int i = 0; i < n_steps + kQDyLead; ++i) {
+        if (i < n_steps) {
+          const int s = i % kQDyFStages;
+          wg::bar_wait(&emptyF[s], ((i / kQDyFStages) & 1) ^ 1);
+          wg::bar_expect_tx(&fullF[s], kQDyFBytes);
+          for (int b = 0; b < 4; ++b)
+            wg::tma_load(ringF + s * kQDyFBytes + b * wg::kBoxBytes, &dhpf_map, &fullF[s],
+                         128 * i + 32 * b, (int)m0);
+        }
+        const int j = i - kQDyLead;
+        if (j >= 0) {
+          const int s = j % kQDyWStages;
+          wg::bar_wait(&emptyW[s], ((j / kQDyWStages) & 1) ^ 1);
+          wg::bar_expect_tx(&fullW[s], kQDyWBytes);
+          for (int b = 0; b < 2; ++b)
+            wg::tma_load(ringW + s * kQDyWBytes + 3 * b * wg::kBoxBytes, &w1r_map, &fullW[s],
+                         128 * j, kHalf * b);
+        }
+      }
+    }
+  } else {
+    wg::regs_alloc<wg::kConsumerRegs>();
+    // dh_pre's row scales from (b)'s per-tile maxima
+    if (tid < kQDyRows) {
+      float mx = 0.f;
+      if (m0 + tid < m)
+        for (int j = 0; j < n_steps; ++j) mx = fmaxf(mx, rmax_part[j * m + m0 + tid]);
+      sDhs[tid] = row_scale(mx);
+    }
+    wg::sync_named(3, 256);
+
+    // this thread quantises row qr of each f32 tile, 16-unit chunks (t % 4)
+    // and (t % 4) + 4
+    const int qr = 32 * wgi + (t >> 2);
+    const float qs = sDhs[qr];
+    const bool qvalid = m0 + qr < m;
+    int acc[96];  // dy: 64 rows x columns [192 wgi, 192 wgi + 192)
+    const uint32_t q_s = smem_addr(sQ), w_s = smem_addr(ringW);
+    for (int ks = 0; ks < n_steps; ++ks) {
+      const int sf = ks % kQDyFStages, sw = ks % kQDyWStages;
+      uint8_t* box = sQ + (ks % kQDyQBufs) * wg::kBoxBytes;
+      wg::bar_wait(&fullF[sf], (ks / kQDyFStages) & 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = (t & 3) + 4 * h;  // units [16 q, 16 q + 16): f32 box q / 2
+        const uint8_t* fbox = ringF + sf * kQDyFBytes + (q >> 1) * wg::kBoxBytes;
+        uint32_t packed[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(fbox + wg::swz_b(qr, 16 * (4 * (q & 1) + u)));
+          packed[u] = (uint32_t)(uint8_t)quant_s8(v.x, qs) |
+                      (uint32_t)(uint8_t)quant_s8(v.y, qs) << 8 |
+                      (uint32_t)(uint8_t)quant_s8(v.z, qs) << 16 |
+                      (uint32_t)(uint8_t)quant_s8(v.w, qs) << 24;
+        }
+        const uint4 codes16 = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        *reinterpret_cast<uint4*>(box + wg::swz_b(qr, 16 * q)) = codes16;
+        if (codes != nullptr && qvalid)
+          *reinterpret_cast<uint4*>(codes + (m0 + qr) * hid + 128 * ks + 16 * q) = codes16;
+      }
+      wg::fence_async_smem();
+      wg::sync_named(3, 256);  // the dhq box is whole, the f32 tile read
+      if (tid == 0) wg::bar_arrive(&emptyF[sf]);
+      wg::bar_wait(&fullW[sw], (ks / kQDyWStages) & 1);
+      const uint32_t qa = wg::opaque(q_s) + (ks % kQDyQBufs) * wg::kBoxBytes;
+      const uint32_t wa = wg::opaque(w_s) + sw * kQDyWBytes + 3 * wgi * wg::kBoxBytes;
+      wg::mma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+        wg::mma_s8_m64n192(acc, wg::desc_k(qa, k4), wg::desc_k(wa, k4), ks + k4 > 0);
+      wg::mma_commit();
+      wg::mma_wait<1>();
+      if (ks > 0 && t == 0) wg::bar_arrive(&emptyW[(ks - 1) % kQDyWStages]);
+    }
+    wg::mma_wait<0>();
+    wg::acc_fence(acc);
+    wg::sync_named(3, 256);  // both warpgroups are past the rings: they are free
+
+    const int warp = t >> 5, lane = t & 31;
+    const int ra = wg::acc_row(t, 0), rb = ra + 8;
+    const bool va = m0 + ra < m, vb = m0 + rb < m;
+    const float mean_a = va ? stats[4 * (m0 + ra) + 2] : 0.f;
+    const float rstd_a = va ? stats[4 * (m0 + ra) + 3] : 0.f;
+    const float mean_b = vb ? stats[4 * (m0 + rb) + 2] : 0.f;
+    const float rstd_b = vb ? stats[4 * (m0 + rb) + 3] : 0.f;
+    const float dhs_a = sDhs[ra], dhs_b = sDhs[rb];
+    float dy[96];
+#pragma unroll
+    for (int i = 0; i < 96; ++i)
+      dy[i] = dequant(acc[i], (i >> 1) & 1 ? dhs_b : dhs_a, s1r[kHalf * wgi + wg::acc_col(t, i)]);
+    auto pair = [&](const __nv_bfloat16* p, bool valid, int row, int col) {
+      return valid ? unpack_bf16(*reinterpret_cast<const uint32_t*>(p + (m0 + row) * kLBD + col))
+                   : make_float2(0.f, 0.f);
+    };
+    // column sums [4 warps][db2, ds, db][192] of this warpgroup, in the f32 ring
+    float* sCol = reinterpret_cast<float*>(ringF) + wgi * 4 * 3 * kHalf;
+
+    // pass 1: row sums of dxhat and dxhat * xhat; column sums of do, dy * xhat, dy
+    float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 96; i += 4) {
+      const int col = kHalf * wgi + wg::acc_col(t, i);
+      const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
+      const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
+      const float2 oa = pair(dout, va, ra, col), ob = pair(dout, vb, rb, col);
+      const float xa0 = (xa.x - mean_a) * rstd_a, xa1 = (xa.y - mean_a) * rstd_a;
+      const float xb0 = (xb.x - mean_b) * rstd_b, xb1 = (xb.y - mean_b) * rstd_b;
+      const float da0 = dy[i] * sc0, da1 = dy[i + 1] * sc1;
+      const float db0 = dy[i + 2] * sc0, db1 = dy[i + 3] * sc1;
+      s1a += da0 + da1;
+      s2a += da0 * xa0 + da1 * xa1;
+      s1b += db0 + db1;
+      s2b += db0 * xb0 + db1 * xb1;
+      const float c[6] = {oa.x + ob.x, oa.y + ob.y,
+                          dy[i] * xa0 + dy[i + 2] * xb0, dy[i + 1] * xa1 + dy[i + 3] * xb1,
+                          dy[i] + dy[i + 2], dy[i + 1] + dy[i + 3]};
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        const float v = sum_over_rows(c[q]);
+        if (lane < 4) sCol[(warp * 3 + (q >> 1)) * kHalf + (col - kHalf * wgi) + (q & 1)] = v;
+      }
+    }
+    s1a = sum_over_quad(s1a);
+    s2a = sum_over_quad(s2a);
+    s1b = sum_over_quad(s1b);
+    s2b = sum_over_quad(s2b);
+    if ((lane & 3) == 0) {
+      float* mine = sRow + wgi * kQDyRows * 2;
+      mine[2 * ra] = s1a;
+      mine[2 * ra + 1] = s2a;
+      mine[2 * rb] = s1b;
+      mine[2 * rb + 1] = s2b;
+    }
+    wg::sync_named(3, 256);
+    const float m1a = (sRow[2 * ra] + sRow[2 * (kQDyRows + ra)]) / kLBD;
+    const float m2a = (sRow[2 * ra + 1] + sRow[2 * (kQDyRows + ra) + 1]) / kLBD;
+    const float m1b = (sRow[2 * rb] + sRow[2 * (kQDyRows + rb)]) / kLBD;
+    const float m2b = (sRow[2 * rb + 1] + sRow[2 * (kQDyRows + rb) + 1]) / kLBD;
+
+    // pass 2: dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) (+ do),
+    // into three swizzled boxes of the W1r ring
+    uint8_t* stX = ringW + wgi * 3 * wg::kBoxBytes;
+#pragma unroll
+    for (int i = 0; i < 96; i += 4) {
+      const int lc = wg::acc_col(t, i), col = kHalf * wgi + lc;
+      const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
+      const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
+      float a0 = rstd_a * (dy[i] * sc0 - m1a - (xa.x - mean_a) * rstd_a * m2a);
+      float a1 = rstd_a * (dy[i + 1] * sc1 - m1a - (xa.y - mean_a) * rstd_a * m2a);
+      float b0 = rstd_b * (dy[i + 2] * sc0 - m1b - (xb.x - mean_b) * rstd_b * m2b);
+      float b1 = rstd_b * (dy[i + 3] * sc1 - m1b - (xb.y - mean_b) * rstd_b * m2b);
+      if (residual) {
+        const float2 oa = pair(dout, va, ra, col), ob = pair(dout, vb, rb, col);
+        a0 += oa.x;
+        a1 += oa.y;
+        b0 += ob.x;
+        b1 += ob.y;
+      }
+      uint8_t* box = stX + (lc >> 6) * wg::kBoxBytes;
+      wg::st_pair(box, ra, lc & 63, a0, a1);
+      wg::st_pair(box, rb, lc & 63, b0, b1);
+    }
+    wg::fence_async_smem();
+    wg::sync_named(1 + wgi, 128);
+    if (t == 0) {
+      for (int b = 0; b < 3; ++b)
+        wg::tma_store(&dx_map, stX + b * wg::kBoxBytes, kHalf * wgi + b * wg::kBox, (int)m0);
+      wg::tma_store_commit();
+    }
+    // per-block partials [db2 | ds | db], the four warps summed in order
+    float* part = ln_part + (long long)blockIdx.x * 3 * kLBD;
+    for (int c = t; c < kHalf; c += 128) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        float tot = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) tot += sCol[(w * 3 + q) * kHalf + c];
+        part[q * kLBD + kHalf * wgi + c] = tot;
+      }
+    }
+    if (t == 0) wg::tma_store_wait();
   }
 }
 
@@ -361,54 +487,93 @@ __global__ void __launch_bounds__(kQThreads, 1)
 // Plain C entry point (loaded with ctypes). Shapes: x, do and dx (M, D) bf16;
 // ln_scale, ln_bias (D,) f32; w1q (HID, D) int8 with s1c (HID,) f32; b1
 // (HID,) bf16; w1r (D, HID) int8 with s1r (D,) f32; w2r (HID, D) int8 with
-// s2r (HID,) f32; dw1 (HID, D) and dw2 (D, HID) f32; bias_out (HID + 3D) f32
-// = [db1 | db2 | ds | db]; scratch: y_buf (M, D), h_buf and dhp_buf
-// (M, HID) bf16, bias_part (ceil(M / 64), HID + 3D) f32, wgrad_part (splits,
-// D, HID) f32; codes (M, HID) int8 or null. All contiguous. Returns a
-// cudaError_t: the first failed launch's, or cudaErrorInvalidValue for a
-// shape the kernels do not take.
+// s2r (HID,) f32 (HID a multiple of 384); dw (D * HID + HID * D) f32 =
+// [dW2 (D, HID) | dW1 (HID, D)]; bias_out (HID + 3D) f32 = [db1 | db2 | ds |
+// db]; scratch: y_buf (M, D) bf16, yq_buf and doq_buf (M, D) int8, stats
+// (M, 4) f32, h_buf and dhp_buf (M, HID) bf16, dhpf_buf (M, HID) f32,
+// db1_part (ceil(M / 128), HID) f32, rmax_part (HID / 128, M) f32, ln_part
+// (ceil(M / 64), 3D) f32, wgrad_part (splits, 2, D, HID) f32; codes (M, HID)
+// int8 or null. All contiguous. Returns a cudaError_t: the first failed
+// launch's (or TMA descriptor's), or cudaErrorInvalidValue for a shape the
+// kernels do not take.
 extern "C" int dcvit_ln_mlp_q_bwd(const void* x, const void* ln_scale, const void* ln_bias,
                                   const void* w1q, const void* s1c, const void* b1,
                                   const void* w1r, const void* s1r, const void* w2r,
-                                  const void* s2r, const void* dout, void* dx, void* dw1,
-                                  void* dw2, void* bias_out, void* y_buf, void* h_buf,
-                                  void* dhp_buf, void* bias_part, void* wgrad_part, void* codes,
-                                  long long m, int d, int hid, int residual, int splits,
-                                  void* stream) {
+                                  const void* s2r, const void* dout, void* dx, void* dw,
+                                  void* bias_out, void* y_buf, void* yq_buf, void* doq_buf,
+                                  void* stats, void* h_buf, void* dhp_buf, void* dhpf_buf,
+                                  void* db1_part, void* rmax_part, void* ln_part,
+                                  void* wgrad_part, void* codes, long long m, int d, int hid,
+                                  int residual, int splits, void* stream) {
   using namespace dcvit;
   using bf16 = __nv_bfloat16;
-  if (d != 384 || hid % 64 != 0 || m < 1 || splits < 1) return (int)cudaErrorInvalidValue;
-  const long long blocks = (m + kQRows - 1) / kQRows;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (d != kLBD || hid % kWgN != 0 || hid % kLBTile != 0 || m < 1 || splits < 1 ||
+      (m + kLBTile - 1) / kLBTile > 65535 || m > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = QBwdLayout<384>::bytes;
-  auto kernel = ln_mlp_q_bwd_rows_kernel<384>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kQThreads, smem, st>>>(
+  const long long tiles128 = (m + kLBTile - 1) / kLBTile;
+  const long long tiles64 = (m + kQDyRows - 1) / kQDyRows;
+  cudaError_t err;
+
+  q_rows_kernel<<<(unsigned)((m + 7) / 8), 256, 0, st>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const int8_t*>(w1q),
-      static_cast<const float*>(s1c), static_cast<const bf16*>(b1),
-      static_cast<const int8_t*>(w1r), static_cast<const float*>(s1r),
-      static_cast<const int8_t*>(w2r), static_cast<const float*>(s2r),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dx), static_cast<bf16*>(y_buf),
-      static_cast<bf16*>(h_buf), static_cast<bf16*>(dhp_buf), static_cast<float*>(bias_part),
-      static_cast<int8_t*>(codes), m, hid, residual);
+      static_cast<const float*>(ln_bias), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(y_buf), static_cast<int8_t*>(yq_buf), static_cast<int8_t*>(doq_buf),
+      static_cast<float*>(stats), m);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  float* wpart = static_cast<float*>(wgrad_part);
-  // dW2 (D, HID) = do^T h; dW1 (HID, D) = dh_pre^T y; one scratch, used in turn
-  err = launch_wgrad(static_cast<const bf16*>(dout), d, static_cast<const bf16*>(h_buf), hid,
-                     wpart, m, d, hid, splits, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_reduce(wpart, static_cast<float*>(dw2), splits, (long long)d * hid, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_wgrad(static_cast<const bf16*>(dhp_buf), hid, static_cast<const bf16*>(y_buf), d,
-                     wpart, m, hid, d, splits, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_reduce(wpart, static_cast<float*>(dw1), splits, (long long)hid * d, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(static_cast<const float*>(bias_part), static_cast<float*>(bias_out),
-                            (int)blocks, hid + 3 * d, st);
+  const CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                            f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap yq128, doq128, w1q128, w2r128, h64, dhp64, dhpf64, w1r192, dx64, do64, y64;
+  const struct {
+    CUtensorMap* map;
+    const void* ptr;
+    long long rows;
+    int cols, box_rows;
+    CUtensorMapDataType type;
+  } maps[] = {
+      {&yq128, yq_buf, m, kLBD, kLBTile, s8},   {&doq128, doq_buf, m, kLBD, kLBTile, s8},
+      {&w1q128, w1q, hid, kLBD, kLBTile, s8},   {&w2r128, w2r, hid, kLBD, kLBTile, s8},
+      {&h64, h_buf, m, hid, wg::kBox, b16},     {&dhp64, dhp_buf, m, hid, wg::kBox, b16},
+      {&dhpf64, dhpf_buf, m, hid, wg::kBox, f32}, {&w1r192, w1r, kLBD, hid, kLBD / 2, s8},
+      {&dx64, dx, m, kLBD, wg::kBox, b16},      {&do64, dout, m, kLBD, wg::kBox, b16},
+      {&y64, y_buf, m, kLBD, wg::kBox, b16},
+  };
+  for (const auto& mp : maps)
+    if ((err = tensor_map(mp.map, mp.ptr, mp.rows, mp.cols, mp.box_rows, mp.type)) !=
+        cudaSuccess)
+      return (int)err;
+  const struct {
+    const void* fn;
+    int smem;
+  } attrs[] = {{(const void*)q_dual_kernel, kQDualSmem}, {(const void*)q_dy_kernel, kQDySmem}};
+  for (const auto& a : attrs)
+    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    a.smem)) != cudaSuccess)
+      return (int)err;
+
+  q_dual_kernel<<<dim3(hid / kLBTile, (unsigned)tiles128), wg::kThreads, kQDualSmem, st>>>(
+      yq128, doq128, w1q128, w2r128, h64, dhp64, dhpf64, static_cast<const float*>(stats),
+      static_cast<const float*>(s1c), static_cast<const bf16*>(b1),
+      static_cast<const float*>(s2r), static_cast<float*>(db1_part),
+      static_cast<float*>(rmax_part), m, hid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  q_dy_kernel<<<(unsigned)tiles64, wg::kThreads, kQDySmem, st>>>(
+      dhpf64, w1r192, dx64, static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
+      static_cast<const float*>(ln_scale), static_cast<const float*>(s1r),
+      static_cast<const float*>(stats), static_cast<const float*>(rmax_part),
+      static_cast<float*>(ln_part), static_cast<int8_t*>(codes), m, hid, residual);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  if ((err = launch_ln_mlp_wgrad(do64, h64, dhp64, y64, static_cast<float*>(wgrad_part),
+                                 static_cast<float*>(dw), m, hid, splits, st)) != cudaSuccess)
+    return (int)err;
+  float* bias = static_cast<float*>(bias_out);
+  // the bias partials: few columns, hundreds of blocks' rows
+  if ((err = launch_reduce<32>(static_cast<const float*>(db1_part), bias, (int)tiles128, hid,
+                               st)) != cudaSuccess)
+    return (int)err;
+  return (int)launch_reduce<32>(static_cast<const float*>(ln_part), bias + hid, (int)tiles64,
+                                3 * kLBD, st);
 }

@@ -1,5 +1,5 @@
 // Fixed-order sums of per-block or per-split f32 partials, shared by the
-// backward kernels that avoid f32 atomics (wgrad.cuh, ln_mlp_bwd.cu,
+// backward kernels that avoid f32 atomics (ln_mlp_wgrad.cuh, ln_mlp_bwd.cu,
 // attend_project_bwd.cu).
 //
 // `reduce_partials_kernel<R>`: out[i] = sum over s of part[s][i], with the

@@ -1,7 +1,9 @@
-// The shared Hopper core of the ln_mlp kernels (ln_mlp.cu, ln_mlp_bwd.cu):
-// TMA tile loads into a ring of shared-memory stages, each with a full and an
-// empty mbarrier, and warpgroup matrix products (`wgmma.mma_async`) on the
-// tiles as they arrive, with f32 accumulators in registers.
+// The shared Hopper core of the ln_mlp kernels (ln_mlp.cu, ln_mlp_bwd.cu, and
+// the int8 ln_mlp_q.cu, ln_mlp_q_bwd.cu) and, through flash_wgmma.cuh, of the
+// attention kernels: TMA tile loads into a ring of shared-memory stages, each
+// with a full and an empty mbarrier, and warpgroup matrix products
+// (`wgmma.mma_async`) on the tiles as they arrive, with f32 (bf16 products)
+// or s32 (int8 products) accumulators in registers.
 //
 // Block shape (every kernel built on it): warpgroups 0 and 1 consume, each a
 // 64-row `wgmma` tile; warpgroup 2 produces, one thread of it issuing every
@@ -13,8 +15,9 @@
 // a warpgroup's accumulators at 128 registers or fewer: a 192-register
 // accumulator spilled.)
 //
-// Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes a row) in
-// the 128-byte swizzle, each based on a 1024-byte boundary:
+// Shared-memory tiles are TMA boxes of 128 bytes a row (64 bf16 columns, 128
+// int8 or 32 f32) in the 128-byte swizzle, each based on a 1024-byte
+// boundary:
 // - K-major (the reduction axis contiguous): a [rows][64 k] box;
 //   descriptor SBO = 1024 bytes (the next 8 rows), LBO unused; the k-step
 //   of 16 inside the box adds 32 bytes to the start address.
@@ -266,6 +269,90 @@ DEV void mma_m64n192(float (&d)[96], uint64_t da, uint64_t db, int accumulate) {
 }
 
 
+// ---- int8 products ------------------------------------------------------------------
+//
+// `wgmma` on int8 takes both operands K-major (no transpose, no scale-a/b
+// immediates) and sums exactly into s32 accumulators laid out as the f32
+// ones, so acc_row / acc_col hold. An int8 K-major box of 128 columns is 128
+// bytes a row, as a bf16 box of 64 is, so desc_k serves both: the k-step of
+// 32 int8 values is the 32 bytes of bf16's k16.
+
+// d[0:32] (+)= A(64 x 32) B(32 x 64), int8 in, s32 accumulators in the m64n64 layout.
+DEV void mma_s8_m64n64(int (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0:64] (+)= A(64 x 32) B(32 x 128), int8 in, s32 accumulators in the m64n128 layout.
+DEV void mma_s8_m64n128(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0:96] (+)= A(64 x 32) B(32 x 192), int8 in, s32 accumulators in the m64n192 layout.
+DEV void mma_s8_m64n192(int (&d)[96], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int R>
+DEV void acc_fence(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Byte offset of byte column col < 128 in a swizzled 128-byte-row box: an
+// int8 box of 128 columns, or (col = 4 c) column c < 32 of an f32 box.
+DEV uint32_t swz_b(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
+
 // ---- GELU epilogues -------------------------------------------------------------
 
 // tanh(u) = 1 - 2 / (exp(2u) + 1) from the SFU's exponential and reciprocal:
@@ -317,18 +404,23 @@ inline cudaError_t encode_fn(EncodeTiledFn* out) {
   return cudaSuccess;
 }
 
-// A row-major (rows, cols) bf16 tensor read or written in boxes of box_rows x
-// 64 columns, 128-byte swizzle, zero fill past the ends.
+// A row-major (rows, cols) tensor read or written in boxes of box_rows rows
+// x 128 bytes, 128-byte swizzle, zero fill past the ends: bf16 (the default)
+// in boxes of 64 columns, int8 (UINT8) of 128, f32 (FLOAT32) of 32.
 inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long rows, int cols,
-                              int box_rows) {
+                              int box_rows,
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn encode;
   cudaError_t err = encode_fn(&encode);
   if (err != cudaSuccess) return err;
+  const int elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_UINT8     ? 1
+                         : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+                                                                   : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)wg::kBox, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -63,16 +63,6 @@ _C0 = 0.7978845608028654  # sqrt(2/pi)
 _C1 = 0.044715
 
 
-def _wgrad_splits(rows: int, m1: int, m2: int, device: torch.device) -> int:
-    """Row splits of a weight-gradient GEMM (``csrc/wgrad.cuh``): enough
-    (64 x 64 tile, split) blocks to fill the card about four times over. The
-    count depends only on the shapes and the card, so the summation order is
-    the same from run to run."""
-    tiles = (m1 // 64) * (m2 // 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-rows // 64), -(-4 * sms // tiles)))
-
-
 def _ap_wgrad_splits(rows: int, d_out: int, d: int, device: torch.device) -> int:
     """Row splits of B2's dWp GEMM (``csrc/attend_project_bwd.cu``: 128 x 128
     output tiles, one block per SM): two whole waves on an H100. The count
@@ -84,8 +74,9 @@ def _ap_wgrad_splits(rows: int, d_out: int, d: int, device: torch.device) -> int
 
 
 def _ln_mlp_wgrad_splits(rows: int, d: int, hid: int, device: torch.device) -> int:
-    """Row splits of B4's weight-gradient GEMMs (``csrc/ln_mlp_bwd.cu``: dW2
-    and dW1 in one launch of 128 x 192 output tiles, one block per SM):
+    """Row splits of B4's and B8's weight-gradient GEMMs
+    (``csrc/ln_mlp_wgrad.cuh``: dW2 and dW1 in one launch of 128 x 192
+    output tiles, one block per SM):
     whole waves, four of them on an H100. The count depends only on the
     shapes and the card, so the summation order is the same from run to
     run."""
@@ -619,12 +610,13 @@ def _int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def ln_mlp_q_plain(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual: bool = False,
-                   with_codes: bool = False):
+                   with_codes: bool = False, with_h: bool = False):
     """Plain version of :func:`ln_mlp_q_fwd`, the arithmetic of the TPU kernel
     ``_ln_mlp_q_fwd_kernel`` in its order: y = LayerNorm(x) in f32; y
     quantised per row; h_pre = (acc * ys) * s1c + b1; h = GELU_tanh(h_pre);
     h quantised per row; out = (acc2 * hs) * s2c + b2 (+ x) in f32, rounded to
-    x's dtype once. With ``with_codes`` also returns h's codes (M, HID)."""
+    x's dtype once. With ``with_codes`` also returns h's codes (M, HID), and
+    with ``with_h`` h rounded to bf16 (M, HID), in that order."""
     f32 = torch.float32
     d = x.shape[-1]
     xf = x.to(f32).reshape(-1, d)
@@ -635,11 +627,20 @@ def ln_mlp_q_plain(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual: bool = 
     if residual:
         out = out + xf
     out = out.reshape(x.shape).to(x.dtype)
-    return (out, hq) if with_codes else out
+    return _with_extras(out, with_codes, hq, with_h, h)
 
 
-def _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, with_codes):
-    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q")
+def _with_extras(out, with_codes, codes, with_h, h):
+    """``out``, then the check outputs asked for: codes, then h in bf16."""
+    extras = ((codes,) if with_codes else ()) + ((h.to(torch.bfloat16),) if with_h else ())
+    if not extras:
+        return out
+    return (out if isinstance(out, tuple) else (out,)) + extras
+
+
+def _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, with_codes,
+                       with_h):
+    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q", multiple=128)
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, bf16, x.shape, dev)
     _check("ln_scale", scale, f32, (d,), dev)
@@ -653,30 +654,78 @@ def _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, wit
     m = x.numel() // d
     out = torch.empty_like(x)
     codes = torch.empty((m, hid), dtype=i8, device=dev) if with_codes else None
+    h = torch.empty((m, hid), dtype=bf16, device=dev) if with_h else None
     fn = kernels.function("ln_mlp_q")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1q.data_ptr(),
                  s1c.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2c.data_ptr(), b2.data_ptr(),
-                 out.data_ptr(), None if codes is None else codes.data_ptr(), m, d, hid,
-                 int(bool(residual)), torch.cuda.current_stream(dev).cuda_stream)
+                 out.data_ptr(), None if codes is None else codes.data_ptr(),
+                 None if h is None else h.data_ptr(), m, d, hid, int(bool(residual)),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("ln_mlp_q_fwd", err)
     LAUNCHES["ln_mlp_q_fwd"] += 1
-    return (out, codes) if with_codes else out
+    return _with_extras(out, with_codes, codes, with_h, h)
 
 
 def ln_mlp_q_fwd(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual: bool = False,
-                 with_codes: bool = False):
+                 with_codes: bool = False, with_h: bool = False):
     """The int8 :func:`ln_mlp` forward without autograd, from the int8 weight
     copies of :func:`quantize_mlp_weights`: the kernel ``csrc/ln_mlp_q.cu``
-    for a CUDA tensor, :func:`ln_mlp_q_plain` for a CPU one."""
+    for a CUDA tensor, :func:`ln_mlp_q_plain` for a CPU one. ``with_codes``
+    and ``with_h`` add the check outputs :func:`ln_mlp_q_plain` describes."""
     if _launches_kernel(x):
         return _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual,
-                                  with_codes)
-    return ln_mlp_q_plain(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, with_codes)
+                                  with_codes, with_h)
+    return ln_mlp_q_plain(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, with_codes,
+                          with_h)
+
+
+def gelu_tanh_rn_table(lo: int, n: int, device) -> torch.Tensor:
+    """GELU_tanh of the ``n`` float32 values whose bit patterns follow ``lo``
+    (f32, (n,)), by B7's own ``gelu_tanh_rn`` (``csrc/int8.cuh``, from the
+    ``ln_mlp_q`` library) on a CUDA ``device``. For checking, on every float,
+    the two facts B7's first pass relies on: non-decreasing on [0, inf), and
+    below 0 smaller in magnitude than at ``kGeluPosDominates`` (0.3). A check
+    of the kernel's GELU only: raises ``ValueError`` for another device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"gelu_tanh_rn_table checks the kernel's GELU: needs a CUDA "
+                         f"device, got {device}")
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    fn = kernels.function("gelu_tanh_rn_table")
+    with torch.cuda.device(device):
+        err = fn(out.data_ptr(), lo, n, torch.cuda.current_stream(device).cuda_stream)
+    _check_launch("gelu_tanh_rn_table", err)
+    return out
+
+
+def gelu_facts(device, chunk: int = 1 << 28) -> dict:
+    """The two facts about GELU_tanh that B7's first pass relies on, measured
+    on every finite float32 through :func:`gelu_tanh_rn_table`, ``chunk``
+    values at a time: ``steps_down``, the neighbouring pairs of non-negative
+    floats whose GELU decreases (must be 0); ``neg_max``, max|GELU| over the
+    negative floats, and ``at_bound``, GELU(0.3) (``neg_max < at_bound``
+    must hold); ``finite``, whether every value was finite."""
+    n_finite = 0x7F800000  # bit patterns of the finite non-negative floats
+    steps_down, neg_max, finite, last = 0, 0.0, True, None
+    for lo in range(0, n_finite, chunk):
+        n = min(chunk, n_finite - lo)
+        g = gelu_tanh_rn_table(lo, n, device)
+        finite &= bool(torch.isfinite(g).all())
+        steps_down += int((g[1:] < g[:-1]).sum()) + int(last is not None and bool(g[0] < last))
+        last = g[-1]
+        neg = gelu_tanh_rn_table(0x80000000 + lo, n, device)
+        finite &= bool(torch.isfinite(neg).all())
+        neg_max = max(neg_max, neg.abs().max().item())
+        del g, neg
+    at_bound = gelu_tanh_rn_table(0x3E99999A, 1, device).item()  # 0.3f
+    return {"steps_down": steps_down, "neg_max": neg_max, "at_bound": at_bound,
+            "finite": finite}
 
 
 def ln_mlp_q_bwd_plain(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do,
-                       residual: bool = False, with_codes: bool = False):
+                       residual: bool = False, with_codes: bool = False,
+                       with_h: bool = False):
     """Plain version of :func:`ln_mlp_q_bwd`, the arithmetic of the TPU kernel
     ``_ln_mlp_q_bwd_kernel`` in its order and with its cast points: the int8
     fc1 recompute of the forward; h rounded to bf16 for dW2 = do^T h; dh from
@@ -684,8 +733,9 @@ def ln_mlp_q_bwd_plain(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do,
     dh_pre^T y with both rounded to bf16; db1 the sum of the f32 dh_pre; dy
     from the f32 dh_pre quantised per row and w1r; the LayerNorm backward
     (+ do with the residual). Returns ``(dx, dw1, db1, dw2, db2, ds, db)`` as
-    :func:`ln_mlp_bwd_plain` does, and with ``with_codes`` also dh_pre's
-    codes (M, HID)."""
+    :func:`ln_mlp_bwd_plain` does, with ``with_codes`` also dh_pre's codes
+    (M, HID), and with ``with_h`` the recomputed h in bf16 (M, HID), the
+    forward's h as dW2 reads it, in that order."""
     f32, bf16 = torch.float32, torch.bfloat16
     d = x.shape[-1]
     xf = x.to(f32).reshape(-1, d)
@@ -708,12 +758,12 @@ def ln_mlp_q_bwd_plain(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do,
     if residual:
         dx = dx + dof
     grads = (dx.reshape(x.shape).to(x.dtype), dw1, db1, dw2, db2, ds, db)
-    return grads + (dhq,) if with_codes else grads
+    return _with_extras(grads, with_codes, dhq, with_h, h)
 
 
 def _ln_mlp_q_bwd_cuda(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual,
-                       with_codes):
-    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q_bwd")
+                       with_codes, with_h):
+    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q_bwd", multiple=384)
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, bf16, x.shape, dev)
     _check("ln_scale", scale, f32, (d,), dev)
@@ -727,42 +777,48 @@ def _ln_mlp_q_bwd_cuda(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, res
     _check("s2r", s2r, f32, (hid,), dev)
     _check("do", do, bf16, x.shape, dev)
     m = x.numel() // d
-    splits = _wgrad_splits(m, d, hid, dev)
+    splits = _ln_mlp_wgrad_splits(m, d, hid, dev)
     dx = torch.empty_like(x)
-    dw1 = torch.empty((hid, d), dtype=f32, device=dev)
-    dw2 = torch.empty((d, hid), dtype=f32, device=dev)
+    dw = torch.empty(2 * d * hid, dtype=f32, device=dev)  # [dW2 | dW1]
+    dw2, dw1 = dw[:d * hid].view(d, hid), dw[d * hid:].view(hid, d)
     bias_out = torch.empty(hid + 3 * d, dtype=f32, device=dev)
     y_buf = torch.empty((m, d), dtype=bf16, device=dev)
+    yq_buf = torch.empty((m, d), dtype=i8, device=dev)
+    doq_buf = torch.empty((m, d), dtype=i8, device=dev)
+    stats = torch.empty((m, 4), dtype=f32, device=dev)
     h_buf = torch.empty((m, hid), dtype=bf16, device=dev)
     dhp_buf = torch.empty((m, hid), dtype=bf16, device=dev)
-    bias_part = torch.empty((-(-m // 64), hid + 3 * d), dtype=f32, device=dev)
-    wgrad_part = torch.empty((splits, d, hid), dtype=f32, device=dev)
+    dhpf_buf = torch.empty((m, hid), dtype=f32, device=dev)
+    db1_part = torch.empty((-(-m // 128), hid), dtype=f32, device=dev)
+    rmax_part = torch.empty((hid // 128, m), dtype=f32, device=dev)
+    ln_part = torch.empty((-(-m // 64), 3 * d), dtype=f32, device=dev)
+    wgrad_part = torch.empty((splits, 2, d, hid), dtype=f32, device=dev)
     codes = torch.empty((m, hid), dtype=i8, device=dev) if with_codes else None
     fn = kernels.function("ln_mlp_q_bwd")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1q.data_ptr(),
                  s1c.data_ptr(), b1.data_ptr(), w1r.data_ptr(), s1r.data_ptr(), w2r.data_ptr(),
-                 s2r.data_ptr(), do.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-                 bias_out.data_ptr(), y_buf.data_ptr(), h_buf.data_ptr(), dhp_buf.data_ptr(),
-                 bias_part.data_ptr(), wgrad_part.data_ptr(),
-                 None if codes is None else codes.data_ptr(), m, d, hid, int(bool(residual)),
-                 splits, torch.cuda.current_stream(dev).cuda_stream)
+                 s2r.data_ptr(), do.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                 bias_out.data_ptr(), y_buf.data_ptr(), yq_buf.data_ptr(), doq_buf.data_ptr(),
+                 stats.data_ptr(), h_buf.data_ptr(), dhp_buf.data_ptr(), dhpf_buf.data_ptr(),
+                 db1_part.data_ptr(), rmax_part.data_ptr(), ln_part.data_ptr(),
+                 wgrad_part.data_ptr(), None if codes is None else codes.data_ptr(), m, d, hid,
+                 int(bool(residual)), splits, torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("ln_mlp_q_bwd", err)
     LAUNCHES["ln_mlp_q_bwd"] += 1
     db1, db2, ds, db = bias_out.split((hid, d, d, d))
-    grads = (dx, dw1, db1, dw2, db2, ds, db)
-    return grads + (codes,) if with_codes else grads
+    return _with_extras((dx, dw1, db1, dw2, db2, ds, db), with_codes, codes, with_h, h_buf)
 
 
 def ln_mlp_q_bwd(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual: bool = False,
-                 with_codes: bool = False):
+                 with_codes: bool = False, with_h: bool = False):
     """Gradients of :func:`ln_mlp_q_fwd` given do, from the int8 weight
     copies of ``quantize_mlp_weights(w1, w2, backward=True)``: ``(dx, dw1,
-    db1, dw2, db2, ds, db)`` as described at :func:`ln_mlp_q_bwd_plain`. The
-    kernel ``csrc/ln_mlp_q_bwd.cu`` for a CUDA tensor, the plain version for
-    a CPU one."""
+    db1, dw2, db2, ds, db)`` and the check outputs as described at
+    :func:`ln_mlp_q_bwd_plain`. The kernel ``csrc/ln_mlp_q_bwd.cu`` for a
+    CUDA tensor, the plain version for a CPU one."""
     if _launches_kernel(x):
         return _ln_mlp_q_bwd_cuda(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do,
-                                  residual, with_codes)
+                                  residual, with_codes, with_h)
     return ln_mlp_q_bwd_plain(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual,
-                              with_codes)
+                              with_codes, with_h)

@@ -47,14 +47,21 @@ KERNELS = {
                      [_P] * 5 + [_I] * 4 + [_LL] * 3 + [_I, _F, _P]),
     "flash_packed_bwd": ("flash_packed_bwd.cu", "dcvit_flash_packed_bwd",
                          [_P] * 8 + [_I] * 4 + [_LL] * 3 + [_I, _F, _P]),
-    "ln_mlp_q": ("ln_mlp_q.cu", "dcvit_ln_mlp_q_fwd", [_P] * 11 + [_LL, _I, _I, _I, _P]),
+    "ln_mlp_q": ("ln_mlp_q.cu", "dcvit_ln_mlp_q_fwd", [_P] * 12 + [_LL, _I, _I, _I, _P]),
     "ln_mlp_q_bwd": ("ln_mlp_q_bwd.cu", "dcvit_ln_mlp_q_bwd",
-                     [_P] * 21 + [_LL, _I, _I, _I, _I, _P]),
+                     [_P] * 26 + [_LL, _I, _I, _I, _I, _P]),
     # the benchmark scripts' kernels (diverse_channel_vit_torch/scripts/)
     "bench_attn_bwd": ("bench_attn_bwd.cu", "dcvit_bench_attn_bwd",
                        [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
     "qkv_flash": ("qkv_flash.cu", "dcvit_qkv_flash_fwd", [_P] * 2 + [_I] * 5 + [_F, _P]),
     "int8_ln_mlp": ("int8_ln_mlp.cu", "dcvit_int8_ln_mlp", [_P] * 11 + [_LL, _I, _I, _I, _P]),
+}
+
+# further C functions of those libraries: name -> (library, C function, argtypes)
+SYMBOLS = {
+    # B7's GELU on a range of float bit patterns, for checking what it relies on
+    "gelu_tanh_rn_table": ("ln_mlp_q", "dcvit_gelu_tanh_rn_table",
+                           [_P, ctypes.c_uint, _LL, _P]),
 }
 
 # ptxas register / shared-memory / spill report of each build, by kernel
@@ -117,14 +124,16 @@ def build(names: Optional[Iterable[str]] = None) -> float:
 
 
 def function(name: str):
-    """The ctypes entry point of kernel library ``name``, built on first use."""
+    """The ctypes entry point of kernel library ``name`` (or the C function
+    ``SYMBOLS[name]``), built on first use."""
     fn = _FUNCS.get(name)
     if fn is None:
-        build([name])
+        lib_name, symbol, argtypes = SYMBOLS.get(name) or (name, *KERNELS[name][1:])
+        build([lib_name])
         with _LOCK:
-            lib = ctypes.CDLL(str(_library_path(name)))
-            fn = getattr(lib, KERNELS[name][1])
-            fn.argtypes = KERNELS[name][2]
+            lib = ctypes.CDLL(str(_library_path(lib_name)))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _FUNCS[name] = fn
     return fn

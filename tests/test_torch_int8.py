@@ -173,6 +173,39 @@ def test_ln_mlp_int8_value_and_grads_match_jax(fused_jax, dtype, residual):
 # --- the slice as a whole -------------------------------------------------
 
 
+def test_plain_check_outputs():
+    """The plain versions' check outputs, which the card's kernels are held
+    to: codes first, then h in bf16; the backward's recomputed h is the
+    forward's bit for bit; the forward's codes are h's row quantisation."""
+    rng = np.random.default_rng(3)
+    d, hid = 384, 768
+    x, do = (torch.from_numpy(rng.standard_normal((1, 40, d), dtype=np.float32)) for _ in "ab")
+    s, b = torch.ones(d), torch.zeros(d)
+    w1 = torch.from_numpy(rng.standard_normal((hid, d), dtype=np.float32)) * d ** -0.5
+    w2 = torch.from_numpy(rng.standard_normal((d, hid), dtype=np.float32)) * hid ** -0.5
+    b1, b2 = torch.zeros(hid), torch.zeros(d)
+    w1q, s1c, w2q, s2c, w1r, s1r, w2r, s2r = fb.quantize_mlp_weights(w1, w2, backward=True)
+    out, codes, h = fb.ln_mlp_q_fwd(x, s, b, w1q, s1c, b1, w2q, s2c, b2, True,
+                                    with_codes=True, with_h=True)
+    assert torch.equal(out, fb.ln_mlp_q_fwd(x, s, b, w1q, s1c, b1, w2q, s2c, b2, True))
+    assert codes.shape == h.shape == (40, hid) and h.dtype == torch.bfloat16
+    grads = fb.ln_mlp_q_bwd(x, s, b, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, True,
+                            with_codes=True, with_h=True)
+    assert len(grads) == 9 and grads[7].dtype == torch.int8
+    assert torch.equal(grads[8], h)
+    assert torch.equal(fb.ln_mlp_q_bwd(x, s, b, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, True,
+                                       with_h=True)[7], h)
+    # the codes of h: |h| / its row scale, within one code of the rounded h's
+    assert (codes.float() - fb.quant_rows_f32(h.float())[0].float()).abs().max() <= 1
+
+
+def test_gelu_table_checks_only_the_kernel():
+    """The GELU table reads the kernel's own GELU: it has no plain version
+    and refuses a CPU device rather than check another function."""
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.gelu_tanh_rn_table(0, 16, "cpu")
+
+
 def test_build_model_reads_quantization():
     cfg = dict(in_channel_names=["a", "b"], img_size=[32], patch_size=16,
                pretrained_model_name="test")

@@ -32,7 +32,10 @@ bit, with padded key rows exactly 0, bit for bit against B6 given B5's lse
 (its statistics pass recomputes that lse with B5's instructions) and across
 two calls; S2 (``qkv_flash_fwd``) against B5 on the three views of the same
 qkv, bit for bit (one kernel, two maps); S3 (``int8_ln_mlp``) against B7 on
-the same weight codes and scales, outputs and hidden codes, bit for bit. The public
+the same weight codes and scales, outputs and hidden codes, bit for bit. B7
+and B8 (the int8 ``ln_mlp``) are also held bit for bit across two calls, B8
+at a ragged last row tile with padding rows, and B8's recomputed h against
+B7's, bit for bit. The public
 ``attend_project`` and ``flash_attention_packed`` pad an N that is not a
 multiple of 64 and are held at N = 1569 against the plain route, forward and
 gradient.
@@ -513,6 +516,99 @@ def test_ln_mlp_q_wrappers_raise_on_what_they_do_not_take(gen):
     with pytest.raises(NotImplementedError):  # D = 256
         fb.ln_mlp_q_fwd(x2, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
                         q[0], q[1], _rnd(gen, 1024), q[2], q[3], _rnd(gen, 256))
+    # hidden widths the kernels do not tile: B7 takes multiples of 128, B8 of 384
+    q = fb.quantize_mlp_weights(_rnd(gen, 1600, 384), _rnd(gen, 384, 1600))
+    with pytest.raises(ValueError):
+        fb.ln_mlp_q_fwd(x, s, b, q[0], q[1], _rnd(gen, 1600), q[2], q[3], b2)
+    q = fb.quantize_mlp_weights(_rnd(gen, 1280, 384), _rnd(gen, 384, 1280), backward=True)
+    fb.ln_mlp_q_fwd(x, s, b, q[0], q[1], _rnd(gen, 1280), q[2], q[3], b2)
+    with pytest.raises(ValueError):
+        fb.ln_mlp_q_bwd(x, s, b, q[0], q[1], _rnd(gen, 1280), q[4], q[5], q[6], q[7], x)
+
+
+def _q_args(gen, shape, bias=1.0):
+    """(B7's, B8's) arguments before ``residual``, from one draw."""
+    x, s, b, w1, b1, w2, b2 = _mlp_inputs(gen, shape, bias)
+    w1q, s1c, w2q, s2c, w1r, s1r, w2r, s2r = fb.quantize_mlp_weights(w1, w2, backward=True)
+    return ((x, s, b, w1q, s1c, b1, w2q, s2c, b2),
+            (x, s, b, w1q, s1c, b1, w1r, s1r, w2r, s2r, _rnd(gen, *shape)))
+
+
+Q_BWD_NAMES = ("dx", "dw1", "db1", "dw2", "db2", "ds", "db", "codes", "h")
+
+
+@pytest.mark.parametrize("shape", [(1, 100, 384), (8, 1600, 384)])
+def test_ln_mlp_q_kernels_are_bit_identical_across_calls(gen, shape):
+    """B7 and B8 round and sum every value in an order fixed by the shapes
+    and use no atomics: two calls on the same inputs agree bit for bit, every
+    output, code and check output. B7 with ``with_h`` runs its instantiation
+    that also stores h; its output and codes are the main path's."""
+    fwd, bwd = _q_args(gen, shape)
+    first, again = (fb.ln_mlp_q_fwd(*fwd, True, with_codes=True) for _ in range(2))
+    for name, g1, g2 in zip(("out", "codes"), first, again):
+        assert torch.equal(g1, g2), name
+    checked, again = (fb.ln_mlp_q_fwd(*fwd, True, with_codes=True, with_h=True) for _ in range(2))
+    for name, g1, g2, g3 in zip(("out", "codes", "h"), checked, again, first + (None,)):
+        assert torch.equal(g1, g2), name
+        assert g3 is None or torch.equal(g1, g3), name
+    first, again = (fb.ln_mlp_q_bwd(*bwd, True, with_codes=True, with_h=True) for _ in range(2))
+    for name, g1, g2 in zip(Q_BWD_NAMES, first, again):
+        assert torch.equal(g1, g2), name
+
+
+@pytest.mark.parametrize("shape", [(1, 100, 384), (3, 1569, 384)])
+def test_ln_mlp_q_bwd_kernel_matches_plain_at_a_ragged_last_tile(gen, shape):
+    """B8 with the residual fused where M is a multiple of neither 64 nor 128,
+    so the last row tile of every GEMM runs past the end, and with the last
+    rows of each image zero, as the model's padding tokens are: every output
+    within TOL of the plain version, dx on the padding rows, on the other
+    rows and on the last 64-row tile each on its own scale, and the codes of
+    the dy GEMM."""
+    _, bwd = _q_args(gen, shape)
+    n_pad = shape[1] // 16
+    x = bwd[0].clone()
+    x[:, -n_pad:] = 0
+    bwd = (x,) + bwd[1:]
+    before = fb.LAUNCHES["ln_mlp_q_bwd"]
+    got = fb.ln_mlp_q_bwd(*bwd, True, with_codes=True)
+    assert fb.LAUNCHES["ln_mlp_q_bwd"] == before + 1
+    want = fb.ln_mlp_q_bwd_plain(*bwd, True, with_codes=True)
+    for name, g, w in zip(Q_BWD_NAMES, got[:7], want[:7]):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel(g, w) <= TOL, name
+    pad = torch.zeros(shape[:2], dtype=torch.bool, device="cuda")
+    pad[:, -n_pad:] = True
+    dx, dx_p = got[0], want[0]
+    assert _rel(dx[pad], dx_p[pad]) <= TOL
+    assert _rel(dx[~pad], dx_p[~pad]) <= TOL
+    tail = (shape[0] * shape[1]) % 64
+    assert _rel(dx.reshape(-1, 384)[-tail:], dx_p.reshape(-1, 384)[-tail:]) <= TOL
+    assert (got[7] != want[7]).float().mean().item() <= MAX_CODE_FLIPS
+
+
+def test_ln_mlp_q_gelu_facts_hold_on_every_float(gen):
+    """B7's first pass takes a row's max|h| from GELU of the row's largest
+    input once that reaches 0.3 (csrc/int8.cuh, kGeluPosDominates). So the
+    library's own GELU must be non-decreasing over every non-negative float
+    and, over every negative float, smaller in magnitude than at 0.3."""
+    facts = fb.gelu_facts("cuda")
+    assert facts["finite"] and facts["steps_down"] == 0, facts
+    assert facts["neg_max"] < facts["at_bound"], facts
+
+
+@pytest.mark.parametrize("shape,residual", [((1, 100, 384), True), ((2, 1600, 384), False)])
+def test_ln_mlp_q_bwd_recompute_is_the_forward(gen, shape, residual):
+    """B8 recomputes the forward's int8 fc1: its h (the bf16 operand of dW2,
+    returned with ``with_h``) equals B7's h rounded to bf16 (the h that B7
+    quantises into the codes fc2 reads), bit for bit, so the LayerNorm, the
+    y codes, the int8 sums, the dequantisation and the GELU are the
+    forward's; both are within TOL of the plain version's h."""
+    fwd, bwd = _q_args(gen, shape)
+    h7 = fb.ln_mlp_q_fwd(*fwd, residual, with_h=True)[1]
+    h8 = fb.ln_mlp_q_bwd(*bwd, residual, with_h=True)[7]
+    assert h8.shape == (shape[0] * shape[1], 1536) and h8.dtype == torch.bfloat16
+    assert torch.equal(h7, h8)
+    assert _rel(h8, fb.ln_mlp_q_plain(*fwd, residual, with_h=True)[1]) <= TOL
 
 
 @pytest.mark.parametrize("batch,n,heads,n_valid", [
