@@ -28,9 +28,11 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    epilogue time from a SASS count of their helpers; then
    the benchmark scripts' kernels at the scripts' default shapes: S1
    (``bwd_call``, both schedules), S2 (``qkv_flash_fwd``) and S3
-   (``int8_ln_mlp``), each also held against its package sibling on the same
-   inputs (the other schedule and B6 given B5's lse, B5, B7), S1 and S2 bit
-   for bit, S1 also across two calls;
+   (``int8_ln_mlp``, B7's kernel), each also held against its package
+   sibling on the same inputs (the other schedule and B6 given B5's lse, B5,
+   B7), bit for bit, S1 also across two calls; then B1, B2, B5, B6, S1 and
+   S2 again at head width 128 (3 heads at D = 384, the ``small_tpu``
+   preset), under names ending ``_dh128``;
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
    ``ServingEngine`` (``predict``, ``submit``) and ``ServingHTTPServer`` on
@@ -58,12 +60,24 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    mixture (``lowest_cosine_prob``, temperature 1000), each k warmed once
    first, images/s and launches per step (B1-B4 x 11); 3 steps at k = 2, 5
    and 8 at depth 4 against the plain route, both drawing the same channels;
-8. run the port's three benchmark scripts through their entry points at
+8. the ``small_tpu`` preset (3 heads of 128, every attention kernel at head
+   width 128) at full width and depth, as the JAX benchmark's ``mxu_native``
+   flagship and recipe, ``int8_dh128`` and dh-128 EViT recipe cells: serving
+   as phase 4 (buckets 1-64, a k = 3 subset, logits against the plain
+   route), 12 train steps and the 3-step parity at depth 4, the DCS recipe,
+   12 int8 train steps (B1, B2, B7, B8) and their parity, and the DCS recipe
+   with EViT (keep_rate 0.7: B5 and B6 at layers 3, 6 and 9) and its parity
+   at k = 2, 5 and 8; each path prints its images/s, p50 ms and peak memory
+   beside the card;
+9. run the port's three benchmark scripts through their entry points at
    their defaults (``bench_attn`` chain, bwd-variants, step and small-k,
-   ``bench_block_fusion``, ``bench_int8_lnmlp``), their output echoed, the
-   counts set to 0 just before each and read just after;
-9. print the ``kernels`` JSON line, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+   ``bench_block_fusion``, ``bench_int8_lnmlp``) and S1's and S2's at 3
+   heads (``bench_attn bwd-variants --heads 3``, ``bench_block_fusion`` at
+   3 heads), their output echoed, the counts set to 0 just before each and
+   read just after;
+10. print the ``kernels`` JSON line (each kernel's launches from its main
+    path), the card line, and last the result line
+    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero before printing any result.
@@ -83,6 +97,9 @@ import numpy as np
 
 # flagship geometry (DiChaViT-S at JUMP-CP)
 B, N_VALID, D, HEADS, HID = 64, 1569, 384, 6, 1536
+# the small_tpu preset: the same width in 3 heads of 128 (the JAX bench's
+# mxu_native, int8_dh128 and dh-128 EViT recipe cells)
+TPU_PRESET, HEADS_TPU = "small_tpu", 3
 CHANNELS, IMG, PATCH, DEPTH, CLASSES = 8, 224, 16, 12, 161
 BUCKETS = (1, 4, 16, 64)
 # the plain-route training check runs at this depth (the plain attention
@@ -169,6 +186,13 @@ def hold(name: str, label: str, pairs) -> tuple:
     return max(errs, key=lambda e: e[1])
 
 
+def kernel_name(name: str, heads: int) -> str:
+    """The kernels line's name of an attention kernel at D / heads head width:
+    the name alone at 64, with the width beside it otherwise."""
+    dh = D // heads
+    return name if dh == 64 else f"{name}_dh{dh}"
+
+
 def _rnd(torch, g):
     def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
@@ -187,43 +211,10 @@ def check_kernels(fb, torch, F):
     n = -(-N_VALID // 64) * 64
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(0))
     bf16 = torch.bfloat16
-
-    results = {}
     # the model reads only the n_valid real rows of the padded grid, so the
     # bound counts those (the kernels also compute the padded rows)
     rows = B * N_VALID
-    # --- B1 attend_project_fwd
-    dh = D // HEADS
-    qkv, x_res = rnd(B, n, 3 * D), rnd(B, n, D)
-    wp, bp = rnd(D, D, scale=D ** -0.5), rnd(D)
-    args = (qkv, x_res, wp, bp, HEADS, dh ** -0.5, N_VALID)
-    bare = (qkv, None, wp, torch.zeros_like(bp), HEADS, dh ** -0.5, N_VALID)
-
-    def hold_ap(label, a):
-        (o_k, l_k, xo_k), (o_p, l_p, xo_p) = (f(*a, need_o=True) for f in
-                                              (fb.attend_project_fwd, fb.attend_project_fwd_plain))
-        return hold("attend_project_fwd", label,
-                    (("xo", xo_k, xo_p), ("o", o_k, o_p), ("lse", l_k, l_p)))
-
-    err_xo, rel_xo = hold_ap("main path", args)
-    hold_ap("no residual, zero bias", bare)
-    ms = cuda_ms(lambda: fb.attend_project_fwd(*args), 10)
-    plain_ms = cuda_ms(lambda: fb.attend_project_fwd_plain(*args), 3, warmup=1)
-    keep = (torch.arange(n, device="cuda") < N_VALID)[None, None, None, :]
-
-    def library():
-        q, k, v = qkv.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
-        return F.linear(o.transpose(1, 2).reshape(B, n, D), wp, bp) + x_res
-
-    library_ms = cuda_ms(library, 10)
-    results["attend_project_fwd"] = dict(
-        source="diverse_channel_vit_torch/csrc/attend_project.cu",
-        replaces="diverse_channel_vit_tpu/ops/fused_block.py:671",
-        max_abs_err=err_xo, rel_err=rel_xo, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        flops=4 * rows * N_VALID * D + 2 * rows * D * D,
-        bytes=2 * (rows * 3 * D + 2 * rows * D + D * D + D),
-    )
+    results = {"attend_project_fwd": check_attend_project_fwd(fb, torch, F, HEADS, rnd)}
 
     # --- B3 ln_mlp_fwd
     x = rnd(B, n, D)
@@ -260,6 +251,100 @@ def check_kernels(fb, torch, F):
     return results
 
 
+def check_attend_project_fwd(fb, torch, F, heads, rnd):
+    """B1 (attend_project_fwd) against its plain version at flagship shapes
+    with ``heads`` heads (6 of 64, or 3 of 128 for the small_tpu preset),
+    residual fused and then bare, as check_kernels describes; its timings."""
+    n = -(-N_VALID // 64) * 64
+    rows = B * N_VALID
+    dh = D // heads
+    qkv, x_res = rnd(B, n, 3 * D), rnd(B, n, D)
+    wp, bp = rnd(D, D, scale=D ** -0.5), rnd(D)
+    args = (qkv, x_res, wp, bp, heads, dh ** -0.5, N_VALID)
+    bare = (qkv, None, wp, torch.zeros_like(bp), heads, dh ** -0.5, N_VALID)
+    name = kernel_name("attend_project_fwd", heads)
+
+    def hold_ap(label, a):
+        (o_k, l_k, xo_k), (o_p, l_p, xo_p) = (f(*a, need_o=True) for f in
+                                              (fb.attend_project_fwd, fb.attend_project_fwd_plain))
+        return hold(name, label, (("xo", xo_k, xo_p), ("o", o_k, o_p), ("lse", l_k, l_p)))
+
+    err_xo, rel_xo = hold_ap("main path", args)
+    hold_ap("no residual, zero bias", bare)
+    ms = cuda_ms(lambda: fb.attend_project_fwd(*args), 10)
+    plain_ms = cuda_ms(lambda: fb.attend_project_fwd_plain(*args), 3, warmup=1)
+    keep = (torch.arange(n, device="cuda") < N_VALID)[None, None, None, :]
+
+    def library():
+        q, k, v = qkv.view(B, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        return F.linear(o.transpose(1, 2).reshape(B, n, D), wp, bp) + x_res
+
+    library_ms = cuda_ms(library, 10)
+    return dict(
+        source="diverse_channel_vit_torch/csrc/attend_project.cu",
+        replaces="diverse_channel_vit_tpu/ops/fused_block.py:671",
+        max_abs_err=err_xo, rel_err=rel_xo, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        flops=4 * rows * N_VALID * D + 2 * rows * D * D,
+        bytes=2 * (rows * 3 * D + 2 * rows * D + D * D + D),
+    )
+
+
+def check_attend_project_bwd(fb, torch, F, heads, rnd):
+    """B2 (attend_project_bwd) against its plain version at flagship shapes
+    with ``heads`` heads, as check_bwd_kernels describes; its timings."""
+    n = -(-N_VALID // 64) * 64
+    rows = B * N_VALID
+    dh = D // heads
+    name = kernel_name("attend_project_bwd", heads)
+    qkv, x_res = rnd(B, n, 3 * D), rnd(B, n, D)
+    wp, bp = rnd(D, D, scale=D ** -0.5), rnd(D)
+    dxo = rnd(B, n, D)
+    names = ("dq", "dk", "dv", "dwp", "dbp", "db_qkv")
+
+    def split(out):
+        dqkv, dwp, dbp, db = out
+        return (dqkv[..., :D], dqkv[..., D:2 * D], dqkv[..., 2 * D:], dwp, dbp, db)
+
+    def hold_ap(label, n_valid):
+        o, lse, _ = fb.attend_project_fwd(qkv, x_res, wp, bp, heads, dh ** -0.5, n_valid,
+                                          need_o=True)
+        a = (qkv, o, lse, wp, dxo, heads, dh ** -0.5, n_valid)
+        got = split(fb.attend_project_bwd(*a))
+        worst = hold(name, label,
+                     list(zip(names, got, split(fb.attend_project_bwd_plain(*a)))))
+        return worst, got, a
+
+    (err, rel), got, args = hold_ap("main path", N_VALID)
+    pad = torch.cat([got[1][:, N_VALID:], got[2][:, N_VALID:]], dim=-1)
+    if torch.count_nonzero(pad).item() != 0:
+        raise AssertionError(f"{name}: padded key rows have dk or dv != 0")
+    print(f"{name}: dk and dv exactly 0 on the {n - N_VALID} padded key rows")
+    hold_ap("every key valid", n)
+    first, second = fb.attend_project_bwd(*args), fb.attend_project_bwd(*args)
+    if not all(torch.equal(p, q) for p, q in zip(first, second)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    print(f"{name}: two calls on the same inputs agree bit for bit")
+    del first, second, got, pad
+    ms = cuda_ms(lambda: fb.attend_project_bwd(*args), 10)
+    plain_ms = cuda_ms(lambda: fb.attend_project_bwd_plain(*args), 2, warmup=1)
+    keep = (torch.arange(n, device="cuda") < N_VALID)[None, None, None, :]
+    lq, lw, lb = (t.detach().clone().requires_grad_() for t in (qkv, wp, bp))
+    q, k, v = lq.view(B, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+    lib_out = F.linear(o.transpose(1, 2).reshape(B, n, D), lw, lb) + x_res
+    library_ms = cuda_ms(
+        lambda: torch.autograd.grad(lib_out, (lq, lw, lb), dxo, retain_graph=True), 10)
+    del lib_out, o, q, k, v
+    return dict(
+        source="diverse_channel_vit_torch/csrc/attend_project_bwd.cu",
+        replaces="diverse_channel_vit_tpu/ops/fused_block.py:713",
+        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        flops=10 * rows * N_VALID * D + 4 * rows * D * D,
+        bytes=2 * (rows * 3 * D + rows * D + rows * D + D * D + rows * 3 * D)
+        + 4 * (rows * heads + D * D + D + 3 * D),
+    )
+
 def check_bwd_kernels(fb, torch, F):
     """Phase 3, backwards: B2 and B4 against their plain versions at flagship
     shapes, every output.
@@ -275,58 +360,7 @@ def check_bwd_kernels(fb, torch, F):
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(1))
     bf16 = torch.bfloat16
     rows = B * N_VALID
-    dh = D // HEADS
-    results = {}
-
-    # --- B2 attend_project_bwd
-    qkv, x_res = rnd(B, n, 3 * D), rnd(B, n, D)
-    wp, bp = rnd(D, D, scale=D ** -0.5), rnd(D)
-    dxo = rnd(B, n, D)
-    names = ("dq", "dk", "dv", "dwp", "dbp", "db_qkv")
-
-    def split(out):
-        dqkv, dwp, dbp, db = out
-        return (dqkv[..., :D], dqkv[..., D:2 * D], dqkv[..., 2 * D:], dwp, dbp, db)
-
-    def hold_ap(label, n_valid):
-        o, lse, _ = fb.attend_project_fwd(qkv, x_res, wp, bp, HEADS, dh ** -0.5, n_valid,
-                                          need_o=True)
-        a = (qkv, o, lse, wp, dxo, HEADS, dh ** -0.5, n_valid)
-        got = split(fb.attend_project_bwd(*a))
-        worst = hold("attend_project_bwd", label,
-                     list(zip(names, got, split(fb.attend_project_bwd_plain(*a)))))
-        return worst, got, a
-
-    (err, rel), got, args = hold_ap("main path", N_VALID)
-    pad = torch.cat([got[1][:, N_VALID:], got[2][:, N_VALID:]], dim=-1)
-    if torch.count_nonzero(pad).item() != 0:
-        raise AssertionError("attend_project_bwd: padded key rows have dk or dv != 0")
-    print(f"attend_project_bwd: dk and dv exactly 0 on the {n - N_VALID} padded key rows")
-    hold_ap("every key valid", n)
-    first, second = fb.attend_project_bwd(*args), fb.attend_project_bwd(*args)
-    if not all(torch.equal(p, q) for p, q in zip(first, second)):
-        raise AssertionError("attend_project_bwd: two calls on the same inputs differ")
-    print("attend_project_bwd: two calls on the same inputs agree bit for bit")
-    del first, second
-    ms = cuda_ms(lambda: fb.attend_project_bwd(*args), 10)
-    plain_ms = cuda_ms(lambda: fb.attend_project_bwd_plain(*args), 2, warmup=1)
-    keep = (torch.arange(n, device="cuda") < N_VALID)[None, None, None, :]
-    lq, lw, lb = (t.detach().clone().requires_grad_() for t in (qkv, wp, bp))
-    q, k, v = lq.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
-    o = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
-    lib_out = F.linear(o.transpose(1, 2).reshape(B, n, D), lw, lb) + x_res
-    library_ms = cuda_ms(
-        lambda: torch.autograd.grad(lib_out, (lq, lw, lb), dxo, retain_graph=True), 10)
-    del lib_out, o, q, k, v
-    results["attend_project_bwd"] = dict(
-        source="diverse_channel_vit_torch/csrc/attend_project_bwd.cu",
-        replaces="diverse_channel_vit_tpu/ops/fused_block.py:713",
-        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        flops=10 * rows * N_VALID * D + 4 * rows * D * D,
-        bytes=2 * (rows * 3 * D + rows * D + rows * D + D * D + rows * 3 * D)
-        + 4 * (rows * HEADS + D * D + D + 3 * D),
-    )
-    del qkv, x_res, dxo, args, got, pad
+    results = {"attend_project_bwd": check_attend_project_bwd(fb, torch, F, HEADS, rnd)}
 
     # --- B4 ln_mlp_bwd
     x, do = rnd(B, n, D), rnd(B, n, D)
@@ -657,10 +691,11 @@ def check_q_kernels(fb, torch, F, kernels):
     return results
 
 
-def check_flash_kernels(torch, F, core):
+def check_flash_kernels(torch, F, core, heads=HEADS):
     """Phase 3, B5 and B6 (flash_attention_packed) against their plain
-    versions at the grids the EViT path gives them (EVIT_GRIDS, B = 64, 6
-    heads of 64, bf16), q, k and v as the thirds of one packed qkv tensor, as
+    versions at the grids the EViT path gives them (EVIT_GRIDS, B = 64,
+    ``heads`` heads: 6 of 64, or 3 of 128 for the small_tpu preset; bf16),
+    q, k and v as the thirds of one packed qkv tensor, as
     the model passes them. The last grid has no mask and no padded rows.
     Each output within KERNEL_REL_TOL, B5's lse within LSE_REL_TOL; B6's dk
     and dv exactly 0 on padded key rows, and two B6 calls on the same inputs
@@ -673,7 +708,9 @@ def check_flash_kernels(torch, F, core):
     from diverse_channel_vit_torch.ops import attention as at
 
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(2))
-    dh, scale = D // HEADS, (D // HEADS) ** -0.5
+    dh, scale = D // heads, (D // heads) ** -0.5
+    fname, bname = kernel_name("flash_packed_fwd", heads), kernel_name("flash_packed_bwd", heads)
+    ap_f, ap_b = kernel_name("attend_project_fwd", heads), kernel_name("attend_project_bwd", heads)
     fwd = dict(source="diverse_channel_vit_torch/csrc/flash_packed.cu",
                replaces="diverse_channel_vit_tpu/ops/attention.py:243", grids=[])
     bwd = dict(source="diverse_channel_vit_torch/csrc/flash_packed_bwd.cu",
@@ -683,50 +720,50 @@ def check_flash_kernels(torch, F, core):
         qkv = rnd(B, n, 3 * D)
         q, k, v = qkv.split(D, dim=-1)
         do = rnd(B, n, D)
-        o, lse = at.flash_packed_fwd(q, k, v, HEADS, scale, n_valid, need_lse=True)
-        o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, HEADS, scale, n_valid, need_lse=True)
-        err_f, rel_f = hold("flash_packed_fwd", label, (("o", o, o_p), ("lse", lse, lse_p)))
+        o, lse = at.flash_packed_fwd(q, k, v, heads, scale, n_valid, need_lse=True)
+        o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, scale, n_valid, need_lse=True)
+        err_f, rel_f = hold(fname, label, (("o", o, o_p), ("lse", lse, lse_p)))
         rel_lse = ((lse - lse_p).abs().max() / lse_p.abs().max()).item()
-        print(f"flash_packed_fwd ({label}): lse rel {rel_lse:.3e} (tolerance rel <= "
+        print(f"{fname} ({label}): lse rel {rel_lse:.3e} (tolerance rel <= "
               f"{LSE_REL_TOL})")
         if not rel_lse <= LSE_REL_TOL:
-            raise AssertionError(f"flash_packed_fwd ({label}): lse disagrees with its plain "
+            raise AssertionError(f"{fname} ({label}): lse disagrees with its plain "
                                  "version")
         del o_p, lse_p
-        got = at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, n_valid)
-        want = at.flash_packed_bwd_plain(q, k, v, o, do, lse, HEADS, scale, n_valid)
-        err_b, rel_b = hold("flash_packed_bwd", label,
+        got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, scale, n_valid)
+        want = at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads, scale, n_valid)
+        err_b, rel_b = hold(bname, label,
                             (("dq", got[0], want[0]), ("dk", got[1], want[1]),
                              ("dv", got[2], want[2])))
         pad = int(torch.count_nonzero(got[1][:, n_valid:])) + \
             int(torch.count_nonzero(got[2][:, n_valid:]))
         if pad:
-            raise AssertionError(f"flash_packed_bwd ({label}): padded key rows have dk or dv != 0")
-        print(f"flash_packed_bwd ({label}): dk and dv exactly 0 on the {n - n_valid} padded "
+            raise AssertionError(f"{bname} ({label}): padded key rows have dk or dv != 0")
+        print(f"{bname} ({label}): dk and dv exactly 0 on the {n - n_valid} padded "
               "key rows")
-        again = at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, n_valid)
+        again = at.flash_packed_bwd(q, k, v, o, do, lse, heads, scale, n_valid)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"flash_packed_bwd ({label}): two calls on the same inputs "
+            raise AssertionError(f"{bname} ({label}): two calls on the same inputs "
                                  "differ")
-        print(f"flash_packed_bwd ({label}): two calls on the same inputs agree bit for bit")
+        print(f"{bname} ({label}): two calls on the same inputs agree bit for bit")
         del got, want, again
         keep = (torch.arange(n, device="cuda") < n_valid)[None, None, None, :]
-        heads_view = qkv.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
+        heads_view = qkv.view(B, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
         timing_f = dict(
-            ms=cuda_ms(lambda: at.flash_packed_fwd(q, k, v, HEADS, scale, n_valid), 10),
-            plain_ms=cuda_ms(lambda: at.flash_packed_fwd_plain(q, k, v, HEADS, scale, n_valid),
+            ms=cuda_ms(lambda: at.flash_packed_fwd(q, k, v, heads, scale, n_valid), 10),
+            plain_ms=cuda_ms(lambda: at.flash_packed_fwd_plain(q, k, v, heads, scale, n_valid),
                              3, warmup=1),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 *heads_view, attn_mask=keep), 10))
         timing_b = dict(
-            ms=cuda_ms(lambda: at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, n_valid),
+            ms=cuda_ms(lambda: at.flash_packed_bwd(q, k, v, o, do, lse, heads, scale, n_valid),
                        10),
-            plain_ms=cuda_ms(lambda: at.flash_packed_bwd_plain(q, k, v, o, do, lse, HEADS, scale,
+            plain_ms=cuda_ms(lambda: at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads, scale,
                                                                n_valid), 2, warmup=1))
         lq = qkv.detach().clone().requires_grad_()
         lib_out = F.scaled_dot_product_attention(
-            *lq.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4), attn_mask=keep)
-        do_h = do.view(B, n, HEADS, dh).transpose(1, 2)
+            *lq.view(B, n, 3, heads, dh).permute(2, 0, 3, 1, 4), attn_mask=keep)
+        do_h = do.view(B, n, heads, dh).transpose(1, 2)
         timing_b["library_ms"] = cuda_ms(
             lambda: torch.autograd.grad(lib_out, lq, do_h, retain_graph=True), 10)
         del lib_out, lq
@@ -734,7 +771,7 @@ def check_flash_kernels(torch, F, core):
         for entry, err, rel, timing, flops, nbytes in (
                 (fwd, err_f, rel_f, timing_f, 4 * rows * n_valid * D, 2 * 4 * rows * D),
                 (bwd, err_b, rel_b, timing_b, 10 * rows * n_valid * D,
-                 2 * 8 * rows * D + 4 * rows * HEADS)):
+                 2 * 8 * rows * D + 4 * rows * heads)):
             entry["grids"].append(dict(n=n, n_valid=n_valid, max_abs_err=err, rel_err=rel,
                                        flops=flops, bytes=nbytes, **timing,
                                        bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS,
@@ -742,7 +779,7 @@ def check_flash_kernels(torch, F, core):
         del qkv, q, k, v, o, lse, do
         torch.cuda.empty_cache()
     results = {}
-    for name, entry in (("flash_packed_fwd", fwd), ("flash_packed_bwd", bwd)):
+    for name, entry in ((fname, fwd), (bname, bwd)):
         grids = entry.pop("grids")
         worst = max(grids, key=lambda g: g["rel_err"])
         entry.update(max_abs_err=worst["max_abs_err"], rel_err=worst["rel_err"],
@@ -753,10 +790,9 @@ def check_flash_kernels(torch, F, core):
         results[name] = entry
     per_grid = {name: ", ".join(f"{g['ms']:.4f}" for g in results[name]["per_grid"])
                 for name in results}
-    print(f"flash core (flash_wgmma.cuh): B1 {core['attend_project_fwd']['ms']:.4f} ms and B2 "
-          f"{core['attend_project_bwd']['ms']:.4f} ms at N 1600; B5 "
-          f"{results['flash_packed_fwd']['ms']:.4f} ms ({per_grid['flash_packed_fwd']}) and B6 "
-          f"{results['flash_packed_bwd']['ms']:.4f} ms ({per_grid['flash_packed_bwd']}) over "
+    print(f"flash core (flash_wgmma.cuh), head width {dh}: B1 {core[ap_f]['ms']:.4f} ms and B2 "
+          f"{core[ap_b]['ms']:.4f} ms at N 1600; B5 {results[fname]['ms']:.4f} ms "
+          f"({per_grid[fname]}) and B6 {results[bname]['ms']:.4f} ms ({per_grid[bname]}) over "
           "the EViT grids")
     return results
 
@@ -767,10 +803,12 @@ def check_flash_kernels(torch, F, core):
 SCRIPT_N, INT8_N = 1664, 1600
 
 
-def check_script_kernels(fb, torch, F):
+def check_script_kernels(fb, torch, F, heads=HEADS):
     """Phase 3, the benchmark scripts' kernels at their scripts' default
     shapes, each against its plain version and its package sibling on the
-    same inputs (the difference printed):
+    same inputs (the difference printed), S1 and S2 at ``heads`` heads (6
+    of 64, or 3 of 128: ``bench_attn --heads 3`` and ``bench_block_fusion``
+    at 3 heads), S3 with the default heads only:
 
     - S1 ``bwd_call`` (B = 64, N = 1664, n_valid = 1569): both schedules,
       every output, padded key rows exactly 0; ``pair_staged`` against
@@ -780,11 +818,12 @@ def check_script_kernels(fb, torch, F):
     - S2 ``qkv_flash_fwd`` (the same grid): against B5 (``flash_packed_fwd``
       on the three views of the same qkv), bit for bit. Library: SDPA on the
       views.
-    - S3 ``int8_ln_mlp`` (B = 64, N = 1600): residual fused with biases at
-      the residual's scale, then no residual and zero output bias; the
-      hidden codes within MAX_CODE_FLIPS of the plain version's; against B7
-      (``ln_mlp_q_fwd``) on the same codes and scales, outputs and hidden
-      codes. Library: B7's composition with ``torch._int_mm``."""
+    - S3 ``int8_ln_mlp`` (B = 64, N = 1600), B7's kernel launched through
+      B7's wrapper: residual fused with biases at the residual's scale, then
+      no residual and zero output bias; the hidden codes within
+      MAX_CODE_FLIPS of the plain version's; against B7 (``ln_mlp_q_fwd``)
+      on the same codes and scales, outputs and hidden codes bit for bit.
+      Library: B7's composition with ``torch._int_mm``."""
     from diverse_channel_vit_torch.ops import attention as at
     from diverse_channel_vit_torch.scripts import bench_attn as s1
     from diverse_channel_vit_torch.scripts import bench_block_fusion as s2
@@ -792,58 +831,59 @@ def check_script_kernels(fb, torch, F):
 
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(4))
     bf16, f32 = torch.bfloat16, torch.float32
-    n, dh = SCRIPT_N, D // HEADS
+    n, dh = SCRIPT_N, D // heads
     scale = dh ** -0.5
     rows = B * n  # every query row is computed and read
     keep = (torch.arange(n, device="cuda") < N_VALID)[None, None, None, :]
     results = {}
+    s1name, s2name = kernel_name("bwd_call", heads), kernel_name("qkv_flash_fwd", heads)
 
     # --- S1 bwd_call
     q, k, v, o, do = (rnd(B, n, D) for _ in range(5))
-    args = (q, k, v, o, do, HEADS, scale, N_VALID)
+    args = (q, k, v, o, do, heads, scale, N_VALID)
     want = s1.bwd_call_plain(*args)
     got, ms = {}, {}
     for variant in s1.VARIANTS:
         got[variant] = s1.bwd_call(*args, variant)
-        worst = hold("bwd_call", variant, list(zip(("dq", "dk", "dv"), got[variant], want)))
+        worst = hold(s1name, variant, list(zip(("dq", "dk", "dv"), got[variant], want)))
         if variant == "pair_staged":
             err, rel = worst
         pad = sum(int(torch.count_nonzero(t[:, N_VALID:])) for t in got[variant][1:])
         if pad:
-            raise AssertionError(f"bwd_call ({variant}): padded key rows have dk or dv != 0")
+            raise AssertionError(f"{s1name} ({variant}): padded key rows have dk or dv != 0")
         ms[variant] = cuda_ms(lambda variant=variant: s1.bwd_call(*args, variant), 10)
-    print(f"bwd_call: dk and dv exactly 0 on the {n - N_VALID} padded key rows")
+    print(f"{s1name}: dk and dv exactly 0 on the {n - N_VALID} padded key rows")
     sibling = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got["pair_staged"], got["pair_batched"]))
-    print(f"bwd_call: max |pair_staged - pair_batched| over dq, dk, dv: {sibling:.3e} "
+    print(f"{s1name}: max |pair_staged - pair_batched| over dq, dk, dv: {sibling:.3e} "
           "(must be 0)")
     if sibling != 0.0:
-        raise AssertionError("bwd_call: the two schedules disagree")
+        raise AssertionError(f"{s1name}: the two schedules disagree")
     # S1 = its statistics pass (B5's lse, recomputed) + B6's passes
-    lse = at.flash_packed_fwd(q, k, v, HEADS, scale, N_VALID, need_lse=True)[1]
-    b6 = at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, N_VALID)
+    lse = at.flash_packed_fwd(q, k, v, heads, scale, N_VALID, need_lse=True)[1]
+    b6 = at.flash_packed_bwd(q, k, v, o, do, lse, heads, scale, N_VALID)
     b6_diff = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got["pair_staged"], b6))
-    b6_ms = cuda_ms(lambda: at.flash_packed_bwd(q, k, v, o, do, lse, HEADS, scale, N_VALID), 10)
-    print(f"bwd_call: max |S1 - B6 given B5's lse| over dq, dk, dv: {b6_diff:.3e} (must be 0); "
+    b6_ms = cuda_ms(lambda: at.flash_packed_bwd(q, k, v, o, do, lse, heads, scale, N_VALID), 10)
+    print(f"{s1name}: max |S1 - B6 given B5's lse| over dq, dk, dv: {b6_diff:.3e} (must be 0); "
           f"B6 {b6_ms:.4f} ms, S1 {ms['pair_staged']:.4f} ms")
     if b6_diff != 0.0:
-        raise AssertionError("bwd_call: S1 disagrees with B6 given B5's lse")
+        raise AssertionError(f"{s1name}: S1 disagrees with B6 given B5's lse")
     for variant in s1.VARIANTS:
         again = s1.bwd_call(*args, variant)
         if not all(torch.equal(a, b) for a, b in zip(got[variant], again)):
-            raise AssertionError(f"bwd_call ({variant}): two calls on the same inputs differ")
-    print("bwd_call: two calls on the same inputs agree bit for bit in both schedules")
+            raise AssertionError(f"{s1name} ({variant}): two calls on the same inputs differ")
+    print(f"{s1name}: two calls on the same inputs agree bit for bit in both schedules")
     del got, want, lse, b6, again
     plain_ms = cuda_ms(lambda: s1.bwd_call_plain(*args), 2, warmup=1)
     lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    heads_view = [t.view(B, n, HEADS, dh).transpose(1, 2) for t in (lq, lk, lv)]
+    heads_view = [t.view(B, n, heads, dh).transpose(1, 2) for t in (lq, lk, lv)]
     lib_out = F.scaled_dot_product_attention(*heads_view, attn_mask=keep, scale=scale)
-    do_h = do.view(B, n, HEADS, dh).transpose(1, 2)
+    do_h = do.view(B, n, heads, dh).transpose(1, 2)
     library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do_h,
                                                      retain_graph=True), 10)
     del lib_out, lq, lk, lv, heads_view
-    results["bwd_call"] = dict(
+    results[s1name] = dict(
         source="diverse_channel_vit_torch/csrc/bench_attn_bwd.cu",
         replaces="scripts/bench_attn.py:94",
         max_abs_err=err, rel_err=rel, ms=ms["pair_staged"], plain_ms=plain_ms,
@@ -856,22 +896,22 @@ def check_script_kernels(fb, torch, F):
 
     # --- S2 qkv_flash_fwd
     qkv = rnd(B, n, 3 * D)
-    out = s2.qkv_flash_fwd(qkv, HEADS, scale, N_VALID)
-    err, rel = hold("qkv_flash_fwd", "benchmark grid",
-                    (("o", out, s2.qkv_flash_fwd_plain(qkv, HEADS, scale, N_VALID)),))
+    out = s2.qkv_flash_fwd(qkv, heads, scale, N_VALID)
+    err, rel = hold(s2name, "benchmark grid",
+                    (("o", out, s2.qkv_flash_fwd_plain(qkv, heads, scale, N_VALID)),))
     views = qkv.split(D, dim=-1)
-    b5 = at.flash_packed_fwd(*views, HEADS, scale, N_VALID)[0]
+    b5 = at.flash_packed_fwd(*views, heads, scale, N_VALID)[0]
     sibling = (out.float() - b5.float()).abs().max().item()
-    b5_ms = cuda_ms(lambda: at.flash_packed_fwd(*views, HEADS, scale, N_VALID), 10)
-    ms = cuda_ms(lambda: s2.qkv_flash_fwd(qkv, HEADS, scale, N_VALID), 10)
-    print(f"qkv_flash_fwd: max |S2 - B5 (flash_packed_fwd)| on the same qkv {sibling:.3e} "
+    b5_ms = cuda_ms(lambda: at.flash_packed_fwd(*views, heads, scale, N_VALID), 10)
+    ms = cuda_ms(lambda: s2.qkv_flash_fwd(qkv, heads, scale, N_VALID), 10)
+    print(f"{s2name}: max |S2 - B5 (flash_packed_fwd)| on the same qkv {sibling:.3e} "
           f"(must be 0); B5 {b5_ms:.4f} ms, S2 {ms:.4f} ms")
     if sibling != 0.0:
-        raise AssertionError("qkv_flash_fwd: S2 disagrees with B5 on the same qkv")
-    plain_ms = cuda_ms(lambda: s2.qkv_flash_fwd_plain(qkv, HEADS, scale, N_VALID), 3, warmup=1)
-    heads_view = qkv.view(B, n, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
+        raise AssertionError(f"{s2name}: S2 disagrees with B5 on the same qkv")
+    plain_ms = cuda_ms(lambda: s2.qkv_flash_fwd_plain(qkv, heads, scale, N_VALID), 3, warmup=1)
+    heads_view = qkv.view(B, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads_view, attn_mask=keep), 10)
-    results["qkv_flash_fwd"] = dict(
+    results[s2name] = dict(
         source="diverse_channel_vit_torch/csrc/qkv_flash.cu",
         replaces="scripts/bench_block_fusion.py:121",
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -880,6 +920,9 @@ def check_script_kernels(fb, torch, F):
     )
     del qkv, out, b5, views, heads_view
     torch.cuda.empty_cache()
+
+    if heads != HEADS:
+        return results
 
     # --- S3 int8_ln_mlp
     rows = B * INT8_N
@@ -901,13 +944,16 @@ def check_script_kernels(fb, torch, F):
         diff = (out.float() - out7.float()).abs().max().item()
         share = (codes != codes7).float().mean().item()
         print(f"int8_ln_mlp ({label}): against B7 (ln_mlp_q_fwd) on the same codes and scales: "
-              f"max |out - out_B7| {diff:.3e}, hidden codes differing {share:.3e}")
+              f"max |out - out_B7| {diff:.3e}, hidden codes differing {share:.3e} (both must "
+              "be 0: one kernel)")
+        if diff != 0.0 or share != 0.0:
+            raise AssertionError(f"int8_ln_mlp ({label}): S3 disagrees with B7")
         if label == "main path":
             (err, rel), sibling, sibling_codes = worst, diff, share
         del out, codes, out_p, codes_p, out7, codes7
     ms = cuda_ms(lambda: s3.int8_ln_mlp(*fargs), 10)
     b7_ms = cuda_ms(lambda: fb.ln_mlp_q_fwd(*fargs), 10)
-    print(f"int8_ln_mlp: S3 (one pass) {ms:.4f} ms, B7 (two passes) {b7_ms:.4f} ms")
+    print(f"int8_ln_mlp: S3 {ms:.4f} ms, B7 {b7_ms:.4f} ms (one kernel)")
     plain_ms = cuda_ms(lambda: s3.int8_ln_mlp_plain(*fargs), 3, warmup=1)
 
     def library():
@@ -919,7 +965,7 @@ def check_script_kernels(fb, torch, F):
 
     library_ms = int8_library_ms("int8_ln_mlp", library)
     results["int8_ln_mlp"] = dict(
-        source="diverse_channel_vit_torch/csrc/int8_ln_mlp.cu",
+        source="diverse_channel_vit_torch/csrc/ln_mlp_q.cu",
         replaces="scripts/bench_int8_lnmlp.py:39",
         max_abs_err=err, rel_err=rel, code_flips=max(flips), ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, sibling_max_abs_diff=sibling, sibling_code_share=sibling_codes,
@@ -931,7 +977,9 @@ def check_script_kernels(fb, torch, F):
     return results
 
 
-# which kernels each benchmark script run must launch: (module, argv, names)
+# which kernels each benchmark script run must launch: (module, argv or the
+# keywords of its main, names); the last two runs are the small_tpu
+# preset's head width, 3 heads of 128
 SCRIPT_RUNS = (
     ("bench_attn", ["chain"], ("attend_project_fwd", "attend_project_bwd")),
     ("bench_attn", ["bwd-variants"], ("bwd_call",)),
@@ -941,27 +989,41 @@ SCRIPT_RUNS = (
                                  "ln_mlp_bwd")),
     ("bench_block_fusion", [], ("flash_packed_fwd", "flash_packed_bwd", "qkv_flash_fwd")),
     ("bench_int8_lnmlp", [], ("ln_mlp_fwd", "int8_ln_mlp")),
+    ("bench_attn", ["bwd-variants", "--heads", str(HEADS_TPU)], ("bwd_call",)),
+    ("bench_block_fusion", {"heads": HEADS_TPU},
+     ("flash_packed_fwd", "flash_packed_bwd", "qkv_flash_fwd")),
 )
+
+
+def script_label(name: str, args) -> str:
+    """How a run of SCRIPT_RUNS is called: its command line, or its main's
+    call for a keyword that the script takes in Python only."""
+    if isinstance(args, dict):
+        kw = ", ".join(f"{k}={v}" for k, v in args.items())
+        return f"diverse_channel_vit_torch.scripts.{name}.main({kw})"
+    return " ".join(["python -m", f"diverse_channel_vit_torch.scripts.{name}", *args])
 
 
 def run_scripts(fb):
     """Phase 8: each benchmark script through its entry point (``main``, what
     ``python -m diverse_channel_vit_torch.scripts.<name>`` calls) at its
-    defaults, its output echoed; the counts set to 0 just before each run
-    and read just after, and each kernel the run exists for launched at
-    least once. An exception ends the smoke run. Returns the counts by
-    run."""
+    defaults and at 3 heads of 128 (SCRIPT_RUNS), its output echoed; the
+    counts set to 0 just before each run and read just after, and each
+    kernel the run exists for launched at least once. An exception ends the
+    smoke run. Returns the counts by run."""
     import importlib
 
     counts = {}
-    for name, argv, names in SCRIPT_RUNS:
-        label = " ".join(["python -m", f"diverse_channel_vit_torch.scripts.{name}", *argv])
+    for name, args, names in SCRIPT_RUNS:
+        label = script_label(name, args)
         mod = importlib.import_module(f"diverse_channel_vit_torch.scripts.{name}")
         print(f"== {label}", flush=True)
         t = time.perf_counter()
         fb.reset_launches()
-        if argv:
-            mod.main(argv)
+        if isinstance(args, dict):
+            mod.main(**args)
+        elif args:
+            mod.main(args)
         else:
             mod.main()
         launches = {k: c for k, c in fb.LAUNCHES.items() if c}
@@ -972,6 +1034,13 @@ def run_scripts(fb):
             raise AssertionError(f"{label}: {missing} launched no time")
         counts[label] = launches
     return counts
+
+
+def phase_line(label: str, imgs_per_s: float, p50_ms: float, torch) -> None:
+    """A path's images/s and p50 ms beside the peak device memory since the
+    path reset it and the card it ran on."""
+    print(f"phase {label}: {imgs_per_s:.2f} images/s, p50 {p50_ms:.3f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; card {card_line()}")
 
 
 def post_npy(port: int, image: np.ndarray, cids) -> np.ndarray:
@@ -1089,17 +1158,19 @@ def logits_close(label: str, got, want) -> float:
     return rel
 
 
-def serve(fb, torch):
-    """Phase 4: full-width DiChaViT-S through the serving entry points."""
+def serve(fb, torch, label: str = "serving", **extra):
+    """Phase 4: full-width DiChaViT-S (or with ``extra`` another preset of
+    the same width) through the serving entry points."""
     from diverse_channel_vit_torch.serving import ServingEngine
     from diverse_channel_vit_torch.serving_http import ServingHTTPServer
 
-    model = build(DEPTH)
+    model = build(DEPTH, **extra)
     engine = ServingEngine(model, buckets=BUCKETS, device="cuda")
     rng = np.random.default_rng(0)
     imgs = rng.standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)
     full, sub = list(range(CHANNELS)), [0, 3, 5]
 
+    torch.cuda.reset_peak_memory_stats()
     fb.reset_launches()
     engine.n_forwards = 0
     t0 = time.perf_counter()
@@ -1137,7 +1208,7 @@ def serve(fb, torch):
     print(f"main path: {forwards} forwards in {time.perf_counter() - t0:.1f} s; "
           f"health {health}; stats {stats}")
     # blocks 0-10 fused, block 11 the CLS readout; no flash_packed, no backward
-    check_counts("serving", launches, forwards, "forward",
+    check_counts(label, launches, forwards, "forward",
                  {"attend_project_fwd": DEPTH - 1, "ln_mlp_fwd": DEPTH - 1})
 
     outs = {"predict64": out64, "predict3": out3, "predict_subset": out_sub,
@@ -1168,7 +1239,9 @@ def serve(fb, torch):
     for key, got, want in (("predict64", out64, ref), ("predict_subset", out_sub, ref_sub)):
         logits_close(f"logits {key} vs plain versions on the card", got, want)
     engine.stop()
-    print("serving " + json.dumps({"buckets": timings}))
+    print(f"{label} " + json.dumps({"buckets": timings}))
+    phase_line(f"{label}, bucket 64", timings[64]["imgs_per_s"], timings[64]["p50_ms"], torch)
+    del model, engine
     return launches, forwards
 
 
@@ -1442,52 +1515,64 @@ def train(fb, torch, label: str, want: dict, **extra):
               "steps": timed, "batch": B, "params": n_params,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"{label} " + json.dumps(timing))
+    phase_line(label, timing["imgs_per_s"], timing["p50_ms"], torch)
     profile_call(lambda: step(state, batch), f"one {label} step (64 images)", torch)
     del model, state, step
     torch.cuda.empty_cache()
     return launches, steps, timing
 
 
-def train_recipe(fb, torch, want: dict):
+def train_recipe(fb, torch, want: dict, label: str = "DCS recipe train", **extra):
     """The DCS recipe at full width: B = 64, k drawn per step from the JAX
     benchmark's 48-draw mixture, one step function per k over one train
-    state. Each distinct k is warmed once and that pass discarded (a fresh
-    shape's first pass runs slow); then counts set to 0 just before the 48
-    timed steps and read just after, each kernel ``want[name]`` launches per
-    step, whatever k."""
+    state (``extra``: model config keys, such as another preset or EViT's
+    keep_rate). Each distinct k is warmed once and that pass discarded (a
+    fresh shape's first pass runs slow); then counts set to 0 just before
+    the 48 timed steps and read just after, each kernel ``want[name]``
+    launches per step, whatever k. The p50 step is the median interval
+    between CUDA events recorded after each step (no host synchronisation
+    inside the timed run)."""
     batch = synthetic_batch(torch)
     ks = recipe_ks()
-    model, state, steps = train_setup(DEPTH, torch, ks=ks)
+    model, state, steps = train_setup(DEPTH, torch, ks=ks, **extra)
     first = {}
     for i, k in enumerate(ks):
         first.setdefault(k, i)
     for k, i in sorted(first.items()):
         state, m = steps[i](state, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fb.reset_launches()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(ks) + 1)]
     t = time.perf_counter()
+    events[0].record()
     metrics = []
     for i in range(len(ks)):
         state, m = steps[i](state, batch)
+        events[i + 1].record()
         metrics.append(m)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     launches = dict(fb.LAUNCHES)
-    check_counts("DCS recipe train", launches, len(ks), "step", want)
+    check_counts(label, launches, len(ks), "step", want)
     sampled = [m["sampled_channels"].tolist() if "sampled_channels" in m else "all"
                for m in metrics[:6]]
     losses = [float(m["loss"]) for m in metrics]
     if not np.isfinite(losses).all():
-        raise AssertionError(f"DCS recipe train: non-finite losses {losses}")
+        raise AssertionError(f"{label}: non-finite losses {losses}")
     for k, m in zip(ks, metrics):
         got = len(m["sampled_channels"]) if "sampled_channels" in m else CHANNELS
         if got != k:
-            raise AssertionError(f"DCS recipe train: a k = {k} step trained on {got} channels")
+            raise AssertionError(f"{label}: a k = {k} step trained on {got} channels")
     timing = {"imgs_per_s": B * len(ks) / secs, "steps": len(ks), "batch": B,
-              "mean_k": float(np.mean(ks)), "secs": secs}
-    print(f"DCS recipe train: k of the first steps {ks[:6]}, channels drawn {sampled}; "
+              "mean_k": float(np.mean(ks)), "secs": secs,
+              "p50_ms": float(np.percentile(step_ms, 50)),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{label}: k of the first steps {ks[:6]}, channels drawn {sampled}; "
           f"losses {losses[0]:.4f} .. {losses[-1]:.4f}")
-    print("DCS recipe train " + json.dumps(timing))
+    print(f"{label} " + json.dumps(timing))
+    phase_line(label, timing["imgs_per_s"], timing["p50_ms"], torch)
     del model, state, steps
     torch.cuda.empty_cache()
     return launches, len(ks), timing
@@ -1595,6 +1680,14 @@ def main() -> int:
     results.update(check_flash_kernels(torch, F, results))
     results.update(check_q_kernels(fb, torch, F, kernels))
     results.update(check_script_kernels(fb, torch, F))
+    # the attention kernels at head width 128: the small_tpu preset's 3 heads
+    rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(10))
+    results[kernel_name("attend_project_fwd", HEADS_TPU)] = check_attend_project_fwd(
+        fb, torch, F, HEADS_TPU, rnd)
+    results[kernel_name("attend_project_bwd", HEADS_TPU)] = check_attend_project_bwd(
+        fb, torch, F, HEADS_TPU, rnd)
+    results.update(check_flash_kernels(torch, F, results, HEADS_TPU))
+    results.update(check_script_kernels(fb, torch, F, HEADS_TPU))
     for name, r in results.items():
         # each product at the unit that runs it: bf16 FLOPs and int8 operations
         t_ops = r.pop("flops") / PEAK_BF16_FLOPS + r.pop("int8_ops", 0) / PEAK_INT8_OPS
@@ -1606,80 +1699,107 @@ def main() -> int:
               f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
 
+    # each path: the counts by kernel and the units (forwards or steps) they
+    # were read over; the kernels line takes each kernel's launches from its
+    # main paths
+    paths = {}
     fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
-    serve_launches, forwards = serve(fb, torch)
+    evit4 = {**dict.fromkeys(fused4, DEPTH - 4), "flash_packed_fwd": 3, "flash_packed_bwd": 3}
+    int8_train = ("attend_project_fwd", "attend_project_bwd", "ln_mlp_q_fwd", "ln_mlp_q_bwd")
+    paths["serving"] = (*serve(fb, torch), "forward")
     torch.cuda.empty_cache()
-    evit_serve_launches, evit_forwards, _ = serve_evit(fb, torch)
+    paths["EViT serving"] = (*serve_evit(fb, torch)[:2], "forward")
     serve_gelu_exact(fb, torch)
-    train_launches, steps, _ = train(fb, torch, "train", dict.fromkeys(fused4, DEPTH - 1))
+    paths["train"] = (*train(fb, torch, "train", dict.fromkeys(fused4, DEPTH - 1))[:2], "step")
     train_parity(fb, torch, "train parity", PARITY_DEPTH, 3,
                  dict.fromkeys(fused4, PARITY_DEPTH - 1))
-    evit_train_launches, evit_steps, _ = train(
-        fb, torch, "EViT train", {**dict.fromkeys(fused4, DEPTH - 4),
-                                  "flash_packed_fwd": 3, "flash_packed_bwd": 3},
-        keep_rate=KEEP_RATE)
+    paths["EViT train"] = (*train(fb, torch, "EViT train", evit4, keep_rate=KEEP_RATE)[:2],
+                           "step")
     # at PARITY_DEPTH the pruning layers are 1, 2 and 3: block 0 fused, no readout
-    train_parity(fb, torch, "EViT train parity", PARITY_DEPTH, 3,
-                 {**dict.fromkeys(fused4, 1), "flash_packed_fwd": 3, "flash_packed_bwd": 3},
+    evit_parity = {**dict.fromkeys(fused4, 1), "flash_packed_fwd": 3, "flash_packed_bwd": 3}
+    train_parity(fb, torch, "EViT train parity", PARITY_DEPTH, 3, evit_parity,
                  keep_rate=KEEP_RATE)
     train_parity(fb, torch, "gelu_exact train parity", GELU_PARITY_DEPTH, 1,
                  {"flash_packed_fwd": GELU_PARITY_DEPTH - 1,
                   "flash_packed_bwd": GELU_PARITY_DEPTH - 1}, gelu_exact=True)
     # int8: B7 / B8 in place of B3 / B4 in every fused block
-    int8_serve_launches, int8_forwards, _ = serve_int8(fb, torch)
-    int8_train = ("attend_project_fwd", "attend_project_bwd", "ln_mlp_q_fwd", "ln_mlp_q_bwd")
-    int8_train_launches, int8_steps, _ = train(fb, torch, "int8 train",
-                                               dict.fromkeys(int8_train, DEPTH - 1),
-                                               quantization="int8")
+    paths["int8 serving"] = (*serve_int8(fb, torch)[:2], "forward")
+    paths["int8 train"] = (*train(fb, torch, "int8 train", dict.fromkeys(int8_train, DEPTH - 1),
+                                  quantization="int8")[:2], "step")
     train_parity(fb, torch, "int8 train parity", PARITY_DEPTH, 3,
                  dict.fromkeys(int8_train, PARITY_DEPTH - 1), quantization="int8")
     # the DCS recipe: k of 8 channels per step, B1-B4 in every fused block
-    recipe_launches, recipe_steps, _ = train_recipe(fb, torch, dict.fromkeys(fused4, DEPTH - 1))
+    paths["DCS recipe train"] = (*train_recipe(fb, torch, dict.fromkeys(fused4, DEPTH - 1))[:2],
+                                 "step")
     train_parity(fb, torch, "DCS recipe train parity", PARITY_DEPTH, 3,
                  dict.fromkeys(fused4, PARITY_DEPTH - 1), ks=(2, 5, 8))
     torch.cuda.empty_cache()
-    # the benchmark scripts: S1-S3 run only there
-    script_launches = run_scripts(fb)
-    script_runs = {"bwd_call": "python -m diverse_channel_vit_torch.scripts.bench_attn "
-                               "bwd-variants",
-                   "qkv_flash_fwd": "python -m diverse_channel_vit_torch.scripts."
-                                    "bench_block_fusion",
-                   "int8_ln_mlp": "python -m diverse_channel_vit_torch.scripts."
-                                  "bench_int8_lnmlp"}
 
+    # the small_tpu preset (3 heads of 128) at full width and depth, as the
+    # JAX bench's mxu_native, int8_dh128 and dh-128 EViT recipe cells: every
+    # attention kernel at head width 128
+    tpu = dict(pretrained_model_name=TPU_PRESET)
+    paths["small_tpu serving"] = (*serve(fb, torch, "small_tpu serving", **tpu), "forward")
+    torch.cuda.empty_cache()
+    paths["small_tpu train"] = (*train(fb, torch, "small_tpu train",
+                                       dict.fromkeys(fused4, DEPTH - 1), **tpu)[:2], "step")
+    train_parity(fb, torch, "small_tpu train parity", PARITY_DEPTH, 3,
+                 dict.fromkeys(fused4, PARITY_DEPTH - 1), **tpu)
+    paths["small_tpu DCS recipe train"] = (*train_recipe(
+        fb, torch, dict.fromkeys(fused4, DEPTH - 1), "small_tpu DCS recipe train", **tpu)[:2],
+        "step")
+    paths["small_tpu int8 train"] = (*train(
+        fb, torch, "small_tpu int8 train", dict.fromkeys(int8_train, DEPTH - 1),
+        quantization="int8", **tpu)[:2], "step")
+    train_parity(fb, torch, "small_tpu int8 train parity", PARITY_DEPTH, 3,
+                 dict.fromkeys(int8_train, PARITY_DEPTH - 1), quantization="int8", **tpu)
+    paths["small_tpu EViT recipe train"] = (*train_recipe(
+        fb, torch, evit4, "small_tpu EViT recipe train", keep_rate=KEEP_RATE, **tpu)[:2],
+        "step")
+    train_parity(fb, torch, "small_tpu EViT recipe train parity", PARITY_DEPTH, 3, evit_parity,
+                 ks=(2, 5, 8), keep_rate=KEEP_RATE, **tpu)
+    torch.cuda.empty_cache()
+    # the benchmark scripts: S1-S3 run only there, S1 and S2 also at 3 heads
+    for (name, args, _), counts in zip(SCRIPT_RUNS, run_scripts(fb).values()):
+        paths[script_label(name, args)] = (counts, 1, "run")
+
+    # each kernel's main paths, first the one its launches are read from
+    dh128 = "_dh128"
+    main_paths = {
+        "attend_project_fwd": ("serving", "train"),
+        "ln_mlp_fwd": ("serving", "train"),
+        "attend_project_bwd": ("train",),
+        "ln_mlp_bwd": ("train",),
+        "flash_packed_fwd": ("EViT serving", "EViT train"),
+        "flash_packed_bwd": ("EViT train",),
+        "ln_mlp_q_fwd": ("int8 serving", "int8 train"),
+        "ln_mlp_q_bwd": ("int8 train",),
+        "bwd_call": (script_label(*SCRIPT_RUNS[1][:2]),),
+        "qkv_flash_fwd": (script_label(*SCRIPT_RUNS[4][:2]),),
+        "int8_ln_mlp": (script_label(*SCRIPT_RUNS[5][:2]),),
+        "attend_project_fwd" + dh128: ("small_tpu serving", "small_tpu train",
+                                       "small_tpu int8 train"),
+        "attend_project_bwd" + dh128: ("small_tpu train", "small_tpu int8 train"),
+        "flash_packed_fwd" + dh128: ("small_tpu EViT recipe train",),
+        "flash_packed_bwd" + dh128: ("small_tpu EViT recipe train",),
+        "bwd_call" + dh128: (script_label(*SCRIPT_RUNS[6][:2]),),
+        "qkv_flash_fwd" + dh128: (script_label(*SCRIPT_RUNS[7][:2]),),
+    }
     line = []
     for name, r in results.items():
+        counter = name[:-len(dh128)] if name.endswith(dh128) else name
         entry = {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"]}
-        if name in ("attend_project_fwd", "ln_mlp_fwd"):  # main paths: serving, training
-            entry.update(launches=serve_launches[name],
-                         launches_per_forward=serve_launches[name] / forwards,
-                         train_launches=train_launches[name],
-                         launches_per_step=train_launches[name] / steps)
-        elif name == "flash_packed_fwd":  # main paths: EViT serving and training
-            entry.update(launches=evit_serve_launches[name],
-                         launches_per_forward=evit_serve_launches[name] / evit_forwards,
-                         train_launches=evit_train_launches[name],
-                         launches_per_step=evit_train_launches[name] / evit_steps)
-        elif name == "flash_packed_bwd":  # main path: the EViT train step
-            entry.update(launches=evit_train_launches[name],
-                         launches_per_step=evit_train_launches[name] / evit_steps)
-        elif name == "ln_mlp_q_fwd":  # main paths: int8 serving and training
-            entry.update(launches=int8_serve_launches[name],
-                         launches_per_forward=int8_serve_launches[name] / int8_forwards,
-                         train_launches=int8_train_launches[name],
-                         launches_per_step=int8_train_launches[name] / int8_steps)
-        elif name == "ln_mlp_q_bwd":  # main path: the int8 train step
-            entry.update(launches=int8_train_launches[name],
-                         launches_per_step=int8_train_launches[name] / int8_steps)
-        elif name in script_runs:  # main path: its benchmark script
-            entry.update(launches=script_launches[script_runs[name]][name],
-                         launches_in=script_runs[name])
-        else:  # main path: the train step
-            entry.update(launches=train_launches[name],
-                         launches_per_step=train_launches[name] / steps)
+        first, *rest = main_paths[name]
+        counts, units, unit = paths[first]
+        entry.update(launches=counts[counter], launches_in=first,
+                     **{f"launches_per_{unit}": counts[counter] / units})
+        for label in rest:
+            counts, units, unit = paths[label]
+            entry[f"launches_per_{unit}_{label.replace(' ', '_')}"] = counts[counter] / units
         if name in fused4:
-            entry.update(evit_launches_per_step=evit_train_launches[name] / evit_steps,
-                         recipe_launches_per_step=recipe_launches[name] / recipe_steps)
+            for label in ("EViT train", "DCS recipe train"):
+                counts, units, _ = paths[label]
+                entry[f"launches_per_step_{label.replace(' ', '_')}"] = counts[name] / units
         if "code_flips" in r:
             entry.update(code_flips=r["code_flips"])
         entry.update(max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],

@@ -53,7 +53,12 @@
 //   through the same ring; the warpgroup holds a 64 x 128 f32 accumulator
 //   (64 registers) per chunk of 128 output columns, and adds bp and x_res in
 //   f32 before the single bf16 rounding.
-// - Up to 22 heads fit a block's shared memory (D = 1408).
+// - Head width 64 or 128 (a template parameter, as in the whole flash core;
+//   the `small_tpu` preset has 3 heads of 128). A head of 128 is two boxes
+//   of Q (then O), and its (K, V) stage 32 KB: at D = 384 the block holds
+//   145 KB (48 KB of Q, three 32 KB stages), one block an SM, where at
+//   head width 64 two fit. Up to 22 heads of 64 (D = 1408) or 8 of 128
+//   (D = 1024) fit a block's shared memory.
 // - Rows past N load as zeros and are clipped by TMA stores or skipped by
 //   the epilogue.
 #include "flash_wgmma.cuh"
@@ -65,15 +70,17 @@ constexpr int kWpBox = kApN * 128;        // a [128 output columns][64] Wp box
 constexpr int kMaxSmem = 232448;          // dynamic shared memory a block may use
 
 constexpr int kApRows = fw::kWgRows;      // query rows of a block, and keys of a tile
-constexpr int kApBox = kApRows * 128;      // one head's Q (then O) box, or a K or V tile
-constexpr int kApStageBytes = fw::kFwdStageBytes;  // K + V, or one Wp box
+constexpr int kApBox = kApRows * 128;      // a Q (then O) box of 64 columns, or a K or V box
 constexpr int kApStages = fw::kFwdStages;
 constexpr int kApThreads = fw::kFwdThreads;
-static_assert(kApStageBytes >= kWpBox, "a Wp box fits a stage");
-__host__ __device__ constexpr int ap_smem(int heads) {
-  return heads * kApBox + kApStages * kApStageBytes + (2 * kApStages + 1) * 8 + wg::kAlign;
+// a stage: one head's K + V tiles, or one Wp box
+static_assert(fw::fwd_stage_bytes(64) >= kWpBox, "a Wp box fits a stage");
+__host__ __device__ constexpr int ap_smem(int heads, int hd) {
+  return heads * fw::head_boxes(hd) * kApBox + kApStages * fw::fwd_stage_bytes(hd) +
+         (2 * kApStages + 1) * 8 + wg::kAlign;
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kApThreads, 2)
     ap_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map,
                   const __grid_constant__ CUtensorMap wp_map,
@@ -81,15 +88,16 @@ __global__ void __launch_bounds__(kApThreads, 2)
                   const __nv_bfloat16* __restrict__ x_res, const __nv_bfloat16* __restrict__ bp,
                   float* __restrict__ lse_out, __nv_bfloat16* __restrict__ xo, int n, int heads,
                   int d_out, int n_valid, float scale_log2, int need_o) {
+  constexpr int nb = fw::head_boxes(HD), kStage = fw::fwd_stage_bytes(HD);
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sO = wg::align(smem_raw);  // `heads` boxes [64][64]: Q_h, then O_h
-  uint8_t* ring = sO + heads * kApBox;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kApStages * kApStageBytes);
+  uint8_t* sO = wg::align(smem_raw);  // D / 64 boxes [64][64]: Q, then O; head h's from h nb
+  uint8_t* ring = sO + heads * nb * kApBox;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kApStages * kStage);
   uint64_t* empty = full + kApStages;
   uint64_t* qbar = empty + kApStages;
   const int tid = threadIdx.x, t = tid & 127;
   const int q0 = blockIdx.x * kApRows, b = blockIdx.y;
-  const int d = heads * fw::kHd;
+  const int d = heads * HD;
   const int n_kt = (n_valid + kApRows - 1) / kApRows;
   const int n_chunks = (d_out + kApN - 1) / kApN;
   const int n_kc = d / wg::kBox;
@@ -105,22 +113,23 @@ __global__ void __launch_bounds__(kApThreads, 2)
   __syncthreads();
 
   if (wg::warpgroup() == 1) {
-    // producer: every head's Q rows, then (K, V) tile kt of head h for every
-    // head in order, then Wp box (chunk c, k-step kc) for every chunk
+    // producer: the Q rows of every head (D / 64 boxes), then (K, V) tile kt
+    // of head h for every head in order, then Wp box (chunk c, k-step kc)
+    // for every chunk
     if (t == 0) {
-      wg::bar_expect_tx(qbar, heads * kApBox);
-      for (int h = 0; h < heads; ++h)
-        fw::tma_load3(sO + h * kApBox, &qkv_map, qbar, h * fw::kHd, q0, b);
+      wg::bar_expect_tx(qbar, n_kc * kApBox);
+      for (int kc = 0; kc < n_kc; ++kc)
+        fw::tma_load3(sO + kc * kApBox, &qkv_map, qbar, kc * wg::kBox, q0, b);
       int it = 0;
       for (int h = 0; h < heads; ++h)
-        fw::load_kv_tiles(ring, full, empty, it, &qkv_map, d + h * fw::kHd, &qkv_map,
-                          2 * d + h * fw::kHd, n_kt, b);
+        fw::load_kv_tiles<HD, kApStages>(ring, full, empty, it, &qkv_map, d + h * HD, &qkv_map,
+                                         2 * d + h * HD, n_kt, b);
       for (int c = 0; c < n_chunks; ++c)
         for (int kc = 0; kc < n_kc; ++kc, ++it) {
           const int s = it % kApStages;
           wg::bar_wait(&empty[s], ((it / kApStages) & 1) ^ 1);
           wg::bar_expect_tx(&full[s], kWpBox);
-          wg::tma_load(ring + s * kApStageBytes, &wp_map, &full[s], kc * wg::kBox, c * kApN);
+          wg::tma_load(ring + s * kStage, &wp_map, &full[s], kc * wg::kBox, c * kApN);
         }
     }
   } else {
@@ -129,16 +138,17 @@ __global__ void __launch_bounds__(kApThreads, 2)
     wg::bar_wait(qbar, 0);
     int it = 0;
     for (int h = 0; h < heads; ++h) {
-      float o[32], m_a, m_b, l_a, l_b;
-      fw::attend_tiles(o, m_a, m_b, l_a, l_b, sO_s + h * kApBox, ring_s, full, empty, it, n_kt,
-                       n_valid, scale_log2, t);
+      float o[HD / 2], m_a, m_b, l_a, l_b;
+      fw::attend_tiles<HD, kApStages>(o, m_a, m_b, l_a, l_b, sO_s + h * nb * kApBox, ring_s,
+                                      full, empty, it, n_kt, n_valid, scale_log2, t);
       // normalise; lse; O_h (bf16) over Q_h
-      uint8_t* obox = sO + h * kApBox;
+      uint8_t* obox = sO + h * nb * kApBox;
       fw::finish_rows(o, m_a, m_b, l_a, l_b,
                       need_o ? lse_out + ((long long)b * heads + h) * n : nullptr, row_a, row_b,
                       n, obox, t);
       if (need_o && t == 0) {
-        fw::tma_store3(&o_map, obox, h * fw::kHd, q0, b);
+        for (int j = 0; j < nb; ++j)
+          fw::tma_store3(&o_map, obox + j * kApBox, h * HD + j * wg::kBox, q0, b);
         wg::tma_store_commit();
       }
     }
@@ -149,7 +159,7 @@ __global__ void __launch_bounds__(kApThreads, 2)
       for (int kc = 0; kc < n_kc; ++kc, ++it) {
         const int s = it % kApStages;
         wg::bar_wait(&full[s], (it / kApStages) & 1);
-        const uint32_t st = wg::opaque(ring_s) + s * kApStageBytes;
+        const uint32_t st = wg::opaque(ring_s) + s * kStage;
         const uint32_t oa = wg::opaque(sO_s) + kc * kApBox;
         wg::mma_fence();
 #pragma unroll
@@ -181,10 +191,37 @@ __global__ void __launch_bounds__(kApThreads, 2)
   }
 }
 
+template <int HD>
+cudaError_t launch_ap_fwd(const void* qkv, const void* x_res, const void* wp, const void* bp,
+                          void* o, void* lse, void* xo, int batch, int n, int heads, int d_out,
+                          int n_valid, float sm_scale, cudaStream_t st) {
+  const int d = heads * HD;
+  CUtensorMap qkv_map, wp_map, o_map;
+  cudaError_t err;
+  if ((err = tensor_map3(&qkv_map, qkv, batch, n, 3 * d, kApRows, 3 * d)) != cudaSuccess ||
+      (err = tensor_map(&wp_map, wp, d_out, d, kApN)) != cudaSuccess)
+    return err;
+  if (o != nullptr) {
+    if ((err = tensor_map3(&o_map, o, batch, n, d, kApRows, d)) != cudaSuccess) return err;
+  } else {
+    o_map = qkv_map;  // never read
+  }
+  const int smem = ap_smem(heads, HD);
+  if ((err = cudaFuncSetAttribute(ap_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) != cudaSuccess)
+    return err;
+  ap_fwd_kernel<HD><<<dim3(n / kApRows, batch), kApThreads, smem, st>>>(
+      qkv_map, wp_map, o_map, static_cast<const __nv_bfloat16*>(x_res),
+      static_cast<const __nv_bfloat16*>(bp), static_cast<float*>(lse),
+      static_cast<__nv_bfloat16*>(xo), n, heads, d_out, n_valid, sm_scale * fw::kLog2e,
+      o != nullptr);
+  return cudaGetLastError();
+}
+
 }  // namespace dcvit
 
-// Plain C entry point (loaded with ctypes). Shapes: qkv (B, N, 3*H*DH),
-// x_res and xo (B, N, D_out) or x_res NULL, wp (D_out, H*DH) in nn.Linear
+// Plain C entry point (loaded with ctypes). Head width DH 64 or 128.
+// Shapes: qkv (B, N, 3*H*DH), x_res and xo (B, N, D_out) or x_res NULL, wp (D_out, H*DH) in nn.Linear
 // layout, bp (D_out,), o (B, N, H*DH) or NULL; all bf16 and contiguous; lse
 // (B, H, N) f32, written when o is.
 // Returns a cudaError_t: the launch's (or a TMA descriptor's), or
@@ -194,29 +231,11 @@ extern "C" int dcvit_attend_project_fwd(const void* qkv, const void* x_res, cons
                                         int n, int heads, int head_dim, int d_out, int n_valid,
                                         float sm_scale, void* stream) {
   using namespace dcvit;
-  if (head_dim != fw::kHd || heads < 1 || ap_smem(heads) > kMaxSmem || n % kApRows != 0 ||
-      d_out % 64 != 0 || n_valid < 1 || n_valid > n || batch < 1 || batch > 65535)
+  if (!fw::head_width_built(head_dim) || heads < 1 || ap_smem(heads, head_dim) > kMaxSmem ||
+      n % kApRows != 0 || d_out % 64 != 0 || n_valid < 1 || n_valid > n || batch < 1 ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const int d = heads * fw::kHd;
-  CUtensorMap qkv_map, wp_map, o_map;
-  cudaError_t err;
-  if ((err = tensor_map3(&qkv_map, qkv, batch, n, 3 * d, kApRows, 3 * d)) != cudaSuccess ||
-      (err = tensor_map(&wp_map, wp, d_out, d, kApN)) != cudaSuccess)
-    return (int)err;
-  if (o != nullptr) {
-    if ((err = tensor_map3(&o_map, o, batch, n, d, kApRows, d)) != cudaSuccess) return (int)err;
-  } else {
-    o_map = qkv_map;  // never read
-  }
-  const int smem = ap_smem(heads);
-  if ((err = cudaFuncSetAttribute(ap_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem)) != cudaSuccess)
-    return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ap_fwd_kernel<<<dim3(n / kApRows, batch), kApThreads, smem, st>>>(
-      qkv_map, wp_map, o_map, static_cast<const __nv_bfloat16*>(x_res),
-      static_cast<const __nv_bfloat16*>(bp), static_cast<float*>(lse),
-      static_cast<__nv_bfloat16*>(xo), n, heads, d_out, n_valid, sm_scale * fw::kLog2e,
-      o != nullptr);
-  return (int)cudaGetLastError();
+  auto launch = head_dim == 64 ? launch_ap_fwd<64> : launch_ap_fwd<128>;
+  return (int)launch(qkv, x_res, wp, bp, o, lse, xo, batch, n, heads, d_out, n_valid, sm_scale,
+                     static_cast<cudaStream_t>(stream));
 }

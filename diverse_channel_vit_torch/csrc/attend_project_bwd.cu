@@ -97,8 +97,9 @@ DEV void init_ring(uint64_t* full, uint64_t* empty, int stages) {
 
 // (a) do = dxo Wp (rounded to bf16), di = rowsum(o_h do_h) per head (f32),
 // and the dbp partials (column sums of dxo per 64-row tile). Grid
-// (ceil(B N / 128)); the block walks D in chunks of 128 columns (two heads),
-// each a K loop over D_out.
+// (ceil(B N / 128)); the block walks D in chunks of 128 columns (two heads
+// of width 64, or one of 128), each a K loop over D_out.
+template <int HD>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     ap_bwd_pre_kernel(const __grid_constant__ CUtensorMap dxo128,
                       const __grid_constant__ CUtensorMap wp64, const __nv_bfloat16* __restrict__ o,
@@ -110,7 +111,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kPreStages * kPreStageBytes);
   uint64_t* empty = full + kPreStages;
   const int wgi = wg::warpgroup(), t = threadIdx.x & 127;
-  const int d = heads * fw::kHd, r0 = blockIdx.x * kGemmRows;
+  constexpr int kChunkHeads = 2 * wg::kBox / HD;
+  const int d = heads * HD, r0 = blockIdx.x * kGemmRows;
   const int n_kc = d_out / wg::kBox, n_chunks = (d + 2 * wg::kBox - 1) / (2 * wg::kBox);
   init_ring(full, empty, kPreStages);
 
@@ -161,11 +163,11 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       wg::acc_fence(acc);
       // round do to bf16; di = sum over each head's columns of o * do (f32)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int h = 2 * c + hh;
+      for (int hh = 0; hh < kChunkHeads; ++hh) {
+        const int h = kChunkHeads * c + hh;
         float di_a = 0.f, di_b = 0.f;
 #pragma unroll
-        for (int i = 32 * hh; i < 32 * hh + 32; i += 2) {
+        for (int i = HD / 2 * hh; i < HD / 2 * (hh + 1); i += 2) {
           const bool rb = (i >> 1) & 1;
           const int row = rb ? row_b : row_a;
           const int col = 2 * wg::kBox * c + wg::acc_col(t, i);
@@ -248,10 +250,75 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   }
 }
 
+template <int HD>
+cudaError_t ap_bwd(const void* qkv, const void* o, const void* lse, const void* wp,
+                   const void* dxo, void* dqkv, void* dwp, void* bias_out, void* do_buf,
+                   void* di, void* bias_part, void* wgrad_part, int batch, int n, int heads,
+                   int d_out, int n_valid, float sm_scale, int splits, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const int d = heads * HD, tiles = n / kBRows, stride = d_out + 3 * d;
+  const float scale_log2 = sm_scale * fw::kLog2e;
+  cudaError_t err;
+
+  const int rows = batch * n;
+  CUtensorMap qkv64, do64, dqkv64, dxo128, dxo64, wp64, o64;
+  if ((err = tensor_map(&dxo128, dxo, rows, d_out, kGemmRows)) != cudaSuccess ||
+      (err = tensor_map(&dxo64, dxo, rows, d_out, wg::kBox)) != cudaSuccess ||
+      (err = tensor_map(&wp64, wp, d_out, d, wg::kBox)) != cudaSuccess ||
+      (err = tensor_map(&o64, o, rows, d, wg::kBox)) != cudaSuccess ||
+      (err = tensor_map3(&qkv64, qkv, batch, n, 3 * d, fw::kWgRows, 3 * d)) != cudaSuccess ||
+      (err = tensor_map3(&do64, do_buf, batch, n, d, fw::kWgRows, d)) != cudaSuccess ||
+      (err = tensor_map3(&dqkv64, dqkv, batch, n, 3 * d, fw::kWgRows, 3 * d)) != cudaSuccess)
+    return err;
+  constexpr int kv_bytes = kv_smem(HD, 1), q_bytes = q_smem(HD, 1);
+  const struct {
+    const void* fn;
+    int smem;
+  } attrs[] = {{(const void*)ap_bwd_pre_kernel<HD>, kPreSmem},
+               {(const void*)ap_wgrad_kernel, kWgSmem},
+               {(const void*)flash_bwd_kv_kernel<true, HD>, kv_bytes},
+               {(const void*)flash_bwd_q_kernel<true, HD>, q_bytes}};
+  for (const auto& a : attrs)
+    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    a.smem)) != cudaSuccess)
+      return err;
+
+  ap_bwd_pre_kernel<HD><<<(rows + kGemmRows - 1) / kGemmRows, kGemmThreads, kPreSmem, st>>>(
+      dxo128, wp64, static_cast<const bf16*>(o), static_cast<bf16*>(do_buf),
+      static_cast<float*>(di), static_cast<float*>(bias_part), rows, n, heads, d_out, stride);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // q, k and v: the packed qkv's columns 0, D and 2D
+  const dim3 grid(tiles, heads, batch);
+  flash_bwd_kv_kernel<true, HD><<<grid, kFlashThreads, kv_bytes, st>>>(
+      qkv64, qkv64, qkv64, do64, dqkv64, 0, d, 2 * d, static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<bf16*>(dqkv), static_cast<float*>(bias_part), n,
+      n_valid, heads, scale_log2, sm_scale, d_out, stride);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_q_kernel<true, HD><<<grid, kFlashThreads, q_bytes, st>>>(
+      qkv64, qkv64, qkv64, do64, dqkv64, 0, d, 2 * d, static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<float*>(bias_part), n, n_valid, heads,
+      scale_log2, sm_scale, d_out, stride);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // dWp = dxo^T o over all B * N rows, then the fixed-order sums
+  const int per = (rows + splits - 1) / splits;
+  const int rows_per_split = (per + wg::kBox - 1) / wg::kBox * wg::kBox;
+  const int wg_tiles = ((d_out + 127) / 128) * ((d + 127) / 128);
+  ap_wgrad_kernel<<<dim3(wg_tiles, splits), kGemmThreads, kWgSmem, st>>>(
+      dxo64, o64, static_cast<float*>(wgrad_part), rows, d_out, d, rows_per_split);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_reduce(static_cast<const float*>(wgrad_part), static_cast<float*>(dwp), splits,
+                      (long long)d_out * d, st);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(static_cast<const float*>(bias_part), static_cast<float*>(bias_out),
+                       batch * tiles, stride, st);
+}
+
 }  // namespace dcvit
 
-// Plain C entry point (loaded with ctypes). Shapes: qkv and dqkv (B, N, 3D)
-// packed [q | k | v], o and do_buf (B, N, D), dxo (B, N, D_out), all bf16;
+// Plain C entry point (loaded with ctypes). Head width 64 or 128. Shapes:
+// qkv and dqkv (B, N, 3D) packed [q | k | v], o and do_buf (B, N, D), dxo
+// (B, N, D_out), all bf16;
 // wp (D_out, D) bf16 in nn.Linear layout; lse and di (B, H, N) f32; dwp
 // (D_out, D) f32; bias_out (D_out + 3D) f32 = [dbp | dbq | dbk | dbv];
 // bias_part (B * N / 64, D_out + 3D) f32 and wgrad_part (splits, D_out, D)
@@ -265,72 +332,12 @@ extern "C" int dcvit_attend_project_bwd(const void* qkv, const void* o, const vo
                                         int head_dim, int d_out, int n_valid, float sm_scale,
                                         int splits, void* stream) {
   using namespace dcvit;
-  if (head_dim != fw::kHd || n % kBRows != 0 || d_out % 64 != 0 || n_valid < 1 || n_valid > n ||
-      batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || splits < 1 ||
+  if (!fw::head_width_built(head_dim) || n % kBRows != 0 || d_out % 64 != 0 || n_valid < 1 ||
+      n_valid > n || batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || splits < 1 ||
       (long long)batch * n > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  using bf16 = __nv_bfloat16;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int d = heads * fw::kHd, tiles = n / kBRows, stride = d_out + 3 * d;
-  const float scale_log2 = sm_scale * fw::kLog2e;
-  cudaError_t err;
-
-  const int rows = batch * n;
-  CUtensorMap qkv64, do64, dqkv64, dxo128, dxo64, wp64, o64;
-  if ((err = tensor_map(&dxo128, dxo, rows, d_out, kGemmRows)) != cudaSuccess ||
-      (err = tensor_map(&dxo64, dxo, rows, d_out, wg::kBox)) != cudaSuccess ||
-      (err = tensor_map(&wp64, wp, d_out, d, wg::kBox)) != cudaSuccess ||
-      (err = tensor_map(&o64, o, rows, d, wg::kBox)) != cudaSuccess ||
-      (err = tensor_map3(&qkv64, qkv, batch, n, 3 * d, fw::kWgRows, 3 * d)) != cudaSuccess ||
-      (err = tensor_map3(&do64, do_buf, batch, n, d, fw::kWgRows, d)) != cudaSuccess ||
-      (err = tensor_map3(&dqkv64, dqkv, batch, n, 3 * d, fw::kWgRows, 3 * d)) != cudaSuccess)
-    return (int)err;
-  const struct {
-    const void* fn;
-    int smem;
-  } attrs[] = {{(const void*)ap_bwd_pre_kernel, kPreSmem},
-               {(const void*)ap_wgrad_kernel, kWgSmem}};
-  for (const auto& a : attrs)
-    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    a.smem)) != cudaSuccess)
-      return (int)err;
-
-  ap_bwd_pre_kernel<<<(rows + kGemmRows - 1) / kGemmRows, kGemmThreads, kPreSmem, st>>>(
-      dxo128, wp64, static_cast<const bf16*>(o), static_cast<bf16*>(do_buf),
-      static_cast<float*>(di), static_cast<float*>(bias_part), rows, n, heads, d_out, stride);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const struct {
-    const void* fn;
-    int smem;
-  } flash[] = {{(const void*)flash_bwd_kv_kernel<true>, kKvSmem},
-               {(const void*)flash_bwd_q_kernel<true>, kQSmem}};
-  for (const auto& a : flash)
-    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    a.smem)) != cudaSuccess)
-      return (int)err;
-  // q, k and v: the packed qkv's columns 0, D and 2D
-  const dim3 grid(tiles, heads, batch);
-  flash_bwd_kv_kernel<true><<<grid, kFlashThreads, kKvSmem, st>>>(
-      qkv64, qkv64, qkv64, do64, dqkv64, 0, d, 2 * d, static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(dqkv), static_cast<float*>(bias_part), n,
-      n_valid, scale_log2, sm_scale, d_out, stride);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  flash_bwd_q_kernel<true><<<grid, kFlashThreads, kQSmem, st>>>(
-      qkv64, qkv64, qkv64, do64, dqkv64, 0, d, 2 * d, static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<float*>(bias_part), n, n_valid, scale_log2,
-      sm_scale, d_out, stride);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  // dWp = dxo^T o over all B * N rows, then the fixed-order sums
-  const int per = (rows + splits - 1) / splits;
-  const int rows_per_split = (per + wg::kBox - 1) / wg::kBox * wg::kBox;
-  const int wg_tiles = ((d_out + 127) / 128) * ((d + 127) / 128);
-  ap_wgrad_kernel<<<dim3(wg_tiles, splits), kGemmThreads, kWgSmem, st>>>(
-      dxo64, o64, static_cast<float*>(wgrad_part), rows, d_out, d, rows_per_split);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  err = launch_reduce(static_cast<const float*>(wgrad_part), static_cast<float*>(dwp), splits,
-                      (long long)d_out * d, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(static_cast<const float*>(bias_part), static_cast<float*>(bias_out),
-                            batch * tiles, stride, st);
+  auto run = head_dim == 64 ? ap_bwd<64> : ap_bwd<128>;
+  return (int)run(qkv, o, lse, wp, dxo, dqkv, dwp, bias_out, do_buf, di, bias_part, wgrad_part,
+                  batch, n, heads, d_out, n_valid, sm_scale, splits,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -20,8 +20,9 @@
 // units' ~3.9 T exp2/s; against 491 MB of compulsory traffic (five inputs
 // read once, three outputs written once), 0.15 ms at 3.35 TB/s.
 //
-// Design (flash_packed.cuh on the flash core flash_wgmma.cuh), and what
-// differs from the TPU kernel:
+// Design (flash_packed.cuh on the flash core flash_wgmma.cuh; head width 64
+// or 128, `--heads 3` at D = 384 being 128), and what differs from the TPU
+// kernel:
 // - The TPU held one image's whole K and V in VMEM, took each query block's
 //   exact row maxima and sums over them, then accumulated dk and dv in f32
 //   VMEM scratch across a sequential query-block axis (:197-200). Here one
@@ -46,9 +47,10 @@
 // - `variant` is HP, the heads a block of the dk/dv and dq passes carries:
 //   "pair_staged" = 1 (one warpgroup, three blocks an SM), "pair_batched" =
 //   2 (two warpgroups, one per head, sharing one ring whose stages hold both
-//   heads' boxes under one barrier: each stage load serves the head pair).
-//   Each warpgroup runs the same per-head instructions in both, so the two
-//   variants agree bit for bit. The statistics and di passes are shared by
+//   heads' boxes under one barrier: each stage load serves the head pair;
+//   with an odd head count the last pair is one head, as in the TPU
+//   kernel's pairing). Each warpgroup runs the same per-head instructions
+//   in both, so the two variants agree bit for bit. The statistics and di passes are shared by
 //   the two. ptxas holds consumer code to 168 registers a thread, so a
 //   256-thread block of these passes fits one an SM where one-warpgroup
 //   blocks fit three, and "pair_batched" is the slower.
@@ -63,7 +65,8 @@
 // (B, N, H * head_dim) bf16 contiguous, 16-byte aligned; grads
 // (B, N, 3 * H * head_dim) bf16 contiguous, written as [dq | dk | dv]; lse
 // and di: (B, H, N) f32 contiguous scratch. heads_per_block is the variant:
-// 1 ("pair_staged") or 2 ("pair_batched", H even). Returns a cudaError_t:
+// 1 ("pair_staged") or 2 ("pair_batched"; with H odd the last block carries
+// one head); head_dim 64 or 128. Returns a cudaError_t:
 // the first failed launch's (or TMA descriptor's), or cudaErrorInvalidValue
 // for a shape the kernels do not take.
 extern "C" int dcvit_bench_attn_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -72,9 +75,9 @@ extern "C" int dcvit_bench_attn_bwd(const void* q, const void* k, const void* v,
                                     int heads_per_block, void* stream) {
   using namespace dcvit;
   using bf16 = __nv_bfloat16;
-  if (head_dim != fw::kHd || n < fw::kWgRows || n % fw::kWgRows != 0 || n_valid < 1 ||
-      n_valid > n || batch < 1 || batch > 65535 || heads < 1 || heads > 65535 ||
-      (heads_per_block != 1 && heads_per_block != 2) || heads % heads_per_block != 0)
+  if (!fw::head_width_built(head_dim) || n < fw::kWgRows || n % fw::kWgRows != 0 ||
+      n_valid < 1 || n_valid > n || batch < 1 || batch > 65535 || heads < 1 || heads > 65535 ||
+      (heads_per_block != 1 && heads_per_block != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int d = heads * head_dim;
@@ -88,12 +91,15 @@ extern "C" int dcvit_bench_attn_bwd(const void* q, const void* k, const void* v,
           cudaSuccess)
     return (int)err;
   // (a) the statistics pass: no v, no o
-  if ((err = launch_flash_fwd<false>(q_map, k_map, k_map, q_map, 0, 0, 0,
-                                     static_cast<float*>(lse), batch, n, heads, n_valid,
-                                     sm_scale, st)) != cudaSuccess)
+  auto stats = head_dim == 64 ? launch_flash_fwd<false, 64> : launch_flash_fwd<false, 128>;
+  if ((err = stats(q_map, k_map, k_map, q_map, 0, 0, 0, static_cast<float*>(lse), batch, n,
+                   heads, n_valid, sm_scale, st)) != cudaSuccess)
     return (int)err;
   // (b)-(d) di, dk/dv, dq
-  auto run = heads_per_block == 1 ? launch_flash_bwd<1> : launch_flash_bwd<2>;
+  auto run = head_dim == 64 ? (heads_per_block == 1 ? launch_flash_bwd<64, 1>
+                                                    : launch_flash_bwd<64, 2>)
+                            : (heads_per_block == 1 ? launch_flash_bwd<128, 1>
+                                                    : launch_flash_bwd<128, 2>);
   return (int)run(q_map, k_map, v_map, do_map, grads_map, 0, 0, 0, static_cast<const bf16*>(o),
                   static_cast<const bf16*>(dout), static_cast<const float*>(lse),
                   static_cast<float*>(di), static_cast<bf16*>(grads), batch, n, heads, n_valid,

@@ -1,10 +1,6 @@
 // Shared device helpers for the hand-written Hopper kernels of this package.
 //
-// Every package kernel runs its products on `wgmma` (wgmma_core.cuh). The
-// benchmark script's S3 (int8_ln_mlp.cu) keeps the warp-level tensor-core
-// path that every sm_80+ card has: operands staged in shared memory by
-// `cp.async` and read into fragments by `ldmatrix` (both here), then
-// `mma.sync` (int8.cuh).
+// Every kernel runs its products on `wgmma` (wgmma_core.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,25 +14,6 @@ namespace dcvit {
 
 DEV uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy that bypasses L1 (weights and activations
-// are each read once per block).
-DEV void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem));
-}
-DEV void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-DEV void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lane l supplies the row address of matrix l / 8.
-DEV void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
 }
 
 DEV uint32_t pack_bf16(float lo, float hi) {

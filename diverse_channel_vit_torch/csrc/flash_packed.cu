@@ -1,5 +1,5 @@
 // flash_packed forward: masked multi-head attention on lane-packed
-// (B, N, H * 64) q, k and v, with no projection.
+// (B, N, H * dh) q, k and v (head width dh 64 or 128), with no projection.
 //
 // Replaces the TPU kernel `_packed_fwd_kernel`
 // (diverse_channel_vit_tpu/ops/attention.py:243), reached through
@@ -27,9 +27,10 @@
 //   The scale is folded into each `ex2`; the row is normalised once at the
 //   end, as the TPU divided its unnormalised P V by the row sum.
 // - A block owns (64 query rows, head, image): one consumer warpgroup and a
-//   producer warp. At 57 KB of shared memory and (ptxas, nvcc 12.9) 106
-//   registers a thread, three blocks share an SM, so one block's
-//   exponentials run while another's products do. The grid (N / 64, H, B)
+//   producer warp. At head width 64, 57 KB of shared memory and (ptxas,
+//   nvcc 12.9) 106 registers a thread, three blocks share an SM, so one
+//   block's exponentials run while another's products do; at 128, two
+//   ring stages of 32 KB keep two blocks an SM (81 KB). The grid (N / 64, H, B)
 //   keeps the card full at the small EViT grids too (4608 blocks at N = 768,
 //   against B1's 768 all-heads blocks).
 // - q, k and v come as strided views, each through a rank-3 TMA map
@@ -42,7 +43,8 @@
 //   recompute P tile by tile.
 #include "flash_packed.cuh"
 
-// Plain C entry point (loaded with ctypes). q, k, v: (B, N, H * head_dim)
+// Plain C entry point (loaded with ctypes). head_dim 64 or 128. q, k, v:
+// (B, N, H * head_dim)
 // bf16 views whose rows are contiguous and 16-byte aligned, rows `stride_*`
 // elements apart (a multiple of 8) and images N rows apart; o
 // (B, N, H * head_dim) bf16 contiguous; lse (B, H, N) f32 contiguous, or
@@ -54,7 +56,7 @@ extern "C" int dcvit_flash_packed_fwd(const void* q, const void* k, const void* 
                                       int n_valid, float sm_scale, void* stream) {
   using namespace dcvit;
   const long long d = (long long)heads * head_dim;
-  if (head_dim != fw::kHd || n % fw::kWgRows != 0 || n_valid < 1 || n_valid > n || batch < 1 ||
+  if (!fw::head_width_built(head_dim) || n % fw::kWgRows != 0 || n_valid < 1 || n_valid > n || batch < 1 ||
       batch > 65535 || heads < 1 || heads > 65535 || stride_q < d || stride_k < d ||
       stride_v < d || (stride_q | stride_k | stride_v) % 8 != 0)
     return (int)cudaErrorInvalidValue;
@@ -65,7 +67,7 @@ extern "C" int dcvit_flash_packed_fwd(const void* q, const void* k, const void* 
       (err = tensor_map3(&v_map, v, batch, n, (int)d, fw::kWgRows, stride_v)) != cudaSuccess ||
       (err = tensor_map3(&o_map, o, batch, n, (int)d, fw::kWgRows, d)) != cudaSuccess)
     return (int)err;
-  return (int)launch_flash_fwd<true>(q_map, k_map, v_map, o_map, 0, 0, 0,
-                                     static_cast<float*>(lse), batch, n, heads, n_valid,
-                                     sm_scale, static_cast<cudaStream_t>(stream));
+  auto launch = head_dim == 64 ? launch_flash_fwd<true, 64> : launch_flash_fwd<true, 128>;
+  return (int)launch(q_map, k_map, v_map, o_map, 0, 0, 0, static_cast<float*>(lse), batch, n,
+                     heads, n_valid, sm_scale, static_cast<cudaStream_t>(stream));
 }

@@ -53,7 +53,8 @@
 //   backward reads.
 #include "flash_packed.cuh"
 
-// Plain C entry point (loaded with ctypes). q, k, v: (B, N, H * head_dim)
+// Plain C entry point (loaded with ctypes). head_dim 64 or 128. q, k, v:
+// (B, N, H * head_dim)
 // bf16 views whose rows are contiguous and 16-byte aligned, rows `stride_*`
 // elements apart (a multiple of 8) and images N rows apart; o and dout
 // (B, N, H * head_dim) bf16 contiguous; lse and di (B, H, N) f32 contiguous
@@ -69,7 +70,7 @@ extern "C" int dcvit_flash_packed_bwd(const void* q, const void* k, const void* 
   using namespace dcvit;
   using bf16 = __nv_bfloat16;
   const long long d = (long long)heads * head_dim;
-  if (head_dim != fw::kHd || n % fw::kWgRows != 0 || n_valid < 1 || n_valid > n || batch < 1 ||
+  if (!fw::head_width_built(head_dim) || n % fw::kWgRows != 0 || n_valid < 1 || n_valid > n || batch < 1 ||
       batch > 65535 || heads < 1 || heads > 65535 || stride_q < d || stride_k < d ||
       stride_v < d || (stride_q | stride_k | stride_v) % 8 != 0)
     return (int)cudaErrorInvalidValue;
@@ -85,9 +86,9 @@ extern "C" int dcvit_flash_packed_bwd(const void* q, const void* k, const void* 
           cudaSuccess)
     return (int)err;
   // q, k and v: maps of their own, each head's columns from 0
-  return (int)launch_flash_bwd<1>(q_map, k_map, v_map, do_map, grads_map, 0, 0, 0,
-                                  static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-                                  static_cast<const float*>(lse), static_cast<float*>(di),
-                                  static_cast<bf16*>(grads), batch, n, heads, n_valid, sm_scale,
-                                  st);
+  auto run = head_dim == 64 ? launch_flash_bwd<64, 1> : launch_flash_bwd<128, 1>;
+  return (int)run(q_map, k_map, v_map, do_map, grads_map, 0, 0, 0, static_cast<const bf16*>(o),
+                  static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                  static_cast<float*>(di), static_cast<bf16*>(grads), batch, n, heads, n_valid,
+                  sm_scale, st);
 }

@@ -1,7 +1,7 @@
-// Shared device helpers of the int8 ln_mlp kernels: B7 (ln_mlp_q.cu), B8
-// (ln_mlp_q_bwd.cu) and the benchmark script's S3 (int8_ln_mlp.cu).
+// Shared device helpers of the int8 ln_mlp kernels: B7 (ln_mlp_q.cu, which
+// the benchmark script's S3 launches too) and B8 (ln_mlp_q_bwd.cu).
 //
-// The exact-rounding arithmetic all three share, so that they write the same
+// The exact-rounding arithmetic both share, so that they write the same
 // int8 codes as each other and as the plain versions: quantisation and
 // dequantisation follow ops/fused_block.py operation by operation, with the
 // round-to-nearest intrinsics, which the compiler never contracts into fused
@@ -9,23 +9,8 @@
 // division, a code is round-half-even(v / s), and a dequantised product is
 // (float(acc) * row_scale) * col_scale (+ bias); tanh-GELU and its
 // derivative use tanhf, never the core's faster tanh (wgmma_core.cuh), which
-// would change codes; LayerNorm runs one warp a row (`ln_row`).
-//
-// The warp-level int8 tensor-core path below (`mma.sync.m16n8k32`, operands
-// staged by `cp.async` and read by `ldmatrix`) serves S3 only: B7 and B8 run
-// their int8 products as `wgmma` (wgmma_core.cuh). Its fragments, counted in
-// bytes, are laid out as the bf16 m16n8k16 fragments of common.cuh are: A is
-// 16 rows x 32 bytes in four 32-bit registers (rows g / g + 8, bytes 4 t ..
-// 4 t + 3 and 16 + 4 t ..), B is 8 columns x 32 bytes of k in two registers,
-// C is the same 16 x 8 layout as the f32 accumulator. So `ldmatrix` (which
-// moves 8 x 8 tiles of 16-bit values, i.e. 8 rows x 16 bytes) loads both
-// operands from int8 tiles whose k axis is contiguous in shared memory.
-// There is no transposing ldmatrix for 8-bit values: every int8 operand is
-// stored k-major (the weight copies come from `quantize_mlp_weights` in the
-// layout their product reads). Int8 shared tiles keep a row stride of
-// (width + 16) bytes: row addresses of one 8 x 8 ldmatrix tile fall in eight
-// different 16-byte bank groups for the widths used here (64 and 384),
-// and every row stays 16-byte aligned.
+// would change codes; LayerNorm runs one warp a row (`ln_row`). The int8
+// products themselves are `wgmma` (wgmma_core.cuh).
 #pragma once
 
 #include <stdint.h>
@@ -33,71 +18,6 @@
 #include "common.cuh"
 
 namespace dcvit {
-
-// Row stride in bytes of an int8 shared tile `width` bytes wide.
-__host__ __device__ constexpr int padded_s8(int width) { return width + 16; }
-
-// Copy a rows x cols int8 tile (cols % 16 == 0) from global memory with row
-// stride `gstride` into shared memory with row stride `sstride`.
-DEV void load_s8_async(int8_t* smem, const int8_t* gmem, int rows, int cols, long long gstride,
-                       int sstride, int tid, int nthreads) {
-  const int per_row = cols / 16;
-  for (int i = tid; i < rows * per_row; i += nthreads) {
-    const int r = i / per_row;
-    const int c = (i - r * per_row) * 16;
-    cp_async16(smem + r * sstride + c, gmem + r * gstride + c);
-  }
-}
-
-// A fragment (16 rows x 32 k) of a row-major int8 shared tile at (row0, k0).
-DEV void load_a_frag_s8(uint32_t (&a)[4], const int8_t* tile, int stride, int row0, int k0,
-                        int lane) {
-  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * stride + k0 + (lane >> 4) * 16);
-}
-
-// B fragments of two adjacent n-tiles (16 n x 32 k) of an int8 shared tile
-// stored [n][k]: b[0], b[1] feed n-tile n0, b[2], b[3] n-tile n0 + 8.
-DEV void load_b_frag_s8(uint32_t (&b)[4], const int8_t* tile, int stride, int n0, int k0,
-                        int lane) {
-  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * stride + k0 +
-                     ((lane >> 3) & 1) * 16);
-}
-
-// d += a(16x32, row) * b(32x8, col), int8 in, exact int32 accumulate.
-DEV void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[2 * NP] (16 rows from row0 x 16 NP columns from n0) += A B^T over
-// K = 32 KSTEPS, A [rows][K] and B [n][K] int8 shared tiles.
-template <int KSTEPS, int NP>
-DEV void mma_s8_rows(int (&acc)[2 * NP][4], const int8_t* a, int sa, int row0, const int8_t* b,
-                     int sb, int n0, int lane) {
-#pragma unroll 4
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    uint32_t af[4];
-    load_a_frag_s8(af, a, sa, row0, kk * 32, lane);
-#pragma unroll
-    for (int np = 0; np < NP; ++np) {
-      uint32_t bfr[4];
-      load_b_frag_s8(bfr, b, sb, n0 + np * 16, kk * 32, lane);
-      mma_s8(acc[2 * np], af, bfr[0], bfr[1]);
-      mma_s8(acc[2 * np + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-template <int N>
-DEV void zero_acc(int (&acc)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-}
 
 // Max over all 32 lanes of a warp.
 DEV float warp_max(float v) {

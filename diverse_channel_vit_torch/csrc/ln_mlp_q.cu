@@ -12,8 +12,10 @@
 // out = (float(hq W2q^T) * hs) * s2c + b2 (+ x), rounded to bf16 once. W1q
 // (HID, D) and W2q (D, HID) are per-output-unit int8 copies of the bf16
 // weights, k-major as nn.Linear holds them. The rounding steps are int8.cuh's
-// exact helpers (tanhf, IEEE division), as in S3 (int8_ln_mlp.cu) and B8, so
-// the three write the same codes.
+// exact helpers (tanhf, IEEE division), as in B8, so the two write the same
+// codes. The benchmark script's S3 (`_int8_kernel`,
+// scripts/bench_int8_lnmlp.py:39), which computes this function, launches
+// this kernel too.
 //
 // What bounds it on an H100. The products: 4 M D HID int8 operations, 0.12
 // ms at the dense int8 peak for B = 64, N = 1600 (1569 real rows), D = 384,
@@ -32,14 +34,15 @@
 //   h would take 384 KB here. So fc1 runs twice: pass 1 keeps each row's
 //   running max|h|; pass 2 recomputes h with the same instructions (the int32
 //   sums are exact and order-free), quantises it with the now-known scale and
-//   feeds fc2. (S3 computes h once on 16-row blocks of `mma.sync`.)
+//   feeds fc2. (S3's first kernel computed h once on 16-row blocks of
+//   `mma.sync`, in 2.4 times this kernel's time.)
 // - B3's block shape (ln_mlp.cu): 64 rows, two consumer warpgroups and a
 //   producer warpgroup whose one thread streams the int8 weights by TMA
 //   through a six-stage ring of 24 KB stages (a W1q chunk: 64 hidden units
 //   over all of D; or a W2q half: 192 rows of D over 128 hidden units), each
 //   read by one warpgroup; 1.8 MB a block, from L2.
 // - LayerNorm and y's row quantisation (`ln_row`, `quant_pairs`, one warp a
-//   row as in S3 and B8) write yq into three swizzled K-major [64][128 B]
+//   row as in B8) write yq into three swizzled K-major [64][128 B]
 //   boxes, the A operand of every fc1 (8-bit wgmma takes both operands
 //   K-major, so the product is rows x hidden, where B3's is hidden x rows).
 // - fc1 of a 64-unit chunk is one warpgroup's m64n64 s32 product (K = 384),

@@ -35,7 +35,8 @@
 // - o is written contiguous (B, N, D) by TMA; nothing else is written.
 #include "flash_packed.cuh"
 
-// Plain C entry point (loaded with ctypes). qkv: (B, N, 3 * H * head_dim)
+// Plain C entry point (loaded with ctypes). head_dim 64 or 128. qkv:
+// (B, N, 3 * H * head_dim)
 // bf16 contiguous, [q | k | v], 16-byte aligned; o: (B, N, H * head_dim)
 // bf16 contiguous. Returns a cudaError_t: the launch's (or a TMA
 // descriptor's), or cudaErrorInvalidValue for a shape the kernel does not
@@ -44,7 +45,7 @@ extern "C" int dcvit_qkv_flash_fwd(const void* qkv, void* o, int batch, int n, i
                                    int head_dim, int n_valid, float sm_scale, void* stream) {
   using namespace dcvit;
   const int d = heads * head_dim;
-  if (head_dim != fw::kHd || n < fw::kWgRows || n % fw::kWgRows != 0 || n_valid < 1 ||
+  if (!fw::head_width_built(head_dim) || n < fw::kWgRows || n % fw::kWgRows != 0 || n_valid < 1 ||
       n_valid > n || batch < 1 || batch > 65535 || heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qkv_map, o_map;
@@ -52,7 +53,7 @@ extern "C" int dcvit_qkv_flash_fwd(const void* qkv, void* o, int batch, int n, i
   if ((err = tensor_map3(&qkv_map, qkv, batch, n, 3 * d, fw::kWgRows, 3LL * d)) != cudaSuccess ||
       (err = tensor_map3(&o_map, o, batch, n, d, fw::kWgRows, d)) != cudaSuccess)
     return (int)err;
-  return (int)launch_flash_fwd<true>(qkv_map, qkv_map, qkv_map, o_map, 0, d, 2 * d, nullptr,
-                                     batch, n, heads, n_valid, sm_scale,
-                                     static_cast<cudaStream_t>(stream));
+  auto launch = head_dim == 64 ? launch_flash_fwd<true, 64> : launch_flash_fwd<true, 128>;
+  return (int)launch(qkv_map, qkv_map, qkv_map, o_map, 0, d, 2 * d, nullptr, batch, n, heads,
+                     n_valid, sm_scale, static_cast<cudaStream_t>(stream));
 }

@@ -383,7 +383,18 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The encoder needs a current context, which a thread that has made no CUDA
+// call yet may lack: autograd's device thread can reach a backward kernel's
+// entry point before anything there has touched the card, and PyTorch makes
+// no context current on a thread whose device is already the one asked
+// for. cudaFree(nullptr) makes the runtime's context current, once a thread.
 inline cudaError_t encode_fn(EncodeTiledFn* out) {
+  thread_local bool context_current = false;
+  if (!context_current) {
+    const cudaError_t err = cudaFree(nullptr);
+    if (err != cudaSuccess) return err;
+    context_current = true;
+  }
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -140,11 +140,11 @@ class ChannelVisionTransformer(nn.Module):
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  use_channelvit_channels: bool = True, orthogonal_channel_emb_init: bool = False,
-                 proxy_loss_lambda: float = 0.0, ortho_loss_v1_lambda: float = 0.0,
+                 freeze_channel_emb: bool = False, proxy_loss_lambda: float = 0.0, ortho_loss_v1_lambda: float = 0.0,
                  proxy_orthogonal_init: bool = False, gamma_s: float = 1.0,
                  gamma_d: float = 0.5, reverse_pos_pairs: bool = False,
                  use_square: bool = False, temperature: float = 0.11111,
-                 cls_only_readout: bool = True, keep_rate: Optional[float] = None,
+                 attention_impl: str = "auto", cls_only_readout: bool = True, keep_rate: Optional[float] = None,
                  gelu_exact: bool = False, quantization: str = "none",
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -153,6 +153,7 @@ class ChannelVisionTransformer(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.use_channelvit_channels = use_channelvit_channels
+        self.freeze_channel_emb = freeze_channel_emb
         self.proxy_loss_lambda = proxy_loss_lambda
         self.ortho_loss_v1_lambda = ortho_loss_v1_lambda
         self.tdl = dict(gamma_s=gamma_s, gamma_d=gamma_d, reverse_pos_pairs=reverse_pos_pairs,
@@ -170,7 +171,7 @@ class ChannelVisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, (img_size // patch_size) ** 2 + 1, embed_dim))
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, gelu_exact=gelu_exact,
-                  quantization=quantization)
+                  quantization=quantization, attention_impl=attention_impl)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
@@ -216,6 +217,8 @@ class ChannelVisionTransformer(nn.Module):
                 tokens, **self.tdl)
         if self.use_channelvit_channels:
             sel_embed = pe.channel_embed.weight[channel_ids]  # (C, D) f32
+            if self.freeze_channel_emb:  # neither CE nor CDL trains the table
+                sel_embed = sel_embed.detach()
             if self.training and self.proxy_loss_lambda > 0:
                 # CDL: the selected channel embeddings against their proxies
                 extra_loss = extra_loss + self.proxy_loss_lambda * proxy_loss(

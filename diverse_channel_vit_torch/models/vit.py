@@ -12,8 +12,9 @@ A :class:`Block` runs one of three routes, the same in training and
 inference (the JAX package's ``Block.__call__`` routing with dropout,
 attention dropout and DropPath all 0, which is all the port takes):
 
-- the fused route, where :func:`fused_route_ok` allows it (bf16, a width
-  that is a multiple of 128, head width a multiple of 64, tanh-GELU): LN1 in
+- the fused route, where :func:`fused_route_ok` allows it (``attention_impl``
+  ``auto`` or ``pallas``, bf16, at most 8192 tokens, a width that is a
+  multiple of 128, head width a multiple of 64, tanh-GELU): LN1 in
   f32 -> the wide qkv GEMM -> ``attend_project`` with the residual fused ->
   ``ln_mlp`` with the residual fused (each an autograd Function over its
   forward and backward kernels when a gradient is wanted). With
@@ -21,8 +22,9 @@ attention dropout and DropPath all 0, which is all the port takes):
   ``ln_mlp`` runs its int8 kernels; as in the JAX package, only this MLP is
   quantised: the attention projections, the unfused ``Mlp``, the EViT blocks
   and the readout stay in the compute dtype;
-- the unfused route otherwise (f32, ``gelu_exact``, a width such as the
-  ``tiny`` preset's D = 192): LN1 in f32 -> :class:`Attention` (the qkv GEMM,
+- the unfused route otherwise (f32, ``gelu_exact``, ``attention_impl``
+  ``xla``, a grid past 8192 tokens, a width such as the ``tiny`` preset's
+  D = 192): LN1 in f32 -> :class:`Attention` (the qkv GEMM,
   ``flash_attention_packed`` on the q/k/v views, the proj GEMM) -> residual
   -> LN2 in f32 -> :class:`Mlp` (fc1, GELU, fc2) -> residual;
 - the CLS-only readout of the last block (``cls_query``): only the CLS row's
@@ -87,16 +89,26 @@ def _quantized_mlp(mlp: "Mlp", dtype: torch.dtype):
                    make)
 
 
-def fused_route_ok(x: torch.Tensor, dtype: torch.dtype, num_heads: int,
-                   gelu_exact: bool) -> bool:
+# the longest token grid the JAX package's fused route takes
+# (``ops/attention.py`` ``MAX_SINGLE_PASS_N``); past it JAX runs the block
+# unfused
+MAX_SINGLE_PASS_N = 8192
+ATTENTION_IMPLS = ("auto", "pallas", "xla")
+
+
+def fused_route_ok(x: torch.Tensor, dtype: torch.dtype, num_heads: int, gelu_exact: bool,
+                   attention_impl: str = "auto") -> bool:
     """The JAX package's ``Block._fused_ok`` without its TPU-only terms: the
-    fused kernels take bf16, a token count that is a multiple of 8, a width
-    that is a multiple of 128 with head width a multiple of 64, and tanh-GELU.
-    The gate is the same on the CPU and the card, so the port routes (and so
-    rounds) as the JAX package does."""
+    fused kernels take ``attention_impl`` ``auto`` or ``pallas``, bf16, a
+    token count that is a multiple of 8 and at most
+    :data:`MAX_SINGLE_PASS_N`, a width that is a multiple of 128 with head
+    width a multiple of 64, and tanh-GELU. The gate is the same on the CPU
+    and the card, so the port routes (and so rounds) as the JAX package
+    does."""
     n, d = x.shape[1], x.shape[-1]
-    return (dtype == torch.bfloat16 and n % 8 == 0 and d % 128 == 0
-            and (d // num_heads) % 64 == 0 and not gelu_exact)
+    return (attention_impl in ("auto", "pallas") and dtype == torch.bfloat16 and n % 8 == 0
+            and n <= MAX_SINGLE_PASS_N and d % 128 == 0 and (d // num_heads) % 64 == 0
+            and not gelu_exact)
 
 
 class Attention(nn.Module):
@@ -150,10 +162,14 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32,
-                 gelu_exact: bool = False, quantization: str = "none"):
+                 gelu_exact: bool = False, quantization: str = "none",
+                 attention_impl: str = "auto"):
         super().__init__()
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {attention_impl!r}: want one of {ATTENTION_IMPLS}")
         self.dtype = dtype
         self.gelu_exact = gelu_exact
+        self.attention_impl = attention_impl
         self.quantization = fused_block.check_quantization(quantization)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
@@ -167,7 +183,7 @@ class Block(nn.Module):
         if cls_query:
             return self._cls_readout(x, valid_len)
         dt = self.dtype
-        if not fused_route_ok(x, dt, self.attn.num_heads, self.gelu_exact):
+        if not fused_route_ok(x, dt, self.attn.num_heads, self.gelu_exact, self.attention_impl):
             y = _layer_norm_f32(x, self.norm1).to(dt)
             x = x + self.attn(y, valid_len)
             return x + self.mlp(_layer_norm_f32(x, self.norm2).to(dt), self.gelu_exact)

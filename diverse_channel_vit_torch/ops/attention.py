@@ -40,6 +40,9 @@ from .dispatch import (
 
 MASK_VALUE = -1e30
 PAD_MULTIPLE = 64
+# the head widths the attention kernels are built for (the flash core's
+# template instantiations); the TPU kernels take any multiple of 64
+HEAD_WIDTHS = (64, 128)
 
 
 def maybe_pad_tokens(xseq: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
@@ -163,10 +166,11 @@ def _row_stride(name: str, t: torch.Tensor, b: int, n: int, d: int, device) -> i
 def _flash_check(q, num_heads: int, n_valid: int):
     b, n, d = q.shape
     dh = d // num_heads
-    if q.dtype != torch.bfloat16 or dh != 64 or dh * num_heads != d or n % PAD_MULTIPLE:
+    if q.dtype != torch.bfloat16 or dh not in HEAD_WIDTHS or dh * num_heads != d \
+            or n % PAD_MULTIPLE:
         raise NotImplementedError(
             f"flash_attention_packed kernel: {q.dtype}, head width {dh}, N={n} (built for "
-            f"bf16, head width 64 and N a multiple of {PAD_MULTIPLE}; ROADMAP B5)")
+            f"bf16, head width {HEAD_WIDTHS} and N a multiple of {PAD_MULTIPLE}; ROADMAP B5)")
     if not 1 <= n_valid <= n:
         raise ValueError(f"flash_attention_packed kernel: n_valid={n_valid} not in [1, {n}]")
     return b, n, d

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
-from .attention import PAD_MULTIPLE, attention_bwd_heads, flash_packed_fwd_plain
+from .attention import HEAD_WIDTHS, PAD_MULTIPLE, attention_bwd_heads, flash_packed_fwd_plain
 # the launch counts and the route switch are shared with ops/attention.py;
 # re-exported here, where the model's callers and tests import them from
 from .dispatch import (  # noqa: F401
@@ -150,9 +150,9 @@ def _attend_project_check(qkv, wp, num_heads, n_valid, name):
     d = d3 // 3
     dh = d // num_heads
     d_out = wp.shape[0]
-    if dh != 64:
+    if dh not in HEAD_WIDTHS:
         raise NotImplementedError(
-            f"{name} kernel: head width {dh} (only 64 is built; ROADMAP B1/B2)"
+            f"{name} kernel: head width {dh} (built for {HEAD_WIDTHS}; ROADMAP B1/B2)"
         )
     if n % PAD_MULTIPLE or d_out % 64 or not 1 <= n_valid <= n:
         raise ValueError(f"{name} kernel: N={n} and D_out={d_out} must be multiples "
@@ -639,8 +639,10 @@ def _with_extras(out, with_codes, codes, with_h, h):
 
 
 def _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, with_codes,
-                       with_h):
-    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q", multiple=128)
+                       with_h, launch_key: str = "ln_mlp_q_fwd"):
+    """B7's launch; ``launch_key`` is the count it adds to (the benchmark
+    script's S3 launches the same kernel under its own name)."""
+    d, hid = _ln_mlp_check(x, w1q, launch_key, multiple=128)
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, bf16, x.shape, dev)
     _check("ln_scale", scale, f32, (d,), dev)
@@ -662,8 +664,8 @@ def _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, wit
                  out.data_ptr(), None if codes is None else codes.data_ptr(),
                  None if h is None else h.data_ptr(), m, d, hid, int(bool(residual)),
                  torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch("ln_mlp_q_fwd", err)
-    LAUNCHES["ln_mlp_q_fwd"] += 1
+    _check_launch(launch_key, err)
+    LAUNCHES[launch_key] += 1
     return _with_extras(out, with_codes, codes, with_h, h)
 
 

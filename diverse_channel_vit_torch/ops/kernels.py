@@ -54,7 +54,6 @@ KERNELS = {
     "bench_attn_bwd": ("bench_attn_bwd.cu", "dcvit_bench_attn_bwd",
                        [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
     "qkv_flash": ("qkv_flash.cu", "dcvit_qkv_flash_fwd", [_P] * 2 + [_I] * 5 + [_F, _P]),
-    "int8_ln_mlp": ("int8_ln_mlp.cu", "dcvit_int8_ln_mlp", [_P] * 11 + [_LL, _I, _I, _I, _P]),
 }
 
 # further C functions of those libraries: name -> (library, C function, argtypes)

@@ -16,9 +16,7 @@ two schedules: ``pair_staged`` (one head per block) and ``pair_batched`` (a
 head pair per block of its dk/dv and dq passes, one warpgroup per head
 sharing one ring of tiles); they agree bit for bit. The JAX script's
 ``smap`` experiment (a shard_map at mesh {data: 1}) waits for the multi-GPU
-port (ROADMAP A10). ``--heads 3``
-(head width 128) raises ``NotImplementedError`` from the kernels, which are
-built for head width 64. An experiment that fails raises; the JAX script
+port (ROADMAP A10). An experiment that fails raises; the JAX script
 prints FAILED and goes on.
 """
 
@@ -33,7 +31,7 @@ import torch
 from ..device import resolve_device
 from ..ops import fused_block as fb
 from ..ops import kernels
-from ..ops.attention import _scores
+from ..ops.attention import HEAD_WIDTHS, _scores
 from ..ops.dispatch import LAUNCHES, _check, _check_launch, _launches_kernel
 from . import synchronize
 
@@ -135,12 +133,11 @@ def _bwd_call_cuda(q, k, v, o, do, num_heads, sm_scale, n_valid, variant):
     b, n, d = q.shape
     dh = d // num_heads
     hp = VARIANTS[variant]
-    if q.dtype != torch.bfloat16 or dh != 64 or dh * num_heads != d or n % TILE \
-            or num_heads % hp:
+    if q.dtype != torch.bfloat16 or dh not in HEAD_WIDTHS or dh * num_heads != d or n % TILE:
         raise NotImplementedError(
             f"bwd_call kernel ({variant}): {q.dtype}, {num_heads} heads of width {dh}, N={n} "
-            f"(built for bf16, head width 64, N a multiple of {TILE} and, for pair_batched, an "
-            "even head count; ROADMAP B, S1)")
+            f"(built for bf16, head width {HEAD_WIDTHS} and N a multiple of {TILE}; "
+            "ROADMAP B, S1)")
     if not 1 <= n_valid <= n:
         raise ValueError(f"bwd_call kernel: n_valid={n_valid} not in [1, {n}]")
     dev, f32 = q.device, torch.float32

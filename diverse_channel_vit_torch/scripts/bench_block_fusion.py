@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops import kernels
 from ..ops.activations import gelu
-from ..ops.attention import flash_attention_packed, flash_packed_fwd_plain
+from ..ops.attention import HEAD_WIDTHS, flash_attention_packed, flash_packed_fwd_plain
 from ..ops.dispatch import LAUNCHES, _check, _check_launch, _launches_kernel
 from . import synchronize
 
@@ -139,10 +139,10 @@ def _qkv_flash_fwd_cuda(qkv, num_heads, sm_scale, n_valid):
     b, n, d3 = qkv.shape
     d = d3 // 3
     dh = d // num_heads
-    if qkv.dtype != torch.bfloat16 or dh != 64 or dh * num_heads != d or n % 64:
+    if qkv.dtype != torch.bfloat16 or dh not in HEAD_WIDTHS or dh * num_heads != d or n % 64:
         raise NotImplementedError(
             f"qkv_flash_fwd kernel: {qkv.dtype}, head width {dh}, N={n} (built for bf16, "
-            "head width 64 and N a multiple of 64; ROADMAP B, S2)")
+            f"head width {HEAD_WIDTHS} and N a multiple of 64; ROADMAP B, S2)")
     if not 1 <= n_valid <= n:
         raise ValueError(f"qkv_flash_fwd kernel: n_valid={n_valid} not in [1, {n}]")
     _check("qkv", qkv, torch.bfloat16, (b, n, 3 * d), qkv.device)

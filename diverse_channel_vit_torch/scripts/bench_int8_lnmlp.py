@@ -6,11 +6,12 @@ of ``scripts/bench_int8_lnmlp.py``).
 :func:`int8_ln_mlp` is the prototype's kernel: LayerNorm, int8 fc1,
 tanh-GELU, int8 fc2 and the residual in one launch, activations quantised
 per row inside the kernel (dynamic absmax), weights per output unit outside
-it (:func:`quant_w`, static absmax), int32 accumulation and f32 rescale. Its
-CUDA kernel ``csrc/int8_ln_mlp.cu`` (replaces the TPU kernel
-``_int8_kernel``) computes the hidden activation once and keeps it on chip in
-f32 until its row scale is known; the package's int8 forward (B7,
-``csrc/ln_mlp_q.cu``) runs fc1 twice instead.
+it (:func:`quant_w`, static absmax), int32 accumulation and f32 rescale.
+The TPU kernel ``_int8_kernel`` computes the function of the package's int8
+forward (B7, ``_ln_mlp_q_fwd_kernel``) in the same order, so its CUDA kernel
+is B7's, ``csrc/ln_mlp_q.cu``, launched through B7's wrapper and counted
+under this script's name, as ``bench_block_fusion``'s ``qkv_flash_fwd``
+launches B5's kernel. It takes a hidden width that is a multiple of 128.
 
 :func:`main` holds one layer of it against the bf16 ``ln_mlp`` forward (B3,
 the counterpart of ``_ln_mlp_fwd_impl``), then times 12-layer chains of each
@@ -26,8 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import fused_block as fb
-from ..ops import kernels
-from ..ops.dispatch import LAUNCHES, _check, _check_launch, _launches_kernel
+from ..ops.dispatch import _launches_kernel
 from . import synchronize
 
 L = 12
@@ -57,48 +57,17 @@ def int8_ln_mlp_plain(x, scale, bias, w1q, s1, b1, w2q, s2, b2, residual: bool =
     return fb.ln_mlp_q_plain(x, scale, bias, w1q, s1, b1, w2q, s2, b2, residual, with_codes)
 
 
-def _int8_ln_mlp_cuda(x, scale, bias, w1q, s1, b1, w2q, s2, b2, residual, with_codes):
-    d, hid = x.shape[-1], w1q.shape[0]
-    if d != 384 or x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"int8_ln_mlp kernel: width {d}, {x.dtype} (built for D = 384 and bf16; "
-            "ROADMAP B, S3)")
-    if hid % 64:
-        raise ValueError(f"int8_ln_mlp kernel: hidden width {hid} must be a multiple of 64")
-    dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
-    _check("x", x, bf16, x.shape, dev)
-    _check("ln_scale", scale, f32, (d,), dev)
-    _check("ln_bias", bias, f32, (d,), dev)
-    _check("w1q", w1q, i8, (hid, d), dev)
-    _check("s1", s1, f32, (hid,), dev)
-    _check("b1", b1, bf16, (hid,), dev)
-    _check("w2q", w2q, i8, (d, hid), dev)
-    _check("s2", s2, f32, (d,), dev)
-    _check("b2", b2, bf16, (d,), dev)
-    m = x.numel() // d
-    out = torch.empty_like(x)
-    codes = torch.empty((m, hid), dtype=i8, device=dev) if with_codes else None
-    fn = kernels.function("int8_ln_mlp")
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1q.data_ptr(), s1.data_ptr(),
-                 b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                 None if codes is None else codes.data_ptr(), m, d, hid, int(bool(residual)),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch("int8_ln_mlp", err)
-    LAUNCHES["int8_ln_mlp"] += 1
-    return (out, codes) if with_codes else out
-
-
 def int8_ln_mlp(x, scale, bias, w1q, s1, b1, w2q, s2, b2, residual: bool = True,
                 with_codes: bool = False):
     """fc2(GELU_tanh(fc1(LayerNorm(x)))) [+ x] with both products in int8,
     from the codes and scales of :func:`quant_w` (w1q (HID, D), w2q (D,
-    HID)): the kernel ``csrc/int8_ln_mlp.cu`` for a CUDA tensor, the plain
+    HID)): B7's kernel ``csrc/ln_mlp_q.cu`` for a CUDA tensor, the plain
     version for a CPU one. ``scale`` and ``bias`` are the LayerNorm's (f32),
     ``b1`` and ``b2`` bf16. With ``with_codes`` also returns h's int8 codes
     (M, HID), the codes fc2 read."""
     if _launches_kernel(x):
-        return _int8_ln_mlp_cuda(x, scale, bias, w1q, s1, b1, w2q, s2, b2, residual, with_codes)
+        return fb._ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1, b1, w2q, s2, b2, residual,
+                                     with_codes, False, launch_key="int8_ln_mlp")
     return int8_ln_mlp_plain(x, scale, bias, w1q, s1, b1, w2q, s2, b2, residual, with_codes)
 
 

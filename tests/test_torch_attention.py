@@ -1,7 +1,8 @@
 """The port's ``flash_attention_packed`` (B5 forward, B6 backward) against the
 JAX package's.
 
-On the CPU the port's wrappers run their plain versions. The JAX side runs
+On the CPU the port's wrappers run their plain versions, at head width 64
+and 128. The JAX side runs
 two ways: ``flash_attention_packed``, whose Pallas kernels
 ``_packed_fwd_kernel`` and ``_packed_bwd_kernel`` run in interpret mode
 (``attention.INTERPRET`` is set for the session by tests/conftest.py), and
@@ -42,9 +43,9 @@ def _pair(a, dtype):
     return jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype)), t
 
 
-def _inputs(heads, dtype, seed):
+def _inputs(heads, dtype, seed, dh=64):
     rng = np.random.default_rng(seed)
-    d = 64 * heads
+    d = dh * heads
     return [_pair(rng.normal(size=(B, N, d)), dtype) for _ in range(4)]  # q, k, v, do
 
 
@@ -58,8 +59,8 @@ def _jax_fn(impl, heads, valid_len):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 @pytest.mark.parametrize("heads,valid_len", [(2, None), (2, N - 19), (6, N - 75)])
-def test_flash_packed_matches_jax(dtype, impl, heads, valid_len):
-    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _inputs(heads, dtype, 7 + heads)
+def test_flash_packed_matches_jax(dtype, impl, heads, valid_len, dh=64):
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _inputs(heads, dtype, 7 + heads, dh)
     want, vjp = jax.vjp(jax.jit(_jax_fn(impl, heads, valid_len)), jq, jk, jv)
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     got = at.flash_attention_packed(*leaves, heads, valid_len=valid_len)
@@ -71,6 +72,15 @@ def test_flash_packed_matches_jax(dtype, impl, heads, valid_len):
         assert _rel(g, w) <= TOL[dtype], name
         if name != "q" and valid_len is not None:  # padded keys get exact zeros
             assert not g[:, valid_len:].any(), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("heads,valid_len", [(1, None), (3, N - 19)])
+def test_flash_packed_matches_jax_dh128(dtype, impl, heads, valid_len):
+    """Head width 128 (the small_tpu preset's): one head, and 3 heads with
+    padded keys."""
+    test_flash_packed_matches_jax(dtype, impl, heads, valid_len, dh=128)
 
 
 def test_flash_packed_plain_is_pallas_kernel_on_views_of_one_qkv():

@@ -6,6 +6,9 @@ for the session by tests/conftest.py). The same numpy inputs, made from a
 seed, go to both. Weights go to the port in ``nn.Linear`` layout, the
 transpose of the JAX functions' layout.
 
+``attend_project`` runs at head width 64 (D = 128, 2 heads) and 128 (D =
+256, 2 heads, the ``small_tpu`` preset's head width).
+
 Tolerances: in f32 both sides compute the same f32 arithmetic in other
 orders, rel <= 1e-5 (as tests/test_fused_block.py holds the kernel to its XLA
 composition). In bf16 both round at the same points, so an output may land a
@@ -59,45 +62,58 @@ def test_ln_mlp_plain_matches_pallas_kernel(dtype, residual):
     assert _rel(got, want) <= TOL[dtype]
 
 
-def _attend_inputs(dtype):
+def _attend_inputs(dtype, d=D):
     rng = np.random.default_rng(7)
+    s = 0.2 * (D / d) ** 0.5  # the same score scale at every width
     arrs = dict(
-        y=rng.normal(size=(B, N, D)), x=rng.normal(size=(B, N, D)),
-        w=0.2 * rng.normal(size=(D, 3 * D)), b=0.2 * rng.normal(size=(3 * D,)),
-        wp=0.2 * rng.normal(size=(D, D)), bp=0.2 * rng.normal(size=(D,)),
+        y=rng.normal(size=(B, N, d)), x=rng.normal(size=(B, N, d)),
+        w=s * rng.normal(size=(d, 3 * d)), b=0.2 * rng.normal(size=(3 * d,)),
+        wp=s * rng.normal(size=(d, d)), bp=0.2 * rng.normal(size=(d,)),
     )
     return {k: _pair(v.astype(np.float32), dtype) for k, v in arrs.items()}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_residual", [False, True])
-def test_attend_project_plain_matches_pallas_kernel(dtype, with_residual):
-    a = _attend_inputs(dtype)
+def test_attend_project_plain_matches_pallas_kernel(dtype, with_residual, d=D):
+    a = _attend_inputs(dtype, d)
     valid = N - 3  # padded keys are masked
     want = jfb.attend_project(a["y"][0], a["w"][0], a["b"][0], a["wp"][0], a["bp"][0],
                               a["x"][0] if with_residual else None, H, valid_len=valid)
     got = fb.attend_project(a["y"][1], a["w"][1].t().contiguous(), a["b"][1],
                             a["wp"][1].t().contiguous(), a["bp"][1],
                             a["x"][1] if with_residual else None, H, valid_len=valid)
-    assert got.shape == (B, N, D)
+    assert got.shape == (B, N, d)
     assert _rel(got, want) <= TOL[dtype]
 
 
-def test_attend_project_fwd_o_matches_pallas_kernel():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_attend_project_plain_matches_pallas_kernel_dh128(dtype, with_residual):
+    """2 heads of 128 (D = 256), the head width of the small_tpu preset."""
+    test_attend_project_plain_matches_pallas_kernel(dtype, with_residual, d=2 * D)
+
+
+def test_attend_project_fwd_o_matches_pallas_kernel(d=D):
     """The optional head-concatenated output ``o`` (kept for a backward)."""
-    a = _attend_inputs("float32")
+    a = _attend_inputs("float32", d)
+    scale = (d // H) ** -0.5
     jqkv = jfb._project(a["y"][0], a["w"][0], a["b"][0])
-    want_o, want_xo = jfb._ap_fwd_impl(jqkv, a["x"][0], a["wp"][0], a["bp"][0], H, 0.125,
+    want_o, want_xo = jfb._ap_fwd_impl(jqkv, a["x"][0], a["wp"][0], a["bp"][0], H, scale,
                                        100, jfb._pick_block_fwd(N), True)
     tqkv = fb.project(a["y"][1], a["w"][1].t().contiguous(), a["b"][1])
     got_o, got_lse, got_xo = fb.attend_project_fwd(tqkv, a["x"][1], a["wp"][1].t().contiguous(),
-                                                   a["bp"][1], H, 0.125, 100, need_o=True)
+                                                   a["bp"][1], H, scale, 100, need_o=True)
     assert _rel(got_o, want_o) <= 1e-5
     assert _rel(got_xo, want_xo) <= 1e-5
     assert got_lse.shape == (B, H, N) and got_lse.dtype == torch.float32
     o_none, lse_none, _ = fb.attend_project_fwd(tqkv, a["x"][1], a["wp"][1].t().contiguous(),
                                                 a["bp"][1], H, 0.125, 100)
     assert o_none is None and lse_none is None
+
+
+def test_attend_project_fwd_o_matches_pallas_kernel_dh128():
+    test_attend_project_fwd_o_matches_pallas_kernel(d=2 * D)
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():

@@ -10,6 +10,8 @@ transpose of the JAX layout. Keys at or past ``n_valid`` are masked.
   output.
 - The autograd Functions (``attend_project`` and ``ln_mlp`` with gradients
   on) against ``jax.grad`` through the JAX custom VJPs, every input.
+- ``attend_project`` at head width 64 (D = 128, 2 heads) and 128 (D = 256,
+  2 heads, the ``small_tpu`` preset's head width).
 
 Tolerances, max|port - jax| <= tol * max|jax| per output: in f32 both sides
 compute the same f32 arithmetic in other orders, tol 1e-5. In bf16 both
@@ -45,27 +47,34 @@ def _pair(a, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attend_project_bwd_plain_matches_pallas_kernel(dtype):
+def test_attend_project_bwd_plain_matches_pallas_kernel(dtype, d=D):
     rng = np.random.default_rng(11)
-    jqkv, tqkv = _pair(rng.normal(size=(B, N, 3 * D)), dtype)
-    jwp, twp = _pair(0.2 * rng.normal(size=(D, D)), dtype)  # JAX layout (D, D_out)
-    jbp, tbp = _pair(0.2 * rng.normal(size=(D,)), dtype)
-    jdxo, tdxo = _pair(rng.normal(size=(B, N, D)), dtype)
+    scale = (d // H) ** -0.5
+    jqkv, tqkv = _pair(rng.normal(size=(B, N, 3 * d)), dtype)
+    jwp, twp = _pair(0.2 * rng.normal(size=(d, d)), dtype)  # JAX layout (D, D_out)
+    jbp, tbp = _pair(0.2 * rng.normal(size=(d,)), dtype)
+    jdxo, tdxo = _pair(rng.normal(size=(B, N, d)), dtype)
     # the forward's o from the Pallas kernel feeds both backwards; lse from the port's
-    jo, _ = jfb._ap_fwd_impl(jqkv, None, jwp, jbp, H, SCALE, N_VALID, jfb._pick_block_fwd(N),
+    jo, _ = jfb._ap_fwd_impl(jqkv, None, jwp, jbp, H, scale, N_VALID, jfb._pick_block_fwd(N),
                              False)
     to = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(tqkv.dtype)
-    _, tlse, _ = fb.attend_project_fwd_plain(tqkv, None, twp.t(), tbp, H, SCALE, N_VALID,
+    _, tlse, _ = fb.attend_project_fwd_plain(tqkv, None, twp.t(), tbp, H, scale, N_VALID,
                                              need_o=True)
-    dq, dk, dv, dwp, dbp, db3 = jfb._ap_bwd_impl(jqkv, jo, jwp, jdxo, H, SCALE, N_VALID)
+    dq, dk, dv, dwp, dbp, db3 = jfb._ap_bwd_impl(jqkv, jo, jwp, jdxo, H, scale, N_VALID)
     dqkv, got_dwp, got_dbp, got_db = fb.attend_project_bwd(
-        tqkv, to, tlse, twp.t().contiguous(), tdxo, H, SCALE, N_VALID)
+        tqkv, to, tlse, twp.t().contiguous(), tdxo, H, scale, N_VALID)
     assert dqkv.dtype == tqkv.dtype and got_dwp.dtype == torch.float32
-    for got, want in ((dqkv[..., :D], dq), (dqkv[..., D:2 * D], dk), (dqkv[..., 2 * D:], dv),
+    for got, want in ((dqkv[..., :d], dq), (dqkv[..., d:2 * d], dk), (dqkv[..., 2 * d:], dv),
                       (got_dwp.t(), dwp), (got_dbp, dbp), (got_db, db3)):
         assert _rel(got, want) <= TOL[dtype]
     # padded key rows: exact zeros in dk and dv
-    assert torch.count_nonzero(dqkv[:, N_VALID:, D:]) == 0
+    assert torch.count_nonzero(dqkv[:, N_VALID:, d:]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attend_project_bwd_plain_matches_pallas_kernel_dh128(dtype):
+    """2 heads of 128 (D = 256)."""
+    test_attend_project_bwd_plain_matches_pallas_kernel(dtype, d=2 * D)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -98,14 +107,15 @@ def _cotangent(rng, shape, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_residual", [False, True])
-def test_attend_project_function_matches_jax_grad(dtype, with_residual):
+def test_attend_project_function_matches_jax_grad(dtype, with_residual, d=D):
     rng = np.random.default_rng(13)
     names = ("y", "w", "b", "wp", "bp", "x")
-    arrs = dict(y=rng.normal(size=(B, N, D)), w=0.2 * rng.normal(size=(D, 3 * D)),
-                b=0.2 * rng.normal(size=(3 * D,)), wp=0.2 * rng.normal(size=(D, D)),
-                bp=0.2 * rng.normal(size=(D,)), x=rng.normal(size=(B, N, D)))
+    s = 0.2 * (D / d) ** 0.5  # the same score scale at every width
+    arrs = dict(y=rng.normal(size=(B, N, d)), w=s * rng.normal(size=(d, 3 * d)),
+                b=0.2 * rng.normal(size=(3 * d,)), wp=s * rng.normal(size=(d, d)),
+                bp=0.2 * rng.normal(size=(d,)), x=rng.normal(size=(B, N, d)))
     pairs = {k: _pair(v, dtype) for k, v in arrs.items()}
-    jg, tg = _cotangent(rng, (B, N, D), dtype)
+    jg, tg = _cotangent(rng, (B, N, d), dtype)
 
     def jloss(y, w, b, wp, bp, x):
         out = jfb.attend_project(y, w, b, wp, bp, x if with_residual else None, H,
@@ -125,6 +135,13 @@ def test_attend_project_function_matches_jax_grad(dtype, with_residual):
             continue
         assert t[k].grad.dtype == t[k].dtype
         assert _rel(t[k].grad, w) <= TOL[dtype], k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_attend_project_function_matches_jax_grad_dh128(dtype, with_residual):
+    """2 heads of 128 (D = 256)."""
+    test_attend_project_function_matches_jax_grad(dtype, with_residual, d=2 * D)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

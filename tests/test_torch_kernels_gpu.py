@@ -31,8 +31,13 @@ siblings on the same inputs: S1 (``bwd_call``) in both schedules, bit for
 bit, with padded key rows exactly 0, bit for bit against B6 given B5's lse
 (its statistics pass recomputes that lse with B5's instructions) and across
 two calls; S2 (``qkv_flash_fwd``) against B5 on the three views of the same
-qkv, bit for bit (one kernel, two maps); S3 (``int8_ln_mlp``) against B7 on
-the same weight codes and scales, outputs and hidden codes, bit for bit. B7
+qkv, bit for bit (one kernel, two maps); S3 (``int8_ln_mlp``, B7's kernel)
+against B7 on the same weight codes and scales, outputs and hidden codes,
+bit for bit. The attention kernels (B1, B2, B5, B6, S1, S2) are held at head
+width 128 too (the ``_dh128`` tests: 3 heads at D = 384, one head, 6 heads
+at D = 768, ragged last key tiles and the EViT grids; S1's ``pair_batched``
+with an odd head count), and refuse head width 192. B2 and B6 launch on a
+thread that has made no CUDA call yet. B7
 and B8 (the int8 ``ln_mlp``) are also held bit for bit across two calls, B8
 at a ragged last row tile with padding rows, and B8's recomputed h against
 B7's, bit for bit. The public
@@ -42,6 +47,7 @@ gradient.
 """
 
 import contextlib
+import threading
 
 import pytest
 import torch
@@ -86,12 +92,12 @@ def _rel(a, b):
     (2, 128, 1, 100, True, 64, 1.0),     # one head, D_out = 64: half a Wp box
 ])
 def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, residual, d_out,
-                                             bias):
-    d = heads * 64
+                                             bias, dh=64):
+    d = heads * dh
     qkv = _rnd(gen, batch, n, 3 * d)
     x_res = _rnd(gen, batch, n, d_out) if residual else None
     wp, bp = _rnd(gen, d_out, d, scale=d ** -0.5), _rnd(gen, d_out, scale=bias)
-    args = (qkv, x_res, wp, bp, heads, 0.125, n_valid)
+    args = (qkv, x_res, wp, bp, heads, dh ** -0.5, n_valid)
     before = fb.LAUNCHES["attend_project_fwd"]
     o_k, lse_k, xo_k = fb.attend_project_fwd(*args, need_o=True)
     o_p, lse_p, xo_p = fb.attend_project_fwd_plain(*args, need_o=True)
@@ -101,6 +107,23 @@ def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, resi
     assert _rel(lse_k, lse_p) <= 1e-5  # f32 statistics of the same scores
     o_none, lse_none, xo_again = fb.attend_project_fwd(*args)
     assert o_none is None and lse_none is None and torch.equal(xo_again, xo_k)
+
+
+# head width 128 (the small_tpu preset's 3 heads at D = 384)
+@pytest.mark.parametrize("batch,n,heads,n_valid,residual,d_out,bias", [
+    (2, 64, 3, 64, True, 384, 1.0),      # one tile, nothing masked
+    (2, 128, 3, 100, False, 384, 1.0),   # ragged last key tile, no residual
+    (3, 640, 3, 589, True, 384, 1.0),    # the k=3 channel-subset grid
+    (2, 1600, 3, 1569, False, 384, 0.0),  # the flagship grid, products alone
+    (2, 768, 3, 768, True, 384, 1.0),    # the EViT grid after layer 6: no mask
+    (2, 1152, 3, 1098, True, 384, 1.0),  # the EViT grid after layer 3
+    (2, 128, 1, 100, True, 128, 1.0),    # one head, D = D_out = 128
+    (2, 640, 6, 589, True, 768, 1.0),    # D = 768: 6 heads of 128
+])
+def test_attend_project_kernel_matches_plain_dh128(gen, batch, n, heads, n_valid, residual,
+                                                   d_out, bias):
+    test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, residual, d_out,
+                                             bias, dh=128)
 
 
 @pytest.mark.parametrize("shape,residual,bias", [
@@ -135,8 +158,8 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(gen):
         fb.attend_project_fwd(qkv.float(), None, wp, bp, 6, 0.125, 64)
     with pytest.raises(ValueError):  # N not a multiple of 64
         fb.attend_project_fwd(qkv[:, :60].contiguous(), None, wp, bp, 6, 0.125, 60)
-    with pytest.raises(NotImplementedError):  # head width 128
-        fb.attend_project_fwd(qkv, None, wp, bp, 3, 0.125, 64)
+    with pytest.raises(NotImplementedError):  # head width 192
+        fb.attend_project_fwd(qkv, None, wp, bp, 2, 0.125, 64)
     x = _rnd(gen, 1, 64, 256)
     w1, w2 = _rnd(gen, 1024, 256), _rnd(gen, 256, 1024)
     with pytest.raises(NotImplementedError):  # D = 256
@@ -155,13 +178,14 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(gen):
     (2, 640, 12, 589),   # D = 768
     (2, 128, 1, 100),    # one head, D = D_out = 64: half-empty 128-column tiles
 ])
-def test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid):
-    d = heads * 64
+def test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid, dh=64):
+    d = heads * dh
     qkv, x_res = _rnd(gen, batch, n, 3 * d), _rnd(gen, batch, n, d)
     wp, bp = _rnd(gen, d, d, scale=d ** -0.5), _rnd(gen, d)
-    o, lse, _ = fb.attend_project_fwd(qkv, x_res, wp, bp, heads, 0.125, n_valid, need_o=True)
+    o, lse, _ = fb.attend_project_fwd(qkv, x_res, wp, bp, heads, dh ** -0.5, n_valid,
+                                      need_o=True)
     dxo = _rnd(gen, batch, n, d)
-    args = (qkv, o, lse, wp, dxo, heads, 0.125, n_valid)
+    args = (qkv, o, lse, wp, dxo, heads, dh ** -0.5, n_valid)
     before = fb.LAUNCHES["attend_project_bwd"]
     got = fb.attend_project_bwd(*args)
     assert fb.LAUNCHES["attend_project_bwd"] == before + 1
@@ -172,6 +196,20 @@ def test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid):
     for j in range(3):  # dq, dk and dv each on its own scale
         assert _rel(got[0][..., j * d:(j + 1) * d], want[0][..., j * d:(j + 1) * d]) <= TOL
     assert torch.count_nonzero(got[0][:, n_valid:, d:]) == 0
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", [
+    (1, 64, 3, 64),      # B = 1, one tile, nothing masked
+    (2, 640, 3, 70),     # n_valid far below N: 8 of 10 key tiles wholly padded
+    (3, 640, 3, 589),    # the k = 3 channel-subset grid
+    (2, 1600, 3, 1569),  # the flagship grid
+    (2, 768, 3, 768),    # the EViT grid after layer 6: no mask
+    (1, 192, 3, 150),    # B N = 192 rows: the row pass's last 128-row block half full
+    (2, 128, 1, 100),    # one head, D = D_out = 128
+    (2, 640, 6, 589),    # D = 768: 6 heads of 128
+])
+def test_attend_project_bwd_kernel_matches_plain_dh128(gen, batch, n, heads, n_valid):
+    test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid, dh=128)
 
 
 @pytest.mark.parametrize("shape,residual", [
@@ -219,10 +257,10 @@ def test_ln_mlp_bwd_kernel_is_bit_identical_across_calls(gen, shape):
 
 
 @pytest.mark.parametrize("batch,n,heads", [(3, 64, 6), (8, 1600, 6)])
-def test_attend_project_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, heads):
+def test_attend_project_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, heads, dh=64):
     """B2 sums every partial in a fixed order and uses no atomics: two calls
     on the same inputs agree bit for bit, every output."""
-    d, n_valid = heads * 64, n - n // 50
+    d, n_valid = heads * dh, n - n // 50
     qkv, x_res = _rnd(gen, batch, n, 3 * d), _rnd(gen, batch, n, d)
     wp, bp = _rnd(gen, d, d, scale=d ** -0.5), _rnd(gen, d)
     o, lse, _ = fb.attend_project_fwd(qkv, x_res, wp, bp, heads, 0.125, n_valid, need_o=True)
@@ -231,6 +269,11 @@ def test_attend_project_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, 
     second = fb.attend_project_bwd(*args)
     for name, g1, g2 in zip(("dqkv", "dwp", "dbp", "db_qkv"), first, second):
         assert torch.equal(g1, g2), name
+
+
+@pytest.mark.parametrize("batch,n,heads", [(3, 64, 3), (8, 1600, 3)])
+def test_attend_project_bwd_kernel_is_bit_identical_across_calls_dh128(gen, batch, n, heads):
+    test_attend_project_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, heads, dh=128)
 
 
 def _grads(fn, inputs, cotangent, plain):
@@ -242,10 +285,10 @@ def _grads(fn, inputs, cotangent, plain):
 
 
 @pytest.mark.parametrize("with_residual", [False, True])
-def test_attend_project_function_grads_match_plain_route(gen, with_residual):
+def test_attend_project_function_grads_match_plain_route(gen, with_residual, heads=6):
     """Gradients of every input through AttendProjectFn: the kernel route
     (B1 forward, B2 backward) against the plain route, on the card."""
-    b, n, d, heads, n_valid = 2, 640, 384, 6, 589
+    b, n, d, n_valid = 2, 640, 384, 589
     inputs = [_rnd(gen, b, n, d), _rnd(gen, 3 * d, d, scale=d ** -0.5), _rnd(gen, 3 * d),
               _rnd(gen, d, d, scale=d ** -0.5), _rnd(gen, d), _rnd(gen, b, n, d)]
 
@@ -265,6 +308,11 @@ def test_attend_project_function_grads_match_plain_route(gen, with_residual):
             assert g is None and w is None
             continue
         assert _rel(g, w) <= TOL, name
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_attend_project_function_grads_match_plain_route_dh128(gen, with_residual):
+    test_attend_project_function_grads_match_plain_route(gen, with_residual, heads=3)
 
 
 @pytest.mark.parametrize("residual,grid", [
@@ -305,8 +353,8 @@ def test_backward_wrappers_raise_on_what_they_do_not_take(gen):
         fb.attend_project_bwd(qkv[:, :60].contiguous(), o[:, :60].contiguous(),
                               lse[..., :60].contiguous(), wp, do[:, :60].contiguous(), 6,
                               0.125, 60)
-    with pytest.raises(NotImplementedError):  # head width 128
-        fb.attend_project_bwd(qkv, o, lse[:, :3].contiguous(), wp, do, 3, 0.125, 64)
+    with pytest.raises(NotImplementedError):  # head width 192
+        fb.attend_project_bwd(qkv, o, lse[:, :2].contiguous(), wp, do, 2, 0.125, 64)
     x = _rnd(gen, 1, 64, 256)
     with pytest.raises(NotImplementedError):  # D = 256
         fb.ln_mlp_bwd(x, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
@@ -323,25 +371,39 @@ def test_backward_wrappers_raise_on_what_they_do_not_take(gen):
     (2, 640, 12, 589),   # D = 768: 12 heads (the base preset's width)
     (2, 768, 12, 768),   # 12 heads, nothing masked
 ])
-def test_flash_packed_kernels_match_plain(gen, batch, n, heads, n_valid):
-    d = heads * 64
+def test_flash_packed_kernels_match_plain(gen, batch, n, heads, n_valid, dh=64):
+    d, sm = heads * dh, dh ** -0.5
     q, k, v = _rnd(gen, batch, n, 3 * d).split(d, dim=-1)
     before = dict(fb.LAUNCHES)
-    o, lse = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)
+    o, lse = at.flash_packed_fwd(q, k, v, heads, sm, n_valid, need_lse=True)
     assert fb.LAUNCHES["flash_packed_fwd"] == before["flash_packed_fwd"] + 1
-    o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, 0.125, n_valid, need_lse=True)
+    o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, sm, n_valid, need_lse=True)
     assert _rel(o, o_p) <= TOL
     assert _rel(lse, lse_p) <= 1e-5  # f32 statistics of the same scores
-    assert at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid)[1] is None
+    assert at.flash_packed_fwd(q, k, v, heads, sm, n_valid)[1] is None
     do = _rnd(gen, batch, n, d)
-    got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, 0.125, n_valid)
+    got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, sm, n_valid)
     assert fb.LAUNCHES["flash_packed_bwd"] == before["flash_packed_bwd"] + 1
     for name, g, w in zip("qkv", got, at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads,
-                                                                 0.125, n_valid)):
+                                                                 sm, n_valid)):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert _rel(g, w) <= TOL, name
     assert torch.count_nonzero(got[1][:, n_valid:]) == 0
     assert torch.count_nonzero(got[2][:, n_valid:]) == 0
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", [
+    (1, 64, 3, 64),      # one tile, nothing masked
+    (2, 640, 3, 70),     # n_valid far below N: 8 of 10 key tiles wholly padded
+    (2, 128, 1, 100),    # one head, a ragged last key tile
+    (3, 576, 3, 537),    # the EViT grid after layer 9
+    (2, 1152, 3, 1098),  # the EViT grid after layer 3
+    (2, 1600, 3, 1569),  # the flagship grid
+    (2, 768, 3, 768),    # the EViT grid after layer 6: no mask
+    (2, 640, 6, 589),    # D = 768: 6 heads of 128
+])
+def test_flash_packed_kernels_match_plain_dh128(gen, batch, n, heads, n_valid):
+    test_flash_packed_kernels_match_plain(gen, batch, n, heads, n_valid, dh=128)
 
 
 def _qkv_views(gen, layout, batch, n, d):
@@ -360,17 +422,17 @@ def _qkv_views(gen, layout, batch, n, d):
     (2, 640, 12, 589),   # 12 heads
 ])
 def test_flash_packed_kernels_match_plain_on_other_layouts(gen, layout, batch, n, heads,
-                                                          n_valid):
-    d = heads * 64
+                                                          n_valid, dh=64):
+    d, sm = heads * dh, dh ** -0.5
     q, k, v = _qkv_views(gen, layout, batch, n, d)
-    o, lse = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)
-    o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, 0.125, n_valid, need_lse=True)
+    o, lse = at.flash_packed_fwd(q, k, v, heads, sm, n_valid, need_lse=True)
+    o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, sm, n_valid, need_lse=True)
     assert _rel(o, o_p) <= TOL
     assert _rel(lse, lse_p) <= 1e-5
     do = _rnd(gen, batch, n, d)
-    got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, 0.125, n_valid)
+    got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, sm, n_valid)
     for name, g, w in zip("qkv", got, at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads,
-                                                                 0.125, n_valid)):
+                                                                 sm, n_valid)):
         assert _rel(g, w) <= TOL, name
     assert torch.count_nonzero(got[1][:, n_valid:]) == 0
     assert torch.count_nonzero(got[2][:, n_valid:]) == 0
@@ -380,17 +442,31 @@ def test_flash_packed_kernels_match_plain_on_other_layouts(gen, layout, batch, n
     (2, 1600, 6, 1569),  # the flagship grid
     (3, 576, 6, 537),    # the EViT grid after layer 9
 ])
-def test_flash_packed_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid):
+def test_flash_packed_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid,
+                                                              dh=64):
     """B6 sums in a fixed order and uses no atomics: two calls on the same
     inputs agree bit for bit, dq, dk and dv."""
-    d = heads * 64
+    d = heads * dh
     q, k, v = _rnd(gen, batch, n, 3 * d).split(d, dim=-1)
-    o, lse = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)
-    args = (q, k, v, o, _rnd(gen, batch, n, d), lse, heads, 0.125, n_valid)
+    o, lse = at.flash_packed_fwd(q, k, v, heads, dh ** -0.5, n_valid, need_lse=True)
+    args = (q, k, v, o, _rnd(gen, batch, n, d), lse, heads, dh ** -0.5, n_valid)
     first = at.flash_packed_bwd(*args)
     second = at.flash_packed_bwd(*args)
     for name, g1, g2 in zip("qkv", first, second):
         assert torch.equal(g1, g2), name
+
+
+@pytest.mark.parametrize("layout", ["separate", "mixed"])
+def test_flash_packed_kernels_match_plain_on_other_layouts_dh128(gen, layout):
+    test_flash_packed_kernels_match_plain_on_other_layouts(gen, layout, 2, 1152, 3, 1098,
+                                                           dh=128)
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", [(2, 1600, 3, 1569), (3, 576, 3, 537)])
+def test_flash_packed_bwd_kernel_is_bit_identical_across_calls_dh128(gen, batch, n, heads,
+                                                                    n_valid):
+    test_flash_packed_bwd_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid,
+                                                               dh=128)
 
 
 @pytest.mark.parametrize("n_valid", [589, 640])
@@ -417,8 +493,8 @@ def test_flash_packed_wrappers_raise_on_what_they_do_not_take(gen):
     q, k, v = _rnd(gen, 1, 64, 3 * 384).split(384, dim=-1)
     with pytest.raises(NotImplementedError, match="B5"):  # f32
         at.flash_packed_fwd(q.float(), k.float(), v.float(), 6, 0.125, 64)
-    with pytest.raises(NotImplementedError, match="B5"):  # head width 128
-        at.flash_packed_fwd(q, k, v, 3, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="B5"):  # head width 192
+        at.flash_packed_fwd(q, k, v, 2, 0.125, 64)
     with pytest.raises(NotImplementedError, match="B5"):  # N not a multiple of 64
         at.flash_packed_fwd(q[:, :60], k[:, :60], v[:, :60], 6, 0.125, 60)
     qt = _rnd(gen, 1, 384, 64).transpose(1, 2)  # columns not contiguous
@@ -616,12 +692,12 @@ def test_ln_mlp_q_bwd_recompute_is_the_forward(gen, shape, residual):
     (2, 640, 6, 589),    # the k=3 channel-subset grid: one wholly padded key tile
     (2, 1664, 6, 1569),  # the benchmark's grid
 ])
-def test_bwd_call_kernel_matches_plain(gen, batch, n, heads, n_valid):
+def test_bwd_call_kernel_matches_plain(gen, batch, n, heads, n_valid, dh=64):
     """S1 in both schedules against its plain version; the two schedules
     agree bit for bit, and padded key rows get dk = dv = 0 exactly."""
-    d = heads * 64
+    d = heads * dh
     q, k, v, o, do = (_rnd(gen, batch, n, d) for _ in range(5))
-    args = (q, k, v, o, do, heads, 0.125, n_valid)
+    args = (q, k, v, o, do, heads, dh ** -0.5, n_valid)
     want = s1.bwd_call_plain(*args)
     got = {}
     for variant in s1.VARIANTS:
@@ -642,29 +718,47 @@ S1_GRIDS = [
     (2, 640, 6, 589),    # one wholly padded key tile
     (2, 1664, 6, 1569),  # the benchmark's grid
 ]
+# head width 128: `bench_attn --heads 3`; an odd head count, so pair_batched's
+# last block carries one head
+S1_GRIDS_DH128 = [
+    (1, 128, 1, 100),    # one head, a ragged last key tile
+    (2, 640, 3, 589),    # one wholly padded key tile
+    (2, 1664, 3, 1569),  # the benchmark's grid at --heads 3
+    (1, 192, 2, 150),    # two heads: one full pair
+]
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", S1_GRIDS_DH128)
+def test_bwd_call_kernel_matches_plain_dh128(gen, batch, n, heads, n_valid):
+    test_bwd_call_kernel_matches_plain(gen, batch, n, heads, n_valid, dh=128)
 
 
 @pytest.mark.parametrize("batch,n,heads,n_valid", S1_GRIDS)
-def test_bwd_call_kernel_matches_b6_given_b5_lse(gen, batch, n, heads, n_valid):
+def test_bwd_call_kernel_matches_b6_given_b5_lse(gen, batch, n, heads, n_valid, dh=64):
     """S1 (pair_staged) against B6 (flash_packed_bwd) fed the lse of B5
     (flash_packed_fwd) on the same q, k, v, o and do: S1's statistics pass
     recomputes that lse with B5's instructions and then runs B6's passes, so
     dq, dk and dv agree bit for bit."""
-    d = heads * 64
+    d, sm = heads * dh, dh ** -0.5
     q, k, v, o, do = (_rnd(gen, batch, n, d) for _ in range(5))
-    lse = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)[1]
-    want = at.flash_packed_bwd(q, k, v, o, do, lse, heads, 0.125, n_valid)
-    got = s1.bwd_call(q, k, v, o, do, heads, 0.125, n_valid, "pair_staged")
+    lse = at.flash_packed_fwd(q, k, v, heads, sm, n_valid, need_lse=True)[1]
+    want = at.flash_packed_bwd(q, k, v, o, do, lse, heads, sm, n_valid)
+    got = s1.bwd_call(q, k, v, o, do, heads, sm, n_valid, "pair_staged")
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert torch.equal(g, w), name
 
 
+@pytest.mark.parametrize("batch,n,heads,n_valid", S1_GRIDS_DH128)
+def test_bwd_call_kernel_matches_b6_given_b5_lse_dh128(gen, batch, n, heads, n_valid):
+    test_bwd_call_kernel_matches_b6_given_b5_lse(gen, batch, n, heads, n_valid, dh=128)
+
+
 @pytest.mark.parametrize("batch,n,heads,n_valid", S1_GRIDS)
-def test_bwd_call_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid):
+def test_bwd_call_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid, dh=64):
     """Two S1 calls on the same inputs, in each schedule, agree bit for bit
     (every reduction in a fixed order, no atomics)."""
-    d = heads * 64
-    args = tuple(_rnd(gen, batch, n, d) for _ in range(5)) + (heads, 0.125, n_valid)
+    d = heads * dh
+    args = tuple(_rnd(gen, batch, n, d) for _ in range(5)) + (heads, dh ** -0.5, n_valid)
     for variant in s1.VARIANTS:
         first = s1.bwd_call(*args, variant)
         again = s1.bwd_call(*args, variant)
@@ -672,26 +766,40 @@ def test_bwd_call_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_v
             assert torch.equal(a, b), (variant, name)
 
 
+@pytest.mark.parametrize("batch,n,heads,n_valid", S1_GRIDS_DH128)
+def test_bwd_call_kernel_is_bit_identical_across_calls_dh128(gen, batch, n, heads, n_valid):
+    test_bwd_call_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid, dh=128)
+
+
 @pytest.mark.parametrize("batch,n,heads,n_valid", [
     (1, 128, 2, 128),    # nothing masked
     (2, 640, 6, 589),
     (2, 1664, 6, 1569),  # the benchmark's grid
 ])
-def test_qkv_flash_kernel_matches_plain_and_b5(gen, batch, n, heads, n_valid):
+def test_qkv_flash_kernel_matches_plain_and_b5(gen, batch, n, heads, n_valid, dh=64):
     """S2 against its plain version, and against B5 (flash_packed_fwd) on the
     three column blocks of the same qkv: S2 is B5's kernel on one packed qkv
     map at column offsets 0, D and 2D, so the two agree bit for bit."""
-    d = heads * 64
+    d, sm = heads * dh, dh ** -0.5
     qkv = _rnd(gen, batch, n, 3 * d)
     before = fb.LAUNCHES["qkv_flash_fwd"]
-    o = s2.qkv_flash_fwd(qkv, heads, 0.125, n_valid)
+    o = s2.qkv_flash_fwd(qkv, heads, sm, n_valid)
     assert fb.LAUNCHES["qkv_flash_fwd"] == before + 1
     assert o.shape == (batch, n, d) and o.dtype == qkv.dtype
-    plain = s2.qkv_flash_fwd_plain(qkv, heads, 0.125, n_valid)
-    b5 = at.flash_packed_fwd(*qkv.split(d, dim=-1), heads, 0.125, n_valid)[0]
+    plain = s2.qkv_flash_fwd_plain(qkv, heads, sm, n_valid)
+    b5 = at.flash_packed_fwd(*qkv.split(d, dim=-1), heads, sm, n_valid)[0]
     assert _rel(o, plain) <= TOL
     assert _rel(b5, plain) <= TOL
     assert torch.equal(o, b5)
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid", [
+    (1, 128, 1, 128),    # one head, nothing masked
+    (2, 640, 3, 589),
+    (2, 1664, 3, 1569),  # the benchmark's grid at 3 heads
+])
+def test_qkv_flash_kernel_matches_plain_and_b5_dh128(gen, batch, n, heads, n_valid):
+    test_qkv_flash_kernel_matches_plain_and_b5(gen, batch, n, heads, n_valid, dh=128)
 
 
 @pytest.mark.parametrize("shape,residual,bias", [
@@ -716,6 +824,45 @@ def test_int8_ln_mlp_kernel_matches_plain_and_b7(gen, shape, residual, bias):
     # B7's instructions on the same codes and scales: the same codes and outputs
     out7, codes7 = fb.ln_mlp_q_fwd(*args, with_codes=True)
     assert torch.equal(codes, codes7) and torch.equal(out, out7)
+
+
+def test_backward_kernels_launch_on_a_thread_with_no_cuda_call_yet(gen):
+    """A thread that has made no CUDA call yet, as autograd's device thread
+    may be when a backward kernel is its first work, launches B2 and B6 (the
+    main thread used both first, and the caching allocator holds every block
+    the thread's calls take): their outputs equal the main thread's, bit for
+    bit. The TMA encoder needs a current context, which each entry point
+    makes current first (ROADMAP C5)."""
+    b, n, d, heads, n_valid = 2, 640, 384, 6, 589
+    qkv, wp, bp, dxo = (_rnd(gen, b, n, 3 * d), _rnd(gen, d, d, scale=d ** -0.5),
+                        _rnd(gen, d), _rnd(gen, b, n, d))
+    o, lse, _ = fb.attend_project_fwd(qkv, None, wp, bp, heads, 0.125, n_valid, need_o=True)
+    q, k, v = qkv.split(d, dim=-1)
+    o5, lse5 = at.flash_packed_fwd(q, k, v, heads, 0.125, n_valid, need_lse=True)
+
+    def calls():
+        return (fb.attend_project_bwd(qkv, o, lse, wp, dxo, heads, 0.125, n_valid),
+                at.flash_packed_bwd(q, k, v, o5, dxo, lse5, heads, 0.125, n_valid))
+
+    calls()  # the blocks the calls take go back to the allocator's cache
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = calls()
+        except Exception as e:  # noqa: BLE001 (raised again below, on the test's thread)
+            got["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "error" in got:
+        raise got["error"]
+    for part, want in zip(got["out"], calls()):
+        for g, w in zip(part, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("op", ["attend_project", "flash_attention_packed"])
@@ -753,26 +900,29 @@ def test_bench_script_wrappers_raise_on_what_they_do_not_take(gen):
     q, k, v, o, do = (_rnd(gen, 1, 64, 384) for _ in range(5))
     with pytest.raises(NotImplementedError, match="S1"):  # f32
         s1.bwd_call(q.float(), k.float(), v.float(), o.float(), do.float(), 6, 0.125, 64)
-    with pytest.raises(NotImplementedError, match="S1"):  # head width 128
-        s1.bwd_call(q, k, v, o, do, 3, 0.125, 64)
-    with pytest.raises(NotImplementedError, match="S1"):  # an odd head count in pairs
-        q5, k5, v5, o5, do5 = (_rnd(gen, 1, 64, 320) for _ in range(5))
-        s1.bwd_call(q5, k5, v5, o5, do5, 5, 0.125, 64, "pair_batched")
+    with pytest.raises(NotImplementedError, match="S1"):  # head width 192
+        s1.bwd_call(q, k, v, o, do, 2, 0.125, 64)
+    # an odd head count in pairs: the last pair is one head, as in the TPU kernel
+    q5, k5, v5, o5, do5 = (_rnd(gen, 1, 64, 320) for _ in range(5))
+    for a, b in zip(s1.bwd_call(q5, k5, v5, o5, do5, 5, 0.125, 64, "pair_batched"),
+                    s1.bwd_call(q5, k5, v5, o5, do5, 5, 0.125, 64, "pair_staged")):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         s1.bwd_call(q, k, v, o, do, 6, 0.125, 64, "pair_unknown")
     qkv = _rnd(gen, 1, 64, 3 * 384)
     with pytest.raises(NotImplementedError, match="S2"):  # f32
         s2.qkv_flash_fwd(qkv.float(), 6, 0.125, 64)
-    with pytest.raises(NotImplementedError, match="S2"):  # head width 128
-        s2.qkv_flash_fwd(qkv, 3, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="S2"):  # head width 192
+        s2.qkv_flash_fwd(qkv, 2, 0.125, 64)
+    # S3 launches B7's kernel through B7's wrapper, and refuses what B7 refuses
     x, s, b, w1, b1, w2, b2 = _mlp_inputs(gen, (1, 64, 384))
     w1q, sc1 = s3.quant_w(w1)
     w2q, sc2 = s3.quant_w(w2)
-    with pytest.raises(NotImplementedError, match="S3"):  # f32 input
+    with pytest.raises(ValueError, match="x"):  # f32 input
         s3.int8_ln_mlp(x.float(), s, b, w1q, sc1, b1, w2q, sc2, b2)
     x2 = _rnd(gen, 1, 64, 256)
     c1, t1 = s3.quant_w(_rnd(gen, 1024, 256))
     c2, t2 = s3.quant_w(_rnd(gen, 256, 1024))
-    with pytest.raises(NotImplementedError, match="S3"):  # D = 256
+    with pytest.raises(NotImplementedError, match="int8_ln_mlp"):  # D = 256
         s3.int8_ln_mlp(x2, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
                        c1, t1, _rnd(gen, 1024), c2, t2, _rnd(gen, 256))

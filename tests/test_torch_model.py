@@ -114,6 +114,45 @@ def test_logits_bf16_match_jax(setup, subset, monkeypatch):
     assert _rel(got, want) <= 3e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_logits_match_jax_dh128(dtype, monkeypatch):
+    """The slice's head width at a tiny size: 2 heads of 128 (D = 256),
+    depth 2, the same 48^2 images and k = 7 request (N = 64), weights from
+    the JAX init through ``params_from_jax`` (the parameter tree does not
+    depend on the head count). bf16 with ``FORCE_ON_CPU``: block 0 takes the
+    fused route in both packages (the JAX attend_project kernel in interpret
+    mode at head width 128), block 1 the readout; rel 3e-2 as
+    test_logits_bf16_match_jax. f32 against the unfused JAX route, rel 1e-4
+    as test_logits_f32_match_unfused_jax."""
+    d, depth, ids = 256, 2, SUBSETS["k7"]
+    x = np.random.default_rng(0).normal(size=(2, len(ids), IMG, IMG)).astype(np.float32)
+
+    def jmodel(jdtype):
+        bb = jcv.ChannelVisionTransformer(num_total_channels=C, img_size=IMG, patch_size=P,
+                                          embed_dim=d, depth=depth, num_heads=H,
+                                          proxy_loss_lambda=1e-3, dtype=jdtype)
+        return JClassifier(backbone=bb, embed_dim=d, num_classes=NC, with_head=True)
+
+    init = jax.jit(lambda xx: jmodel(jnp.float32).init(
+        {"params": jax.random.key(3)}, xx, jnp.asarray(ids), train=False))
+    params = init(jnp.asarray(x))["params"]
+    calls = _count_fused_calls(monkeypatch)
+    monkeypatch.setattr(jfb, "FORCE_ON_CPU", True)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32,
+                                                                            torch.float32)
+    want, _ = jax.jit(lambda p, xx: jmodel(jdt).apply({"params": p}, xx, jnp.asarray(ids),
+                                                      train=False))(params, jnp.asarray(x))
+    model = ChannelAdaptiveClassifier(
+        ChannelVisionTransformer(C, IMG, P, d, depth, H, proxy_loss_lambda=1e-3, dtype=tdt),
+        d, NC, with_head=True).eval()
+    model.load_state_dict(params_from_jax(params), strict=True)
+    with torch.no_grad():
+        got, _ = model(torch.from_numpy(x), torch.tensor(ids))
+    fused = int(dtype == "bfloat16")
+    assert calls == {"jax": fused, "port": fused}
+    assert _rel(got.numpy(), want) <= (3e-2 if dtype == "bfloat16" else 1e-4)
+
+
 @pytest.mark.parametrize("side,h0,channels", [(3, 3, 7), (14, 14, 8), (14, 14, 1), (6, 4, 2)])
 def test_interpolate_pos_embed(side, h0, channels):
     """Against the JAX tables, and against torch's own bicubic resample at
@@ -257,3 +296,33 @@ def test_width_192_takes_the_unfused_route(monkeypatch):
         got, _ = model(torch.from_numpy(x), torch.tensor(ids))
     assert calls == {"jax": 0, "port": 0}
     assert _rel(got.numpy(), want) <= 3e-2
+
+
+@pytest.mark.parametrize("impl,n", [("auto", 64), ("auto", 8192), ("auto", 8256),
+                                    ("pallas", 8256), ("xla", 64), ("pallas", 64)])
+def test_route_gate_matches_jax_fused_ok(impl, n, monkeypatch):
+    """The port's route gate against the JAX ``Block._fused_ok``
+    (``models/vit.py:605-625``) on one bf16 block of width 128 with 2 heads,
+    the fused kernels allowed (``FORCE_ON_CPU``): ``attention_impl`` ``xla``
+    and a grid past ``MAX_SINGLE_PASS_N`` = 8192 tokens take the unfused
+    route in both (ROADMAP C3). Then a port block at N = 64 routes as its
+    gate says, and the factory passes ``attention_impl`` on."""
+    from diverse_channel_vit_tpu.models import vit as jvit
+    from diverse_channel_vit_torch.models.vit import Block, fused_route_ok
+
+    monkeypatch.setattr(jfb, "FORCE_ON_CPU", True)
+    want = jvit.Block(num_heads=2, attention_impl=impl, dtype=jnp.bfloat16)._fused_ok(
+        jnp.zeros((1, n, 128), jnp.bfloat16), train=False)
+    got = fused_route_ok(torch.zeros(1, n, 128), torch.bfloat16, 2, False, impl)
+    assert got == bool(want)
+    if n == 64:
+        calls = _count_fused_calls(monkeypatch)
+        blk = Block(128, 2, dtype=torch.bfloat16, attention_impl=impl).eval()
+        with torch.no_grad():
+            blk(torch.randn(1, n, 128).to(torch.bfloat16))
+        assert calls["port"] == int(got)
+        cfg = Config({"in_channel_names": [f"c{i}" for i in range(C)], "img_size": [IMG],
+                      "patch_size": P, "pretrained_model_name": "test",
+                      "attention_impl": impl})
+        model = build_model("dichavit", cfg, {"JUMP-CP": list(range(C))}, NC, device="cpu")
+        assert {blk.attention_impl for blk in model.feature_extractor.blocks} == {impl}

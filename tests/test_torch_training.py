@@ -132,12 +132,43 @@ def test_channel_sampling_raises_until_ported():
 
 @pytest.mark.parametrize("key", ["drop_path_rate", "drop_rate", "attn_drop_rate"])
 def test_dropout_and_drop_path_are_refused(key):
+    """DropPath (``drop_path_rate`` > 0) is refused until it is ported. No
+    JAX factory reads ``drop_rate`` or ``attn_drop_rate`` (JAX
+    ``models/dichavit.py``), so JAX trains such a config without dropout:
+    the port ignores both too, and a build with either at 0.1 gives the same
+    logits as one without (ROADMAP C4)."""
+    from diverse_channel_vit_torch.config import Config
+    from diverse_channel_vit_torch.models import build_model
+
+    def model(**extra):
+        cfg = Config({"in_channel_names": ["a", "b"], "img_size": [IMG], "patch_size": P,
+                      "pretrained_model_name": "test", **extra})
+        return build_model("dichavit", cfg, {"x": [0, 1]}, NC, device="cpu", seed=0)
+
+    if key == "drop_path_rate":
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            model(**{key: 0.1})
+        return
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 2, IMG, IMG))
+                         .astype(np.float32))
+    got, want = (m.train()(x, torch.arange(2))[0] for m in (model(**{key: 0.1}), model()))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("key,value", [("dropout_tokens_hcs", "channel"),
+                                       ("dropout_tokens_hcs", "random"),
+                                       ("token_keep_channels", 4)])
+def test_hcs_token_dropout_is_refused(key, value):
+    """The JAX factory reads ``dropout_tokens_hcs`` and
+    ``token_keep_channels`` (JAX ``models/dichavit.py:52,54``) and drops
+    tokens or whole channels in training; until that is ported the port's
+    factory refuses both (ROADMAP C2, A8.4)."""
     from diverse_channel_vit_torch.config import Config
     from diverse_channel_vit_torch.models import build_model
 
     cfg = Config({"in_channel_names": ["a", "b"], "img_size": [IMG], "patch_size": P,
-                  "pretrained_model_name": "test", key: 0.1})
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+                  "pretrained_model_name": "test", key: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP A8.4"):
         build_model("dichavit", cfg, {"x": [0, 1]}, NC, device="cpu")
 
 
@@ -166,28 +197,35 @@ LR_PARAMS = dict(t_initial=4, lr_min=1e-6, warmup_t=0)
 LR = 1e-3
 
 
-def _jax_model(dtype, **kw):
+# the slice's head width at a tiny size: 2 heads of 128 (D = 256), depth 2
+DH128 = dict(d=256, h=2, depth=2)
+
+
+def _jax_model(dtype, d=D, h=H, depth=DEPTH, **kw):
     bb = jcv.ChannelVisionTransformer(num_total_channels=C, img_size=IMG, patch_size=P,
-                                      embed_dim=D, depth=DEPTH, num_heads=H, dtype=dtype,
+                                      embed_dim=d, depth=depth, num_heads=h, dtype=dtype,
                                       **LOSS_KW, **kw)
-    return JClassifier(backbone=bb, embed_dim=D, num_classes=NC, with_head=True)
+    return JClassifier(backbone=bb, embed_dim=d, num_classes=NC, with_head=True)
 
 
-def _port_model(dtype, state_dict, **kw):
-    bb = ChannelVisionTransformer(C, IMG, P, D, DEPTH, H, dtype=dtype, **LOSS_KW, **kw)
-    model = ChannelAdaptiveClassifier(bb, D, NC, with_head=True)
+def _port_model(dtype, state_dict, d=D, h=H, depth=DEPTH, **kw):
+    bb = ChannelVisionTransformer(C, IMG, P, d, depth, h, dtype=dtype, **LOSS_KW, **kw)
+    model = ChannelAdaptiveClassifier(bb, d, NC, with_head=True)
     model.load_state_dict(state_dict, strict=True)
     return model
 
 
-@pytest.fixture(scope="module")
-def start():
+def _start(**geom):
     rng = np.random.default_rng(0)
     xs = [rng.normal(size=(BATCH, len(IDS), IMG, IMG)).astype(np.float32) for _ in range(3)]
     ys = [rng.integers(0, NC, size=BATCH) for _ in range(3)]
-    params = _jax_model(jnp.float32).init(
-        {"params": jax.random.key(0)}, jnp.asarray(xs[0]), jnp.asarray(IDS), train=False
-    )["params"]
+    model = _jax_model(jnp.float32, **geom)
+
+    def init(x):
+        return model.init({"params": jax.random.key(0)}, x, jnp.asarray(IDS), train=False)
+
+    # the slice's shape is jitted (eager flax takes several times longer on the CPU)
+    params = (jax.jit(init) if geom else init)(jnp.asarray(xs[0]))["params"]
     # LayerNorm affines and biases start at 1/0: move them off so they count
     leaves, tree = jax.tree_util.tree_flatten_with_path(params)
     moved = [
@@ -197,6 +235,16 @@ def start():
         for path, a in leaves
     ]
     return xs, ys, jax.tree_util.tree_unflatten(tree, moved)
+
+
+@pytest.fixture(scope="module")
+def start():
+    return _start()
+
+
+@pytest.fixture(scope="module")
+def start_dh128():
+    return _start(**DH128)
 
 
 def _jax_lr():
@@ -212,6 +260,24 @@ def test_three_train_steps_f32_match_jax(start, monkeypatch):
     _three_steps_f32(start, None, monkeypatch)
 
 
+def test_three_train_steps_frozen_channel_emb_f32_match_jax(start, monkeypatch):
+    """``freeze_channel_emb``: JAX stops the channel-embedding table's
+    gradient (JAX ``models/channel_vit.py:172-173``), so neither CE nor CDL
+    trains it and AdamW's weight decay alone moves it. Three steps as
+    test_three_train_steps_f32_match_jax, and the table's update against the
+    JAX one within a few f32 ulps of the table (the decay moves an entry by
+    about lr * wd * |p|, 1e-6, where a trained entry would move by about lr,
+    1e-3). The factory passes the key on (ROADMAP C1)."""
+    from diverse_channel_vit_torch.config import Config
+    from diverse_channel_vit_torch.models import build_model
+
+    _three_steps_f32(start, None, monkeypatch, freeze_channel_emb=True)
+    cfg = Config({"in_channel_names": ["a", "b"], "img_size": [IMG], "patch_size": P,
+                  "pretrained_model_name": "test", "freeze_channel_emb": True})
+    model = build_model("dichavit", cfg, {"x": [0, 1]}, NC, device="cpu")
+    assert model.feature_extractor.freeze_channel_emb
+
+
 def test_three_evit_train_steps_f32_match_jax(start, monkeypatch):
     """keep_rate 0.7: at depth 3 every block is an EViT block (layers 0, 1
     and 2 keep 1 + 44, 1 + 30 and 1 + 21 of the 64 tokens), with the
@@ -223,7 +289,7 @@ def test_three_evit_train_steps_f32_match_jax(start, monkeypatch):
     _three_steps_f32(start, 0.7, monkeypatch)
 
 
-def _three_steps_f32(start, keep_rate, monkeypatch):
+def _three_steps_f32(start, keep_rate, monkeypatch, **kw):
     xs, ys, params = start
     jax_kept = []
     real = jtp.topk_token_select
@@ -234,13 +300,13 @@ def _three_steps_f32(start, keep_rate, monkeypatch):
         return real(x, scores, keep)
 
     monkeypatch.setattr(jtp, "topk_token_select", spy)
-    jmodel = _jax_model(jnp.float32, keep_rate=keep_rate)
+    jmodel = _jax_model(jnp.float32, keep_rate=keep_rate, **kw)
     jtx = j_make_optimizer("adamw", dict(OPT), lr_schedule=_jax_lr(), total_steps=3)
     jstate = create_train_state(jmodel, jtx, rng=jax.random.key(1), sample_input=None,
                                 sample_channel_ids=None, params=params)
     jstep = j_make_train_step(jmodel, channel_ids=IDS, loss_type="ce", extra_loss_lambda=1.0,
                               donate=False)
-    model = _port_model(torch.float32, params_from_jax(params), keep_rate=keep_rate)
+    model = _port_model(torch.float32, params_from_jax(params), keep_rate=keep_rate, **kw)
     state = TrainState(model, make_optimizer("adamw", dict(OPT), lr_schedule=_port_lr(),
                                                     total_steps=3))
     step = make_train_step(model, channel_ids=IDS, loss_type="ce", extra_loss_lambda=1.0)
@@ -266,6 +332,13 @@ def _three_steps_f32(start, keep_rate, monkeypatch):
         np.testing.assert_allclose(p.numpy(), final[name].numpy(), rtol=0, atol=LR / 10,
                                    err_msg=name)
     assert state.step == 3
+    if kw.get("freeze_channel_emb"):
+        name = "feature_extractor.patch_embed.channel_embed.weight"
+        first = params_from_jax(params)[name].numpy()
+        mine = model.state_dict()[name].numpy() - first
+        theirs = final[name].numpy() - first
+        assert 0 < np.abs(theirs).max() < LR / 100  # decay alone
+        np.testing.assert_allclose(mine, theirs, rtol=0, atol=3e-8)
 
 
 @pytest.mark.parametrize("learnable_temp", [False, True])
@@ -305,14 +378,15 @@ def test_proxy_main_loss_matches_jax(start, learnable_temp):
         assert rel <= 1e-4, (name, rel)
 
 
-def test_train_step_grads_bf16_match_fused_jax(start, monkeypatch):
+def test_train_step_grads_bf16_match_fused_jax(start, monkeypatch, geom=None):
+    geom = geom or {}
     xs, ys, params = start
     calls = []
     real = jfb._ln_mlp_bwd_impl
     monkeypatch.setattr(jfb, "_ln_mlp_bwd_impl", lambda *a: calls.append(1) or real(*a))
 
     def jax_grads(dtype):
-        jmodel = _jax_model(dtype)
+        jmodel = _jax_model(dtype, **geom)
 
         def jloss(p):
             return j_loss_and_metrics(jmodel, p, jnp.asarray(xs[0]), jnp.asarray(IDS),
@@ -320,16 +394,18 @@ def test_train_step_grads_bf16_match_fused_jax(start, monkeypatch):
                                       extra_loss_lambda=1.0, learnable_temp=False,
                                       temperature=0.11111)
 
-        (loss, _), g = jax.value_and_grad(jloss, has_aux=True)(params)
+        grad_fn = jax.value_and_grad(jloss, has_aux=True)
+        (loss, _), g = (jax.jit(grad_fn) if geom else grad_fn)(params)
         return float(loss), params_from_jax(jax.device_get(g))
 
     _, want32 = jax_grads(jnp.float32)  # the unfused route
     monkeypatch.setattr(jfb, "FORCE_ON_CPU", True)
     want_loss, want16 = jax_grads(jnp.bfloat16)
-    # the fused JAX route ran its ln_mlp backward kernel for blocks 0-1
-    assert len(calls) == DEPTH - 1
+    # the fused JAX route ran its ln_mlp backward kernel for every block but
+    # the readout
+    assert len(calls) == geom.get("depth", DEPTH) - 1
 
-    model = _port_model(torch.bfloat16, params_from_jax(params))
+    model = _port_model(torch.bfloat16, params_from_jax(params), **geom)
     state = TrainState(model, make_optimizer("adamw", dict(OPT), lr_schedule=_port_lr(),
                                                     total_steps=3))
     step = make_train_step(model, channel_ids=IDS, loss_type="ce", extra_loss_lambda=1.0)
@@ -346,3 +422,12 @@ def test_train_step_grads_bf16_match_fused_jax(start, monkeypatch):
             continue
         assert rel(g, w32) <= 3e-2, (name, rel(g, w32))
         assert rel(g, w16) <= 3e-2 + rel(w16, w32), (name, rel(g, w16), rel(w16, w32))
+
+
+def test_train_step_grads_bf16_match_fused_jax_dh128(start_dh128, monkeypatch):
+    """The slice's shape at a tiny size, 2 heads of 128 (D = 256) at depth 2
+    (block 0 fused, block 1 the readout), from the same ``params_from_jax``
+    weights: one bf16 step's loss and every gradient against the fused JAX
+    route, whose attend_project kernels run at head width 128 in interpret
+    mode, to the bounds of test_train_step_grads_bf16_match_fused_jax."""
+    test_train_step_grads_bf16_match_fused_jax(start_dh128, monkeypatch, geom=DH128)
