@@ -32,7 +32,11 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    sibling on the same inputs (the other schedule and B6 given B5's lse, B5,
    B7), bit for bit, S1 also across two calls; then B1, B2, B5, B6, S1 and
    S2 again at head width 128 (3 heads at D = 384, the ``small_tpu``
-   preset), under names ending ``_dh128``;
+   preset), under names ending ``_dh128``; then B3, B4, B1 and B2 at the
+   ``base`` preset's widths (D = 768, hidden 3072, 12 heads of 64; B3 and B4
+   run a cluster of two blocks per 64 rows there), under names ending
+   ``_d768``, B3 and B4 with and without biases and residual, B4 twice bit
+   for bit;
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
    ``ServingEngine`` (``predict``, ``submit``) and ``ServingHTTPServer`` on
@@ -69,13 +73,24 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    with EViT (keep_rate 0.7: B5 and B6 at layers 3, 6 and 9) and its parity
    at k = 2, 5 and 8; each path prints its images/s, p50 ms and peak memory
    beside the card;
-9. run the port's three benchmark scripts through their entry points at
+9. the ``base`` preset (DiChaViT-B: D = 768, 12 heads, MLP 3072) at full
+   width and depth: serving as phase 4 (buckets 1-64, a k = 3 subset,
+   logits against the plain route), 12 train steps at B = 64 and the 3-step
+   parity at depth 4, each with its ``phase`` line; the preset with
+   ``quantization: int8`` must raise NotImplementedError (B7 and B8 take
+   D = 384 only); then the port's geometry smoke
+   (``diverse_channel_vit_torch.scripts.smoke_geometries``) through its
+   ``main``: the JAX script's five geometries (CHAMMI's 12 channels with the
+   proxy loss, DCS at k = 5 of 12, base, head width 128, So2Sat's 18
+   channels at 32^2 with patch 8), 6 train steps each, every loss finite,
+   B1-B4 x 11 per step, a ``phase`` line each;
+10. run the port's three benchmark scripts through their entry points at
    their defaults (``bench_attn`` chain, bwd-variants, step and small-k,
    ``bench_block_fusion``, ``bench_int8_lnmlp``) and S1's and S2's at 3
    heads (``bench_attn bwd-variants --heads 3``, ``bench_block_fusion`` at
    3 heads), their output echoed, the counts set to 0 just before each and
    read just after;
-10. print the ``kernels`` JSON line (each kernel's launches from its main
+11. print the ``kernels`` JSON line (each kernel's launches from its main
     path), the card line, and last the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -100,6 +115,9 @@ B, N_VALID, D, HEADS, HID = 64, 1569, 384, 6, 1536
 # the small_tpu preset: the same width in 3 heads of 128 (the JAX bench's
 # mxu_native, int8_dh128 and dh-128 EViT recipe cells)
 TPU_PRESET, HEADS_TPU = "small_tpu", 3
+# the base preset (DiChaViT-B: D = 768 in 12 heads of 64, MLP 3072) at the
+# same geometry: the MLP kernels at D = 768, a cluster of two blocks per 64 rows
+BASE_PRESET, D_BASE, HEADS_BASE, HID_BASE = "base", 768, 12, 3072
 CHANNELS, IMG, PATCH, DEPTH, CLASSES = 8, 224, 16, 12, 161
 BUCKETS = (1, 4, 16, 64)
 # the plain-route training check runs at this depth (the plain attention
@@ -186,11 +204,18 @@ def hold(name: str, label: str, pairs) -> tuple:
     return max(errs, key=lambda e: e[1])
 
 
-def kernel_name(name: str, heads: int) -> str:
-    """The kernels line's name of an attention kernel at D / heads head width:
-    the name alone at 64, with the width beside it otherwise."""
-    dh = D // heads
-    return name if dh == 64 else f"{name}_dh{dh}"
+def kernel_name(name: str, heads: int, d: int = D) -> str:
+    """The kernels line's name of an attention kernel at d / heads head width:
+    the name alone at 64 and the flagship width, with the head width or the
+    model width beside it otherwise."""
+    dh = d // heads
+    return f"{name}_dh{dh}" if dh != 64 else width_name(name, d)
+
+
+def width_name(name: str, d: int) -> str:
+    """The kernels line's name of a kernel at model width d: the name alone at
+    the flagship width, with the width beside it otherwise."""
+    return name if d == D else f"{name}_d{d}"
 
 
 def _rnd(torch, g):
@@ -208,53 +233,59 @@ def check_kernels(fb, torch, F):
     or residual moves the output far past the tolerance. Then with no
     residual and zero output bias, so the kernel's products alone set
     max|plain| and a fault there cannot hide under the added terms."""
-    n = -(-N_VALID // 64) * 64
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(0))
+    return {"attend_project_fwd": check_attend_project_fwd(fb, torch, F, HEADS, rnd),
+            "ln_mlp_fwd": check_ln_mlp_fwd(fb, torch, F, rnd)}
+
+
+def check_ln_mlp_fwd(fb, torch, F, rnd, d=D, hid=HID):
+    """B3 (ln_mlp_fwd) against its plain version at the flagship grid with
+    model width ``d`` and hidden width ``hid``, residual fused and then bare,
+    as check_kernels describes, then at LN_MLP_GRIDS; its timings."""
+    n = -(-N_VALID // 64) * 64
     bf16 = torch.bfloat16
     # the model reads only the n_valid real rows of the padded grid, so the
     # bound counts those (the kernels also compute the padded rows)
     rows = B * N_VALID
-    results = {"attend_project_fwd": check_attend_project_fwd(fb, torch, F, HEADS, rnd)}
-
-    # --- B3 ln_mlp_fwd
-    x = rnd(B, n, D)
-    s, bb = rnd(D, scale=0.1, dtype=torch.float32) + 1.0, rnd(D, scale=0.1, dtype=torch.float32)
-    w1, b1 = rnd(HID, D, scale=D ** -0.5), rnd(HID)
-    w2, b2 = rnd(D, HID, scale=HID ** -0.5), rnd(D)
+    name = width_name("ln_mlp_fwd", d)
+    x = rnd(B, n, d)
+    s, bb = rnd(d, scale=0.1, dtype=torch.float32) + 1.0, rnd(d, scale=0.1, dtype=torch.float32)
+    w1, b1 = rnd(hid, d, scale=d ** -0.5), rnd(hid)
+    w2, b2 = rnd(d, hid, scale=hid ** -0.5), rnd(d)
     largs = (x, s, bb, w1, b1, w2, b2, True)
     bare = (x, s, bb, w1, b1, w2, torch.zeros_like(b2), False)
 
     def hold_ln(label, a):
-        return hold("ln_mlp_fwd", label, (("out", fb.ln_mlp(*a), fb.ln_mlp_plain(*a)),))
+        return hold(name, label, (("out", fb.ln_mlp(*a), fb.ln_mlp_plain(*a)),))
 
     err, rel = hold_ln("main path", largs)
     hold_ln("no residual, zero bias", bare)
     for (nb, nn), res in zip(LN_MLP_GRIDS, (True, False, True, False)):
         hold_ln(f"{nb} x {nn} tokens, residual {res}",
-                (rnd(nb, nn, D), s, bb, w1, b1, w2, b2 if res else torch.zeros_like(b2), res))
+                (rnd(nb, nn, d), s, bb, w1, b1, w2, b2 if res else torch.zeros_like(b2), res))
     ms = cuda_ms(lambda: fb.ln_mlp(*largs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_plain(*largs), 3, warmup=1)
     sb, bbb = s.to(bf16), bb.to(bf16)
 
     def library():
-        y = F.layer_norm(x, (D,), sb, bbb, 1e-6)
+        y = F.layer_norm(x, (d,), sb, bbb, 1e-6)
         return F.linear(F.gelu(F.linear(y, w1, b1), approximate="tanh"), w2, b2) + x
 
     library_ms = cuda_ms(library, 10)
-    results["ln_mlp_fwd"] = dict(
+    return dict(
         source="diverse_channel_vit_torch/csrc/ln_mlp.cu",
         replaces="diverse_channel_vit_tpu/ops/fused_block.py:152",
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        flops=4 * rows * D * HID,
-        bytes=2 * (2 * rows * D + 2 * D * HID + HID + D) + 4 * 2 * D,
+        flops=4 * rows * d * hid,
+        bytes=2 * (2 * rows * d + 2 * d * hid + hid + d) + 4 * 2 * d,
     )
-    return results
 
 
-def check_attend_project_fwd(fb, torch, F, heads, rnd):
+def check_attend_project_fwd(fb, torch, F, heads, rnd, D=D):
     """B1 (attend_project_fwd) against its plain version at flagship shapes
-    with ``heads`` heads (6 of 64, or 3 of 128 for the small_tpu preset),
-    residual fused and then bare, as check_kernels describes; its timings."""
+    with ``heads`` heads (6 of 64, or 3 of 128 for the small_tpu preset, or
+    at D = 768 the base preset's 12 of 64), residual fused and then bare, as
+    check_kernels describes; its timings."""
     n = -(-N_VALID // 64) * 64
     rows = B * N_VALID
     dh = D // heads
@@ -262,7 +293,7 @@ def check_attend_project_fwd(fb, torch, F, heads, rnd):
     wp, bp = rnd(D, D, scale=D ** -0.5), rnd(D)
     args = (qkv, x_res, wp, bp, heads, dh ** -0.5, N_VALID)
     bare = (qkv, None, wp, torch.zeros_like(bp), heads, dh ** -0.5, N_VALID)
-    name = kernel_name("attend_project_fwd", heads)
+    name = kernel_name("attend_project_fwd", heads, D)
 
     def hold_ap(label, a):
         (o_k, l_k, xo_k), (o_p, l_p, xo_p) = (f(*a, need_o=True) for f in
@@ -290,13 +321,14 @@ def check_attend_project_fwd(fb, torch, F, heads, rnd):
     )
 
 
-def check_attend_project_bwd(fb, torch, F, heads, rnd):
+def check_attend_project_bwd(fb, torch, F, heads, rnd, D=D):
     """B2 (attend_project_bwd) against its plain version at flagship shapes
-    with ``heads`` heads, as check_bwd_kernels describes; its timings."""
+    with ``heads`` heads at width ``D``, as check_bwd_kernels describes; its
+    timings."""
     n = -(-N_VALID // 64) * 64
     rows = B * N_VALID
     dh = D // heads
-    name = kernel_name("attend_project_bwd", heads)
+    name = kernel_name("attend_project_bwd", heads, D)
     qkv, x_res = rnd(B, n, 3 * D), rnd(B, n, D)
     wp, bp = rnd(D, D, scale=D ** -0.5), rnd(D)
     dxo = rnd(B, n, D)
@@ -356,52 +388,58 @@ def check_bwd_kernels(fb, torch, F):
     dxo and do are drawn at scale 1. Padded key rows must come out of B2 with
     dk = dv = 0 exactly, and two calls of B2, as of B4, on the same inputs
     must agree bit for bit."""
-    n = -(-N_VALID // 64) * 64
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(1))
+    return {"attend_project_bwd": check_attend_project_bwd(fb, torch, F, HEADS, rnd),
+            "ln_mlp_bwd": check_ln_mlp_bwd(fb, torch, F, rnd)}
+
+
+def check_ln_mlp_bwd(fb, torch, F, rnd, d=D, hid=HID):
+    """B4 (ln_mlp_bwd) against its plain version at the flagship grid with
+    model width ``d`` and hidden width ``hid``, every output, residual fused
+    and not, then at LN_MLP_GRIDS; two calls on the same inputs bit for bit;
+    its timings."""
+    n = -(-N_VALID // 64) * 64
     bf16 = torch.bfloat16
     rows = B * N_VALID
-    results = {"attend_project_bwd": check_attend_project_bwd(fb, torch, F, HEADS, rnd)}
-
-    # --- B4 ln_mlp_bwd
-    x, do = rnd(B, n, D), rnd(B, n, D)
-    s, bb = rnd(D, scale=0.1, dtype=torch.float32) + 1.0, rnd(D, scale=0.1, dtype=torch.float32)
-    w1, b1 = rnd(HID, D, scale=D ** -0.5), rnd(HID)
-    w2 = rnd(D, HID, scale=HID ** -0.5)
+    name = width_name("ln_mlp_bwd", d)
+    x, do = rnd(B, n, d), rnd(B, n, d)
+    s, bb = rnd(d, scale=0.1, dtype=torch.float32) + 1.0, rnd(d, scale=0.1, dtype=torch.float32)
+    w1, b1 = rnd(hid, d, scale=d ** -0.5), rnd(hid)
+    w2 = rnd(d, hid, scale=hid ** -0.5)
     names = ("dx", "dw1", "db1", "dw2", "db2", "ds", "db")
 
     def hold_ln(label, residual):
         a = (x, s, bb, w1, b1, w2, do, residual)
-        return hold("ln_mlp_bwd", label,
+        return hold(name, label,
                     list(zip(names, fb.ln_mlp_bwd(*a), fb.ln_mlp_bwd_plain(*a)))), a
 
     (err, rel), largs = hold_ln("main path, residual fused", True)
     hold_ln("no residual", False)
     for (nb, nn), res in zip(LN_MLP_GRIDS, (False, True, False, True)):
-        a = (rnd(nb, nn, D), s, bb, w1, b1, w2, rnd(nb, nn, D), res)
-        hold("ln_mlp_bwd", f"{nb} x {nn} tokens, residual {res}",
+        a = (rnd(nb, nn, d), s, bb, w1, b1, w2, rnd(nb, nn, d), res)
+        hold(name, f"{nb} x {nn} tokens, residual {res}",
              list(zip(names, fb.ln_mlp_bwd(*a), fb.ln_mlp_bwd_plain(*a))))
     first, second = fb.ln_mlp_bwd(*largs), fb.ln_mlp_bwd(*largs)
     if not all(torch.equal(p, q) for p, q in zip(first, second)):
-        raise AssertionError("ln_mlp_bwd: two calls on the same inputs differ")
-    print("ln_mlp_bwd: two calls on the same inputs agree bit for bit")
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    print(f"{name}: two calls on the same inputs agree bit for bit")
     del first, second
     ms = cuda_ms(lambda: fb.ln_mlp_bwd(*largs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_bwd_plain(*largs), 2, warmup=1)
     lib_in = [t.detach().clone().requires_grad_()
-              for t in (x, s.to(bf16), bb.to(bf16), w1, b1, w2, rnd(D))]
+              for t in (x, s.to(bf16), bb.to(bf16), w1, b1, w2, rnd(d))]
     lx, ls, lbb, lw1, lb1, lw2, lb2 = lib_in
-    lib_out = F.linear(F.gelu(F.linear(F.layer_norm(lx, (D,), ls, lbb, 1e-6), lw1, lb1),
+    lib_out = F.linear(F.gelu(F.linear(F.layer_norm(lx, (d,), ls, lbb, 1e-6), lw1, lb1),
                               approximate="tanh"), lw2, lb2) + lx
     library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, do, retain_graph=True), 10)
     del lib_out
-    results["ln_mlp_bwd"] = dict(
+    return dict(
         source="diverse_channel_vit_torch/csrc/ln_mlp_bwd.cu",
         replaces="diverse_channel_vit_tpu/ops/fused_block.py:167",
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        flops=10 * rows * D * HID,
-        bytes=2 * (3 * rows * D + 2 * D * HID + HID) + 4 * (2 * D + 2 * D * HID + HID + 3 * D),
+        flops=10 * rows * d * hid,
+        bytes=2 * (3 * rows * d + 2 * d * hid + hid) + 4 * (2 * d + 2 * d * hid + hid + 3 * d),
     )
-    return results
 
 
 def _quant_rows(torch, v):
@@ -1002,6 +1040,51 @@ def script_label(name: str, args) -> str:
         kw = ", ".join(f"{k}={v}" for k, v in args.items())
         return f"diverse_channel_vit_torch.scripts.{name}.main({kw})"
     return " ".join(["python -m", f"diverse_channel_vit_torch.scripts.{name}", *args])
+
+
+def run_geometries(fb, torch, want: dict) -> dict:
+    """The port's geometry smoke (``scripts/smoke_geometries.py``) through
+    its ``main``, as ``python -m`` runs it: the JAX script's five geometries,
+    1 + 5 train steps each at its batch size, every loss finite (the script
+    asserts it). Per geometry its launch counts, ``want`` per step (the port
+    pads every token grid to a multiple of 64, So2Sat's 289 tokens to 320, so
+    every geometry takes the fused route), and its phase line. Returns the
+    paths by label."""
+    from diverse_channel_vit_torch.scripts import smoke_geometries as sg
+
+    fb.reset_launches()
+    results = sg.main(device="cuda")
+    paths = {}
+    for tag, _ in sg.GEOMETRIES:
+        r = results[tag]
+        check_counts(f"geometry {tag}", r["launches"], r["steps"], "step", want)
+        print(f"phase geometry {tag}: {r['imgs_per_s']:.2f} images/s, mean "
+              f"{r['ms_per_step']:.3f} ms a step over {r['steps'] - 1} steps, peak memory "
+              f"{r['peak_mem_gb']:.3f} GB; card {card_line()}")
+        paths[f"geometry {tag}"] = (r["launches"], r["steps"], "step")
+    torch.cuda.empty_cache()
+    return paths
+
+
+def base_int8_refused(fb, torch) -> None:
+    """The base preset with ``quantization: int8`` (B7 and B8 are built for
+    D = 384 only) must raise NotImplementedError naming ROADMAP B2 at its
+    first block's MLP, with no MLP kernel launched."""
+    model = build(2, pretrained_model_name=BASE_PRESET, quantization="int8")
+    x = torch.zeros(1, CHANNELS, IMG, IMG, device="cuda", dtype=torch.bfloat16)
+    fb.reset_launches()
+    try:
+        with torch.inference_mode():
+            model(x, torch.arange(CHANNELS, device="cuda"))
+    except NotImplementedError as e:
+        if "ROADMAP B2" not in str(e):
+            raise AssertionError(f"base int8: the refusal does not name ROADMAP B2: {e}")
+        print(f"base int8 refused on the card: {e}; launches {dict(fb.LAUNCHES)}")
+    else:
+        raise AssertionError("base int8: the forward ran")
+    if fb.LAUNCHES["ln_mlp_q_fwd"] or fb.LAUNCHES["ln_mlp_fwd"]:
+        raise AssertionError(f"base int8: an MLP kernel launched: {dict(fb.LAUNCHES)}")
+    del model
 
 
 def run_scripts(fb):
@@ -1688,6 +1771,17 @@ def main() -> int:
         fb, torch, F, HEADS_TPU, rnd)
     results.update(check_flash_kernels(torch, F, results, HEADS_TPU))
     results.update(check_script_kernels(fb, torch, F, HEADS_TPU))
+    # the base preset's widths: B3 and B4 at D = 768 (a cluster of two blocks
+    # per 64 rows), B1 and B2 with 12 heads of 64
+    rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(12))
+    results[width_name("ln_mlp_fwd", D_BASE)] = check_ln_mlp_fwd(fb, torch, F, rnd, D_BASE,
+                                                                HID_BASE)
+    results[width_name("ln_mlp_bwd", D_BASE)] = check_ln_mlp_bwd(fb, torch, F, rnd, D_BASE,
+                                                                HID_BASE)
+    results[kernel_name("attend_project_fwd", HEADS_BASE, D_BASE)] = check_attend_project_fwd(
+        fb, torch, F, HEADS_BASE, rnd, D_BASE)
+    results[kernel_name("attend_project_bwd", HEADS_BASE, D_BASE)] = check_attend_project_bwd(
+        fb, torch, F, HEADS_BASE, rnd, D_BASE)
     for name, r in results.items():
         # each product at the unit that runs it: bf16 FLOPs and int8 operations
         t_ops = r.pop("flops") / PEAK_BF16_FLOPS + r.pop("int8_ops", 0) / PEAK_INT8_OPS
@@ -1759,6 +1853,19 @@ def main() -> int:
     train_parity(fb, torch, "small_tpu EViT recipe train parity", PARITY_DEPTH, 3, evit_parity,
                  ks=(2, 5, 8), keep_rate=KEEP_RATE, **tpu)
     torch.cuda.empty_cache()
+
+    # the base preset (DiChaViT-B) at full width and depth: serving, train,
+    # and the 3-step parity at depth 4; int8 refused; then the geometry smoke
+    base = dict(pretrained_model_name=BASE_PRESET)
+    paths["base serving"] = (*serve(fb, torch, "base serving", **base), "forward")
+    torch.cuda.empty_cache()
+    paths["base train"] = (*train(fb, torch, "base train", dict.fromkeys(fused4, DEPTH - 1),
+                                  **base)[:2], "step")
+    train_parity(fb, torch, "base train parity", PARITY_DEPTH, 3,
+                 dict.fromkeys(fused4, PARITY_DEPTH - 1), **base)
+    base_int8_refused(fb, torch)
+    torch.cuda.empty_cache()
+    paths.update(run_geometries(fb, torch, dict.fromkeys(fused4, DEPTH - 1)))
     # the benchmark scripts: S1-S3 run only there, S1 and S2 also at 3 heads
     for (name, args, _), counts in zip(SCRIPT_RUNS, run_scripts(fb).values()):
         paths[script_label(name, args)] = (counts, 1, "run")
@@ -1784,10 +1891,17 @@ def main() -> int:
         "flash_packed_bwd" + dh128: ("small_tpu EViT recipe train",),
         "bwd_call" + dh128: (script_label(*SCRIPT_RUNS[6][:2]),),
         "qkv_flash_fwd" + dh128: (script_label(*SCRIPT_RUNS[7][:2]),),
+        width_name("ln_mlp_fwd", D_BASE): ("base serving", "base train"),
+        width_name("ln_mlp_bwd", D_BASE): ("base train",),
+        kernel_name("attend_project_fwd", HEADS_BASE, D_BASE): ("base serving", "base train"),
+        kernel_name("attend_project_bwd", HEADS_BASE, D_BASE): ("base train",),
     }
+    d768 = f"_d{D_BASE}"
     line = []
     for name, r in results.items():
-        counter = name[:-len(dh128)] if name.endswith(dh128) else name
+        counter = name
+        for suffix in (dh128, d768):
+            counter = counter[:-len(suffix)] if counter.endswith(suffix) else counter
         entry = {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"]}
         first, *rest = main_paths[name]
         counts, units, unit = paths[first]

@@ -45,6 +45,20 @@
 //       transposed layout, straight from the row-major scratch);
 //   (e) every partial summed in a fixed order (reduce.cuh). No atomics: two
 //       calls on the same inputs agree bit for bit.
+//
+// D is a template parameter, 384 or 768 (HID a multiple of 384). (a), (b)
+// and (d) take D = 768 as they are (K = 768, more weight-gradient tiles).
+// (c) at D = 768 runs a cluster of two blocks per 64 rows, block r owning
+// dy's columns [384 r, 384 r + 384) (96 accumulator registers a thread, as
+// at 384): each block loads the dh_pre box and its six W1 boxes itself (no
+// multicast, so no block waits on the other's readers), and before the dx
+// epilogue each hands its rows' two sums (dy . scale and dy . scale .
+// xhat over its 384 columns) to the other through distributed shared
+// memory; both add the same two f32 terms. Its shared memory: 232,008 of
+// 232,448 bytes. ptxas (nvcc 12.9, sm_90a): 168 registers for dy, dual and
+// weight-gradient kernels at both widths, 48 for the D = 768 row pass, no
+// stack frame or spill. The scratch at D = 768 is B * N * (768 + 2 * 3072)
+// bf16, 1.42 GB at B = 64 and N = 1600.
 #include "ln_mlp_wgrad.cuh"
 
 namespace dcvit {
@@ -62,9 +76,18 @@ constexpr int kDyStages = 4;
 constexpr int kDyStageBytes = 7 * wg::kBoxBytes;
 constexpr int kDySmem = kDyStages * kDyStageBytes + 2 * kLBDyRows * 2 * 4 + 2 * kDyStages * 8 +
                         wg::kAlign;
+// D = 768: a cluster of two dy blocks per 64 rows, each with 384 of the
+// columns; beside its ring a block holds the other's row sums and their barrier
+constexpr int kLBW = 384;  // dy columns a block owns
+template <int D>
+constexpr int dy_smem() {
+  return kDySmem + (D == kLBW ? 0 : kLBDyRows * 2 * 4 + 8);
+}
+static_assert(dy_smem<768>() <= 232448, "dy_kernel: shared memory past 227 KB");
 
 // ---- (a) LayerNorm rows --------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(256)
     ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_scale,
                    const float* __restrict__ ln_bias, __nv_bfloat16* __restrict__ y,
@@ -72,25 +95,25 @@ __global__ void __launch_bounds__(256)
   const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= m) return;
-  const uint32_t* xrow = reinterpret_cast<const uint32_t*>(x + r * kLBD);
-  uint32_t* yrow = reinterpret_cast<uint32_t*>(y + r * kLBD);
-  float2 v[kLBD / 64];
+  const uint32_t* xrow = reinterpret_cast<const uint32_t*>(x + r * D);
+  uint32_t* yrow = reinterpret_cast<uint32_t*>(y + r * D);
+  float2 v[D / 64];
   float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLBD / 64; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     v[i] = unpack_bf16(xrow[lane + 32 * i]);
     sum += v[i].x + v[i].y;
   }
-  const float mean = warp_sum(sum) / kLBD;
+  const float mean = warp_sum(sum) / D;
   float sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLBD / 64; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     const float a = v[i].x - mean, c = v[i].y - mean;
     sq += a * a + c * c;
   }
-  const float rstd = rsqrtf(warp_sum(sq) / kLBD + 1e-6f);
+  const float rstd = rsqrtf(warp_sum(sq) / D + 1e-6f);
 #pragma unroll
-  for (int i = 0; i < kLBD / 64; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     const int col = 2 * (lane + 32 * i);
     yrow[lane + 32 * i] = pack_bf16((v[i].x - mean) * rstd * ln_scale[col] + ln_bias[col],
                                     (v[i].y - mean) * rstd * ln_scale[col + 1] + ln_bias[col + 1]);
@@ -103,6 +126,7 @@ __global__ void __launch_bounds__(256)
 
 // ---- (b) h and dh_pre ---------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     dual_kernel(const __grid_constant__ CUtensorMap y_map, const __grid_constant__ CUtensorMap do_map,
                 const __grid_constant__ CUtensorMap w1_map,
@@ -118,7 +142,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
   const int h0 = blockIdx.x * kLBTile;
   const int m0 = blockIdx.y * kLBTile;
-  constexpr int kSteps = kLBD / wg::kBox;
+  constexpr int kSteps = D / wg::kBox;
   constexpr int kPart = 2 * wg::kBoxBytes;  // one 16 KB operand of a stage
   init_ring(full, empty, kDualStages);
 
@@ -216,6 +240,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 
 // ---- (c) dy and the LayerNorm backward ----------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     dy_kernel(const __grid_constant__ CUtensorMap dhp_map, const __grid_constant__ CUtensorMap w1_map,
               const __grid_constant__ CUtensorMap dx_map, const __nv_bfloat16* __restrict__ x,
@@ -227,15 +252,33 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   float* sRow = reinterpret_cast<float*>(ring + kDyStages * kDyStageBytes);  // [2][64][2]
   uint64_t* full = reinterpret_cast<uint64_t*>(sRow + 2 * kLBDyRows * 2);
   uint64_t* empty = full + kDyStages;
+  // D = 768 only: the other block's row sums [64][2] and their barrier
+  float* sPeer = reinterpret_cast<float*>(empty + kDyStages);
+  uint64_t* pfull = reinterpret_cast<uint64_t*>(sPeer + kLBDyRows * 2);
+  constexpr int kPair = D / kLBW;
   const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
-  const long long m0 = (long long)blockIdx.x * kLBDyRows;
+  const long long m0 = (long long)(blockIdx.x / kPair) * kLBDyRows;
   const int n_steps = hid / wg::kBox;
-  constexpr int kHalf = kLBD / 2;  // dy columns per warpgroup
+  constexpr int kHalf = kLBW / 2;  // dy columns per warpgroup
+  // this block's columns [col0, col0 + 384)
+  int col0 = 0;
+  uint32_t peer = 0;
+  if constexpr (kPair == 2) {
+    peer = wg::cluster_rank() ^ 1;
+    col0 = kLBW * (int)(peer ^ 1);
+    if (tid == 0) {
+      wg::bar_init(pfull, 128);
+      wg::bar_init_fence();
+    }
+  }
   init_ring(full, empty, kDyStages);
+  if constexpr (kPair == 2) wg::cluster_sync();  // both blocks' barriers are initialised
 
   if (wgi == wg::kConsumers) {
     // producer: stage = dh_pre rows [m0, m0 + 64) x hidden [64 ks, + 64)
-    // (K-major) and W1 rows [64 ks, + 64) x all 384 columns (six MN-major boxes)
+    // (K-major) and W1 rows [64 ks, + 64) x columns [col0, col0 + 384) (six
+    // MN-major boxes; at D = 768 each block of the pair loads the dh_pre box
+    // itself)
     wg::regs_dealloc<wg::kProducerRegs>();
     if (t == 0) {
       for (int ks = 0; ks < n_steps; ++ks) {
@@ -244,15 +287,15 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
         wg::bar_expect_tx(&full[s], kDyStageBytes);
         uint8_t* st = ring + s * kDyStageBytes;
         wg::tma_load(st, &dhp_map, &full[s], ks * wg::kBox, (int)m0);
-        for (int j = 0; j < kLBD / wg::kBox; ++j)
-          wg::tma_load(st + (1 + j) * wg::kBoxBytes, &w1_map, &full[s], j * wg::kBox,
+        for (int j = 0; j < kLBW / wg::kBox; ++j)
+          wg::tma_load(st + (1 + j) * wg::kBoxBytes, &w1_map, &full[s], col0 + j * wg::kBox,
                        ks * wg::kBox);
       }
     }
   } else {
     wg::regs_alloc<wg::kConsumerRegs>();
-    float acc[96];  // dy: 64 rows x columns [192 wgi, 192 wgi + 192)
-    const uint32_t ring_s = smem_addr(ring);
+    float acc[96];  // dy: 64 rows x columns col0 + [192 wgi, 192 wgi + 192)
+    const uint32_t ring_s = kPair == 1 ? smem_addr(ring) : wg::desc_addr(smem_addr(ring));
     for (int ks = 0; ks < n_steps; ++ks) {
       const int s = ks % kDyStages;
       wg::bar_wait(&full[s], (ks / kDyStages) & 1);
@@ -279,7 +322,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     const float mean_b = vb ? stats[2 * (m0 + rb)] : 0.f;
     const float rstd_b = vb ? stats[2 * (m0 + rb) + 1] : 0.f;
     auto pair = [&](const __nv_bfloat16* p, bool valid, int row, int col) {
-      return valid ? unpack_bf16(*reinterpret_cast<const uint32_t*>(p + (m0 + row) * kLBD + col))
+      return valid ? unpack_bf16(*reinterpret_cast<const uint32_t*>(p + (m0 + row) * D + col))
                    : make_float2(0.f, 0.f);
     };
     // column sums [4 warps][db2, ds, db][192] of this warpgroup, in stage 1
@@ -289,7 +332,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
 #pragma unroll
     for (int i = 0; i < 96; i += 4) {
-      const int col = kHalf * wgi + wg::acc_col(t, i);
+      const int col = col0 + kHalf * wgi + wg::acc_col(t, i);
       const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
       const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
       const float2 oa = pair(dout, va, ra, col), ob = pair(dout, vb, rb, col);
@@ -307,7 +350,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 #pragma unroll
       for (int q = 0; q < 6; ++q) {
         const float v = sum_over_rows(c[q]);
-        if (lane < 4) sCol[(warp * 3 + (q >> 1)) * kHalf + (col - kHalf * wgi) + (q & 1)] = v;
+        if (lane < 4) sCol[(warp * 3 + (q >> 1)) * kHalf + (col - col0 - kHalf * wgi) + (q & 1)] = v;
       }
     }
     s1a = sum_over_quad(s1a);
@@ -322,17 +365,37 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       mine[2 * rb + 1] = s2b;
     }
     wg::sync_named(3, 256);
-    const float m1a = (sRow[2 * ra] + sRow[2 * (kLBDyRows + ra)]) / kLBD;
-    const float m2a = (sRow[2 * ra + 1] + sRow[2 * (kLBDyRows + ra) + 1]) / kLBD;
-    const float m1b = (sRow[2 * rb] + sRow[2 * (kLBDyRows + rb)]) / kLBD;
-    const float m2b = (sRow[2 * rb + 1] + sRow[2 * (kLBDyRows + rb) + 1]) / kLBD;
+    if constexpr (kPair == 2) {
+      // each row's two sums over this block's 384 columns go to the other
+      // block, which adds them to its own (either block the same f32 sum of
+      // the same two terms)
+      if (tid < 2 * kLBDyRows) {
+        wg::st_peer(wg::peer_addr(&sPeer[tid], peer), sRow[tid] + sRow[2 * kLBDyRows + tid]);
+        wg::bar_arrive_peer(wg::peer_addr(pfull, peer));
+      }
+      wg::bar_wait_cluster(pfull, 0);
+    }
+    float t1a = sRow[2 * ra] + sRow[2 * (kLBDyRows + ra)];
+    float t2a = sRow[2 * ra + 1] + sRow[2 * (kLBDyRows + ra) + 1];
+    float t1b = sRow[2 * rb] + sRow[2 * (kLBDyRows + rb)];
+    float t2b = sRow[2 * rb + 1] + sRow[2 * (kLBDyRows + rb) + 1];
+    if constexpr (kPair == 2) {
+      t1a += sPeer[2 * ra];
+      t2a += sPeer[2 * ra + 1];
+      t1b += sPeer[2 * rb];
+      t2b += sPeer[2 * rb + 1];
+    }
+    const float m1a = t1a / D;
+    const float m2a = t2a / D;
+    const float m1b = t1b / D;
+    const float m2b = t2b / D;
 
     // pass 2: dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) (+ do),
     // into three swizzled boxes of stage 0
     uint8_t* stX = ring + wgi * 3 * wg::kBoxBytes;
 #pragma unroll
     for (int i = 0; i < 96; i += 4) {
-      const int lc = wg::acc_col(t, i), col = kHalf * wgi + lc;
+      const int lc = wg::acc_col(t, i), col = col0 + kHalf * wgi + lc;
       const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
       const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
       float a0 = rstd_a * (acc[i] * sc0 - m1a - (xa.x - mean_a) * rstd_a * m2a);
@@ -354,30 +417,124 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     wg::sync_named(1 + wgi, 128);
     if (t == 0) {
       for (int b = 0; b < 3; ++b)
-        wg::tma_store(&dx_map, stX + b * wg::kBoxBytes, kHalf * wgi + b * wg::kBox, (int)m0);
+        wg::tma_store(&dx_map, stX + b * wg::kBoxBytes, col0 + kHalf * wgi + b * wg::kBox,
+                      (int)m0);
       wg::tma_store_commit();
     }
     // per-block partials [db2 | ds | db], the four warps summed in order
-    float* part = ln_part + (long long)blockIdx.x * 3 * kLBD;
+    float* part = ln_part + (long long)(blockIdx.x / kPair) * 3 * D;
     for (int c = t; c < kHalf; c += 128) {
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
         float tot = 0.f;
 #pragma unroll
         for (int w = 0; w < 4; ++w) tot += sCol[(w * 3 + q) * kHalf + c];
-        part[q * kLBD + kHalf * wgi + c] = tot;
+        part[q * D + col0 + kHalf * wgi + c] = tot;
       }
     }
     if (t == 0) wg::tma_store_wait();
   }
 }
 
+// The backward at width D (384 or 768; HID a multiple of 384), launches
+// (a)-(e) on `st`; the arguments are the entry point's. Returns the first
+// failed launch's (or TMA descriptor's) error.
+template <int D>
+cudaError_t launch_ln_mlp_bwd(const void* x, const void* ln_scale, const void* ln_bias,
+                              const void* w1, const void* b1, const void* w2, const void* dout,
+                              void* dx, void* dw, void* bias_out, void* y_buf, void* stats,
+                              void* h_buf, void* dhp_buf, void* db1_part, void* ln_part,
+                              void* wgrad_part, long long m, int hid, int residual, int splits,
+                              cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kPair = D / kLBW;
+  const long long tiles128 = (m + kLBTile - 1) / kLBTile;
+  const long long tiles64 = (m + kLBDyRows - 1) / kLBDyRows;
+  cudaError_t err;
+
+  ln_rows_kernel<D><<<(unsigned)((m + 7) / 8), 256, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<bf16*>(y_buf), static_cast<float*>(stats),
+      m);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  CUtensorMap y128, do128, w1_k128, w2_mn, h64, dhp64, w1_mn, dx64, do64, y64;
+
+  const struct {
+    CUtensorMap* map;
+    const void* ptr;
+    long long rows;
+    int cols, box_rows;
+  } maps[] = {
+      {&y128, y_buf, m, D, kLBTile},   {&do128, dout, m, D, kLBTile},
+      {&w1_k128, w1, hid, D, kLBTile}, {&w2_mn, w2, D, hid, wg::kBox},
+      {&h64, h_buf, m, hid, wg::kBox}, {&dhp64, dhp_buf, m, hid, wg::kBox},
+      {&w1_mn, w1, hid, D, wg::kBox},  {&dx64, dx, m, D, wg::kBox},
+      {&do64, dout, m, D, wg::kBox},   {&y64, y_buf, m, D, wg::kBox},
+  };
+  for (const auto& mp : maps)
+    if ((err = tensor_map(mp.map, mp.ptr, mp.rows, mp.cols, mp.box_rows)) != cudaSuccess)
+      return err;
+  const struct {
+    const void* fn;
+    int smem;
+  } attrs[] = {{(const void*)dual_kernel<D>, kDualSmem},
+               {(const void*)dy_kernel<D>, dy_smem<D>()}};
+  for (const auto& a : attrs)
+    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    a.smem)) != cudaSuccess)
+      return err;
+
+  dual_kernel<D><<<dim3(hid / kLBTile, (unsigned)tiles128), wg::kThreads, kDualSmem, st>>>(
+      y128, do128, w1_k128, w2_mn, h64, dhp64, static_cast<const bf16*>(b1),
+      static_cast<float*>(db1_part), hid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* dob = static_cast<const bf16*>(dout);
+  const auto* sc = static_cast<const float*>(ln_scale);
+  const auto* stf = static_cast<const float*>(stats);
+  auto* lp = static_cast<float*>(ln_part);
+  if constexpr (kPair == 1) {
+    dy_kernel<D><<<(unsigned)tiles64, wg::kThreads, kDySmem, st>>>(
+        dhp64, w1_mn, dx64, xb, dob, sc, stf, lp, m, hid, residual);
+  } else {
+    // a cluster of two blocks per 64 rows
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(kPair * tiles64));
+    cfg.blockDim = dim3(wg::kThreads);
+    cfg.dynamicSmemBytes = dy_smem<D>();
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kPair;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, dy_kernel<D>, dhp64, w1_mn, dx64, xb, dob, sc, stf, lp,
+                                  m, hid, residual)) != cudaSuccess)
+      return err;
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = launch_ln_mlp_wgrad<D>(do64, h64, dhp64, y64, static_cast<float*>(wgrad_part),
+                                    static_cast<float*>(dw), m, hid, splits, st)) != cudaSuccess)
+    return err;
+  float* bias = static_cast<float*>(bias_out);
+  // the bias partials: few columns, hundreds of blocks' rows
+  if ((err = launch_reduce<32>(static_cast<const float*>(db1_part), bias, (int)tiles128, hid,
+                               st)) != cudaSuccess)
+    return err;
+  return launch_reduce<32>(static_cast<const float*>(ln_part), bias + hid, (int)tiles64, 3 * D,
+                           st);
+}
+
 }  // namespace dcvit
 
-// Plain C entry point (loaded with ctypes). Shapes: x, do and dx (M, D) bf16;
-// ln_scale, ln_bias (D,) f32; w1 (HID, D), b1 (HID,), w2 (D, HID) bf16 in
-// nn.Linear layout (HID a multiple of 384); dw (D * HID + HID * D) f32 =
-// [dW2 (D, HID) | dW1 (HID, D)]; bias_out (HID + 3D)
+// Plain C entry point (loaded with ctypes). Shapes: x, do and dx (M, D) bf16,
+// D = 384 or 768; ln_scale, ln_bias (D,) f32; w1 (HID, D), b1 (HID,), w2 (D,
+// HID) bf16 in nn.Linear layout (HID a multiple of 384); dw (D * HID + HID *
+// D) f32 = [dW2 (D, HID) | dW1 (HID, D)]; bias_out (HID + 3D)
 // f32 = [db1 | db2 | ds | db]; scratch: y_buf (M, D) bf16, stats (M, 2) f32,
 // h_buf and dhp_buf (M, HID) bf16, db1_part (ceil(M / 128), HID) f32,
 // ln_part (ceil(M / 64), 3D) f32, wgrad_part (splits, 2, D, HID) f32. All
@@ -390,66 +547,15 @@ extern "C" int dcvit_ln_mlp_bwd(const void* x, const void* ln_scale, const void*
                                 void* ln_part, void* wgrad_part, long long m, int d, int hid,
                                 int residual, int splits, void* stream) {
   using namespace dcvit;
-  using bf16 = __nv_bfloat16;
-  if (d != kLBD || hid % kWgN != 0 || hid % kLBTile != 0 || m < 1 || splits < 1 ||
+  if ((d != 384 && d != 768) || hid % kWgN != 0 || hid % kLBTile != 0 || m < 1 || splits < 1 ||
       (m + kLBTile - 1) / kLBTile > 65535 || m > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long tiles128 = (m + kLBTile - 1) / kLBTile;
-  const long long tiles64 = (m + kLBDyRows - 1) / kLBDyRows;
-  cudaError_t err;
-
-  ln_rows_kernel<<<(unsigned)((m + 7) / 8), 256, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<bf16*>(y_buf), static_cast<float*>(stats),
-      m);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  CUtensorMap y128, do128, w1_k128, w2_mn, h64, dhp64, w1_mn, dx64, do64, y64;
-
-  const struct {
-    CUtensorMap* map;
-    const void* ptr;
-    long long rows;
-    int cols, box_rows;
-  } maps[] = {
-      {&y128, y_buf, m, kLBD, kLBTile},   {&do128, dout, m, kLBD, kLBTile},
-      {&w1_k128, w1, hid, kLBD, kLBTile}, {&w2_mn, w2, kLBD, hid, wg::kBox},
-      {&h64, h_buf, m, hid, wg::kBox},    {&dhp64, dhp_buf, m, hid, wg::kBox},
-      {&w1_mn, w1, hid, kLBD, wg::kBox},  {&dx64, dx, m, kLBD, wg::kBox},
-      {&do64, dout, m, kLBD, wg::kBox},   {&y64, y_buf, m, kLBD, wg::kBox},
-  };
-  for (const auto& mp : maps)
-    if ((err = tensor_map(mp.map, mp.ptr, mp.rows, mp.cols, mp.box_rows)) != cudaSuccess)
-      return (int)err;
-  const struct {
-    const void* fn;
-    int smem;
-  } attrs[] = {{(const void*)dual_kernel, kDualSmem},
-               {(const void*)dy_kernel, kDySmem}};
-  for (const auto& a : attrs)
-    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    a.smem)) != cudaSuccess)
-      return (int)err;
-
-  dual_kernel<<<dim3(hid / kLBTile, (unsigned)tiles128), wg::kThreads, kDualSmem, st>>>(
-      y128, do128, w1_k128, w2_mn, h64, dhp64, static_cast<const bf16*>(b1),
-      static_cast<float*>(db1_part), hid);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dy_kernel<<<(unsigned)tiles64, wg::kThreads, kDySmem, st>>>(
-      dhp64, w1_mn, dx64, static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
-      static_cast<const float*>(ln_scale), static_cast<const float*>(stats),
-      static_cast<float*>(ln_part), m, hid, residual);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  if ((err = launch_ln_mlp_wgrad(do64, h64, dhp64, y64, static_cast<float*>(wgrad_part),
-                                 static_cast<float*>(dw), m, hid, splits, st)) != cudaSuccess)
-    return (int)err;
-  float* bias = static_cast<float*>(bias_out);
-  // the bias partials: few columns, hundreds of blocks' rows
-  if ((err = launch_reduce<32>(static_cast<const float*>(db1_part), bias, (int)tiles128, hid,
-                               st)) != cudaSuccess)
-    return (int)err;
-  return (int)launch_reduce<32>(static_cast<const float*>(ln_part), bias + hid, (int)tiles64,
-                                3 * kLBD, st);
+  return (int)(d == 384
+                   ? launch_ln_mlp_bwd<384>(x, ln_scale, ln_bias, w1, b1, w2, dout, dx, dw,
+                                            bias_out, y_buf, stats, h_buf, dhp_buf, db1_part,
+                                            ln_part, wgrad_part, m, hid, residual, splits, st)
+                   : launch_ln_mlp_bwd<768>(x, ln_scale, ln_bias, w1, b1, w2, dout, dx, dw,
+                                            bias_out, y_buf, stats, h_buf, dhp_buf, db1_part,
+                                            ln_part, wgrad_part, m, hid, residual, splits, st));
 }

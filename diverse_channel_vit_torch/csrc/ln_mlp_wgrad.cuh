@@ -17,7 +17,7 @@
 
 namespace dcvit {
 
-constexpr int kLBD = 384;        // model width (the one built)
+constexpr int kLBD = 384;        // model width of the int8 backward (B8), the default D
 constexpr int kLBTile = 128;     // rows, hidden columns or output columns of a tile
 
 // per stage A (two MN-major [64 rows][64] boxes) and B (three)
@@ -42,6 +42,7 @@ DEV void init_ring(uint64_t* full, uint64_t* empty, int stages) {
 // x D) = dh_pre^T y, on 128 x 192 output tiles, dW2's tiles first. Block
 // (tile, split z) writes part[z][g][i1][i2] = sum over the rows of split z
 // of a_g[r][i1] * b_g[r][i2] for its GEMM g; rows past the end load as zeros.
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     wgrad_kernel(const __grid_constant__ CUtensorMap do_map, const __grid_constant__ CUtensorMap h_map,
                  const __grid_constant__ CUtensorMap dhp_map,
@@ -52,11 +53,11 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * kWgStageBytes);
   uint64_t* empty = full + kWgStages;
   const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
-  // dW2: m1 = D, m2 = HID; dW1: m1 = HID, m2 = D
-  const int tiles2 = (kLBD / kLBTile) * (hid / kWgN);
+  // dW2 (D x HID) and dW1 (HID x D): m2 output columns
+  const int tiles2 = (D / kLBTile) * (hid / kWgN);
   const bool g1 = (int)blockIdx.x >= tiles2;
   const int tile = g1 ? blockIdx.x - tiles2 : blockIdx.x;
-  const int m1 = g1 ? hid : kLBD, m2 = g1 ? kLBD : hid;
+  const int m2 = g1 ? D : hid;
   const CUtensorMap* a_map = g1 ? &dhp_map : &do_map;
   const CUtensorMap* b_map = g1 ? &y_map : &h_map;
   const int i1 = (tile / (m2 / kWgN)) * kLBTile, i2 = (tile % (m2 / kWgN)) * kWgN;
@@ -100,7 +101,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     }
     wg::mma_wait<0>();
     wg::acc_fence(acc);
-    float* out = part + ((long long)blockIdx.y * 2 + g1) * kLBD * hid;
+    float* out = part + ((long long)blockIdx.y * 2 + g1) * D * hid;
 #pragma unroll
     for (int i = 0; i < kWgN / 2; i += 2) {
       const long long r = i1 + 64 * wgi + wg::acc_row(t, i);
@@ -114,21 +115,21 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 // do64 (M, D), h64 and dhp64 (M, HID), y64 (M, D), then every split summed in
 // order into dw, which holds dW2 (D, HID) and then dW1 (HID, D); part is
 // (splits, 2, D, HID) f32 scratch. Returns the first failed launch's error.
+template <int D = kLBD>
 inline cudaError_t launch_ln_mlp_wgrad(const CUtensorMap& do64, const CUtensorMap& h64,
                                        const CUtensorMap& dhp64, const CUtensorMap& y64,
                                        float* part, float* dw, long long m, int hid, int splits,
                                        cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute((const void*)wgrad_kernel,
+  cudaError_t err = cudaFuncSetAttribute((const void*)wgrad_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
   if (err != cudaSuccess) return err;
   const long long per = (m + splits - 1) / splits;
   const long long rows_per_split = (per + wg::kBox - 1) / wg::kBox * wg::kBox;
-  const int wg_tiles = 2 * (kLBD / kLBTile) * (hid / kWgN);
-  wgrad_kernel<<<dim3(wg_tiles, splits), wg::kThreads, kWgSmem, st>>>(do64, h64, dhp64, y64,
-                                                                      part, m, hid,
-                                                                      rows_per_split);
+  const int wg_tiles = 2 * (D / kLBTile) * (hid / kWgN);
+  wgrad_kernel<D><<<dim3(wg_tiles, splits), wg::kThreads, kWgSmem, st>>>(
+      do64, h64, dhp64, y64, part, m, hid, rows_per_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_reduce<1>(part, dw, splits, 2LL * kLBD * hid, st);
+  return launch_reduce<1>(part, dw, splits, 2LL * D * hid, st);
 }
 
 }  // namespace dcvit

@@ -92,6 +92,68 @@ DEV void bar_wait(uint64_t* bar, uint32_t parity) {
     if (global_ns() - start > 10000000000ull) __trap();
 }
 
+// ---- clusters (distributed shared memory) -----------------------------------
+//
+// The D = 768 kernels (ln_mlp.cu, ln_mlp_bwd.cu) run pairs of blocks in a
+// cluster that share their rows and exchange f32 partial sums: a thread
+// stores into the other block's shared memory (`st.shared::cluster` at the
+// address `peer_addr` maps) and then arrives on the other block's mbarrier
+// with release semantics at cluster scope; the reader waits on its own
+// mbarrier with acquire semantics at cluster scope (`bar_wait_cluster`) and
+// reads with ordinary loads. Both sides stay in the generic proxy, so no
+// proxy fence is needed.
+
+DEV uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster, with release / acquire
+// semantics (a block's mbarriers are initialised before the other touches them)
+DEV void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the shared::cluster address of `p` (in this block's shared memory) in block `rank`
+DEV uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+DEV void st_peer(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+DEV void st_peer4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
+}
+// arrive on the mbarrier at shared::cluster address `addr`, releasing this
+// thread's earlier stores at cluster scope
+DEV void bar_arrive_peer(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+DEV bool bar_test_cluster(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// bar_wait for a phase completed by the other block of a cluster (acquire at
+// cluster scope: its stores before its arrivals are visible after the wait)
+DEV void bar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (bar_test_cluster(addr, parity)) return;
+  const uint64_t start = global_ns();
+  while (!bar_test_cluster(addr, parity))
+    if (global_ns() - start > 10000000000ull) __trap();
+}
+
 // ---- named barriers, proxy fences ------------------------------------------
 
 // id 0 is __syncthreads'; the kernels use 1, 2 (one per consumer warpgroup)
@@ -144,6 +206,13 @@ DEV void regs_alloc() {
 // address: the high word (SBO 1024 bytes, the swizzle mode) is a constant,
 // the low word the start address and LBO in 16-byte units.
 constexpr uint32_t kDescHi = (1024 >> 4) | (1u << 30);
+// The part of a shared address that a descriptor takes (its start address
+// field holds 18 bits of it). A block launched in a cluster sees its own
+// shared memory at addresses that carry its rank in the cluster from bit 24
+// up (the shared::cluster window: TMA and mbarrier operands need those bits);
+// desc_k / desc_mn of such an address would carry the rank into the stride
+// field, so the cluster kernels build their descriptors from desc_addr(base).
+DEV uint32_t desc_addr(uint32_t addr) { return addr & 0x3FFFFu; }
 // K-major box at shared address `addr`, k-step `ks` (16 columns) inside it
 DEV uint64_t desc_k(uint32_t addr, int ks) {
   return ((uint64_t)kDescHi << 32) | (((addr + 32 * ks) >> 4) | (1u << 16));

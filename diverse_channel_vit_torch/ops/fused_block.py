@@ -348,11 +348,19 @@ def ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, residual: bool = False) -> torc
     return out.to(x.dtype)
 
 
-def _ln_mlp_check(x, w1, name, multiple=64):
+# the model widths each MLP kernel is built for: B3 and B4 (``csrc/ln_mlp.cu``,
+# ``csrc/ln_mlp_bwd.cu``; 768 runs a cluster of two blocks per 64 rows), and
+# the int8 B7 and B8
+LN_MLP_WIDTHS = (384, 768)
+LN_MLP_Q_WIDTHS = (384,)
+
+
+def _ln_mlp_check(x, w1, name, multiple=64, widths=LN_MLP_WIDTHS, kernels_of="B3/B4"):
     d = x.shape[-1]
     hid = w1.shape[0]
-    if d != 384:
-        raise NotImplementedError(f"{name} kernel: width {d} (only 384 is built; ROADMAP B3/B4)")
+    if d not in widths:
+        raise NotImplementedError(
+            f"{name} kernel: width {d} (built for {widths}; ROADMAP B2, {kernels_of})")
     if hid % multiple or hid == 0:
         raise ValueError(f"{name} kernel: hidden width {hid} must be a multiple of {multiple}")
     return d, hid
@@ -642,7 +650,8 @@ def _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, wit
                        with_h, launch_key: str = "ln_mlp_q_fwd"):
     """B7's launch; ``launch_key`` is the count it adds to (the benchmark
     script's S3 launches the same kernel under its own name)."""
-    d, hid = _ln_mlp_check(x, w1q, launch_key, multiple=128)
+    d, hid = _ln_mlp_check(x, w1q, launch_key, multiple=128, widths=LN_MLP_Q_WIDTHS,
+                           kernels_of="B7/B8")
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, bf16, x.shape, dev)
     _check("ln_scale", scale, f32, (d,), dev)
@@ -765,7 +774,8 @@ def ln_mlp_q_bwd_plain(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do,
 
 def _ln_mlp_q_bwd_cuda(x, scale, bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual,
                        with_codes, with_h):
-    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q_bwd", multiple=384)
+    d, hid = _ln_mlp_check(x, w1q, "ln_mlp_q_bwd", multiple=384, widths=LN_MLP_Q_WIDTHS,
+                           kernels_of="B7/B8")
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, bf16, x.shape, dev)
     _check("ln_scale", scale, f32, (d,), dev)

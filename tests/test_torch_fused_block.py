@@ -7,7 +7,8 @@ seed, go to both. Weights go to the port in ``nn.Linear`` layout, the
 transpose of the JAX functions' layout.
 
 ``attend_project`` runs at head width 64 (D = 128, 2 heads) and 128 (D =
-256, 2 heads, the ``small_tpu`` preset's head width).
+256, 2 heads, the ``small_tpu`` preset's head width); ``ln_mlp`` also at the
+``base`` preset's widths (D = 768, hidden 3072).
 
 Tolerances: in f32 both sides compute the same f32 arithmetic in other
 orders, rel <= 1e-5 (as tests/test_fused_block.py holds the kernel to its XLA
@@ -42,15 +43,15 @@ def _pair(a, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("residual", [False, True])
-def test_ln_mlp_plain_matches_pallas_kernel(dtype, residual):
+def test_ln_mlp_plain_matches_pallas_kernel(dtype, residual, d=D, grid=(B, N)):
     rng = np.random.default_rng(1)
-    x = rng.normal(size=(B, N, D)).astype(np.float32)
-    scale = (1.0 + 0.1 * rng.normal(size=(D,))).astype(np.float32)
-    bias = (0.1 * rng.normal(size=(D,))).astype(np.float32)
-    w1 = (0.05 * rng.normal(size=(D, 4 * D))).astype(np.float32)
-    b1 = (0.05 * rng.normal(size=(4 * D,))).astype(np.float32)
-    w2 = (0.05 * rng.normal(size=(4 * D, D))).astype(np.float32)
-    b2 = (0.05 * rng.normal(size=(D,))).astype(np.float32)
+    x = rng.normal(size=(*grid, d)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.normal(size=(d,))).astype(np.float32)
+    bias = (0.1 * rng.normal(size=(d,))).astype(np.float32)
+    w1 = (0.05 * rng.normal(size=(d, 4 * d))).astype(np.float32)
+    b1 = (0.05 * rng.normal(size=(4 * d,))).astype(np.float32)
+    w2 = (0.05 * rng.normal(size=(4 * d, d))).astype(np.float32)
+    b2 = (0.05 * rng.normal(size=(d,))).astype(np.float32)
 
     jx, tx = _pair(x, dtype)
     (jw1, tw1), (jb1, tb1) = _pair(w1, dtype), _pair(b1, dtype)
@@ -58,8 +59,16 @@ def test_ln_mlp_plain_matches_pallas_kernel(dtype, residual):
     want = jfb.ln_mlp(jx, jnp.asarray(scale), jnp.asarray(bias), jw1, jb1, jw2, jb2, residual)
     got = fb.ln_mlp(tx, torch.from_numpy(scale), torch.from_numpy(bias), tw1.t().contiguous(),
                     tb1, tw2.t().contiguous(), tb2, residual)
-    assert got.dtype == tx.dtype and got.shape == (B, N, D)
+    assert got.dtype == tx.dtype and got.shape == (*grid, d)
     assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_ln_mlp_plain_matches_pallas_kernel_d768(dtype, residual):
+    """The base preset's widths, D = 768 and hidden 3072, on 120 rows (one
+    ragged row block), at the tolerances above."""
+    test_ln_mlp_plain_matches_pallas_kernel(dtype, residual, d=768, grid=(1, 120))
 
 
 def _attend_inputs(dtype, d=D):

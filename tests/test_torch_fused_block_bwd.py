@@ -11,7 +11,8 @@ transpose of the JAX layout. Keys at or past ``n_valid`` are masked.
 - The autograd Functions (``attend_project`` and ``ln_mlp`` with gradients
   on) against ``jax.grad`` through the JAX custom VJPs, every input.
 - ``attend_project`` at head width 64 (D = 128, 2 heads) and 128 (D = 256,
-  2 heads, the ``small_tpu`` preset's head width).
+  2 heads, the ``small_tpu`` preset's head width); ``ln_mlp``'s backward
+  also at the ``base`` preset's widths (D = 768, hidden 3072).
 
 Tolerances, max|port - jax| <= tol * max|jax| per output: in f32 both sides
 compute the same f32 arithmetic in other orders, tol 1e-5. In bf16 both
@@ -79,15 +80,15 @@ def test_attend_project_bwd_plain_matches_pallas_kernel_dh128(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("residual", [False, True])
-def test_ln_mlp_bwd_plain_matches_pallas_kernel(dtype, residual):
+def test_ln_mlp_bwd_plain_matches_pallas_kernel(dtype, residual, d=D, grid=(B, N)):
     rng = np.random.default_rng(12)
-    jx, tx = _pair(rng.normal(size=(B, N, D)), dtype)
-    scale = (1.0 + 0.1 * rng.normal(size=(D,))).astype(np.float32)
-    bias = (0.1 * rng.normal(size=(D,))).astype(np.float32)
-    jw1, tw1 = _pair(0.05 * rng.normal(size=(D, 4 * D)), dtype)
-    jb1, tb1 = _pair(0.05 * rng.normal(size=(4 * D,)), dtype)
-    jw2, tw2 = _pair(0.05 * rng.normal(size=(4 * D, D)), dtype)
-    jdo, tdo = _pair(rng.normal(size=(B, N, D)), dtype)
+    jx, tx = _pair(rng.normal(size=(*grid, d)), dtype)
+    scale = (1.0 + 0.1 * rng.normal(size=(d,))).astype(np.float32)
+    bias = (0.1 * rng.normal(size=(d,))).astype(np.float32)
+    jw1, tw1 = _pair(0.05 * rng.normal(size=(d, 4 * d)), dtype)
+    jb1, tb1 = _pair(0.05 * rng.normal(size=(4 * d,)), dtype)
+    jw2, tw2 = _pair(0.05 * rng.normal(size=(4 * d, d)), dtype)
+    jdo, tdo = _pair(rng.normal(size=(*grid, d)), dtype)
     want = jfb._ln_mlp_bwd_impl(jx, jnp.asarray(scale), jnp.asarray(bias), jw1, jb1, jw2, jdo,
                                 residual)
     got = fb.ln_mlp_bwd(tx, torch.from_numpy(scale), torch.from_numpy(bias),
@@ -97,6 +98,14 @@ def test_ln_mlp_bwd_plain_matches_pallas_kernel(dtype, residual):
     got = (got[0], got[1].t(), got[2], got[3].t(), *got[4:])
     for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2", "ds", "db"), got, want):
         assert _rel(g, w) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_ln_mlp_bwd_plain_matches_pallas_kernel_d768(dtype, residual):
+    """The base preset's widths, D = 768 and hidden 3072, on 120 rows (one
+    ragged row block), every output, at the tolerances above."""
+    test_ln_mlp_bwd_plain_matches_pallas_kernel(dtype, residual, d=768, grid=(1, 120))
 
 
 def _cotangent(rng, shape, dtype):

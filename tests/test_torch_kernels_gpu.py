@@ -13,8 +13,10 @@ relative) apart: max|kernel - plain| <= 2e-2 * max|plain|. Output biases are
 drawn at the residual's scale, so a dropped or misplaced bias moves the output
 far past that; the cases with no residual and zero output bias let the
 kernel's products alone set max|plain|. B3 and B4 are also held at the
-recipe's and EViT's grids and with a half-full last 128-row tile, B1 and B2
-at D = 768 and with one head (D_out = 64). The
+recipe's and EViT's grids and with a half-full last 128-row tile, and at
+the base preset's D = 768 (a cluster of two blocks per 64 rows; at D = 384
+their outputs are pinned by sha256 on fixed inputs, and the base preset in
+int8 must be refused), B1 and B2 at D = 768 and with one head (D_out = 64). The
 backward kernels B2 and B4 are held the same way, every output, B2's padded
 key rows must come out with dk = dv = 0 exactly, and two B2 calls, as two B4
 calls, on the same inputs must agree bit for bit; the autograd Functions' gradients
@@ -47,8 +49,10 @@ gradient.
 """
 
 import contextlib
+import hashlib
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -137,9 +141,18 @@ def test_attend_project_kernel_matches_plain_dh128(gen, batch, n, heads, n_valid
     ((4, 256, 384), True, 1.0),   # the recipe's smallest grid (k = 1)
     ((2, 1152, 384), False, 1.0),  # the EViT grid after layer 3
     ((2, 1600, 384), True, 1.0),  # the flagship grid
+    # the base preset's width, D = 768 (a cluster of two blocks per 64 rows)
+    ((2, 1600, 768), True, 1.0),  # the flagship grid
+    ((2, 1600, 768), False, 0.0),  # the products alone
+    ((1, 100, 768), True, 1.0),   # a ragged last row tile
+    ((3, 64, 768), False, 1.0),   # M = 192
+    ((4, 768, 768), True, 1.0),   # the EViT grid after layer 6
+    ((2, 1152, 768), False, 1.0),  # the EViT grid after layer 3
+    ((4, 256, 768), True, 1.0),   # the recipe's smallest grid (k = 1)
 ])
 def test_ln_mlp_kernel_matches_plain(gen, shape, residual, bias):
-    d, hid = 384, 1536
+    d = shape[-1]
+    hid = 4 * d
     x = _rnd(gen, *shape)
     s = _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0
     b = _rnd(gen, d, scale=0.1, dtype=torch.float32)
@@ -222,9 +235,18 @@ def test_attend_project_bwd_kernel_matches_plain_dh128(gen, batch, n, heads, n_v
     ((3, 64, 384), False),
     ((4, 256, 384), False),  # the recipe's smallest grid (k = 1)
     ((2, 1152, 384), True),  # the EViT grid after layer 3
+    # D = 768: dy on a cluster of two blocks per 64 rows, each with 384 columns
+    ((2, 1600, 768), True),  # the flagship grid
+    ((2, 1600, 768), False),
+    ((1, 100, 768), True),   # a ragged last row tile
+    ((3, 64, 768), False),   # M = 192: a last 128-row tile half full
+    ((4, 768, 768), True),   # the EViT grid after layer 6
+    ((2, 1152, 768), False),  # the EViT grid after layer 3
+    ((4, 256, 768), True),   # the recipe's smallest grid (k = 1)
 ])
 def test_ln_mlp_bwd_kernel_matches_plain(gen, shape, residual):
-    d, hid = 384, 1536
+    d = shape[-1]
+    hid = 4 * d
     x, do = _rnd(gen, *shape), _rnd(gen, *shape)
     s = _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0
     b = _rnd(gen, d, scale=0.1, dtype=torch.float32)
@@ -240,11 +262,13 @@ def test_ln_mlp_bwd_kernel_matches_plain(gen, shape, residual):
         assert _rel(g, w) <= TOL, name
 
 
-@pytest.mark.parametrize("shape", [(3, 64, 384), (8, 1600, 384)])
+@pytest.mark.parametrize("shape", [(3, 64, 384), (8, 1600, 384), (3, 64, 768), (8, 1600, 768)])
 def test_ln_mlp_bwd_kernel_is_bit_identical_across_calls(gen, shape):
     """B4 sums every partial in a fixed order and uses no atomics: two calls
-    on the same inputs agree bit for bit, every output."""
-    d, hid = 384, 1536
+    on the same inputs agree bit for bit, every output (at D = 768 the pair
+    of blocks adds each row's two partial sums in the same order in both)."""
+    d = shape[-1]
+    hid = 4 * d
     x, do = _rnd(gen, *shape), _rnd(gen, *shape)
     s = _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0
     b = _rnd(gen, d, scale=0.1, dtype=torch.float32)
@@ -321,10 +345,10 @@ def test_attend_project_function_grads_match_plain_route_dh128(gen, with_residua
     (True, (3, 64)),    # M = 192: a ragged last 128-row tile
     (False, (2, 256)),  # the recipe's smallest grid
 ])
-def test_ln_mlp_function_grads_match_plain_route(gen, residual, grid):
+def test_ln_mlp_function_grads_match_plain_route(gen, residual, grid, d=384):
     """Gradients of every input through LnMlpFn: the kernel route (B3
     forward, B4 backward) against the plain route, on the card."""
-    d, hid = 384, 1536
+    hid = 4 * d
     inputs = [_rnd(gen, *grid, d), _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0,
               _rnd(gen, d, scale=0.1, dtype=torch.float32), _rnd(gen, hid, d, scale=d ** -0.5),
               _rnd(gen, hid), _rnd(gen, d, hid, scale=hid ** -0.5), _rnd(gen, d)]
@@ -340,6 +364,80 @@ def test_ln_mlp_function_grads_match_plain_route(gen, residual, grid):
     assert fb.LAUNCHES["ln_mlp_bwd"] == before + 1
     for name, g, w in zip(("x", "scale", "bias", "w1", "b1", "w2", "b2"), got, want):
         assert g.dtype == w.dtype and _rel(g, w) <= TOL, name
+
+
+@pytest.mark.parametrize("residual,grid", [(False, (2, 640)), (True, (3, 64))])
+def test_ln_mlp_function_grads_match_plain_route_d768(gen, residual, grid):
+    """The same at the base preset's widths, D = 768 and hidden 3072."""
+    test_ln_mlp_function_grads_match_plain_route(gen, residual, grid, d=768)
+
+
+# sha256 of B3's and B4's outputs at D = 384 on the inputs of _pinned_inputs,
+# taken on an H100 SXM (132 SMs: B4's row splits follow the SM count) from
+# the libraries before and after D became a template parameter, which agree
+# bit for bit: a change to the D = 384 code path must leave these as they are
+PINNED_D384 = {
+    "ln_mlp_fwd": "90ac5f4e6ecf78c3a7200640e1e6a5468a2b912b4889632fcc9a27dcd2e399a4",
+    "ln_mlp_bwd": "517df157e015d74629b46a064a298bfecce4c83ac844dec985d4494ddd751a82",
+}
+
+
+def _pinned_inputs():
+    """Fixed bf16 / f32 inputs at D = 384, hidden 1536 on (3, 200) tokens (a
+    ragged last row tile), drawn by numpy so that they do not depend on the
+    card or the PyTorch build."""
+    rng = np.random.default_rng(384)
+
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(
+            device="cuda", dtype=dtype)
+
+    d, hid = 384, 1536
+    x, do = t((3, 200, d)), t((3, 200, d))
+    s, b = t((d,), 0.1, torch.float32) + 1.0, t((d,), 0.1, torch.float32)
+    w1, b1, w2, b2 = t((hid, d), d ** -0.5), t((hid,)), t((d, hid), hid ** -0.5), t((d,))
+    return x, s, b, w1, b1, w2, b2, do
+
+
+def _digest(*outs) -> str:
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_ln_mlp_kernels_at_d384_give_their_pinned_outputs(gen):
+    """B3 and B4 at D = 384 (residual fused) give, bit for bit, the outputs
+    they gave before D became a template parameter."""
+    x, s, b, w1, b1, w2, b2, do = _pinned_inputs()
+    assert _digest(fb.ln_mlp_fwd(x, s, b, w1, b1, w2, b2, True)) == PINNED_D384["ln_mlp_fwd"]
+    assert _digest(*fb.ln_mlp_bwd(x, s, b, w1, b1, w2, do, True)) == PINNED_D384["ln_mlp_bwd"]
+
+
+def test_base_preset_int8_is_refused_on_the_card(gen):
+    """B7 and B8 take D = 384 only: the base preset (D = 768) with
+    ``quantization: int8`` raises NotImplementedError naming ROADMAP B2 at
+    its first block's MLP, and no MLP kernel launches."""
+    from diverse_channel_vit_torch.config import Config
+    from diverse_channel_vit_torch.models import build_model
+
+    cfg = Config({"in_channel_names": ["a", "b"], "img_size": [32], "patch_size": 16,
+                  "pretrained_model_name": "base", "depth": 2, "quantization": "int8"})
+    model = build_model("dichavit", cfg, {"JUMP-CP": [0, 1]}, 5, device="cuda",
+                        dtype=torch.bfloat16)
+    before = dict(fb.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"), torch.inference_mode():
+        model(torch.zeros(1, 2, 32, 32, device="cuda", dtype=torch.bfloat16),
+              torch.arange(2, device="cuda"))
+    assert fb.LAUNCHES["ln_mlp_q_fwd"] == before["ln_mlp_q_fwd"]
+    assert fb.LAUNCHES["ln_mlp_fwd"] == before["ln_mlp_fwd"]
+    x = _rnd(gen, 1, 64, 768)
+    q = fb.quantize_mlp_weights(_rnd(gen, 3072, 768), _rnd(gen, 768, 3072), backward=True)
+    s, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        fb.ln_mlp_q_fwd(x, s, b, q[0], q[1], _rnd(gen, 3072), q[2], q[3], _rnd(gen, 768))
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        fb.ln_mlp_q_bwd(x, s, b, q[0], q[1], _rnd(gen, 3072), q[4], q[5], q[6], q[7], x)
 
 
 def test_backward_wrappers_raise_on_what_they_do_not_take(gen):
