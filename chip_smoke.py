@@ -23,7 +23,8 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    ``flash_wgmma.cuh``); then
    B7 and B8 (the int8 ln_mlp, forward and backward) at the flagship shapes,
    with the share of int8 codes that differ from the plain version's; B8's
-   recomputed h held bit for bit against B7's, B8's time split by launch
+   recomputed h held bit for bit against B7's, B7's h-storing twin's
+   output and codes against its own, B8 twice bit for bit, B8's time split by launch
    (profiler) beside each launch's bound, and an estimate of both kernels'
    epilogue time from a SASS count of their helpers; then
    the benchmark scripts' kernels at the scripts' default shapes: S1
@@ -36,7 +37,8 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    ``base`` preset's widths (D = 768, hidden 3072, 12 heads of 64; B3 and B4
    run a cluster of two blocks per 64 rows there), under names ending
    ``_d768``, B3 and B4 with and without biases and residual, B4 twice bit
-   for bit;
+   for bit; then B7 and B8 at D = 768 (a cluster of two blocks per 64 rows
+   each) as at D = 384, also on a grid with a half-full last 128-row tile;
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
    ``ServingEngine`` (``predict``, ``submit``) and ``ServingHTTPServer`` on
@@ -76,9 +78,10 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
 9. the ``base`` preset (DiChaViT-B: D = 768, 12 heads, MLP 3072) at full
    width and depth: serving as phase 4 (buckets 1-64, a k = 3 subset,
    logits against the plain route), 12 train steps at B = 64 and the 3-step
-   parity at depth 4, each with its ``phase`` line; the preset with
-   ``quantization: int8`` must raise NotImplementedError (B7 and B8 take
-   D = 384 only); then the port's geometry smoke
+   parity at depth 4, each with its ``phase`` line; the same three with
+   ``quantization: int8`` (serving as phase 6: B7 and B1 x 11 per forward,
+   no B3; train B1, B2, B7 and B8 x 11 per step, no B3 / B4); then the
+   port's geometry smoke
    (``diverse_channel_vit_torch.scripts.smoke_geometries``) through its
    ``main``: the JAX script's five geometries (CHAMMI's 12 channels with the
    proxy loss, DCS at k = 5 of 12, base, head width 128, So2Sat's 18
@@ -101,6 +104,7 @@ the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import subprocess
@@ -506,6 +510,7 @@ PROBE_SKIP = ("LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "EXIT", "BRA", "NOP", 
               "CALL", "RET", "BSSY", "BSYNC")
 
 
+@functools.lru_cache(maxsize=None)
 def epilogue_instructions(kernels) -> dict:
     """Static SASS instruction count of one hidden element of B7's and B8's
     epilogues (``EPILOGUE_PROBE`` built with the kernels' flags, read with
@@ -551,6 +556,7 @@ def epilogue_instructions(kernels) -> dict:
     return counts
 
 
+@functools.lru_cache(maxsize=None)
 def issue_rate() -> float:
     """Thread-instructions a second the card could issue at the SM clock's
     maximum (nvidia-smi): SMs x 4 schedulers x 32 lanes x that clock. The
@@ -581,40 +587,52 @@ def device_ms_by_kernel(fn, calls: int, torch) -> dict:
     return out
 
 
-def check_q_kernels(fb, torch, F, kernels):
+def check_q_kernels(fb, torch, F, kernels, d=D, hid=HID, seed=3):
     """Phase 3, the int8 ln_mlp: B7 and B8 against their plain versions at
-    flagship shapes, each output within KERNEL_REL_TOL and the codes of the
-    last int8 product (hq for B7, dh_pre's for B8) within MAX_CODE_FLIPS.
-    B7 runs with the residual fused and output biases at the residual's
-    scale, as the main path calls it, then with no residual and zero output
-    bias; B8 with the residual fused and without. The library yardstick is
-    the same arithmetic in PyTorch ops with ``torch._int_mm`` (cuBLASLt int8)
-    for the int8 GEMMs and, in B8, bf16 ``torch.matmul`` for the weight
-    gradients. B8's recomputed h must equal B7's bit for bit; B8's time is
-    split by its launches (profiler) beside each one's bound; and the
-    epilogue's instruction count (SASS) gives an estimate of its issue time,
-    printed beside the bound: neither a bound nor a measured time."""
+    the flagship grid with model width ``d`` and hidden width ``hid`` (at D
+    = 768 both run a cluster of two blocks per 64 rows), each output within
+    KERNEL_REL_TOL and the codes of the last int8 product (hq for B7,
+    dh_pre's for B8) within MAX_CODE_FLIPS. B7 runs with the residual fused
+    and output biases at the residual's scale, as the main path calls it,
+    then with no residual and zero output bias; B8 with the residual fused
+    and without; at D = 768 both also at LN_MLP_GRIDS' 3 x 64 (a half-full
+    last 128-row tile) and 1 x 100 (a ragged last 64-row tile). The library
+    yardstick is the same arithmetic in PyTorch ops with ``torch._int_mm``
+    (cuBLASLt int8) for the int8 GEMMs and, in B8, bf16 ``torch.matmul`` for
+    the weight gradients.
+    B7's instantiation that also stores h must give the main path's output
+    and codes, and B8's recomputed h must equal its h, bit for bit; two B8
+    calls on the same inputs agree bit for bit; B8's time is split by its
+    launches (profiler) beside each one's bound; and the epilogue's
+    instruction count (SASS) gives an estimate of its issue time, printed
+    beside the bound: neither a bound nor a measured time."""
     n = -(-N_VALID // 64) * 64
-    rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(3))
+    rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(seed))
     bf16, f32 = torch.bfloat16, torch.float32
     rows = B * N_VALID
-    x, do = rnd(B, n, D), rnd(B, n, D)
-    s, bb = rnd(D, scale=0.1, dtype=f32) + 1.0, rnd(D, scale=0.1, dtype=f32)
-    w1, b1 = rnd(HID, D, scale=D ** -0.5), rnd(HID)
-    w2, b2 = rnd(D, HID, scale=HID ** -0.5), rnd(D)
+    name7, name8 = width_name("ln_mlp_q_fwd", d), width_name("ln_mlp_q_bwd", d)
+    x, do = rnd(B, n, d), rnd(B, n, d)
+    s, bb = rnd(d, scale=0.1, dtype=f32) + 1.0, rnd(d, scale=0.1, dtype=f32)
+    w1, b1 = rnd(hid, d, scale=d ** -0.5), rnd(hid)
+    w2, b2 = rnd(d, hid, scale=hid ** -0.5), rnd(d)
     w1q, s1c, w2q, s2c, w1r, s1r, w2r, s2r = fb.quantize_mlp_weights(w1, w2, backward=True)
     results = {}
+    more_grids = (LN_MLP_GRIDS[0], LN_MLP_GRIDS[3]) if d != D else ()
 
     # --- B7 ln_mlp_q_fwd
     fargs = (x, s, bb, w1q, s1c, b1, w2q, s2c, b2, True)
     flips = []
-    for label, a in (("main path", fargs),
-                     ("no residual, zero bias",
-                      (x, s, bb, w1q, s1c, b1, w2q, s2c, torch.zeros_like(b2), False))):
+    cases = [("main path", fargs),
+             ("no residual, zero bias",
+              (x, s, bb, w1q, s1c, b1, w2q, s2c, torch.zeros_like(b2), False))]
+    for nb, nn in more_grids:
+        cases.append((f"{nb} x {nn} tokens, residual True",
+                      (rnd(nb, nn, d), s, bb, w1q, s1c, b1, w2q, s2c, b2, True)))
+    for label, a in cases:
         out, codes = fb.ln_mlp_q_fwd(*a, with_codes=True)
         out_p, codes_p = fb.ln_mlp_q_plain(*a, with_codes=True)
-        worst = hold("ln_mlp_q_fwd", label, (("out", out, out_p),))
-        flips.append(code_flips("ln_mlp_q_fwd", label, codes, codes_p))
+        worst = hold(name7, label, (("out", out, out_p),))
+        flips.append(code_flips(name7, label, codes, codes_p))
         if label == "main path":
             err, rel = worst
         del out, codes, out_p, codes_p
@@ -633,67 +651,77 @@ def check_q_kernels(fb, torch, F, kernels):
 
     def library():
         xf = x.float()
-        yq, ys = _quant_rows(torch, F.layer_norm(xf, (D,), s, bb, 1e-6))
+        yq, ys = _quant_rows(torch, F.layer_norm(xf, (d,), s, bb, 1e-6))
         h = F.gelu(_int_mm(torch, yq, w1q) * ys * s1c + b1.float(), approximate="tanh")
         hq, hs = _quant_rows(torch, h)
         return (_int_mm(torch, hq, w2q) * hs * s2c + b2.float() + xf).to(bf16)
 
-    library_ms = int8_library_ms("ln_mlp_q_fwd", library)
-    results["ln_mlp_q_fwd"] = dict(
+    library_ms = int8_library_ms(name7, library)
+    results[name7] = dict(
         source="diverse_channel_vit_torch/csrc/ln_mlp_q.cu",
         replaces="diverse_channel_vit_tpu/ops/fused_block.py:474",
         max_abs_err=err, rel_err=rel, code_flips=max(flips), ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, int8_ops=4 * rows * D * HID, flops=0,
-        bytes=2 * 2 * rows * D + 2 * D * HID + 4 * (HID + D) + 2 * (HID + D) + 4 * 2 * D,
+        library_ms=library_ms, int8_ops=4 * rows * d * hid, flops=0,
+        bytes=2 * 2 * rows * d + 2 * d * hid + 4 * (hid + d) + 2 * (hid + d) + 4 * 2 * d,
     )
-    epilogue_estimate("ln_mlp_q_fwd", "b7_element", rows * HID)
+    epilogue_estimate(name7, "b7_element", rows * hid)
 
     # --- B8 ln_mlp_q_bwd
     names = ("dx", "dw1", "db1", "dw2", "db2", "ds", "db")
     flips = []
-    for label, residual in (("main path, residual fused", True), ("no residual", False)):
-        a = (x, s, bb, w1q, s1c, b1, w1r, s1r, w2r, s2r, do, residual)
+    cases = [("main path, residual fused", (x, do, True)), ("no residual", (x, do, False))]
+    for nb, nn in more_grids:
+        cases.append((f"{nb} x {nn} tokens, residual True",
+                      (rnd(nb, nn, d), rnd(nb, nn, d), True)))
+    for label, (xx, dd, residual) in cases:
+        a = (xx, s, bb, w1q, s1c, b1, w1r, s1r, w2r, s2r, dd, residual)
         got = fb.ln_mlp_q_bwd(*a, with_codes=True)
         want = fb.ln_mlp_q_bwd_plain(*a, with_codes=True)
-        worst = hold("ln_mlp_q_bwd", label, list(zip(names, got[:7], want[:7])))
-        flips.append(code_flips("ln_mlp_q_bwd", label, got[7], want[7]))
-        if residual:
+        worst = hold(name8, label, list(zip(names, got[:7], want[:7])))
+        flips.append(code_flips(name8, label, got[7], want[7]))
+        if label.startswith("main path"):
             (err, rel), bargs = worst, a
         del got, want
     # B7's h comes from its instantiation that also stores h (ln_mlp_q.cu),
-    # whose output must be the main path's
-    out7, h7 = fb.ln_mlp_q_fwd(*fargs, with_h=True)
-    if not torch.equal(out7, fb.ln_mlp_q_fwd(*fargs)):
-        raise AssertionError("ln_mlp_q_fwd: the output with h differs from the main path's")
+    # whose output and codes must be the main path's
+    out7, codes7, h7 = fb.ln_mlp_q_fwd(*fargs, with_codes=True, with_h=True)
+    out_main, codes_main = fb.ln_mlp_q_fwd(*fargs, with_codes=True)
+    if not (torch.equal(out7, out_main) and torch.equal(codes7, codes_main)):
+        raise AssertionError(f"{name7}: the output or codes with h differ from the main path's")
     h8 = fb.ln_mlp_q_bwd(*bargs, with_h=True)[7]
     if not torch.equal(h7, h8):
-        raise AssertionError("ln_mlp_q_bwd: the recomputed h differs from ln_mlp_q_fwd's")
-    print("ln_mlp_q_bwd: the recomputed h equals ln_mlp_q_fwd's, bit for bit (and "
-          "ln_mlp_q_fwd's output with h is the main path's)")
-    del out7, h7, h8
+        raise AssertionError(f"{name8}: the recomputed h differs from {name7}'s")
+    print(f"{name8}: the recomputed h equals {name7}'s, bit for bit (and {name7}'s output and "
+          "codes with h are the main path's)")
+    del out7, codes7, h7, h8, out_main, codes_main
+    first, second = fb.ln_mlp_q_bwd(*bargs), fb.ln_mlp_q_bwd(*bargs)
+    if not all(torch.equal(p, q) for p, q in zip(first, second)):
+        raise AssertionError(f"{name8}: two calls on the same inputs differ")
+    print(f"{name8}: two calls on the same inputs agree bit for bit")
+    del first, second
     ms = cuda_ms(lambda: fb.ln_mlp_q_bwd(*bargs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_q_bwd_plain(*bargs), 2, warmup=1)
     # B8's launches, each beside its bound (max of operations and bytes)
     parts = device_ms_by_kernel(lambda: fb.ln_mlp_q_bwd(*bargs), 3, torch)
     m = B * n
-    splits = fb._ln_mlp_wgrad_splits(m, D, HID, torch.device("cuda"))
+    splits = fb._ln_mlp_wgrad_splits(m, d, hid, torch.device("cuda"))
     part_bounds = {
-        "LN pass": 8 * rows * D / PEAK_BYTES,
-        "dual": max(4 * rows * D * HID / PEAK_INT8_OPS, (2 * rows * D + 8 * rows * HID) / PEAK_BYTES),
-        "dy": max(2 * rows * D * HID / PEAK_INT8_OPS, (4 * rows * HID + 6 * rows * D) / PEAK_BYTES),
-        "wgrad": 4 * rows * D * HID / PEAK_BF16_FLOPS,
-        "reductions": 4 * (splits * 2 * D * HID + -(-m // 128) * HID
-                           + -(-m // 64) * 3 * D) / PEAK_BYTES,
+        "LN pass": 8 * rows * d / PEAK_BYTES,
+        "dual": max(4 * rows * d * hid / PEAK_INT8_OPS, (2 * rows * d + 8 * rows * hid) / PEAK_BYTES),
+        "dy": max(2 * rows * d * hid / PEAK_INT8_OPS, (4 * rows * hid + 6 * rows * d) / PEAK_BYTES),
+        "wgrad": 4 * rows * d * hid / PEAK_BF16_FLOPS,
+        "reductions": 4 * (splits * 2 * d * hid + -(-m // 128) * hid
+                           + -(-m // 64) * 3 * d) / PEAK_BYTES,
     }
     split = {}
     for key, label in B8_PARTS:
         split[label] = sum(v for k, v in parts.items() if key in k) if parts else None
         shown = "not measured" if split[label] is None else f"{split[label]:.4f} ms"
-        print(f"ln_mlp_q_bwd part {label}: {shown} a call, bound "
+        print(f"{name8} part {label}: {shown} a call, bound "
               f"{part_bounds[label] * 1e3:.4f} ms")
 
     def library_bwd():
-        xf, dof = x.float().reshape(-1, D), do.float().reshape(-1, D)
+        xf, dof = x.float().reshape(-1, d), do.float().reshape(-1, d)
         mu = xf.mean(dim=-1, keepdim=True)
         rstd = torch.rsqrt(((xf - mu) ** 2).mean(dim=-1, keepdim=True) + 1e-6)
         xhat = (xf - mu) * rstd
@@ -703,7 +731,7 @@ def check_q_kernels(fb, torch, F, kernels):
         with torch.enable_grad():
             h = F.gelu(h_pre, approximate="tanh")
         h16 = h.detach().to(bf16)
-        dw2 = torch.matmul(do.reshape(-1, D).t(), h16)
+        dw2 = torch.matmul(do.reshape(-1, d).t(), h16)
         doq, dos = _quant_rows(torch, dof)
         dh = _int_mm(torch, doq, w2r) * dos * s2r
         (dh_pre,) = torch.autograd.grad(h, h_pre, dh)
@@ -716,16 +744,16 @@ def check_q_kernels(fb, torch, F, kernels):
         return (dx.to(bf16), dw1, dh_pre.sum(0), dw2, dof.sum(0), (dy * xhat).sum(0),
                 dy.sum(0))
 
-    library_ms = int8_library_ms("ln_mlp_q_bwd", library_bwd)
-    results["ln_mlp_q_bwd"] = dict(
+    library_ms = int8_library_ms(name8, library_bwd)
+    results[name8] = dict(
         source="diverse_channel_vit_torch/csrc/ln_mlp_q_bwd.cu",
         replaces="diverse_channel_vit_tpu/ops/fused_block.py:525",
         max_abs_err=err, rel_err=rel, code_flips=max(flips), ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, int8_ops=6 * rows * D * HID, flops=4 * rows * D * HID,
-        bytes=2 * 3 * rows * D + 3 * D * HID + 4 * (2 * HID + 3 * D) + 2 * HID
-        + 4 * (2 * D * HID + HID + 3 * D), sub_ms=split,
+        library_ms=library_ms, int8_ops=6 * rows * d * hid, flops=4 * rows * d * hid,
+        bytes=2 * 3 * rows * d + 3 * d * hid + 4 * (2 * hid + 3 * d) + 2 * hid
+        + 4 * (2 * d * hid + hid + 3 * d), sub_ms=split,
     )
-    epilogue_estimate("ln_mlp_q_bwd", "b8_element", rows * HID)
+    epilogue_estimate(name8, "b8_element", rows * hid)
     return results
 
 
@@ -1066,27 +1094,6 @@ def run_geometries(fb, torch, want: dict) -> dict:
     return paths
 
 
-def base_int8_refused(fb, torch) -> None:
-    """The base preset with ``quantization: int8`` (B7 and B8 are built for
-    D = 384 only) must raise NotImplementedError naming ROADMAP B2 at its
-    first block's MLP, with no MLP kernel launched."""
-    model = build(2, pretrained_model_name=BASE_PRESET, quantization="int8")
-    x = torch.zeros(1, CHANNELS, IMG, IMG, device="cuda", dtype=torch.bfloat16)
-    fb.reset_launches()
-    try:
-        with torch.inference_mode():
-            model(x, torch.arange(CHANNELS, device="cuda"))
-    except NotImplementedError as e:
-        if "ROADMAP B2" not in str(e):
-            raise AssertionError(f"base int8: the refusal does not name ROADMAP B2: {e}")
-        print(f"base int8 refused on the card: {e}; launches {dict(fb.LAUNCHES)}")
-    else:
-        raise AssertionError("base int8: the forward ran")
-    if fb.LAUNCHES["ln_mlp_q_fwd"] or fb.LAUNCHES["ln_mlp_fwd"]:
-        raise AssertionError(f"base int8: an MLP kernel launched: {dict(fb.LAUNCHES)}")
-    del model
-
-
 def run_scripts(fb):
     """Phase 8: each benchmark script through its entry point (``main``, what
     ``python -m diverse_channel_vit_torch.scripts.<name>`` calls) at its
@@ -1328,24 +1335,26 @@ def serve(fb, torch, label: str = "serving", **extra):
     return launches, forwards
 
 
-def serve_int8(fb, torch):
-    """Phase 4d: int8 serving of DiChaViT-S. One bf16 model behind two
-    engines: ``ServingEngine(quantization="int8")`` serves buckets 1-64
-    through ``predict``, ``submit`` and ``ServingHTTPServer``, the counts set
-    to 0 just before and read just after (per forward B7 and B1 x 11, no B3);
+def serve_int8(fb, torch, label: str = "int8 serving", **extra):
+    """Phase 4d: int8 serving of DiChaViT-S (or with ``extra`` another
+    preset, such as the base one). One bf16 model behind two engines:
+    ``ServingEngine(quantization="int8")`` serves buckets 1-64 through
+    ``predict``, ``submit`` and ``ServingHTTPServer``, the counts set to 0
+    just before and read just after (per forward B7 and B1 x 11, no B3);
     then a 64-image ``predict`` of the unquantised engine on the same model
     must launch B3 x 11 and no B7, and give other logits. The int8 logits are
     held against the plain route on the card."""
     from diverse_channel_vit_torch.serving import ServingEngine
     from diverse_channel_vit_torch.serving_http import ServingHTTPServer
 
-    model = build(DEPTH)
+    model = build(DEPTH, **extra)
     engine = ServingEngine(model, buckets=BUCKETS, device="cuda", quantization="int8")
     dense_engine = ServingEngine(model, buckets=BUCKETS, device="cuda")
     rng = np.random.default_rng(0)
     imgs = rng.standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)
     full = list(range(CHANNELS))
 
+    torch.cuda.reset_peak_memory_stats()
     fb.reset_launches()
     engine.n_forwards = 0
     engine.warmup(full, (IMG, IMG))
@@ -1372,37 +1381,39 @@ def serve_int8(fb, torch):
                            "p50_ms": float(np.percentile(lats, 50)) * 1e3,
                            "p99_ms": float(np.percentile(lats, 99)) * 1e3, "reps": reps}
     launches, forwards = dict(fb.LAUNCHES), engine.n_forwards
-    check_counts("int8 serving", launches, forwards, "forward",
+    check_counts(label, launches, forwards, "forward",
                  {"attend_project_fwd": DEPTH - 1, "ln_mlp_q_fwd": DEPTH - 1})
-    profile_call(lambda: engine.predict(imgs, full), "one 64-image int8 predict", torch)
+    # peak memory of the int8 engine's own forwards (the checks below add more)
+    phase_line(f"{label}, bucket 64", timings[64]["imgs_per_s"], timings[64]["p50_ms"], torch)
+    profile_call(lambda: engine.predict(imgs, full), f"one 64-image predict ({label})", torch)
 
     fb.reset_launches()
     dense_engine.n_forwards = 0
     dense = dense_engine.predict(imgs, full)
-    check_counts("bf16 serving beside it", dict(fb.LAUNCHES), dense_engine.n_forwards,
+    check_counts(f"bf16 serving beside {label}", dict(fb.LAUNCHES), dense_engine.n_forwards,
                  "forward", {"attend_project_fwd": DEPTH - 1, "ln_mlp_fwd": DEPTH - 1})
     if {blk.quantization for blk in model.feature_extractor.blocks} != {"none"}:
         raise AssertionError("the int8 engine changed the model's own quantization")
     for key, val in (("predict64", out64), ("submit", out_submit), ("http", out_http)):
         if not np.isfinite(val).all():
-            raise AssertionError(f"int8 {key}: logits not finite")
+            raise AssertionError(f"{label} {key}: logits not finite")
     if out64.shape != (B, CLASSES) or out_http.shape != (CLASSES,):
-        raise AssertionError("unexpected int8 logits shape")
+        raise AssertionError(f"unexpected {label} logits shape")
     scale = np.abs(out64).max()
     for key, got, want in (("submit", out_submit, out64[:5]), ("http", out_http, out64[7])):
         rel = np.abs(got - want).max() / scale
-        print(f"int8 {key} vs the 64-bucket rows: rel {rel:.3e} (tolerance {KERNEL_REL_TOL})")
+        print(f"{label} {key} vs the 64-bucket rows: rel {rel:.3e} (tolerance {KERNEL_REL_TOL})")
         if rel > KERNEL_REL_TOL:
-            raise AssertionError(f"int8 {key} disagrees with the same images in the 64 bucket")
+            raise AssertionError(f"{label} {key} disagrees with the same images in the 64 bucket")
     moved = float(np.abs(out64 - dense).max() / np.abs(dense).max())
-    print(f"int8 logits vs the bf16 engine's: rel {moved:.3e} (must differ)")
+    print(f"{label} logits vs the bf16 engine's: rel {moved:.3e} (must differ)")
     if moved == 0.0:
-        raise AssertionError("the int8 engine's logits equal the bf16 engine's")
+        raise AssertionError(f"{label}: the int8 engine's logits equal the bf16 engine's")
     with fb.plain_versions(), fb.quantization("int8"), torch.inference_mode():
         ref = model(torch.from_numpy(imgs).cuda().to(torch.bfloat16),
                     torch.arange(CHANNELS, device="cuda"))[0].float().cpu().numpy()
-    logits_close("int8 logits vs plain versions on the card", out64, ref)
-    print("int8 serving " + json.dumps({"buckets": timings}))
+    logits_close(f"{label} logits vs plain versions on the card", out64, ref)
+    print(f"{label} " + json.dumps({"buckets": timings}))
     del model, engine, dense_engine
     torch.cuda.empty_cache()
     return launches, forwards, timings
@@ -1782,6 +1793,8 @@ def main() -> int:
         fb, torch, F, HEADS_BASE, rnd, D_BASE)
     results[kernel_name("attend_project_bwd", HEADS_BASE, D_BASE)] = check_attend_project_bwd(
         fb, torch, F, HEADS_BASE, rnd, D_BASE)
+    # B7 and B8 at D = 768 (a cluster of two blocks per 64 rows each)
+    results.update(check_q_kernels(fb, torch, F, kernels, D_BASE, HID_BASE, seed=13))
     for name, r in results.items():
         # each product at the unit that runs it: bf16 FLOPs and int8 operations
         t_ops = r.pop("flops") / PEAK_BF16_FLOPS + r.pop("int8_ops", 0) / PEAK_INT8_OPS
@@ -1855,7 +1868,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the base preset (DiChaViT-B) at full width and depth: serving, train,
-    # and the 3-step parity at depth 4; int8 refused; then the geometry smoke
+    # and the 3-step parity at depth 4, in bf16 and in int8 (B7 / B8 at D =
+    # 768); then the geometry smoke
     base = dict(pretrained_model_name=BASE_PRESET)
     paths["base serving"] = (*serve(fb, torch, "base serving", **base), "forward")
     torch.cuda.empty_cache()
@@ -1863,7 +1877,13 @@ def main() -> int:
                                   **base)[:2], "step")
     train_parity(fb, torch, "base train parity", PARITY_DEPTH, 3,
                  dict.fromkeys(fused4, PARITY_DEPTH - 1), **base)
-    base_int8_refused(fb, torch)
+    paths["base int8 serving"] = (*serve_int8(fb, torch, "base int8 serving", **base)[:2],
+                                  "forward")
+    paths["base int8 train"] = (*train(fb, torch, "base int8 train",
+                                       dict.fromkeys(int8_train, DEPTH - 1),
+                                       quantization="int8", **base)[:2], "step")
+    train_parity(fb, torch, "base int8 train parity", PARITY_DEPTH, 3,
+                 dict.fromkeys(int8_train, PARITY_DEPTH - 1), quantization="int8", **base)
     torch.cuda.empty_cache()
     paths.update(run_geometries(fb, torch, dict.fromkeys(fused4, DEPTH - 1)))
     # the benchmark scripts: S1-S3 run only there, S1 and S2 also at 3 heads
@@ -1895,6 +1915,8 @@ def main() -> int:
         width_name("ln_mlp_bwd", D_BASE): ("base train",),
         kernel_name("attend_project_fwd", HEADS_BASE, D_BASE): ("base serving", "base train"),
         kernel_name("attend_project_bwd", HEADS_BASE, D_BASE): ("base train",),
+        width_name("ln_mlp_q_fwd", D_BASE): ("base int8 serving", "base int8 train"),
+        width_name("ln_mlp_q_bwd", D_BASE): ("base int8 train",),
     }
     d768 = f"_d{D_BASE}"
     line = []

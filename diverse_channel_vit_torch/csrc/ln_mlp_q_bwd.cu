@@ -40,12 +40,12 @@
 //       forward's instructions): y in bf16 (for dW1), yq and ys (the
 //       forward's codes), doq and dos, the LayerNorm's mean and rstd;
 //   (b) `q_dual_kernel`, per (128 rows, 128 hidden units): h_pre = yq W1q^T
-//       and dh = doq W2r^T (K = 384, int8 `wgmma`, every operand K-major) in
+//       and dh = doq W2r^T (K = D, int8 `wgmma`, every operand K-major) in
 //       two s32 accumulators; in the epilogue h and dh_pre from one tanhf,
 //       h and dh_pre in bf16 (the weight gradients' operands) and dh_pre in
 //       f32, each stored by TMA; db1's column partials of the f32 dh_pre;
 //       and each row's max|dh_pre| over the tile;
-//   (c) `q_dy_kernel`, per 64 rows: the row scale dhs from the twelve
+//   (c) `q_dy_kernel`, per 64 rows: the row scale dhs from the HID / 128
 //       maxima (max is order-free, so it is exact); each k-step the two
 //       consumer warpgroups quantise an f32 dh_pre tile (32 rows each) into
 //       a swizzled int8 A box, then dy += dhq W1r^T (K = HID, each
@@ -59,22 +59,41 @@
 // before any product of (c). Recomputing h_pre and dh in (c) instead would
 // need 64 + 96 accumulator registers beside dy's 96, past the 168 a thread
 // that ptxas allots the consumers (wgmma_core.cuh).
-// On an H100 it runs at about 5x its bound; the dual GEMM (tanhf and three
-// stores a value) and the dy GEMM (the f32 read, quantisation and the LN
-// backward after its products) each at about 2.2x theirs (PERF.md).
+// On an H100 it runs at about 5x its bound at D = 384 (3.2x at 768); the
+// dual GEMM (tanhf and three stores a value) and the dy GEMM (the f32 read,
+// quantisation and the LN backward after its products) each at about 2.2x
+// theirs at 384 (PERF.md).
 // With `codes` set, (c) also writes dhq (M, HID), the codes of the dy GEMM,
 // for counting code differences.
+//
+// D is a template parameter, 384 or 768, and the entry point dispatches on
+// d. (a) takes 768 as it is. (b) runs its k-steps through a ring of three
+// 64 KB stages: at 384 all three k-steps load at once, at 768 the six take
+// each stage twice, a stage released once both warpgroups' products of it
+// are done; its two s32 accumulators do not grow with K. (c) at 768 runs a
+// cluster of two blocks per 64 rows, as B4's dy does (ln_mlp_bwd.cu), block
+// r owning dy's columns [384 r, + 384) (96 accumulator registers a thread):
+// each block loads and quantises the f32 dh_pre tiles itself (the same
+// instructions on the same values, so the same codes; the row scales from
+// HID / 128 maxima), and before the LayerNorm backward each hands its rows'
+// two sums over its 384 columns to the other through distributed shared
+// memory. (d) is `wgrad_kernel<768>`, B4's. Shared memory at 768: (b)
+// 201,776 bytes, (c) 224,088 of 232,448. The scratch at B = 64, N = 1600,
+// D = 768: dh_pre in f32 1.26 GB, h and dh_pre in bf16 0.63 GB each, y 0.16
+// GB, the weight-gradient splits 18.9 MB each.
 #include "int8.cuh"
 #include "ln_mlp_wgrad.cuh"
 
 namespace dcvit {
 
-// (b): a stage per 128-byte k-step: yq and doq [128 rows][128 B], W1q and
-// W2r [128 hidden][128 B]; all three k-steps of K = 384 load at once
-constexpr int kQDualSteps = kLBD / 128;
+constexpr int kQBW = 384;  // dy columns a block of (c) owns
+// (b): a ring stage per 128-byte k-step: yq and doq [128 rows][128 B], W1q
+// and W2r [128 hidden][128 B]; three stages, so at D = 384 all three
+// k-steps load at once and at D = 768 the six take the ring twice
+constexpr int kQDualStages = 3;
 constexpr int kQDualStageBytes = 4 * 2 * wg::kBoxBytes;
 constexpr int kQDualSmem =
-    kQDualSteps * kQDualStageBytes + 8 * kLBTile * 4 + kQDualSteps * 8 + wg::kAlign;
+    kQDualStages * kQDualStageBytes + 8 * kLBTile * 4 + 2 * kQDualStages * 8 + wg::kAlign;
 // (c): a ring of f32 dh_pre tiles [64 rows][128 hidden] (four [64][32]
 // boxes) and one of W1r tiles [384 d][128 hidden] (two [192][128 B] boxes);
 // the producer runs kQDyLead f32 tiles ahead of the W1r tiles; the
@@ -89,9 +108,17 @@ constexpr int kQDyLead = 2;
 constexpr int kQDySmem = kQDyFStages * kQDyFBytes + kQDyWStages * kQDyWBytes +
                          kQDyQBufs * wg::kBoxBytes + 4 * (2 * kQDyRows * 2 + kQDyRows) +
                          2 * (kQDyFStages + kQDyWStages) * 8 + wg::kAlign;
+// D = 768: a cluster of two dy blocks per 64 rows, each with 384 of the
+// columns; beside its rings a block holds the other's row sums and their barrier
+template <int D>
+constexpr int q_dy_smem() {
+  return kQDySmem + (D == kQBW ? 0 : kQDyRows * 2 * 4 + 8);
+}
+static_assert(q_dy_smem<768>() <= 232448, "q_dy_kernel: shared memory past 227 KB");
 
 // ---- (a) LayerNorm and row quantisation -------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(256)
     q_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_scale,
                   const float* __restrict__ ln_bias, const __nv_bfloat16* __restrict__ dout,
@@ -100,22 +127,23 @@ __global__ void __launch_bounds__(256)
   const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= m) return;
-  float2 v[kLBD / 64];
+  float2 v[D / 64];
   float mean, rstd;
-  ln_row<kLBD>(x + r * kLBD, ln_scale, ln_bias, lane, v, mean, rstd);
-  uint32_t* yrow = reinterpret_cast<uint32_t*>(y_buf + r * kLBD);
+  ln_row<D>(x + r * D, ln_scale, ln_bias, lane, v, mean, rstd);
+  uint32_t* yrow = reinterpret_cast<uint32_t*>(y_buf + r * D);
 #pragma unroll
-  for (int i = 0; i < kLBD / 64; ++i) yrow[lane + 32 * i] = pack_bf16(v[i].x, v[i].y);
-  const float ys = quant_row(v, yq + r * kLBD, lane);
-  const uint32_t* drow = reinterpret_cast<const uint32_t*>(dout + r * kLBD);
+  for (int i = 0; i < D / 64; ++i) yrow[lane + 32 * i] = pack_bf16(v[i].x, v[i].y);
+  const float ys = quant_row(v, yq + r * D, lane);
+  const uint32_t* drow = reinterpret_cast<const uint32_t*>(dout + r * D);
 #pragma unroll
-  for (int i = 0; i < kLBD / 64; ++i) v[i] = unpack_bf16(drow[lane + 32 * i]);
-  const float dos = quant_row(v, doq + r * kLBD, lane);
+  for (int i = 0; i < D / 64; ++i) v[i] = unpack_bf16(drow[lane + 32 * i]);
+  const float dos = quant_row(v, doq + r * D, lane);
   if (lane == 0) *reinterpret_cast<float4*>(stats + 4 * r) = make_float4(ys, dos, mean, rstd);
 }
 
 // ---- (b) h and dh_pre ---------------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     q_dual_kernel(const __grid_constant__ CUtensorMap yq_map,
                   const __grid_constant__ CUtensorMap doq_map,
@@ -127,30 +155,30 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                   const float* __restrict__ s1c, const __nv_bfloat16* __restrict__ b1,
                   const float* __restrict__ s2r, float* __restrict__ db1_part,
                   float* __restrict__ rmax_part, long long m, int hid) {
+  constexpr int kSteps = D / 128;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = wg::align(smem_raw);
-  float* sCol = reinterpret_cast<float*>(ring + kQDualSteps * kQDualStageBytes);  // [8 warps][128]
+  float* sCol = reinterpret_cast<float*>(ring + kQDualStages * kQDualStageBytes);  // [8 warps][128]
   uint64_t* full = reinterpret_cast<uint64_t*>(sCol + 8 * kLBTile);
+  uint64_t* empty = full + kQDualStages;
   const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
   const int h0 = blockIdx.x * kLBTile;
   const long long m0 = (long long)blockIdx.y * kLBTile;
   constexpr int kPart = 2 * wg::kBoxBytes;  // one 16 KB operand of a stage
-  if (tid == 0) {
-    for (int s = 0; s < kQDualSteps; ++s) wg::bar_init(&full[s], 1);
-    wg::bar_init_fence();
-  }
-  __syncthreads();
+  init_ring(full, empty, kQDualStages);
 
   if (wgi == wg::kConsumers) {
     wg::regs_dealloc<wg::kProducerRegs>();
     if (t == 0) {
-      for (int ks = 0; ks < kQDualSteps; ++ks) {
-        wg::bar_expect_tx(&full[ks], kQDualStageBytes);
-        uint8_t* st = ring + ks * kQDualStageBytes;
-        wg::tma_load(st, &yq_map, &full[ks], 128 * ks, (int)m0);
-        wg::tma_load(st + kPart, &doq_map, &full[ks], 128 * ks, (int)m0);
-        wg::tma_load(st + 2 * kPart, &w1q_map, &full[ks], 128 * ks, h0);
-        wg::tma_load(st + 3 * kPart, &w2r_map, &full[ks], 128 * ks, h0);
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int s = ks % kQDualStages;
+        wg::bar_wait(&empty[s], ((ks / kQDualStages) & 1) ^ 1);
+        wg::bar_expect_tx(&full[s], kQDualStageBytes);
+        uint8_t* st = ring + s * kQDualStageBytes;
+        wg::tma_load(st, &yq_map, &full[s], 128 * ks, (int)m0);
+        wg::tma_load(st + kPart, &doq_map, &full[s], 128 * ks, (int)m0);
+        wg::tma_load(st + 2 * kPart, &w1q_map, &full[s], 128 * ks, h0);
+        wg::tma_load(st + 3 * kPart, &w2r_map, &full[s], 128 * ks, h0);
       }
     }
   } else {
@@ -158,9 +186,10 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     int ha[64], da[64];  // h_pre and dh sums: 64 rows x 128 hidden
     const uint32_t ring_s = smem_addr(ring);
 #pragma unroll
-    for (int ks = 0; ks < kQDualSteps; ++ks) {
-      wg::bar_wait(&full[ks], 0);
-      const uint32_t st = wg::opaque(ring_s) + ks * kQDualStageBytes;
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int s = ks % kQDualStages;
+      wg::bar_wait(&full[s], (ks / kQDualStages) & 1);
+      const uint32_t st = wg::opaque(ring_s) + s * kQDualStageBytes;
       wg::mma_fence();
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4) {
@@ -170,12 +199,17 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                            wg::desc_k(st + 3 * kPart, k4), ks + k4 > 0);
       }
       wg::mma_commit();
+      // the stage of step ks - 1 is loaded again for step ks + 2: release it
+      // once its products are done (never at D = 384)
+      if (ks > 0 && ks - 1 + kQDualStages < kSteps) {
+        wg::mma_wait<1>();
+        if (t == 0) wg::bar_arrive(&empty[(ks - 1) % kQDualStages]);
+      }
     }
     wg::mma_wait<0>();
     wg::acc_fence(ha);
     wg::acc_fence(da);
     wg::sync_named(3, 256);  // both warpgroups' products are done: every stage is free
-
     // epilogue, staged in stage wgi: h and dh_pre in bf16 (two [64][64]
     // boxes each), dh_pre in f32 (four [64][32] boxes)
     uint8_t* stH = ring + wgi * kQDualStageBytes;
@@ -257,6 +291,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 
 // ---- (c) dy and the LayerNorm backward ----------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     q_dy_kernel(const __grid_constant__ CUtensorMap dhpf_map,
                 const __grid_constant__ CUtensorMap w1r_map,
@@ -265,6 +300,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                 const float* __restrict__ s1r, const float* __restrict__ stats,
                 const float* __restrict__ rmax_part, float* __restrict__ ln_part,
                 int8_t* __restrict__ codes, long long m, int hid, int residual) {
+  constexpr int kPair = D / kQBW;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ringF = wg::align(smem_raw);
   uint8_t* ringW = ringF + kQDyFStages * kQDyFBytes;
@@ -275,10 +311,23 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   uint64_t* emptyF = fullF + kQDyFStages;
   uint64_t* fullW = emptyF + kQDyFStages;
   uint64_t* emptyW = fullW + kQDyWStages;
+  // D = 768 only: the other block's row sums [64][2] and their barrier
+  float* sPeer = reinterpret_cast<float*>(emptyW + kQDyWStages);
+  uint64_t* pfull = reinterpret_cast<uint64_t*>(sPeer + kQDyRows * 2);
   const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
-  const long long m0 = (long long)blockIdx.x * kQDyRows;
+  const long long m0 = (long long)(blockIdx.x / kPair) * kQDyRows;
   const int n_steps = hid / 128;
-  constexpr int kHalf = kLBD / 2;  // dy columns per warpgroup
+  constexpr int kHalf = kQBW / 2;  // dy columns per warpgroup
+  // this block's columns [col0, col0 + 384); at D = 768 both blocks of the
+  // pair quantise the same f32 tiles with the same instructions, so both
+  // hold the same codes (rank 0 writes `codes`)
+  int rank = 0, col0 = 0;
+  uint32_t peer = 0;
+  if constexpr (kPair == 2) {
+    rank = (int)wg::cluster_rank();
+    peer = (uint32_t)rank ^ 1;
+    col0 = kQBW * rank;
+  }
   if (tid == 0) {
     for (int s = 0; s < kQDyFStages; ++s) {
       wg::bar_init(&fullF[s], 1);
@@ -288,13 +337,18 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       wg::bar_init(&fullW[s], 1);
       wg::bar_init(&emptyW[s], wg::kConsumers);
     }
+    if constexpr (kPair == 2) wg::bar_init(pfull, 2 * kQDyRows);
     wg::bar_init_fence();
   }
-  __syncthreads();
+  if constexpr (kPair == 2)
+    wg::cluster_sync();  // both blocks' barriers are initialised
+  else
+    __syncthreads();
 
   if (wgi == wg::kConsumers) {
     // producer: f32 dh_pre rows [m0, + 64) x hidden [128 i, + 128), and
-    // kQDyLead steps behind it W1r rows [0, 384) x the same hidden units
+    // kQDyLead steps behind it W1r rows col0 + [0, 384) x the same hidden
+    // units (at D = 768 each block of the pair loads the f32 tile itself)
     wg::regs_dealloc<wg::kProducerRegs>();
     if (t == 0) {
       for (int i = 0; i < n_steps + kQDyLead; ++i) {
@@ -313,7 +367,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
           wg::bar_expect_tx(&fullW[s], kQDyWBytes);
           for (int b = 0; b < 2; ++b)
             wg::tma_load(ringW + s * kQDyWBytes + 3 * b * wg::kBoxBytes, &w1r_map, &fullW[s],
-                         128 * j, kHalf * b);
+                         128 * j, col0 + kHalf * b);
         }
       }
     }
@@ -332,9 +386,13 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     // and (t % 4) + 4
     const int qr = 32 * wgi + (t >> 2);
     const float qs = sDhs[qr];
-    const bool qvalid = m0 + qr < m;
-    int acc[96];  // dy: 64 rows x columns [192 wgi, 192 wgi + 192)
-    const uint32_t q_s = smem_addr(sQ), w_s = smem_addr(ringW);
+    const bool qvalid = m0 + qr < m && rank == 0;
+    int acc[96];  // dy: 64 rows x columns col0 + [192 wgi, 192 wgi + 192)
+    uint32_t q_s = smem_addr(sQ), w_s = smem_addr(ringW);
+    if constexpr (kPair == 2) {
+      q_s = wg::desc_addr(q_s);
+      w_s = wg::desc_addr(w_s);
+    }
     for (int ks = 0; ks < n_steps; ++ks) {
       const int sf = ks % kQDyFStages, sw = ks % kQDyWStages;
       uint8_t* box = sQ + (ks % kQDyQBufs) * wg::kBoxBytes;
@@ -387,9 +445,10 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     float dy[96];
 #pragma unroll
     for (int i = 0; i < 96; ++i)
-      dy[i] = dequant(acc[i], (i >> 1) & 1 ? dhs_b : dhs_a, s1r[kHalf * wgi + wg::acc_col(t, i)]);
+      dy[i] = dequant(acc[i], (i >> 1) & 1 ? dhs_b : dhs_a,
+                      s1r[col0 + kHalf * wgi + wg::acc_col(t, i)]);
     auto pair = [&](const __nv_bfloat16* p, bool valid, int row, int col) {
-      return valid ? unpack_bf16(*reinterpret_cast<const uint32_t*>(p + (m0 + row) * kLBD + col))
+      return valid ? unpack_bf16(*reinterpret_cast<const uint32_t*>(p + (m0 + row) * D + col))
                    : make_float2(0.f, 0.f);
     };
     // column sums [4 warps][db2, ds, db][192] of this warpgroup, in the f32 ring
@@ -399,7 +458,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
 #pragma unroll
     for (int i = 0; i < 96; i += 4) {
-      const int col = kHalf * wgi + wg::acc_col(t, i);
+      const int col = col0 + kHalf * wgi + wg::acc_col(t, i);
       const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
       const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
       const float2 oa = pair(dout, va, ra, col), ob = pair(dout, vb, rb, col);
@@ -417,7 +476,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 #pragma unroll
       for (int q = 0; q < 6; ++q) {
         const float v = sum_over_rows(c[q]);
-        if (lane < 4) sCol[(warp * 3 + (q >> 1)) * kHalf + (col - kHalf * wgi) + (q & 1)] = v;
+        if (lane < 4) sCol[(warp * 3 + (q >> 1)) * kHalf + (col - col0 - kHalf * wgi) + (q & 1)] = v;
       }
     }
     s1a = sum_over_quad(s1a);
@@ -432,17 +491,37 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       mine[2 * rb + 1] = s2b;
     }
     wg::sync_named(3, 256);
-    const float m1a = (sRow[2 * ra] + sRow[2 * (kQDyRows + ra)]) / kLBD;
-    const float m2a = (sRow[2 * ra + 1] + sRow[2 * (kQDyRows + ra) + 1]) / kLBD;
-    const float m1b = (sRow[2 * rb] + sRow[2 * (kQDyRows + rb)]) / kLBD;
-    const float m2b = (sRow[2 * rb + 1] + sRow[2 * (kQDyRows + rb) + 1]) / kLBD;
+    if constexpr (kPair == 2) {
+      // each row's two sums over this block's 384 columns go to the other
+      // block, which adds them to its own (either block the same f32 sum of
+      // the same two terms)
+      if (tid < 2 * kQDyRows) {
+        wg::st_peer(wg::peer_addr(&sPeer[tid], peer), sRow[tid] + sRow[2 * kQDyRows + tid]);
+        wg::bar_arrive_peer(wg::peer_addr(pfull, peer));
+      }
+      wg::bar_wait_cluster(pfull, 0);
+    }
+    float t1a = sRow[2 * ra] + sRow[2 * (kQDyRows + ra)];
+    float t2a = sRow[2 * ra + 1] + sRow[2 * (kQDyRows + ra) + 1];
+    float t1b = sRow[2 * rb] + sRow[2 * (kQDyRows + rb)];
+    float t2b = sRow[2 * rb + 1] + sRow[2 * (kQDyRows + rb) + 1];
+    if constexpr (kPair == 2) {
+      t1a += sPeer[2 * ra];
+      t2a += sPeer[2 * ra + 1];
+      t1b += sPeer[2 * rb];
+      t2b += sPeer[2 * rb + 1];
+    }
+    const float m1a = t1a / D;
+    const float m2a = t2a / D;
+    const float m1b = t1b / D;
+    const float m2b = t2b / D;
 
     // pass 2: dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) (+ do),
     // into three swizzled boxes of the W1r ring
     uint8_t* stX = ringW + wgi * 3 * wg::kBoxBytes;
 #pragma unroll
     for (int i = 0; i < 96; i += 4) {
-      const int lc = wg::acc_col(t, i), col = kHalf * wgi + lc;
+      const int lc = wg::acc_col(t, i), col = col0 + kHalf * wgi + lc;
       const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
       const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
       float a0 = rstd_a * (dy[i] * sc0 - m1a - (xa.x - mean_a) * rstd_a * m2a);
@@ -464,63 +543,50 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     wg::sync_named(1 + wgi, 128);
     if (t == 0) {
       for (int b = 0; b < 3; ++b)
-        wg::tma_store(&dx_map, stX + b * wg::kBoxBytes, kHalf * wgi + b * wg::kBox, (int)m0);
+        wg::tma_store(&dx_map, stX + b * wg::kBoxBytes, col0 + kHalf * wgi + b * wg::kBox,
+                      (int)m0);
       wg::tma_store_commit();
     }
     // per-block partials [db2 | ds | db], the four warps summed in order
-    float* part = ln_part + (long long)blockIdx.x * 3 * kLBD;
+    float* part = ln_part + (long long)(blockIdx.x / kPair) * 3 * D;
     for (int c = t; c < kHalf; c += 128) {
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
         float tot = 0.f;
 #pragma unroll
         for (int w = 0; w < 4; ++w) tot += sCol[(w * 3 + q) * kHalf + c];
-        part[q * kLBD + kHalf * wgi + c] = tot;
+        part[q * D + col0 + kHalf * wgi + c] = tot;
       }
     }
     if (t == 0) wg::tma_store_wait();
   }
 }
 
-}  // namespace dcvit
-
-// Plain C entry point (loaded with ctypes). Shapes: x, do and dx (M, D) bf16;
-// ln_scale, ln_bias (D,) f32; w1q (HID, D) int8 with s1c (HID,) f32; b1
-// (HID,) bf16; w1r (D, HID) int8 with s1r (D,) f32; w2r (HID, D) int8 with
-// s2r (HID,) f32 (HID a multiple of 384); dw (D * HID + HID * D) f32 =
-// [dW2 (D, HID) | dW1 (HID, D)]; bias_out (HID + 3D) f32 = [db1 | db2 | ds |
-// db]; scratch: y_buf (M, D) bf16, yq_buf and doq_buf (M, D) int8, stats
-// (M, 4) f32, h_buf and dhp_buf (M, HID) bf16, dhpf_buf (M, HID) f32,
-// db1_part (ceil(M / 128), HID) f32, rmax_part (HID / 128, M) f32, ln_part
-// (ceil(M / 64), 3D) f32, wgrad_part (splits, 2, D, HID) f32; codes (M, HID)
-// int8 or null. All contiguous. Returns a cudaError_t: the first failed
-// launch's (or TMA descriptor's), or cudaErrorInvalidValue for a shape the
-// kernels do not take.
-extern "C" int dcvit_ln_mlp_q_bwd(const void* x, const void* ln_scale, const void* ln_bias,
-                                  const void* w1q, const void* s1c, const void* b1,
-                                  const void* w1r, const void* s1r, const void* w2r,
-                                  const void* s2r, const void* dout, void* dx, void* dw,
-                                  void* bias_out, void* y_buf, void* yq_buf, void* doq_buf,
-                                  void* stats, void* h_buf, void* dhp_buf, void* dhpf_buf,
-                                  void* db1_part, void* rmax_part, void* ln_part,
-                                  void* wgrad_part, void* codes, long long m, int d, int hid,
-                                  int residual, int splits, void* stream) {
-  using namespace dcvit;
+// The backward at width D (384 or 768; HID a multiple of 384), launches
+// (a)-(d) on `st`; the arguments are the entry point's. Returns the first
+// failed launch's (or TMA descriptor's) error.
+template <int D>
+cudaError_t launch_ln_mlp_q_bwd(const void* x, const void* ln_scale, const void* ln_bias,
+                                const void* w1q, const void* s1c, const void* b1,
+                                const void* w1r, const void* s1r, const void* w2r,
+                                const void* s2r, const void* dout, void* dx, void* dw,
+                                void* bias_out, void* y_buf, void* yq_buf, void* doq_buf,
+                                void* stats, void* h_buf, void* dhp_buf, void* dhpf_buf,
+                                void* db1_part, void* rmax_part, void* ln_part, void* wgrad_part,
+                                void* codes, long long m, int hid, int residual, int splits,
+                                cudaStream_t st) {
   using bf16 = __nv_bfloat16;
-  if (d != kLBD || hid % kWgN != 0 || hid % kLBTile != 0 || m < 1 || splits < 1 ||
-      (m + kLBTile - 1) / kLBTile > 65535 || m > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int kPair = D / kQBW;
   const long long tiles128 = (m + kLBTile - 1) / kLBTile;
   const long long tiles64 = (m + kQDyRows - 1) / kQDyRows;
   cudaError_t err;
 
-  q_rows_kernel<<<(unsigned)((m + 7) / 8), 256, 0, st>>>(
+  q_rows_kernel<D><<<(unsigned)((m + 7) / 8), 256, 0, st>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), static_cast<const bf16*>(dout),
       static_cast<bf16*>(y_buf), static_cast<int8_t*>(yq_buf), static_cast<int8_t*>(doq_buf),
       static_cast<float*>(stats), m);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8,
                             f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
@@ -533,47 +599,106 @@ extern "C" int dcvit_ln_mlp_q_bwd(const void* x, const void* ln_scale, const voi
     int cols, box_rows;
     CUtensorMapDataType type;
   } maps[] = {
-      {&yq128, yq_buf, m, kLBD, kLBTile, s8},   {&doq128, doq_buf, m, kLBD, kLBTile, s8},
-      {&w1q128, w1q, hid, kLBD, kLBTile, s8},   {&w2r128, w2r, hid, kLBD, kLBTile, s8},
-      {&h64, h_buf, m, hid, wg::kBox, b16},     {&dhp64, dhp_buf, m, hid, wg::kBox, b16},
-      {&dhpf64, dhpf_buf, m, hid, wg::kBox, f32}, {&w1r192, w1r, kLBD, hid, kLBD / 2, s8},
-      {&dx64, dx, m, kLBD, wg::kBox, b16},      {&do64, dout, m, kLBD, wg::kBox, b16},
-      {&y64, y_buf, m, kLBD, wg::kBox, b16},
+      {&yq128, yq_buf, m, D, kLBTile, s8},   {&doq128, doq_buf, m, D, kLBTile, s8},
+      {&w1q128, w1q, hid, D, kLBTile, s8},   {&w2r128, w2r, hid, D, kLBTile, s8},
+      {&h64, h_buf, m, hid, wg::kBox, b16},  {&dhp64, dhp_buf, m, hid, wg::kBox, b16},
+      {&dhpf64, dhpf_buf, m, hid, wg::kBox, f32}, {&w1r192, w1r, D, hid, kQBW / 2, s8},
+      {&dx64, dx, m, D, wg::kBox, b16},      {&do64, dout, m, D, wg::kBox, b16},
+      {&y64, y_buf, m, D, wg::kBox, b16},
   };
   for (const auto& mp : maps)
     if ((err = tensor_map(mp.map, mp.ptr, mp.rows, mp.cols, mp.box_rows, mp.type)) !=
         cudaSuccess)
-      return (int)err;
+      return err;
   const struct {
     const void* fn;
     int smem;
-  } attrs[] = {{(const void*)q_dual_kernel, kQDualSmem}, {(const void*)q_dy_kernel, kQDySmem}};
+  } attrs[] = {{(const void*)q_dual_kernel<D>, kQDualSmem},
+               {(const void*)q_dy_kernel<D>, q_dy_smem<D>()}};
   for (const auto& a : attrs)
     if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     a.smem)) != cudaSuccess)
-      return (int)err;
+      return err;
 
-  q_dual_kernel<<<dim3(hid / kLBTile, (unsigned)tiles128), wg::kThreads, kQDualSmem, st>>>(
+  q_dual_kernel<D><<<dim3(hid / kLBTile, (unsigned)tiles128), wg::kThreads, kQDualSmem, st>>>(
       yq128, doq128, w1q128, w2r128, h64, dhp64, dhpf64, static_cast<const float*>(stats),
       static_cast<const float*>(s1c), static_cast<const bf16*>(b1),
       static_cast<const float*>(s2r), static_cast<float*>(db1_part),
       static_cast<float*>(rmax_part), m, hid);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  q_dy_kernel<<<(unsigned)tiles64, wg::kThreads, kQDySmem, st>>>(
-      dhpf64, w1r192, dx64, static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
-      static_cast<const float*>(ln_scale), static_cast<const float*>(s1r),
-      static_cast<const float*>(stats), static_cast<const float*>(rmax_part),
-      static_cast<float*>(ln_part), static_cast<int8_t*>(codes), m, hid, residual);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* dob = static_cast<const bf16*>(dout);
+  const auto* sc = static_cast<const float*>(ln_scale);
+  const auto* s1 = static_cast<const float*>(s1r);
+  const auto* stf = static_cast<const float*>(stats);
+  const auto* rp = static_cast<const float*>(rmax_part);
+  auto* lp = static_cast<float*>(ln_part);
+  auto* cq = static_cast<int8_t*>(codes);
+  if constexpr (kPair == 1) {
+    q_dy_kernel<D><<<(unsigned)tiles64, wg::kThreads, q_dy_smem<D>(), st>>>(
+        dhpf64, w1r192, dx64, xb, dob, sc, s1, stf, rp, lp, cq, m, hid, residual);
+  } else {
+    // a cluster of two blocks per 64 rows
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(kPair * tiles64));
+    cfg.blockDim = dim3(wg::kThreads);
+    cfg.dynamicSmemBytes = q_dy_smem<D>();
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kPair;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, q_dy_kernel<D>, dhpf64, w1r192, dx64, xb, dob, sc, s1,
+                                  stf, rp, lp, cq, m, hid, residual)) != cudaSuccess)
+      return err;
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  if ((err = launch_ln_mlp_wgrad(do64, h64, dhp64, y64, static_cast<float*>(wgrad_part),
-                                 static_cast<float*>(dw), m, hid, splits, st)) != cudaSuccess)
-    return (int)err;
+  if ((err = launch_ln_mlp_wgrad<D>(do64, h64, dhp64, y64, static_cast<float*>(wgrad_part),
+                                    static_cast<float*>(dw), m, hid, splits, st)) != cudaSuccess)
+    return err;
   float* bias = static_cast<float*>(bias_out);
   // the bias partials: few columns, hundreds of blocks' rows
   if ((err = launch_reduce<32>(static_cast<const float*>(db1_part), bias, (int)tiles128, hid,
                                st)) != cudaSuccess)
-    return (int)err;
-  return (int)launch_reduce<32>(static_cast<const float*>(ln_part), bias + hid, (int)tiles64,
-                                3 * kLBD, st);
+    return err;
+  return launch_reduce<32>(static_cast<const float*>(ln_part), bias + hid, (int)tiles64, 3 * D,
+                           st);
+}
+
+}  // namespace dcvit
+
+// Plain C entry point (loaded with ctypes). Shapes: x, do and dx (M, D) bf16,
+// D = 384 or 768; ln_scale, ln_bias (D,) f32; w1q (HID, D) int8 with s1c
+// (HID,) f32; b1 (HID,) bf16; w1r (D, HID) int8 with s1r (D,) f32; w2r (HID,
+// D) int8 with s2r (HID,) f32 (HID a multiple of 384); dw (D * HID + HID *
+// D) f32 = [dW2 (D, HID) | dW1 (HID, D)]; bias_out (HID + 3D) f32 = [db1 |
+// db2 | ds | db]; scratch: y_buf (M, D) bf16, yq_buf and doq_buf (M, D)
+// int8, stats (M, 4) f32, h_buf and dhp_buf (M, HID) bf16, dhpf_buf (M,
+// HID) f32, db1_part (ceil(M / 128), HID) f32, rmax_part (HID / 128, M)
+// f32, ln_part (ceil(M / 64), 3D) f32, wgrad_part (splits, 2, D, HID) f32;
+// codes (M, HID) int8 or null. All contiguous. Returns a cudaError_t: the
+// first failed launch's (or TMA descriptor's), or cudaErrorInvalidValue for
+// a shape the kernels do not take.
+extern "C" int dcvit_ln_mlp_q_bwd(const void* x, const void* ln_scale, const void* ln_bias,
+                                  const void* w1q, const void* s1c, const void* b1,
+                                  const void* w1r, const void* s1r, const void* w2r,
+                                  const void* s2r, const void* dout, void* dx, void* dw,
+                                  void* bias_out, void* y_buf, void* yq_buf, void* doq_buf,
+                                  void* stats, void* h_buf, void* dhp_buf, void* dhpf_buf,
+                                  void* db1_part, void* rmax_part, void* ln_part,
+                                  void* wgrad_part, void* codes, long long m, int d, int hid,
+                                  int residual, int splits, void* stream) {
+  using namespace dcvit;
+  if ((d != 384 && d != 768) || hid % kWgN != 0 || hid % kLBTile != 0 || m < 1 || splits < 1 ||
+      (m + kLBTile - 1) / kLBTile > 65535 || m > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = d == 384 ? launch_ln_mlp_q_bwd<384> : launch_ln_mlp_q_bwd<768>;
+  return (int)launch(x, ln_scale, ln_bias, w1q, s1c, b1, w1r, s1r, w2r, s2r, dout, dx, dw,
+                     bias_out, y_buf, yq_buf, doq_buf, stats, h_buf, dhp_buf, dhpf_buf, db1_part,
+                     rmax_part, ln_part, wgrad_part, codes, m, hid, residual, splits, st);
 }

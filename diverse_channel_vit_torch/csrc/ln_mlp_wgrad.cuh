@@ -8,8 +8,8 @@
 // transposed layout, straight from the row-major activations); block (tile,
 // split z) writes its f32 partial over the rows of split z, and
 // `launch_ln_mlp_wgrad` then sums the splits in a fixed order (reduce.cuh),
-// so two calls on the same inputs agree bit for bit. Also here: the model
-// width and tile constants and the ring set-up that B4's other kernels share.
+// so two calls on the same inputs agree bit for bit. Also here: the tile
+// constants and the ring set-up that B4's and B8's other kernels share.
 #pragma once
 
 #include "reduce.cuh"
@@ -17,7 +17,6 @@
 
 namespace dcvit {
 
-constexpr int kLBD = 384;        // model width of the int8 backward (B8), the default D
 constexpr int kLBTile = 128;     // rows, hidden columns or output columns of a tile
 
 // per stage A (two MN-major [64 rows][64] boxes) and B (three)
@@ -115,7 +114,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 // do64 (M, D), h64 and dhp64 (M, HID), y64 (M, D), then every split summed in
 // order into dw, which holds dW2 (D, HID) and then dW1 (HID, D); part is
 // (splits, 2, D, HID) f32 scratch. Returns the first failed launch's error.
-template <int D = kLBD>
+template <int D>
 inline cudaError_t launch_ln_mlp_wgrad(const CUtensorMap& do64, const CUtensorMap& h64,
                                        const CUtensorMap& dhp64, const CUtensorMap& y64,
                                        float* part, float* dw, long long m, int hid, int splits,

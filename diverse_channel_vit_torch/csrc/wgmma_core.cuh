@@ -94,14 +94,16 @@ DEV void bar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- clusters (distributed shared memory) -----------------------------------
 //
-// The D = 768 kernels (ln_mlp.cu, ln_mlp_bwd.cu) run pairs of blocks in a
-// cluster that share their rows and exchange f32 partial sums: a thread
-// stores into the other block's shared memory (`st.shared::cluster` at the
-// address `peer_addr` maps) and then arrives on the other block's mbarrier
-// with release semantics at cluster scope; the reader waits on its own
-// mbarrier with acquire semantics at cluster scope (`bar_wait_cluster`) and
-// reads with ordinary loads. Both sides stay in the generic proxy, so no
-// proxy fence is needed.
+// The D = 768 kernels (ln_mlp.cu, ln_mlp_bwd.cu, ln_mlp_q.cu,
+// ln_mlp_q_bwd.cu) run pairs of blocks in a cluster that share their rows
+// and exchange f32 partial sums, row maxima or int8 tiles: a thread stores
+// into the other block's shared memory (`st.shared::cluster` at the address
+// `peer_addr` maps) and then arrives on the other block's mbarrier with
+// release semantics at cluster scope; the reader waits on its own mbarrier
+// with acquire semantics at cluster scope (`bar_wait_cluster`). A reader
+// with ordinary loads needs no proxy fence; where `wgmma` reads the stored
+// tile (B7's hq boxes), the writer fences with `fence_async_cluster` before
+// it arrives and the reader with `fence_async_smem` after its wait.
 
 DEV uint32_t cluster_rank() {
   uint32_t r;
@@ -126,6 +128,16 @@ DEV void st_peer4(uint32_t addr, float a, float b, float c, float d) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
                "f"(c), "f"(d)
                : "memory");
+}
+DEV void st_peer_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// make this thread's generic shared-memory writes, in this block or another
+// of the cluster, visible to TMA and wgmma
+DEV void fence_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
 }
 // arrive on the mbarrier at shared::cluster address `addr`, releasing this
 // thread's earlier stores at cluster scope

@@ -349,10 +349,11 @@ def ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, residual: bool = False) -> torc
 
 
 # the model widths each MLP kernel is built for: B3 and B4 (``csrc/ln_mlp.cu``,
-# ``csrc/ln_mlp_bwd.cu``; 768 runs a cluster of two blocks per 64 rows), and
-# the int8 B7 and B8
+# ``csrc/ln_mlp_bwd.cu``), and the int8 B7 and B8 (``csrc/ln_mlp_q.cu``,
+# ``csrc/ln_mlp_q_bwd.cu``); at 768 each runs a cluster of two blocks per 64
+# rows (B4's and B8's dy launch)
 LN_MLP_WIDTHS = (384, 768)
-LN_MLP_Q_WIDTHS = (384,)
+LN_MLP_Q_WIDTHS = (384, 768)
 
 
 def _ln_mlp_check(x, w1, name, multiple=64, widths=LN_MLP_WIDTHS, kernels_of="B3/B4"):
@@ -649,9 +650,11 @@ def _with_extras(out, with_codes, codes, with_h, h):
 def _ln_mlp_q_fwd_cuda(x, scale, bias, w1q, s1c, b1, w2q, s2c, b2, residual, with_codes,
                        with_h, launch_key: str = "ln_mlp_q_fwd"):
     """B7's launch; ``launch_key`` is the count it adds to (the benchmark
-    script's S3 launches the same kernel under its own name)."""
-    d, hid = _ln_mlp_check(x, w1q, launch_key, multiple=128, widths=LN_MLP_Q_WIDTHS,
-                           kernels_of="B7/B8")
+    script's S3 launches the same kernel under its own name). The hidden
+    width is a multiple of 128 at D = 384 and of 256 at 768, where the two
+    blocks of a pair take turns at its 128-unit slices."""
+    d, hid = _ln_mlp_check(x, w1q, launch_key, multiple=128 * max(1, x.shape[-1] // 384),
+                           widths=LN_MLP_Q_WIDTHS, kernels_of="B7/B8")
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, bf16, x.shape, dev)
     _check("ln_scale", scale, f32, (d,), dev)

@@ -23,12 +23,16 @@ numpy inputs, made from a seed, go to both; weights go to the port in
   and flip one int8 code; a flipped code moves one product term by one
   quantisation step. Measured up to 3.4e-3 in f32 and 6.2e-3 in bf16 over
   several seeds: tol 1e-2 in f32, 2e-2 in bf16 (bf16 outputs also land a
-  bf16 ulp, 2^-7, apart).
+  bf16 ulp, 2^-7, apart). The same at the base preset's widths (D = 768,
+  hidden 3072) on 16 rows.
 - The slice as a whole: the tiny DiChaViT of tests/test_torch_training.py
   (N = 64 tokens, D = 128, 2 heads, depth 3, B = 2, bf16) with
   ``quantization: int8`` against the JAX model under
   ``set_quantization("int8")`` (restored in a ``finally``): the logits, and
-  three train steps (losses) plus the step-0 gradients.
+  three train steps (losses) plus the step-0 gradients. The same geometry at
+  the base preset's widths (D = 768, 12 heads of 64, MLP 3072) at depth 2
+  (block 0 fused, block 1 the CLS readout): the logits, the step-0 loss and
+  the step-0 gradients, with the same bounds.
 - ``ServingEngine(quantization=...)``: scoped to the engine's forwards
   (``predict`` and ``submit``), the model's own setting untouched, and
   ``ValueError`` on an unknown mode.
@@ -135,19 +139,21 @@ def test_quantize_mlp_weights_layouts():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("residual", [False, True])
-def test_ln_mlp_int8_value_and_grads_match_jax(fused_jax, dtype, residual):
+def test_ln_mlp_int8_value_and_grads_match_jax(fused_jax, dtype, residual, shape=(B, N, D)):
     rng = np.random.default_rng(5)
     names = ("x", "s", "bi", "w1", "b1", "w2", "b2")
+    d = shape[-1]
+    hid = 4 * d
     pairs = dict(
-        x=_pair(rng.normal(size=(B, N, D)), dtype),
-        s=_pair(1.0 + 0.1 * rng.normal(size=(D,)), "float32"),
-        bi=_pair(0.1 * rng.normal(size=(D,)), "float32"),
-        w1=_pair(0.05 * rng.normal(size=(D, HID)), dtype),
-        b1=_pair(0.05 * rng.normal(size=(HID,)), dtype),
-        w2=_pair(0.05 * rng.normal(size=(HID, D)), dtype),
-        b2=_pair(0.05 * rng.normal(size=(D,)), dtype),
+        x=_pair(rng.normal(size=shape), dtype),
+        s=_pair(1.0 + 0.1 * rng.normal(size=(d,)), "float32"),
+        bi=_pair(0.1 * rng.normal(size=(d,)), "float32"),
+        w1=_pair(0.05 * rng.normal(size=(d, hid)), dtype),
+        b1=_pair(0.05 * rng.normal(size=(hid,)), dtype),
+        w2=_pair(0.05 * rng.normal(size=(hid, d)), dtype),
+        b2=_pair(0.05 * rng.normal(size=(d,)), dtype),
     )
-    jg, tg = _pair(rng.normal(size=(B, N, D)), dtype)
+    jg, tg = _pair(rng.normal(size=shape), dtype)
 
     def jloss(*a):
         out = jfb.ln_mlp(*a, residual, True)
@@ -168,6 +174,14 @@ def test_ln_mlp_int8_value_and_grads_match_jax(fused_jax, dtype, residual):
     dense = fb.ln_mlp(*(pairs[k][1] for k in ("x", "s", "bi")), pairs["w1"][1].t(),
                       pairs["b1"][1], pairs["w2"][1].t(), pairs["b2"][1], residual=residual)
     assert not torch.equal(dense, out.detach())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_ln_mlp_int8_value_and_grads_match_jax_d768(fused_jax, dtype, residual):
+    """The same at the base preset's widths, D = 768 and hidden 3072, on 16
+    rows (the JAX kernels run in interpret mode)."""
+    test_ln_mlp_int8_value_and_grads_match_jax(fused_jax, dtype, residual, shape=(1, 16, 768))
 
 
 # --- the slice as a whole -------------------------------------------------
@@ -302,6 +316,78 @@ def test_int8_logits_and_train_steps_match_jax(tiny, fused_jax):
             err = np.abs(prm.grad.float().numpy() - ref).max()
             assert err <= 5e-2 * np.abs(ref).max(), (t, name)
     assert dict(fb.LAUNCHES) == before  # the CPU runs the plain versions
+
+
+# the base preset's widths (DiChaViT-B) at depth 2 on the tiny model's geometry
+BASE_WIDTHS = dict(d=768, h=12, depth=2)
+
+
+@pytest.fixture(scope="module")
+def base_start():
+    """A batch and base-width weights (LayerNorm affines and biases moved
+    off 1/0), the init jitted."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(B, len(IDS), 48, 48)).astype(np.float32)
+    y = rng.integers(0, 5, size=B)
+    jmodel = _jax_model(jnp.float32, **BASE_WIDTHS)
+    params = jax.jit(lambda a: jmodel.init({"params": jax.random.key(0)}, a, jnp.asarray(IDS),
+                                           train=False)["params"])(jnp.asarray(x))
+    leaves, tree = jax.tree_util.tree_flatten_with_path(params)
+    moved = [np.asarray(a) + 0.05 * rng.normal(size=a.shape).astype(np.float32)
+             if any(getattr(k, "key", "") in ("bias", "scale", "proj_bias") for k in path)
+             else np.asarray(a) for path, a in leaves]
+    return x, y, jax.tree_util.tree_unflatten(tree, moved)
+
+
+def test_base_int8_logits_and_step0_grads_match_jax(base_start, fused_jax):
+    """DiChaViT-B widths with ``quantization: int8`` at depth 2: the eval
+    logits, then one train step of CE + CDL + TDL from the same weights, its
+    loss and every step-0 gradient, against the JAX model under
+    ``set_quantization("int8")`` with its int8 kernels in interpret mode.
+    Bounds as in test_int8_logits_and_train_steps_match_jax: logits and loss
+    within rel 3e-2, each gradient within 5e-2 of max|g| of the JAX one
+    (nearest: the readout block's qkv bias at 4.0e-2 and the patch
+    embedding's bias, which the JAX step sums in bf16; ROADMAP C)."""
+    x, y, params = base_start
+    calls = []
+    real = jfb._ln_mlp_q_bwd_impl
+    jfb.set_quantization("int8")
+    try:
+        jmodel = _jax_model(jnp.bfloat16, **BASE_WIDTHS)
+        want_logits = np.asarray(jax.jit(lambda p, a: jmodel.apply(
+            {"params": p}, a, jnp.asarray(IDS), train=False)[0])(params, jnp.asarray(x)),
+            np.float32)
+        jfb._ln_mlp_q_bwd_impl = lambda *a: calls.append(1) or real(*a)
+
+        def jloss(p):
+            return j_loss_and_metrics(jmodel, p, jnp.asarray(x), jnp.asarray(IDS),
+                                      jnp.asarray(y), jax.random.key(0), loss_type="ce",
+                                      extra_loss_lambda=1.0, learnable_temp=False,
+                                      temperature=0.11111)
+
+        (want_loss, _), g = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+        want_grads = params_from_jax(jax.device_get(g))
+        assert len(calls) == 1  # block 0's int8 backward kernel (block 1 the readout)
+    finally:
+        jfb._ln_mlp_q_bwd_impl = real
+        jfb.set_quantization("none")
+
+    model = _port_model(torch.bfloat16, params_from_jax(params), quantization="int8",
+                        **BASE_WIDTHS)
+    with torch.no_grad():
+        logits = model.eval()(torch.from_numpy(x), torch.tensor(IDS))[0].float().numpy()
+    assert _rel(logits, want_logits) <= 3e-2
+    state = TrainState(model, make_optimizer("adamw", dict(OPT), lr_schedule=_port_lr(),
+                                             total_steps=1))
+    step = make_train_step(model, channel_ids=IDS, loss_type="ce", extra_loss_lambda=1.0)
+    state, m = step(state, {"image": torch.from_numpy(x), "label": torch.from_numpy(y)})
+    assert abs(float(m["loss"]) - float(want_loss)) <= 3e-2 * abs(float(want_loss))
+    for name, prm in model.named_parameters():
+        ref = want_grads[name].numpy()
+        if not np.abs(ref).max():  # the class proxies: unused by the CE loss
+            continue
+        err = np.abs(prm.grad.float().numpy() - ref).max()
+        assert err <= 5e-2 * np.abs(ref).max(), name
 
 
 def test_serving_engine_scopes_quantization(tiny):

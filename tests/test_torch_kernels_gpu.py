@@ -15,8 +15,8 @@ far past that; the cases with no residual and zero output bias let the
 kernel's products alone set max|plain|. B3 and B4 are also held at the
 recipe's and EViT's grids and with a half-full last 128-row tile, and at
 the base preset's D = 768 (a cluster of two blocks per 64 rows; at D = 384
-their outputs are pinned by sha256 on fixed inputs, and the base preset in
-int8 must be refused), B1 and B2 at D = 768 and with one head (D_out = 64). The
+their outputs are pinned by sha256 on fixed inputs), B1 and B2 at D = 768
+and with one head (D_out = 64). The
 backward kernels B2 and B4 are held the same way, every output, B2's padded
 key rows must come out with dk = dv = 0 exactly, and two B2 calls, as two B4
 calls, on the same inputs must agree bit for bit; the autograd Functions' gradients
@@ -42,7 +42,9 @@ with an odd head count), and refuse head width 192. B2 and B6 launch on a
 thread that has made no CUDA call yet. B7
 and B8 (the int8 ``ln_mlp``) are also held bit for bit across two calls, B8
 at a ragged last row tile with padding rows, and B8's recomputed h against
-B7's, bit for bit. The public
+B7's, bit for bit, at D = 384 and at D = 768 (a cluster of two blocks per
+64 rows); at D = 384 their outputs are pinned by sha256 as B3's and B4's
+are, and the base preset in int8 launches them at D = 768. The public
 ``attend_project`` and ``flash_attention_packed`` pad an N that is not a
 multiple of 64 and are held at N = 1569 against the plain route, forward and
 gradient.
@@ -372,13 +374,17 @@ def test_ln_mlp_function_grads_match_plain_route_d768(gen, residual, grid):
     test_ln_mlp_function_grads_match_plain_route(gen, residual, grid, d=768)
 
 
-# sha256 of B3's and B4's outputs at D = 384 on the inputs of _pinned_inputs,
-# taken on an H100 SXM (132 SMs: B4's row splits follow the SM count) from
-# the libraries before and after D became a template parameter, which agree
-# bit for bit: a change to the D = 384 code path must leave these as they are
+# sha256 of B3's, B4's, B7's and B8's outputs at D = 384 on the inputs of
+# _pinned_inputs (B7 and B8 on the weights' int8 copies), taken on an H100
+# SXM (132 SMs: B4's and B8's row splits follow the SM count) from the
+# libraries before and after D became a template parameter of each, which
+# agree bit for bit: a change to the D = 384 code path must leave these as
+# they are
 PINNED_D384 = {
     "ln_mlp_fwd": "90ac5f4e6ecf78c3a7200640e1e6a5468a2b912b4889632fcc9a27dcd2e399a4",
     "ln_mlp_bwd": "517df157e015d74629b46a064a298bfecce4c83ac844dec985d4494ddd751a82",
+    "ln_mlp_q_fwd": "17ac91f09b5edf7e21b3f44869eb6887487ecb7d9905e118d7d3e237b5ab7b8f",
+    "ln_mlp_q_bwd": "9543643469ee7404636420e01c06d61542ae6b736ddb263a84d7124fd3cec9cb",
 }
 
 
@@ -414,10 +420,22 @@ def test_ln_mlp_kernels_at_d384_give_their_pinned_outputs(gen):
     assert _digest(*fb.ln_mlp_bwd(x, s, b, w1, b1, w2, do, True)) == PINNED_D384["ln_mlp_bwd"]
 
 
-def test_base_preset_int8_is_refused_on_the_card(gen):
-    """B7 and B8 take D = 384 only: the base preset (D = 768) with
-    ``quantization: int8`` raises NotImplementedError naming ROADMAP B2 at
-    its first block's MLP, and no MLP kernel launches."""
+def test_int8_ln_mlp_kernels_at_d384_give_their_pinned_outputs(gen):
+    """B7 and B8 at D = 384 (residual fused) give, bit for bit, the outputs
+    they gave before D became a template parameter."""
+    x, s, b, w1, b1, w2, b2, do = _pinned_inputs()
+    q = fb.quantize_mlp_weights(w1, w2, backward=True)
+    assert _digest(fb.ln_mlp_q_fwd(x, s, b, q[0], q[1], b1, q[2], q[3], b2, True)) == \
+        PINNED_D384["ln_mlp_q_fwd"]
+    assert _digest(*fb.ln_mlp_q_bwd(x, s, b, q[0], q[1], b1, q[4], q[5], q[6], q[7], do,
+                                    True)) == PINNED_D384["ln_mlp_q_bwd"]
+
+
+def test_base_preset_int8_launches_b7_and_b8_on_the_card(gen):
+    """The base preset (D = 768) with ``quantization: int8`` runs its fused
+    block's MLP through B7 forward and B8 backward at D = 768 (no B3 / B4),
+    with finite logits and gradients; a width the int8 kernels are not built
+    for (D = 512) still raises NotImplementedError naming ROADMAP B2."""
     from diverse_channel_vit_torch.config import Config
     from diverse_channel_vit_torch.models import build_model
 
@@ -425,19 +443,27 @@ def test_base_preset_int8_is_refused_on_the_card(gen):
                   "pretrained_model_name": "base", "depth": 2, "quantization": "int8"})
     model = build_model("dichavit", cfg, {"JUMP-CP": [0, 1]}, 5, device="cuda",
                         dtype=torch.bfloat16)
+    x = _rnd(gen, 2, 2, 32, 32)
     before = dict(fb.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"), torch.inference_mode():
-        model(torch.zeros(1, 2, 32, 32, device="cuda", dtype=torch.bfloat16),
-              torch.arange(2, device="cuda"))
-    assert fb.LAUNCHES["ln_mlp_q_fwd"] == before["ln_mlp_q_fwd"]
+    with torch.inference_mode():
+        logits = model(x, torch.arange(2, device="cuda"))[0]
+    assert bool(torch.isfinite(logits.float()).all())
+    assert fb.LAUNCHES["ln_mlp_q_fwd"] == before["ln_mlp_q_fwd"] + 1  # block 0; 1 is the readout
+    logits = model(x, torch.arange(2, device="cuda"))[0]
+    logits.float().square().sum().backward()
+    assert fb.LAUNCHES["ln_mlp_q_fwd"] == before["ln_mlp_q_fwd"] + 2
+    assert fb.LAUNCHES["ln_mlp_q_bwd"] == before["ln_mlp_q_bwd"] + 1
     assert fb.LAUNCHES["ln_mlp_fwd"] == before["ln_mlp_fwd"]
-    x = _rnd(gen, 1, 64, 768)
-    q = fb.quantize_mlp_weights(_rnd(gen, 3072, 768), _rnd(gen, 768, 3072), backward=True)
-    s, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    assert fb.LAUNCHES["ln_mlp_bwd"] == before["ln_mlp_bwd"]
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+               if p.grad is not None)
+    x = _rnd(gen, 1, 64, 512)
+    q = fb.quantize_mlp_weights(_rnd(gen, 2048, 512), _rnd(gen, 512, 2048), backward=True)
+    s, b = torch.ones(512, device="cuda"), torch.zeros(512, device="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        fb.ln_mlp_q_fwd(x, s, b, q[0], q[1], _rnd(gen, 3072), q[2], q[3], _rnd(gen, 768))
+        fb.ln_mlp_q_fwd(x, s, b, q[0], q[1], _rnd(gen, 2048), q[2], q[3], _rnd(gen, 512))
     with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        fb.ln_mlp_q_bwd(x, s, b, q[0], q[1], _rnd(gen, 3072), q[4], q[5], q[6], q[7], x)
+        fb.ln_mlp_q_bwd(x, s, b, q[0], q[1], _rnd(gen, 2048), q[4], q[5], q[6], q[7], x)
 
 
 def test_backward_wrappers_raise_on_what_they_do_not_take(gen):
@@ -607,7 +633,8 @@ def test_flash_packed_wrappers_raise_on_what_they_do_not_take(gen):
 
 
 def _mlp_inputs(gen, shape, bias=1.0):
-    d, hid = 384, 1536
+    d = shape[-1]
+    hid = 4 * d
     x = _rnd(gen, *shape)
     s = _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0
     b = _rnd(gen, d, scale=0.1, dtype=torch.float32)
@@ -629,10 +656,12 @@ MAX_CODE_FLIPS = 1e-2
     ((3, 640, 384), False, 1.0),
     ((1, 100, 384), True, 1.0),   # a ragged last row tile
     ((2, 1600, 384), False, 0.0),  # the flagship grid, products alone
+    ((3, 200, 768), True, 1.0),   # D = 768: ragged last 64- and 128-row tiles
+    ((2, 1600, 768), False, 0.0),  # the base preset's grid, products alone
 ])
 def test_ln_mlp_q_kernels_match_plain(gen, shape, residual, bias):
     """B7 and B8 (the int8 ln_mlp) against their plain versions, every
-    output and the codes of their last int8 product."""
+    output and the codes of their last int8 product (hidden 4 D)."""
     x, s, b, w1, b1, w2, b2 = _mlp_inputs(gen, shape, bias)
     do = _rnd(gen, *shape)
     w1q, s1c, w2q, s2c, w1r, s1r, w2r, s2r = fb.quantize_mlp_weights(w1, w2, backward=True)
@@ -656,15 +685,15 @@ def test_ln_mlp_q_kernels_match_plain(gen, shape, residual, bias):
 
 
 @pytest.mark.parametrize("residual", [False, True])
-def test_ln_mlp_int8_function_grads_match_plain_route(gen, residual):
+def test_ln_mlp_int8_function_grads_match_plain_route(gen, residual, d=384):
     """Gradients of every input through LnMlpFn with ``quantized``: the
     kernel route (B7 forward, B8 backward) against the plain route."""
-    inputs = list(_mlp_inputs(gen, (2, 640, 384)))
+    inputs = list(_mlp_inputs(gen, (2, 640, d)))
 
     def fn(*a):
         return fb.ln_mlp(*a, residual, quantized=True)
 
-    cot = _rnd(gen, 2, 640, 384)
+    cot = _rnd(gen, 2, 640, d)
     before = dict(fb.LAUNCHES)
     got = _grads(fn, inputs, cot, plain=False)
     assert fb.LAUNCHES["ln_mlp_q_fwd"] == before["ln_mlp_q_fwd"] + 1
@@ -674,6 +703,12 @@ def test_ln_mlp_int8_function_grads_match_plain_route(gen, residual):
     assert fb.LAUNCHES["ln_mlp_q_bwd"] == before["ln_mlp_q_bwd"] + 1
     for name, g, w in zip(("x", "scale", "bias", "w1", "b1", "w2", "b2"), got, want):
         assert g.dtype == w.dtype and _rel(g, w) <= TOL, name
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_ln_mlp_int8_function_grads_match_plain_route_d768(gen, residual):
+    """The same at the base preset's widths, D = 768 and hidden 3072."""
+    test_ln_mlp_int8_function_grads_match_plain_route(gen, residual, d=768)
 
 
 def test_ln_mlp_q_wrappers_raise_on_what_they_do_not_take(gen):
@@ -690,6 +725,12 @@ def test_ln_mlp_q_wrappers_raise_on_what_they_do_not_take(gen):
     with pytest.raises(NotImplementedError):  # D = 256
         fb.ln_mlp_q_fwd(x2, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
                         q[0], q[1], _rnd(gen, 1024), q[2], q[3], _rnd(gen, 256))
+    # D = 768 pairs 128-unit hidden slices between two blocks: HID a multiple of 256
+    x3 = _rnd(gen, 1, 64, 768)
+    s3, b3 = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    q = fb.quantize_mlp_weights(_rnd(gen, 1152, 768), _rnd(gen, 768, 1152))
+    with pytest.raises(ValueError):
+        fb.ln_mlp_q_fwd(x3, s3, b3, q[0], q[1], _rnd(gen, 1152), q[2], q[3], _rnd(gen, 768))
     # hidden widths the kernels do not tile: B7 takes multiples of 128, B8 of 384
     q = fb.quantize_mlp_weights(_rnd(gen, 1600, 384), _rnd(gen, 384, 1600))
     with pytest.raises(ValueError):
@@ -711,7 +752,7 @@ def _q_args(gen, shape, bias=1.0):
 Q_BWD_NAMES = ("dx", "dw1", "db1", "dw2", "db2", "ds", "db", "codes", "h")
 
 
-@pytest.mark.parametrize("shape", [(1, 100, 384), (8, 1600, 384)])
+@pytest.mark.parametrize("shape", [(1, 100, 384), (8, 1600, 384), (3, 200, 768)])
 def test_ln_mlp_q_kernels_are_bit_identical_across_calls(gen, shape):
     """B7 and B8 round and sum every value in an order fixed by the shapes
     and use no atomics: two calls on the same inputs agree bit for bit, every
@@ -730,7 +771,7 @@ def test_ln_mlp_q_kernels_are_bit_identical_across_calls(gen, shape):
         assert torch.equal(g1, g2), name
 
 
-@pytest.mark.parametrize("shape", [(1, 100, 384), (3, 1569, 384)])
+@pytest.mark.parametrize("shape", [(1, 100, 384), (3, 1569, 384), (3, 1569, 768)])
 def test_ln_mlp_q_bwd_kernel_matches_plain_at_a_ragged_last_tile(gen, shape):
     """B8 with the residual fused where M is a multiple of neither 64 nor 128,
     so the last row tile of every GEMM runs past the end, and with the last
@@ -756,7 +797,8 @@ def test_ln_mlp_q_bwd_kernel_matches_plain_at_a_ragged_last_tile(gen, shape):
     assert _rel(dx[pad], dx_p[pad]) <= TOL
     assert _rel(dx[~pad], dx_p[~pad]) <= TOL
     tail = (shape[0] * shape[1]) % 64
-    assert _rel(dx.reshape(-1, 384)[-tail:], dx_p.reshape(-1, 384)[-tail:]) <= TOL
+    d = shape[-1]
+    assert _rel(dx.reshape(-1, d)[-tail:], dx_p.reshape(-1, d)[-tail:]) <= TOL
     assert (got[7] != want[7]).float().mean().item() <= MAX_CODE_FLIPS
 
 
@@ -770,7 +812,8 @@ def test_ln_mlp_q_gelu_facts_hold_on_every_float(gen):
     assert facts["neg_max"] < facts["at_bound"], facts
 
 
-@pytest.mark.parametrize("shape,residual", [((1, 100, 384), True), ((2, 1600, 384), False)])
+@pytest.mark.parametrize("shape,residual", [((1, 100, 384), True), ((2, 1600, 384), False),
+                                            ((3, 200, 768), True)])
 def test_ln_mlp_q_bwd_recompute_is_the_forward(gen, shape, residual):
     """B8 recomputes the forward's int8 fc1: its h (the bf16 operand of dW2,
     returned with ``with_h``) equals B7's h rounded to bf16 (the h that B7
@@ -780,7 +823,7 @@ def test_ln_mlp_q_bwd_recompute_is_the_forward(gen, shape, residual):
     fwd, bwd = _q_args(gen, shape)
     h7 = fb.ln_mlp_q_fwd(*fwd, residual, with_h=True)[1]
     h8 = fb.ln_mlp_q_bwd(*bwd, residual, with_h=True)[7]
-    assert h8.shape == (shape[0] * shape[1], 1536) and h8.dtype == torch.bfloat16
+    assert h8.shape == (shape[0] * shape[1], 4 * shape[-1]) and h8.dtype == torch.bfloat16
     assert torch.equal(h7, h8)
     assert _rel(h8, fb.ln_mlp_q_plain(*fwd, residual, with_h=True)[1]) <= TOL
 
