@@ -93,8 +93,24 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    heads (``bench_attn bwd-variants --heads 3``, ``bench_block_fusion`` at
    3 heads), their output echoed, the counts set to 0 just before each and
    read just after;
-11. print the ``kernels`` JSON line (each kernel's launches from its main
-    path), the card line, and last the result line
+11. the training entry point, ``diverse_channel_vit_torch.main.main`` in
+    this process (config tree -> data layer -> Trainer -> eval ->
+    checkpoint), each run with the counts set to 0 just before and read
+    just after: DiChaViT-S on ``synthetic_cfg`` at the flagship geometry
+    (640 images, B = 64, 2 epochs, eval before training and after each
+    epoch, 128 images a split at the auto-sized eval batch), B1-B4 x 11 per
+    step and B1 / B3 x 11 per eval forward, losses finite, every valid eval
+    image counted, epoch 2 under the profiler (the device's busy share), the
+    host's time per batch; a Trainer resumed from the ``model_last`` it
+    wrote starts at epoch 3 with its parameters and Adam moments bit for
+    bit; one epoch of the DCS recipe (the k sequence equal to numpy
+    ``default_rng(seed)``'s) and one of int8 (B7 / B8 for B3 / B4); the
+    JUMP-CP augmentation on a 64-image batch on the card against the CPU;
+    which of yaml, pandas, pyarrow and h5py import, and where pandas and
+    pyarrow do, one JUMP-CP epoch from a fixture the script writes, with
+    the augmentation on the card; a ``phase`` line each;
+12. print the ``kernels`` JSON line (each kernel's launches from its main
+    paths, and per Trainer epoch), the card line, and last the result line
     ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. Without a CUDA device, or outside a checkout of
@@ -1736,6 +1752,325 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
         raise AssertionError(f"{label}: gradient of {worst[1]} disagrees")
 
 
+# the training entry point (``python -m diverse_channel_vit_torch.main``) at
+# the flagship geometry on the synthetic dataset: 640 images (10 steps an
+# epoch at B = 64), 128 eval images a split
+TRAINER_OVERRIDES = [
+    "dataset.img_size=224", "model.img_size=[224]", "model.patch_size=16",
+    "model.pretrained_model_name=small", "dataset.num_classes=161", "train.batch_size=64",
+    "dataset.num_train_samples=640", "dataset.num_eval_samples=128", "eval.every_n_epochs=1",
+]
+TRAIN_SEED = 1234  # the Trainer's seed when train.seed is unset
+
+
+class TrainerProbe:
+    """Records what a Trainer run through ``main`` did, by wrapping the
+    Trainer's methods for the length of a ``with`` block: the Trainer built,
+    each epoch's metrics and wall time, the k of every DCS draw, each
+    evaluation's wall time and peak device memory, and the eval forwards.
+    With ``profile_epoch`` that epoch runs under ``torch.profiler`` (device
+    activity only) and its device busy time is kept."""
+
+    def __init__(self, torch, profile_epoch=None):
+        self.torch, self.profile_epoch = torch, profile_epoch
+        self.trainer, self.epochs, self.draws, self.evals = None, {}, [], []
+        self.eval_forwards, self.busy_us = 0, None
+
+    def __enter__(self):
+        from diverse_channel_vit_torch import trainer as tm
+
+        torch, probe = self.torch, self
+        self.tm, self.saved = tm, {n: getattr(tm.Trainer, n) for n in (
+            "train", "train_one_epoch", "_draw_k", "evaluate_model")}
+        self.saved_eval = tm.make_eval_step
+        saved = self.saved
+
+        def train(trainer):
+            probe.trainer = trainer
+            return saved["train"](trainer)
+
+        def timed(trainer, epoch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = saved["train_one_epoch"](trainer, epoch)
+            torch.cuda.synchronize()
+            probe.epochs[epoch] = dict(out, wall_s=time.perf_counter() - t)
+            return out
+
+        def train_one_epoch(trainer, epoch):
+            if epoch != probe.profile_epoch:
+                return timed(trainer, epoch)
+            from torch.profiler import ProfilerActivity, profile
+
+            # the epoch's wall time is taken inside the profiler's block, so
+            # its start-up and teardown stay out of the busy share
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = timed(trainer, epoch)
+            probe.busy_us = sum(getattr(e, "self_device_time_total", 0) or 0
+                                for e in prof.key_averages())
+            return out
+
+        def draw_k(trainer, c):
+            k = saved["_draw_k"](trainer, c)
+            probe.draws.append(k)
+            return k
+
+        def evaluate_model(trainer, epoch):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = saved["evaluate_model"](trainer, epoch)
+            torch.cuda.synchronize()
+            probe.evals.append(dict(out, wall_s=time.perf_counter() - t, images=sum(
+                n for _, n in trainer.eval_counts.values()),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+            return out
+
+        def make_eval_step(model):
+            step = probe.saved_eval(model)
+
+            def counted(x, cids):
+                probe.eval_forwards += 1
+                return step(x, cids)
+
+            return counted
+
+        tm.Trainer.train, tm.Trainer.train_one_epoch = train, train_one_epoch
+        tm.Trainer._draw_k, tm.Trainer.evaluate_model = draw_k, evaluate_model
+        tm.make_eval_step = make_eval_step
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.tm.Trainer, name, fn)
+        self.tm.make_eval_step = self.saved_eval
+        return False
+
+
+def run_trainer(fb, torch, label: str, config: str, overrides, want_step: dict,
+                want_forward: dict, profile_epoch=None):
+    """``diverse_channel_vit_torch.main.main`` in this process on the card:
+    counts set to 0 just before and read just after, each kernel launched
+    ``want_step[name]`` times per train step plus ``want_forward[name]`` per
+    eval forward; every train loss finite and every valid eval image
+    counted. Prints the run's ``phase`` line; returns the probe and the
+    counts."""
+    from diverse_channel_vit_torch import main as port_main
+
+    argv = ["-cn", config, *overrides]
+    print(f"== {label}: python -m diverse_channel_vit_torch.main {' '.join(argv)}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    with TrainerProbe(torch, profile_epoch) as probe:
+        best = port_main.main(argv)
+    launches = dict(fb.LAUNCHES)
+    t = probe.trainer
+    steps = len(probe.epochs) * t.updates_per_epoch
+    if t.debug or not steps:
+        raise AssertionError(f"{label}: no full epoch ran")
+    for name, count in launches.items():
+        want = want_step.get(name, 0) * steps + want_forward.get(name, 0) * probe.eval_forwards
+        if count != want:
+            raise AssertionError(f"{label}: {name} launched {count} times in {steps} steps and "
+                                 f"{probe.eval_forwards} eval forwards, want {want}")
+    print(f"{label}: kernel launches {launches} in {steps} steps and {probe.eval_forwards} "
+          f"eval forwards, as expected")
+    for epoch, m in probe.epochs.items():
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label} epoch {epoch}: non-finite metrics {m}")
+    splits = [s for s in t.mapper if s != "train"]
+    n_eval = {s: t.eval_counts.get(s, (0, 0))[1] for s in splits}
+    want_eval = {s: len(t._eval_loader_for(s).dataset) for s in splits}
+    if not probe.evals or n_eval != want_eval:
+        raise AssertionError(f"{label}: eval counted {n_eval} images, want {want_eval}")
+    # the newest epoch the profiler did not slow
+    shown = max(e for e in probe.epochs if e != profile_epoch or len(probe.epochs) == 1)
+    last = probe.epochs[shown]
+    ev = probe.evals[-1]
+    print(f"{label}: best accuracy {best:.4f}; epochs {json.dumps(probe.epochs)}; evals "
+          f"{json.dumps(probe.evals)}")
+    print(f"phase {label}: {last['imgs_per_sec_per_chip']:.2f} images/s (Trainer steady, "
+          f"epoch {shown}), epoch {last['wall_s']:.3f} s, eval "
+          f"{ev['images'] / ev['wall_s']:.2f} images/s at eval batch size "
+          f"{t.cfg.eval.batch_size}, eval peak memory {ev['peak_gb']:.3f} GB, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; card {card_line()}")
+    return probe, launches, steps
+
+
+def trainer_paths(fb, torch, bare_imgs_per_s: float) -> dict:
+    """The training entry point on the card: the Trainer at full width (2
+    epochs, eval every epoch, a checkpoint) and a resume from it; the DCS
+    recipe and int8 through the Trainer; the JUMP-CP augmentation on the
+    card against the CPU; the card's packages and, where pandas and pyarrow
+    import, one JUMP-CP epoch from a fixture through the Trainer with the
+    augmentation on the card. Returns the paths by label."""
+    import tempfile
+
+    from diverse_channel_vit_torch.config import load_config
+    from diverse_channel_vit_torch.trainer import Trainer
+
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    int8_train = ("attend_project_fwd", "attend_project_bwd", "ln_mlp_q_fwd", "ln_mlp_q_bwd")
+    per_fwd = dict.fromkeys(("attend_project_fwd", "ln_mlp_fwd"), DEPTH - 1)
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="dcvit_trainer_") as tmp:
+        over = TRAINER_OVERRIDES + ["train.num_epochs=2", f"train.checkpoints={tmp}"]
+        probe, launches, steps = run_trainer(
+            fb, torch, "Trainer", "synthetic_cfg", over, dict.fromkeys(fused4, DEPTH - 1),
+            per_fwd, profile_epoch=2)
+        paths["Trainer"] = (launches, len(probe.epochs), "epoch")
+        host_batch(probe.trainer)
+        e2 = probe.epochs[2]
+        busy = probe.busy_us / 1e6 / e2["wall_s"] if probe.busy_us else None
+        print(f"phase Trainer epoch 2 (profiled): {e2['imgs_per_sec_per_chip']:.2f} images/s "
+              f"beside the bare step's {bare_imgs_per_s:.2f} (train phase, batch on the card); "
+              f"device busy {'not measured' if busy is None else f'{100 * busy:.1f}%'} of the "
+              f"epoch's {e2['wall_s']:.3f} s; card {card_line()}")
+        # resume from the checkpoint that run wrote: epoch 3, the saved state
+        ckpt = probe.trainer.checkpoints
+        path = f"{ckpt}/model_last"
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        t2 = Trainer(load_config("synthetic_cfg", over + [
+            "train.resume_train=True", f"train.resume_model={path}"]))
+        live = t2.model.state_dict()
+        same = all(torch.equal(live[k].cpu(), v) for k, v in saved["model"].items())
+        moments = t2.state.optimizer.state_dict()["state"]
+        same_m = all(torch.equal(moments[i][key].cpu(), s[key]) for i, s in
+                     saved["optimizer"]["state"].items() for key in ("exp_avg", "exp_avg_sq"))
+        print(f"Trainer resume from {path}: start_epoch {t2.start_epoch}, step {t2.state.step}, "
+              f"parameters equal {same}, optimizer moments equal {same_m}")
+        if not (t2.start_epoch == 3 and t2.state.step == steps and same and same_m):
+            raise AssertionError("Trainer resume: the resumed state differs from the saved one")
+        del t2, probe, saved, live, moments
+        one = TRAINER_OVERRIDES + ["train.num_epochs=1", "train.save_model=none",
+                                   "eval.skip_eval_first_epoch=True", f"train.checkpoints={tmp}"]
+        probe, launches, _ = run_trainer(
+            fb, torch, "Trainer DCS recipe", "synthetic_cfg", one + [
+                "model.enable_sample=True", f"model.hcs_sampling={HCS_METHOD}",
+                f"model.hcs_sampling_temp={HCS_TEMP:g}"],
+            dict.fromkeys(fused4, DEPTH - 1), per_fwd)
+        rng = np.random.default_rng(TRAIN_SEED)
+        want = [int(rng.integers(1, CHANNELS + 1)) for _ in probe.draws]
+        print(f"Trainer DCS recipe: k drawn {probe.draws}, numpy default_rng({TRAIN_SEED}) "
+              f"gives {want}")
+        if probe.draws != want or not probe.draws:
+            raise AssertionError("Trainer DCS recipe: the k sequence differs from _draw_k's")
+        paths["Trainer DCS recipe"] = (launches, 1, "epoch")
+        probe, launches, _ = run_trainer(
+            fb, torch, "Trainer int8", "synthetic_cfg", one + ["model.quantization=int8"],
+            dict.fromkeys(int8_train, DEPTH - 1),
+            dict.fromkeys(("attend_project_fwd", "ln_mlp_q_fwd"), DEPTH - 1))
+        paths["Trainer int8"] = (launches, 1, "epoch")
+        del probe
+        augment_on_card(torch)
+        have = {}
+        for mod in ("yaml", "pandas", "pyarrow", "h5py"):
+            try:
+                __import__(mod)
+                have[mod] = True
+            except ImportError:
+                have[mod] = False
+        jump = have["pandas"] and have["pyarrow"]
+        listed = ", ".join(f"{m} {'imports' if ok else 'missing'}" for m, ok in have.items())
+        then = ("a JUMP-CP fixture epoch follows" if jump else "no JUMP-CP fixture epoch: it "
+                "needs pandas and pyarrow (the CPU tests cover the host-side reader)")
+        print(f"card packages: {listed}; {then}")
+        if jump:
+            root = write_jumpcp_fixture(tmp)
+            probe, launches, _ = run_trainer(
+                fb, torch, "Trainer JUMP-CP fixture", "jump_cp_cfg", [
+                    f"++dataset.root_dir={root}", "train.batch_size=64", "train.num_epochs=1",
+                    "train.save_model=none", "eval.skip_eval_first_epoch=True",
+                    "train.device_augment=True", f"train.checkpoints={tmp}"],
+                dict.fromkeys(fused4, DEPTH - 1), per_fwd)
+            if not probe.trainer.train_loader.dataset.device_augment:
+                raise AssertionError("Trainer JUMP-CP fixture: the augmentation ran on the host")
+            del probe
+    torch.cuda.empty_cache()
+    return paths
+
+
+def host_batch(trainer) -> None:
+    """What the Trainer's host side costs a train batch, outside the epoch:
+    the loader's next batch (3 threads make the synthetic images), then
+    ``_to_device`` (the cast to bf16 and the pageable copy to the card)."""
+    import torch
+
+    loader = trainer.train_loader
+    it = iter(loader)
+    ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        batch = next(it)
+        t1 = time.perf_counter()
+        trainer._to_device(batch)
+        torch.cuda.synchronize()
+        ms.append(((t1 - t) * 1e3, (time.perf_counter() - t1) * 1e3))
+    print(f"Trainer host side per {len(batch['label'])}-image batch: loader "
+          f"{' / '.join(f'{a:.1f}' for a, _ in ms)} ms, cast and copy to the card "
+          f"{' / '.join(f'{b:.1f}' for _, b in ms)} ms (two batches)")
+
+
+def augment_on_card(torch) -> None:
+    """The JUMP-CP train augmentation (``ops/augment.py``) on a B = 64, 8 x
+    224² raw batch on the card against the same call on the CPU, the same
+    draws (made on the CPU from seed 0): max abs difference within 1e-5 of
+    max|x| (f32; TF32 off). Prints its ms per batch."""
+    from diverse_channel_vit_torch.data.normalization import get_mean_std_dataset
+    from diverse_channel_vit_torch.ops import augment
+
+    mean, std = get_mean_std_dataset("jump_cp")
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 60, (B, CHANNELS, IMG, IMG)).astype(np.float32))
+    draws = augment.make_draws(torch.Generator().manual_seed(0), B, IMG, IMG)
+    want = augment.jumpcp_train_augment(None, x, mean, std, draws=draws)
+    xc = x.cuda()
+    dc = {k: v.cuda() for k, v in draws.items()}
+    got = augment.jumpcp_train_augment(None, xc, mean, std, draws=dc)
+    err = (got.cpu() - want).abs().max().item()
+    scale = want.abs().max().item()
+    ms = cuda_ms(lambda: augment.jumpcp_train_augment(None, xc, mean, std, draws=dc), 10)
+    print(f"phase JUMP-CP augmentation on the card: {ms:.3f} ms per {B}-image batch "
+          f"(8 x {IMG}^2, f32); max_abs_err against the CPU {err:.3e}, max|out| {scale:.3e} "
+          f"(tolerance 1e-5 x max|x| = {1e-5 * x.abs().max().item():.3e}); card {card_line()}")
+    if not err <= 1e-5 * x.abs().max().item():
+        raise AssertionError("JUMP-CP augmentation: the card disagrees with the CPU")
+
+
+def write_jumpcp_fixture(tmp: str, n: int = 256) -> str:
+    """A JUMP-CP tree in the layout of tests/test_regular_e2e.py: ``n``
+    cells of 8 x 224² crops of 3 classes (3 labelled wells), the cyto-mask
+    parquet index and the plate maps. Returns the root (with its slash)."""
+    import os
+
+    import pandas as pd
+
+    root = os.path.join(tmp, "jumpcp_fixture")
+    pm = os.path.join(root, "jumpcp", "platemap_and_metadata")
+    os.makedirs(pm)
+    os.makedirs(os.path.join(root, "imgs"))
+    rng = np.random.default_rng(0)
+    wells = [f"A{j:02d}" for j in range(1, 9)]
+    protos = rng.uniform(1, 30, size=(3, CHANNELS, 1, 1))
+    paths, locs = [], []
+    for i in range(n):
+        img = protos[i % 3] + rng.normal(0, 3.0, (CHANNELS, IMG, IMG))
+        np.save(os.path.join(root, f"imgs/c{i}.npy"), img.astype(np.float32))
+        paths.append(f"s3://insitro-research-2023-context-vit/imgs/c{i}.npy")
+        locs.append(wells[i % 3])
+    pd.DataFrame({"path": paths, "ID": range(n), "well_loc": locs}).to_parquet(
+        os.path.join(root, "jumpcp", "BR00116991.pq"))
+    for pert, col in [("compound", "target"), ("crispr", "gene"), ("orf", "gene")]:
+        pd.DataFrame({"broad_sample": [f"s{k}" for k in range(3)],
+                      "well_position": wells[:3]}).to_parquet(
+            os.path.join(pm, f"JUMP-Target-1_{pert}_platemap.tsv"))
+        pd.DataFrame({"broad_sample": [f"s{k}" for k in range(3)],
+                      col: [f"t{k}" for k in range(3)]}).to_parquet(
+            os.path.join(pm, f"JUMP-Target-1_{pert}_metadata.tsv"))
+    return root + "/"
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1817,7 +2152,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["EViT serving"] = (*serve_evit(fb, torch)[:2], "forward")
     serve_gelu_exact(fb, torch)
-    paths["train"] = (*train(fb, torch, "train", dict.fromkeys(fused4, DEPTH - 1))[:2], "step")
+    launches, steps, bare = train(fb, torch, "train", dict.fromkeys(fused4, DEPTH - 1))
+    paths["train"] = (launches, steps, "step")
     train_parity(fb, torch, "train parity", PARITY_DEPTH, 3,
                  dict.fromkeys(fused4, PARITY_DEPTH - 1))
     paths["EViT train"] = (*train(fb, torch, "EViT train", evit4, keep_rate=KEEP_RATE)[:2],
@@ -1889,6 +2225,9 @@ def main() -> int:
     # the benchmark scripts: S1-S3 run only there, S1 and S2 also at 3 heads
     for (name, args, _), counts in zip(SCRIPT_RUNS, run_scripts(fb).values()):
         paths[script_label(name, args)] = (counts, 1, "run")
+    # the training entry point: main -> config -> data -> Trainer -> eval ->
+    # checkpoint, at full width
+    paths.update(trainer_paths(fb, torch, bare["imgs_per_s"]))
 
     # each kernel's main paths, first the one its launches are read from
     dh128 = "_dh128"
@@ -1936,6 +2275,10 @@ def main() -> int:
             for label in ("EViT train", "DCS recipe train"):
                 counts, units, _ = paths[label]
                 entry[f"launches_per_step_{label.replace(' ', '_')}"] = counts[name] / units
+        for label in ("Trainer", "Trainer int8"):
+            counts, units, unit = paths[label]
+            if name in counts and counts[name]:
+                entry[f"launches_per_{unit}_{label.replace(' ', '_')}"] = counts[name] / units
         if "code_flips" in r:
             entry.update(code_flips=r["code_flips"])
         entry.update(max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],

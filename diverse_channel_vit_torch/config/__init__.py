@@ -1,3 +1,3 @@
-from .loader import Config
+from .loader import CONFIG_DIR, Config, load_config, parse_overrides
 
-__all__ = ["Config"]
+__all__ = ["CONFIG_DIR", "Config", "load_config", "parse_overrides"]

@@ -1,0 +1,422 @@
+"""Trainer — the run orchestrator (counterpart of the JAX package's
+``trainer.py``), single-chunk path.
+
+Builds loaders, model, optimizer, schedules and logger in ``__init__``,
+then runs the epoch loop with evaluation and checkpoints, as the JAX
+Trainer does for JUMP-CP, So2Sat and the synthetic config:
+
+- the channel-count draw of DCS (``k ~ U[1, C]``) comes from the numpy
+  ``host_rng`` seeded with ``train.seed``, one step function per k, all
+  drawing their channels from one ``torch.Generator`` on the device;
+- the prefetch thread copies each batch to the device in the compute
+  dtype, on the device's default stream, which the step uses too;
+- eval counts correct answers under each batch's ``valid`` mask; the pad
+  rows of a ``pad_last`` batch are dropped before the forward (the mask
+  excludes them anyway), so a small eval split costs one small forward
+  whatever the eval batch size;
+- a checkpoint is ``training/checkpoint.py``'s torch file and meta.json.
+
+The device is the caller's ``device``, else ``hardware.device`` (``cuda``
+in the port's config tree; ``cpu`` only when asked). Every key this slice
+does not honour raises ``NotImplementedError`` naming its ROADMAP item
+(:func:`check_supported`). ``async_checkpoint`` saves synchronously and
+``donate_state`` changes nothing; ``auto_resume`` finds nothing to resume,
+since no preemption checkpoint is written until preemption is ported.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from .data import get_classes, get_train_val_test_loaders, prefetch
+from .device import resolve_device
+from .logging_utils import MyLogging
+from .models import build_model
+from .ops.sampling import NOT_PORTED
+from .training import TrainState, make_eval_step, make_lr_schedule, make_optimizer, make_train_step
+from .training.checkpoint import load_checkpoint, save_checkpoint
+from .utils.misc import AverageMeter, Timer, set_seeds
+
+_CHAMMI = ("morphem70k", "Allen", "HPA", "CP")
+
+
+def _default(val, fallback):
+    return fallback if val is None else val
+
+
+def _as_dict(section) -> dict:
+    return section.to_dict() if hasattr(section, "to_dict") else dict(section or {})
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for each key the port's Trainer does
+    not honour yet, naming its ROADMAP item."""
+    tr, model, ev, hw = cfg.train, cfg.model, cfg.eval, cfg.hardware
+    name = cfg.dataset.name
+    refusals = [
+        (name in _CHAMMI, f"dataset {name!r}: CHAMMI (the mixed-chunk loader, the proxy-loss "
+                          "grad-accumulation steps, the MorphEm eval) is ROADMAP A6/A7"),
+        (name in ("cifar10", "cifar100"), f"dataset {name!r}: the CIFAR loader downloads "
+                                          "through torchvision and is left out (ROADMAP A6)"),
+        (bool(tr.get("swa")) or bool(tr.get("swad")), "train.swa / train.swad (ROADMAP A6)"),
+        (bool(tr.get("miro")), "train.miro (ROADMAP A6, A4.5)"),
+        (bool(tr.get("ssl")), "train.ssl (ROADMAP A6)"),
+        (float(tr.get("tps_prob") or 0.0) > 0, "train.tps_prob > 0: TPS is CHAMMI's (ROADMAP A6)"),
+        (tr.get("training_chunks") not in (None, "train"),
+         "train.training_chunks: chunk subsets are CHAMMI's (ROADMAP A6)"),
+        (bool(model.get("freeze_other")), "model.freeze_other (ROADMAP A6 freeze)"),
+        (int(_default(model.get("unfreeze_last_n_layers"), -1)) >= 0,
+         "model.unfreeze_last_n_layers >= 0 (ROADMAP A6 freeze)"),
+        (bool(model.get("pretrained")), "model.pretrained: weight import (ROADMAP A9, A11)"),
+        (bool(model.get("new_channel_inits")),
+         "model.new_channel_inits: novel-channel eval (ROADMAP A7, A8)"),
+        (bool(ev.get("eval_subset_channels")),
+         "eval.eval_subset_channels: the channel-subset sweep (ROADMAP A7, A8)"),
+        (bool(tr.get("plot_attn")), "train.plot_attn (ROADMAP A6)"),
+        (bool(tr.get("profile_dir")), "train.profile_dir (ROADMAP A6)"),
+        (bool(tr.get("max_host_rss_gb")), "train.max_host_rss_gb: RSS recycling (ROADMAP A6)"),
+        (any(int(v) > 1 for v in _as_dict(hw.get("mesh") or {}).values()),
+         "hardware.mesh with more than one device (ROADMAP A10)"),
+        (bool(hw.get("zero1")) or bool(hw.get("zero3")), "hardware.zero1 / zero3 (ROADMAP A10)"),
+        (not bool(_default(model.get("fused_block"), True)),
+         "model.fused_block: false, the process-wide unfused route (ROADMAP A6)"),
+        (cfg.get("attn_pooling") is not None, "attn_pooling: channel attention pooling "
+                                              "(ROADMAP A8.3)"),
+        (bool(model.get("enable_sample")) and model.get("hcs_sampling") in NOT_PORTED,
+         f"model.hcs_sampling={model.get('hcs_sampling')!r} (ROADMAP A4)"),
+    ]
+    for refused, what in refusals:
+        if refused:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _trainer_device(cfg, device) -> torch.device:
+    if device is None:
+        device = cfg.hardware.get("device") or "cuda"
+        if str(device).split(":")[0] not in ("cuda", "cpu"):
+            raise ValueError(f"hardware.device={device!r}: the port runs on 'cuda' (or 'cpu' "
+                             "when asked)")
+    return resolve_device(device)
+
+
+class Trainer:
+    def __init__(self, cfg, device: Optional[Union[str, torch.device]] = None):
+        self.cfg = cfg
+        self.device = _trainer_device(cfg, device)
+        check_supported(cfg)
+        self.debug = bool(cfg.train.get("debug", False))
+        self.seed = int(_default(cfg.train.get("seed"), 1234))
+        self.host_rng = set_seeds(self.seed)
+        self.dataset_name = cfg.dataset.name
+        self.logger = MyLogging(cfg)
+        dtype_name = cfg.train.get("dtype", "bfloat16")
+        if cfg.train.get("use_amp", False):
+            dtype_name = "bfloat16"  # AMP flag parity: bf16 compute
+        self.dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+
+        # -- split -> channel-id mapper: the single chunk's split dict --------
+        entry = _as_dict(cfg.data_chunk.chunks[0])
+        self.chunk = next(iter(entry))
+        self.mapper = dict(entry[self.chunk])
+        cfg.train.training_chunks = "train"
+
+        # auto-size the eval batch to the card's memory when unset (reference
+        # trainer.py:93-105: 512 at 14 GB, scaled and rounded to a power of 2;
+        # depthwise models cap at 128); 16 GB off the card, as JAX on the CPU
+        if not cfg.eval.get("batch_size"):
+            if "depthwise" not in str(cfg.model.name):
+                mem_gb = 16.0
+                if self.device.type == "cuda":
+                    mem_gb = torch.cuda.get_device_properties(self.device).total_memory / (1 << 30)
+                ebs = 2 ** int(math.log2(max(int(512 * mem_gb / 14), 1)))
+            else:
+                ebs = 128
+            cfg.eval.batch_size = ebs
+
+        # -- data (the test loader is a dict of loaders for several test
+        # channel subsets, So2Sat's test_1 / test_2 / test_full) ------------
+        self.train_loader, self.val_loader, self.test_loader = get_train_val_test_loaders(
+            cfg, self.chunk, self.seed)
+        train_classes, _ = get_classes(self.dataset_name, cfg.dataset.get("file_name") or "")
+        self.num_classes = (int(cfg.dataset.get("num_classes", 10)) if train_classes is None
+                            else len(train_classes))
+
+        # -- model ---------------------------------------------------------
+        # the reference fills model.in_channel_names from the dataset; a
+        # YAML placeholder string counts as unset
+        icn = cfg.model.get("in_channel_names")
+        if not icn or isinstance(icn, str):
+            cfg.model.in_channel_names = cfg.dataset.in_channel_names
+        self.model = build_model(cfg.model.name, cfg.model, self.mapper, self.num_classes,
+                                 device=self.device, dtype=self.dtype, seed=self.seed)
+        self.learnable_temp = bool(cfg.model.get("learnable_temp", False))
+        self.temperature = float(cfg.model.get("temperature", 0.11111))
+        self.extra_loss_lambda = float(cfg.train.get("extra_loss_lambda", 0.0) or 0.0)
+        self.hcs_enabled = bool(cfg.model.get("enable_sample", False))
+        self.hcs_method = cfg.model.get("hcs_sampling", "none") or "none"
+        self.hcs_temp = float(cfg.model.get("hcs_sampling_temp", 0.1) or 0.1)
+        self.loss_type = "ce"  # single-chunk classification: CE on the head
+
+        # -- schedules / optimizer ------------------------------------------
+        self.updates_per_epoch = max(1, len(self.train_loader))
+        self.total_epochs = int(cfg.train.num_epochs)
+        opt_params = _as_dict(cfg.optimizer.get("params", {}))
+        sched_params = _as_dict(cfg.scheduler.get("params", {}))
+        self.lr_schedule = make_lr_schedule(
+            cfg.scheduler.get("name", "none"), float(opt_params.get("lr", 1e-3)), sched_params,
+            num_epochs=self.total_epochs, steps_per_epoch=self.updates_per_epoch,
+            convert_to_batch=bool(cfg.scheduler.get("convert_to_batch", False)),
+        )
+        self.channel_counter: Dict[int, int] = {}
+        if int(cfg.train.get("adaptive_interface_epochs", 0) or 0) > 0:
+            # parity: the reference raises the same (trainer.py:338-339)
+            raise NotImplementedError("currently turn this off: 'adaptive_interface_epochs > 0'")
+        self.tx = make_optimizer(
+            cfg.optimizer.get("name", "adamw"), opt_params, lr_schedule=self.lr_schedule,
+            total_steps=self.total_epochs * self.updates_per_epoch,
+            clip_grad_norm=cfg.train.get("clip_grad_norm"),
+        )
+        self.state = TrainState(self.model, self.tx)
+        n_params = sum(p.numel() for p in self.state.params)
+        self.logger.info(f"model {cfg.model.name}: {n_params:,} params, device {self.device}, "
+                         f"dtype {dtype_name}")
+
+        # -- step caches: one train step per (channels, k), all drawing from
+        # one generator on the device --------------------------------------
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self._train_steps: Dict = {}
+        self._eval_step = make_eval_step(self.model)
+        self.eval_counts: Dict[str, tuple] = {}
+
+        # -- checkpoints -----------------------------------------------------
+        self.checkpoints = os.path.join(
+            cfg.train.get("checkpoints", "checkpoints"), self.dataset_name,
+            time.strftime("%Y-%b-%d-%H-%M-%S") + f"--seed{self.seed}",
+        )
+        self.start_epoch = 1
+        if cfg.train.get("resume_train") and cfg.train.get("resume_model"):
+            self.state, last_epoch = load_checkpoint(
+                os.path.dirname(cfg.train.resume_model), self.state,
+                name=os.path.basename(cfg.train.resume_model),
+            )
+            self.start_epoch = last_epoch + 1
+            self.logger.info(f"resumed from {cfg.train.resume_model} at epoch {last_epoch}")
+        if cfg.train.get("auto_resume", True) and self.start_epoch == 1:
+            self.logger.info("train.auto_resume: the port writes no preemption checkpoint yet "
+                             "(ROADMAP A6), so there is nothing to resume")
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+
+    def _chunk_channel_ids(self, split: str):
+        return list(self.mapper[split])
+
+    def _draw_k(self, c: int) -> Optional[int]:
+        """HCS channel-count draw Cin_new ~ U[1, C] (``channel_vit.py:79-82``)."""
+        if not self.hcs_enabled:
+            return None
+        return int(self.host_rng.integers(1, c + 1))
+
+    def _get_train_step(self, channel_ids, k):
+        key = (tuple(channel_ids), k)
+        if key not in self._train_steps:
+            self._train_steps[key] = make_train_step(
+                self.model, channel_ids=channel_ids, k=k, hcs_method=self.hcs_method,
+                hcs_temp=self.hcs_temp, generator=self.generator, loss_type=self.loss_type,
+                extra_loss_lambda=self.extra_loss_lambda, learnable_temp=self.learnable_temp,
+                temperature=self.temperature, augment_fn=self._device_augment_fn(),
+            )
+        return self._train_steps[key]
+
+    def _device_augment_fn(self):
+        """On-device JUMP-CP augmentation when the loader ships raw crops."""
+        if self.dataset_name != "jump_cp" or not self.cfg.train.get("device_augment", False):
+            return None
+        if not getattr(self.train_loader.dataset, "device_augment", False):
+            return None
+        from .data.normalization import get_mean_std_dataset
+        from .ops.augment import jumpcp_train_augment
+
+        mean, std = get_mean_std_dataset("jump_cp")
+        img_size = int(self.cfg.dataset.get("img_size", 224))
+
+        def fn(generator, imgs):
+            return jumpcp_train_augment(generator, imgs, mean, std, img_size=img_size)
+
+        return fn
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def train(self) -> float:
+        timer = Timer()
+        best_acc, best_epoch = 0.0, 0
+        ev = self.cfg.eval
+        # pre-training evaluation (trainer.py:329-333)
+        if (not self.debug and not ev.get("skip_eval_first_epoch", False)
+                and not ev.get("only_eval_first_and_last", False) and self.start_epoch == 1):
+            eval0 = self.evaluate_model(0)
+            self.logger.info({f"eval/{k}": v for k, v in eval0.items()} | {"epoch": 0},
+                             pref_msg="[eval 0]")
+        for epoch in range(self.start_epoch, self.total_epochs + 1):
+            train_metrics = self.train_one_epoch(epoch)
+            self.logger.info({f"train/{k}": v for k, v in train_metrics.items()}
+                             | {"epoch": epoch, "lr": float(self.lr_schedule(self.state.step))},
+                             pref_msg=f"[epoch {epoch}/{self.total_epochs}]")
+            if self.cfg.train.get("log_memory", False) and self.device.type == "cuda":
+                self.logger.info({
+                    "mem/device_mb": round(torch.cuda.memory_allocated(self.device) / 2**20, 1),
+                    "mem/device_peak_mb": round(
+                        torch.cuda.max_memory_allocated(self.device) / 2**20, 1)})
+            if self.channel_counter:
+                self.logger.info({f"channel_usage/{c}": n
+                                  for c, n in sorted(self.channel_counter.items())})
+            every_n = int(ev.get("every_n_epochs", 1) or 1)
+            is_last = epoch == self.total_epochs
+            if (epoch % every_n == 0 or is_last) and not (
+                    self.debug and ev.get("skip_eval_for_debug", False)):
+                if not (ev.get("only_eval_first_and_last", False) and not (epoch == 1 or is_last)):
+                    eval_metrics = self.evaluate_model(epoch)
+                    acc = eval_metrics.get("accuracy", 0.0)
+                    if acc > best_acc:
+                        best_acc, best_epoch = acc, epoch  # BestResult tracker
+                    self.logger.info({f"eval/{k}": v for k, v in eval_metrics.items()}
+                                     | {"epoch": epoch}, pref_msg=f"[eval {epoch}]")
+            self._maybe_save(epoch, best_acc)
+            done = epoch - self.start_epoch + 1
+            self.logger.info(f"epoch {epoch} done in {timer.lap():.1f}s, ETA "
+                             f"{timer.eta(done, self.total_epochs - self.start_epoch + 1):.0f}s")
+        self.logger.finish(f"training done: best_acc={best_acc:.4f} (epoch {best_epoch})")
+        return best_acc
+
+    def train_one_epoch(self, epoch: int) -> Dict[str, float]:
+        loader = self.train_loader
+        loader.set_epoch(epoch)
+        # the device copy happens inside the prefetch thread so it overlaps
+        # the running step; images ship in the compute dtype
+        loader_iter = prefetch(map(self._to_device, iter(loader)), depth=2)
+        meters: Dict[str, AverageMeter] = {}
+        max_batches = 3 if self.debug else math.inf
+        n_images = n_warmup = 0
+        t_first_step_done = None  # exclude the first step from imgs/sec
+        for i, batch in enumerate(loader_iter):
+            if i >= max_batches:
+                break
+            metrics = self._train_one_batch_regular(batch)
+            n_images += batch["image"].shape[0]
+            if t_first_step_done is None:
+                t_first_step_done = time.perf_counter()
+                n_warmup = n_images
+            for c in metrics.pop("sampled_channels", ()):
+                # HCS/DCS channel-usage histogram (trainer.py:796-804)
+                self.channel_counter[int(c)] = self.channel_counter.get(int(c), 0) + 1
+            for k, v in metrics.items():
+                meters.setdefault(k, AverageMeter(k)).update(v)
+            if (i + 1) % int(self.cfg.train.get("verbose_batches", 50)) == 0:
+                self.logger.info({k: round(m.avg, 5) for k, m in meters.items()},
+                                 pref_msg=f"  [e{epoch} b{i + 1}/{len(loader)}]")
+        out = {k: m.avg for k, m in meters.items()}
+        if t_first_step_done is not None and n_images > n_warmup:
+            steady = time.perf_counter() - t_first_step_done
+            if steady > 0:
+                out["imgs_per_sec_per_chip"] = (n_images - n_warmup) / steady
+        return out
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """A host batch on the device, images in the compute dtype (JAX
+        ``_device_batch``). It runs in the prefetch thread; the copies are
+        synchronous and on the device's default stream, the step's."""
+        img = torch.from_numpy(batch["image"])
+        if self.dtype == torch.bfloat16 and img.dtype == torch.float32:
+            img = img.to(torch.bfloat16)
+        return {"image": img.to(self.device), "label": torch.from_numpy(batch["label"]).to(
+            self.device)}
+
+    def _train_one_batch_regular(self, batch) -> Dict[str, object]:
+        cids = self._chunk_channel_ids("train")
+        k = self._draw_k(len(cids))
+        step = self._get_train_step(cids, k)
+        self.state, metrics = step(self.state, batch)
+        # one host readback for the whole metrics dict
+        sampled = metrics.pop("sampled_channels", None)
+        names = sorted(metrics)
+        values = torch.stack([metrics[n].float() for n in names]).tolist()
+        out: Dict[str, object] = dict(zip(names, values))
+        if sampled is not None:
+            out["sampled_channels"] = sampled.tolist()
+        return out
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    def evaluate_model(self, epoch: int) -> Dict[str, float]:
+        return self.eval_regular(epoch)
+
+    def eval_regular(self, epoch: int) -> Dict[str, float]:
+        """Accuracy per eval split (``trainer.py:386-472``; one pass each:
+        novel-channel strategies are not ported, ROADMAP A7)."""
+        results: Dict[str, float] = {}
+        for split in [s for s in self.mapper if s != "train"]:
+            loader = self._eval_loader_for(split)
+            if loader is not None:
+                results[f"{split}/accuracy"] = self._eval_split(split, loader)
+        if results:
+            results["accuracy"] = float(np.mean(list(results.values())))
+        return results
+
+    def _eval_loader_for(self, split: str):
+        if split == "valid":
+            return self.val_loader
+        if isinstance(self.test_loader, dict):
+            return self.test_loader.get(split)
+        return self.test_loader if split.startswith("test") else None
+
+    def _eval_split(self, split: str, loader) -> float:
+        cids = torch.tensor(self._chunk_channel_ids(split if split in self.mapper else "train"),
+                            device=self.device)
+        max_batches = 3 if self.debug else math.inf
+        correct, total = 0, 0
+        for i, batch in enumerate(loader):
+            if i >= max_batches:
+                break
+            valid = batch.get("valid", np.ones(len(batch["label"]), bool))
+            rows = np.flatnonzero(valid)
+            img = batch["image"] if len(rows) == len(valid) else batch["image"][rows]
+            x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+            pred = self._eval_step(x, cids).argmax(dim=-1).cpu().numpy()
+            correct += int((pred == batch["label"][rows]).sum())
+            total += len(rows)
+        self.eval_counts[split] = (correct, total)
+        return correct / max(total, 1)
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+
+    def _maybe_save(self, epoch: int, accuracy: float):
+        if self.debug:
+            return
+        policy = self.cfg.train.get("save_model", "last")
+        if policy in (None, "none", "~"):
+            return
+        if policy == "best":
+            # parity: the reference raises too (trainer.py:364-365)
+            raise NotImplementedError("save_model='best' not implemented yet")
+        if policy == "last" and epoch != self.total_epochs:
+            return
+        if isinstance(policy, str) and policy.startswith("every"):
+            n = int(policy.split("-")[-1]) if "-" in policy else 1
+            if epoch % n != 0 and epoch != self.total_epochs:
+                return
+        name = "model_last" if policy == "last" else f"model_epoch{epoch}"
+        save_checkpoint(self.checkpoints, self.state, epoch=epoch, accuracy=accuracy,
+                        config=self.cfg.to_dict(), name=name)

@@ -14,9 +14,13 @@ one step function per k over the same train state (as the JAX benchmark
 keeps one compiled step per k). The channels are drawn on the device from a
 ``torch.Generator`` (``ops/sampling.py``).
 
+``augment_fn(generator, images)`` runs an augmentation on the device before
+the channel selection, as the JAX step does (JUMP-CP's ``ops/augment.py``
+in the Trainer). :func:`make_eval_step` is the eval forward.
+
 Ported for one device. The ``_proj`` / ``_resnet34`` / ``hcs_per_sample``
-samplers, the per-chunk CHAMMI grad step, MIRO, on-device augmentation and
-the multi-device mesh are not ported yet.
+samplers, the per-chunk CHAMMI grad step, MIRO and the multi-device mesh
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ def make_train_step(
     extra_loss_lambda: float = 0.0,
     learnable_temp: bool = False,
     temperature: float = 0.11111,
+    augment_fn: Optional[Callable] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch, draws=None) -> (state, metrics)`` for a
     single-chunk batch ``{"image": (B, C, H, W) f32, "label": (B,) int}`` on
@@ -90,7 +95,11 @@ def make_train_step(
     ``"lowest_cosine_prob"``) at temperature ``hcs_temp``, drawing from
     ``generator`` (by default one seeded with 0 on the batch's device).
     ``draws`` ({"anchor": ..., "gumbel": ...}, see ``ops.sampling.dcs_select``)
-    replaces one step's random draws."""
+    replaces one step's random draws.
+
+    ``augment_fn(generator, images) -> images`` augments the batch first,
+    drawing from the same generator before the channel sampling does (the
+    JAX step's order)."""
     if k is not None and k < len(channel_ids) and hcs_method in NOT_PORTED:
         raise NotImplementedError(
             f"hcs_sampling={hcs_method!r} is not ported yet (ROADMAP A4)")
@@ -103,8 +112,10 @@ def make_train_step(
         cids = cids_on.get(x.device)
         if cids is None:
             cids = cids_on[x.device] = ids.to(x.device)
-        if gen[0] is None and k is not None and k < x.shape[1]:
+        if gen[0] is None and (augment_fn is not None or k is not None and k < x.shape[1]):
             gen[0] = torch.Generator(device=x.device).manual_seed(0)
+        if augment_fn is not None:
+            x = augment_fn(gen[0], x)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         xs, cs = _select_channels(model, x, cids, k=k, method=hcs_method, temp=hcs_temp,
@@ -119,3 +130,18 @@ def make_train_step(
         return state, metrics
 
     return step
+
+
+def make_eval_step(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``eval_step(images, channel_ids) -> out``: the model's eval-mode
+    forward without gradient (the JAX ``make_eval_step`` without its
+    ``channel_embed_override``, which the novel-channel evals need, ROADMAP
+    A7): logits for a model with a head, else the CLS embedding."""
+
+    def eval_step(x: torch.Tensor, cids: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        with torch.no_grad():
+            out, _ = model(x, cids)
+        return out
+
+    return eval_step

@@ -3,8 +3,11 @@
 In a fresh interpreter with ``jax``, ``flax`` and ``optax`` set to None in
 ``sys.modules`` (so importing any of them fails), every module of
 ``diverse_channel_vit_torch`` (``training/`` included) and ``chip_smoke``
-must import (the benchmark scripts of ``scripts/`` and ``bench`` too), and
-no ``diverse_channel_vit_tpu`` module may appear in ``sys.modules``.
+must import (the benchmark scripts of ``scripts/`` and ``bench`` too, and
+the training entry point: ``main``, ``trainer``, the data layer), and no
+``diverse_channel_vit_tpu`` module may appear in ``sys.modules``. Importing
+``main`` parses no command line: the probe's argv holds an option that
+``main``'s parser would refuse.
 """
 
 import os
@@ -18,6 +21,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["optax"] = None
+sys.argv = ["probe", "--no-such-option"]
 import diverse_channel_vit_torch
 names = [m.name for m in pkgutil.walk_packages(diverse_channel_vit_torch.__path__,
                                                "diverse_channel_vit_torch.")]
@@ -33,6 +37,9 @@ assert "diverse_channel_vit_torch.training.steps" in sys.modules
 assert "diverse_channel_vit_torch.ops.sampling" in sys.modules
 assert "diverse_channel_vit_torch.scripts.bench_attn" in sys.modules
 assert "diverse_channel_vit_torch.bench" in sys.modules
+for name in ("main", "trainer", "data.loaders", "config.loader", "ops.augment",
+             "training.checkpoint", "logging_utils", "utils.misc"):
+    assert "diverse_channel_vit_torch." + name in sys.modules, name
 """
 
 
@@ -41,4 +48,4 @@ def test_port_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 33, proc.stdout
+    assert n_modules >= 47, proc.stdout
