@@ -108,9 +108,19 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     JUMP-CP augmentation on a 64-image batch on the card against the CPU;
     which of yaml, pandas, pyarrow and h5py import, and where pandas and
     pyarrow do, one JUMP-CP epoch from a fixture the script writes, with
-    the augmentation on the card; a ``phase`` line each;
+    the augmentation on the card; then CHAMMI: the recipe of
+    ``train_scripts.sh:8`` (DiChaViT-S, 224^2, batch 64, TPS 0.2, DCS) for
+    2 epochs with an eval after each, on a CHAMMI tree the script writes
+    (128 Train and 64 test rows a chunk at CHAMMI's tape sizes, one packed
+    blob): B1-B4 x 33 per step (3 chunk micro-batches) and B1 / B3 x 11 per
+    eval forward, every step's per-chunk losses finite, the k sequence
+    ``default_rng(2025)``'s drawn per chunk, global labels, a feature row
+    per metadata row, the nine MorphEm task rows and a CHAMMI score in
+    [0, 1], and the card's kNN predictions equal to the CPU's; a ``phase``
+    line each;
 12. print the ``kernels`` JSON line (each kernel's launches from its main
-    paths, and per Trainer epoch), the card line, and last the result line
+    paths, per Trainer epoch, and the CHAMMI run's), the card line, and last
+    the result line
     ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. Without a CUDA device, or outside a checkout of
@@ -1766,22 +1776,24 @@ TRAIN_SEED = 1234  # the Trainer's seed when train.seed is unset
 class TrainerProbe:
     """Records what a Trainer run through ``main`` did, by wrapping the
     Trainer's methods for the length of a ``with`` block: the Trainer built,
-    each epoch's metrics and wall time, the k of every DCS draw, each
-    evaluation's wall time and peak device memory, and the eval forwards.
+    each epoch's metrics, wall time and peak device memory (since the run's
+    or the last evaluation's start), each CHAMMI step's metrics, the k of
+    every DCS draw, each evaluation's wall time and peak device memory, and
+    the eval forwards.
     With ``profile_epoch`` that epoch runs under ``torch.profiler`` (device
     activity only) and its device busy time is kept."""
 
     def __init__(self, torch, profile_epoch=None):
         self.torch, self.profile_epoch = torch, profile_epoch
         self.trainer, self.epochs, self.draws, self.evals = None, {}, [], []
-        self.eval_forwards, self.busy_us = 0, None
+        self.eval_forwards, self.busy_us, self.steps = 0, None, []
 
     def __enter__(self):
         from diverse_channel_vit_torch import trainer as tm
 
         torch, probe = self.torch, self
         self.tm, self.saved = tm, {n: getattr(tm.Trainer, n) for n in (
-            "train", "train_one_epoch", "_draw_k", "evaluate_model")}
+            "train", "train_one_epoch", "_draw_k", "evaluate_model", "_train_one_batch_morphem")}
         self.saved_eval = tm.make_eval_step
         saved = self.saved
 
@@ -1794,7 +1806,8 @@ class TrainerProbe:
             t = time.perf_counter()
             out = saved["train_one_epoch"](trainer, epoch)
             torch.cuda.synchronize()
-            probe.epochs[epoch] = dict(out, wall_s=time.perf_counter() - t)
+            probe.epochs[epoch] = dict(out, wall_s=time.perf_counter() - t,
+                                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
             return out
 
         def train_one_epoch(trainer, epoch):
@@ -1826,6 +1839,11 @@ class TrainerProbe:
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9))
             return out
 
+        def morphem_step(trainer, batch):
+            out = saved["_train_one_batch_morphem"](trainer, batch)
+            probe.steps.append({k: v for k, v in out.items() if k != "sampled_channels"})
+            return out
+
         def make_eval_step(model):
             step = probe.saved_eval(model)
 
@@ -1837,6 +1855,7 @@ class TrainerProbe:
 
         tm.Trainer.train, tm.Trainer.train_one_epoch = train, train_one_epoch
         tm.Trainer._draw_k, tm.Trainer.evaluate_model = draw_k, evaluate_model
+        tm.Trainer._train_one_batch_morphem = morphem_step
         tm.make_eval_step = make_eval_step
         return self
 
@@ -1987,6 +2006,9 @@ def trainer_paths(fb, torch, bare_imgs_per_s: float) -> dict:
             if not probe.trainer.train_loader.dataset.device_augment:
                 raise AssertionError("Trainer JUMP-CP fixture: the augmentation ran on the host")
             del probe
+        if not have["pandas"]:
+            raise AssertionError("the CHAMMI phase needs pandas (its metadata and benchmark)")
+        paths["Trainer CHAMMI"] = chammi_trainer(fb, torch, tmp)
     torch.cuda.empty_cache()
     return paths
 
@@ -2069,6 +2091,234 @@ def write_jumpcp_fixture(tmp: str, n: int = 256) -> str:
                       col: [f"t{k}" for k in range(3)]}).to_parquet(
             os.path.join(pm, f"JUMP-Target-1_{pert}_metadata.tsv"))
     return root + "/"
+
+
+# CHAMMI (morphem70k): each chunk's tape size (h, w) and channels, as in the
+# real dataset (Allen / WTC-11 238 x 374, HPA 512 x 512, CP 160 x 160), its
+# classes, its MorphEm tasks and its leave-one-out column
+CHAMMI_CHUNKS = {"Allen": (238, 374, 3), "HPA": (512, 512, 4), "CP": (160, 160, 5)}
+CHAMMI_CLASSES = {
+    "Allen": ["M0", "M1M2", "M3", "M4M5", "M6M7_complete", "M6M7_single"],
+    "HPA": ["golgi apparatus", "microtubules", "mitochondria", "nuclear speckles"],
+    "CP": ["BRD-A29260609", "BRD-K04185004", "BRD-K21680192", "DMSO"],
+}
+CHAMMI_TASKS = {"Allen": ["Task_one", "Task_two"], "HPA": ["Task_one", "Task_two", "Task_three"],
+                "CP": ["Task_one", "Task_two", "Task_three", "Task_four"]}
+CHAMMI_LEAVEOUT = {"HPA": "cell_type", "CP": "Plate"}
+CHAMMI_TRAIN, CHAMMI_TEST = 128, 64  # rows a chunk
+# train_scripts.sh:8 (DiChaViT on CHAMMI), the hydra -m flag and the tag aside
+CHAMMI_RECIPE = [
+    "model=dichavit", "++model.enable_sample=True", "++model.pretrained_model_name=small",
+    "dataset=morphem70k_v2_12channels", "++optimizer.params.lr=0.00004",
+    "++model.temperature=0.07", "++train.num_epochs=60", "++train.save_model=last",
+    "++model.new_channel_inits=[zero]", "++train.batch_size=64", "++eval.batch_size=256",
+    "++train.debug=False", "++eval.every_n_epochs=6", "++eval.skip_eval_first_epoch=True",
+    "++train.tps_prob=0.2", "++model.orthogonal_channel_emb_init=True",
+    "++train.extra_loss_lambda=1", "++model.proxy_loss_lambda=0.1",
+    "++model.ortho_loss_v1_lambda=1", "++model.gamma_s=0.5", "++model.gamma_d=2",
+    "++model.reverse_pos_pairs=True", "++train.seed=2025",
+    "++model.hcs_sampling=lowest_cosine_prob"]
+CHAMMI_SEED = 2025
+
+
+def write_chammi_fixture(tmp: str) -> str:
+    """A CHAMMI tree: ``morphem70k_v2.csv``, every tape in one packed blob
+    (``chammi_packed.bin`` and its ``.index.json``, read without PIL), and
+    ``Allen|HPA|CP/enriched_meta.csv`` with the MorphEm task columns and
+    HPA's ``cell_type`` and CP's ``Plate``. Each chunk has CHAMMI_TRAIN Train
+    rows and CHAMMI_TEST rows spread over its tasks, uint8 tapes at its own
+    size: a class prototype per channel plus noise. Returns the root."""
+    import json
+    import os
+
+    import pandas as pd
+
+    root = os.path.join(tmp, "chammi_fixture")
+    os.makedirs(root)
+    rng = np.random.default_rng(0)
+    rows, index, off = [], {}, 0
+    with open(os.path.join(root, "chammi_packed.bin"), "wb") as blob:
+        for chunk, (h, w, c) in CHAMMI_CHUNKS.items():
+            classes, tasks = CHAMMI_CLASSES[chunk], CHAMMI_TASKS[chunk]
+            protos = rng.integers(20, 180, size=(len(classes), c), dtype=np.uint8)
+            splits = ["Train"] * CHAMMI_TRAIN + [tasks[i % len(tasks)]
+                                                 for i in range(CHAMMI_TEST)]
+            meta = []
+            for i, split in enumerate(splits):
+                label = classes[i % len(classes)]
+                tape = rng.integers(0, 64, size=(h, w * c), dtype=np.uint8)
+                tape += np.repeat(protos[i % len(classes)], w)[None, :]
+                rel = f"{chunk.lower()}/img_{i}.tif"
+                index[rel] = [off, h, w * c, "uint8"]
+                blob.write(tape.tobytes())
+                off += tape.nbytes
+                rows.append({"file_path": rel, "channel_width": w, "chunk": chunk,
+                             "label": label, "train_test_split": split})
+                meta.append({"Label": label, "train_test_split": split})
+            mdf = pd.DataFrame(meta)
+            if chunk in CHAMMI_LEAVEOUT:
+                mdf[CHAMMI_LEAVEOUT[chunk]] = [f"g{i % 3}" for i in range(len(mdf))]
+            for t in tasks:
+                mdf[t] = mdf["train_test_split"] == t
+            os.makedirs(os.path.join(root, chunk))
+            mdf.to_csv(os.path.join(root, chunk, "enriched_meta.csv"), index=False)
+    with open(os.path.join(root, "chammi_packed.bin.index.json"), "w") as f:
+        json.dump(index, f)
+    pd.DataFrame(rows).to_csv(os.path.join(root, "morphem70k_v2.csv"), index=False)
+    return root
+
+
+def chammi_host_batch(trainer) -> str:
+    """The host's ms per mixed batch (the loader's next batch with TPS at
+    ``train.tps_prob``, then the copy to the card), over three batches, and
+    the TPS warps that fired."""
+    import torch
+
+    from diverse_channel_vit_torch.data import morphem70k
+
+    warp, fired = morphem70k.tps_warp_chw, [0]
+
+    def counted(rng, img):
+        fired[0] += 1
+        return warp(rng, img)
+
+    morphem70k.tps_warp_chw = counted
+    try:
+        it = iter(trainer.train_loader)
+        ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            batch = next(it)
+            t1 = time.perf_counter()
+            trainer._to_device(batch)
+            torch.cuda.synchronize()
+            ms.append(((t1 - t) * 1e3, (time.perf_counter() - t1) * 1e3))
+    finally:
+        morphem70k.tps_warp_chw = warp
+    n = sum(len(b["label"]) for b in batch.values())
+    return (f"host per {n}-image mixed batch: loader {' / '.join(f'{a:.1f}' for a, _ in ms)} ms, "
+            f"copy to the card {' / '.join(f'{b:.1f}' for _, b in ms)} ms, "
+            f"{fired[0]} TPS warps in {3 * n} images")
+
+
+def chammi_trainer(fb, torch, tmp: str):
+    """CHAMMI through ``main`` at full width: DiChaViT-S, 224^2, batch 64,
+    the overrides of train_scripts.sh:8 with 2 epochs and an eval after each
+    (``eval.clean_up`` off to keep the features), on a fixture this script
+    writes. The counts set to 0 just before and read just after: B1-B4 x 33
+    per step (11 fused blocks x 3 chunk micro-batches), B1 / B3 x 11 per
+    eval forward. Every step's per-chunk losses and grad_norm finite; the
+    k sequence numpy ``default_rng(2025)``'s, drawn per chunk; global
+    labels (Allen's at 4..9); per chunk as many feature rows as its
+    ``enriched_meta.csv``; the nine MorphEm task rows and a CHAMMI score in
+    [0, 1]; the card's kNN predictions equal to the CPU's on the saved
+    features. Prints its ``phase`` line; returns its counts, steps and
+    unit."""
+    import os
+
+    import pandas as pd
+
+    from diverse_channel_vit_torch import main as port_main
+    from diverse_channel_vit_torch.evaluation import KNeighbors
+
+    label = "Trainer CHAMMI"
+    t0 = time.perf_counter()
+    root = write_chammi_fixture(tmp)
+    t_fixture = time.perf_counter() - t0
+    out = os.path.join(tmp, "chammi_run")
+    argv = ["-cn", "chammi_cfg", *CHAMMI_RECIPE, "++train.num_epochs=2",
+            "++eval.every_n_epochs=1", "++eval.clean_up=False", f"++dataset.root_dir={root}",
+            f"++eval.root_dir={root}", f"++eval.feature_dir={out}/feat/{{FOLDER_NAME}}",
+            f"++eval.dest_dir={out}/res/{{FOLDER_NAME}}", f"++train.checkpoints={out}/ck"]
+    print(f"== {label}: fixture written in {t_fixture:.1f} s; python -m "
+          f"diverse_channel_vit_torch.main {' '.join(argv)}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    fb.reset_launches()
+    with TrainerProbe(torch) as probe:
+        best = port_main.main(argv)
+    launches = dict(fb.LAUNCHES)
+    t = probe.trainer
+    steps = len(probe.steps)
+    if steps != 2 * t.updates_per_epoch or not steps or len(probe.evals) != 2:
+        raise AssertionError(f"{label}: {steps} steps and {len(probe.evals)} evals, want "
+                             f"{2 * t.updates_per_epoch} and 2")
+    per_step, per_fwd = 3 * (DEPTH - 1), DEPTH - 1
+    for name, count in launches.items():
+        want = (per_step * steps if name in fused4 else 0) + (
+            per_fwd * probe.eval_forwards if name in fused4[:2] else 0)
+        if count != want:
+            raise AssertionError(f"{label}: {name} launched {count} times in {steps} steps and "
+                                 f"{probe.eval_forwards} eval forwards, want {want}")
+    print(f"{label}: kernel launches {launches} in {steps} steps and {probe.eval_forwards} "
+          f"eval forwards ({per_step} a step, {per_fwd} an eval forward), as expected")
+    keys = ("Allen/loss", "HPA/loss", "CP/loss", "grad_norm")
+    for i, m in enumerate(probe.steps):
+        if not all(np.isfinite(m[k]) for k in keys):
+            raise AssertionError(f"{label} step {i}: non-finite metrics {m}")
+    print(f"{label}: per step " + "; ".join(
+        ", ".join(f"{k} {m[k]:.4f}" for k in keys) for m in probe.steps))
+    rng = np.random.default_rng(CHAMMI_SEED)
+    cs = [3, 4, 5] * steps
+    want_k = [int(rng.integers(1, c + 1)) for c in cs]
+    print(f"{label}: k drawn {probe.draws} for channel counts {cs[:6]}..., numpy "
+          f"default_rng({CHAMMI_SEED}) gives {want_k}")
+    if probe.draws != want_k:
+        raise AssertionError(f"{label}: the k sequence differs from _draw_k's")
+    batch = next(iter(t.train_loader))
+    labels = {c: b["label"] for c, b in batch.items()}
+    print(f"{label}: quotas {t.train_loader.quotas}, labels of one batch "
+          f"{ {c: sorted(set(v.tolist())) for c, v in labels.items()} }")
+    if not (min(v.min() for v in labels.values()) >= 0
+            and max(v.max() for v in labels.values()) <= 13
+            and 4 <= labels["Allen"].min() and labels["Allen"].max() <= 9):
+        raise AssertionError(f"{label}: labels outside the global vocabulary")
+    want_rows = {c: len(pd.read_csv(os.path.join(root, c, "enriched_meta.csv")))
+                 for c in CHAMMI_CHUNKS}
+    res = probe.evals[-1]
+    tasks = sorted(k for k in res if k.startswith("knn_cosine/") and k.endswith("/acc"))
+    score = res["knn_cosine/chammi_score"]
+    print(f"{label}: feature rows {t.feature_rows} (enriched_meta {want_rows}); "
+          f"{len(tasks)} task rows " + ", ".join(f"{k[11:-4]} {res[k]:.4f}" for k in tasks)
+          + f"; knn_cosine/chammi_score {score:.4f}, best {best:.4f}")
+    if t.feature_rows != want_rows or len(tasks) != 9 or not 0.0 <= score <= 1.0:
+        raise AssertionError(f"{label}: the MorphEm eval is incomplete")
+    # the card's kNN against the CPU's on the saved features (epoch 2)
+    feats = os.path.join(out, "feat", f"epoch2_seed{t.seed}")
+    agree = {}
+    for chunk in CHAMMI_CHUNKS:
+        x = np.load(os.path.join(feats, chunk, "features.npy"))
+        meta = pd.read_csv(os.path.join(root, chunk, "enriched_meta.csv"))
+        tr = (meta["train_test_split"] == "Train").to_numpy()
+        y = meta["Label"].to_numpy()
+        for metric in ("cosine", "l2"):
+            card = KNeighbors(metric=metric, device="cuda").fit(x[tr], y[tr]).predict(x[~tr])
+            cpu = KNeighbors(metric=metric, device="cpu").fit(x[tr], y[tr]).predict(x[~tr])
+            agree[f"{chunk}/{metric}"] = int((card == cpu).sum())
+            if not np.array_equal(card, cpu):
+                raise AssertionError(f"{label}: the card's kNN ({chunk}, {metric}) differs "
+                                     "from the CPU's")
+    print(f"{label}: the card's kNN predictions equal the CPU's on the saved features "
+          f"({agree} of {CHAMMI_TEST} test rows a chunk)")
+    host = chammi_host_batch(t)
+    try:
+        import PIL  # noqa: F401
+
+        pil = "PIL imports"
+    except ImportError:
+        pil = "PIL missing (the packed blob needs none)"
+    e2 = probe.epochs[2]
+    split = t.eval_seconds
+    print(f"phase {label}: {e2['imgs_per_sec_per_chip']:.2f} images/s (Trainer steady, epoch 2), "
+          f"epoch {e2['wall_s']:.3f} s, {host}; eval {res['wall_s']:.3f} s (forward "
+          f"{split['forward']:.3f} s, benchmark {split['benchmark']:.3f} s) for "
+          f"{sum(want_rows.values())} images at eval batch size {t.cfg.eval.batch_size}, "
+          f"eval peak memory {res['peak_gb']:.3f} GB, train peak memory "
+          f"{probe.epochs[1]['peak_gb']:.3f} GB (epoch 1); {pil}; card {card_line()}")
+    launches.update(eval_forwards=probe.eval_forwards)
+    del probe, t
+    return launches, steps, "step"
 
 
 def main() -> int:
@@ -2279,6 +2529,12 @@ def main() -> int:
             counts, units, unit = paths[label]
             if name in counts and counts[name]:
                 entry[f"launches_per_{unit}_{label.replace(' ', '_')}"] = counts[name] / units
+        counts, units, _ = paths["Trainer CHAMMI"]
+        if counts.get(name):
+            # the CHAMMI run's launches: per step (3 chunk micro-batches)
+            # and per eval forward
+            entry.update(launches_Trainer_CHAMMI=counts[name], Trainer_CHAMMI_steps=units,
+                         Trainer_CHAMMI_eval_forwards=counts["eval_forwards"])
         if "code_flips" in r:
             entry.update(code_flips=r["code_flips"])
         entry.update(max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],

@@ -15,15 +15,18 @@ Replaces the reference's DataLoader orchestration
   (seed, epoch, index) — reproducible regardless of worker scheduling, and
   equal to the JAX package's batches bit for bit.
 
-The CHAMMI mixed-chunk loader (``MixedChunkLoader``,
-``make_random_instance_train_loader``) is not ported yet (ROADMAP A6);
-building a ``morphem70k`` or ``cifar*`` split raises
-``NotImplementedError``.
+- **CHAMMI**: one loader per chunk for eval, and for training the
+  mixed-chunk loader (``MixedChunkLoader``, built by
+  ``make_random_instance_train_loader``) with fixed per-chunk quotas.
+
+Building a ``cifar*`` split raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import zlib
+from functools import partial
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -97,6 +100,15 @@ def _worker_fetch_shm(args) -> dict:
         else:
             small[key] = val
     return small
+
+
+def build_dataset_with_attrs(build, kwargs: dict, attrs: dict):
+    """Picklable dataset factory: construct, then set the loader-side
+    attributes (``tps_prob``, ``train_classes_dict``)."""
+    ds = build(**kwargs)
+    for k, v in attrs.items():
+        setattr(ds, k, v)
+    return ds
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
@@ -311,6 +323,80 @@ class BatchLoader:
         self._epoch += 1  # auto-advance for plain `for batch in loader` use
 
 
+class MixedChunkLoader:
+    """CHAMMI mixed-chunk train loader with fixed per-chunk quotas.
+
+    Yields ``{chunk_name: {"image": (b_c, C_c, H, W), "label": (b_c,),
+    "valid": (b_c,)}}`` in the order of ``datasets``, where ``b_c =
+    round(batch_size * len_c / total)`` is constant across batches (the
+    largest quota takes the rounding drift, so the quotas sum to
+    ``batch_size``) — the static-shape analogue of
+    ``make_random_instance_train_loader`` + ``get_collate``
+    (``dataset_utils.py:719-783``).
+    """
+
+    def __init__(
+        self,
+        datasets: Dict[str, object],
+        *,
+        batch_size: int,
+        seed: int = 0,
+        num_workers: int = 0,
+        worker_processes: bool = False,
+        dataset_factories: Optional[Dict[str, object]] = None,
+    ):
+        self.datasets = datasets
+        self.batch_size = int(batch_size)
+        self.seed = seed
+        self._epoch = 0
+        lens = {k: len(d) for k, d in datasets.items()}
+        total = sum(lens.values())
+        quotas = {k: max(1, int(round(self.batch_size * n / total))) for k, n in lens.items()}
+        drift = self.batch_size - sum(quotas.values())
+        largest = max(quotas, key=lambda k: quotas[k])
+        quotas[largest] += drift
+        self.quotas = quotas
+        # a per-chunk seed from crc32: Python's str hash changes per process
+        self.loaders = {
+            k: BatchLoader(
+                d,
+                batch_size=quotas[k],
+                shuffle=True,
+                seed=seed + zlib.crc32(k.encode()) % 10000,
+                drop_last=True,
+                num_workers=num_workers,
+                worker_processes=worker_processes,
+                dataset_factory=(dataset_factories or {}).get(k),
+            )
+            for k, d in datasets.items()
+        }
+
+    def set_epoch(self, epoch: int):
+        self._epoch = int(epoch)
+        for ld in self.loaders.values():
+            ld.set_epoch(epoch)
+
+    def close(self):
+        for ld in self.loaders.values():
+            ld.close()
+
+    def __len__(self) -> int:
+        return min(len(ld) for ld in self.loaders.values())
+
+    def __iter__(self):
+        return self.iter_batches(0)
+
+    def iter_batches(self, start: int = 0):
+        """Iterate from batch index ``start``; every chunk's loader skips the
+        same prefix, so the chunks' batches pair up as in a whole epoch."""
+        iters = {k: ld.iter_batches(start) for k, ld in self.loaders.items()}
+        for _ in range(start, len(self)):
+            yield {k: next(it) for k, it in iters.items()}
+        self._epoch += 1
+        for ld in self.loaders.values():
+            ld.set_epoch(self._epoch)
+
+
 # ---------------------------------------------------------------------------
 # class vocabularies (``dataset_utils.py:606-646``)
 # ---------------------------------------------------------------------------
@@ -359,9 +445,6 @@ def get_classes(dataset: str, file_name: str = "", training_chunks: Optional[Lis
 
 
 def _build_split(name: str, cfg_dataset, chunk_channels, split: str, is_train: bool, seed: int):
-    if name in ("morphem70k", "Allen", "HPA", "CP"):
-        raise NotImplementedError(f"dataset {name!r}: the CHAMMI data path (MorphEm70k, the "
-                                  "mixed-chunk loader) is not ported yet (ROADMAP A6)")
     if name in ("cifar10", "cifar100"):
         raise NotImplementedError(f"dataset {name!r}: the CIFAR loader downloads through "
                                   "torchvision and is left out of the port (ROADMAP A6)")
@@ -401,6 +484,14 @@ def _build_split(name: str, cfg_dataset, chunk_channels, split: str, is_train: b
             img_size=cfg_dataset.get("img_size", 224),
             device_augment=bool(getattr(cfg_dataset, "_device_augment", False)),
         )
+    if name in ("morphem70k", "Allen", "HPA", "CP"):
+        return cls(
+            cfg_dataset.root_dir,
+            file_name=cfg_dataset.file_name,
+            chunk_name=chunk_channels,  # chunk name string for CHAMMI
+            is_train=is_train,
+            img_size=cfg_dataset.get("img_size", 224),
+        )
     raise ValueError(f"dataset {name} not valid!")
 
 
@@ -408,12 +499,18 @@ def get_train_val_test_loaders(
     cfg,
     chunk_name: str,
     seed: int,
+    *,
+    tps_prob: float = 0.0,
+    with_train: bool = True,
 ) -> Tuple[Optional[BatchLoader], Optional[BatchLoader], object]:
     """Build (train, val, test) loaders for one chunk.
 
     ``test`` is a dict of loaders when the chunk declares several test
     channel subsets (so2sat test_1/test_2/test_full — the channel-robustness
-    splits the reference evaluates in ``eval_regular``).
+    splits the reference evaluates in ``eval_regular``). A CHAMMI chunk's
+    datasets take the chunk's name, and its train split ``tps_prob``.
+    ``with_train=False`` builds no train loader (CHAMMI trains on the
+    mixed-chunk loader) and returns None in its place.
     """
     name = cfg.dataset.name
     # annotate the dataset cfg with the train-side flag the dataset ctor needs
@@ -434,15 +531,17 @@ def get_train_val_test_loaders(
 
     is_channel_map = isinstance(chunk_map, dict) or hasattr(chunk_map, "keys")
 
-    def mk(split, is_train, channels, batch, shuffle, drop_last, pad_last):
-        from functools import partial
+    is_chammi = name in ("morphem70k", "Allen", "HPA", "CP")
 
+    def mk(split, is_train, channels, batch, shuffle, drop_last, pad_last):
         kwargs = dict(name=name, cfg_dataset=cfg.dataset,
-                      chunk_channels=channels, split=split,
+                      chunk_channels=chunk_name if is_chammi else channels, split=split,
                       is_train=is_train, seed=seed)
-        ds = _build_split(**kwargs)
+        attrs = {"tps_prob": tps_prob} if (is_chammi and is_train) else {}
+        ds = build_dataset_with_attrs(_build_split, kwargs, attrs)
         # process workers only where they pay: the augmented train path
-        factory = partial(_build_split, **kwargs) if (is_train and worker_procs) else None
+        factory = (partial(build_dataset_with_attrs, _build_split, kwargs, attrs)
+                   if (is_train and worker_procs) else None)
         return BatchLoader(
             ds,
             batch_size=batch,
@@ -456,7 +555,7 @@ def get_train_val_test_loaders(
         )
 
     train_channels = chunk_map.get("train") if is_channel_map else None
-    train_loader = mk("train", True, train_channels, bs, True, True, False)
+    train_loader = mk("train", True, train_channels, bs, True, True, False) if with_train else None
 
     val_loader = None
     if is_channel_map and chunk_map.get("valid") is not None:
@@ -469,3 +568,44 @@ def get_train_val_test_loaders(
     else:
         test_loader = mk("test", False, None, eval_bs, False, False, True)
     return train_loader, val_loader, test_loader
+
+
+def make_random_instance_train_loader(cfg, seed: int, *, training_chunks=None
+                                      ) -> Optional[MixedChunkLoader]:
+    """CHAMMI mixed loader (``dataset_utils.py:719-746``) over
+    ``training_chunks`` (default: every chunk of ``data_chunk.chunks``), in
+    that order; None for other datasets. Labels come from the global
+    14-class vocabulary, or under ``training_chunks`` from the chunks'
+    vocabularies concatenated in Allen, HPA, CP order: the proxy bank spans
+    every training class."""
+    if cfg.dataset.name != "morphem70k":
+        return None
+    from .morphem70k import TRAIN_CLASS_DICTS
+
+    chunks = training_chunks or [next(iter(e if isinstance(e, dict) else e.to_dict()))
+                                 for e in cfg.data_chunk.chunks]
+    if training_chunks is None:
+        global_dict = TRAIN_CLASS_DICTS["morphem70k"]
+    else:
+        global_dict, off = {}, 0
+        for part in ("Allen", "HPA", "CP"):
+            if part in chunks:
+                for k_, v_ in TRAIN_CLASS_DICTS[part].items():
+                    global_dict[k_] = off + v_
+                off += len(TRAIN_CLASS_DICTS[part])
+    worker_procs = bool(cfg.hardware.get("worker_processes", False))
+    datasets, factories = {}, {}
+    for chunk_name in chunks:
+        kwargs = dict(name="morphem70k", cfg_dataset=cfg.dataset, chunk_channels=chunk_name,
+                      split="train", is_train=True, seed=seed)
+        attrs = {"tps_prob": cfg.train.get("tps_prob", 0.0), "train_classes_dict": global_dict}
+        datasets[chunk_name] = build_dataset_with_attrs(_build_split, kwargs, attrs)
+        factories[chunk_name] = partial(build_dataset_with_attrs, _build_split, kwargs, attrs)
+    return MixedChunkLoader(
+        datasets,
+        batch_size=cfg.train.batch_size,
+        seed=seed + 2052023,
+        num_workers=cfg.hardware.get("num_workers", 0) or 0,
+        worker_processes=worker_procs,
+        dataset_factories=factories if worker_procs else None,
+    )

@@ -5,13 +5,14 @@ Re-implementations of the reference's transform stacks without
 torchvision/albumentations/cv2:
 
 - So2Sat: random rot90 + two axis flips (``dataset_utils.py:23-76``)
+- CHAMMI: RandomResizedCrop(scale 0.8-1.0, ratio 0.9-1.1) + HFlip for train,
+  Resize + CenterCrop for eval (``dataset_utils.py:233-280``)
 - JUMP-CP: pad-to-256 + random crop 224, flip/rot90 one-of, Defocus(1-3),
   CoarseDropout(10x 10x10 holes) (``jump_cp_transforms.py:105-141``)
 
 All functions take (C, H, W) float32 arrays and an ``np.random.Generator``;
 randomness is explicit so loaders are reproducible per (seed, epoch, index).
-CHAMMI's resized crops and CIFAR's channel recomposition come with those
-datasets (ROADMAP A6).
+CIFAR's channel recomposition comes with that dataset (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -33,6 +34,95 @@ def random_rot90_flips(rng: np.random.Generator, img: np.ndarray) -> np.ndarray:
     if rng.integers(0, 2) == 1:
         img = np.flip(img, 2)
     return np.ascontiguousarray(img)
+
+
+def hflip(img: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.flip(img, 2))
+
+
+def _bilinear_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """(C, H, W) bilinear resize, torch ``align_corners=False`` convention."""
+    c, h, w = img.shape
+    if (h, w) == (out_h, out_w):
+        return img
+    ys = (np.arange(out_h, dtype=np.float32) + 0.5) * (h / out_h) - 0.5
+    xs = (np.arange(out_w, dtype=np.float32) + 0.5) * (w / out_w) - 0.5
+    ys = np.clip(ys, 0, h - 1)
+    xs = np.clip(xs, 0, w - 1)
+    y0 = np.floor(ys).astype(np.int64)
+    x0 = np.floor(xs).astype(np.int64)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    wy = (ys - y0)[None, :, None]
+    wx = (xs - x0)[None, None, :]
+    a = img[:, y0][:, :, x0]
+    b = img[:, y0][:, :, x1]
+    c_ = img[:, y1][:, :, x0]
+    d = img[:, y1][:, :, x1]
+    top = a * (1 - wx) + b * wx
+    bot = c_ * (1 - wx) + d * wx
+    return (top * (1 - wy) + bot * wy).astype(img.dtype)
+
+
+def resize(img: np.ndarray, size: int) -> np.ndarray:
+    """torchvision Resize(size): scale the short side to ``size``."""
+    c, h, w = img.shape
+    if h <= w:
+        out_h, out_w = size, max(1, round(w * size / h))
+    else:
+        out_h, out_w = max(1, round(h * size / w)), size
+    return _bilinear_resize(img, out_h, out_w)
+
+
+def center_crop(img: np.ndarray, size: int) -> np.ndarray:
+    c, h, w = img.shape
+    top = max(0, (h - size) // 2)
+    left = max(0, (w - size) // 2)
+    out = img[:, top : top + size, left : left + size]
+    if out.shape[1] != size or out.shape[2] != size:  # pad if smaller
+        pad_h, pad_w = size - out.shape[1], size - out.shape[2]
+        out = np.pad(out, ((0, 0), (pad_h // 2, pad_h - pad_h // 2), (pad_w // 2, pad_w - pad_w // 2)))
+    return out
+
+
+def sample_rrc_params(
+    rng: np.random.Generator, h: int, w: int, scale=(0.8, 1.0), ratio=(0.9, 1.1)
+):
+    """torchvision RandomResizedCrop param sampling (10 tries then fallback).
+    Returns (top, left, crop_h, crop_w)."""
+    area = h * w
+    log_ratio = np.log(np.asarray(ratio, np.float64))
+    for _ in range(10):
+        target_area = area * rng.uniform(scale[0], scale[1])
+        aspect = np.exp(rng.uniform(log_ratio[0], log_ratio[1]))
+        cw = int(round(np.sqrt(target_area * aspect)))
+        ch = int(round(np.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            top = int(rng.integers(0, h - ch + 1))
+            left = int(rng.integers(0, w - cw + 1))
+            return top, left, ch, cw
+    # fallback: center crop of clamped aspect
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        ch, cw = h, int(round(h * ratio[1]))
+    else:
+        cw, ch = w, h
+    return (h - ch) // 2, (w - cw) // 2, ch, cw
+
+
+def random_resized_crop(
+    rng: np.random.Generator,
+    img: np.ndarray,
+    size: int,
+    scale=(0.8, 1.0),
+    ratio=(0.9, 1.1),
+) -> np.ndarray:
+    """torchvision RandomResizedCrop."""
+    c, h, w = img.shape
+    top, left, ch, cw = sample_rrc_params(rng, h, w, scale, ratio)
+    return _bilinear_resize(img[:, top : top + ch, left : left + cw], size, size)
 
 
 def random_pad_crop(

@@ -1,5 +1,5 @@
-"""The DiChaViT factory (counterpart of the JAX package's
-``models/dichavit.py``).
+"""The DiChaViT and ChannelViT factories (counterpart of the JAX package's
+``models/dichavit.py``: ``dichavit`` and ``channelvit_adapt``, one builder).
 
 DiChaViT is the ChannelViT backbone; its diversity mechanisms (channel
 sampling, CDL, TDL) act only in training. CDL and TDL are computed by the
@@ -83,4 +83,13 @@ def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.d
 
 @register_model("dichavit")
 def dichavit(cfg_model, mapper: dict, num_classes: int, dtype=torch.float32, generator=None):
+    return _build_channel_vit(cfg_model, mapper, num_classes, dtype, generator)
+
+
+@register_model("channelvit_adapt")
+def channelvit_adapt(cfg_model, mapper: dict, num_classes: int, dtype=torch.float32,
+                     generator=None):
+    """ChannelViT: the same builder under its own name (JAX
+    ``models/dichavit.py:75-77``); DiChaViT's mechanisms stay off unless its
+    config turns them on."""
     return _build_channel_vit(cfg_model, mapper, num_classes, dtype, generator)

@@ -1,9 +1,9 @@
 """Trainer — the run orchestrator (counterpart of the JAX package's
-``trainer.py``), single-chunk path.
+``trainer.py``).
 
 Builds loaders, model, optimizer, schedules and logger in ``__init__``,
 then runs the epoch loop with evaluation and checkpoints, as the JAX
-Trainer does for JUMP-CP, So2Sat and the synthetic config:
+Trainer does for JUMP-CP, So2Sat, CHAMMI and the synthetic config:
 
 - the channel-count draw of DCS (``k ~ U[1, C]``) comes from the numpy
   ``host_rng`` seeded with ``train.seed``, one step function per k, all
@@ -14,6 +14,11 @@ Trainer does for JUMP-CP, So2Sat and the synthetic config:
   rows of a ``pad_last`` batch are dropped before the forward (the mask
   excludes them anyway), so a small eval split costs one small forward
   whatever the eval batch size;
+- CHAMMI (``morphem70k``) trains on the mixed-chunk loader's batches with
+  the proxy loss: one grad micro-batch per chunk in the batch's order, each
+  with its own k draw, summed in ``.grad``, then one update; its eval dumps
+  every test chunk's features and runs the MorphEm kNN benchmark
+  (``evaluation/morphem_eval.py``), ``accuracy`` being the CHAMMI score;
 - a checkpoint is ``training/checkpoint.py``'s torch file and meta.json.
 
 The device is the caller's ``device``, else ``hardware.device`` (``cuda``
@@ -34,16 +39,16 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from .data import get_classes, get_train_val_test_loaders, prefetch
+from .data import (get_classes, get_train_val_test_loaders, make_random_instance_train_loader,
+                   prefetch)
 from .device import resolve_device
 from .logging_utils import MyLogging
 from .models import build_model
 from .ops.sampling import NOT_PORTED
-from .training import TrainState, make_eval_step, make_lr_schedule, make_optimizer, make_train_step
+from .training import (TrainState, make_eval_step, make_grad_step, make_lr_schedule,
+                       make_optimizer, make_train_step)
 from .training.checkpoint import load_checkpoint, save_checkpoint
 from .utils.misc import AverageMeter, Timer, set_seeds
-
-_CHAMMI = ("morphem70k", "Allen", "HPA", "CP")
 
 
 def _default(val, fallback):
@@ -54,28 +59,57 @@ def _as_dict(section) -> dict:
     return section.to_dict() if hasattr(section, "to_dict") else dict(section or {})
 
 
+def chunk_names(cfg) -> list:
+    """The chunks of ``data_chunk.chunks``, in order."""
+    return [next(iter(_as_dict(e))) for e in cfg.data_chunk.chunks]
+
+
+def build_mapper(cfg) -> dict:
+    """chunk -> global-channel-id mapper from the config alone (the JAX
+    ``build_mapper``; the reference's hard-coded CHAMMI maps,
+    ``trainer.py:128-150``); other datasets read the split dict of
+    ``data_chunk.chunks[0]``."""
+    if cfg.dataset.name == "morphem70k":
+        if len(cfg.dataset.in_channel_names) == 12:
+            return {"Allen": [0, 1, 2], "HPA": [3, 4, 5, 6], "CP": [7, 8, 9, 10, 11]}
+        return {"Allen": [5, 2, 6], "HPA": [3, 6, 5, 0], "CP": [5, 0, 7, 1, 4]}
+    entry = _as_dict(cfg.data_chunk.chunks[0])
+    return dict(entry[next(iter(entry))])
+
+
+def training_chunk_list(cfg):
+    """``train.training_chunks`` as a list of chunks, or None for all."""
+    tc = cfg.train.get("training_chunks")
+    if tc in (None, "train"):
+        return None
+    return [c for c in str(tc).split("_") if c]
+
+
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for each key the port's Trainer does
-    not honour yet, naming its ROADMAP item."""
+    not honour yet, naming its ROADMAP item. ``model.new_channel_inits``
+    is honoured where JAX collapses it to no strategy: CHAMMI trained on
+    every chunk (``trainer.py:1199-1201``)."""
     tr, model, ev, hw = cfg.train, cfg.model, cfg.eval, cfg.hardware
     name = cfg.dataset.name
+    chammi = name == "morphem70k"
+    subset = training_chunk_list(cfg)
+    all_chunks = chammi and (subset is None or set(subset) >= set(chunk_names(cfg)))
     refusals = [
-        (name in _CHAMMI, f"dataset {name!r}: CHAMMI (the mixed-chunk loader, the proxy-loss "
-                          "grad-accumulation steps, the MorphEm eval) is ROADMAP A6/A7"),
         (name in ("cifar10", "cifar100"), f"dataset {name!r}: the CIFAR loader downloads "
                                           "through torchvision and is left out (ROADMAP A6)"),
         (bool(tr.get("swa")) or bool(tr.get("swad")), "train.swa / train.swad (ROADMAP A6)"),
         (bool(tr.get("miro")), "train.miro (ROADMAP A6, A4.5)"),
         (bool(tr.get("ssl")), "train.ssl (ROADMAP A6)"),
-        (float(tr.get("tps_prob") or 0.0) > 0, "train.tps_prob > 0: TPS is CHAMMI's (ROADMAP A6)"),
-        (tr.get("training_chunks") not in (None, "train"),
-         "train.training_chunks: chunk subsets are CHAMMI's (ROADMAP A6)"),
         (bool(model.get("freeze_other")), "model.freeze_other (ROADMAP A6 freeze)"),
         (int(_default(model.get("unfreeze_last_n_layers"), -1)) >= 0,
          "model.unfreeze_last_n_layers >= 0 (ROADMAP A6 freeze)"),
         (bool(model.get("pretrained")), "model.pretrained: weight import (ROADMAP A9, A11)"),
-        (bool(model.get("new_channel_inits")),
-         "model.new_channel_inits: novel-channel eval (ROADMAP A7, A8)"),
+        (bool(model.get("new_channel_inits")) and not all_chunks,
+         "model.new_channel_inits: novel-channel eval (ROADMAP A7, A8)"
+         + (" on a training_chunks subset (leave-one-out embedding synthesis, A8.4)"
+            if chammi else "")),
+        (chammi and bool(ev.get("umap")), "eval.umap: the embedding figures (ROADMAP A7)"),
         (bool(ev.get("eval_subset_channels")),
          "eval.eval_subset_channels: the channel-subset sweep (ROADMAP A7, A8)"),
         (bool(tr.get("plot_attn")), "train.plot_attn (ROADMAP A6)"),
@@ -120,11 +154,16 @@ class Trainer:
             dtype_name = "bfloat16"  # AMP flag parity: bf16 compute
         self.dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
 
-        # -- split -> channel-id mapper: the single chunk's split dict --------
-        entry = _as_dict(cfg.data_chunk.chunks[0])
-        self.chunk = next(iter(entry))
-        self.mapper = dict(entry[self.chunk])
-        cfg.train.training_chunks = "train"
+        # -- chunk (CHAMMI) or split -> channel-id mapper (_build_mapper) ----
+        self.chammi = self.dataset_name == "morphem70k"
+        self.all_chunks = chunk_names(cfg)
+        self.chunk = self.all_chunks[0]
+        self.mapper = build_mapper(cfg)
+        if not self.chammi:
+            # single-chunk datasets train on the lone "train" split; JAX
+            # resets the key so (trainer.py:578-580), and only CHAMMI's
+            # dataset reads train.tps_prob
+            cfg.train.training_chunks = "train"
 
         # auto-size the eval batch to the card's memory when unset (reference
         # trainer.py:93-105: 512 at 14 GB, scaled and rounded to a power of 2;
@@ -139,11 +178,10 @@ class Trainer:
                 ebs = 128
             cfg.eval.batch_size = ebs
 
-        # -- data (the test loader is a dict of loaders for several test
-        # channel subsets, So2Sat's test_1 / test_2 / test_full) ------------
-        self.train_loader, self.val_loader, self.test_loader = get_train_val_test_loaders(
-            cfg, self.chunk, self.seed)
-        train_classes, _ = get_classes(self.dataset_name, cfg.dataset.get("file_name") or "")
+        # -- data ------------------------------------------------------------
+        self._build_dataset()
+        train_classes, _ = get_classes(self.dataset_name, cfg.dataset.get("file_name") or "",
+                                       training_chunks=training_chunk_list(cfg))
         self.num_classes = (int(cfg.dataset.get("num_classes", 10)) if train_classes is None
                             else len(train_classes))
 
@@ -161,7 +199,9 @@ class Trainer:
         self.hcs_enabled = bool(cfg.model.get("enable_sample", False))
         self.hcs_method = cfg.model.get("hcs_sampling", "none") or "none"
         self.hcs_temp = float(cfg.model.get("hcs_sampling_temp", 0.1) or 0.1)
-        self.loss_type = "ce"  # single-chunk classification: CE on the head
+        # CHAMMI trains with the proxy loss, single-chunk classification with
+        # CE on the head (trainer.py:251-253)
+        self.loss_type = "proxy" if self.chammi else "ce"
 
         # -- schedules / optimizer ------------------------------------------
         self.updates_per_epoch = max(1, len(self.train_loader))
@@ -191,6 +231,7 @@ class Trainer:
         # one generator on the device --------------------------------------
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._train_steps: Dict = {}
+        self._grad_steps: Dict = {}
         self._eval_step = make_eval_step(self.model)
         self.eval_counts: Dict[str, tuple] = {}
 
@@ -211,12 +252,32 @@ class Trainer:
             self.logger.info("train.auto_resume: the port writes no preemption checkpoint yet "
                              "(ROADMAP A6), so there is nothing to resume")
 
+    def _build_dataset(self):
+        """The loaders (``trainer.py:592-622``). A single-chunk dataset: the
+        chunk's train, valid and test loaders (the test loader a dict of
+        loaders for several test channel subsets, So2Sat's test_1 / test_2
+        / test_full). CHAMMI: every chunk's test loader, over all of the
+        chunk's rows, and the mixed-chunk train loader (JAX's ``SHUFFLE_ALL``)
+        over the training chunks, ``train.tps_prob`` on its datasets."""
+        cfg = self.cfg
+        if not self.chammi:
+            self.train_loader, self.val_loader, self.test_loader = get_train_val_test_loaders(
+                cfg, self.chunk, self.seed)
+            return
+        self.test_loaders = {}
+        for chunk in self.all_chunks:
+            _, _, self.test_loaders[chunk] = get_train_val_test_loaders(
+                cfg, chunk, self.seed, with_train=False)
+        self.train_loader = make_random_instance_train_loader(
+            cfg, self.seed, training_chunks=training_chunk_list(cfg))
+        self.val_loader = self.test_loader = None
+
     # ------------------------------------------------------------------
     # steps
     # ------------------------------------------------------------------
 
-    def _chunk_channel_ids(self, split: str):
-        return list(self.mapper[split])
+    def _chunk_channel_ids(self, chunk_or_split: str):
+        return list(self.mapper[chunk_or_split])
 
     def _draw_k(self, c: int) -> Optional[int]:
         """HCS channel-count draw Cin_new ~ U[1, C] (``channel_vit.py:79-82``)."""
@@ -234,6 +295,17 @@ class Trainer:
                 temperature=self.temperature, augment_fn=self._device_augment_fn(),
             )
         return self._train_steps[key]
+
+    def _get_grad_step(self, channel_ids, k):
+        key = (tuple(channel_ids), k)
+        if key not in self._grad_steps:
+            self._grad_steps[key] = make_grad_step(
+                self.model, channel_ids=channel_ids, k=k, hcs_method=self.hcs_method,
+                hcs_temp=self.hcs_temp, generator=self.generator, loss_type=self.loss_type,
+                extra_loss_lambda=self.extra_loss_lambda, learnable_temp=self.learnable_temp,
+                temperature=self.temperature,
+            )
+        return self._grad_steps[key]
 
     def _device_augment_fn(self):
         """On-device JUMP-CP augmentation when the loader ships raw crops."""
@@ -310,8 +382,12 @@ class Trainer:
         for i, batch in enumerate(loader_iter):
             if i >= max_batches:
                 break
-            metrics = self._train_one_batch_regular(batch)
-            n_images += batch["image"].shape[0]
+            if self.chammi:
+                metrics = self._train_one_batch_morphem(batch)
+                n_images += sum(b["image"].shape[0] for b in batch.values())
+            else:
+                metrics = self._train_one_batch_regular(batch)
+                n_images += batch["image"].shape[0]
             if t_first_step_done is None:
                 t_first_step_done = time.perf_counter()
                 n_warmup = n_images
@@ -332,8 +408,11 @@ class Trainer:
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """A host batch on the device, images in the compute dtype (JAX
-        ``_device_batch``). It runs in the prefetch thread; the copies are
-        synchronous and on the device's default stream, the step's."""
+        ``_device_batch``); a CHAMMI batch ``{chunk: batch}`` chunk by chunk.
+        It runs in the prefetch thread; the copies are synchronous and on the
+        device's default stream, the step's."""
+        if "image" not in batch:
+            return {chunk: self._to_device(sub) for chunk, sub in batch.items()}
         img = torch.from_numpy(batch["image"])
         if self.dtype == torch.bfloat16 and img.dtype == torch.float32:
             img = img.to(torch.bfloat16)
@@ -354,11 +433,42 @@ class Trainer:
             out["sampled_channels"] = sampled.tolist()
         return out
 
+    def _train_one_batch_morphem(self, batch) -> Dict[str, object]:
+        """A mixed CHAMMI batch (``trainer.py:1111-1141``): per chunk, in the
+        batch's order, a k draw and a grad micro-batch into ``.grad``; then
+        one update. Metrics ``{chunk}/{name}``, ``grad_norm`` (the summed
+        gradient's, before clipping) and ``loss``, the chunks' sum."""
+        self.state.optimizer.zero_grad(set_to_none=True)
+        per_chunk, sampled = {}, []
+        for chunk, sub in batch.items():
+            cids = self._chunk_channel_ids(chunk)
+            k = self._draw_k(len(cids))
+            metrics = self._get_grad_step(cids, k)(sub)
+            cs = metrics.pop("sampled_channels", None)
+            if cs is not None:
+                sampled.append(cs)
+            per_chunk.update({f"{chunk}/{n}": v for n, v in metrics.items()})
+        gnorm = self.state.apply_gradients()
+        # one host readback for the whole metrics dict
+        names = sorted(per_chunk)
+        values = torch.stack([per_chunk[n].float() for n in names] + [gnorm.float()]).tolist()
+        out: Dict[str, object] = dict(zip(names, values[:-1]))
+        out["grad_norm"] = values[-1]
+        out["loss"] = sum(v for n, v in out.items() if n.endswith("/loss"))
+        if sampled:
+            # global channel ids from every chunk feed one counter
+            out["sampled_channels"] = torch.cat(sampled).tolist()
+        return out
+
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
 
     def evaluate_model(self, epoch: int) -> Dict[str, float]:
+        if self.chammi:
+            from .evaluation.morphem_eval import eval_morphem70k
+
+            return eval_morphem70k(self, epoch)
         return self.eval_regular(epoch)
 
     def eval_regular(self, epoch: int) -> Dict[str, float]:

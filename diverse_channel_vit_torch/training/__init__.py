@@ -1,10 +1,10 @@
 """Training of the port (counterpart of the JAX package's ``training/``):
-schedules, the AdamW optimizer, the train state and the train step."""
+schedules, the AdamW optimizer, the train state, the train step and CHAMMI's per-chunk grad step."""
 
 from .optim import AdamW, make_optimizer
 from .schedules import make_lr_schedule, timm_cosine_schedule, wd_cosine_schedule
 from .state import TrainState
-from .steps import make_eval_step, make_train_step
+from .steps import make_eval_step, make_grad_step, make_train_step
 
 __all__ = [
     "AdamW",
@@ -12,6 +12,7 @@ __all__ = [
     "make_lr_schedule",
     "make_optimizer",
     "make_eval_step",
+    "make_grad_step",
     "make_train_step",
     "timm_cosine_schedule",
     "wd_cosine_schedule",

@@ -18,9 +18,16 @@ keeps one compiled step per k). The channels are drawn on the device from a
 the channel selection, as the JAX step does (JUMP-CP's ``ops/augment.py``
 in the Trainer). :func:`make_eval_step` is the eval forward.
 
+:func:`make_grad_step` is CHAMMI's per-chunk micro-batch (the JAX
+``make_grad_step``): the same forward and loss, its backward adding into
+the parameters' ``.grad``, no update. A mixed batch zeroes the gradients
+once, runs one grad step per chunk, and makes one update with
+``TrainState.apply_gradients`` (the JAX ``make_apply_step``), which clips
+the summed gradient and returns its norm before clipping: the accumulation
+in ``.grad`` is JAX's ``tree_add``.
+
 Ported for one device. The ``_proj`` / ``_resnet34`` / ``hcs_per_sample``
-samplers, the per-chunk CHAMMI grad step, MIRO and the multi-device mesh
-are not ported yet.
+samplers, MIRO and the multi-device mesh are not ported yet.
 """
 
 from __future__ import annotations
@@ -100,6 +107,44 @@ def make_train_step(
     ``augment_fn(generator, images) -> images`` augments the batch first,
     drawing from the same generator before the channel sampling does (the
     JAX step's order)."""
+    grad_step = make_grad_step(
+        model, channel_ids=channel_ids, k=k, hcs_method=hcs_method, hcs_temp=hcs_temp,
+        generator=generator, loss_type=loss_type, extra_loss_lambda=extra_loss_lambda,
+        learnable_temp=learnable_temp, temperature=temperature, augment_fn=augment_fn)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[dict] = None):
+        state.optimizer.zero_grad(set_to_none=True)
+        metrics = grad_step(batch, draws)
+        metrics["grad_norm"] = state.apply_gradients()
+        return state, metrics
+
+    return step
+
+
+def make_grad_step(
+    model: torch.nn.Module,
+    *,
+    channel_ids: Sequence[int],
+    k: Optional[int] = None,
+    hcs_method: str = "none",
+    hcs_temp: float = 0.1,
+    generator: Optional[torch.Generator] = None,
+    loss_type: str = "proxy",
+    extra_loss_lambda: float = 0.0,
+    learnable_temp: bool = False,
+    temperature: float = 0.11111,
+    augment_fn: Optional[Callable] = None,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``grad_step(batch, draws=None) -> metrics``: one batch's forward,
+    loss and backward, its gradients added into the parameters' ``.grad``,
+    no update. It is CHAMMI's per-chunk micro-batch (the JAX
+    ``make_grad_step``, whose gradients the trainer sums with ``tree_add``;
+    the reference's repeated ``loss.backward()``, ``trainer.py:846-931``):
+    the caller zeroes the gradients before the first chunk
+    (``state.optimizer.zero_grad``) and updates once after the last
+    (``state.apply_gradients()``, which returns the summed gradient's norm
+    before clipping). The arguments and the metrics are
+    :func:`make_train_step`'s, without ``grad_norm``."""
     if k is not None and k < len(channel_ids) and hcs_method in NOT_PORTED:
         raise NotImplementedError(
             f"hcs_sampling={hcs_method!r} is not ported yet (ROADMAP A4)")
@@ -107,7 +152,7 @@ def make_train_step(
     cids_on = {}
     gen = [generator]
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[dict] = None):
+    def grad_step(batch: Dict[str, torch.Tensor], draws: Optional[dict] = None):
         x, y = batch["image"], batch["label"]
         cids = cids_on.get(x.device)
         if cids is None:
@@ -117,19 +162,17 @@ def make_train_step(
         if augment_fn is not None:
             x = augment_fn(gen[0], x)
         model.train()
-        state.optimizer.zero_grad(set_to_none=True)
         xs, cs = _select_channels(model, x, cids, k=k, method=hcs_method, temp=hcs_temp,
                                   generator=gen[0], draws=draws)
         total, metrics = _loss_and_metrics(
             model, xs, cs, y, loss_type=loss_type, extra_loss_lambda=extra_loss_lambda,
             learnable_temp=learnable_temp, temperature=temperature)
         total.backward()
-        metrics["grad_norm"] = state.apply_gradients()
         if cs is not cids:
             metrics["sampled_channels"] = cs
-        return state, metrics
+        return metrics
 
-    return step
+    return grad_step
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:

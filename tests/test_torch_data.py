@@ -12,7 +12,8 @@ the JAX one bit for bit (``np.array_equal`` on images, labels and the
   channel subsets;
 
 each eval loader padding its last batch (``pad_last``) with a ``valid``
-mask; and ``get_classes``.
+mask; and ``get_classes``. CHAMMI's loaders are held in
+tests/test_torch_chammi_data.py.
 """
 
 import numpy as np
@@ -156,10 +157,34 @@ def test_get_classes_equal_jax(dataset):
     assert loaders.get_classes(dataset, **kw) == jloaders.get_classes(dataset, **kw)
 
 
-@pytest.mark.parametrize("name", ["morphem70k", "cifar10"])
+@pytest.mark.parametrize("name", ["cifar10"])
 def test_unported_datasets_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         loaders._build_split(name, None, [0], "train", True, 0)
+
+
+@pytest.mark.parametrize("name", ["morphem70k"])
+def test_formerly_refused_datasets_build_as_jax(name, tmp_path):
+    """CHAMMI's split builds since the CHAMMI port (it raised before): a
+    chunk's train and eval datasets equal the JAX package's, example for
+    example (tests/test_torch_chammi_data.py holds the loaders)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from scripts.make_chammi_fixture import main as make_fixture
+
+    make_fixture(str(tmp_path), n=8, img=32)
+    over = [f"++dataset.root_dir={tmp_path}", "++dataset.img_size=24"]
+    for is_train in (True, False):
+        args = (name, load_config("chammi_cfg", over).dataset, "HPA", "train", is_train, 0)
+        ds = loaders._build_split(*args)
+        jds = jloaders._build_split(args[0], jload_config("chammi_cfg", over).dataset, *args[2:])
+        assert len(ds) == len(jds) == (4 if is_train else 8)
+        for i in range(len(ds)):
+            a = ds.get_example(i, rng=np.random.default_rng(i))
+            b = jds.get_example(i, rng=np.random.default_rng(i))
+            assert a["label"] == b["label"] and np.array_equal(a["image"], b["image"])
 
 
 def test_prefetch_raises_the_producers_error_and_stops_early():

@@ -3,8 +3,9 @@
 In a fresh interpreter with ``jax``, ``flax`` and ``optax`` set to None in
 ``sys.modules`` (so importing any of them fails), every module of
 ``diverse_channel_vit_torch`` (``training/`` included) and ``chip_smoke``
-must import (the benchmark scripts of ``scripts/`` and ``bench`` too, and
-the training entry point: ``main``, ``trainer``, the data layer), and no
+must import (the benchmark scripts of ``scripts/`` and ``bench`` too, the
+training entry point: ``main``, ``trainer``, the data layer, and CHAMMI's
+modules: ``data/morphem70k``, ``data/tps``, ``native``, ``evaluation/*``), and no
 ``diverse_channel_vit_tpu`` module may appear in ``sys.modules``. Importing
 ``main`` parses no command line: the probe's argv holds an option that
 ``main``'s parser would refuse.
@@ -38,7 +39,9 @@ assert "diverse_channel_vit_torch.ops.sampling" in sys.modules
 assert "diverse_channel_vit_torch.scripts.bench_attn" in sys.modules
 assert "diverse_channel_vit_torch.bench" in sys.modules
 for name in ("main", "trainer", "data.loaders", "config.loader", "ops.augment",
-             "training.checkpoint", "logging_utils", "utils.misc"):
+             "training.checkpoint", "logging_utils", "utils.misc", "data.morphem70k",
+             "data.tps", "native", "evaluation", "evaluation.knn", "evaluation.metrics",
+             "evaluation.benchmark", "evaluation.morphem_eval"):
     assert "diverse_channel_vit_torch." + name in sys.modules, name
 """
 
@@ -48,4 +51,4 @@ def test_port_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 47, proc.stdout
+    assert n_modules >= 55, proc.stdout

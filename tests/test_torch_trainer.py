@@ -27,7 +27,9 @@
   2 epochs pass 0.3 turns on the initial weights, in both packages.
 - The DCS channel-count draws equal JAX ``Trainer._draw_k``'s sequence.
 - Every key the Trainer does not honour raises ``NotImplementedError``
-  naming its ROADMAP item.
+  naming its ROADMAP item; the keys it refused before the CHAMMI port follow
+  JAX (CHAMMI trains; ``tps_prob`` and ``training_chunks`` are ignored off
+  CHAMMI), and ``build_mapper`` equals JAX's.
 - Devices: with the device unset the Trainer and ``main`` run on the card,
   so they raise without one.
 """
@@ -173,14 +175,14 @@ def test_dcs_k_draws_equal_jax(tmp_path):
 
 
 REFUSED = [
-    ("chammi_cfg", [], "ROADMAP A6"),
+    ("chammi_cfg", ["train.training_chunks=Allen_HPA", "model.new_channel_inits=[zero]"],
+     "ROADMAP A7"),
+    ("chammi_cfg", ["eval.umap=True"], "ROADMAP A7"),
     ("cifar10_cfg", [], "ROADMAP A6"),
     ("synthetic_cfg", ["train.swa=True"], "ROADMAP A6"),
     ("synthetic_cfg", ["train.swad=True"], "ROADMAP A6"),
     ("synthetic_cfg", ["train.miro=True"], "ROADMAP A6"),
     ("synthetic_cfg", ["train.ssl=True"], "ROADMAP A6"),
-    ("synthetic_cfg", ["train.tps_prob=0.2"], "ROADMAP A6"),
-    ("synthetic_cfg", ["train.training_chunks=Allen_HPA"], "ROADMAP A6"),
     ("synthetic_cfg", ["model.freeze_other=True"], "ROADMAP A6"),
     ("synthetic_cfg", ["model.unfreeze_last_n_layers=2"], "ROADMAP A6"),
     ("synthetic_cfg", ["model.pretrained=True"], "ROADMAP A9"),
@@ -207,6 +209,62 @@ def test_unported_keys_raise(name, over, match, tmp_path):
     cfg = load_config(name, TINY + over + [f"train.checkpoints={tmp_path}"])
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, device="cpu")
+
+
+# keys the Trainer refused before the CHAMMI port and now honours (CHAMMI) or
+# ignores as JAX does (tps_prob and training_chunks off CHAMMI)
+HONOURED = [
+    ("chammi_cfg", []),
+    ("synthetic_cfg", ["train.tps_prob=0.2"]),
+    ("synthetic_cfg", ["train.training_chunks=Allen_HPA"]),
+]
+
+
+@pytest.mark.parametrize("name,over", HONOURED,
+                         ids=[f"{n}-{'-'.join(o) or 'default'}" for n, o in HONOURED])
+def test_formerly_refused_keys_follow_jax(name, over, tmp_path):
+    import sys
+
+    from diverse_channel_vit_tpu.data import loaders as jloaders
+
+    args = TINY + over + [f"train.checkpoints={tmp_path}"]
+    if name == "chammi_cfg":
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        from scripts.make_chammi_fixture import main as make_fixture
+
+        make_fixture(str(tmp_path), n=24, img=32)
+        args += [f"++dataset.root_dir={tmp_path}", "++dataset.img_size=32",
+                 "++model.img_size=[32]", "++model.patch_size=8",
+                 "++model.pretrained_model_name=test"]
+    cfg, jcfg = load_config(name, args), jload_config(name, args)
+    t = Trainer(cfg, device="cpu")
+    if name == "chammi_cfg":
+        # the mixed loader, the proxy loss over the 14 global classes, no head
+        assert t.mapper == JTrainer._build_mapper(types.SimpleNamespace(
+            cfg=jcfg, dataset_name="morphem70k"))
+        mixed = jloaders.make_random_instance_train_loader(jcfg, t.seed)
+        assert t.train_loader.quotas == mixed.quotas
+        assert t.updates_per_epoch == len(mixed) == 2
+        assert t.loss_type == "proxy" and t.num_classes == 14
+        assert t.model.classifer_head is None and sorted(t.test_loaders) == ["Allen", "CP", "HPA"]
+        return
+    # off CHAMMI, JAX resets training_chunks (trainer.py:578-580) and no
+    # dataset reads tps_prob: the same loaders and batches as without the key
+    JTrainer._build_mapper(types.SimpleNamespace(cfg=jcfg, dataset_name="synthetic"))
+    assert cfg.train.training_chunks == jcfg.train.training_chunks == "train"
+    plain = Trainer(load_config(name, TINY + [f"train.checkpoints={tmp_path}"]), device="cpu")
+    for a, b in zip(t.train_loader, plain.train_loader):
+        assert np.array_equal(a["image"], b["image"]) and np.array_equal(a["label"], b["label"])
+
+
+@pytest.mark.parametrize("dataset", ["morphem70k_v2", "morphem70k_v2_12channels", "synthetic"])
+def test_build_mapper_equals_jax(dataset):
+    from diverse_channel_vit_tpu.trainer import build_mapper as jbuild_mapper
+    from diverse_channel_vit_torch.trainer import build_mapper
+
+    name = "synthetic_cfg" if dataset == "synthetic" else "chammi_cfg"
+    args = [] if dataset == "synthetic" else [f"dataset={dataset}"]
+    assert build_mapper(load_config(name, args)) == jbuild_mapper(jload_config(name, args))
 
 
 def test_save_model_best_raises_as_jax(tmp_path):
