@@ -1779,7 +1779,9 @@ class TrainerProbe:
     each epoch's metrics, wall time and peak device memory (since the run's
     or the last evaluation's start), each CHAMMI step's metrics, the k of
     every DCS draw, each evaluation's wall time and peak device memory, and
-    the eval forwards.
+    the eval forwards; of a CHAMMI evaluation (``evaluation/morphem_eval``)
+    also the seconds of its feature forwards and of its benchmark, and the
+    feature rows of each chunk.
     With ``profile_epoch`` that epoch runs under ``torch.profiler`` (device
     activity only) and its device busy time is kept."""
 
@@ -1787,15 +1789,19 @@ class TrainerProbe:
         self.torch, self.profile_epoch = torch, profile_epoch
         self.trainer, self.epochs, self.draws, self.evals = None, {}, [], []
         self.eval_forwards, self.busy_us, self.steps = 0, None, []
+        self.feature_rows, self.split = {}, {}
 
     def __enter__(self):
         from diverse_channel_vit_torch import trainer as tm
+        from diverse_channel_vit_torch.evaluation import morphem_eval as me
 
         torch, probe = self.torch, self
         self.tm, self.saved = tm, {n: getattr(tm.Trainer, n) for n in (
             "train", "train_one_epoch", "_draw_k", "evaluate_model", "_train_one_batch_morphem")}
         self.saved_eval = tm.make_eval_step
-        saved = self.saved
+        self.me, self.saved_me = me, {n: getattr(me, n) for n in (
+            "extract_features", "run_benchmark")}
+        saved, saved_me = self.saved, self.saved_me
 
         def train(trainer):
             probe.trainer = trainer
@@ -1831,12 +1837,26 @@ class TrainerProbe:
         def evaluate_model(trainer, epoch):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            probe.split = {"forward": 0.0, "benchmark": 0.0}
             t = time.perf_counter()
             out = saved["evaluate_model"](trainer, epoch)
             torch.cuda.synchronize()
             probe.evals.append(dict(out, wall_s=time.perf_counter() - t, images=sum(
                 n for _, n in trainer.eval_counts.values()),
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, split=dict(probe.split)))
+            return out
+
+        def extract_features(trainer, chunk, loader):
+            t = time.perf_counter()
+            feats = saved_me["extract_features"](trainer, chunk, loader)
+            probe.split["forward"] += time.perf_counter() - t
+            probe.feature_rows[chunk] = len(feats)
+            return feats
+
+        def run_benchmark(*args, **kwargs):
+            t = time.perf_counter()
+            out = saved_me["run_benchmark"](*args, **kwargs)
+            probe.split["benchmark"] += time.perf_counter() - t
             return out
 
         def morphem_step(trainer, batch):
@@ -1857,11 +1877,14 @@ class TrainerProbe:
         tm.Trainer._draw_k, tm.Trainer.evaluate_model = draw_k, evaluate_model
         tm.Trainer._train_one_batch_morphem = morphem_step
         tm.make_eval_step = make_eval_step
+        me.extract_features, me.run_benchmark = extract_features, run_benchmark
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.tm.Trainer, name, fn)
+        for name, fn in self.saved_me.items():
+            setattr(self.me, name, fn)
         self.tm.make_eval_step = self.saved_eval
         return False
 
@@ -2201,6 +2224,94 @@ def chammi_host_batch(trainer) -> str:
             f"{fired[0]} TPS warps in {3 * n} images")
 
 
+# k per chunk (Allen 3, HPA 4, CP 5 channels) in the CHAMMI parity's 3 steps:
+# each chunk once at k = 1 (197 tokens padded to 256) and once at all of its
+# channels (641, 785 and 981 tokens padded to 640, 832 and 1024)
+CHAMMI_PARITY_KS = ((1, 4, 5), (3, 1, 2), (2, 3, 1))
+
+
+def chammi_parity(fb, torch, root: str, tmp: str) -> None:
+    """The CHAMMI step's kernel route against its plain route, as
+    train_parity holds the single-chunk step: two Trainers from chammi_cfg
+    with the recipe at PARITY_DEPTH on the fixture, the second given the
+    first's initial weights, run the same 3 mixed batches (the run's quotas)
+    through ``Trainer._train_one_batch_morphem`` with the k of
+    CHAMMI_PARITY_KS, both routes drawing the channels from generators of
+    the same seed. Per-chunk losses and grad_norm within TRAIN_LOSS_REL_TOL,
+    step-0 gradients (summed over the three chunks' backwards into
+    ``.grad``) within TRAIN_GRAD_REL_TOL of max|g|, the channels drawn
+    equal; the kernel route launches B1-B4 3 x (PARITY_DEPTH - 1) times a
+    step, the plain route none."""
+    from diverse_channel_vit_torch.config import load_config
+    from diverse_channel_vit_torch.trainer import Trainer
+
+    label = "Trainer CHAMMI parity"
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    over = [*CHAMMI_RECIPE, f"++model.depth={PARITY_DEPTH}", f"++dataset.root_dir={root}",
+            f"++train.checkpoints={tmp}/chammi_parity"]
+    keys = [f"{c}/loss" for c in CHAMMI_CHUNKS] + ["grad_norm"]
+    t0 = time.perf_counter()
+    runs, init, host = {}, None, None
+    for route in ("plain", "kernels"):
+        t = Trainer(load_config("chammi_cfg", over))
+        if init is None:
+            init = {k: v.clone() for k, v in t.model.state_dict().items()}
+            it = iter(t.train_loader)
+            host = [next(it) for _ in CHAMMI_PARITY_KS]
+            quotas = dict(t.train_loader.quotas)
+        else:
+            t.model.load_state_dict(init)
+        ks = iter(k for step in CHAMMI_PARITY_KS for k in step)
+        t._draw_k = lambda c, ks=ks: next(ks)
+        before = dict(fb.LAUNCHES)
+        ctx = fb.plain_versions() if route == "plain" else contextlib.nullcontext()
+        metrics, grads0 = [], None
+        with ctx:
+            for i, hb in enumerate(host):
+                if list(hb) != list(CHAMMI_CHUNKS):
+                    raise AssertionError(f"{label}: a mixed batch of chunks {list(hb)}")
+                metrics.append(t._train_one_batch_morphem(t._to_device(hb)))
+                if i == 0:
+                    grads0 = {n: p.grad.float().clone() for n, p in t.model.named_parameters()
+                              if p.grad is not None}
+        torch.cuda.synchronize()
+        counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
+        runs[route] = (metrics, grads0, counts)
+        del t
+        torch.cuda.empty_cache()
+    (mk, gk, nk), (mp, gp, np_) = runs["kernels"], runs["plain"]
+    if any(np_.values()):
+        raise AssertionError(f"{label}: the plain route launched kernels: {np_}")
+    check_counts(f"{label}, kernel route", nk, len(host), "step",
+                 dict.fromkeys(fused4, 3 * (PARITY_DEPTH - 1)))
+    drawn = [[m.get("sampled_channels") for m in ms] for ms in (mk, mp)]
+    print(f"{label}: quotas {quotas}, k per step {CHAMMI_PARITY_KS}, channels drawn, "
+          f"kernel route {drawn[0]}, plain route {drawn[1]}")
+    if drawn[0] != drawn[1]:
+        raise AssertionError(f"{label}: the two routes drew other channels")
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mk, mp)) for k in keys}
+    print(f"{label} (depth {PARITY_DEPTH}, {len(host)} steps): kernels "
+          f"{[[round(m[k], 6) for k in keys] for m in mk]} plain "
+          f"{[[round(m[k], 6) for k in keys] for m in mp]} ({', '.join(keys)}), max rel "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} (tolerance "
+          f"{TRAIN_LOSS_REL_TOL})")
+    if not all(v <= TRAIN_LOSS_REL_TOL for v in rel.values()):
+        raise AssertionError(f"{label}: losses or grad_norm of the two routes disagree")
+    if sorted(gk) != sorted(gp):
+        raise AssertionError(f"{label}: the routes gave gradients to other parameters")
+    worst = (0.0, "")
+    for name, g in gk.items():
+        ref = gp[name]
+        scale = ref.abs().max().item()
+        err = (g - ref).abs().max().item()
+        worst = max(worst, (err / scale if scale else err, name))
+    print(f"{label}: step-0 gradients of {len(gk)} parameter tensors, worst rel "
+          f"{worst[0]:.3e} ({worst[1]}) (tolerance {TRAIN_GRAD_REL_TOL} of max|g|); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not worst[0] <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"{label}: gradient of {worst[1]} disagrees")
+
+
 def chammi_trainer(fb, torch, tmp: str):
     """CHAMMI through ``main`` at full width: DiChaViT-S, 224^2, batch 64,
     the overrides of train_scripts.sh:8 with 2 epochs and an eval after each
@@ -2230,8 +2341,9 @@ def chammi_trainer(fb, torch, tmp: str):
             "++eval.every_n_epochs=1", "++eval.clean_up=False", f"++dataset.root_dir={root}",
             f"++eval.root_dir={root}", f"++eval.feature_dir={out}/feat/{{FOLDER_NAME}}",
             f"++eval.dest_dir={out}/res/{{FOLDER_NAME}}", f"++train.checkpoints={out}/ck"]
-    print(f"== {label}: fixture written in {t_fixture:.1f} s; python -m "
-          f"diverse_channel_vit_torch.main {' '.join(argv)}", flush=True)
+    print(f"== {label}: fixture written in {t_fixture:.1f} s", flush=True)
+    chammi_parity(fb, torch, root, tmp)
+    print(f"== {label}: python -m diverse_channel_vit_torch.main {' '.join(argv)}", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
@@ -2279,10 +2391,10 @@ def chammi_trainer(fb, torch, tmp: str):
     res = probe.evals[-1]
     tasks = sorted(k for k in res if k.startswith("knn_cosine/") and k.endswith("/acc"))
     score = res["knn_cosine/chammi_score"]
-    print(f"{label}: feature rows {t.feature_rows} (enriched_meta {want_rows}); "
+    print(f"{label}: feature rows {probe.feature_rows} (enriched_meta {want_rows}); "
           f"{len(tasks)} task rows " + ", ".join(f"{k[11:-4]} {res[k]:.4f}" for k in tasks)
           + f"; knn_cosine/chammi_score {score:.4f}, best {best:.4f}")
-    if t.feature_rows != want_rows or len(tasks) != 9 or not 0.0 <= score <= 1.0:
+    if probe.feature_rows != want_rows or len(tasks) != 9 or not 0.0 <= score <= 1.0:
         raise AssertionError(f"{label}: the MorphEm eval is incomplete")
     # the card's kNN against the CPU's on the saved features (epoch 2)
     feats = os.path.join(out, "feat", f"epoch2_seed{t.seed}")
@@ -2309,7 +2421,7 @@ def chammi_trainer(fb, torch, tmp: str):
     except ImportError:
         pil = "PIL missing (the packed blob needs none)"
     e2 = probe.epochs[2]
-    split = t.eval_seconds
+    split = res["split"]
     print(f"phase {label}: {e2['imgs_per_sec_per_chip']:.2f} images/s (Trainer steady, epoch 2), "
           f"epoch {e2['wall_s']:.3f} s, {host}; eval {res['wall_s']:.3f} s (forward "
           f"{split['forward']:.3f} s, benchmark {split['benchmark']:.3f} s) for "

@@ -31,6 +31,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .morphem70k import TRAIN_CLASS_DICTS, class_dict
 from .registry import DATASET_REGISTRY
 
 
@@ -100,15 +101,6 @@ def _worker_fetch_shm(args) -> dict:
         else:
             small[key] = val
     return small
-
-
-def build_dataset_with_attrs(build, kwargs: dict, attrs: dict):
-    """Picklable dataset factory: construct, then set the loader-side
-    attributes (``tps_prob``, ``train_classes_dict``)."""
-    ds = build(**kwargs)
-    for k, v in attrs.items():
-        setattr(ds, k, v)
-    return ds
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
@@ -401,10 +393,10 @@ class MixedChunkLoader:
 # class vocabularies (``dataset_utils.py:606-646``)
 # ---------------------------------------------------------------------------
 
-ALLEN_V2 = ["M0", "M1M2", "M3", "M4M5", "M6M7_complete", "M6M7_single"]
+ALLEN_V2 = list(TRAIN_CLASS_DICTS["Allen"])
 ALLEN_V1 = ["Interphase", "Mitotic"]
-HPA_CLASSES = ["golgi apparatus", "microtubules", "mitochondria", "nuclear speckles"]
-CP_CLASSES = ["BRD-A29260609", "BRD-K04185004", "BRD-K21680192", "DMSO"]
+HPA_CLASSES = list(TRAIN_CLASS_DICTS["HPA"])
+CP_CLASSES = list(TRAIN_CLASS_DICTS["CP"])
 
 
 def get_classes(dataset: str, file_name: str = "", training_chunks: Optional[List[str]] = None,
@@ -444,7 +436,10 @@ def get_classes(dataset: str, file_name: str = "", training_chunks: Optional[Lis
 # ---------------------------------------------------------------------------
 
 
-def _build_split(name: str, cfg_dataset, chunk_channels, split: str, is_train: bool, seed: int):
+def _build_split(name: str, cfg_dataset, chunk_channels, split: str, is_train: bool, seed: int,
+                 **chammi):
+    """One split's dataset; ``chammi``: CHAMMI's train-side keywords
+    (``tps_prob``, ``train_classes_dict``)."""
     if name in ("cifar10", "cifar100"):
         raise NotImplementedError(f"dataset {name!r}: the CIFAR loader downloads through "
                                   "torchvision and is left out of the port (ROADMAP A6)")
@@ -491,6 +486,7 @@ def _build_split(name: str, cfg_dataset, chunk_channels, split: str, is_train: b
             chunk_name=chunk_channels,  # chunk name string for CHAMMI
             is_train=is_train,
             img_size=cfg_dataset.get("img_size", 224),
+            **chammi,
         )
     raise ValueError(f"dataset {name} not valid!")
 
@@ -500,7 +496,6 @@ def get_train_val_test_loaders(
     chunk_name: str,
     seed: int,
     *,
-    tps_prob: float = 0.0,
     with_train: bool = True,
 ) -> Tuple[Optional[BatchLoader], Optional[BatchLoader], object]:
     """Build (train, val, test) loaders for one chunk.
@@ -508,8 +503,7 @@ def get_train_val_test_loaders(
     ``test`` is a dict of loaders when the chunk declares several test
     channel subsets (so2sat test_1/test_2/test_full — the channel-robustness
     splits the reference evaluates in ``eval_regular``). A CHAMMI chunk's
-    datasets take the chunk's name, and its train split ``tps_prob``.
-    ``with_train=False`` builds no train loader (CHAMMI trains on the
+    datasets take the chunk's name. ``with_train=False`` builds no train loader (CHAMMI trains on the
     mixed-chunk loader) and returns None in its place.
     """
     name = cfg.dataset.name
@@ -537,11 +531,9 @@ def get_train_val_test_loaders(
         kwargs = dict(name=name, cfg_dataset=cfg.dataset,
                       chunk_channels=chunk_name if is_chammi else channels, split=split,
                       is_train=is_train, seed=seed)
-        attrs = {"tps_prob": tps_prob} if (is_chammi and is_train) else {}
-        ds = build_dataset_with_attrs(_build_split, kwargs, attrs)
+        ds = _build_split(**kwargs)
         # process workers only where they pay: the augmented train path
-        factory = (partial(build_dataset_with_attrs, _build_split, kwargs, attrs)
-                   if (is_train and worker_procs) else None)
+        factory = partial(_build_split, **kwargs) if (is_train and worker_procs) else None
         return BatchLoader(
             ds,
             batch_size=batch,
@@ -580,27 +572,18 @@ def make_random_instance_train_loader(cfg, seed: int, *, training_chunks=None
     every training class."""
     if cfg.dataset.name != "morphem70k":
         return None
-    from .morphem70k import TRAIN_CLASS_DICTS
-
     chunks = training_chunks or [next(iter(e if isinstance(e, dict) else e.to_dict()))
                                  for e in cfg.data_chunk.chunks]
-    if training_chunks is None:
-        global_dict = TRAIN_CLASS_DICTS["morphem70k"]
-    else:
-        global_dict, off = {}, 0
-        for part in ("Allen", "HPA", "CP"):
-            if part in chunks:
-                for k_, v_ in TRAIN_CLASS_DICTS[part].items():
-                    global_dict[k_] = off + v_
-                off += len(TRAIN_CLASS_DICTS[part])
+    global_dict = (TRAIN_CLASS_DICTS["morphem70k"] if training_chunks is None
+                   else class_dict(chunks))
     worker_procs = bool(cfg.hardware.get("worker_processes", False))
     datasets, factories = {}, {}
     for chunk_name in chunks:
         kwargs = dict(name="morphem70k", cfg_dataset=cfg.dataset, chunk_channels=chunk_name,
-                      split="train", is_train=True, seed=seed)
-        attrs = {"tps_prob": cfg.train.get("tps_prob", 0.0), "train_classes_dict": global_dict}
-        datasets[chunk_name] = build_dataset_with_attrs(_build_split, kwargs, attrs)
-        factories[chunk_name] = partial(build_dataset_with_attrs, _build_split, kwargs, attrs)
+                      split="train", is_train=True, seed=seed,
+                      tps_prob=cfg.train.get("tps_prob", 0.0), train_classes_dict=global_dict)
+        datasets[chunk_name] = _build_split(**kwargs)
+        factories[chunk_name] = partial(_build_split, **kwargs)
     return MixedChunkLoader(
         datasets,
         batch_size=cfg.train.batch_size,

@@ -45,6 +45,19 @@ TRAIN_CLASS_DICTS = {
 }
 
 
+def class_dict(chunks) -> dict:
+    """The label vocabulary of a chunk subset (``chunks``, names among
+    Allen, HPA and CP): the chunks' own vocabularies concatenated in Allen,
+    HPA, CP order. Every chunk's is the global vocabulary's
+    ``TRAIN_CLASS_DICTS["morphem70k"]`` in another order."""
+    out = {}
+    for part in ("Allen", "HPA", "CP"):
+        if part in chunks:
+            off = len(out)
+            out.update({name: off + i for name, i in TRAIN_CLASS_DICTS[part].items()})
+    return out
+
+
 def fold_channels(image: np.ndarray, channel_width: int) -> np.ndarray:
     """Tape (h, w*c) -> (c, h, w) float in [0, 1] (``morphem70k.py:163-186``)."""
     hwc = np.reshape(image, (image.shape[0], channel_width, -1), order="F")
@@ -106,6 +119,7 @@ class SingleCellDataset:
         img_size: int = 224,
         target_labels: str = "label",
         tps_prob: float = 0.0,
+        train_classes_dict: Optional[dict] = None,
     ):
         import pandas as pd
 
@@ -129,16 +143,12 @@ class SingleCellDataset:
         self.chunks_col = list(meta["chunk"]) if "chunk" in meta else [chunk_name] * len(meta)
         self.raw_labels = list(meta[target_labels]) if target_labels in meta else [None] * len(meta)
 
-        if chunk_name in TRAIN_CLASS_DICTS:
+        if train_classes_dict is not None:
+            self.train_classes_dict = train_classes_dict
+        elif chunk_name in TRAIN_CLASS_DICTS:
             self.train_classes_dict = TRAIN_CLASS_DICTS[chunk_name]
-        else:  # '_'-joined combination: concatenated per-chunk vocabularies
-            d, off = {}, 0
-            for part in ("Allen", "HPA", "CP"):
-                if part in chunk_name:
-                    for k, v in TRAIN_CLASS_DICTS[part].items():
-                        d[k] = off + v
-                    off += len(TRAIN_CLASS_DICTS[part])
-            self.train_classes_dict = d
+        else:  # '_'-joined combination
+            self.train_classes_dict = class_dict(chunk_name.split("_"))
 
         self.mean_stds = get_mean_std_dataset("morphem70k")
         self._pack = _open_pack(root_dir, self.file_paths)

@@ -31,9 +31,9 @@ from .metrics import classification_report_dict, macro_f1
 TASK_ORDER = {"Task_one": 1, "Task_two": 2, "Task_three": 3, "Task_four": 4}
 
 
-def _make_model(model_choice: str, use_gpu: bool, knn_metric: str, device=None):
+def _make_model(model_choice: str, knn_metric: str, device=None):
     if model_choice == "knn":
-        return KNeighbors(k=1, use_gpu=use_gpu, metric=knn_metric, device=device)
+        return KNeighbors(metric=knn_metric, device=device)
     if model_choice == "sgd":
         from sklearn.linear_model import SGDClassifier
 
@@ -47,7 +47,6 @@ def evaluate(
     leave_out: Optional[str],
     leaveout_label: Optional[str],
     model_choice: str,
-    use_gpu: bool,
     knn_metric: str,
     device=None,
 ) -> Dict:
@@ -84,14 +83,14 @@ def evaluate(
     accuracies, f1scores, reports = [], [], []
     for task_ind, task in enumerate(tasks):
         if task != leave_out:
-            model = _make_model(model_choice, use_gpu, knn_metric, device)
+            model = _make_model(model_choice, knn_metric, device)
             model.fit(train_X, train_Y)
             predictions = model.predict(features[all_test_indices[task_ind]])
             ground_truth = y_all[all_test_indices[task_ind]]
         else:  # leave-one-out group loop (evaluation.py:181-201)
             predictions, ground_truth = [], []
             for gi in range(len(groups)):
-                model = _make_model(model_choice, use_gpu, knn_metric, device)
+                model = _make_model(model_choice, knn_metric, device)
                 rest = np.concatenate((train_indices, all_other_indices[gi]), axis=None)
                 model.fit(features[rest], y_all[rest])
                 predictions.append(model.predict(features[all_group_indices[gi]]))
@@ -123,7 +122,6 @@ def run_benchmark(
     feature_file: str,
     classifier: str = "knn",
     umap: bool = False,
-    use_gpu: bool = True,
     knn_metric: str = "l2",
     device=None,
 ) -> pd.DataFrame:
@@ -147,7 +145,6 @@ def run_benchmark(
             leave_out,
             leaveout_label,
             classifier,
-            use_gpu,
             knn_metric,
             device,
         )

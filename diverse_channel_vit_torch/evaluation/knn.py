@@ -1,16 +1,16 @@
-"""Exact k-nearest-neighbours on the card (counterpart of the JAX package's
+"""Exact nearest-neighbour search on the card (counterpart of the JAX package's
 ``evaluation/knn.py``, single device).
 
 Replaces ``FaissKNeighbors`` (``morphem/utils.py:8-46``): k = 1, L2
 (``IndexFlatL2``) or cosine (normalise + ``IndexFlatIP``). Exact search is a
-(Q_block x D) @ (D x N) float32 matmul and a top-k, in query blocks of 1024;
+(Q_block x D) @ (D x N) float32 matmul and an argmax, in query blocks of 1024;
 the bank (about 70k x 384 for CHAMMI) is copied to the device once. This is
 a plain GEMM, which the JAX package leaves to XLA, so it is ``torch.mm``
 here, with TF32 off for the call whatever the process has set.
 
-Ties go to the lowest bank index, as ``jax.lax.top_k`` breaks them:
-``argmax`` for k = 1 (it returns the first maximum), a stable descending sort
-for k > 1 (CUDA ``topk`` promises no order among equal values).
+The neighbour is the row of the highest score, ties going to the lowest
+bank index, as ``jax.lax.top_k`` breaks them: ``argmax`` returns the first
+maximum (CUDA ``topk`` promises no order among equal values).
 """
 
 from __future__ import annotations
@@ -37,10 +37,10 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def _topk_block(queries: torch.Tensor, bank: torch.Tensor, *, k: int, metric: str,
-               bank_sq: Optional[torch.Tensor] = None):
+def _nearest_block(queries: torch.Tensor, bank: torch.Tensor, *, metric: str,
+                   bank_sq: Optional[torch.Tensor] = None):
     """queries (Qb, D) x bank (N, D), both f32 (the bank already normalised
-    for cosine) -> (scores (Qb, k), indices (Qb, k)), higher scores closer."""
+    for cosine) -> (scores (Qb, 1), indices (Qb, 1)), higher scores closer."""
     if metric == "cosine":
         q = queries / torch.clamp_min(torch.linalg.vector_norm(queries, dim=1, keepdim=True),
                                       1e-12)
@@ -50,22 +50,16 @@ def _topk_block(queries: torch.Tensor, bank: torch.Tensor, *, k: int, metric: st
         scores = 2.0 * (queries @ bank.t()) - bank_sq[None, :]
     else:
         raise ValueError(f"metric must be l2|cosine, got {metric!r}")
-    if k == 1:
-        idx = scores.argmax(dim=1, keepdim=True)
-        return scores.gather(1, idx), idx
-    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
+    idx = scores.argmax(dim=1, keepdim=True)
+    return scores.gather(1, idx), idx
 
 
 class KNeighbors:
-    """FAISS-parity exact kNN classifier (k = 1 by default) on ``device``,
-    the card unless ``"cpu"`` is asked for. ``use_gpu`` is the reference's
-    argument, which changes nothing, as in the JAX package."""
+    """FAISS-parity exact 1-nearest-neighbour classifier (the reference's
+    only use, ``k = 1``) on ``device``, the card unless ``"cpu"`` is asked
+    for."""
 
-    def __init__(self, k: int = 1, metric: str = "l2", use_gpu: bool = True,
-                 device: Optional[Union[str, torch.device]] = None):
-        del use_gpu
-        self.k = k
+    def __init__(self, metric: str = "l2", device: Optional[Union[str, torch.device]] = None):
         self.metric = metric
         self.device = resolve_device(device)
         self._bank: Optional[torch.Tensor] = None
@@ -88,21 +82,14 @@ class KNeighbors:
         with _full_f32_matmul():
             for s in range(0, X.shape[0], QUERY_BLOCK):
                 q = torch.from_numpy(X[s:s + QUERY_BLOCK]).to(self.device)
-                vals, idx = _topk_block(q, self._bank, k=self.k, metric=self.metric,
-                                       bank_sq=self._bank_sq)
+                vals, idx = _nearest_block(q, self._bank, metric=self.metric,
+                                           bank_sq=self._bank_sq)
                 all_val.append(vals.cpu().numpy())
                 all_idx.append(idx.cpu().numpy())
         if not all_idx:
-            return np.zeros((0, self.k), np.float32), np.zeros((0, self.k), np.int64)
+            return np.zeros((0, 1), np.float32), np.zeros((0, 1), np.int64)
         return np.concatenate(all_val), np.concatenate(all_idx)
 
     def predict(self, X: np.ndarray) -> np.ndarray:
         _, idx = self.kneighbors(X)
-        votes = self._y[idx]  # (n, k)
-        if self.k == 1:
-            return votes[:, 0]
-        # majority vote (ties -> smallest label, np.bincount argmax order)
-        out = np.empty(votes.shape[0], dtype=self._y.dtype)
-        for i, row in enumerate(votes):
-            out[i] = np.bincount(row).argmax()
-        return out
+        return self._y[idx[:, 0]]

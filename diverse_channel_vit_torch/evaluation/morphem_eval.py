@@ -15,7 +15,6 @@ from __future__ import annotations
 import math
 import os
 import shutil
-import time
 from typing import Dict
 
 import numpy as np
@@ -47,25 +46,19 @@ def extract_features(trainer, chunk: str, loader) -> np.ndarray:
 def eval_morphem70k(trainer, epoch: int) -> Dict[str, float]:
     """Full CHAMMI eval: per-chunk feature dump -> MorphEm Tasks 1-4 -> the
     CHAMMI score (``trainer.py:560-736`` parity). ``accuracy`` is the
-    cosine-kNN CHAMMI score. Keeps the feature rows per chunk in
-    ``trainer.feature_rows`` and the seconds of the forwards and of the
-    benchmark in ``trainer.eval_seconds``."""
+    cosine-kNN CHAMMI score."""
     cfg = trainer.cfg
     folder = f"epoch{epoch}_seed{trainer.seed}"
     feature_dir = cfg.eval.feature_dir.replace("{FOLDER_NAME}", folder)
     dest_dir = cfg.eval.dest_dir.replace("{FOLDER_NAME}", folder)
     root_dir = cfg.eval.root_dir or cfg.dataset.root_dir
 
-    t0 = time.perf_counter()
-    trainer.feature_rows = {}
     for chunk, loader in trainer.test_loaders.items():
         ld = loader if not isinstance(loader, dict) else list(loader.values())[0]
         feats = extract_features(trainer, chunk, ld)
-        trainer.feature_rows[chunk] = len(feats)
         out_dir = os.path.join(feature_dir, chunk)
         os.makedirs(out_dir, exist_ok=True)
         np.save(os.path.join(out_dir, cfg.eval.feature_file), feats)
-    t1 = time.perf_counter()
 
     results: Dict[str, float] = {}
     classifiers = list(cfg.eval.get("classifiers", ["knn"]))
@@ -80,7 +73,6 @@ def eval_morphem70k(trainer, epoch: int) -> Dict[str, float]:
                 feature_file=cfg.eval.feature_file,
                 classifier=classifier,
                 umap=bool(cfg.eval.get("umap", False)),
-                use_gpu=bool(cfg.eval.get("use_gpu", True)),
                 knn_metric=km or "l2",
                 device=trainer.device,
             )
@@ -89,7 +81,6 @@ def eval_morphem70k(trainer, epoch: int) -> Dict[str, float]:
                 results[f"{tag}/{row.dataset}/{row.task}/f1"] = float(row.f1_score_macro)
                 results[f"{tag}/{row.dataset}/{row.task}/acc"] = float(row.accuracy)
             results[f"{tag}/chammi_score"] = chammi_score(df)
-    trainer.eval_seconds = {"forward": t1 - t0, "benchmark": time.perf_counter() - t1}
 
     # headline metric: cosine-kNN CHAMMI score (trainer.py:711-731)
     headline = results.get("knn_cosine/chammi_score")

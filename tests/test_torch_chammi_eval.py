@@ -34,7 +34,7 @@ from diverse_channel_vit_tpu.models import build_model as jbuild_model
 from diverse_channel_vit_tpu.models.import_torch import load_reference_checkpoint
 from diverse_channel_vit_torch import main as port_main
 from diverse_channel_vit_torch.config import load_config
-from diverse_channel_vit_torch.evaluation import KNeighbors, benchmark
+from diverse_channel_vit_torch.evaluation import KNeighbors, benchmark, morphem_eval
 from diverse_channel_vit_torch.models import build_model
 from diverse_channel_vit_torch.models.export import params_from_jax
 from diverse_channel_vit_torch.trainer import Trainer
@@ -126,9 +126,6 @@ def test_knn_ties_go_to_the_lowest_index(metric):
     want = JKNeighbors(metric=metric).fit(bank, y)
     assert got.kneighbors(q)[1].tolist() == want.kneighbors(q)[1].tolist() == [[1], [0]]
     assert got.predict(q).tolist() == [5, 3]
-    two = KNeighbors(k=2, metric=metric, device="cpu").fit(bank, y)
-    assert two.kneighbors(q[:1])[1].tolist() == JKNeighbors(k=2, metric=metric).fit(
-        bank, y).kneighbors(q[:1])[1].tolist() == [[1, 2]]
 
 
 def test_channelvit_adapt_matches_jax():
@@ -211,9 +208,17 @@ def test_main_runs_the_chammi_recipe(root, tmp_path, recipe, monkeypatch):
         seen["eval"] = evaluate(t, e)
         return seen["eval"]
 
+    extract = morphem_eval.extract_features
+
+    def spy_extract(t, chunk, loader):
+        feats = extract(t, chunk, loader)
+        seen.setdefault("rows", {})[chunk] = len(feats)
+        return feats
+
     for name, fn in (("train", spy_train), ("train_one_epoch", spy_epoch),
                      ("_draw_k", spy_draw), ("evaluate_model", spy_eval)):
         monkeypatch.setattr(Trainer, name, fn)
+    monkeypatch.setattr(morphem_eval, "extract_features", spy_extract)
     best = port_main.main(["-cn", "chammi_cfg", *over])
     t = seen["trainer"]
     assert t.loss_type == "proxy" and t.model.classifer_head is None
@@ -231,7 +236,7 @@ def test_main_runs_the_chammi_recipe(root, tmp_path, recipe, monkeypatch):
     assert 0.0 <= res["knn_cosine/chammi_score"] <= 1.0
     assert res["accuracy"] == res["knn_cosine/chammi_score"] == best
     assert len([k for k in res if k.endswith("/acc")]) == 9
-    assert t.feature_rows == {"Allen": 24, "HPA": 24, "CP": 24}
+    assert seen["rows"] == {"Allen": 24, "HPA": 24, "CP": 24}
     assert os.listdir(f"{tmp_path}/res") == [f"epoch1_seed{t.seed}"]
     assert os.listdir(f"{tmp_path}/feat") == []  # eval.clean_up
     assert os.path.exists(os.path.join(t.checkpoints, "model_last"))
