@@ -106,9 +106,21 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     bit; one epoch of the DCS recipe (the k sequence equal to numpy
     ``default_rng(seed)``'s) and one of int8 (B7 / B8 for B3 / B4); the
     JUMP-CP augmentation on a 64-image batch on the card against the CPU;
-    which of yaml, pandas, pyarrow and h5py import, and where pandas and
-    pyarrow do, one JUMP-CP epoch from a fixture the script writes, with
-    the augmentation on the card; then CHAMMI: the recipe of
+    which of yaml, pandas, pyarrow and h5py import (pandas and pyarrow
+    must), one JUMP-CP epoch from a fixture the script writes, with
+    the augmentation on the card; then the novel-channel evals: first
+    ``novel_parity``, DiChaViT-S's eval forward at full width and depth,
+    kernel route against plain route from the same weights, at B = 64 with
+    the (C, D) ``avg_2`` table of a mapper whose test split holds two
+    channels train lacks, on the subset sweep's 7-of-8 grid (N = 1373
+    padded to 1408) and with a per-sample (B, C, D) ``dynamic_input_corr_4``
+    override (B1 / B3 x 11 per forward on the kernel route, none on the
+    plain one, logits within the serving tolerance); then ``main`` with the
+    overrides of ``train_scripts.sh:11`` as written (DCS, the ``zero``
+    strategy, the channel-subset sweep) on that fixture for 1 epoch: B1-B4
+    x 11 per step, B1 / B3 x 11 per eval forward, the eval keys those the
+    CPU tests hold to JAX's, the seconds of ``eval_regular`` and of the
+    sweep, the sweep's images/s and the eval peak memory; then CHAMMI: the recipe of
     ``train_scripts.sh:8`` (DiChaViT-S, 224^2, batch 64, TPS 0.2, DCS) for
     2 epochs with an eval after each, on a CHAMMI tree the script writes
     (128 Train and 64 test rows a chunk at CHAMMI's tape sizes, one packed
@@ -116,10 +128,15 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     eval forward, every step's per-chunk losses finite, the k sequence
     ``default_rng(2025)``'s drawn per chunk, global labels, a feature row
     per metadata row, the nine MorphEm task rows and a CHAMMI score in
-    [0, 1], and the card's kNN predictions equal to the CPU's; a ``phase``
-    line each;
+    [0, 1], and the card's kNN predictions equal to the CPU's; then the
+    same recipe on a chunk subset (``train.training_chunks=Allen_HPA``,
+    strategies zero, avg_2 and replicate, 1 epoch): B1-B4 x 22 per step,
+    B1 / B3 x 11 per eval forward, the CHAMMI score per strategy and CP's
+    features (all five of its channels novel) different between zero and
+    avg_2; a ``phase`` line each;
 12. print the ``kernels`` JSON line (each kernel's launches from its main
-    paths, per Trainer epoch, and the CHAMMI run's), the card line, and last
+    paths, per Trainer epoch, and the CHAMMI, novel-channel and CHAMMI
+    subset runs'), the card line, and last
     the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -1781,7 +1798,8 @@ class TrainerProbe:
     every DCS draw, each evaluation's wall time and peak device memory, and
     the eval forwards; of a CHAMMI evaluation (``evaluation/morphem_eval``)
     also the seconds of its feature forwards and of its benchmark, and the
-    feature rows of each chunk.
+    features of each (strategy, chunk); of any other also the seconds of
+    ``eval_regular`` and of the channel-subset sweep.
     With ``profile_epoch`` that epoch runs under ``torch.profiler`` (device
     activity only) and its device busy time is kept."""
 
@@ -1789,7 +1807,7 @@ class TrainerProbe:
         self.torch, self.profile_epoch = torch, profile_epoch
         self.trainer, self.epochs, self.draws, self.evals = None, {}, [], []
         self.eval_forwards, self.busy_us, self.steps = 0, None, []
-        self.feature_rows, self.split = {}, {}
+        self.feature_rows, self.features, self.split = {}, {}, {}
 
     def __enter__(self):
         from diverse_channel_vit_torch import trainer as tm
@@ -1797,7 +1815,8 @@ class TrainerProbe:
 
         torch, probe = self.torch, self
         self.tm, self.saved = tm, {n: getattr(tm.Trainer, n) for n in (
-            "train", "train_one_epoch", "_draw_k", "evaluate_model", "_train_one_batch_morphem")}
+            "train", "train_one_epoch", "_draw_k", "evaluate_model", "_train_one_batch_morphem",
+            "eval_regular", "eval_subset_channels")}
         self.saved_eval = tm.make_eval_step
         self.me, self.saved_me = me, {n: getattr(me, n) for n in (
             "extract_features", "run_benchmark")}
@@ -1846,12 +1865,24 @@ class TrainerProbe:
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9, split=dict(probe.split)))
             return out
 
-        def extract_features(trainer, chunk, loader):
+        def extract_features(trainer, chunk, loader, new_channel_init=None):
             t = time.perf_counter()
-            feats = saved_me["extract_features"](trainer, chunk, loader)
+            feats = saved_me["extract_features"](trainer, chunk, loader, new_channel_init)
             probe.split["forward"] += time.perf_counter() - t
             probe.feature_rows[chunk] = len(feats)
+            probe.features[new_channel_init, chunk] = feats
             return feats
+
+        def timed_part(name, key):
+            def run(trainer, *args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = saved[name](trainer, *args)
+                torch.cuda.synchronize()
+                probe.split[key] = probe.split.get(key, 0.0) + time.perf_counter() - t
+                return out
+
+            return run
 
         def run_benchmark(*args, **kwargs):
             t = time.perf_counter()
@@ -1867,15 +1898,17 @@ class TrainerProbe:
         def make_eval_step(model):
             step = probe.saved_eval(model)
 
-            def counted(x, cids):
+            def counted(x, cids, override=None):
                 probe.eval_forwards += 1
-                return step(x, cids)
+                return step(x, cids, override)
 
             return counted
 
         tm.Trainer.train, tm.Trainer.train_one_epoch = train, train_one_epoch
         tm.Trainer._draw_k, tm.Trainer.evaluate_model = draw_k, evaluate_model
         tm.Trainer._train_one_batch_morphem = morphem_step
+        tm.Trainer.eval_regular = timed_part("eval_regular", "eval_regular")
+        tm.Trainer.eval_subset_channels = timed_part("eval_subset_channels", "subset_sweep")
         tm.make_eval_step = make_eval_step
         me.extract_features, me.run_benchmark = extract_features, run_benchmark
         return self
@@ -1944,9 +1977,10 @@ def trainer_paths(fb, torch, bare_imgs_per_s: float) -> dict:
     """The training entry point on the card: the Trainer at full width (2
     epochs, eval every epoch, a checkpoint) and a resume from it; the DCS
     recipe and int8 through the Trainer; the JUMP-CP augmentation on the
-    card against the CPU; the card's packages and, where pandas and pyarrow
-    import, one JUMP-CP epoch from a fixture through the Trainer with the
-    augmentation on the card. Returns the paths by label."""
+    card against the CPU; the card's packages (pandas and pyarrow must
+    import), one JUMP-CP epoch from a fixture through the Trainer with the
+    augmentation on the card; the novel-channel evals on that fixture;
+    CHAMMI on every chunk and on Allen_HPA. Returns the paths by label."""
     import tempfile
 
     from diverse_channel_vit_torch.config import load_config
@@ -2013,25 +2047,27 @@ def trainer_paths(fb, torch, bare_imgs_per_s: float) -> dict:
                 have[mod] = True
             except ImportError:
                 have[mod] = False
-        jump = have["pandas"] and have["pyarrow"]
         listed = ", ".join(f"{m} {'imports' if ok else 'missing'}" for m, ok in have.items())
-        then = ("a JUMP-CP fixture epoch follows" if jump else "no JUMP-CP fixture epoch: it "
-                "needs pandas and pyarrow (the CPU tests cover the host-side reader)")
-        print(f"card packages: {listed}; {then}")
-        if jump:
-            root = write_jumpcp_fixture(tmp)
-            probe, launches, _ = run_trainer(
-                fb, torch, "Trainer JUMP-CP fixture", "jump_cp_cfg", [
-                    f"++dataset.root_dir={root}", "train.batch_size=64", "train.num_epochs=1",
-                    "train.save_model=none", "eval.skip_eval_first_epoch=True",
-                    "train.device_augment=True", f"train.checkpoints={tmp}"],
-                dict.fromkeys(fused4, DEPTH - 1), per_fwd)
-            if not probe.trainer.train_loader.dataset.device_augment:
-                raise AssertionError("Trainer JUMP-CP fixture: the augmentation ran on the host")
-            del probe
-        if not have["pandas"]:
-            raise AssertionError("the CHAMMI phase needs pandas (its metadata and benchmark)")
-        paths["Trainer CHAMMI"] = chammi_trainer(fb, torch, tmp)
+        print(f"card packages: {listed}")
+        if not (have["pandas"] and have["pyarrow"]):
+            raise AssertionError("the JUMP-CP, novel-channel and CHAMMI phases need pandas and "
+                                 "pyarrow (the JUMP-CP index, CHAMMI's metadata and benchmark)")
+        root = write_jumpcp_fixture(tmp)
+        probe, launches, _ = run_trainer(
+            fb, torch, "Trainer JUMP-CP fixture", "jump_cp_cfg", [
+                f"++dataset.root_dir={root}", "train.batch_size=64", "train.num_epochs=1",
+                "train.save_model=none", "eval.skip_eval_first_epoch=True",
+                "train.device_augment=True", f"train.checkpoints={tmp}"],
+            dict.fromkeys(fused4, DEPTH - 1), per_fwd)
+        if not probe.trainer.train_loader.dataset.device_augment:
+            raise AssertionError("Trainer JUMP-CP fixture: the augmentation ran on the host")
+        del probe
+        paths["Trainer novel channels"] = novel_trainer(fb, torch, root, tmp)
+        t0 = time.perf_counter()
+        chammi_root = write_chammi_fixture(tmp)
+        print(f"== CHAMMI fixture written in {time.perf_counter() - t0:.1f} s", flush=True)
+        paths["Trainer CHAMMI"] = chammi_trainer(fb, torch, tmp, chammi_root)
+        paths["Trainer CHAMMI subset"] = chammi_subset(fb, torch, tmp, chammi_root)
     torch.cuda.empty_cache()
     return paths
 
@@ -2312,11 +2348,11 @@ def chammi_parity(fb, torch, root: str, tmp: str) -> None:
         raise AssertionError(f"{label}: gradient of {worst[1]} disagrees")
 
 
-def chammi_trainer(fb, torch, tmp: str):
+def chammi_trainer(fb, torch, tmp: str, root: str):
     """CHAMMI through ``main`` at full width: DiChaViT-S, 224^2, batch 64,
     the overrides of train_scripts.sh:8 with 2 epochs and an eval after each
     (``eval.clean_up`` off to keep the features), on a fixture this script
-    writes. The counts set to 0 just before and read just after: B1-B4 x 33
+    writes (``root``). The counts set to 0 just before and read just after: B1-B4 x 33
     per step (11 fused blocks x 3 chunk micro-batches), B1 / B3 x 11 per
     eval forward. Every step's per-chunk losses and grad_norm finite; the
     k sequence numpy ``default_rng(2025)``'s, drawn per chunk; global
@@ -2333,15 +2369,11 @@ def chammi_trainer(fb, torch, tmp: str):
     from diverse_channel_vit_torch.evaluation import KNeighbors
 
     label = "Trainer CHAMMI"
-    t0 = time.perf_counter()
-    root = write_chammi_fixture(tmp)
-    t_fixture = time.perf_counter() - t0
     out = os.path.join(tmp, "chammi_run")
     argv = ["-cn", "chammi_cfg", *CHAMMI_RECIPE, "++train.num_epochs=2",
             "++eval.every_n_epochs=1", "++eval.clean_up=False", f"++dataset.root_dir={root}",
             f"++eval.root_dir={root}", f"++eval.feature_dir={out}/feat/{{FOLDER_NAME}}",
             f"++eval.dest_dir={out}/res/{{FOLDER_NAME}}", f"++train.checkpoints={out}/ck"]
-    print(f"== {label}: fixture written in {t_fixture:.1f} s", flush=True)
     chammi_parity(fb, torch, root, tmp)
     print(f"== {label}: python -m diverse_channel_vit_torch.main {' '.join(argv)}", flush=True)
     torch.cuda.empty_cache()
@@ -2428,6 +2460,203 @@ def chammi_trainer(fb, torch, tmp: str):
           f"{sum(want_rows.values())} images at eval batch size {t.cfg.eval.batch_size}, "
           f"eval peak memory {res['peak_gb']:.3f} GB, train peak memory "
           f"{probe.epochs[1]['peak_gb']:.3f} GB (epoch 1); {pil}; card {card_line()}")
+    launches.update(eval_forwards=probe.eval_forwards)
+    del probe, t
+    return launches, steps, "step"
+
+
+# the novel-channel evals: a mapper whose test split holds channels 6 and 7
+# that train lacks, and the subset sweep's 7-of-8 grid (N = 1 + 7 * 196 =
+# 1373 tokens, padded to 1408)
+NOVEL_TRAIN = list(range(6))
+NOVEL_SUBSET = [0, 1, 2, 3, 5, 6, 7]
+NOVEL_KEYS = {"valid/accuracy", "test/zero/accuracy", "subset_8/mean", "subset_8/std",
+              "subset_7/mean", "subset_7/std", "accuracy"}
+CHAMMI_STRATEGIES = ("zero", "avg_2", "replicate")
+
+
+def recipe_overrides(line: int):
+    """``train_scripts.sh`` at ``line``: the config name and its overrides
+    as written, less the hydra ``-m`` flag and the tag."""
+    import os
+    import shlex
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "train_scripts.sh")
+    with open(path) as f:
+        args = shlex.split(f.read().splitlines()[line - 1])
+    i = args.index("-cn")
+    return args[i + 1], [a for a in args[i + 2:] if not a.startswith("tag=")]
+
+
+def novel_parity(fb, torch) -> None:
+    """The novel-channel evals' forward, kernel route against plain route on
+    one DiChaViT-S (full width and depth, bf16, seed 0), B = 64 images of 8
+    channels at 224²: (a) the (C, D) ``avg_2`` table of a mapper whose test
+    split holds channels 6 and 7 that train lacks; (b) the subset sweep's 7
+    of 8 channels (N = 1373 padded to 1408), no override; (c) the per-sample
+    (B, C, D) ``dynamic_input_corr_4`` override from a bank of 8 exemplars of
+    train's 6 channels, each image's novel rows its own. Logits within
+    LOGITS_REL_TOL of the plain route's (the serving phase's tolerance); B1
+    and B3 11 launches each per kernel-route forward, none on the plain
+    route; the avg_2 table moves the logits off the table's own rows'."""
+    from diverse_channel_vit_torch.ops import novel_channels as nc
+    from diverse_channel_vit_torch.training import make_eval_step
+
+    label = "novel_parity"
+    t0 = time.perf_counter()
+    model = build(DEPTH)
+    step = make_eval_step(model)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)).cuda()
+    bank = torch.from_numpy(rng.standard_normal((8, len(NOVEL_TRAIN), IMG, IMG),
+                                                dtype=np.float32)).cuda()
+    table = model.feature_extractor.patch_embed.channel_embed.weight.detach()
+    mapper = {"train": NOVEL_TRAIN, "test": list(range(CHANNELS))}
+    avg2 = nc.synthesize_rows(table, nc.synthesis_plan(mapper, "test", "train", "avg_2"))
+    dyn = torch.stack([table[c].expand(B, -1) if c in NOVEL_TRAIN else
+                       nc.dynamic_input_corr(4, x, c, bank, table, NOVEL_TRAIN)
+                       for c in range(CHANNELS)], dim=1)
+    same = int((dyn[1:, CHANNELS - 1] == dyn[:1, CHANNELS - 1]).all(dim=1).sum())
+    if dyn.shape != (B, CHANNELS, D) or same:
+        raise AssertionError(f"{label}: the dynamic override is {tuple(dyn.shape)} with {same} "
+                             "images sharing image 0's row")
+    full = torch.arange(CHANNELS, device="cuda")
+    sub = torch.tensor(NOVEL_SUBSET, device="cuda")
+    cases = {"avg_2 (C, D), N 1600": (x, full, avg2),
+             "7 of 8, N 1408": (x[:, NOVEL_SUBSET].contiguous(), sub, None),
+             "dynamic_input_corr_4 (B, C, D), N 1600": (x, full, dyn)}
+    outs, secs = {}, {}
+    for route in ("kernels", "plain"):
+        ctx = fb.plain_versions() if route == "plain" else contextlib.nullcontext()
+        fb.reset_launches()
+        with ctx:
+            for name, (xx, cids, ov) in cases.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                outs[route, name] = step(xx, cids, ov).float().cpu().numpy()
+                secs[route, name] = time.perf_counter() - t
+        launches = dict(fb.LAUNCHES)
+        if route == "kernels":
+            check_counts(f"{label}, kernel route", launches, len(cases), "forward",
+                         {"attend_project_fwd": DEPTH - 1, "ln_mlp_fwd": DEPTH - 1})
+        elif any(launches.values()):
+            raise AssertionError(f"{label}: the plain route launched kernels: {launches}")
+    for name in cases:
+        logits_close(f"{label} {name}", outs["kernels", name], outs["plain", name])
+    own = step(x, full).float().cpu().numpy()
+    moved = float(np.abs(outs["kernels", "avg_2 (C, D), N 1600"] - own).max())
+    print(f"{label}: the avg_2 table moves the logits by up to {moved:.3e} from the table's "
+          f"own rows'; one call each, kernel route "
+          f"{ {n: round(secs['kernels', n] * 1e3, 1) for n in cases} } ms, plain route "
+          f"{ {n: round(secs['plain', n] * 1e3, 1) for n in cases} } ms; "
+          f"{time.perf_counter() - t0:.1f} s; card {card_line()}")
+    if not moved > 0:
+        raise AssertionError(f"{label}: the override did not reach the forward")
+    del model, step, x, bank, dyn
+    torch.cuda.empty_cache()
+
+
+def novel_trainer(fb, torch, root: str, tmp: str):
+    """``main`` with the overrides of train_scripts.sh:11 as written (DiChaViT
+    on JUMP-CP: DCS, the ``zero`` strategy, the channel-subset sweep) on
+    the JUMP-CP fixture, cut to 1 epoch: B1-B4 x 11 per step, B1 / B3 x 11
+    per eval forward (``valid``, ``test`` under ``zero``, the 9 subsets);
+    the eval keys those the CPU tests hold to JAX's. Runs ``novel_parity``
+    first. Prints the seconds of ``eval_regular`` and of the sweep, the
+    sweep's images/s and the eval peak memory. Returns its counts, steps and
+    unit."""
+    novel_parity(fb, torch)
+    t0 = time.perf_counter()
+    label = "Trainer novel channels"
+    name, recipe = recipe_overrides(11)
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    per_fwd = dict.fromkeys(fused4[:2], DEPTH - 1)
+    probe, launches, steps = run_trainer(
+        fb, torch, label, name, recipe + ["++train.num_epochs=1", f"++dataset.root_dir={root}",
+                                          f"++train.checkpoints={tmp}/novel"],
+        dict.fromkeys(fused4, DEPTH - 1), per_fwd)
+    t = probe.trainer
+    ev = probe.evals[-1]
+    keys = set(ev) - {"wall_s", "images", "peak_gb", "split"}
+    n_test = t.eval_counts["test"][1]
+    per = {k: (launches[k] - (DEPTH - 1) * steps) / probe.eval_forwards for k in fused4[:2]}
+    split = ev["split"]
+    n_sub = 1 + CHANNELS  # the 8 channels, then each 7 of them
+    print(f"{label}: eval keys {sorted(keys)}; "
+          + ", ".join(f"{k} {ev[k]:.4f}" for k in sorted(keys))
+          + f"; {probe.eval_forwards} eval forwards, B1 / B3 launches per eval forward {per}; "
+          f"eval_regular {split['eval_regular']:.3f} s, subset sweep {split['subset_sweep']:.3f} s "
+          f"for {n_sub} subsets of {n_test} test images "
+          f"({n_sub * n_test / split['subset_sweep']:.2f} images/s), eval peak memory "
+          f"{ev['peak_gb']:.3f} GB; {time.perf_counter() - t0:.1f} s; card {card_line()}")
+    if keys != NOVEL_KEYS or per != dict.fromkeys(fused4[:2], DEPTH - 1):
+        raise AssertionError(f"{label}: eval keys {sorted(keys)} (want {sorted(NOVEL_KEYS)}), "
+                             f"launches per eval forward {per}")
+    launches.update(eval_forwards=probe.eval_forwards)
+    del probe, t
+    return launches, steps, "step"
+
+
+def chammi_subset(fb, torch, tmp: str, root: str):
+    """CHAMMI on a chunk subset through ``main``: the overrides of
+    train_scripts.sh:8 with ``train.training_chunks=Allen_HPA`` and the
+    strategies zero, avg_2 and replicate, 1 epoch, on the CHAMMI fixture:
+    B1-B4 x 22 per step (two chunk micro-batches), B1 / B3 x 11 per eval
+    forward (each chunk's test batches under each strategy: 9 forwards at
+    the recipe's eval batch of 256); the CHAMMI score per strategy,
+    ``accuracy`` the first's; CP's features (five channels Allen and HPA
+    never trained) differ between zero and avg_2. Returns its counts,
+    steps and unit."""
+    import os
+
+    from diverse_channel_vit_torch import main as port_main
+
+    label = "Trainer CHAMMI subset"
+    out = os.path.join(tmp, "chammi_subset")
+    argv = ["-cn", "chammi_cfg", *CHAMMI_RECIPE, "++train.num_epochs=1",
+            "++train.training_chunks=Allen_HPA",
+            f"++model.new_channel_inits=[{','.join(CHAMMI_STRATEGIES)}]",
+            f"++dataset.root_dir={root}", f"++eval.root_dir={root}",
+            f"++eval.feature_dir={out}/feat/{{FOLDER_NAME}}",
+            f"++eval.dest_dir={out}/res/{{FOLDER_NAME}}", f"++train.checkpoints={out}/ck"]
+    print(f"== {label}: python -m diverse_channel_vit_torch.main {' '.join(argv)}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    t0 = time.perf_counter()
+    fb.reset_launches()
+    with TrainerProbe(torch) as probe:
+        port_main.main(argv)
+    launches = dict(fb.LAUNCHES)
+    secs = time.perf_counter() - t0
+    t = probe.trainer
+    steps = len(probe.steps)
+    per_step, per_fwd = 2 * (DEPTH - 1), DEPTH - 1
+    want_fwd = len(CHAMMI_STRATEGIES) * sum(len(ld) for ld in t.test_loaders.values())
+    if not steps or steps != t.updates_per_epoch or probe.eval_forwards != want_fwd:
+        raise AssertionError(f"{label}: {steps} steps and {probe.eval_forwards} eval forwards, "
+                             f"want {t.updates_per_epoch} and {want_fwd}")
+    for name, count in launches.items():
+        want = (per_step * steps if name in fused4 else 0) + (
+            per_fwd * probe.eval_forwards if name in fused4[:2] else 0)
+        if count != want:
+            raise AssertionError(f"{label}: {name} launched {count} times in {steps} steps and "
+                                 f"{probe.eval_forwards} eval forwards, want {want}")
+    res = probe.evals[-1]
+    scores = {s: res[f"{s}/knn_cosine/chammi_score"] for s in CHAMMI_STRATEGIES}
+    cp = {s: probe.features[s, "CP"] for s in CHAMMI_STRATEGIES}
+    moved = float(np.abs(cp["zero"] - cp["avg_2"]).max())
+    allen = float(np.abs(probe.features["zero", "Allen"] - probe.features["avg_2", "Allen"]).max())
+    print(f"{label}: kernel launches {launches} in {steps} steps and {probe.eval_forwards} eval "
+          f"forwards, as expected; quotas {t.train_loader.quotas}; CHAMMI score per strategy "
+          f"{scores}, accuracy {res['accuracy']:.4f}; CP features zero vs avg_2 max diff "
+          f"{moved:.3e}, Allen's (all trained) {allen:.3e}; eval {res['wall_s']:.3f} s "
+          f"(forward {res['split']['forward']:.3f} s, benchmark "
+          f"{res['split']['benchmark']:.3f} s), eval peak memory {res['peak_gb']:.3f} GB; "
+          f"{secs:.1f} s; card {card_line()}")
+    if (sorted(t.train_loader.quotas) != ["Allen", "HPA"] or res["accuracy"] != scores["zero"]
+            or not all(0.0 <= v <= 1.0 for v in scores.values()) or not moved > 0):
+        raise AssertionError(f"{label}: the strategies' eval is wrong")
     launches.update(eval_forwards=probe.eval_forwards)
     del probe, t
     return launches, steps, "step"
@@ -2641,12 +2870,14 @@ def main() -> int:
             counts, units, unit = paths[label]
             if name in counts and counts[name]:
                 entry[f"launches_per_{unit}_{label.replace(' ', '_')}"] = counts[name] / units
-        counts, units, _ = paths["Trainer CHAMMI"]
-        if counts.get(name):
-            # the CHAMMI run's launches: per step (3 chunk micro-batches)
-            # and per eval forward
-            entry.update(launches_Trainer_CHAMMI=counts[name], Trainer_CHAMMI_steps=units,
-                         Trainer_CHAMMI_eval_forwards=counts["eval_forwards"])
+        for label in ("Trainer CHAMMI", "Trainer novel channels", "Trainer CHAMMI subset"):
+            counts, units, _ = paths[label]
+            if counts.get(name):
+                # the run's launches: per step (CHAMMI: one micro-batch a
+                # chunk) and per eval forward
+                tag = label.replace(" ", "_")
+                entry.update({f"launches_{tag}": counts[name], f"{tag}_steps": units,
+                              f"{tag}_eval_forwards": counts["eval_forwards"]})
         if "code_flips" in r:
             entry.update(code_flips=r["code_flips"])
         entry.update(max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],

@@ -4,10 +4,10 @@ reference, ``trainer.py:560-736``): forward every test chunk -> per-chunk
 ``features.npy`` -> ``run_benchmark`` per (classifier x knn_metric) -> the
 CHAMMI score -> clean-up.
 
-The novel-channel strategies (``new_channel_init``) apply only when a run
-trains on a chunk subset, which the port's Trainer refuses with
-``model.new_channel_inits`` (ROADMAP A7, A8.4); so every chunk is forwarded
-with its own channel embeddings.
+A run trained on a ``train.training_chunks`` subset is evaluated once per
+strategy (``new_channel_init``): each chunk's channels that training never
+saw get the strategy's synthesized embeddings (``Trainer._synthesis_override``,
+``ops/novel_channels.py``), passed to the forward as its override.
 """
 
 from __future__ import annotations
@@ -23,12 +23,17 @@ import torch
 from .benchmark import chammi_score, run_benchmark
 
 
-def extract_features(trainer, chunk: str, loader) -> np.ndarray:
+def extract_features(trainer, chunk: str, loader, new_channel_init=None) -> np.ndarray:
     """The backbone's features (the model output: CHAMMI models have no
     head) of every valid row of the chunk's test loader, in the loader's
     order, as float32; the pad rows of a ``pad_last`` batch are dropped
-    before the forward. ``debug`` stops after 3 batches."""
+    before the forward. ``debug`` stops after 3 batches. With
+    ``new_channel_init`` the chunk's channel embeddings are that strategy's
+    (JAX ``evaluation/morphem_eval.py:21-43``); a dynamic strategy on a chunk
+    with novel channels raises there, as in JAX: CHAMMI has no per-batch
+    synthesis."""
     cids = torch.tensor(trainer._chunk_channel_ids(chunk), device=trainer.device)
+    override = trainer._synthesis_override(chunk, new_channel_init)
     feats = []
     max_batches = 3 if trainer.debug else math.inf
     for i, batch in enumerate(loader):
@@ -39,14 +44,15 @@ def extract_features(trainer, chunk: str, loader) -> np.ndarray:
         if valid is not None and not valid.all():
             img = img[np.asarray(valid)]
         x = torch.from_numpy(np.ascontiguousarray(img)).to(trainer.device)
-        feats.append(trainer._eval_step(x, cids).float().cpu().numpy())
+        feats.append(trainer._eval_step(x, cids, override).float().cpu().numpy())
     return np.concatenate(feats, axis=0)
 
 
-def eval_morphem70k(trainer, epoch: int) -> Dict[str, float]:
+def eval_morphem70k(trainer, epoch: int, new_channel_init=None) -> Dict[str, float]:
     """Full CHAMMI eval: per-chunk feature dump -> MorphEm Tasks 1-4 -> the
-    CHAMMI score (``trainer.py:560-736`` parity). ``accuracy`` is the
-    cosine-kNN CHAMMI score."""
+    CHAMMI score (``trainer.py:560-736`` parity), the features under the
+    strategy ``new_channel_init``. ``accuracy`` is the cosine-kNN CHAMMI
+    score."""
     cfg = trainer.cfg
     folder = f"epoch{epoch}_seed{trainer.seed}"
     feature_dir = cfg.eval.feature_dir.replace("{FOLDER_NAME}", folder)
@@ -55,7 +61,7 @@ def eval_morphem70k(trainer, epoch: int) -> Dict[str, float]:
 
     for chunk, loader in trainer.test_loaders.items():
         ld = loader if not isinstance(loader, dict) else list(loader.values())[0]
-        feats = extract_features(trainer, chunk, ld)
+        feats = extract_features(trainer, chunk, ld, new_channel_init)
         out_dir = os.path.join(feature_dir, chunk)
         os.makedirs(out_dir, exist_ok=True)
         np.save(os.path.join(out_dir, cfg.eval.feature_file), feats)

@@ -201,9 +201,13 @@ class ChannelVisionTransformer(nn.Module):
                 ln.reset_parameters()
         self.norm.reset_parameters()
 
-    def forward(self, x: torch.Tensor, channel_ids: torch.Tensor):
+    def forward(self, x: torch.Tensor, channel_ids: torch.Tensor,
+                channel_embed_override: Optional[torch.Tensor] = None):
         """x: (B, C, H, W) with the channels already selected; channel_ids:
-        (C,) global ids indexing the channel-embedding table."""
+        (C,) global ids indexing the channel-embedding table.
+        ``channel_embed_override``, (C, D) or per-sample (B, C, D), takes the
+        selected rows' place (the novel-channel evals' synthesized
+        embeddings); CDL is computed only for a (C, D) selection."""
         b, c, h, w = x.shape
         p, dim, dt = self.patch_size, self.embed_dim, self.dtype
         n = (h // p) * (w // p)
@@ -216,10 +220,13 @@ class ChannelVisionTransformer(nn.Module):
             extra_loss = extra_loss + self.ortho_loss_v1_lambda * orthogonal_projection_loss(
                 tokens, **self.tdl)
         if self.use_channelvit_channels:
-            sel_embed = pe.channel_embed.weight[channel_ids]  # (C, D) f32
-            if self.freeze_channel_emb:  # neither CE nor CDL trains the table
-                sel_embed = sel_embed.detach()
-            if self.training and self.proxy_loss_lambda > 0:
+            if channel_embed_override is not None:
+                sel_embed = channel_embed_override
+            else:
+                sel_embed = pe.channel_embed.weight[channel_ids]  # (C, D) f32
+                if self.freeze_channel_emb:  # neither CE nor CDL trains the table
+                    sel_embed = sel_embed.detach()
+            if self.training and self.proxy_loss_lambda > 0 and sel_embed.ndim == 2:
                 # CDL: the selected channel embeddings against their proxies
                 extra_loss = extra_loss + self.proxy_loss_lambda * proxy_loss(
                     pe.channel_emb_proxies[channel_ids], sel_embed,

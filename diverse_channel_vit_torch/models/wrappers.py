@@ -40,8 +40,9 @@ class ChannelAdaptiveClassifier(nn.Module):
     def num_total_channels(self) -> int:
         return self.feature_extractor.num_total_channels
 
-    def forward(self, x: torch.Tensor, channel_ids: torch.Tensor):
-        emb, extra_loss = self.feature_extractor(x, channel_ids)
+    def forward(self, x: torch.Tensor, channel_ids: torch.Tensor,
+                channel_embed_override: Optional[torch.Tensor] = None):
+        emb, extra_loss = self.feature_extractor(x, channel_ids, channel_embed_override)
         out = emb if self.classifer_head is None else self.classifer_head(emb)
         return out, extra_loss
 

@@ -14,11 +14,19 @@ Trainer does for JUMP-CP, So2Sat, CHAMMI and the synthetic config:
   rows of a ``pad_last`` batch are dropped before the forward (the mask
   excludes them anyway), so a small eval split costs one small forward
   whatever the eval batch size;
+- eval runs each split once per strategy of ``model.new_channel_inits``
+  (a split whose channels are train's once, ``valid`` once, with no
+  strategy), each strategy's synthesized channel embeddings passed to the
+  forward as its override (``ops/novel_channels.py``); with
+  ``eval.eval_subset_channels`` it then sweeps the first test split's
+  channel subsets of sizes C and C - 1;
 - CHAMMI (``morphem70k``) trains on the mixed-chunk loader's batches with
   the proxy loss: one grad micro-batch per chunk in the batch's order, each
   with its own k draw, summed in ``.grad``, then one update; its eval dumps
   every test chunk's features and runs the MorphEm kNN benchmark
-  (``evaluation/morphem_eval.py``), ``accuracy`` being the CHAMMI score;
+  (``evaluation/morphem_eval.py``), ``accuracy`` being the CHAMMI score,
+  once per strategy of ``model.new_channel_inits`` when the run trained on
+  a ``train.training_chunks`` subset;
 - a checkpoint is ``training/checkpoint.py``'s torch file and meta.json.
 
 The device is the caller's ``device``, else ``hardware.device`` (``cuda``
@@ -31,6 +39,7 @@ since no preemption checkpoint is written until preemption is ported.
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import time
@@ -44,6 +53,9 @@ from .data import (get_classes, get_train_val_test_loaders, make_random_instance
 from .device import resolve_device
 from .logging_utils import MyLogging
 from .models import build_model
+from .ops.novel_channels import (dynamic_input_corr, flatten_training_channels, synthesis_plan,
+                                 synthesize_rows)
+from .ops.patch_embed import per_channel_patch_embed
 from .ops.sampling import NOT_PORTED
 from .training import (TrainState, make_eval_step, make_grad_step, make_lr_schedule,
                        make_optimizer, make_train_step)
@@ -53,6 +65,19 @@ from .utils.misc import AverageMeter, Timer, set_seeds
 
 def _default(val, fallback):
     return fallback if val is None else val
+
+
+def _host_rss_mb() -> Optional[float]:
+    """This process's resident set size in MB from ``/proc/self/status``
+    (None off Linux), as the JAX Trainer reads it."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) / 1024
+    except OSError:
+        pass
+    return None
 
 
 def _as_dict(section) -> dict:
@@ -87,14 +112,10 @@ def training_chunk_list(cfg):
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for each key the port's Trainer does
-    not honour yet, naming its ROADMAP item. ``model.new_channel_inits``
-    is honoured where JAX collapses it to no strategy: CHAMMI trained on
-    every chunk (``trainer.py:1199-1201``)."""
+    not honour yet, naming its ROADMAP item."""
     tr, model, ev, hw = cfg.train, cfg.model, cfg.eval, cfg.hardware
     name = cfg.dataset.name
     chammi = name == "morphem70k"
-    subset = training_chunk_list(cfg)
-    all_chunks = chammi and (subset is None or set(subset) >= set(chunk_names(cfg)))
     refusals = [
         (name in ("cifar10", "cifar100"), f"dataset {name!r}: the CIFAR loader downloads "
                                           "through torchvision and is left out (ROADMAP A6)"),
@@ -105,13 +126,7 @@ def check_supported(cfg) -> None:
         (int(_default(model.get("unfreeze_last_n_layers"), -1)) >= 0,
          "model.unfreeze_last_n_layers >= 0 (ROADMAP A6 freeze)"),
         (bool(model.get("pretrained")), "model.pretrained: weight import (ROADMAP A9, A11)"),
-        (bool(model.get("new_channel_inits")) and not all_chunks,
-         "model.new_channel_inits: novel-channel eval (ROADMAP A7, A8)"
-         + (" on a training_chunks subset (leave-one-out embedding synthesis, A8.4)"
-            if chammi else "")),
         (chammi and bool(ev.get("umap")), "eval.umap: the embedding figures (ROADMAP A7)"),
-        (bool(ev.get("eval_subset_channels")),
-         "eval.eval_subset_channels: the channel-subset sweep (ROADMAP A7, A8)"),
         (bool(tr.get("plot_attn")), "train.plot_attn (ROADMAP A6)"),
         (bool(tr.get("profile_dir")), "train.profile_dir (ROADMAP A6)"),
         (bool(tr.get("max_host_rss_gb")), "train.max_host_rss_gb: RSS recycling (ROADMAP A6)"),
@@ -234,6 +249,7 @@ class Trainer:
         self._grad_steps: Dict = {}
         self._eval_step = make_eval_step(self.model)
         self.eval_counts: Dict[str, tuple] = {}
+        self._dyn_bank: Optional[torch.Tensor] = None
 
         # -- checkpoints -----------------------------------------------------
         self.checkpoints = os.path.join(
@@ -343,11 +359,8 @@ class Trainer:
             self.logger.info({f"train/{k}": v for k, v in train_metrics.items()}
                              | {"epoch": epoch, "lr": float(self.lr_schedule(self.state.step))},
                              pref_msg=f"[epoch {epoch}/{self.total_epochs}]")
-            if self.cfg.train.get("log_memory", False) and self.device.type == "cuda":
-                self.logger.info({
-                    "mem/device_mb": round(torch.cuda.memory_allocated(self.device) / 2**20, 1),
-                    "mem/device_peak_mb": round(
-                        torch.cuda.max_memory_allocated(self.device) / 2**20, 1)})
+            if self.cfg.train.get("log_memory", False):
+                self._log_memory()
             if self.channel_counter:
                 self.logger.info({f"channel_usage/{c}": n
                                   for c, n in sorted(self.channel_counter.items())})
@@ -368,6 +381,21 @@ class Trainer:
                              f"{timer.eta(done, self.total_epochs - self.start_epoch + 1):.0f}s")
         self.logger.finish(f"training done: best_acc={best_acc:.4f} (epoch {best_epoch})")
         return best_acc
+
+    def _log_memory(self) -> None:
+        """Once an epoch, JAX's keys (``trainer.py:835-853``): the card's
+        live and peak allocated MB on a card, the host's RSS on every device;
+        nothing when neither is known."""
+        mem = {}
+        if self.device.type == "cuda":
+            mem["mem/hbm_mb"] = round(torch.cuda.memory_allocated(self.device) / 2**20, 1)
+            mem["mem/hbm_peak_mb"] = round(
+                torch.cuda.max_memory_allocated(self.device) / 2**20, 1)
+        rss = _host_rss_mb()
+        if rss is not None:
+            mem["mem/host_rss_mb"] = round(rss, 1)
+        if mem:
+            self.logger.info(mem)
 
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         loader = self.train_loader
@@ -465,20 +493,115 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def evaluate_model(self, epoch: int) -> Dict[str, float]:
+        """``trainer.py:1187-1218``. CHAMMI: the MorphEm eval, once per
+        strategy of ``model.new_channel_inits`` (keys prefixed
+        ``{strategy}/``, ``accuracy`` the first strategy's) when the run
+        trained on a chunk subset, once with no strategy otherwise. Else
+        :meth:`eval_regular`, then with ``eval.eval_subset_channels`` the
+        channel-subset sweep."""
         if self.chammi:
             from .evaluation.morphem_eval import eval_morphem70k
 
-            return eval_morphem70k(self, epoch)
-        return self.eval_regular(epoch)
+            subset = training_chunk_list(self.cfg)
+            ncis = list(self.cfg.model.get("new_channel_inits") or [None])
+            if subset is None or set(subset) >= set(self.all_chunks):
+                ncis = [None]
+            results: Dict[str, float] = {}
+            for nci in ncis:
+                res = eval_morphem70k(self, epoch, new_channel_init=nci)
+                prefix = "" if nci is None else f"{nci}/"
+                results.update({f"{prefix}{k}": v for k, v in res.items()})
+            if "accuracy" not in results and f"{ncis[0]}/accuracy" in results:
+                results["accuracy"] = results[f"{ncis[0]}/accuracy"]
+            return results
+        results = self.eval_regular(epoch)
+        if self.cfg.eval.get("eval_subset_channels", False):
+            results.update(self.eval_subset_channels())
+        return results
+
+    # the per-channel table the synthesis strategies rebuild, per model
+    # (``trainer.py:1220``; the port registers these two models)
+    OVERRIDE_TABLES = {"dichavit": "channel_embed", "channelvit_adapt": "channel_embed"}
+
+    def _training_channels(self) -> list:
+        return flatten_training_channels(self.mapper,
+                                         self.cfg.train.get("training_chunks") or "train")
+
+    def _channel_embed(self) -> torch.Tensor:
+        return self.model.feature_extractor.patch_embed.channel_embed.weight.detach()
+
+    def _synthesis_override(self, split: str, new_channel_init) -> Optional[torch.Tensor]:
+        """The (C, D) channel embeddings of ``split``'s channels under a
+        leave-one-out strategy (``trainer.py:1231-1250``), or None for no
+        strategy, ``as_is`` or a model without a table. ``random_input_corr``
+        draws from ``host_rng`` as JAX does, so later k draws stay JAX's. An
+        unknown strategy, a dynamic one included, raises at the first novel
+        channel, and ``fixed_input_corr`` always does (no channel map)."""
+        if new_channel_init in (None, "as_is") or self.cfg.model.name not in self.OVERRIDE_TABLES:
+            return None
+        plan = synthesis_plan(self.mapper, split,
+                              self.cfg.train.get("training_chunks") or "train",
+                              str(new_channel_init), rng=self.host_rng)
+        return synthesize_rows(self._channel_embed(), plan)
+
+    def _dynamic_bank(self) -> torch.Tensor:
+        """The exemplars of the dynamic strategies (``trainer.py:1252-1278``):
+        up to 8 images of the first train batch of the loader's current
+        epoch, cut to the training channels, f32 on the device. Taking the
+        batch leaves the loader's epoch as it is: its order is f(seed,
+        epoch), so the epochs' batches stay JAX's."""
+        if self._dyn_bank is None:
+            imgs = next(iter(self.train_loader))["image"][:8]
+            imgs = imgs[:, :len(self._training_channels())]
+            self._dyn_bank = torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+        return self._dyn_bank
+
+    def _dynamic_override(self, split: str, strategy: str, x: torch.Tensor) -> torch.Tensor:
+        """The per-sample (B, C, D) override of ``dynamic_input_corr_{1..6}``
+        for the images ``x`` (``trainer.py:1280-1305``): a trained channel's
+        own row, a novel channel's :func:`dynamic_input_corr` row."""
+        variant = int(str(strategy)[-1])
+        training_channels = self._training_channels()
+        ce = self._channel_embed()
+        proj_fn = None
+        if variant in (5, 6):
+            fe = self.model.feature_extractor
+            p = fe.patch_size
+            kernel = fe.patch_embed.proj.weight.detach().reshape(fe.embed_dim, p * p).t()
+
+            def proj_fn(xx):
+                return per_channel_patch_embed(xx, kernel, None, patch_size=p)
+        rows = []
+        for i, c in enumerate(self._chunk_channel_ids(split)):
+            if c in training_channels:
+                rows.append(ce[c].expand(x.shape[0], -1))
+            else:
+                rows.append(dynamic_input_corr(variant, x, i, self._dynamic_bank(), ce,
+                                               training_channels, proj_fn=proj_fn))
+        return torch.stack(rows, dim=1)
 
     def eval_regular(self, epoch: int) -> Dict[str, float]:
-        """Accuracy per eval split (``trainer.py:386-472``; one pass each:
-        novel-channel strategies are not ported, ROADMAP A7)."""
+        """Accuracy per eval split and novel-channel strategy
+        (``trainer.py:1307-1330``): each split once per strategy of
+        ``model.new_channel_inits``, stopping after the first where the
+        split's channels are train's; ``valid`` once with no strategy. Keys
+        ``{split}/accuracy`` or ``{split}/{strategy}/accuracy``; ``accuracy``
+        their mean."""
         results: Dict[str, float] = {}
+        ncis = list(self.cfg.model.get("new_channel_inits") or [None])
         for split in [s for s in self.mapper if s != "train"]:
             loader = self._eval_loader_for(split)
-            if loader is not None:
-                results[f"{split}/accuracy"] = self._eval_split(split, loader)
+            if loader is None:
+                continue
+            for i, nci in enumerate(ncis):
+                if i > 0 and list(self.mapper["train"]) == list(self.mapper[split]):
+                    break
+                if split == "valid":
+                    nci = None
+                key = f"{split}/accuracy" if nci is None else f"{split}/{nci}/accuracy"
+                results[key] = self._eval_split(split, loader, nci)
+                if split == "valid":
+                    break
         if results:
             results["accuracy"] = float(np.mean(list(results.values())))
         return results
@@ -490,23 +613,68 @@ class Trainer:
             return self.test_loader.get(split)
         return self.test_loader if split.startswith("test") else None
 
-    def _eval_split(self, split: str, loader) -> float:
-        cids = torch.tensor(self._chunk_channel_ids(split if split in self.mapper else "train"),
-                            device=self.device)
+    def _eval_batches(self, loader):
+        """Each eval batch's valid rows on the device and their labels; the
+        pad rows of a ``pad_last`` batch are dropped before the forward.
+        ``debug`` stops after 3 batches."""
         max_batches = 3 if self.debug else math.inf
-        correct, total = 0, 0
         for i, batch in enumerate(loader):
             if i >= max_batches:
                 break
             valid = batch.get("valid", np.ones(len(batch["label"]), bool))
             rows = np.flatnonzero(valid)
             img = batch["image"] if len(rows) == len(valid) else batch["image"][rows]
-            x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-            pred = self._eval_step(x, cids).argmax(dim=-1).cpu().numpy()
-            correct += int((pred == batch["label"][rows]).sum())
-            total += len(rows)
+            yield (torch.from_numpy(np.ascontiguousarray(img)).to(self.device),
+                   batch["label"][rows])
+
+    def _eval_split(self, split: str, loader, new_channel_init=None) -> float:
+        """One split's accuracy under one strategy (``trainer.py:1343-1369``);
+        a dynamic strategy's override is made per batch from its valid rows."""
+        cids = torch.tensor(self._chunk_channel_ids(split if split in self.mapper else "train"),
+                            device=self.device)
+        dynamic = str(new_channel_init).startswith("dynamic_input_corr")
+        override = None if dynamic else self._synthesis_override(split, new_channel_init)
+        correct, total = 0, 0
+        for x, labels in self._eval_batches(loader):
+            if dynamic:
+                override = self._dynamic_override(split, new_channel_init, x)
+            pred = self._eval_step(x, cids, override).argmax(dim=-1).cpu().numpy()
+            correct += int((pred == labels).sum())
+            total += len(labels)
         self.eval_counts[split] = (correct, total)
         return correct / max(total, 1)
+
+    def eval_subset_channels(self) -> Dict[str, float]:
+        """Channel-robustness sweep (``trainer.py:1383-1429``): the accuracy
+        of the first ``test*`` split over every C-choose-n channel subset
+        for n = C, then C - 1, where the reference stops. Keys
+        ``subset_{n}/mean`` and ``subset_{n}/std`` (population std). Each
+        eval batch is loaded once and forwarded for every subset."""
+        split = next((s for s in self.mapper if s.startswith("test")), "test")
+        loader = self._eval_loader_for(split)
+        if loader is None:
+            return {}
+        full = self._chunk_channel_ids(split if split in self.mapper else "train")
+        c = len(full)
+        combos = [combo for n in (c, c - 1) if n > 0
+                  for combo in itertools.combinations(range(c), n)]
+        cids = {combo: torch.tensor([full[i] for i in combo], device=self.device)
+                for combo in combos}
+        counts = dict.fromkeys(combos, (0, 0))
+        for x, labels in self._eval_batches(loader):
+            for combo in combos:
+                xs = x if len(combo) == c else x[:, list(combo)]
+                pred = self._eval_step(xs, cids[combo]).argmax(dim=-1).cpu().numpy()
+                correct, total = counts[combo]
+                counts[combo] = (correct + int((pred == labels).sum()), total + len(labels))
+        results: Dict[str, float] = {}
+        for n in (c, c - 1):
+            accs = [correct / max(total, 1) for combo, (correct, total) in counts.items()
+                    if len(combo) == n]
+            if accs:
+                results[f"subset_{n}/mean"] = float(np.mean(accs))
+                results[f"subset_{n}/std"] = float(np.std(accs))
+        return results
 
     # ------------------------------------------------------------------
     # checkpointing

@@ -175,16 +175,18 @@ def make_grad_step(
     return grad_step
 
 
-def make_eval_step(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """``eval_step(images, channel_ids) -> out``: the model's eval-mode
-    forward without gradient (the JAX ``make_eval_step`` without its
-    ``channel_embed_override``, which the novel-channel evals need, ROADMAP
-    A7): logits for a model with a head, else the CLS embedding."""
+def make_eval_step(model: torch.nn.Module) -> Callable[..., torch.Tensor]:
+    """``eval_step(images, channel_ids, override=None) -> out``: the model's
+    eval-mode forward without gradient (the JAX ``make_eval_step``):
+    logits for a model with a head, else the CLS embedding. ``override`` is
+    the channel-embedding override of the novel-channel evals, (C, D) or
+    per-sample (B, C, D), in place of the table's rows for ``channel_ids``."""
 
-    def eval_step(x: torch.Tensor, cids: torch.Tensor) -> torch.Tensor:
+    def eval_step(x: torch.Tensor, cids: torch.Tensor,
+                  override: Optional[torch.Tensor] = None) -> torch.Tensor:
         model.eval()
         with torch.no_grad():
-            out, _ = model(x, cids)
+            out, _ = model(x, cids, channel_embed_override=override)
         return out
 
     return eval_step

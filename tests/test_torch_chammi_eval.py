@@ -210,8 +210,8 @@ def test_main_runs_the_chammi_recipe(root, tmp_path, recipe, monkeypatch):
 
     extract = morphem_eval.extract_features
 
-    def spy_extract(t, chunk, loader):
-        feats = extract(t, chunk, loader)
+    def spy_extract(t, chunk, loader, *strategy):
+        feats = extract(t, chunk, loader, *strategy)
         seen.setdefault("rows", {})[chunk] = len(feats)
         return feats
 

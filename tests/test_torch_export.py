@@ -30,7 +30,9 @@ def _jax_params(scan_blocks=False, with_head=True):
         embed_dim=D, num_classes=NC, with_head=with_head, learnable_temp=True,
     )
     x = jnp.zeros((1, C, IMG, IMG), jnp.float32)
-    params = model.init({"params": jax.random.key(1)}, x, jnp.arange(C), train=False)["params"]
+    # jitted: eager flax takes several times longer on the CPU
+    params = jax.jit(lambda xx: model.init({"params": jax.random.key(1)}, xx, jnp.arange(C),
+                                           train=False))(x)["params"]
     return jax.tree_util.tree_map(np.asarray, params)
 
 

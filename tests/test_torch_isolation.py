@@ -5,7 +5,8 @@ In a fresh interpreter with ``jax``, ``flax`` and ``optax`` set to None in
 ``diverse_channel_vit_torch`` (``training/`` included) and ``chip_smoke``
 must import (the benchmark scripts of ``scripts/`` and ``bench`` too, the
 training entry point: ``main``, ``trainer``, the data layer, and CHAMMI's
-modules: ``data/morphem70k``, ``data/tps``, ``native``, ``evaluation/*``), and no
+modules: ``data/morphem70k``, ``data/tps``, ``native``, ``evaluation/*``, and the
+novel-channel synthesis, ``ops/novel_channels``), and no
 ``diverse_channel_vit_tpu`` module may appear in ``sys.modules``. Importing
 ``main`` parses no command line: the probe's argv holds an option that
 ``main``'s parser would refuse.
@@ -41,7 +42,7 @@ assert "diverse_channel_vit_torch.bench" in sys.modules
 for name in ("main", "trainer", "data.loaders", "config.loader", "ops.augment",
              "training.checkpoint", "logging_utils", "utils.misc", "data.morphem70k",
              "data.tps", "native", "evaluation", "evaluation.knn", "evaluation.metrics",
-             "evaluation.benchmark", "evaluation.morphem_eval"):
+             "evaluation.benchmark", "evaluation.morphem_eval", "ops.novel_channels"):
     assert "diverse_channel_vit_torch." + name in sys.modules, name
 """
 

@@ -64,9 +64,10 @@ def _port_model(dtype, state_dict, **kw):
 def setup():
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, C, IMG, IMG)).astype(np.float32)
-    params = _jax_model(jnp.float32).init(
-        {"params": jax.random.key(0)}, jnp.asarray(x[:, :7]), jnp.arange(7), train=False
-    )["params"]
+    # jitted: eager flax takes several times longer on the CPU
+    params = jax.jit(lambda xx: _jax_model(jnp.float32).init(
+        {"params": jax.random.key(0)}, xx, jnp.arange(7), train=False
+    ))(jnp.asarray(x[:, :7]))["params"]
     # LayerNorm affines and biases start at 1/0: move them off so they count
     leaves, tree = jax.tree_util.tree_flatten_with_path(params)
     moved = [
@@ -87,9 +88,9 @@ def _rel(got, want):
 def _logits(setup, jdtype, tdtype, ids, **kw):
     x, params, sd = setup
     xs = x[:, : len(ids)]
-    want, _ = _jax_model(jdtype).apply(
-        {"params": params}, jnp.asarray(xs), jnp.asarray(ids), train=False
-    )
+    want, _ = jax.jit(lambda p, xx: _jax_model(jdtype).apply(
+        {"params": p}, xx, jnp.asarray(ids), train=False
+    ))(params, jnp.asarray(xs))
     with torch.no_grad():
         got, extra = _port_model(tdtype, sd, **kw)(torch.from_numpy(xs), torch.tensor(ids))
     assert got.dtype == torch.float32 and got.shape == (2, NC) and float(extra) == 0.0

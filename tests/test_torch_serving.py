@@ -38,17 +38,19 @@ def setup():
         embed_dim=D, num_classes=NC, with_head=True,
     )
     x0 = jnp.zeros((2, C, IMG, IMG), jnp.float32)
-    params = jmodel.init({"params": jax.random.key(0)}, x0, jnp.arange(C), train=False)["params"]
+    # jitted: eager flax takes several times longer on the CPU
+    params = jax.jit(lambda xx: jmodel.init({"params": jax.random.key(0)}, xx, jnp.arange(C),
+                                            train=False))(x0)["params"]
     model = ChannelAdaptiveClassifier(
         ChannelVisionTransformer(C, IMG, PATCH, D, depth=2, num_heads=2), D, NC, with_head=True
     )
     model.load_state_dict(params_from_jax(params), strict=True)
     engine = ServingEngine(model, buckets=(1, 4, 8), max_wait_ms=20.0, device="cpu")
 
+    apply = jax.jit(lambda p, xx, cc: jmodel.apply({"params": p}, xx, cc, train=False)[0])
+
     def jax_forward(imgs, cids):
-        out, _ = jmodel.apply({"params": params}, jnp.asarray(imgs), jnp.asarray(cids),
-                              train=False)
-        return np.asarray(out)
+        return np.asarray(apply(params, jnp.asarray(imgs), jnp.asarray(cids)))
 
     return engine, jax_forward
 

@@ -29,7 +29,11 @@
 - Every key the Trainer does not honour raises ``NotImplementedError``
   naming its ROADMAP item; the keys it refused before the CHAMMI port follow
   JAX (CHAMMI trains; ``tps_prob`` and ``training_chunks`` are ignored off
-  CHAMMI), and ``build_mapper`` equals JAX's.
+  CHAMMI), and so do those it refused before the novel-channel port
+  (``model.new_channel_inits``, ``eval.eval_subset_channels``: the parity
+  run's evals with the key equal JAX's; CHAMMI on a chunk subset builds
+  JAX's mixed loader); ``build_mapper`` equals JAX's.
+- ``train.log_memory`` logs JAX's memory keys (ROADMAP C6).
 - Devices: with the device unset the Trainer and ``main`` run on the card,
   so they raise without one.
 """
@@ -128,6 +132,35 @@ def test_parity_f32_eval_and_parameters(parity_run):
         np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=lr / 10, rtol=0, err_msg=k)
 
 
+def test_log_memory_keys_equal_jax(parity_run, monkeypatch):
+    """``train.log_memory`` (ROADMAP C6): one epoch of each Trainer's
+    ``train()`` logs JAX's memory keys (JAX ``trainer.py:835-853``), here on
+    the CPU only ``mem/host_rss_mb`` (a card adds ``mem/hbm_mb`` and
+    ``mem/hbm_peak_mb``), a positive MB count. The epoch and the evals
+    replay the fixture's, which already ran them."""
+    _, _, runs = parity_run
+    logged = {}
+    for name, t in zip(("jax", "port"), parity_run[:2]):
+        msgs = logged[name] = []
+        monkeypatch.setattr(t, "train_one_epoch", lambda epoch, runs=runs[name], **kw: dict(
+            runs["metrics"]))
+        monkeypatch.setattr(t, "evaluate_model", lambda epoch, runs=runs[name]: dict(runs["eval"]))
+        monkeypatch.setattr(t, "total_epochs", 1)
+        monkeypatch.setattr(t.logger, "info", lambda msg, *a, msgs=msgs, **kw: msgs.append(msg))
+        saved = (t.cfg.train.get("log_memory"), t.cfg.train.save_model)
+        t.cfg.train.log_memory, t.cfg.train.save_model = True, "none"
+        try:
+            t.train()
+        finally:
+            t.cfg.train.log_memory, t.cfg.train.save_model = saved
+    keys = {n: {k for m in msgs if isinstance(m, dict) for k in m if k.startswith("mem/")}
+            for n, msgs in logged.items()}
+    assert keys["port"] == keys["jax"] == {"mem/host_rss_mb"}
+    rss = [m["mem/host_rss_mb"] for m in logged["port"]
+           if isinstance(m, dict) and "mem/host_rss_mb" in m]
+    assert len(rss) == 1 and rss[0] > 0
+
+
 def _find(root, name):
     for d, _, files in os.walk(root):
         if name in files:
@@ -175,8 +208,6 @@ def test_dcs_k_draws_equal_jax(tmp_path):
 
 
 REFUSED = [
-    ("chammi_cfg", ["train.training_chunks=Allen_HPA", "model.new_channel_inits=[zero]"],
-     "ROADMAP A7"),
     ("chammi_cfg", ["eval.umap=True"], "ROADMAP A7"),
     ("cifar10_cfg", [], "ROADMAP A6"),
     ("synthetic_cfg", ["train.swa=True"], "ROADMAP A6"),
@@ -186,8 +217,6 @@ REFUSED = [
     ("synthetic_cfg", ["model.freeze_other=True"], "ROADMAP A6"),
     ("synthetic_cfg", ["model.unfreeze_last_n_layers=2"], "ROADMAP A6"),
     ("synthetic_cfg", ["model.pretrained=True"], "ROADMAP A9"),
-    ("synthetic_cfg", ["model.new_channel_inits=[zero]"], "ROADMAP A7"),
-    ("synthetic_cfg", ["eval.eval_subset_channels=True"], "ROADMAP A7"),
     ("synthetic_cfg", ["train.plot_attn=True"], "ROADMAP A6"),
     ("synthetic_cfg", ["train.profile_dir=/nonexistent"], "ROADMAP A6"),
     ("synthetic_cfg", ["train.max_host_rss_gb=8"], "ROADMAP A6"),
@@ -212,17 +241,28 @@ def test_unported_keys_raise(name, over, match, tmp_path):
 
 
 # keys the Trainer refused before the CHAMMI port and now honours (CHAMMI) or
-# ignores as JAX does (tps_prob and training_chunks off CHAMMI)
+# ignores as JAX does (tps_prob and training_chunks off CHAMMI), and those it
+# refused before the novel-channel port (the strategies, the subset sweep)
 HONOURED = [
     ("chammi_cfg", []),
+    ("chammi_cfg", ["train.training_chunks=Allen_HPA", "model.new_channel_inits=[zero]"]),
     ("synthetic_cfg", ["train.tps_prob=0.2"]),
     ("synthetic_cfg", ["train.training_chunks=Allen_HPA"]),
+    ("synthetic_cfg", ["model.new_channel_inits=[zero]"]),
+    ("synthetic_cfg", ["eval.eval_subset_channels=True"]),
 ]
 
 
 @pytest.mark.parametrize("name,over", HONOURED,
                          ids=[f"{n}-{'-'.join(o) or 'default'}" for n, o in HONOURED])
-def test_formerly_refused_keys_follow_jax(name, over, tmp_path):
+def test_formerly_refused_keys_follow_jax(name, over, tmp_path, request):
+    """The Trainer builds with each key. CHAMMI: the mapper, the mixed
+    loader's quotas over the training chunks and the class count equal
+    JAX's (tests/test_torch_novel_channels_so2sat_chammi.py holds the
+    strategies' eval). The novel-channel keys off CHAMMI: the eval of the
+    parity run's two Trainers with the key set is equal, keys and values.
+    ``tps_prob`` and ``training_chunks`` off CHAMMI: the loaders are those
+    of a run without them."""
     import sys
 
     from diverse_channel_vit_tpu.data import loaders as jloaders
@@ -239,14 +279,34 @@ def test_formerly_refused_keys_follow_jax(name, over, tmp_path):
     cfg, jcfg = load_config(name, args), jload_config(name, args)
     t = Trainer(cfg, device="cpu")
     if name == "chammi_cfg":
-        # the mixed loader, the proxy loss over the 14 global classes, no head
+        # the mixed loader, the proxy loss over the global classes, no head
         assert t.mapper == JTrainer._build_mapper(types.SimpleNamespace(
             cfg=jcfg, dataset_name="morphem70k"))
-        mixed = jloaders.make_random_instance_train_loader(jcfg, t.seed)
+        subset = ["Allen", "HPA"] if over else None
+        mixed = jloaders.make_random_instance_train_loader(jcfg, t.seed, training_chunks=subset)
         assert t.train_loader.quotas == mixed.quotas
-        assert t.updates_per_epoch == len(mixed) == 2
-        assert t.loss_type == "proxy" and t.num_classes == 14
+        assert sorted(mixed.quotas) == sorted(subset or t.mapper)
+        assert t.updates_per_epoch == len(mixed) == (1 if over else 2)
+        assert t.loss_type == "proxy" and t.num_classes == (10 if over else 14)
         assert t.model.classifer_head is None and sorted(t.test_loaders) == ["Allen", "CP", "HPA"]
+        return
+    if "tps_prob" not in over[0] and "training_chunks" not in over[0]:
+        key, value = over[0].split("=")
+        section, field = key.split(".")
+        jt, pt, runs = request.getfixturevalue("parity_run")
+        evals = {}
+        for side, tr in (("jax", jt), ("port", pt)):
+            sec = getattr(tr.cfg, section)
+            saved = sec.get(field)
+            setattr(sec, field, ["zero"] if field == "new_channel_inits" else True)
+            try:
+                evals[side] = tr.evaluate_model(1)
+            finally:
+                setattr(sec, field, saved)
+        assert evals["port"] == evals["jax"]
+        assert set(evals["port"]) - set(runs["port"]["eval"]) == (
+            {"test/zero/accuracy"} if field == "new_channel_inits" else
+            {f"subset_{n}/{s}" for n in (8, 7) for s in ("mean", "std")})
         return
     # off CHAMMI, JAX resets training_chunks (trainer.py:578-580) and no
     # dataset reads tps_prob: the same loaders and batches as without the key

@@ -224,8 +224,8 @@ def _start(**geom):
     def init(x):
         return model.init({"params": jax.random.key(0)}, x, jnp.asarray(IDS), train=False)
 
-    # the slice's shape is jitted (eager flax takes several times longer on the CPU)
-    params = (jax.jit(init) if geom else init)(jnp.asarray(xs[0]))["params"]
+    # jitted: eager flax takes several times longer on the CPU
+    params = jax.jit(init)(jnp.asarray(xs[0]))["params"]
     # LayerNorm affines and biases start at 1/0: move them off so they count
     leaves, tree = jax.tree_util.tree_flatten_with_path(params)
     moved = [
@@ -355,12 +355,14 @@ def test_proxy_main_loss_matches_jax(start, learnable_temp):
     jmodel = JClassifier(backbone=bb, embed_dim=D, num_classes=NC, with_head=False,
                          learnable_temp=learnable_temp)
     x, y = jnp.asarray(xs[0]), jnp.asarray(ys[0])
-    params = jmodel.init({"params": jax.random.key(2)}, x, jnp.asarray(IDS), train=False)["params"]
+    # jitted, init and gradient: eager flax takes several times longer on the CPU
+    params = jax.jit(lambda x: jmodel.init({"params": jax.random.key(2)}, x, jnp.asarray(IDS),
+                                           train=False)["params"])(x)
     kw = dict(loss_type="proxy", extra_loss_lambda=1.0, learnable_temp=learnable_temp,
               temperature=0.11111)
-    (_, jm), jg = jax.value_and_grad(
+    (_, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: j_loss_and_metrics(jmodel, p, x, jnp.asarray(IDS), y, jax.random.key(0), **kw),
-        has_aux=True)(params)
+        has_aux=True))(params)
     model = ChannelAdaptiveClassifier(
         ChannelVisionTransformer(C, IMG, P, D, DEPTH, H, **LOSS_KW), D, NC, with_head=False,
         learnable_temp=learnable_temp)
@@ -394,8 +396,7 @@ def test_train_step_grads_bf16_match_fused_jax(start, monkeypatch, geom=None):
                                       extra_loss_lambda=1.0, learnable_temp=False,
                                       temperature=0.11111)
 
-        grad_fn = jax.value_and_grad(jloss, has_aux=True)
-        (loss, _), g = (jax.jit(grad_fn) if geom else grad_fn)(params)
+        (loss, _), g = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
         return float(loss), params_from_jax(jax.device_get(g))
 
     _, want32 = jax_grads(jnp.float32)  # the unfused route
