@@ -34,10 +34,12 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    B7), bit for bit, S1 also across two calls; then B1, B2, B5, B6, S1 and
    S2 again at head width 128 (3 heads at D = 384, the ``small_tpu``
    preset), under names ending ``_dh128``; then B3, B4, B1 and B2 at the
-   ``base`` preset's widths (D = 768, hidden 3072, 12 heads of 64; B3 and B4
-   run a cluster of two blocks per 64 rows there), under names ending
-   ``_d768``, B3 and B4 with and without biases and residual, B4 twice bit
-   for bit; then B7 and B8 at D = 768 (a cluster of two blocks per 64 rows
+   ``base`` preset's widths (D = 768, hidden 3072, 12 heads of 64; B3 runs
+   a row pass and two GEMMs there, B4's dy a GEMM and a row pass), under
+   names ending ``_d768``, B3 and B4 with and without biases and residual,
+   B4 twice bit for bit, B4 at both widths and B3 at 768 split by launch
+   (profiler) beside each launch's bound and the bytes its tiles load from
+   L2; then B7 and B8 at D = 768 (a cluster of two blocks per 64 rows
    each) as at D = 384, also on a grid with a half-full last 128-row tile;
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
@@ -163,7 +165,7 @@ B, N_VALID, D, HEADS, HID = 64, 1569, 384, 6, 1536
 # mxu_native, int8_dh128 and dh-128 EViT recipe cells)
 TPU_PRESET, HEADS_TPU = "small_tpu", 3
 # the base preset (DiChaViT-B: D = 768 in 12 heads of 64, MLP 3072) at the
-# same geometry: the MLP kernels at D = 768, a cluster of two blocks per 64 rows
+# same geometry: the MLP kernels at D = 768
 BASE_PRESET, D_BASE, HEADS_BASE, HID_BASE = "base", 768, 12, 3072
 CHANNELS, IMG, PATCH, DEPTH, CLASSES = 8, 224, 16, 12, 161
 BUCKETS = (1, 4, 16, 64)
@@ -319,12 +321,23 @@ def check_ln_mlp_fwd(fb, torch, F, rnd, d=D, hid=HID):
         return F.linear(F.gelu(F.linear(y, w1, b1), approximate="tanh"), w2, b2) + x
 
     library_ms = cuda_ms(library, 10)
+    extra = {}
+    if d != D:  # three launches at 768: each beside its bound
+        m = B * n
+        gemm = 2 * rows * d * hid / PEAK_BF16_FLOPS
+        part_bounds = {
+            "LN pass": (4 * rows * d + 8 * rows) / PEAK_BYTES,
+            "fc1": max(gemm, 2 * (rows * d + rows * hid + d * hid) / PEAK_BYTES),
+            "fc2": max(gemm, 2 * (rows * hid + 2 * rows * d + d * hid) / PEAK_BYTES),
+        }
+        extra["sub_ms"] = launch_split(name, lambda: fb.ln_mlp(*largs), B3_PARTS, part_bounds,
+                                       b3_l2_bytes(m, d, hid))
     return dict(
         source="diverse_channel_vit_torch/csrc/ln_mlp.cu",
         replaces="diverse_channel_vit_tpu/ops/fused_block.py:152",
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         flops=4 * rows * d * hid,
-        bytes=2 * (2 * rows * d + 2 * d * hid + hid + d) + 4 * 2 * d,
+        bytes=2 * (2 * rows * d + 2 * d * hid + hid + d) + 4 * 2 * d, **extra,
     )
 
 
@@ -473,6 +486,22 @@ def check_ln_mlp_bwd(fb, torch, F, rnd, d=D, hid=HID):
     del first, second
     ms = cuda_ms(lambda: fb.ln_mlp_bwd(*largs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_bwd_plain(*largs), 2, warmup=1)
+    m = B * n
+    splits = fb._ln_mlp_wgrad_splits(m, d, hid, torch.device("cuda"))
+    ln_bwd_bytes = 6 * rows * d + 8 * rows  # x, do and dx bf16, the statistics
+    part_bounds = {
+        "LN pass": (4 * rows * d + 8 * rows) / PEAK_BYTES,
+        "dual": max(4 * rows * d * hid / PEAK_BF16_FLOPS, (4 * rows * d + 4 * rows * hid)
+                    / PEAK_BYTES),
+        "dy": max(2 * rows * d * hid / PEAK_BF16_FLOPS,
+                  (2 * rows * hid + (ln_bwd_bytes if d == D else 4 * rows * d)) / PEAK_BYTES),
+        "LN backward": (4 * rows * d + ln_bwd_bytes) / PEAK_BYTES,  # with dy in f32
+        "wgrad": 4 * rows * d * hid / PEAK_BF16_FLOPS,
+        "reductions": 4 * (splits * 2 * d * hid + -(-m // 128) * (hid + 3 * d)) / PEAK_BYTES,
+    }
+    sub_ms = launch_split(name, lambda: fb.ln_mlp_bwd(*largs),
+                          B4_PARTS if d == D else B4_PARTS_D768, part_bounds,
+                          b4_l2_bytes(m, d, hid))
     lib_in = [t.detach().clone().requires_grad_()
               for t in (x, s.to(bf16), bb.to(bf16), w1, b1, w2, rnd(d))]
     lx, ls, lbb, lw1, lb1, lw2, lb2 = lib_in
@@ -486,6 +515,7 @@ def check_ln_mlp_bwd(fb, torch, F, rnd, d=D, hid=HID):
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         flops=10 * rows * d * hid,
         bytes=2 * (3 * rows * d + 2 * d * hid + hid) + 4 * (2 * d + 2 * d * hid + hid + 3 * d),
+        sub_ms=sub_ms,
     )
 
 
@@ -520,9 +550,62 @@ def code_flips(name: str, label: str, got, want) -> float:
     return share
 
 
-# B8's launches, by the kernel names the profiler reports, and what each is
+# B8's, B4's and B3's launches, by a part of the kernel names the profiler
+# reports, and what each is
 B8_PARTS = (("q_rows_kernel", "LN pass"), ("q_dual_kernel", "dual"), ("q_dy_kernel", "dy"),
             ("wgrad_kernel", "wgrad"), ("reduce_partials_kernel", "reductions"))
+B4_PARTS = (("ln_rows_kernel", "LN pass"), ("dual_kernel", "dual"), ("dy_kernel", "dy"),
+            ("wgrad_kernel", "wgrad"), ("reduce_partials_kernel", "reductions"))
+# at D = 768 dy is a GEMM into f32 and the LayerNorm backward a row pass of its own
+B4_PARTS_D768 = (*B4_PARTS[:2], ("EpiStoreF32", "dy"), ("ln_bwd_rows_kernel", "LN backward"),
+                 *B4_PARTS[3:])
+B3_PARTS = (("ln_rows_kernel", "LN pass"), ("EpiGelu", "fc1"), ("EpiBiasResidual", "fc2"))
+
+
+def b4_l2_bytes(m: int, d: int, hid: int) -> dict:
+    """Bytes B4's GEMM launches load from L2 into shared memory over m rows,
+    from their tiles (``csrc/ln_mlp_bwd.cu``, ``csrc/ln_mlp_wgrad.cuh``,
+    ``csrc/ln_mlp_gemm.cuh``), in 8 KB boxes of 64 x 64 bf16: each block's
+    k-steps times what it loads a step, a multicast box counted once: at
+    768 dy's blocks of two row tiles share W1's boxes (2 + 2 boxes a block
+    a step)."""
+    box = 64 * 64 * 2
+    tiles128, tiles64 = -(-m // 128), -(-m // 64)
+    dy = (tiles64 * (hid // 64) * 7 if d == 384
+          else -(-m // 256) * 2 * (d // 256) * (hid // 64) * 4)
+    return {"dual": tiles128 * (hid // 128) * (d // 64) * 8 * box, "dy": dy * box,
+            "wgrad": 2 * (d // 128) * (hid // 192) * tiles64 * 5 * box}
+
+
+def b3_l2_bytes(m: int, d: int, hid: int) -> dict:
+    """The same for B3's GEMMs at 768 (``csrc/ln_mlp_gemm.cuh``): 128 x 256
+    tiles, the blocks of two row tiles sharing the weight tile, so a block
+    loads its A box (2 boxes) and half the B tile (2) a step."""
+    box = 64 * 64 * 2
+    tiles = -(-m // 256) * 2
+    return {"fc1": tiles * -(-hid // 256) * (d // 64) * 4 * box,
+            "fc2": tiles * (d // 256) * (hid // 64) * 4 * box}
+
+
+def launch_split(name: str, fn, parts, bounds: dict, l2_bytes: dict = None) -> dict:
+    """Device ms a call of ``fn`` spends in each of its launches ``parts``
+    (profiler, 3 calls), printed beside each one's bound and, where
+    ``l2_bytes`` gives it, the bytes its blocks load from L2 into shared
+    memory (counted from the tile shapes). {label: ms or None}."""
+    import torch
+
+    times = device_ms_by_kernel(fn, 3, torch)
+    split = {}
+    for keys, label in parts:
+        keys = (keys,) if isinstance(keys, str) else keys
+        split[label] = (sum(v for k, v in times.items() if any(key in k for key in keys))
+                        if times else None)
+        shown = "not measured" if split[label] is None else f"{split[label]:.4f} ms"
+        l2 = ""
+        if l2_bytes and label in l2_bytes:
+            l2 = f", L2 -> shared memory {l2_bytes[label] / 1e9:.2f} GB"
+        print(f"{name} part {label}: {shown} a call, bound {bounds[label] * 1e3:.4f} ms{l2}")
+    return split
 
 # One hidden element of each int8 kernel's epilogue, built from int8.cuh's
 # helpers alone, for counting its instructions in the SASS: B7's pass 1
@@ -745,7 +828,6 @@ def check_q_kernels(fb, torch, F, kernels, d=D, hid=HID, seed=3):
     ms = cuda_ms(lambda: fb.ln_mlp_q_bwd(*bargs), 10)
     plain_ms = cuda_ms(lambda: fb.ln_mlp_q_bwd_plain(*bargs), 2, warmup=1)
     # B8's launches, each beside its bound (max of operations and bytes)
-    parts = device_ms_by_kernel(lambda: fb.ln_mlp_q_bwd(*bargs), 3, torch)
     m = B * n
     splits = fb._ln_mlp_wgrad_splits(m, d, hid, torch.device("cuda"))
     part_bounds = {
@@ -756,12 +838,7 @@ def check_q_kernels(fb, torch, F, kernels, d=D, hid=HID, seed=3):
         "reductions": 4 * (splits * 2 * d * hid + -(-m // 128) * hid
                            + -(-m // 64) * 3 * d) / PEAK_BYTES,
     }
-    split = {}
-    for key, label in B8_PARTS:
-        split[label] = sum(v for k, v in parts.items() if key in k) if parts else None
-        shown = "not measured" if split[label] is None else f"{split[label]:.4f} ms"
-        print(f"{name8} part {label}: {shown} a call, bound "
-              f"{part_bounds[label] * 1e3:.4f} ms")
+    split = launch_split(name8, lambda: fb.ln_mlp_q_bwd(*bargs), B8_PARTS, part_bounds)
 
     def library_bwd():
         xf, dof = x.float().reshape(-1, d), do.float().reshape(-1, d)
@@ -2708,8 +2785,8 @@ def main() -> int:
         fb, torch, F, HEADS_TPU, rnd)
     results.update(check_flash_kernels(torch, F, results, HEADS_TPU))
     results.update(check_script_kernels(fb, torch, F, HEADS_TPU))
-    # the base preset's widths: B3 and B4 at D = 768 (a cluster of two blocks
-    # per 64 rows), B1 and B2 with 12 heads of 64
+    # the base preset's widths: B3 and B4 at D = 768, B1 and B2 with 12 heads
+    # of 64
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(12))
     results[width_name("ln_mlp_fwd", D_BASE)] = check_ln_mlp_fwd(fb, torch, F, rnd, D_BASE,
                                                                 HID_BASE)

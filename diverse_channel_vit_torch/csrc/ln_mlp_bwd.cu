@@ -48,17 +48,32 @@
 //
 // D is a template parameter, 384 or 768 (HID a multiple of 384). (a), (b)
 // and (d) take D = 768 as they are (K = 768, more weight-gradient tiles).
-// (c) at D = 768 runs a cluster of two blocks per 64 rows, block r owning
-// dy's columns [384 r, 384 r + 384) (96 accumulator registers a thread, as
-// at 384): each block loads the dh_pre box and its six W1 boxes itself (no
-// multicast, so no block waits on the other's readers), and before the dx
-// epilogue each hands its rows' two sums (dy . scale and dy . scale .
-// xhat over its 384 columns) to the other through distributed shared
-// memory; both add the same two f32 terms. Its shared memory: 232,008 of
-// 232,448 bytes. ptxas (nvcc 12.9, sm_90a): 168 registers for dy, dual and
-// weight-gradient kernels at both widths, 48 for the D = 768 row pass, no
-// stack frame or spill. The scratch at D = 768 is B * N * (768 + 2 * 3072)
-// bf16, 1.42 GB at B = 64 and N = 1600.
+// (c) is dy_kernel at 384; at 768 it is two launches:
+//   (c1) `gemm_kernel<EpiStoreF32>` (ln_mlp_gemm.cuh): dy = dh_pre W1 on
+//        persistent blocks of 128 x 256 tiles, W1's boxes (MN-major)
+//        multicast to clusters of two row tiles, dy stored in f32 from
+//        registers into scratch;
+//   (c2) `ln_bwd_rows_kernel`: the LayerNorm backward, one warp a row, and
+//        each 64-row tile's column sums of do, dy * xhat and dy.
+// dy at 768 used to run the LayerNorm backward in the epilogue of a pair of
+// blocks per 64 rows that exchanged row sums: 1.38 ms at B = 64, N = 1600 on
+// an H100 80GB HBM3 at 700 W. Fusing it into the 128 x 256 GEMM instead
+// (three column tiles of a row tile in a cluster exchanging row sums)
+// spilled and made three blocks wait on each other (1.27-1.42 ms); the f32
+// round trip (dy written and read once, 0.63 GB) costs less: 0.71 + 0.29
+// ms. Tried at 768 and no faster than (b) as it is (2.07-2.11 ms): a
+// cluster of two hidden tiles multicasting the y and do boxes, a persistent
+// dual GEMM holding its last stage for the epilogue (it spilled, 2.37-2.42
+// ms), and one product group kept in flight across k-steps (2.17). ptxas
+// (nvcc 12.9, sm_90a) at 768: 168 registers for (b), (c1) and (d), (c1)
+// with 52 bytes of spill stores; 194 for (c2) (9,216 bytes of shared
+// memory), 48 for (a); no other stack frame or spill. On an H100 80GB HBM3
+// at 700 W, B = 64, N = 1600: 4.61 ms (a 0.07, b 2.09, c1 0.71, c2 0.29, d
+// 1.25, e 0.11) against 4.04 ms for autograd through the PyTorch
+// composition; (b), at 2.2x its bound, holds most of the gap. The scratch
+// at D = 768 is B * N * (768 + 2 * 3072) bf16 and B * N * 768 f32, 1.73 GB
+// at B = 64 and N = 1600.
+#include "ln_mlp_gemm.cuh"
 #include "ln_mlp_wgrad.cuh"
 
 namespace dcvit {
@@ -69,60 +84,14 @@ constexpr int kDualStages = 3;
 constexpr int kDualStageBytes = 4 * 2 * wg::kBoxBytes;
 constexpr int kDualSmem = kDualStages * kDualStageBytes + 8 * kLBTile * 4 +
                           2 * kDualStages * 8 + wg::kAlign;
-// (c): per stage dh_pre (K-major [64 rows][64]) and W1 (MN-major, six
-// [64 hidden][64 d] boxes)
+// (c) at D = 384: per stage dh_pre (K-major [64 rows][64]) and W1
+// (MN-major, six [64 hidden][64 d] boxes)
+constexpr int kLBW = 384;      // dy_kernel's width
 constexpr int kLBDyRows = 64;  // rows per dy block
 constexpr int kDyStages = 4;
 constexpr int kDyStageBytes = 7 * wg::kBoxBytes;
 constexpr int kDySmem = kDyStages * kDyStageBytes + 2 * kLBDyRows * 2 * 4 + 2 * kDyStages * 8 +
                         wg::kAlign;
-// D = 768: a cluster of two dy blocks per 64 rows, each with 384 of the
-// columns; beside its ring a block holds the other's row sums and their barrier
-constexpr int kLBW = 384;  // dy columns a block owns
-template <int D>
-constexpr int dy_smem() {
-  return kDySmem + (D == kLBW ? 0 : kLBDyRows * 2 * 4 + 8);
-}
-static_assert(dy_smem<768>() <= 232448, "dy_kernel: shared memory past 227 KB");
-
-// ---- (a) LayerNorm rows --------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(256)
-    ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_scale,
-                   const float* __restrict__ ln_bias, __nv_bfloat16* __restrict__ y,
-                   float* __restrict__ stats, long long m) {
-  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= m) return;
-  const uint32_t* xrow = reinterpret_cast<const uint32_t*>(x + r * D);
-  uint32_t* yrow = reinterpret_cast<uint32_t*>(y + r * D);
-  float2 v[D / 64];
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / 64; ++i) {
-    v[i] = unpack_bf16(xrow[lane + 32 * i]);
-    sum += v[i].x + v[i].y;
-  }
-  const float mean = warp_sum(sum) / D;
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / 64; ++i) {
-    const float a = v[i].x - mean, c = v[i].y - mean;
-    sq += a * a + c * c;
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / D + 1e-6f);
-#pragma unroll
-  for (int i = 0; i < D / 64; ++i) {
-    const int col = 2 * (lane + 32 * i);
-    yrow[lane + 32 * i] = pack_bf16((v[i].x - mean) * rstd * ln_scale[col] + ln_bias[col],
-                                    (v[i].y - mean) * rstd * ln_scale[col + 1] + ln_bias[col + 1]);
-  }
-  if (lane == 0) {
-    stats[2 * r] = mean;
-    stats[2 * r + 1] = rstd;
-  }
-}
 
 // ---- (b) h and dh_pre ---------------------------------------------------------------
 
@@ -240,7 +209,8 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 
 // ---- (c) dy and the LayerNorm backward ----------------------------------------------
 
-template <int D>
+// D = 384: a block per 64 rows, the two consumer warpgroups splitting the
+// columns
 __global__ void __launch_bounds__(wg::kThreads, 1)
     dy_kernel(const __grid_constant__ CUtensorMap dhp_map, const __grid_constant__ CUtensorMap w1_map,
               const __grid_constant__ CUtensorMap dx_map, const __nv_bfloat16* __restrict__ x,
@@ -252,33 +222,17 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   float* sRow = reinterpret_cast<float*>(ring + kDyStages * kDyStageBytes);  // [2][64][2]
   uint64_t* full = reinterpret_cast<uint64_t*>(sRow + 2 * kLBDyRows * 2);
   uint64_t* empty = full + kDyStages;
-  // D = 768 only: the other block's row sums [64][2] and their barrier
-  float* sPeer = reinterpret_cast<float*>(empty + kDyStages);
-  uint64_t* pfull = reinterpret_cast<uint64_t*>(sPeer + kLBDyRows * 2);
-  constexpr int kPair = D / kLBW;
+  constexpr int D = kLBW;
   const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
-  const long long m0 = (long long)(blockIdx.x / kPair) * kLBDyRows;
+  const long long m0 = (long long)blockIdx.x * kLBDyRows;
   const int n_steps = hid / wg::kBox;
   constexpr int kHalf = kLBW / 2;  // dy columns per warpgroup
-  // this block's columns [col0, col0 + 384)
-  int col0 = 0;
-  uint32_t peer = 0;
-  if constexpr (kPair == 2) {
-    peer = wg::cluster_rank() ^ 1;
-    col0 = kLBW * (int)(peer ^ 1);
-    if (tid == 0) {
-      wg::bar_init(pfull, 128);
-      wg::bar_init_fence();
-    }
-  }
   init_ring(full, empty, kDyStages);
-  if constexpr (kPair == 2) wg::cluster_sync();  // both blocks' barriers are initialised
 
   if (wgi == wg::kConsumers) {
     // producer: stage = dh_pre rows [m0, m0 + 64) x hidden [64 ks, + 64)
-    // (K-major) and W1 rows [64 ks, + 64) x columns [col0, col0 + 384) (six
-    // MN-major boxes; at D = 768 each block of the pair loads the dh_pre box
-    // itself)
+    // (K-major) and W1 rows [64 ks, + 64) x all 384 columns (six MN-major
+    // boxes)
     wg::regs_dealloc<wg::kProducerRegs>();
     if (t == 0) {
       for (int ks = 0; ks < n_steps; ++ks) {
@@ -288,14 +242,14 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
         uint8_t* st = ring + s * kDyStageBytes;
         wg::tma_load(st, &dhp_map, &full[s], ks * wg::kBox, (int)m0);
         for (int j = 0; j < kLBW / wg::kBox; ++j)
-          wg::tma_load(st + (1 + j) * wg::kBoxBytes, &w1_map, &full[s], col0 + j * wg::kBox,
+          wg::tma_load(st + (1 + j) * wg::kBoxBytes, &w1_map, &full[s], j * wg::kBox,
                        ks * wg::kBox);
       }
     }
   } else {
     wg::regs_alloc<wg::kConsumerRegs>();
-    float acc[96];  // dy: 64 rows x columns col0 + [192 wgi, 192 wgi + 192)
-    const uint32_t ring_s = kPair == 1 ? smem_addr(ring) : wg::desc_addr(smem_addr(ring));
+    float acc[96];  // dy: 64 rows x columns [192 wgi, 192 wgi + 192)
+    const uint32_t ring_s = smem_addr(ring);
     for (int ks = 0; ks < n_steps; ++ks) {
       const int s = ks % kDyStages;
       wg::bar_wait(&full[s], (ks / kDyStages) & 1);
@@ -332,7 +286,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
 #pragma unroll
     for (int i = 0; i < 96; i += 4) {
-      const int col = col0 + kHalf * wgi + wg::acc_col(t, i);
+      const int col = kHalf * wgi + wg::acc_col(t, i);
       const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
       const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
       const float2 oa = pair(dout, va, ra, col), ob = pair(dout, vb, rb, col);
@@ -350,7 +304,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 #pragma unroll
       for (int q = 0; q < 6; ++q) {
         const float v = sum_over_rows(c[q]);
-        if (lane < 4) sCol[(warp * 3 + (q >> 1)) * kHalf + (col - col0 - kHalf * wgi) + (q & 1)] = v;
+        if (lane < 4) sCol[(warp * 3 + (q >> 1)) * kHalf + (col - kHalf * wgi) + (q & 1)] = v;
       }
     }
     s1a = sum_over_quad(s1a);
@@ -365,26 +319,10 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       mine[2 * rb + 1] = s2b;
     }
     wg::sync_named(3, 256);
-    if constexpr (kPair == 2) {
-      // each row's two sums over this block's 384 columns go to the other
-      // block, which adds them to its own (either block the same f32 sum of
-      // the same two terms)
-      if (tid < 2 * kLBDyRows) {
-        wg::st_peer(wg::peer_addr(&sPeer[tid], peer), sRow[tid] + sRow[2 * kLBDyRows + tid]);
-        wg::bar_arrive_peer(wg::peer_addr(pfull, peer));
-      }
-      wg::bar_wait_cluster(pfull, 0);
-    }
     float t1a = sRow[2 * ra] + sRow[2 * (kLBDyRows + ra)];
     float t2a = sRow[2 * ra + 1] + sRow[2 * (kLBDyRows + ra) + 1];
     float t1b = sRow[2 * rb] + sRow[2 * (kLBDyRows + rb)];
     float t2b = sRow[2 * rb + 1] + sRow[2 * (kLBDyRows + rb) + 1];
-    if constexpr (kPair == 2) {
-      t1a += sPeer[2 * ra];
-      t2a += sPeer[2 * ra + 1];
-      t1b += sPeer[2 * rb];
-      t2b += sPeer[2 * rb + 1];
-    }
     const float m1a = t1a / D;
     const float m2a = t2a / D;
     const float m1b = t1b / D;
@@ -395,7 +333,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     uint8_t* stX = ring + wgi * 3 * wg::kBoxBytes;
 #pragma unroll
     for (int i = 0; i < 96; i += 4) {
-      const int lc = wg::acc_col(t, i), col = col0 + kHalf * wgi + lc;
+      const int lc = wg::acc_col(t, i), col = kHalf * wgi + lc;
       const float sc0 = ln_scale[col], sc1 = ln_scale[col + 1];
       const float2 xa = pair(x, va, ra, col), xb = pair(x, vb, rb, col);
       float a0 = rstd_a * (acc[i] * sc0 - m1a - (xa.x - mean_a) * rstd_a * m2a);
@@ -417,23 +355,103 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     wg::sync_named(1 + wgi, 128);
     if (t == 0) {
       for (int b = 0; b < 3; ++b)
-        wg::tma_store(&dx_map, stX + b * wg::kBoxBytes, col0 + kHalf * wgi + b * wg::kBox,
-                      (int)m0);
+        wg::tma_store(&dx_map, stX + b * wg::kBoxBytes, kHalf * wgi + b * wg::kBox, (int)m0);
       wg::tma_store_commit();
     }
     // per-block partials [db2 | ds | db], the four warps summed in order
-    float* part = ln_part + (long long)(blockIdx.x / kPair) * 3 * D;
+    float* part = ln_part + (long long)blockIdx.x * 3 * D;
     for (int c = t; c < kHalf; c += 128) {
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
         float tot = 0.f;
 #pragma unroll
         for (int w = 0; w < 4; ++w) tot += sCol[(w * 3 + q) * kHalf + c];
-        part[q * D + col0 + kHalf * wgi + c] = tot;
+        part[q * D + kHalf * wgi + c] = tot;
       }
     }
     if (t == 0) wg::tma_store_wait();
   }
+}
+
+// (c) at D = 768: dy = dh_pre W1 is `gemm_kernel<EpiStoreF32>`
+// (ln_mlp_gemm.cuh) into f32 scratch; this row pass then does dy_kernel's
+// LayerNorm backward. A warp owns 8 rows of a block's 64, lane l columns 2 (l
+// + 32 i) and the next (i < D / 64): dxhat = dy . scale, its row sums
+// (warp_sum), dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) (+ do),
+// and the lane's column sums of do (db2), dy * xhat (ds) and dy (db) over its
+// rows, added over the eight warps in order into this 64-row tile's ln_part
+// row. Bound by bytes: dy in f32, x, do and dx in bf16.
+template <int D>
+__global__ void __launch_bounds__(256)
+    ln_bwd_rows_kernel(const float* __restrict__ dy, const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ dout, const float* __restrict__ ln_scale,
+                       const float* __restrict__ stats, __nv_bfloat16* __restrict__ dx,
+                       float* __restrict__ ln_part, long long m, int residual) {
+  constexpr int kP = D / 64;  // column pairs a lane holds
+  constexpr int kRows = 8;    // rows a warp
+  __shared__ float sPart[3 * D];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float2* sc = reinterpret_cast<const float2*>(ln_scale);
+  float2 cdo[kP], cds[kP], cdb[kP];
+#pragma unroll
+  for (int i = 0; i < kP; ++i) cdo[i] = cds[i] = cdb[i] = make_float2(0.f, 0.f);
+  for (int rr = 0; rr < kRows; ++rr) {
+    const long long r = (long long)blockIdx.x * 8 * kRows + kRows * warp + rr;
+    if (r >= m) break;
+    const float mean = stats[2 * r], rstd = stats[2 * r + 1];
+    const float2* dyr = reinterpret_cast<const float2*>(dy + r * D);
+    const uint32_t* xr = reinterpret_cast<const uint32_t*>(x + r * D);
+    const uint32_t* dor = reinterpret_cast<const uint32_t*>(dout + r * D);
+    float2 g[kP], xh[kP];
+    uint32_t o[kP];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      g[i] = dyr[lane + 32 * i];
+      o[i] = dor[lane + 32 * i];
+      const float2 xv = unpack_bf16(xr[lane + 32 * i]), c = sc[lane + 32 * i];
+      xh[i] = make_float2((xv.x - mean) * rstd, (xv.y - mean) * rstd);
+      const float d0 = g[i].x * c.x, d1 = g[i].y * c.y;
+      s1 += d0 + d1;
+      s2 += d0 * xh[i].x + d1 * xh[i].y;
+      cds[i].x += g[i].x * xh[i].x;
+      cds[i].y += g[i].y * xh[i].y;
+      cdb[i].x += g[i].x;
+      cdb[i].y += g[i].y;
+    }
+    const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
+    uint32_t* dxr = reinterpret_cast<uint32_t*>(dx + r * D);
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const float2 ov = unpack_bf16(o[i]), c = sc[lane + 32 * i];
+      cdo[i].x += ov.x;
+      cdo[i].y += ov.y;
+      float a0 = rstd * (g[i].x * c.x - m1 - xh[i].x * m2);
+      float a1 = rstd * (g[i].y * c.y - m1 - xh[i].y * m2);
+      if (residual) {
+        a0 += ov.x;
+        a1 += ov.y;
+      }
+      dxr[lane + 32 * i] = pack_bf16(a0, a1);
+    }
+  }
+  for (int w = 0; w < 8; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        const int col = 2 * (lane + 32 * i);
+        const float2 q[3] = {cdo[i], cds[i], cdb[i]};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          sPart[k * D + col] = w == 0 ? q[k].x : sPart[k * D + col] + q[k].x;
+          sPart[k * D + col + 1] = w == 0 ? q[k].y : sPart[k * D + col + 1] + q[k].y;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* part = ln_part + (long long)blockIdx.x * 3 * D;
+  for (int c = threadIdx.x; c < 3 * D; c += 256) part[c] = sPart[c];
 }
 
 // The backward at width D (384 or 768; HID a multiple of 384), launches
@@ -443,22 +461,18 @@ template <int D>
 cudaError_t launch_ln_mlp_bwd(const void* x, const void* ln_scale, const void* ln_bias,
                               const void* w1, const void* b1, const void* w2, const void* dout,
                               void* dx, void* dw, void* bias_out, void* y_buf, void* stats,
-                              void* h_buf, void* dhp_buf, void* db1_part, void* ln_part,
-                              void* wgrad_part, long long m, int hid, int residual, int splits,
-                              cudaStream_t st) {
+                              void* h_buf, void* dhp_buf, void* dy_buf, void* db1_part,
+                              void* ln_part, void* wgrad_part, long long m, int hid, int residual,
+                              int splits, cudaStream_t st) {
   using bf16 = __nv_bfloat16;
-  constexpr int kPair = D / kLBW;
   const long long tiles128 = (m + kLBTile - 1) / kLBTile;
   const long long tiles64 = (m + kLBDyRows - 1) / kLBDyRows;
   cudaError_t err;
 
-  ln_rows_kernel<D><<<(unsigned)((m + 7) / 8), 256, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<bf16*>(y_buf), static_cast<float*>(stats),
-      m);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_ln_rows<D>(x, ln_scale, ln_bias, y_buf, stats, m, st)) != cudaSuccess)
+    return err;
 
-  CUtensorMap y128, do128, w1_k128, w2_mn, h64, dhp64, w1_mn, dx64, do64, y64;
+  CUtensorMap y128, do128, w1_k128, w2_mn, h64, dhp64, dhp128, w1_mn, dx64, do64, y64;
 
   const struct {
     CUtensorMap* map;
@@ -466,25 +480,19 @@ cudaError_t launch_ln_mlp_bwd(const void* x, const void* ln_scale, const void* l
     long long rows;
     int cols, box_rows;
   } maps[] = {
-      {&y128, y_buf, m, D, kLBTile},   {&do128, dout, m, D, kLBTile},
-      {&w1_k128, w1, hid, D, kLBTile}, {&w2_mn, w2, D, hid, wg::kBox},
-      {&h64, h_buf, m, hid, wg::kBox}, {&dhp64, dhp_buf, m, hid, wg::kBox},
-      {&w1_mn, w1, hid, D, wg::kBox},  {&dx64, dx, m, D, wg::kBox},
-      {&do64, dout, m, D, wg::kBox},   {&y64, y_buf, m, D, wg::kBox},
+      {&y128, y_buf, m, D, kLBTile},    {&do128, dout, m, D, kLBTile},
+      {&w1_k128, w1, hid, D, kLBTile},  {&w2_mn, w2, D, hid, wg::kBox},
+      {&h64, h_buf, m, hid, wg::kBox},  {&dhp64, dhp_buf, m, hid, wg::kBox},
+      {&dhp128, dhp_buf, m, hid, kLBTile}, {&w1_mn, w1, hid, D, wg::kBox},
+      {&dx64, dx, m, D, wg::kBox},      {&do64, dout, m, D, wg::kBox},
+      {&y64, y_buf, m, D, wg::kBox},
   };
   for (const auto& mp : maps)
     if ((err = tensor_map(mp.map, mp.ptr, mp.rows, mp.cols, mp.box_rows)) != cudaSuccess)
       return err;
-  const struct {
-    const void* fn;
-    int smem;
-  } attrs[] = {{(const void*)dual_kernel<D>, kDualSmem},
-               {(const void*)dy_kernel<D>, dy_smem<D>()}};
-  for (const auto& a : attrs)
-    if ((err = cudaFuncSetAttribute(a.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    a.smem)) != cudaSuccess)
-      return err;
-
+  if ((err = cudaFuncSetAttribute(dual_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kDualSmem)) != cudaSuccess)
+    return err;
   dual_kernel<D><<<dim3(hid / kLBTile, (unsigned)tiles128), wg::kThreads, kDualSmem, st>>>(
       y128, do128, w1_k128, w2_mn, h64, dhp64, static_cast<const bf16*>(b1),
       static_cast<float*>(db1_part), hid);
@@ -494,28 +502,25 @@ cudaError_t launch_ln_mlp_bwd(const void* x, const void* ln_scale, const void* l
   const auto* sc = static_cast<const float*>(ln_scale);
   const auto* stf = static_cast<const float*>(stats);
   auto* lp = static_cast<float*>(ln_part);
-  if constexpr (kPair == 1) {
-    dy_kernel<D><<<(unsigned)tiles64, wg::kThreads, kDySmem, st>>>(
-        dhp64, w1_mn, dx64, xb, dob, sc, stf, lp, m, hid, residual);
-  } else {
-    // a cluster of two blocks per 64 rows
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(kPair * tiles64));
-    cfg.blockDim = dim3(wg::kThreads);
-    cfg.dynamicSmemBytes = dy_smem<D>();
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kPair;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    if ((err = cudaLaunchKernelEx(&cfg, dy_kernel<D>, dhp64, w1_mn, dx64, xb, dob, sc, stf, lp,
-                                  m, hid, residual)) != cudaSuccess)
+  if constexpr (D == kLBW) {
+    if ((err = cudaFuncSetAttribute(dy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kDySmem)) != cudaSuccess)
       return err;
+    dy_kernel<<<(unsigned)tiles64, wg::kThreads, kDySmem, st>>>(dhp64, w1_mn, dx64, xb, dob, sc,
+                                                                stf, lp, m, hid, residual);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  } else {
+    // dy into f32 scratch (clusters of two row tiles multicasting W1's
+    // boxes), then the row pass
+    auto* dyf = static_cast<float*>(dy_buf);
+    const EpiStoreF32::Params p = {dyf, D};
+    if ((err = launch_gemm<EpiStoreF32, true>(dhp128, w1_mn, dx64, p, m, D, hid, st)) !=
+        cudaSuccess)
+      return err;
+    ln_bwd_rows_kernel<D><<<(unsigned)tiles64, 256, 0, st>>>(
+        dyf, xb, dob, sc, stf, static_cast<bf16*>(dx), lp, m, residual);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   if ((err = launch_ln_mlp_wgrad<D>(do64, h64, dhp64, y64, static_cast<float*>(wgrad_part),
                                     static_cast<float*>(dw), m, hid, splits, st)) != cudaSuccess)
@@ -536,26 +541,29 @@ cudaError_t launch_ln_mlp_bwd(const void* x, const void* ln_scale, const void* l
 // HID) bf16 in nn.Linear layout (HID a multiple of 384); dw (D * HID + HID *
 // D) f32 = [dW2 (D, HID) | dW1 (HID, D)]; bias_out (HID + 3D)
 // f32 = [db1 | db2 | ds | db]; scratch: y_buf (M, D) bf16, stats (M, 2) f32,
-// h_buf and dhp_buf (M, HID) bf16, db1_part (ceil(M / 128), HID) f32,
+// h_buf and dhp_buf (M, HID) bf16, at D = 768 dy_buf (M, D) f32 (unused at
+// 384), db1_part (ceil(M / 128), HID) f32,
 // ln_part (ceil(M / 64), 3D) f32, wgrad_part (splits, 2, D, HID) f32. All
 // contiguous. Returns a cudaError_t: the first failed launch's (or TMA
 // descriptor's), or cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int dcvit_ln_mlp_bwd(const void* x, const void* ln_scale, const void* ln_bias,
                                 const void* w1, const void* b1, const void* w2, const void* dout,
                                 void* dx, void* dw, void* bias_out, void* y_buf,
-                                void* stats, void* h_buf, void* dhp_buf, void* db1_part,
-                                void* ln_part, void* wgrad_part, long long m, int d, int hid,
-                                int residual, int splits, void* stream) {
+                                void* stats, void* h_buf, void* dhp_buf, void* dy_buf,
+                                void* db1_part, void* ln_part, void* wgrad_part, long long m,
+                                int d, int hid, int residual, int splits, void* stream) {
   using namespace dcvit;
   if ((d != 384 && d != 768) || hid % kWgN != 0 || hid % kLBTile != 0 || m < 1 || splits < 1 ||
-      (m + kLBTile - 1) / kLBTile > 65535 || m > 2147483647LL)
+      (m + kLBTile - 1) / kLBTile > 65535 || m > 2147483647LL || (d == 768 && dy_buf == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(d == 384
                    ? launch_ln_mlp_bwd<384>(x, ln_scale, ln_bias, w1, b1, w2, dout, dx, dw,
-                                            bias_out, y_buf, stats, h_buf, dhp_buf, db1_part,
-                                            ln_part, wgrad_part, m, hid, residual, splits, st)
+                                            bias_out, y_buf, stats, h_buf, dhp_buf, dy_buf,
+                                            db1_part, ln_part, wgrad_part, m, hid, residual,
+                                            splits, st)
                    : launch_ln_mlp_bwd<768>(x, ln_scale, ln_bias, w1, b1, w2, dout, dx, dw,
-                                            bias_out, y_buf, stats, h_buf, dhp_buf, db1_part,
-                                            ln_part, wgrad_part, m, hid, residual, splits, st));
+                                            bias_out, y_buf, stats, h_buf, dhp_buf, dy_buf,
+                                            db1_part, ln_part, wgrad_part, m, hid, residual,
+                                            splits, st));
 }

@@ -94,9 +94,11 @@ DEV void bar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- clusters (distributed shared memory) -----------------------------------
 //
-// The D = 768 kernels (ln_mlp.cu, ln_mlp_bwd.cu, ln_mlp_q.cu,
-// ln_mlp_q_bwd.cu) run pairs of blocks in a cluster that share their rows
-// and exchange f32 partial sums, row maxima or int8 tiles: a thread stores
+// The int8 kernels at D = 768 (ln_mlp_q.cu, ln_mlp_q_bwd.cu) run pairs of
+// blocks in a cluster that share their rows and exchange f32 partial sums,
+// row maxima or int8 tiles; the GEMM of ln_mlp_gemm.cuh runs pairs that
+// share a weight tile (`tma_load_multicast`, each block releasing a stage
+// on both blocks' empty barriers with `bar_arrive_remote`). A thread stores
 // into the other block's shared memory (`st.shared::cluster` at the address
 // `peer_addr` maps) and then arrives on the other block's mbarrier with
 // release semantics at cluster scope; the reader waits on its own mbarrier
@@ -145,6 +147,13 @@ DEV void bar_arrive_peer(uint32_t addr) {
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
                : "memory");
 }
+// arrive on the mbarrier at shared::cluster address `addr` with the default
+// (CTA-scope) release: how a consumer hands a ring stage back to the block
+// whose producer multicasts into it (its reads were wgmma's, complete at
+// wgmma.wait_group); a cluster-scope release here costs every k-step
+DEV void bar_arrive_remote(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(addr) : "memory");
+}
 DEV bool bar_test_cluster(uint32_t addr, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -185,6 +194,16 @@ DEV void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col, int
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
       : "memory");
 }
+// tma_load into the same offset of every block of the cluster in `mask` (bit
+// r: rank r), each block's mbarrier at `bar`'s offset receiving the bytes
+DEV void tma_load_multicast(void* dst, const CUtensorMap* map, uint64_t* bar, int col, int row,
+                            uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "h"(mask)
+      : "memory");
+}
 DEV void tma_store(const CUtensorMap* map, const void* src, int col, int row) {
   asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map)),
@@ -193,6 +212,11 @@ DEV void tma_store(const CUtensorMap* map, const void* src, int col, int row) {
 }
 DEV void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 DEV void tma_store_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// wait until every committed store has read its shared-memory source (which
+// may then be rewritten); the writes themselves may still be in flight
+DEV void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
 
 // ---- roles ---------------------------------------------------------------------
 
@@ -349,6 +373,39 @@ DEV void mma_m64n192(float (&d)[96], uint64_t da, uint64_t db, int accumulate) {
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
+// d[0:128] (+)= A(64 x 16) B(16 x 256); f32 accumulators in the m64n256 layout.
+template <int TA, int TB>
+DEV void mma_m64n256(float (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
 
 // ---- int8 products ------------------------------------------------------------------
 //

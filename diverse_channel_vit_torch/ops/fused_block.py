@@ -350,8 +350,11 @@ def ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, residual: bool = False) -> torc
 
 # the model widths each MLP kernel is built for: B3 and B4 (``csrc/ln_mlp.cu``,
 # ``csrc/ln_mlp_bwd.cu``), and the int8 B7 and B8 (``csrc/ln_mlp_q.cu``,
-# ``csrc/ln_mlp_q_bwd.cu``); at 768 each runs a cluster of two blocks per 64
-# rows (B4's and B8's dy launch)
+# ``csrc/ln_mlp_q_bwd.cu``). At 768, B3 is a LayerNorm row pass and two GEMMs
+# (``csrc/ln_mlp_gemm.cuh``: persistent blocks on 128 x 256 tiles, clusters
+# of two row tiles multicasting the weight tile) through bf16 scratch y and
+# h, and B4's dy is that GEMM into f32 scratch, then a LayerNorm-backward
+# row pass; B7 and B8 run clusters of two blocks per 64 rows.
 LN_MLP_WIDTHS = (384, 768)
 LN_MLP_Q_WIDTHS = (384, 768)
 
@@ -378,10 +381,17 @@ def _ln_mlp_fwd_cuda(x, scale, bias, w1, b1, w2, b2, residual):
     _check("w2", w2, bf16, (d, hid), dev)
     _check("b2", b2, bf16, (d,), dev)
     out = torch.empty_like(x)
+    m = x.numel() // d
+    scratch = (None, None, None)
+    if d == 768:  # y, the LayerNorm statistics and h between the three launches
+        scratch = (torch.empty((m, d), dtype=bf16, device=dev),
+                   torch.empty((m, 2), dtype=f32, device=dev),
+                   torch.empty((m, hid), dtype=bf16, device=dev))
     fn = kernels.function("ln_mlp")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                 w2.data_ptr(), b2.data_ptr(), out.data_ptr(), x.numel() // d, d, hid,
+                 w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in scratch), m, d, hid,
                  int(bool(residual)), torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("ln_mlp_fwd", err)
     LAUNCHES["ln_mlp_fwd"] += 1
@@ -446,6 +456,8 @@ def _ln_mlp_bwd_cuda(x, scale, bias, w1, b1, w2, do, residual):
     stats = torch.empty((m, 2), dtype=f32, device=dev)
     h_buf = torch.empty((m, hid), dtype=bf16, device=dev)
     dhp_buf = torch.empty((m, hid), dtype=bf16, device=dev)
+    # dy before the LayerNorm backward's row pass (D = 768 only)
+    dy_buf = torch.empty((m, d), dtype=f32, device=dev) if d == 768 else None
     db1_part = torch.empty((-(-m // 128), hid), dtype=f32, device=dev)
     ln_part = torch.empty((-(-m // 64), 3 * d), dtype=f32, device=dev)
     wgrad_part = torch.empty((splits, 2, d, hid), dtype=f32, device=dev)
@@ -454,7 +466,8 @@ def _ln_mlp_bwd_cuda(x, scale, bias, w1, b1, w2, do, residual):
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                  w2.data_ptr(), do.data_ptr(), dx.data_ptr(), dw.data_ptr(),
                  bias_out.data_ptr(), y_buf.data_ptr(), stats.data_ptr(), h_buf.data_ptr(),
-                 dhp_buf.data_ptr(), db1_part.data_ptr(), ln_part.data_ptr(),
+                 dhp_buf.data_ptr(), None if dy_buf is None else dy_buf.data_ptr(),
+                 db1_part.data_ptr(), ln_part.data_ptr(),
                  wgrad_part.data_ptr(), m, d, hid, int(bool(residual)), splits,
                  torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("ln_mlp_bwd", err)

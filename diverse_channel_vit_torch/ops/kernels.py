@@ -38,11 +38,11 @@ KERNELS = {
     "attend_project": ("attend_project.cu", "dcvit_attend_project_fwd",
                        [_P] * 7 + [_I] * 6 + [_F, _P]),
     "ln_mlp": ("ln_mlp.cu", "dcvit_ln_mlp_fwd",
-               [_P] * 8 + [_LL, _I, _I, _I, _P]),
+               [_P] * 11 + [_LL, _I, _I, _I, _P]),
     "attend_project_bwd": ("attend_project_bwd.cu", "dcvit_attend_project_bwd",
                            [_P] * 12 + [_I] * 6 + [_F, _I, _P]),
     "ln_mlp_bwd": ("ln_mlp_bwd.cu", "dcvit_ln_mlp_bwd",
-                   [_P] * 17 + [_LL, _I, _I, _I, _I, _P]),
+                   [_P] * 18 + [_LL, _I, _I, _I, _I, _P]),
     "flash_packed": ("flash_packed.cu", "dcvit_flash_packed_fwd",
                      [_P] * 5 + [_I] * 4 + [_LL] * 3 + [_I, _F, _P]),
     "flash_packed_bwd": ("flash_packed_bwd.cu", "dcvit_flash_packed_bwd",

@@ -14,8 +14,10 @@ drawn at the residual's scale, so a dropped or misplaced bias moves the output
 far past that; the cases with no residual and zero output bias let the
 kernel's products alone set max|plain|. B3 and B4 are also held at the
 recipe's and EViT's grids and with a half-full last 128-row tile, and at
-the base preset's D = 768 (a cluster of two blocks per 64 rows; at D = 384
-their outputs are pinned by sha256 on fixed inputs), B1 and B2 at D = 768
+the base preset's D = 768 (GEMMs on 128 x 256 tiles in clusters; at D = 384
+their outputs are pinned by sha256 on fixed inputs), there also at the
+tiles' edges: fewer rows than one wave, row counts no multiple of 128,
+hidden widths no multiple of 256 (B3 at 2112, B4 at 1152); B1 and B2 at D = 768
 and with one head (D_out = 64). The
 backward kernels B2 and B4 are held the same way, every output, B2's padded
 key rows must come out with dk = dv = 0 exactly, and two B2 calls, as two B4
@@ -132,29 +134,43 @@ def test_attend_project_kernel_matches_plain_dh128(gen, batch, n, heads, n_valid
                                              bias, dh=128)
 
 
-@pytest.mark.parametrize("shape,residual,bias", [
-    ((2, 64, 384), True, 1.0),
-    ((3, 640, 384), False, 1.0),
-    ((1, 100, 384), True, 1.0),   # a ragged last row tile
-    ((2, 640, 384), False, 0.0),  # the MLP's products alone
-    ((4, 768, 384), True, 1.0),   # the EViT grid after layer 6
-    ((3, 64, 384), True, 1.0),    # M = 192: a last 128-row tile half full
-    ((3, 64, 384), False, 0.0),   # the same, products alone
-    ((4, 256, 384), True, 1.0),   # the recipe's smallest grid (k = 1)
-    ((2, 1152, 384), False, 1.0),  # the EViT grid after layer 3
-    ((2, 1600, 384), True, 1.0),  # the flagship grid
-    # the base preset's width, D = 768 (a cluster of two blocks per 64 rows)
-    ((2, 1600, 768), True, 1.0),  # the flagship grid
-    ((2, 1600, 768), False, 0.0),  # the products alone
-    ((1, 100, 768), True, 1.0),   # a ragged last row tile
-    ((3, 64, 768), False, 1.0),   # M = 192
-    ((4, 768, 768), True, 1.0),   # the EViT grid after layer 6
-    ((2, 1152, 768), False, 1.0),  # the EViT grid after layer 3
-    ((4, 256, 768), True, 1.0),   # the recipe's smallest grid (k = 1)
+# the edges of the D = 768 GEMM tiles (128 rows x 256 columns, clusters of
+# two row tiles): fewer rows than one wave of tiles, row counts that are no
+# multiple of 128 or 256, and hidden widths that are no multiple of 256 (B3
+# takes multiples of 64, B4 of 384)
+D768_EDGES = [
+    ((1, 64, 768), True, 3072),     # M = 64: one row tile, half a cluster pair
+    ((5, 1569, 768), True, 3072),   # M = 7845: the unpadded flagship grid
+    ((5, 1569, 768), False, 3072),
+    ((3, 200, 768), True, 2112),    # HID = 33 x 64
+    ((2, 1600, 768), False, 1152),  # HID = 3 x 384
+]
+
+
+@pytest.mark.parametrize("shape,residual,bias,hid", [
+    ((2, 64, 384), True, 1.0, None),
+    ((3, 640, 384), False, 1.0, None),
+    ((1, 100, 384), True, 1.0, None),   # a ragged last row tile
+    ((2, 640, 384), False, 0.0, None),  # the MLP's products alone
+    ((4, 768, 384), True, 1.0, None),   # the EViT grid after layer 6
+    ((3, 64, 384), True, 1.0, None),    # M = 192: a last 128-row tile half full
+    ((3, 64, 384), False, 0.0, None),   # the same, products alone
+    ((4, 256, 384), True, 1.0, None),   # the recipe's smallest grid (k = 1)
+    ((2, 1152, 384), False, 1.0, None),  # the EViT grid after layer 3
+    ((2, 1600, 384), True, 1.0, None),  # the flagship grid
+    # the base preset's width, D = 768 (128 x 256-tile GEMMs)
+    ((2, 1600, 768), True, 1.0, None),  # the flagship grid
+    ((2, 1600, 768), False, 0.0, None),  # the products alone
+    ((1, 100, 768), True, 1.0, None),   # a ragged last row tile
+    ((3, 64, 768), False, 1.0, None),   # M = 192
+    ((4, 768, 768), True, 1.0, None),   # the EViT grid after layer 6
+    ((2, 1152, 768), False, 1.0, None),  # the EViT grid after layer 3
+    ((4, 256, 768), True, 1.0, None),   # the recipe's smallest grid (k = 1)
+    *((shape, residual, 1.0, hid) for shape, residual, hid in D768_EDGES),
 ])
-def test_ln_mlp_kernel_matches_plain(gen, shape, residual, bias):
+def test_ln_mlp_kernel_matches_plain(gen, shape, residual, bias, hid):
     d = shape[-1]
-    hid = 4 * d
+    hid = hid or 4 * d
     x = _rnd(gen, *shape)
     s = _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0
     b = _rnd(gen, d, scale=0.1, dtype=torch.float32)
@@ -227,28 +243,29 @@ def test_attend_project_bwd_kernel_matches_plain_dh128(gen, batch, n, heads, n_v
     test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid, dh=128)
 
 
-@pytest.mark.parametrize("shape,residual", [
-    ((1, 64, 384), True),
-    ((3, 640, 384), False),
-    ((1, 100, 384), True),   # a ragged last row tile
-    ((2, 1600, 384), False),
-    ((4, 768, 384), True),   # the EViT grid after layer 6
-    ((3, 64, 384), True),    # M = 192: a last 128-row tile half full
-    ((3, 64, 384), False),
-    ((4, 256, 384), False),  # the recipe's smallest grid (k = 1)
-    ((2, 1152, 384), True),  # the EViT grid after layer 3
-    # D = 768: dy on a cluster of two blocks per 64 rows, each with 384 columns
-    ((2, 1600, 768), True),  # the flagship grid
-    ((2, 1600, 768), False),
-    ((1, 100, 768), True),   # a ragged last row tile
-    ((3, 64, 768), False),   # M = 192: a last 128-row tile half full
-    ((4, 768, 768), True),   # the EViT grid after layer 6
-    ((2, 1152, 768), False),  # the EViT grid after layer 3
-    ((4, 256, 768), True),   # the recipe's smallest grid (k = 1)
+@pytest.mark.parametrize("shape,residual,hid", [
+    ((1, 64, 384), True, None),
+    ((3, 640, 384), False, None),
+    ((1, 100, 384), True, None),   # a ragged last row tile
+    ((2, 1600, 384), False, None),
+    ((4, 768, 384), True, None),   # the EViT grid after layer 6
+    ((3, 64, 384), True, None),    # M = 192: a last 128-row tile half full
+    ((3, 64, 384), False, None),
+    ((4, 256, 384), False, None),  # the recipe's smallest grid (k = 1)
+    ((2, 1152, 384), True, None),  # the EViT grid after layer 3
+    # D = 768: dy a 128 x 256-tile GEMM, then the LayerNorm backward
+    ((2, 1600, 768), True, None),  # the flagship grid
+    ((2, 1600, 768), False, None),
+    ((1, 100, 768), True, None),   # a ragged last row tile
+    ((3, 64, 768), False, None),   # M = 192: a last 128-row tile half full
+    ((4, 768, 768), True, None),   # the EViT grid after layer 6
+    ((2, 1152, 768), False, None),  # the EViT grid after layer 3
+    ((4, 256, 768), True, None),   # the recipe's smallest grid (k = 1)
+    *(e for e in D768_EDGES if e[2] % 384 == 0),
 ])
-def test_ln_mlp_bwd_kernel_matches_plain(gen, shape, residual):
+def test_ln_mlp_bwd_kernel_matches_plain(gen, shape, residual, hid):
     d = shape[-1]
-    hid = 4 * d
+    hid = hid or 4 * d
     x, do = _rnd(gen, *shape), _rnd(gen, *shape)
     s = _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0
     b = _rnd(gen, d, scale=0.1, dtype=torch.float32)
