@@ -13,9 +13,11 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    the plain version and a PyTorch library yardstick: the forwards B1
    (attend_project) and B3 (ln_mlp), then the backwards B2 and B4, at the
    flagship shapes (B = 64 images, N = 1600 tokens padded from 1569,
-   D = 384, 6 heads, hidden 1536, bf16), B3 and B4 also at the recipe's,
-   EViT's and ragged grids, and B2 and B4 each twice on the same inputs,
-   bit for bit;
+   D = 384, 6 heads, hidden 1536, bf16), B1 split by launch (B5's attention
+   and a projection GEMM, profiler) beside each launch's bound and timed
+   beside its library call at the recipe's, EViT's and serving's other
+   grids, B3 and B4 also at the recipe's, EViT's and ragged grids, and B2
+   and B4 each twice on the same inputs, bit for bit;
    then B5 and B6 (flash_packed,
    forward and backward) at the three grids the EViT path gives them, B5's
    lse within 1e-5 and B6 twice on the same inputs, bit for bit, with B1's
@@ -39,7 +41,8 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    names ending ``_d768``, B3 and B4 with and without biases and residual,
    B4 twice bit for bit, B4 at both widths and B3 at 768 split by launch
    (profiler) beside each launch's bound and the bytes its tiles load from
-   L2; then B7 and B8 at D = 768 (a cluster of two blocks per 64 rows
+   L2; B1 at 12 heads of 64 and at 3 of 128 split by launch as at 6; then B7
+   and B8 at D = 768 (a cluster of two blocks per 64 rows
    each) as at D = 384, also on a grid with a half-full last 128-row tile;
 4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
@@ -208,6 +211,11 @@ TRAIN_GRAD_REL_TOL = 5e-2
 # full (192 rows), the recipe's smallest grid (k = 1: N = 256), the EViT grid
 # after layer 6 (N = 768), and a token count that is no multiple of 64
 LN_MLP_GRIDS = ((3, 64), (8, 256), (8, 768), (1, 100))
+# the other grids B1 meets at the flagship's 6 heads, (images, N, n_valid):
+# EViT's after layers 3, 6 and 9, the DCS recipe's k = 5, 3 and 1 of 8
+# channels (k 196 + 1 tokens), and serving's one-image bucket
+AP_GRIDS = ((B, 1152, 1098), (B, 768, 768), (B, 576, 537), (B, 1024, 981), (B, 640, 589),
+            (B, 256, 197), (1, 1600, 1569))
 
 
 def card_line() -> str:
@@ -372,13 +380,50 @@ def check_attend_project_fwd(fb, torch, F, heads, rnd, D=D):
         return F.linear(o.transpose(1, 2).reshape(B, n, D), wp, bp) + x_res
 
     library_ms = cuda_ms(library, 10)
+    part_bounds = {  # two launches: each beside its bound
+        "attention": max(4 * rows * N_VALID * D / PEAK_BF16_FLOPS,
+                         2 * (rows * 3 * D + rows * D) / PEAK_BYTES),
+        "projection": max(2 * rows * D * D / PEAK_BF16_FLOPS,
+                          2 * (3 * rows * D + D * D + D) / PEAK_BYTES),
+    }
+    extra = {"sub_ms": launch_split(name, lambda: fb.attend_project_fwd(*args), B1_PARTS,
+                                    part_bounds)}
+    if heads == HEADS:  # the flagship's
+        extra["per_grid"] = ap_grid_times(fb, torch, F, rnd)
     return dict(
         source="diverse_channel_vit_torch/csrc/attend_project.cu",
         replaces="diverse_channel_vit_tpu/ops/fused_block.py:671",
         max_abs_err=err_xo, rel_err=rel_xo, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         flops=4 * rows * N_VALID * D + 2 * rows * D * D,
-        bytes=2 * (rows * 3 * D + 2 * rows * D + D * D + D),
+        bytes=2 * (rows * 3 * D + 2 * rows * D + D * D + D), **extra,
     )
+
+
+def ap_grid_times(fb, torch, F, rnd) -> list:
+    """B1 at the flagship's 6 heads of 64 on the other grids the model gives
+    it (AP_GRIDS), residual fused: its time and its library call's a call,
+    each grid's output held against its plain version."""
+    out = []
+    for nb, n, nv in AP_GRIDS:
+        qkv, x_res = rnd(nb, n, 3 * D), rnd(nb, n, D)
+        wp, bp = rnd(D, D, scale=D ** -0.5), rnd(D)
+        args = (qkv, x_res, wp, bp, HEADS, (D // HEADS) ** -0.5, nv)
+        label = f"{nb} x ({n}, {nv})"
+        hold("attend_project_fwd", label, (("xo", fb.attend_project_fwd(*args)[2],
+                                           fb.attend_project_fwd_plain(*args)[2]),))
+        keep = (torch.arange(n, device="cuda") < nv)[None, None, None, :]
+
+        def library():
+            q, k, v = qkv.view(nb, n, 3, HEADS, D // HEADS).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+            return F.linear(o.transpose(1, 2).reshape(nb, n, D), wp, bp) + x_res
+
+        g = dict(batch=nb, n=n, n_valid=nv, ms=cuda_ms(lambda: fb.attend_project_fwd(*args), 10),
+                 library_ms=cuda_ms(library, 10))
+        print(f"attend_project_fwd at {label}: kernel {g['ms']:.4f} ms, library "
+              f"{g['library_ms']:.4f} ms")
+        out.append(g)
+    return out
 
 
 def check_attend_project_bwd(fb, torch, F, heads, rnd, D=D):
@@ -560,6 +605,8 @@ B4_PARTS = (("ln_rows_kernel", "LN pass"), ("dual_kernel", "dual"), ("dy_kernel"
 B4_PARTS_D768 = (*B4_PARTS[:2], ("EpiStoreF32", "dy"), ("ln_bwd_rows_kernel", "LN backward"),
                  *B4_PARTS[3:])
 B3_PARTS = (("ln_rows_kernel", "LN pass"), ("EpiGelu", "fc1"), ("EpiBiasResidual", "fc2"))
+# B1's two launches
+B1_PARTS = (("flash_packed_fwd_kernel", "attention"), ("EpiBiasResidual", "projection"))
 
 
 def b4_l2_bytes(m: int, d: int, hid: int) -> dict:
@@ -591,14 +638,25 @@ def launch_split(name: str, fn, parts, bounds: dict, l2_bytes: dict = None) -> d
     """Device ms a call of ``fn`` spends in each of its launches ``parts``
     (profiler, 3 calls), printed beside each one's bound and, where
     ``l2_bytes`` gives it, the bytes its blocks load from L2 into shared
-    memory (counted from the tile shapes). {label: ms or None}."""
+    memory (counted from the tile shapes). {label: ms or None}. A reading
+    is kept only where every part's kernels were recorded 3 times or a
+    multiple of it (the profiler now and then loses a window's records);
+    else the window is read again, three times at most."""
     import torch
 
-    times = device_ms_by_kernel(fn, 3, torch)
+    parts = [((keys,) if isinstance(keys, str) else keys, label) for keys, label in parts]
+    for _ in range(3):
+        times = device_ms_by_kernel(fn, 3, torch)
+        hits = [[k for k in times if any(key in k for key in keys)] for keys, _ in parts]
+        if all(h and all(times[k][1] % 3 == 0 for k in h) for h in hits):
+            break
+        launches = {k: c for k, (_, c) in times.items()}
+        print(f"{name}: the profiler lost launches of this window ({launches}); read again")
+    else:
+        times = {}
     split = {}
     for keys, label in parts:
-        keys = (keys,) if isinstance(keys, str) else keys
-        split[label] = (sum(v for k, v in times.items() if any(key in k for key in keys))
+        split[label] = (sum(ms for k, (ms, _) in times.items() if any(key in k for key in keys))
                         if times else None)
         shown = "not measured" if split[label] is None else f"{split[label]:.4f} ms"
         l2 = ""
@@ -697,19 +755,28 @@ def issue_rate() -> float:
 
 def device_ms_by_kernel(fn, calls: int, torch) -> dict:
     """Device ms a call of each kernel ``fn`` launches, over ``calls`` calls,
-    from the profiler; {} if it recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    and its launches in that window, from the profiler: {kernel: (ms,
+    launches)}, {} if it recorded no device time. One call runs first in a
+    warm-up step whose records are dropped: the profiler can miss the first
+    launch of the window it starts in."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     out = {}
     for e in prof.key_averages():
         dev = getattr(e, "self_device_time_total", 0) or 0
         if dev > 0 and getattr(e, "device_type", None) != torch.autograd.DeviceType.CPU:
-            out[e.key] = out.get(e.key, 0.0) + dev / 1e3 / calls
+            ms, count = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + dev / 1e3 / calls, count + e.count)
     return out
 
 

@@ -13,10 +13,10 @@
 // special-function units' ~3.9 T exp2/s, against 308 MB of compulsory
 // traffic (q, k, v read once, o written once), 0.092 ms at 3.35 TB/s.
 //
-// Design (flash_packed.cuh on flash_wgmma.cuh and wgmma_core.cuh): the
-// attend_project forward's (B1's) tile loop, one head a block, without the
-// projection; the benchmark scripts' qkv_flash forward (S2) launches the same
-// kernel on one packed qkv map.
+// Design (flash_packed.cuh on flash_wgmma.cuh and wgmma_core.cuh): one head
+// a block, without a projection; the attend_project forward (B1) and the
+// benchmark scripts' qkv_flash forward (S2) launch the same kernel on one
+// packed qkv map.
 // - The TPU kept each batch row's whole K and V resident in VMEM (:279-280).
 //   One head's K+V at N = 1600 is 400 KB, above the 227 KB of shared memory
 //   a block may use, so K/V stream by TMA through a three-stage mbarrier
@@ -32,7 +32,7 @@
 //   block's exponentials run while another's products do; at 128, two
 //   ring stages of 32 KB keep two blocks an SM (81 KB). The grid (N / 64, H, B)
 //   keeps the card full at the small EViT grids too (4608 blocks at N = 768,
-//   against B1's 768 all-heads blocks).
+//   where blocks over all heads would be 768).
 // - q, k and v come as strided views, each through a rank-3 TMA map
 //   (columns, rows, images) with its own row stride, so the thirds of the
 //   packed qkv GEMM output, or three tensors of their own, go in without a

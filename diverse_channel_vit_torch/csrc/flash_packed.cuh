@@ -39,9 +39,9 @@ constexpr int kFwdSmem = fw::head_boxes(HD) * wg::kBoxBytes +
                          (2 * kPackedStages<kPV, HD> + 1) * 8 + wg::kAlign;
 
 // Grid (N / 64, heads, B). The forward's launch bound asks for two blocks an
-// SM, as B1's does, which leaves ptxas B1's register budget for the shared
-// tile loop; at head width 64 the 106 registers it uses let three run. The
-// statistics pass holds no o and asks for four.
+// SM, which leaves ptxas room for the tile loop; at head width 64 the 106
+// registers it uses let three run. The statistics pass holds no o and asks
+// for four.
 template <bool kPV, int HD>
 __global__ void __launch_bounds__(fw::kFwdThreads, kPV ? 2 : 4)
     flash_packed_fwd_kernel(const __grid_constant__ CUtensorMap q_map,

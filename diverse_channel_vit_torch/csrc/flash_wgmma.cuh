@@ -3,7 +3,7 @@
 // attend_project kernels (attend_project.cu, B1; attend_project_bwd.cu, B2),
 // the flash_packed kernels (flash_packed.cu, B5; flash_packed_bwd.cu, B6) and
 // the benchmark scripts' two (qkv_flash.cu, S2; bench_attn_bwd.cu, S1). B1,
-// B5 and S2 share the forward's tile loop (`attend_tiles`), S1's statistics
+// B5 and S2 run one forward kernel (`attend_tiles`), S1's statistics
 // pass its online max and sum; B2, B6 and S1 share the backward's two
 // attention passes (`flash_bwd_kv_kernel`, `flash_bwd_q_kernel`; B2's with
 // its bias partials, S1's also with two heads a block).
@@ -29,9 +29,8 @@
 //   an m64k16 one, so no tile goes through shared memory on the way;
 // - the exponentials of one warpgroup run while another's products do: each
 //   block is one consumer warpgroup of 64 rows, and several blocks share an
-//   SM: the forward's (with a producer warp, 160 threads) two in B1, whose
-//   shared memory holds every head's Q, and three in B5; the backward's
-//   attention passes' (thread 0 issuing the loads, 128 threads) three. On
+//   SM: the forward's (with a producer warp, 160 threads) three, two at head
+//   width 128; the backward's attention passes' (thread 0 issuing the loads, 128 threads) three. On
 //   an H100 that beat blocks of two consumer warpgroups that take turns
 //   issuing their products (FlashAttention-3's ping-pong, named barriers,
 //   one block an SM), in the forward and in the backward, where dropping
@@ -192,7 +191,7 @@ DEV void store_tile(uint8_t* box, const float (&c)[R], int t) {
   }
 }
 
-// ---- the forward's tile loop (B1, B5, S2) and S1's statistics pass -----------------
+// ---- the forward's tile loop (B5, which B1 and S2 launch) and S1's statistics pass -----
 //
 // Blocks of one consumer warpgroup (64 query rows) and one producer warp,
 // several an SM. The producer streams one head's K and V tiles of 64 keys by TMA

@@ -66,15 +66,18 @@
 //   (c) `gemm_kernel<EpiBiasResidual>`: out = h W2^T + b2 (+ x) in f32,
 //       rounded once;
 // the GEMMs persistent on 128 x 256 tiles, clusters of two row tiles
-// multicasting the weight tile. Shared memory: the ring, four stages of 48
-// KB, and its barriers, 197,696 bytes. ptxas (nvcc 12.9, sm_90a): 168
-// registers for both GEMMs, with 44 (fc1) and 56 (fc2) bytes of spill
+// multicasting the weight tile; fc2's epilogue loads its tile of x by TMA.
+// Shared memory: the ring, four stages of 48 KB, and its and the
+// epilogues' barriers, 197,712 bytes. ptxas (nvcc 12.9, sm_90a): 168
+// registers for both GEMMs, with 44 (fc1) and 68 (fc2) bytes of spill
 // stores; 48 for the row pass. On an H100 80GB HBM3 at 700 W, B = 64, N =
-// 1600: 2.07 ms (row pass 0.07, fc1 1.19, fc2 0.90), level with the same
-// composition in PyTorch (2.10 ms); the GEMMs' 64-deep k-steps take about
-// 0.8-0.95 us against 0.56 at the card's peak rate, and fc1's GELU epilogue
-// (two SFU operations an element) is not hidden behind the products. The
-// scratch is B * N * (768 + 3072) bf16 (0.79 GB at B = 64 and N = 1600).
+// 1600: 1.96 ms (row pass 0.07-0.10, fc1 1.11, fc2 0.71), 7% below the
+// same composition in PyTorch (2.11 ms); fc2 took 0.89-0.90 ms while its
+// epilogue read x from device memory a bf16 pair a thread at a time. The
+// GEMMs' 64-deep k-steps take about 0.8-0.95 us against 0.56 at the card's
+// peak rate, and fc1's GELU epilogue (two SFU operations an element) is not
+// hidden behind the products. The scratch is B * N * (768 + 3072) bf16
+// (0.79 GB at B = 64 and N = 1600).
 #include "ln_mlp_gemm.cuh"
 
 namespace dcvit {
@@ -325,7 +328,7 @@ inline cudaError_t launch_ln_mlp_fwd_768(const void* x, const void* ln_scale, co
                                          cudaStream_t stream) {
   constexpr int D = 768;
   cudaError_t err;
-  CUtensorMap y128, w1_128, h64, h128, w2_128, out64;
+  CUtensorMap y128, w1_128, h64, h128, w2_128, out64, x64;
   const struct {
     CUtensorMap* map;
     const void* ptr;
@@ -335,6 +338,7 @@ inline cudaError_t launch_ln_mlp_fwd_768(const void* x, const void* ln_scale, co
       {&y128, y_buf, m, D, gm::kTileM},      {&w1_128, w1, hid, D, gm::kTileN / 2},
       {&h64, h_buf, m, hid, wg::kBox},       {&h128, h_buf, m, hid, gm::kTileM},
       {&w2_128, w2, D, hid, gm::kTileN / 2}, {&out64, out, m, D, wg::kBox},
+      {&x64, x, m, D, wg::kBox},
   };
   for (const auto& mp : maps)
     if ((err = tensor_map(mp.map, mp.ptr, mp.rows, mp.cols, mp.box_rows)) != cudaSuccess)
@@ -345,8 +349,7 @@ inline cudaError_t launch_ln_mlp_fwd_768(const void* x, const void* ln_scale, co
   if ((err = launch_gemm<EpiGelu, false>(y128, w1_128, h64, p1, m, hid, D, stream)) !=
       cudaSuccess)
     return err;
-  const EpiBiasResidual::Params p2 = {static_cast<const __nv_bfloat16*>(b2),
-                                      static_cast<const __nv_bfloat16*>(x), D, residual};
+  const EpiBiasResidual::Params p2 = {x64, static_cast<const __nv_bfloat16*>(b2), D, residual};
   return launch_gemm<EpiBiasResidual, false>(h128, w2_128, out64, p2, m, D, hid, stream);
 }
 

@@ -1,6 +1,7 @@
 // The D = 768 ln_mlp kernels' building blocks (ln_mlp.cu's B3 and
 // ln_mlp_bwd.cu's B4): the LayerNorm row pass and one `wgmma` + TMA GEMM on
-// 128 x 256 output tiles with its element-wise work in the epilogue.
+// 128 x 256 output tiles with its element-wise work in the epilogue. The
+// GEMM is also attend_project.cu's projection (B1).
 //
 // `ln_rows_kernel<D>`: LayerNorm in f32 (two-pass, eps 1e-6), one warp a
 // row, -> y (bf16) and each row's mean and rstd (f32). B4 runs it at both
@@ -26,7 +27,7 @@
 //   slower). A block then loads 32 KB from L2 per 4.2 MFLOP k-step, 128
 //   FLOP a byte (85 alone); on B3's fc2 that measured 10% faster than
 //   without the cluster, on fc1 no faster.
-// - ptxas (nvcc 12.9, sm_90a): 168 registers a thread, 44-56 bytes of
+// - ptxas (nvcc 12.9, sm_90a): 168 registers a thread, 44-68 bytes of
 //   spill stores in each instantiation; a 64-deep k-step takes about 0.8-0.95
 //   us on an H100 80GB HBM3 at 700 W (0.56 at the peak rate).
 // - Persistent: as many pairs as fit on the card at once (a block an SM),
@@ -106,8 +107,8 @@ constexpr int kBBytes = kTileN * 128;   // B: [256][64 k] K-major, or four [64 k
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kStages = 4;
 constexpr int kOutBytes = 4 * wg::kBoxBytes;  // a warpgroup's 64 x 256 bf16 output tile
-// the ring and its barriers
-constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + wg::kAlign;
+// the ring, its barriers and the epilogues' two (one a consumer warpgroup)
+constexpr int kSmem = kStages * kStageBytes + (2 * kStages + 2) * 8 + wg::kAlign;
 
 // The element (row, col) of a warpgroup's m64n256 accumulators: acc_row /
 // acc_col of wgmma_core.cuh hold for every width (the m64n64 pattern
@@ -132,7 +133,7 @@ struct EpiGelu {
   };
   static constexpr bool kDirect = false;
   DEV static void apply(float (&acc)[128], const Params& p, uint8_t* const (&held)[2], int t,
-                        int wgi, int, int n0, long long) {
+                        int wgi, int, int n0, long long, uint64_t*, int) {
     uint8_t* out = held[wgi];
 #pragma unroll
     for (int c = 0; c < 128; c += 32) {
@@ -150,37 +151,56 @@ struct EpiGelu {
   }
 };
 
-// fc2 of the forward: out = acc + b2 (+ x), in f32, rounded once (x and the
-// output (M, n) row-major; n a multiple of 256).
+// fc2 of the forward, and B1's projection: out = acc + b2
+// (+ x), in f32, rounded once (x and the output (M, n) row-major, n a
+// multiple of 64; where n is no multiple of 256, the last tile's chunks of
+// 64 columns past n read neither b2 nor x, and their stores are clipped).
+// The warpgroup's 64 x 256 tile of x comes by TMA into its held stage,
+// where its output then overwrites it in place: one bulk load a tile. Read
+// from device memory a bf16 pair a thread at a time, x kept the tensor
+// cores idle for about as long as a 768-deep tile's products (B1's
+// projection at D = 768: 0.46 ms against 0.27 on an H100; B3's fc2: 0.89
+// against 0.71).
 struct EpiBiasResidual {
   struct Params {
+    CUtensorMap x_map;  // x in [64][64] boxes, read when residual
     const __nv_bfloat16* b2;
-    const __nv_bfloat16* x;
     int n, residual;
   };
   static constexpr bool kDirect = false;
   DEV static void apply(float (&acc)[128], const Params& p, uint8_t* const (&held)[2], int t,
-                        int wgi, int m0, int n0, long long m) {
+                        int wgi, int m0, int n0, long long m, uint64_t* bar, int phase) {
     uint8_t* out = held[wgi];
-    // this thread's two rows (ra and ra + 8 of the warpgroup's 64) of x
-    const int ra = wg::acc_row(t, 0);
-    const long long r0 = (long long)m0 + 64 * wgi + ra;
-    const bool res_a = p.residual && r0 < m, res_b = p.residual && r0 + 8 < m;
-    const __nv_bfloat16* xa = p.x + r0 * p.n + n0;
-    const __nv_bfloat16* xb = xa + 8LL * p.n;
+    const int r0 = m0 + 64 * wgi;  // the warpgroup's first row
+    const bool res = p.residual && r0 < m;
+    if (t == 0) {
+      if (res) {
+        const int boxes = min(gm::kTileN, p.n - n0) / wg::kBox;
+        wg::bar_expect_tx(bar, boxes * wg::kBoxBytes);
+        for (int j = 0; j < boxes; ++j)
+          wg::tma_load(out + j * wg::kBoxBytes, &p.x_map, bar, n0 + j * wg::kBox, r0);
+      } else {
+        wg::bar_arrive(bar);
+      }
+    }
+    wg::bar_wait(bar, phase);
+    const int ra = wg::acc_row(t, 0);  // this thread's rows: ra and ra + 8
 #pragma unroll
     for (int c = 0; c < 128; c += 32) {
+      if (n0 + 2 * c >= p.n) break;  // chunk c: the tile's columns 2c .. 2c + 63
 #pragma unroll
       for (int i = c; i < c + 32; i += 2) {
-        const int lc = wg::acc_col(t, i), b = (i >> 1) & 1;
+        const int lc = wg::acc_col(t, i), row = ra + 8 * ((i >> 1) & 1);
         const float2 bb = unpack_bf16(*reinterpret_cast<const uint32_t*>(p.b2 + n0 + lc));
         float v0 = acc[i] + bb.x, v1 = acc[i + 1] + bb.y;
-        if (b ? res_b : res_a) {
-          const float2 xr = unpack_bf16(*reinterpret_cast<const uint32_t*>((b ? xb : xa) + lc));
+        uint8_t* box = out + (lc >> 6) * wg::kBoxBytes;
+        if (res) {
+          const float2 xr =
+              unpack_bf16(*reinterpret_cast<const uint32_t*>(box + wg::swz(row, lc & 63)));
           v0 += xr.x;
           v1 += xr.y;
         }
-        gm::st_out(out, ra + 8 * b, lc, v0, v1);
+        wg::st_pair(box, row, lc & 63, v0, v1);
       }
       chunk_barrier();
     }
@@ -196,7 +216,7 @@ struct EpiStoreF32 {
   };
   static constexpr bool kDirect = true;
   DEV static void apply(float (&acc)[128], const Params& p, uint8_t* const (&)[2], int t,
-                        int wgi, int m0, int n0, long long m) {
+                        int wgi, int m0, int n0, long long m, uint64_t*, int) {
     const int ra = wg::acc_row(t, 0);
     const long long r0 = (long long)m0 + 64 * wgi + ra;
     float* ca = p.c + r0 * p.n + n0;
@@ -214,13 +234,15 @@ struct EpiStoreF32 {
 template <class Epi, bool kBmn>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
-                const __grid_constant__ CUtensorMap c_map, const typename Epi::Params p,
+                const __grid_constant__ CUtensorMap c_map,
+                const __grid_constant__ typename Epi::Params p,
                 long long m, int n_tiles, int n_steps, int pair_tiles) {
   using namespace gm;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = wg::align(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
+  uint64_t* epi_bar = empty + kStages;  // one a consumer warpgroup
   const int tid = threadIdx.x, wgi = wg::warpgroup(), t = tid & 127;
   const int rank = (int)wg::cluster_rank();
   // pair tile ct (two row tiles, one column tile): pairs walk the column
@@ -237,6 +259,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       wg::bar_init(&full[s], 1);
       wg::bar_init(&empty[s], 2 * wg::kConsumers);
     }
+    for (int w = 0; w < wg::kConsumers; ++w) wg::bar_init(&epi_bar[w], 1);
     wg::bar_init_fence();
   }
   wg::cluster_sync();  // both blocks' barriers are initialised
@@ -274,6 +297,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     };
     const uint32_t ring_s = wg::desc_addr(smem_addr(ring));
     int s = 0, phase = 0;  // the next stage to consume and its parity
+    int epi_phase = 0;     // the parity of this warpgroup's epilogue barrier
     int held_a = -1, held_b = -1;  // the stages the last tile's stores may still read
     auto release_held = [&] {
       if (held_a < 0) return;
@@ -314,10 +338,11 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       if constexpr (Epi::kDirect) {  // it stores from registers: nothing to hold
         release(s_a);
         release(s_b);
-        Epi::apply(acc, p, held, t, wgi, m0, n0, m);
+        Epi::apply(acc, p, held, t, wgi, m0, n0, m, &epi_bar[wgi], epi_phase);
         continue;
       }
-      Epi::apply(acc, p, held, t, wgi, m0, n0, m);
+      Epi::apply(acc, p, held, t, wgi, m0, n0, m, &epi_bar[wgi], epi_phase);
+      epi_phase ^= 1;
       wg::fence_async_smem();
       wg::sync_named(1 + wgi, 128);
       if (t == 0 && m0 + 64 * wgi < m) {

@@ -3,8 +3,9 @@ JAX package's ``ops/fused_block.py``).
 
 - :func:`attend_project` — the qkv projection, masked multi-head attention,
   the output projection, its bias and the residual. Forward kernel
-  ``csrc/attend_project.cu`` (replaces the TPU kernel ``_ap_fwd_kernel``),
-  backward kernel ``csrc/attend_project_bwd.cu`` (replaces ``_ap_bwd_kernel``).
+  ``csrc/attend_project.cu`` (replaces the TPU kernel ``_ap_fwd_kernel``:
+  B5's attention, then the projection GEMM), backward kernel
+  ``csrc/attend_project_bwd.cu`` (replaces ``_ap_bwd_kernel``).
 - :func:`ln_mlp` — LayerNorm, fc1, tanh-GELU, fc2, bias and the residual.
   Forward kernel ``csrc/ln_mlp.cu`` (replaces ``_ln_mlp_fwd_kernel``),
   backward kernel ``csrc/ln_mlp_bwd.cu`` (replaces ``_ln_mlp_bwd_kernel``).
@@ -169,20 +170,19 @@ def _attend_project_fwd_cuda(qkv, x_res, wp, bp, num_heads, sm_scale, n_valid, n
     if x_res is not None:
         _check("x_res", x_res, bf16, (b, n, d_out), dev)
     xo = torch.empty((b, n, d_out), dtype=bf16, device=dev)
-    o = lse = None
-    if need_o:
-        o = torch.empty((b, n, d), dtype=bf16, device=dev)
-        lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev)
+    # the attention writes o to device memory whether or not it is wanted
+    o = torch.empty((b, n, d), dtype=bf16, device=dev)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev) if need_o else None
     fn = kernels.function("attend_project")
     with torch.cuda.device(dev):
         err = fn(qkv.data_ptr(), None if x_res is None else x_res.data_ptr(), wp.data_ptr(),
-                 bp.data_ptr(), None if o is None else o.data_ptr(),
+                 bp.data_ptr(), o.data_ptr(),
                  None if lse is None else lse.data_ptr(), xo.data_ptr(),
                  b, n, num_heads, dh, d_out, int(n_valid), float(sm_scale),
                  torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("attend_project_fwd", err)
     LAUNCHES["attend_project_fwd"] += 1
-    return o, lse, xo
+    return (o, lse, xo) if need_o else (None, None, xo)
 
 
 def attend_project_fwd(qkv: torch.Tensor, x_res: Optional[torch.Tensor], wp: torch.Tensor,

@@ -24,6 +24,19 @@ B, C, H, W, SIZE, PAD = 6, 3, 40, 36, 32, 44
 ATOL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _imgs(seed=0):
     return np.random.default_rng(seed).uniform(0, 2, (B, C, H, W)).astype(np.float32)
 

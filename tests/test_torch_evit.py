@@ -66,6 +66,19 @@ SEED = 5  # the kept sets agree in bf16 (seeds 2, 3 and 7 flip a boundary token)
 MARGIN = {"float32": 1e-6, "bfloat16": 1e-4}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _rel(got, want):
     got = np.asarray(torch.as_tensor(got).float())
     want = np.asarray(jnp.asarray(want, jnp.float32))

@@ -22,6 +22,19 @@ from diverse_channel_vit_torch.models.export import params_from_jax
 C, IMG, PATCH, D, NC = 3, 32, 16, 64, 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _jax_params(scan_blocks=False, with_head=True):
     model = JClassifier(
         backbone=JBackbone(num_total_channels=C, img_size=IMG, patch_size=PATCH, embed_dim=D,

@@ -29,6 +29,19 @@ B, N, D, H = 2, 128, 128, 2
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _rel(got, want):
     got = np.asarray(torch.as_tensor(got).float())
     want = np.asarray(jnp.asarray(want, jnp.float32))

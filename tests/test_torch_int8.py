@@ -62,6 +62,19 @@ HID = 4 * D
 TOL = {"float32": 1e-2, "bfloat16": 2e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def fused_jax(monkeypatch):
     monkeypatch.setattr(jfb, "FORCE_ON_CPU", True)

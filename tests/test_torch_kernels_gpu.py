@@ -18,7 +18,10 @@ the base preset's D = 768 (GEMMs on 128 x 256 tiles in clusters; at D = 384
 their outputs are pinned by sha256 on fixed inputs), there also at the
 tiles' edges: fewer rows than one wave, row counts no multiple of 128,
 hidden widths no multiple of 256 (B3 at 2112, B4 at 1152); B1 and B2 at D = 768
-and with one head (D_out = 64). The
+and with one head (D_out = 64); B1 (attention, then the projection GEMM)
+also at output widths no multiple of 256, ragged n_valid and the EViT grid,
+two calls bit for bit, and its xo, o and lse against those of the one-launch
+kernel it replaced, pinned by sha256 as B3's at D = 768 are. The
 backward kernels B2 and B4 are held the same way, every output, B2's padded
 key rows must come out with dk = dv = 0 exactly, and two B2 calls, as two B4
 calls, on the same inputs must agree bit for bit; the autograd Functions' gradients
@@ -98,6 +101,14 @@ def _rel(a, b):
     (2, 640, 12, 589, True, 768, 1.0),   # D = 768: 12 heads
     (2, 640, 12, 589, False, 768, 0.0),  # the same, products alone
     (2, 128, 1, 100, True, 64, 1.0),     # one head, D_out = 64: half a Wp box
+    # at 12 heads: output widths that are no multiple of the projection
+    # GEMM's 256-column tile, a ragged last key tile and the EViT grid after
+    # layer 3
+    (2, 640, 12, 589, True, 384, 1.0),   # D_out = 384: the second tile half empty
+    (2, 128, 12, 100, True, 64, 1.0),    # D_out = 64: a quarter of one tile
+    (2, 192, 12, 150, True, 768, 1.0),   # ragged n_valid, N = 192
+    (2, 1152, 12, 1098, True, 768, 1.0),  # the EViT grid after layer 3
+    (2, 192, 8, 150, False, 512, 1.0),   # 8 heads
 ])
 def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, residual, d_out,
                                              bias, dh=64):
@@ -127,11 +138,29 @@ def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, resi
     (2, 1152, 3, 1098, True, 384, 1.0),  # the EViT grid after layer 3
     (2, 128, 1, 100, True, 128, 1.0),    # one head, D = D_out = 128
     (2, 640, 6, 589, True, 768, 1.0),    # D = 768: 6 heads of 128
+    (2, 192, 3, 150, True, 128, 1.0),    # D_out = 128: half of one 256-column tile
 ])
 def test_attend_project_kernel_matches_plain_dh128(gen, batch, n, heads, n_valid, residual,
                                                    d_out, bias):
     test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, residual, d_out,
                                              bias, dh=128)
+
+
+@pytest.mark.parametrize("batch,n,heads,n_valid,dh,d_out", [
+    (2, 1600, 6, 1569, 64, 384),   # the flagship
+    (2, 1600, 12, 1569, 64, 768),  # D = 768
+    (2, 1600, 3, 1569, 128, 384),  # head width 128
+    (3, 192, 12, 150, 64, 384),    # ragged, D_out no multiple of 256
+])
+def test_attend_project_kernel_is_bit_identical_across_calls(gen, batch, n, heads, n_valid, dh,
+                                                             d_out):
+    d = heads * dh
+    qkv, x_res = _rnd(gen, batch, n, 3 * d), _rnd(gen, batch, n, d_out)
+    wp, bp = _rnd(gen, d_out, d, scale=d ** -0.5), _rnd(gen, d_out)
+    args = (qkv, x_res, wp, bp, heads, dh ** -0.5, n_valid)
+    first, second = (fb.attend_project_fwd(*args, need_o=True) for _ in range(2))
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    assert torch.equal(fb.attend_project_fwd(*args)[2], first[2])
 
 
 # the edges of the D = 768 GEMM tiles (128 rows x 256 columns, clusters of
@@ -398,6 +427,9 @@ def test_ln_mlp_function_grads_match_plain_route_d768(gen, residual, grid):
 # agree bit for bit: a change to the D = 384 code path must leave these as
 # they are
 PINNED_D384 = {
+    # B1 at the flagship's 6 heads of 64: xo, o, lse, taken on the one-launch
+    # kernel B1 was before its attention and projection became two launches
+    "attend_project_fwd": "4a1c7dc4ff07b4c410af95ef9b046e9bc1768db295200be4a19bf09984c0196e",
     "ln_mlp_fwd": "90ac5f4e6ecf78c3a7200640e1e6a5468a2b912b4889632fcc9a27dcd2e399a4",
     "ln_mlp_bwd": "517df157e015d74629b46a064a298bfecce4c83ac844dec985d4494ddd751a82",
     "ln_mlp_q_fwd": "17ac91f09b5edf7e21b3f44869eb6887487ecb7d9905e118d7d3e237b5ab7b8f",
@@ -405,21 +437,34 @@ PINNED_D384 = {
 }
 
 
-def _pinned_inputs():
-    """Fixed bf16 / f32 inputs at D = 384, hidden 1536 on (3, 200) tokens (a
-    ragged last row tile), drawn by numpy so that they do not depend on the
-    card or the PyTorch build."""
-    rng = np.random.default_rng(384)
+def _numpy_draws(seed: int):
+    """t(shape, scale, dtype): draws of a numpy generator seeded with
+    ``seed`` on the card, so that they do not depend on the card or the
+    PyTorch build."""
+    rng = np.random.default_rng(seed)
 
     def t(shape, scale=1.0, dtype=torch.bfloat16):
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(
             device="cuda", dtype=dtype)
+    return t
 
-    d, hid = 384, 1536
+
+def _pinned_inputs(d=384, hid=1536):
+    """Fixed bf16 / f32 inputs at model width d and hidden width hid on (3,
+    200) tokens (a ragged last row tile), drawn by numpy from seed d."""
+    t = _numpy_draws(d)
     x, do = t((3, 200, d)), t((3, 200, d))
     s, b = t((d,), 0.1, torch.float32) + 1.0, t((d,), 0.1, torch.float32)
     w1, b1, w2, b2 = t((hid, d), d ** -0.5), t((hid,)), t((d, hid), hid ** -0.5), t((d,))
     return x, s, b, w1, b1, w2, b2, do
+
+
+def _pinned_ap_inputs(heads, dh, d_out, batch=2, n=192):
+    """Fixed inputs of B1 (qkv, x_res, wp, bp) with ``heads`` heads of
+    ``dh``, drawn by numpy from a seed of the shape."""
+    t = _numpy_draws(1000 * heads + dh + d_out)
+    d = heads * dh
+    return t((batch, n, 3 * d)), t((batch, n, d_out)), t((d_out, d), d ** -0.5), t((d_out,))
 
 
 def _digest(*outs) -> str:
@@ -435,6 +480,58 @@ def test_ln_mlp_kernels_at_d384_give_their_pinned_outputs(gen):
     x, s, b, w1, b1, w2, b2, do = _pinned_inputs()
     assert _digest(fb.ln_mlp_fwd(x, s, b, w1, b1, w2, b2, True)) == PINNED_D384["ln_mlp_fwd"]
     assert _digest(*fb.ln_mlp_bwd(x, s, b, w1, b1, w2, do, True)) == PINNED_D384["ln_mlp_bwd"]
+
+
+def test_attend_project_kernel_at_d384_gives_its_pinned_outputs(gen):
+    """B1 at the flagship's 6 heads of 64 (residual fused, a ragged last key
+    tile) gives, bit for bit, the xo, o and lse of the one-launch kernel it
+    replaced."""
+    qkv, x, wp, bp = _pinned_ap_inputs(6, 64, 384)
+    o, lse, xo = fb.attend_project_fwd(qkv, x, wp, bp, 6, 64 ** -0.5, 150, need_o=True)
+    assert _digest(xo, o, lse) == PINNED_D384["attend_project_fwd"]
+
+
+# sha256 of the o, lse and xo that B1's one-launch kernel gave on
+# _pinned_ap_inputs(heads, dh, d_out) with n_valid 150: the two launches give
+# them bit for bit (the attention is B5's tile loop, the projection sums the
+# same products in the same order), so B2 reads the o and lse it read then
+PINNED_FUSED = {
+    (12, 64, 768): ("f258dc6e6b1ff8931224d7e20ceecaeb2b829fa7acaa025117a2f99c1054aab8",
+                    "399abc112a80b7ab2456d3e2c864c069d49faca14b4f190eeeee6ebe079e2ea6",
+                    "d9a0d633a5c0dd8449f45a7e372de66db2b5ea46473d396a58829acba1bd1b82"),
+    (3, 128, 384): ("d584185441db30b6d8c5ee23843c273443b28c5954b7920b1319c7ffe23f9812",
+                    "24117d6dcebf8e10c07882a7814b4e00ca71743b472096c051aac1bb73cb8b6c",
+                    "2e6a6338070b650f7c4d233f329f01ec222dab15087e0eef58c80d05ceab4dad"),
+    (6, 128, 768): ("ed63f7135f675bfc12411d6ec62eae99468b404416e461041722f7ac9d7ce048",
+                    "542a0d967b2ffa1388a1fa64bd2c6fadf5e1d6a6f5d35b15689085042d08a6ce",
+                    "a093ca615940a38375a43ced0a749fff94c10ed780d01014be7f917ff3e5778a"),
+    (12, 64, 384): ("d05ae4d0cc5f987e1bc3ad0f9fdd5a3c738d3736c1474d1b23442bde517497a3",
+                    "2425d3b5299beb9ca334556b5538028fe629b0d2e10b6b9e970a80b0d563c957",
+                    "5033caaa9a0ba9e292ffe3647597128e9deaa2df663c13d1fdef8f408dfa9f2a"),
+}
+
+
+@pytest.mark.parametrize("heads,dh,d_out", sorted(PINNED_FUSED))
+def test_attend_project_kernel_gives_the_fused_kernels_outputs(gen, heads, dh, d_out):
+    qkv, x, wp, bp = _pinned_ap_inputs(heads, dh, d_out)
+    o, lse, xo = fb.attend_project_fwd(qkv, x, wp, bp, heads, dh ** -0.5, 150, need_o=True)
+    assert (_digest(o), _digest(lse), _digest(xo)) == PINNED_FUSED[heads, dh, d_out]
+
+
+# sha256 of B3's output at D = 768, hidden 3072, on _pinned_inputs(768,
+# 3072), with and without the residual, taken before its fc2 epilogue
+# (EpiBiasResidual) guarded its columns
+PINNED_D768 = {
+    "ln_mlp_fwd": "14eb571c2f96b721b538368a5d78569861627a1720212161aa69d8f54896ae35",
+    "ln_mlp_fwd no residual": "5ab17138f9975de267378b682c7f265759607b22db55523dbf5a6de4fb0a4580",
+}
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_ln_mlp_kernel_at_d768_gives_its_pinned_output(gen, residual):
+    x, s, b, w1, b1, w2, b2, _ = _pinned_inputs(768, 3072)
+    key = "ln_mlp_fwd" if residual else "ln_mlp_fwd no residual"
+    assert _digest(fb.ln_mlp_fwd(x, s, b, w1, b1, w2, b2, residual)) == PINNED_D768[key]
 
 
 def test_int8_ln_mlp_kernels_at_d384_give_their_pinned_outputs(gen):

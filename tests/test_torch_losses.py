@@ -16,6 +16,19 @@ from diverse_channel_vit_tpu.ops import losses as jl
 from diverse_channel_vit_torch.ops import losses as tl
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _close(got, want):
     got = torch.as_tensor(got).detach().numpy()
     want = np.asarray(want)

@@ -44,6 +44,19 @@ C, IMG, P, D, H, DEPTH, NC = 8, 48, 16, 128, 2, 3, 5
 SUBSETS = {"k7": [0, 1, 2, 4, 5, 6, 7], "k3": [1, 4, 6]}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _jax_model(dtype):
     bb = jcv.ChannelVisionTransformer(
         num_total_channels=C, img_size=IMG, patch_size=P, embed_dim=D, depth=DEPTH,

@@ -47,6 +47,19 @@ TEMP = 1000.0
 METHODS = ["uniform", "lowest_cosine", "highest_cosine", "lowest_cosine_prob"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def jax_draws(key, c: int, method: str) -> dict:
     """The draws JAX's ``dcs_select(key, ...)`` makes, as the port's seam
     takes them."""

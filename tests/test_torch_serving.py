@@ -30,6 +30,19 @@ from diverse_channel_vit_torch.serving_http import ServingHTTPServer
 C, IMG, PATCH, D, NC = 4, 32, 16, 64, 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jmodel = JClassifier(

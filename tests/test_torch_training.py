@@ -61,6 +61,19 @@ from diverse_channel_vit_torch.training import (
 STEPS = np.arange(0, 400, 7)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The port's side on two threads: the suite runs files side by side, and
+    torch's default of a thread a core oversubscribes the host (and is no
+    faster at these sizes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("name,params,spe", [
     ("cosine", dict(t_initial=10, lr_min=1e-6, cycle_decay=0.5, warmup_t=3,
                     warmup_lr_init=1e-5), 13),
