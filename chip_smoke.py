@@ -139,9 +139,24 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     B1 / B3 x 11 per eval forward, the CHAMMI score per strategy and CP's
     features (all five of its channels novel) different between zero and
     avg_2; a ``phase`` line each;
-12. print the ``kernels`` JSON line (each kernel's launches from its main
+12. the Trainer's runtime at full width and depth (DiChaViT-S, B = 64):
+    for DropPath (rate 0.1; B1 without its residual and B3 / B4 with
+    ``residual=False`` in blocks 1-10), MIRO (24 B1 and 24 B3 a step, the
+    live forward's and the pre-featurizer's, 12 B2 and 12 B4) and
+    ``unfreeze_last_n_layers = 2`` (the frozen tensors unchanged), 2 steps
+    through the kernels against 2 through the plain versions from the same
+    weights and DropPath masks, then 12 timed steps, each ``phase`` line
+    beside the plain step's images/s and p50; ``main`` on ``synthetic_cfg``
+    with DropPath, MIRO, the last two blocks trainable, SWAD, ``plot_attn``,
+    ``profile_dir`` and an RSS cap together (2 epochs: the model takes the
+    SWAD average, a Chrome trace and an attention map per evaluation); a run
+    (DCS, DropPath, SWAD, MIRO) that a SIGTERM stops in the middle of its
+    second epoch, resumed by the next Trainer, against the uninterrupted
+    run, every parameter bit for bit;
+13. print the ``kernels`` JSON line (each kernel's launches from its main
     paths, per Trainer epoch, and the CHAMMI, novel-channel and CHAMMI
-    subset runs'), the card line, and last
+    subset runs', and per step of the runtime phase's runs), the card line,
+    and last
     the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -155,6 +170,7 @@ import contextlib
 import functools
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -205,6 +221,11 @@ LOGITS_REL_TOL = 5e-2
 # differences above, carried through 4 layers forward and back)
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
+# the Trainer runtime phase: DropPath at the last block's rate, MIRO at the
+# JAX Trainer's defaults (train.miro_ld 0.01, train.miro_lr_mult 10), and
+# the last two blocks trainable
+DROP_PATH_RATE, MIRO_LD, MIRO_LR_MULT, UNFREEZE_LAST = 0.1, 0.01, 10.0, 2
+RUNTIME_PARITY_STEPS = 2
 
 
 # the other grids B3 and B4 meet, (images, tokens): a last 128-row tile half
@@ -1725,7 +1746,7 @@ def recipe_ks(n_draws: int = 48) -> list:
     return [int(rng.integers(1, CHANNELS + 1)) for _ in range(n_draws)]
 
 
-def train_setup(depth: int, torch, ks=None, **extra):
+def train_setup(depth: int, torch, ks=None, runtime=None, **extra):
     """Model, train state and steps as a user builds them: DiChaViT-S with
     f32 parameters from seed 0 and bf16 compute; AdamW with the JUMP-CP
     weight-decay schedule (optimizer/adamw_jumpcp.yaml) under the cosine lr
@@ -1733,11 +1754,33 @@ def train_setup(depth: int, torch, ks=None, **extra):
     extra_loss_lambda = 1. ``steps[i % len(steps)]`` is step i's function:
     one all-channel step, or with ``ks`` the DCS recipe's step for k = ks[i]
     (``HCS_METHOD`` at ``HCS_TEMP``, one step function per distinct k, all
-    drawing from one generator seeded with 0 on the card)."""
+    drawing from one generator seeded with 0 on the card). ``runtime``, as
+    the Trainer wires ``train.miro`` and ``model.unfreeze_last_n_layers``:
+    ``{"miro": True}`` adds the pre-featurizer, the encoders (their lr
+    ``MIRO_LR_MULT`` times the others') and ``MIRO_LD`` times MIRO's loss;
+    ``{"unfreeze_last_n_layers": n}`` leaves the frozen parameters out of
+    the optimizer. DropPath is the model key ``drop_path_rate``; each step
+    function draws its masks from a generator of its own seeded with 0."""
     from diverse_channel_vit_torch.training import (
         TrainState, make_lr_schedule, make_optimizer, make_train_step)
 
     model = build(depth, **extra)
+    runtime = runtime or {}
+    kw = dict(channel_ids=range(CHANNELS), loss_type="ce", extra_loss_lambda=1.0)
+    frozen, mult = set(), None
+    if runtime.get("miro"):
+        from diverse_channel_vit_torch.training.miro import (MIRO_KEY, init_encoders,
+                                                             pre_featurizer)
+
+        kw.update(miro_pre=pre_featurizer(model), miro_ld=MIRO_LD)
+        setattr(model, MIRO_KEY, init_encoders(model))
+        mult = MIRO_LR_MULT
+    if runtime.get("unfreeze_last_n_layers") is not None:
+        from diverse_channel_vit_torch.training.freeze import (build_trainable_labels,
+                                                               frozen_names)
+
+        frozen = frozen_names(build_trainable_labels(
+            model.named_parameters(), unfreeze_last_n_layers=runtime["unfreeze_last_n_layers"]))
     lr = make_lr_schedule("cosine", 2.5e-4, dict(
         t_initial="FILL_LATER", lr_min=1e-6, cycle_mul=1.0, cycle_decay=0.5, cycle_limit=1,
         warmup_t=3, warmup_lr_init=1e-5, warmup_prefix=False, t_in_epochs=True, k_decay=1.0,
@@ -1745,8 +1788,7 @@ def train_setup(depth: int, torch, ks=None, **extra):
     tx = make_optimizer("adamw", dict(lr=2.5e-4, betas=[0.9, 0.999], eps=1e-6,
                                       weight_decay=0.04, weight_decay_end=0.4, amsgrad=False),
                         lr_schedule=lr, total_steps=10_000)
-    state = TrainState(model, tx)
-    kw = dict(channel_ids=range(CHANNELS), loss_type="ce", extra_loss_lambda=1.0)
+    state = TrainState(model, tx, frozen=frozen, miro_lr_mult=mult)
     if ks is None:
         return model, state, [make_train_step(model, **kw)]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1762,12 +1804,13 @@ def synthetic_batch(torch):
     return {"image": torch.from_numpy(imgs).cuda(), "label": torch.from_numpy(labels).cuda()}
 
 
-def train(fb, torch, label: str, want: dict, **extra):
+def train(fb, torch, label: str, want: dict, runtime=None, **extra):
     """The DiChaViT-S train step on the card at full width: counts set to 0
     just before 2 warm-up and 10 timed steps and read just after, each kernel
-    ``want[name]`` launches per step; then one profiled step."""
+    ``want[name]`` launches per step; then one profiled step. ``runtime``
+    and ``extra`` as in :func:`train_setup`."""
     batch = synthetic_batch(torch)
-    model, state, (step,) = train_setup(DEPTH, torch, **extra)
+    model, state, (step,) = train_setup(DEPTH, torch, runtime=runtime, **extra)
     n_params = sum(p.numel() for p in model.parameters())
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("the model's parameters are not f32")
@@ -1860,7 +1903,7 @@ def train_recipe(fb, torch, want: dict, label: str = "DCS recipe train", **extra
 
 
 def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks=None,
-                 **extra):
+                 runtime=None, **extra):
     """Kernel route against plain route from the same weights: ``n_steps``
     steps at ``depth`` (with ``ks``, the recipe's steps at those k, both
     routes drawing from generators of the same seed), losses within
@@ -1868,11 +1911,16 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
     max|g|, the channels drawn equal. The plain route runs first; its EViT
     blocks' kept tokens are forced on the kernel route step by step
     (near-equal CLS scores may otherwise keep another boundary token), and
-    how many tokens the kernel route would have kept otherwise is printed."""
+    how many tokens the kernel route would have kept otherwise is printed.
+    ``runtime`` as in :func:`train_setup`: both routes draw the same DropPath
+    masks (each step function's own generator seeded with 0), and the frozen
+    parameters must come out of the steps unchanged on both."""
     batch = synthetic_batch(torch)
     runs = {}
     for route in ("plain", "kernels"):
-        model, state, steps = train_setup(depth, torch, ks=ks, **extra)
+        model, state, steps = train_setup(depth, torch, ks=ks, runtime=runtime, **extra)
+        frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
+                   if n in state.frozen}
         blocks = evit_blocks(model) if extra.get("keep_rate") else []
         before = dict(fb.LAUNCHES)
         ctx = fb.plain_versions() if route == "plain" else contextlib.nullcontext()
@@ -1892,6 +1940,9 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
                     grads0 = {n: p.grad.float().clone() for n, p in model.named_parameters()}
         torch.cuda.synchronize()
         counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
+        for n, p in model.named_parameters():
+            if n in frozen0 and not torch.equal(p.detach(), frozen0[n]):
+                raise AssertionError(f"{label}: frozen {n} moved on the {route} route")
         runs[route] = (route_losses, grads0, counts, kept, flips, drawn)
         del model, state, steps
         torch.cuda.empty_cache()
@@ -1940,7 +1991,8 @@ class TrainerProbe:
     each epoch's metrics, wall time and peak device memory (since the run's
     or the last evaluation's start), each CHAMMI step's metrics, the k of
     every DCS draw, each evaluation's wall time and peak device memory, and
-    the eval forwards; of a CHAMMI evaluation (``evaluation/morphem_eval``)
+    the eval forwards and the attention plots (``train.plot_attn``); of a
+    CHAMMI evaluation (``evaluation/morphem_eval``)
     also the seconds of its feature forwards and of its benchmark, and the
     features of each (strategy, chunk); of any other also the seconds of
     ``eval_regular`` and of the channel-subset sweep.
@@ -1950,7 +2002,7 @@ class TrainerProbe:
     def __init__(self, torch, profile_epoch=None):
         self.torch, self.profile_epoch = torch, profile_epoch
         self.trainer, self.epochs, self.draws, self.evals = None, {}, [], []
-        self.eval_forwards, self.busy_us, self.steps = 0, None, []
+        self.eval_forwards, self.busy_us, self.steps, self.plots = 0, None, [], 0
         self.feature_rows, self.features, self.split = {}, {}, {}
 
     def __enter__(self):
@@ -1960,7 +2012,7 @@ class TrainerProbe:
         torch, probe = self.torch, self
         self.tm, self.saved = tm, {n: getattr(tm.Trainer, n) for n in (
             "train", "train_one_epoch", "_draw_k", "evaluate_model", "_train_one_batch_morphem",
-            "eval_regular", "eval_subset_channels")}
+            "eval_regular", "eval_subset_channels", "plot_attention")}
         self.saved_eval = tm.make_eval_step
         self.me, self.saved_me = me, {n: getattr(me, n) for n in (
             "extract_features", "run_benchmark")}
@@ -1970,24 +2022,24 @@ class TrainerProbe:
             probe.trainer = trainer
             return saved["train"](trainer)
 
-        def timed(trainer, epoch):
+        def timed(trainer, epoch, start_batch=0):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = saved["train_one_epoch"](trainer, epoch)
+            out = saved["train_one_epoch"](trainer, epoch, start_batch=start_batch)
             torch.cuda.synchronize()
             probe.epochs[epoch] = dict(out, wall_s=time.perf_counter() - t,
                                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
             return out
 
-        def train_one_epoch(trainer, epoch):
+        def train_one_epoch(trainer, epoch, start_batch=0):
             if epoch != probe.profile_epoch:
-                return timed(trainer, epoch)
+                return timed(trainer, epoch, start_batch)
             from torch.profiler import ProfilerActivity, profile
 
             # the epoch's wall time is taken inside the profiler's block, so
             # its start-up and teardown stay out of the busy share
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                out = timed(trainer, epoch)
+                out = timed(trainer, epoch, start_batch)
             probe.busy_us = sum(getattr(e, "self_device_time_total", 0) or 0
                                 for e in prof.key_averages())
             return out
@@ -2039,6 +2091,10 @@ class TrainerProbe:
             probe.steps.append({k: v for k, v in out.items() if k != "sampled_channels"})
             return out
 
+        def plot_attention(trainer, epoch):
+            probe.plots += 1
+            return saved["plot_attention"](trainer, epoch)
+
         def make_eval_step(model):
             step = probe.saved_eval(model)
 
@@ -2051,6 +2107,7 @@ class TrainerProbe:
         tm.Trainer.train, tm.Trainer.train_one_epoch = train, train_one_epoch
         tm.Trainer._draw_k, tm.Trainer.evaluate_model = draw_k, evaluate_model
         tm.Trainer._train_one_batch_morphem = morphem_step
+        tm.Trainer.plot_attention = plot_attention
         tm.Trainer.eval_regular = timed_part("eval_regular", "eval_regular")
         tm.Trainer.eval_subset_channels = timed_part("eval_subset_channels", "subset_sweep")
         tm.make_eval_step = make_eval_step
@@ -2067,11 +2124,12 @@ class TrainerProbe:
 
 
 def run_trainer(fb, torch, label: str, config: str, overrides, want_step: dict,
-                want_forward: dict, profile_epoch=None):
+                want_forward: dict, profile_epoch=None, want_plot=None):
     """``diverse_channel_vit_torch.main.main`` in this process on the card:
     counts set to 0 just before and read just after, each kernel launched
     ``want_step[name]`` times per train step plus ``want_forward[name]`` per
-    eval forward; every train loss finite and every valid eval image
+    eval forward (and ``want_plot[name]`` per attention plot); every train
+    loss finite and every valid eval image
     counted. Prints the run's ``phase`` line; returns the probe and the
     counts."""
     from diverse_channel_vit_torch import main as port_main
@@ -2089,7 +2147,8 @@ def run_trainer(fb, torch, label: str, config: str, overrides, want_step: dict,
     if t.debug or not steps:
         raise AssertionError(f"{label}: no full epoch ran")
     for name, count in launches.items():
-        want = want_step.get(name, 0) * steps + want_forward.get(name, 0) * probe.eval_forwards
+        want = (want_step.get(name, 0) * steps + want_forward.get(name, 0) * probe.eval_forwards
+                + (want_plot or {}).get(name, 0) * probe.plots)
         if count != want:
             raise AssertionError(f"{label}: {name} launched {count} times in {steps} steps and "
                                  f"{probe.eval_forwards} eval forwards, want {want}")
@@ -2214,6 +2273,125 @@ def trainer_paths(fb, torch, bare_imgs_per_s: float) -> dict:
         paths["Trainer CHAMMI subset"] = chammi_subset(fb, torch, tmp, chammi_root)
     torch.cuda.empty_cache()
     return paths
+
+
+def trainer_runtime(fb, torch, bare: dict) -> dict:
+    """The Trainer's runtime on the card at full width (DiChaViT-S, depth
+    12, B = 64): for DropPath (rate 0.1), MIRO and ``unfreeze_last_n_layers
+    = 2``, the train step through the kernels against the plain route from
+    the same weights with the same DropPath masks (``RUNTIME_PARITY_STEPS``
+    steps), then 12 timed steps beside the plain step's time (``bare``);
+    ``main`` on ``synthetic_cfg`` with DropPath, MIRO, the last two blocks
+    trainable, SWAD, ``plot_attn``, ``profile_dir`` and an RSS cap together;
+    a run preempted by SIGTERM in the middle of its second epoch and resumed
+    against the uninterrupted run. Returns the paths by label."""
+    import tempfile
+
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    plain_step = dict.fromkeys(fused4, DEPTH - 1)
+    # MIRO: the live forward and the pre-featurizer's each run all 12 blocks
+    # (no CLS-only readout), the backward the live forward's 12
+    miro_step = {"attend_project_fwd": 2 * DEPTH, "ln_mlp_fwd": 2 * DEPTH,
+                 "attend_project_bwd": DEPTH, "ln_mlp_bwd": DEPTH}
+    cases = [("DropPath", plain_step, None, dict(drop_path_rate=DROP_PATH_RATE)),
+             ("MIRO", miro_step, {"miro": True}, {}),
+             (f"unfreeze_last_n_layers={UNFREEZE_LAST}", plain_step,
+              {"unfreeze_last_n_layers": UNFREEZE_LAST}, {})]
+    paths = {}
+    for key, want, runtime, extra in cases:
+        train_parity(fb, torch, f"runtime {key} train parity", DEPTH, RUNTIME_PARITY_STEPS, want,
+                     runtime=runtime, **extra)
+        launches, steps, timing = train(fb, torch, f"runtime {key} train", want,
+                                        runtime=runtime, **extra)
+        paths[f"runtime {key} train"] = (launches, steps, "step")
+        per = {k: v / steps for k, v in launches.items() if v}
+        print(f"phase Trainer runtime {key}: {timing['imgs_per_s']:.2f} images/s, p50 "
+              f"{timing['p50_ms']:.3f} ms, beside the plain step's {bare['imgs_per_s']:.2f} "
+              f"images/s, p50 {bare['p50_ms']:.3f} ms (train phase); launches per step "
+              f"{json.dumps(per)}; card {card_line()}")
+    with tempfile.TemporaryDirectory(prefix="dcvit_runtime_") as tmp:
+        over = TRAINER_OVERRIDES + [
+            "train.num_epochs=2", "train.save_model=none", f"train.checkpoints={tmp}",
+            f"++model.drop_path_rate={DROP_PATH_RATE}", "++train.miro=True",
+            f"++model.unfreeze_last_n_layers={UNFREEZE_LAST}", "++train.swad=True",
+            "++train.swa_start=1", "++train.plot_attn=True", f"++train.profile_dir={tmp}/trace",
+            "++train.max_host_rss_gb=1000"]
+        fwd = dict.fromkeys(("attend_project_fwd", "ln_mlp_fwd"), DEPTH - 1)
+        probe, launches, _ = run_trainer(
+            fb, torch, "Trainer runtime", "synthetic_cfg", over, miro_step, fwd,
+            want_plot=dict.fromkeys(("attend_project_fwd", "ln_mlp_fwd"), DEPTH))
+        t = probe.trainer
+        traces = sorted(os.listdir(f"{tmp}/trace"))
+        npys = sorted(os.listdir(f"{t.checkpoints}/attn"))
+        swa_same = all(torch.equal(p.detach(), a) for p, a in zip(t.state.params, t.swa_params))
+        print(f"Trainer runtime: {len(t.state.frozen)} parameter tensors frozen, SWAD averaged "
+              f"{t.swa_n} updates and the model took the average: {swa_same}; plots "
+              f"{probe.plots} ({npys}); profiler trace {traces} "
+              f"({sum(os.path.getsize(f'{tmp}/trace/{n}') for n in traces) / 1e6:.1f} MB)")
+        if not (swa_same and t.swa_n == t.updates_per_epoch and len(traces) == 1
+                and all(f"cls_attn_epoch{e}.npy" in npys for e in range(3))):
+            raise AssertionError("Trainer runtime: SWAD, the trace or the attention maps are "
+                                 "missing")
+        paths["Trainer runtime"] = (launches, len(probe.epochs), "epoch")
+        del probe, t
+        preempt_on_card(torch, tmp)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def preempt_on_card(torch, tmp: str) -> None:
+    """A run (DCS, DropPath, SWAD from epoch 2, MIRO; 4 steps an epoch, 2
+    epochs) that a SIGTERM stops after its 5th step, in the middle of epoch
+    2, and that the next Trainer of the same (dataset, seed) resumes, held
+    against the uninterrupted run: every parameter bit for bit."""
+    import signal
+
+    from diverse_channel_vit_torch.config import load_config
+    from diverse_channel_vit_torch.trainer import Trainer
+
+    over = TRAINER_OVERRIDES + [
+        "train.num_epochs=2", "dataset.num_train_samples=256", "train.save_model=none",
+        "++eval.skip_eval_first_epoch=True", "++eval.only_eval_first_and_last=True",
+        "model.enable_sample=True", f"model.hcs_sampling={HCS_METHOD}",
+        f"model.hcs_sampling_temp={HCS_TEMP:g}", f"++model.drop_path_rate={DROP_PATH_RATE}",
+        "++train.swad=True", "++train.swa_start=1", "++train.miro=True"]
+
+    def trainer(name):
+        return Trainer(load_config("synthetic_cfg", over + [f"train.checkpoints={tmp}/{name}"]))
+
+    t0 = time.perf_counter()
+    ta = trainer("a")
+    ta.train()
+    tb = trainer("b")
+    run, calls = Trainer._train_one_batch_regular, [0]
+
+    def batch_then_sigterm(self, batch):
+        out = run(self, batch)
+        calls[0] += 1
+        if calls[0] == 5:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    Trainer._train_one_batch_regular = batch_then_sigterm
+    try:
+        tb.train()
+    finally:
+        Trainer._train_one_batch_regular = run
+    tb2 = trainer("b")
+    where = (tb.state.step, tb2.start_epoch, tb2._resume_start_batch)
+    tb2.train()
+    upe = ta.updates_per_epoch
+    sa, sb = ta.model.state_dict(), tb2.model.state_dict()
+    differ = {k: float((sa[k].float() - sb[k].float()).abs().max()) for k in sa
+              if not torch.equal(sa[k], sb[k])}
+    print(f"Trainer preemption: SIGTERM after step {where[0]}, resumed at epoch {where[1]} "
+          f"batch {where[2]}, finished at step {tb2.state.step} (uninterrupted "
+          f"{ta.state.step}); {len(sa) - len(differ)} of {len(sa)} tensors equal bit for bit"
+          f"{'' if not differ else f', max abs diff {max(differ.values()):.3e} in ' + str(sorted(differ, key=differ.get)[-3:])}"
+          f"; {time.perf_counter() - t0:.1f} s for the three runs")
+    if where != (5, 5 // upe + 1, 5 % upe) or tb2.state.step != ta.state.step or differ:
+        raise AssertionError("Trainer preemption: the resumed run differs from the "
+                             "uninterrupted one")
 
 
 def host_batch(trainer) -> None:
@@ -2963,6 +3141,9 @@ def main() -> int:
     # the training entry point: main -> config -> data -> Trainer -> eval ->
     # checkpoint, at full width
     paths.update(trainer_paths(fb, torch, bare["imgs_per_s"]))
+    # the Trainer's runtime: DropPath, MIRO, freezing, SWAD, the attention
+    # maps, the profiler trace, preemption and resume
+    paths.update(trainer_runtime(fb, torch, bare))
 
     # each kernel's main paths, first the one its launches are read from
     dh128 = "_dh128"
@@ -3010,7 +3191,8 @@ def main() -> int:
             for label in ("EViT train", "DCS recipe train"):
                 counts, units, _ = paths[label]
                 entry[f"launches_per_step_{label.replace(' ', '_')}"] = counts[name] / units
-        for label in ("Trainer", "Trainer int8"):
+        for label in ("Trainer", "Trainer int8", "Trainer runtime",
+                      *(p for p in paths if p.startswith("runtime "))):
             counts, units, unit = paths[label]
             if name in counts and counts[name]:
                 entry[f"launches_per_{unit}_{label.replace(' ', '_')}"] = counts[name] / units

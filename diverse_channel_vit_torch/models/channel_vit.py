@@ -5,7 +5,9 @@ Tokens stay channel-grouped ``(B, C, N, D)`` through the patch embedding and
 enter the blocks as the flat ``(B, 1 + C*N, D)`` grid in channel-major order,
 padded once to the kernels' multiple (``ops/attention.maybe_pad_tokens``).
 The forward is the JAX module's forward for ``block_type="block"`` with no
-dropout and no token dropping. With ``keep_rate < 1`` the blocks at layers
+dropout and no token dropping, with DropPath at ``drop_path_rate`` (rising
+linearly with depth, JAX ``models/channel_vit.py:263``; the per-sample
+masks drawn by :meth:`ChannelVisionTransformer.draw_drop_path`). With ``keep_rate < 1`` the blocks at layers
 depth // 4, depth // 2 and 3 * depth // 4 run as EViT blocks
 (:meth:`~.vit.Block.evit`), each keeping the top ``int(keep_rate * (n_valid
 - 1))`` tokens, and the grid is padded again after each prune; an EViT layer
@@ -14,7 +16,10 @@ alone unless ``cls_only_readout`` is off (exact in training too: the other
 rows of the last block feed nothing). In train mode (``module.train()``) it
 also returns DiChaViT's diversity losses: TDL on the projected tokens before
 the channel embedding, CDL of the selected channel embeddings against their
-proxies.
+proxies. Given a ``taps`` dict the forward fills it with every block's output
+(MIRO's taps, ``training/miro.py``) and runs the last block at all rows, and
+with ``attention_layer`` it adds that block's dense attention probabilities
+(:func:`attention_maps`).
 """
 
 from __future__ import annotations
@@ -146,7 +151,7 @@ class ChannelVisionTransformer(nn.Module):
                  use_square: bool = False, temperature: float = 0.11111,
                  attention_impl: str = "auto", cls_only_readout: bool = True, keep_rate: Optional[float] = None,
                  gelu_exact: bool = False, quantization: str = "none",
-                 dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_total_channels = num_total_channels
@@ -169,10 +174,12 @@ class ChannelVisionTransformer(nn.Module):
         )
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.empty(1, (img_size // patch_size) ** 2 + 1, embed_dim))
+        self.drop_path_rate = float(drop_path_rate)
+        dpr = [self.drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, gelu_exact=gelu_exact,
-                  quantization=quantization, attention_impl=attention_impl)
-            for _ in range(depth)
+                  quantization=quantization, attention_impl=attention_impl, drop_path=rate)
+            for rate in dpr
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
         self._init_weights(generator, orthogonal_channel_emb_init, proxy_orthogonal_init)
@@ -201,13 +208,41 @@ class ChannelVisionTransformer(nn.Module):
                 ln.reset_parameters()
         self.norm.reset_parameters()
 
+    def draw_drop_path(self, batch: int, generator: Optional[torch.Generator] = None,
+                       device=None) -> list:
+        """DropPath's per-sample keep masks of one training forward: for each
+        block at a rate above 0, two (B,) bools (its attention branch, then
+        its MLP branch, each ``uniform < 1 - rate`` as JAX's ``bernoulli``)
+        drawn from ``generator``, block by block; None for a block at rate 0."""
+        device = self.cls_token.device if device is None else device
+        masks = []
+        for blk in self.blocks:
+            if blk.drop_path <= 0.0:
+                masks.append(None)
+                continue
+            keep = 1.0 - blk.drop_path
+            masks.append(tuple(torch.rand(batch, generator=generator, device=device) < keep
+                               for _ in range(2)))
+        return masks
+
     def forward(self, x: torch.Tensor, channel_ids: torch.Tensor,
-                channel_embed_override: Optional[torch.Tensor] = None):
+                channel_embed_override: Optional[torch.Tensor] = None, *,
+                taps: Optional[dict] = None, drop_path: Optional[list] = None,
+                attention_layer: Optional[int] = None):
         """x: (B, C, H, W) with the channels already selected; channel_ids:
         (C,) global ids indexing the channel-embedding table.
         ``channel_embed_override``, (C, D) or per-sample (B, C, D), takes the
         selected rows' place (the novel-channel evals' synthesized
-        embeddings); CDL is computed only for a (C, D) selection."""
+        embeddings); CDL is computed only for a (C, D) selection.
+
+        ``taps``: a dict to fill with each block's output at the real
+        tokens' rows, ``block_{i}`` (B, n_valid, D); the last block then
+        runs at all rows. ``drop_path``: the DropPath
+        masks of :meth:`draw_drop_path`, used in train mode only; drawn from
+        torch's default generator when a train-mode forward at a rate above
+        0 is given none. ``attention_layer``: also put that block's dense
+        attention probabilities on its input into ``taps["attn_probs"]`` and
+        the valid token count of its grid into ``taps["attn_valid"]``."""
         b, c, h, w = x.shape
         p, dim, dt = self.patch_size, self.embed_dim, self.dtype
         n = (h // p) * (w // p)
@@ -240,15 +275,44 @@ class ChannelVisionTransformer(nn.Module):
         depth = len(self.blocks)
         evit_on = self.keep_rate is not None and float(self.keep_rate) < 1.0
         evit_layers = {depth // 4, depth // 2, (3 * depth) // 4} if evit_on else set()
+        masks = [None] * depth
+        if self.training and self.drop_path_rate > 0:
+            masks = self.draw_drop_path(b, device=x.device) if drop_path is None else drop_path
+        # a tap sees every row of the last block, so it takes the full route
+        readout = self.cls_only_readout and taps is None
+        if attention_layer is not None:
+            attention_layer %= depth
         for i, blk in enumerate(self.blocks):
+            if i == attention_layer:
+                taps["attn_probs"] = blk.attention_probs(xseq, valid_len)
+                taps["attn_valid"] = xseq.shape[1] if valid_len is None else valid_len
             if i in evit_layers:
-                xseq, valid_len = blk.evit(xseq, float(self.keep_rate), valid_len)
+                xseq, valid_len = blk.evit(xseq, float(self.keep_rate), valid_len, masks[i])
+                if taps is not None:
+                    taps[f"block_{i}"] = xseq[:, :valid_len]
                 if valid_len is None:  # pruned: pad the fully valid grid again
                     xseq, valid_len = maybe_pad_tokens(xseq)
                 continue
-            xseq = blk(xseq, valid_len=valid_len,
-                       cls_query=self.cls_only_readout and i == depth - 1)
+            xseq = blk(xseq, valid_len=valid_len, cls_query=readout and i == depth - 1,
+                       drop=masks[i])
+            if taps is not None:  # the real tokens' rows, not the pad
+                taps[f"block_{i}"] = xseq[:, :valid_len]
         # LayerNorm is per token: norm only the CLS row that is read
         cls_out = F.layer_norm(xseq[:, :1].float(), (dim,), self.norm.weight, self.norm.bias,
                                self.norm.eps)
         return cls_out[:, 0], extra_loss
+
+
+def attention_maps(model: nn.Module, x: torch.Tensor, channel_ids: torch.Tensor,
+                   layer_idx: int = -1) -> Tuple[torch.Tensor, int]:
+    """The dense attention probabilities of block ``layer_idx`` (negative
+    counts from the end) in an eval forward without gradient, (B, H, N, N)
+    f32 on the padded grid, and the grid's valid token count (JAX
+    ``models/vit.py`` ``attention_maps``, the ``train.plot_attn`` source)."""
+    taps: dict = {}
+    was_training = model.training
+    model.eval()
+    with torch.no_grad():
+        model(x, channel_ids, taps=taps, attention_layer=layer_idx)
+    model.train(was_training)
+    return taps["attn_probs"], int(taps["attn_valid"])

@@ -14,9 +14,10 @@ The other keys the JAX factory reads are honoured or refused:
 ``freeze_channel_emb`` stops the channel-embedding table's gradient;
 ``attention_impl`` (``auto``, ``pallas`` or ``xla``) routes the blocks as
 the JAX ``Block._fused_ok`` does (``xla`` takes the unfused route);
-``drop_path_rate`` > 0 and the HCS token dropout (``dropout_tokens_hcs``
-other than ``"none"``, ``token_keep_channels``) raise
-``NotImplementedError`` until they are ported. ``drop_rate`` and
+``drop_path_rate`` sets DropPath's rate at the last block (0 at the first,
+rising linearly); the HCS token dropout (``dropout_tokens_hcs`` other than
+``"none"``, ``token_keep_channels``) raises ``NotImplementedError`` until it
+is ported. ``drop_rate`` and
 ``attn_drop_rate`` are ignored, as the JAX factories ignore them: no JAX
 factory reads either key, so JAX trains such a config without dropout.
 """
@@ -36,8 +37,6 @@ def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.d
                        generator: Optional[torch.Generator]) -> ChannelAdaptiveClassifier:
     if (cfg_model.get("block_type", "block") or "block") != "block":
         raise NotImplementedError("block_type other than 'block' (PPT blocks, ROADMAP A8)")
-    if float(cfg_model.get("drop_path_rate", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError("drop_path_rate > 0: DropPath is not ported (ROADMAP A4)")
     if (cfg_model.get("dropout_tokens_hcs", "none") or "none") != "none" \
             or cfg_model.get("token_keep_channels") is not None:
         raise NotImplementedError("dropout_tokens_hcs / token_keep_channels: HCS token and "
@@ -66,6 +65,7 @@ def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.d
         keep_rate=cfg_model.get("keep_rate"),
         gelu_exact=bool(cfg_model.get("gelu_exact", False)),
         quantization=cfg_model.get("quantization") or "none",
+        drop_path_rate=float(cfg_model.get("drop_path_rate", 0.0) or 0.0),
         dtype=dtype,
         generator=generator,
         **preset,

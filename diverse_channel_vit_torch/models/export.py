@@ -10,6 +10,9 @@ The target is the PyTorch reference's layout, which the port's modules use:
 - every Dense ``kernel``        -> transposed ``weight``
 - ``classifier_head``           -> ``classifer_head`` [sic]
 
+- ``miro_encoders/backbone/block_{i}/__call__/[0]`` (MIRO's VarianceEncoder
+  biases, beside the model in JAX's ``state.params``) -> ``miro_encoders.block_{i}``
+
 Both JAX block layouts carry over: unrolled ``block_{i}`` modules and the
 ``scan_blocks`` stack (``blocks/blocks/block`` leaves with a leading depth
 axis, as flax builds it; the JAX exporter expects ``blocks/block``, which is
@@ -19,6 +22,7 @@ taken as well).
 from __future__ import annotations
 
 import math
+import re
 from collections import OrderedDict
 from typing import Any, Dict
 
@@ -64,7 +68,8 @@ def params_from_jax(params: Dict[str, Any], *,
     ``np.asarray`` reads) -> the port's ``state_dict``.
 
     Accepts the trainer's full tree (``{"backbone": ..., "proxies",
-    ["logit_scale"], ["classifier_head"]}``) or a bare backbone tree.
+    ["logit_scale"], ["classifier_head"], ["miro_encoders"]}``) or a bare
+    backbone tree.
     """
     bb = params.get("backbone", params)
     out: "OrderedDict[str, np.ndarray]" = OrderedDict()
@@ -106,4 +111,7 @@ def params_from_jax(params: Dict[str, Any], *,
             head = params["classifier_head"]
             out["classifer_head.weight"] = _np(head["kernel"]).T
             out["classifer_head.bias"] = _np(head["bias"])
+        for name, bias in params.get("miro_encoders", {}).items():
+            i = int(re.search(r"block_(\d+)", name).group(1))
+            out[f"miro_encoders.block_{i}"] = _np(bias)
     return OrderedDict((k, torch.tensor(v)) for k, v in out.items())

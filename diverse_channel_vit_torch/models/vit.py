@@ -9,8 +9,8 @@ package casts its f32 parameters; without autograd the blocks' casts are
 made once and reused until the parameter changes (:func:`_wb`).
 
 A :class:`Block` runs one of three routes, the same in training and
-inference (the JAX package's ``Block.__call__`` routing with dropout,
-attention dropout and DropPath all 0, which is all the port takes):
+inference (the JAX package's ``Block.__call__`` routing with dropout and
+attention dropout 0, which is all the port takes):
 
 - the fused route, where :func:`fused_route_ok` allows it (``attention_impl``
   ``auto`` or ``pallas``, bf16, at most 8192 tokens, a width that is a
@@ -29,6 +29,15 @@ attention dropout and DropPath all 0, which is all the port takes):
   -> LN2 in f32 -> :class:`Mlp` (fc1, GELU, fc2) -> residual;
 - the CLS-only readout of the last block (``cls_query``): only the CLS row's
   query, attention row and MLP are computed, as dense ops.
+
+DropPath (stochastic depth, JAX ``DropPath``): in training a block with a
+rate above 0 takes per-sample masks ``drop`` (two (B,) bools, one for each
+branch, drawn by the caller) and adds ``where(mask, branch / keep, 0)``
+(keep = 1 - rate) to the residual stream; the fused route then calls
+``attend_project`` without ``x_res`` and ``ln_mlp`` with
+``residual=False`` and adds the masked branches itself (JAX
+``models/vit.py:664-706``). Eval, and a block at rate 0, keep the fused
+residual.
 
 :meth:`Block.evit` is the JAX package's ``BlockEViT`` on the same parameters:
 the unfused attention, then the top ``int(keep_rate * (n_valid - 1))``
@@ -111,6 +120,16 @@ def fused_route_ok(x: torch.Tensor, dtype: torch.dtype, num_heads: int, gelu_exa
             and not gelu_exact)
 
 
+def drop_branch(branch: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """Per-sample stochastic depth of a residual branch (JAX ``DropPath``):
+    each sample's branch divided by keep = 1 - ``rate`` where ``mask`` (B,)
+    holds, zero where it does not; the branch itself when ``mask`` is None."""
+    if mask is None:
+        return branch
+    keep = mask.view((-1,) + (1,) * (branch.ndim - 1))
+    return torch.where(keep, branch / (1.0 - rate), branch.new_zeros(()))
+
+
 class Attention(nn.Module):
     """The unfused attention: the qkv GEMM, ``flash_attention_packed`` on the
     q/k/v thirds of its output (strided views, no copy), the proj GEMM. The
@@ -163,13 +182,14 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32,
                  gelu_exact: bool = False, quantization: str = "none",
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", drop_path: float = 0.0):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {attention_impl!r}: want one of {ATTENTION_IMPLS}")
         self.dtype = dtype
         self.gelu_exact = gelu_exact
         self.attention_impl = attention_impl
+        self.drop_path = float(drop_path)
         self.quantization = fused_block.check_quantization(quantization)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
@@ -179,50 +199,75 @@ class Block(nn.Module):
         self.evit_forced: Optional[torch.Tensor] = None
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
-                cls_query: bool = False) -> torch.Tensor:
+                cls_query: bool = False, drop=None) -> torch.Tensor:
+        """``drop``: the DropPath masks ``(attention branch, MLP branch)``,
+        each (B,) bool, in training at a rate above 0; None otherwise."""
+        m1, m2 = (None, None) if drop is None else drop
         if cls_query:
-            return self._cls_readout(x, valid_len)
-        dt = self.dtype
+            return self._cls_readout(x, valid_len, m1, m2)
+        dt, rate = self.dtype, self.drop_path
         if not fused_route_ok(x, dt, self.attn.num_heads, self.gelu_exact, self.attention_impl):
             y = _layer_norm_f32(x, self.norm1).to(dt)
-            x = x + self.attn(y, valid_len)
-            return x + self.mlp(_layer_norm_f32(x, self.norm2).to(dt), self.gelu_exact)
+            x = x + drop_branch(self.attn(y, valid_len), m1, rate)
+            return x + drop_branch(
+                self.mlp(_layer_norm_f32(x, self.norm2).to(dt), self.gelu_exact), m2, rate)
+        fuse = drop is None  # the residual adds fused into both kernels
         x = x.to(dt)
         y = _layer_norm_f32(x, self.norm1).to(dt)
-        x = fused_block.attend_project(
-            y, *_wb(self.attn.qkv, dt), *_wb(self.attn.proj, dt), x, self.attn.num_heads,
-            self.attn.scale, valid_len,
+        a = fused_block.attend_project(
+            y, *_wb(self.attn.qkv, dt), *_wb(self.attn.proj, dt), x if fuse else None,
+            self.attn.num_heads, self.attn.scale, valid_len,
         )
+        x = a if fuse else x + drop_branch(a, m1, rate)
         mode = fused_block.quantization_override() or self.quantization
         if mode == "int8" and not torch.is_grad_enabled():
-            return fused_block.ln_mlp_q_fwd(x, self.norm2.weight, self.norm2.bias,
-                                            *_quantized_mlp(self.mlp, dt), residual=True)
-        return fused_block.ln_mlp(
-            x, self.norm2.weight, self.norm2.bias, *_wb(self.mlp.fc1, dt),
-            *_wb(self.mlp.fc2, dt), residual=True, quantized=mode == "int8",
-        )
+            z = fused_block.ln_mlp_q_fwd(x, self.norm2.weight, self.norm2.bias,
+                                         *_quantized_mlp(self.mlp, dt), residual=fuse)
+        else:
+            z = fused_block.ln_mlp(
+                x, self.norm2.weight, self.norm2.bias, *_wb(self.mlp.fc1, dt),
+                *_wb(self.mlp.fc2, dt), residual=fuse, quantized=mode == "int8",
+            )
+        return z if fuse else x + drop_branch(z, m2, rate)
 
-    def evit(self, x: torch.Tensor, keep_rate: float,
-             valid_len: Optional[int] = None) -> Tuple[torch.Tensor, Optional[int]]:
+    @torch.no_grad()
+    def attention_probs(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+        """This block's dense attention probabilities on its input ``x``, (B,
+        H, N, N) f32, keys at or past ``valid_len`` masked (the JAX
+        ``xla_capture`` route's ``attn_probs``, for ``attention_maps``)."""
+        b, n, d = x.shape
+        h = self.attn.num_heads
+        q, k, _ = self.attn.project_qkv(_layer_norm_f32(x, self.norm1).to(self.dtype))
+        qh, kh = (t.float().reshape(b, n, h, d // h).transpose(1, 2) for t in (q, k))
+        s = torch.matmul(qh, kh.transpose(-1, -2)) * self.attn.scale
+        if valid_len is not None and valid_len < n:
+            s = s.masked_fill(torch.arange(n, device=x.device) >= valid_len, MASK_VALUE)
+        return torch.softmax(s, dim=-1)
+
+    def evit(self, x: torch.Tensor, keep_rate: float, valid_len: Optional[int] = None,
+             drop=None) -> Tuple[torch.Tensor, Optional[int]]:
         """EViT block (the JAX package's ``BlockEViT``): attention and its
         residual, then, when ``keep = int(keep_rate * (n_valid - 1))`` is below
         ``n_valid - 1``, the CLS row and the top ``keep`` other tokens by
         head-mean CLS attention in descending order; then LN2, the dense MLP
         and its residual. Returns ``(x, valid_len)``: after a prune the grid
-        is fully valid (``None``) and the caller pads it again."""
+        is fully valid (``None``) and the caller pads it again. ``drop`` as in
+        :meth:`forward`."""
         dt = self.dtype
+        m1, m2 = (None, None) if drop is None else drop
         n = x.shape[1]
         n_valid = n if valid_len is None else int(valid_len)
         y = _layer_norm_f32(x, self.norm1).to(dt)
         q, k, v = self.attn.project_qkv(y)
-        x = x + self.attn.attend(q, k, v, valid_len)
+        x = x + drop_branch(self.attn.attend(q, k, v, valid_len), m1, self.drop_path)
         keep = int(keep_rate * (n_valid - 1))
         self.evit_kept = None
         if keep_rate < 1.0 and keep < n_valid - 1:
             kept, self.evit_kept = topk_token_select(x, self._cls_scores(q, k, n_valid), keep)
             x = kept if self.evit_forced is None else select_tokens(x, self.evit_forced)
             valid_len = None
-        return x + self.mlp(_layer_norm_f32(x, self.norm2).to(dt), self.gelu_exact), valid_len
+        z = self.mlp(_layer_norm_f32(x, self.norm2).to(dt), self.gelu_exact)
+        return x + drop_branch(z, m2, self.drop_path), valid_len
 
     @torch.no_grad()
     def _cls_scores(self, q: torch.Tensor, k: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -242,9 +287,11 @@ class Block(nn.Module):
             scores = scores.masked_fill(pad[1:], -1.0)
         return scores
 
-    def _cls_readout(self, x: torch.Tensor, valid_len: Optional[int]) -> torch.Tensor:
+    def _cls_readout(self, x: torch.Tensor, valid_len: Optional[int], m1=None,
+                     m2=None) -> torch.Tensor:
         """Last-block CLS readout: the queries and the MLP run on the CLS row
-        alone; keys and values still see the whole grid. Returns (B, 1, D)."""
+        alone; keys and values still see the whole grid. Returns (B, 1, D).
+        DropPath's per-sample masks ``m1``, ``m2`` act as on the full rows."""
         dt = self.dtype
         b, n, d = x.shape
         h = self.attn.num_heads
@@ -257,6 +304,6 @@ class Block(nn.Module):
         vh = v.reshape(b, n, h, d // h).transpose(1, 2)
         o = plain_attention(qh, kh, vh, self.attn.scale, valid_len)
         a = F.linear(o.transpose(1, 2).reshape(b, 1, d), *_wb(self.attn.proj, dt))
-        xc = x[:, :1] + a
+        xc = x[:, :1] + drop_branch(a, m1, self.drop_path)
         y2 = _layer_norm_f32(xc, self.norm2).to(dt)
-        return xc + self.mlp(y2, self.gelu_exact)
+        return xc + drop_branch(self.mlp(y2, self.gelu_exact), m2, self.drop_path)

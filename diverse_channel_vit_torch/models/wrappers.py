@@ -41,8 +41,11 @@ class ChannelAdaptiveClassifier(nn.Module):
         return self.feature_extractor.num_total_channels
 
     def forward(self, x: torch.Tensor, channel_ids: torch.Tensor,
-                channel_embed_override: Optional[torch.Tensor] = None):
-        emb, extra_loss = self.feature_extractor(x, channel_ids, channel_embed_override)
+                channel_embed_override: Optional[torch.Tensor] = None, **backbone_kw):
+        """``backbone_kw``: the backbone's ``taps``, ``drop_path`` and
+        ``attention_layer``."""
+        emb, extra_loss = self.feature_extractor(x, channel_ids, channel_embed_override,
+                                                 **backbone_kw)
         out = emb if self.classifer_head is None else self.classifer_head(emb)
         return out, extra_loss
 

@@ -27,14 +27,30 @@ Trainer does for JUMP-CP, So2Sat, CHAMMI and the synthetic config:
   (``evaluation/morphem_eval.py``), ``accuracy`` being the CHAMMI score,
   once per strategy of ``model.new_channel_inits`` when the run trained on
   a ``train.training_chunks`` subset;
-- a checkpoint is ``training/checkpoint.py``'s torch file and meta.json.
+- a checkpoint is ``training/checkpoint.py``'s torch file and meta.json;
+- the runtime of JAX ``trainer.py``: ``model.pretrained`` (a warm start from
+  a local reference checkpoint, ``models/import_torch.py``); freezing
+  (``model.freeze_other``, ``model.unfreeze_last_n_layers``,
+  ``training/freeze.py``); MIRO (``train.miro``, ``miro_ld``,
+  ``miro_lr_mult``, ``training/miro.py``); SWA (averaged once an epoch past
+  ``train.swa_start``) and SWAD (once a batch, under its frozen-then-cosine
+  lr), whose average the model adopts at the end of the run; a SIGTERM
+  (``training/preemption.py``) saves ``model_preempt`` in the stable
+  directory ``<checkpoints>/<dataset>/preempt--seed{seed}``, with the
+  epoch and batch it stopped at, the host and torch generators' states, the
+  channel counter and the SWA average, and the next launch with
+  ``train.auto_resume`` re-enters the run there, mid-epoch included, to the
+  bit (the directory goes on a clean finish); ``train.max_host_rss_gb``
+  saves that checkpoint and re-executes the process when the host's RSS
+  passes it at an epoch boundary; ``train.profile_dir`` writes a
+  ``torch.profiler`` trace of the run; ``train.plot_attn`` saves the last
+  block's CLS attention for 8 eval images at every evaluation.
 
 The device is the caller's ``device``, else ``hardware.device`` (``cuda``
 in the port's config tree; ``cpu`` only when asked). Every key this slice
 does not honour raises ``NotImplementedError`` naming its ROADMAP item
 (:func:`check_supported`). ``async_checkpoint`` saves synchronously and
-``donate_state`` changes nothing; ``auto_resume`` finds nothing to resume,
-since no preemption checkpoint is written until preemption is ported.
+``donate_state`` changes nothing.
 """
 
 from __future__ import annotations
@@ -42,6 +58,8 @@ from __future__ import annotations
 import itertools
 import math
 import os
+import shutil
+import sys
 import time
 from typing import Dict, Optional, Union
 
@@ -59,7 +77,10 @@ from .ops.patch_embed import per_channel_patch_embed
 from .ops.sampling import NOT_PORTED
 from .training import (TrainState, make_eval_step, make_grad_step, make_lr_schedule,
                        make_optimizer, make_train_step)
-from .training.checkpoint import load_checkpoint, save_checkpoint
+from .training.checkpoint import (load_checkpoint, load_meta, load_tree, save_checkpoint,
+                                  save_tree)
+from .training.preemption import PreemptionGuard
+from .training.schedules import swad_schedule
 from .utils.misc import AverageMeter, Timer, set_seeds
 
 
@@ -119,17 +140,10 @@ def check_supported(cfg) -> None:
     refusals = [
         (name in ("cifar10", "cifar100"), f"dataset {name!r}: the CIFAR loader downloads "
                                           "through torchvision and is left out (ROADMAP A6)"),
-        (bool(tr.get("swa")) or bool(tr.get("swad")), "train.swa / train.swad (ROADMAP A6)"),
-        (bool(tr.get("miro")), "train.miro (ROADMAP A6, A4.5)"),
         (bool(tr.get("ssl")), "train.ssl (ROADMAP A6)"),
-        (bool(model.get("freeze_other")), "model.freeze_other (ROADMAP A6 freeze)"),
-        (int(_default(model.get("unfreeze_last_n_layers"), -1)) >= 0,
-         "model.unfreeze_last_n_layers >= 0 (ROADMAP A6 freeze)"),
-        (bool(model.get("pretrained")), "model.pretrained: weight import (ROADMAP A9, A11)"),
+        (bool(_pretrained_path(cfg)) and "convnext" in str(model.get("name")),
+         "model.pretrained for a ConvNeXt trunk: the ConvNeXt family (ROADMAP A9)"),
         (chammi and bool(ev.get("umap")), "eval.umap: the embedding figures (ROADMAP A7)"),
-        (bool(tr.get("plot_attn")), "train.plot_attn (ROADMAP A6)"),
-        (bool(tr.get("profile_dir")), "train.profile_dir (ROADMAP A6)"),
-        (bool(tr.get("max_host_rss_gb")), "train.max_host_rss_gb: RSS recycling (ROADMAP A6)"),
         (any(int(v) > 1 for v in _as_dict(hw.get("mesh") or {}).values()),
          "hardware.mesh with more than one device (ROADMAP A10)"),
         (bool(hw.get("zero1")) or bool(hw.get("zero3")), "hardware.zero1 / zero3 (ROADMAP A10)"),
@@ -143,6 +157,13 @@ def check_supported(cfg) -> None:
     for refused, what in refusals:
         if refused:
             raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _pretrained_path(cfg) -> Optional[str]:
+    """``model.pretrained`` as a path, or True with ``model.pretrained_ckpt``
+    (JAX ``trainer.py:352-357``); None for no warm start."""
+    pre = cfg.model.get("pretrained")
+    return pre if isinstance(pre, str) else (cfg.model.get("pretrained_ckpt") if pre else None)
 
 
 def _trainer_device(cfg, device) -> torch.device:
@@ -228,6 +249,19 @@ class Trainer:
             num_epochs=self.total_epochs, steps_per_epoch=self.updates_per_epoch,
             convert_to_batch=bool(cfg.scheduler.get("convert_to_batch", False)),
         )
+        # SWA / SWAD (JAX trainer.py:273-307): plain SWA averages once an
+        # epoch past swa_start under the base schedule; SWAD once a batch,
+        # under the base lr frozen at the last update of epoch swa_start and
+        # then cosine-annealed to swa_lr
+        self.swa = bool(cfg.train.get("swa", False))
+        self.swad = bool(cfg.train.get("swad", False))
+        self.swa_start = int(cfg.train.get("swa_start", 5) or 5)
+        if self.swad:
+            self.lr_schedule = swad_schedule(self.lr_schedule,
+                                             self.swa_start * self.updates_per_epoch,
+                                             float(cfg.train.get("swa_lr", 0.05) or 0.05))
+        self.swa_params: Optional[list] = None
+        self.swa_n = 0
         self.channel_counter: Dict[int, int] = {}
         if int(cfg.train.get("adaptive_interface_epochs", 0) or 0) > 0:
             # parity: the reference raises the same (trainer.py:338-339)
@@ -237,10 +271,23 @@ class Trainer:
             total_steps=self.total_epochs * self.updates_per_epoch,
             clip_grad_norm=cfg.train.get("clip_grad_norm"),
         )
-        self.state = TrainState(self.model, self.tx)
+        self._warm_start()
+        frozen = self._frozen_names()
+        # MIRO (trainer.py:443-460): the pre-featurizer is a frozen copy of
+        # the weights as they are now; the encoders ride on the model
+        self.miro = bool(cfg.train.get("miro", False))
+        self.miro_ld = float(cfg.train.get("miro_ld", 0.01) or 0.01)
+        self.miro_pre = None
+        if self.miro:
+            from .training.miro import MIRO_KEY, init_encoders, pre_featurizer
+
+            self.miro_pre = pre_featurizer(self.model)
+            setattr(self.model, MIRO_KEY, init_encoders(self.model))
+        self.state = TrainState(self.model, self.tx, frozen=frozen, miro_lr_mult=float(
+            cfg.train.get("miro_lr_mult", 10.0) or 10.0))
         n_params = sum(p.numel() for p in self.state.params)
-        self.logger.info(f"model {cfg.model.name}: {n_params:,} params, device {self.device}, "
-                         f"dtype {dtype_name}")
+        self.logger.info(f"model {cfg.model.name}: {n_params:,} params ({len(frozen)} tensors "
+                         f"frozen), device {self.device}, dtype {dtype_name}")
 
         # -- step caches: one train step per (channels, k), all drawing from
         # one generator on the device --------------------------------------
@@ -252,10 +299,9 @@ class Trainer:
         self._dyn_bank: Optional[torch.Tensor] = None
 
         # -- checkpoints -----------------------------------------------------
+        root = os.path.join(cfg.train.get("checkpoints", "checkpoints"), self.dataset_name)
         self.checkpoints = os.path.join(
-            cfg.train.get("checkpoints", "checkpoints"), self.dataset_name,
-            time.strftime("%Y-%b-%d-%H-%M-%S") + f"--seed{self.seed}",
-        )
+            root, time.strftime("%Y-%b-%d-%H-%M-%S") + f"--seed{self.seed}")
         self.start_epoch = 1
         if cfg.train.get("resume_train") and cfg.train.get("resume_model"):
             self.state, last_epoch = load_checkpoint(
@@ -264,9 +310,84 @@ class Trainer:
             )
             self.start_epoch = last_epoch + 1
             self.logger.info(f"resumed from {cfg.train.resume_model} at epoch {last_epoch}")
-        if cfg.train.get("auto_resume", True) and self.start_epoch == 1:
-            self.logger.info("train.auto_resume: the port writes no preemption checkpoint yet "
-                             "(ROADMAP A6), so there is nothing to resume")
+        # preemption recovery: the run directories are timestamped, so the
+        # SIGTERM checkpoint lives at a stable (dataset, seed) path that the
+        # next launch finds
+        self.preempt_dir = os.path.join(root, f"preempt--seed{self.seed}")
+        self._preempt_guard: Optional[PreemptionGuard] = None
+        self._epoch_interrupted = False
+        self._interrupted_at_batch = 0
+        self._resume_start_batch = 0
+        if (cfg.train.get("auto_resume", True) and self.start_epoch == 1
+                and os.path.exists(os.path.join(self.preempt_dir, "model_preempt"))):
+            self._auto_resume()
+
+    def _warm_start(self) -> None:
+        """``model.pretrained``: load every tensor of a local reference
+        checkpoint that fits the model; the rest keep their fresh init
+        (JAX ``trainer.py:371-400``). Raises ``ValueError`` when none fits."""
+        path = _pretrained_path(self.cfg)
+        if not path:
+            return
+        from .models.import_torch import load_reference_checkpoint, merge_into_template
+
+        imported, _ = load_reference_checkpoint(path)
+        loaded, kept = merge_into_template(self.model, imported)
+        if not loaded:
+            raise ValueError(f"model.pretrained={path}: no tensor of the checkpoint fits model "
+                             f"{self.cfg.model.name!r}; wrong model or geometry?")
+        msg = f"imported {len(loaded)} tensors from reference checkpoint {path}"
+        if kept:
+            msg += f"; kept fresh init for {len(kept)}: {sorted(kept)[:6]}" + (
+                " ..." if len(kept) > 6 else "")
+        self.logger.info(msg)
+
+    def _frozen_names(self) -> set:
+        """The parameters ``model.freeze_other`` / ``unfreeze_last_n_layers``
+        freeze (JAX ``trainer.py:401-414``)."""
+        freeze_other = bool(self.cfg.model.get("freeze_other", False))
+        last_n = int(_default(self.cfg.model.get("unfreeze_last_n_layers"), -1))
+        if not freeze_other and last_n < 0:
+            return set()
+        from .training.freeze import build_trainable_labels, frozen_names
+
+        return frozen_names(build_trainable_labels(
+            self.model.named_parameters(), freeze_other=freeze_other,
+            unfreeze_last_n_layers=last_n,
+            unfreeze_first_layer=bool(self.cfg.model.get("unfreeze_first_layer", True))))
+
+    def _auto_resume(self) -> None:
+        """Re-enter a preempted run from ``model_preempt`` (JAX
+        ``trainer.py:485-540``): the state, the epoch and batch it stopped
+        at, the host generator, the torch generators, the channel counter
+        and the SWA average. Batch order and the loaders' augmentation are
+        functions of (seed, epoch, index), so the rest of the run is the
+        uninterrupted run's."""
+        self.state, last_epoch = load_checkpoint(self.preempt_dir, self.state,
+                                                 name="model_preempt")
+        self.start_epoch = last_epoch + 1
+        meta = load_meta(self.preempt_dir, "model_preempt")
+        if meta.get("resume_epoch") is not None and self.cfg.train.get("resume_mid_epoch", True):
+            self.start_epoch = int(meta["resume_epoch"])
+            self._resume_start_batch = int(meta.get("resume_batch") or 0)
+        if meta.get("host_rng_state") is not None:
+            self.host_rng.bit_generator.state = meta["host_rng_state"]
+        for c, n in (meta.get("channel_counter") or {}).items():
+            self.channel_counter[int(c)] = int(n)
+        extra = load_tree(self.preempt_dir, "model_preempt_extra") or {}
+        if "generator" in extra:
+            self.generator.set_state(extra["generator"])
+        if "torch_cpu" in extra:
+            torch.set_rng_state(extra["torch_cpu"])
+        if "torch_cuda" in extra and self.device.type == "cuda":
+            torch.cuda.set_rng_state(extra["torch_cuda"], self.device)
+        if meta.get("swa_n") and "swa" in extra:
+            self.swa_params = [t.to(self.device) for t in extra["swa"]]
+            self.swa_n = int(meta["swa_n"])
+        mid = (f", re-entering epoch {self.start_epoch} at batch {self._resume_start_batch}"
+               if self._resume_start_batch else "")
+        self.logger.info(f"auto-resumed from preemption checkpoint at epoch {last_epoch}{mid} "
+                         f"({self.preempt_dir})")
 
     def _build_dataset(self):
         """The loaders (``trainer.py:592-622``). A single-chunk dataset: the
@@ -309,6 +430,7 @@ class Trainer:
                 hcs_temp=self.hcs_temp, generator=self.generator, loss_type=self.loss_type,
                 extra_loss_lambda=self.extra_loss_lambda, learnable_temp=self.learnable_temp,
                 temperature=self.temperature, augment_fn=self._device_augment_fn(),
+                **self._miro_kw(),
             )
         return self._train_steps[key]
 
@@ -319,9 +441,12 @@ class Trainer:
                 self.model, channel_ids=channel_ids, k=k, hcs_method=self.hcs_method,
                 hcs_temp=self.hcs_temp, generator=self.generator, loss_type=self.loss_type,
                 extra_loss_lambda=self.extra_loss_lambda, learnable_temp=self.learnable_temp,
-                temperature=self.temperature,
+                temperature=self.temperature, **self._miro_kw(),
             )
         return self._grad_steps[key]
+
+    def _miro_kw(self) -> dict:
+        return dict(miro_pre=self.miro_pre, miro_ld=self.miro_ld if self.miro else 0.0)
 
     def _device_augment_fn(self):
         """On-device JUMP-CP augmentation when the loader ships raw crops."""
@@ -348,6 +473,12 @@ class Trainer:
         timer = Timer()
         best_acc, best_epoch = 0.0, 0
         ev = self.cfg.eval
+        try:
+            self._preempt_guard = PreemptionGuard().install()
+        except ValueError:  # signal.signal outside the main thread: unguarded
+            self._preempt_guard = PreemptionGuard()
+        profile_dir = self.cfg.train.get("profile_dir")
+        prof = self._start_profile() if profile_dir else None
         # pre-training evaluation (trainer.py:329-333)
         if (not self.debug and not ev.get("skip_eval_first_epoch", False)
                 and not ev.get("only_eval_first_and_last", False) and self.start_epoch == 1):
@@ -355,7 +486,24 @@ class Trainer:
             self.logger.info({f"eval/{k}": v for k, v in eval0.items()} | {"epoch": 0},
                              pref_msg="[eval 0]")
         for epoch in range(self.start_epoch, self.total_epochs + 1):
-            train_metrics = self.train_one_epoch(epoch)
+            self._epoch_interrupted = False
+            start_batch = self._resume_start_batch if epoch == self.start_epoch else 0
+            # a whole epoch is train_one_epoch(epoch), the signature before
+            # resume points existed
+            train_metrics = (self.train_one_epoch(epoch, start_batch=start_batch) if start_batch
+                             else self.train_one_epoch(epoch))
+            if self._preempt_guard.triggered:
+                # an interrupted epoch resumes where it stopped: the
+                # checkpoint records (epoch, batch) and the generators
+                completed = epoch - 1 if self._epoch_interrupted else epoch
+                self._save_preempt(
+                    completed, resume_epoch=epoch if self._epoch_interrupted else None,
+                    resume_batch=self._interrupted_at_batch if self._epoch_interrupted else None)
+                self._stop_profile(prof)
+                self._preempt_guard.restore()
+                self.logger.finish(f"preempted during epoch {epoch}; checkpoint saved for "
+                                   "auto-resume")
+                return best_acc
             self.logger.info({f"train/{k}": v for k, v in train_metrics.items()}
                              | {"epoch": epoch, "lr": float(self.lr_schedule(self.state.step))},
                              pref_msg=f"[epoch {epoch}/{self.total_epochs}]")
@@ -379,8 +527,118 @@ class Trainer:
             done = epoch - self.start_epoch + 1
             self.logger.info(f"epoch {epoch} done in {timer.lap():.1f}s, ETA "
                              f"{timer.eta(done, self.total_epochs - self.start_epoch + 1):.0f}s")
+            if self._should_recycle(epoch):
+                # host-RSS recycling (trainer.py:912-944): save the stable
+                # checkpoint, re-execute this process, and the relaunch
+                # resumes at the next epoch
+                self._save_preempt(epoch)
+                self._stop_profile(prof)
+                self._preempt_guard.restore()
+                self.logger.finish(f"host RSS over train.max_host_rss_gb after epoch {epoch}: "
+                                   f"recycling the process (auto-resume continues at epoch "
+                                   f"{epoch + 1})")
+                self._reexec()
+                return best_acc  # reached only when _reexec is stubbed
+        self._stop_profile(prof)
+        if (self.swa or self.swad) and self.swa_params is not None:
+            # adopt the averaged weights (trainer.py:899-902), in place
+            with torch.no_grad():
+                torch._foreach_copy_(self.state.params, self.swa_params)
+            self.logger.info(f"adopted SWA weights (averaged over {self.swa_n} updates)")
+        self._preempt_guard.restore()
+        # a clean finish: the stable-path SIGTERM checkpoint must not shadow
+        # the next fresh launch of this (dataset, seed)
+        shutil.rmtree(self.preempt_dir, ignore_errors=True)
         self.logger.finish(f"training done: best_acc={best_acc:.4f} (epoch {best_epoch})")
         return best_acc
+
+    def _start_profile(self):
+        """``train.profile_dir``: a ``torch.profiler`` trace of the run, host
+        and device activity, from here to the run's end or its preemption
+        (JAX ``trainer.py:787-791``)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if prof is None:
+            return
+        prof.stop()
+        out_dir = str(self.cfg.train.profile_dir)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"torch_trace_seed{self.seed}_"
+                                     f"{time.strftime('%Y%m%d-%H%M%S')}.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"profiler trace written to {path}")
+
+    def _should_recycle(self, epoch: int) -> bool:
+        """True when the host's RSS passes ``train.max_host_rss_gb`` at this
+        epoch boundary and recycling is safe: auto_resume on (else the
+        relaunch would start over), not the last epoch, not debug."""
+        cap = self.cfg.train.get("max_host_rss_gb")
+        if not cap or epoch >= self.total_epochs or self.debug:
+            return False
+        if not self.cfg.train.get("auto_resume", True):
+            return False
+        rss = _host_rss_mb()
+        if rss is None or rss / 1024 <= float(cap):
+            return False
+        self.logger.info(f"host RSS {rss / 1024:.2f} GB > train.max_host_rss_gb={float(cap):g}")
+        return True
+
+    def _reexec(self):  # pragma: no cover (the tests stub it)
+        """Replace this process with a fresh launch of the same command
+        (``python -m ...`` included: ``sys.orig_argv``)."""
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.execv(sys.executable, [sys.executable] + sys.orig_argv[1:])
+
+    def _save_preempt(self, last_completed_epoch: int, *, resume_epoch=None,
+                      resume_batch=None) -> None:
+        """The preemption checkpoint in the stable directory (JAX
+        ``trainer.py:946-977``): the train state, and beside it what an
+        exact continuation needs: where the run stopped, the host generator
+        (the k draws), the channel counter, the torch generators (the
+        step's on the device, torch's CPU one and, on a card, its CUDA one)
+        and the SWA average."""
+        if self.debug:
+            return
+        meta = {
+            "resume_epoch": None if resume_epoch is None else int(resume_epoch),
+            "resume_batch": None if resume_batch is None else int(resume_batch),
+            "host_rng_state": self.host_rng.bit_generator.state,
+            "channel_counter": {str(c): int(n) for c, n in self.channel_counter.items()},
+            "swa_n": int(self.swa_n),
+        }
+        save_checkpoint(self.preempt_dir, self.state, epoch=max(int(last_completed_epoch), 0),
+                        config=self.cfg.to_dict(), name="model_preempt", extra_meta=meta)
+        extra = {"generator": self.generator.get_state(), "torch_cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            extra["torch_cuda"] = torch.cuda.get_rng_state(self.device)
+        if self.swa_params is not None:
+            extra["swa"] = [t.detach().cpu() for t in self.swa_params]
+        save_tree(self.preempt_dir, "model_preempt_extra", extra)
+        where = (f"mid-epoch at (epoch {resume_epoch}, batch {resume_batch})"
+                 if resume_epoch is not None else f"last completed epoch {last_completed_epoch}")
+        self.logger.info(f"preemption checkpoint saved ({where}) -> {self.preempt_dir}")
+
+    @torch.no_grad()
+    def _swa_update(self) -> None:
+        """AveragedModel's equal average (``trainer.py:979-989``): the first
+        call copies the parameters, then avg += (p - avg) / (n + 1). In
+        place on the average only; the live parameters are untouched."""
+        if self.swa_params is None:
+            self.swa_params = [p.detach().clone() for p in self.state.params]
+        else:
+            diff = torch._foreach_sub(self.state.params, self.swa_params)
+            torch._foreach_div_(diff, self.swa_n + 1.0)
+            torch._foreach_add_(self.swa_params, diff)
+        self.swa_n += 1
 
     def _log_memory(self) -> None:
         """Once an epoch, JAX's keys (``trainer.py:835-853``): the card's
@@ -397,18 +655,27 @@ class Trainer:
         if mem:
             self.logger.info(mem)
 
-    def train_one_epoch(self, epoch: int) -> Dict[str, float]:
+    def train_one_epoch(self, epoch: int, start_batch: int = 0) -> Dict[str, float]:
+        """One epoch from batch ``start_batch`` (a preempted epoch's resume
+        point; the loader skips the prefix without fetching it). A SIGTERM
+        stops it before the next batch runs."""
         loader = self.train_loader
         loader.set_epoch(epoch)
         # the device copy happens inside the prefetch thread so it overlaps
         # the running step; images ship in the compute dtype
-        loader_iter = prefetch(map(self._to_device, iter(loader)), depth=2)
+        host_iter = loader.iter_batches(start_batch) if start_batch else iter(loader)
+        loader_iter = prefetch(map(self._to_device, host_iter), depth=2)
         meters: Dict[str, AverageMeter] = {}
         max_batches = 3 if self.debug else math.inf
         n_images = n_warmup = 0
         t_first_step_done = None  # exclude the first step from imgs/sec
-        for i, batch in enumerate(loader_iter):
+        for i, batch in enumerate(loader_iter, start=start_batch):
             if i >= max_batches:
+                break
+            if self._preempt_guard is not None and self._preempt_guard.triggered:
+                # batch i has not run: the resumed epoch starts here
+                self._epoch_interrupted = True
+                self._interrupted_at_batch = i
                 break
             if self.chammi:
                 metrics = self._train_one_batch_morphem(batch)
@@ -419,6 +686,8 @@ class Trainer:
             if t_first_step_done is None:
                 t_first_step_done = time.perf_counter()
                 n_warmup = n_images
+            if self.swad and epoch > self.swa_start:
+                self._swa_update()  # SWAD averages once a batch
             for c in metrics.pop("sampled_channels", ()):
                 # HCS/DCS channel-usage histogram (trainer.py:796-804)
                 self.channel_counter[int(c)] = self.channel_counter.get(int(c), 0) + 1
@@ -427,6 +696,8 @@ class Trainer:
             if (i + 1) % int(self.cfg.train.get("verbose_batches", 50)) == 0:
                 self.logger.info({k: round(m.avg, 5) for k, m in meters.items()},
                                  pref_msg=f"  [e{epoch} b{i + 1}/{len(loader)}]")
+        if self.swa and not self.swad and epoch > self.swa_start and not self._epoch_interrupted:
+            self._swa_update()  # plain SWA averages once an epoch
         out = {k: m.avg for k, m in meters.items()}
         if t_first_step_done is not None and n_images > n_warmup:
             steady = time.perf_counter() - t_first_step_done
@@ -466,7 +737,7 @@ class Trainer:
         batch's order, a k draw and a grad micro-batch into ``.grad``; then
         one update. Metrics ``{chunk}/{name}``, ``grad_norm`` (the summed
         gradient's, before clipping) and ``loss``, the chunks' sum."""
-        self.state.optimizer.zero_grad(set_to_none=True)
+        self.state.zero_grad()
         per_chunk, sampled = {}, []
         for chunk, sub in batch.items():
             cids = self._chunk_channel_ids(chunk)
@@ -498,7 +769,10 @@ class Trainer:
         ``{strategy}/``, ``accuracy`` the first strategy's) when the run
         trained on a chunk subset, once with no strategy otherwise. Else
         :meth:`eval_regular`, then with ``eval.eval_subset_channels`` the
-        channel-subset sweep."""
+        channel-subset sweep. With ``train.plot_attn`` it first saves the
+        attention maps (:meth:`plot_attention`)."""
+        if self.cfg.train.get("plot_attn", False):
+            self.plot_attention(epoch)
         if self.chammi:
             from .evaluation.morphem_eval import eval_morphem70k
 
@@ -518,6 +792,59 @@ class Trainer:
         if self.cfg.eval.get("eval_subset_channels", False):
             results.update(self.eval_subset_channels())
         return results
+
+    def plot_attention(self, epoch: int) -> Optional[str]:
+        """``train.plot_attn`` (JAX ``trainer.py:1143-1186``): the last
+        block's dense attention probabilities for the first 8 images of the
+        first eval batch (``valid``, else ``test``; CHAMMI: the first
+        chunk's test loader); saves the CLS row over the valid tokens,
+        ``cls_attn_epoch{epoch}.npy`` (B, H, N - 1), under
+        ``<checkpoints>/attn``, and, where matplotlib imports, the head- and
+        image-mean map per channel as ``cls_attn_epoch{epoch}.png``, whose
+        path it returns."""
+        from .models.channel_vit import attention_maps
+
+        if self.chammi:
+            split = self.all_chunks[0]
+            loader = self.test_loaders[split]
+        else:
+            split = "valid" if self._eval_loader_for("valid") is not None else "test"
+            loader = self._eval_loader_for(split)
+        if loader is None:
+            return None
+        batch = next(iter(loader))
+        x = torch.from_numpy(np.ascontiguousarray(batch["image"][:8])).to(self.device)
+        cids = self._chunk_channel_ids(split if split in self.mapper else "train")
+        probs, n_valid = attention_maps(self.model, x, torch.tensor(cids, device=self.device))
+        cls_attn = probs[:, :, 0, 1:n_valid].cpu().numpy()  # (B, H, N - 1)
+        out_dir = os.path.join(self.checkpoints, "attn")
+        os.makedirs(out_dir, exist_ok=True)
+        np.save(os.path.join(out_dir, f"cls_attn_epoch{epoch}.npy"), cls_attn)
+        try:
+            import matplotlib
+        except ImportError:
+            self.logger.info("plot_attn: matplotlib does not import; saved the .npy only")
+            return None
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        c = len(cids)
+        side = int(math.isqrt(cls_attn.shape[-1] // c))
+        if c * side * side != cls_attn.shape[-1]:
+            self.logger.info("plot_attn: the last block's grid is pruned (EViT), so it has no "
+                             "per-channel map; saved the .npy only")
+            return None
+        mean_attn = cls_attn.mean(axis=(0, 1)).reshape(c, side, side)
+        fig, axes = plt.subplots(1, c, figsize=(2.2 * c, 2.4))
+        for ci, ax in enumerate(np.atleast_1d(axes)):
+            ax.imshow(mean_attn[ci])
+            ax.set_title(f"ch {cids[ci]}", fontsize=8)
+            ax.axis("off")
+        path = os.path.join(out_dir, f"cls_attn_epoch{epoch}.png")
+        fig.tight_layout()
+        fig.savefig(path, dpi=110)
+        plt.close(fig)
+        return path
 
     # the per-channel table the synthesis strategies rebuild, per model
     # (``trainer.py:1220``; the port registers these two models)

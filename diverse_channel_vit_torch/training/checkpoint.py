@@ -8,6 +8,11 @@ torch optimizer's state_dict, "step": the update count}``, the model's
 (the PyTorch reference's), and the same ``<name>.meta.json`` (epoch,
 accuracy, config).
 
+:func:`save_tree` / :func:`load_tree` keep a bare dict of tensors (the SWA
+average and the random generators' states beside a preemption checkpoint).
+Every file is written to a temporary name and then renamed, so a process
+killed while saving leaves the previous checkpoint whole.
+
 A restore copies each saved tensor into the live parameter in place under
 ``torch.no_grad()``, never through ``p.data``: serving's weight casts
 (``models/vit.py`` ``_cached``) key on the tensor's version counter, which
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -37,14 +42,38 @@ def save_checkpoint(
     checkpoint's path. Saves synchronously."""
     path = os.path.abspath(os.path.join(directory, name))
     os.makedirs(directory, exist_ok=True)
-    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "step": int(state.step)}, path)
+    _save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+           "step": int(state.step)}, path)
     meta = {"epoch": int(epoch), "accuracy": float(accuracy), "config": config or {}}
     if extra_meta:
         meta.update(extra_meta)
-    with open(os.path.join(directory, f"{name}.meta.json"), "w") as f:
+    meta_path = os.path.join(directory, f"{name}.meta.json")
+    with open(meta_path + ".tmp", "w") as f:
         json.dump(meta, f)
+    os.replace(meta_path + ".tmp", meta_path)
     return path
+
+
+def _save(obj, path: str) -> None:
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def save_tree(directory: str, name: str, tree: Dict[str, Any]) -> str:
+    """Save a dict of tensors (or of such dicts) at ``<directory>/<name>``;
+    returns the path."""
+    path = os.path.abspath(os.path.join(directory, name))
+    os.makedirs(directory, exist_ok=True)
+    _save(tree, path)
+    return path
+
+
+def load_tree(directory: str, name: str) -> Optional[Dict[str, Any]]:
+    """The dict :func:`save_tree` wrote, on the CPU; None when there is none."""
+    path = os.path.abspath(os.path.join(directory, name))
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_meta(directory: str, name: str = "model_last") -> dict:

@@ -17,7 +17,7 @@ rule (scale by max_norm / norm when norm >= max_norm), not
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -44,30 +44,44 @@ class AdamW:
         self.eps = float(eps)
         self.clip_grad_norm = float(clip_grad_norm) if clip_grad_norm else None
 
-    def init(self, params: List[torch.nn.Parameter]) -> torch.optim.AdamW:
-        return torch.optim.AdamW(params, lr=self.lr_schedule(0), betas=self.betas, eps=self.eps,
+    def init(self, params) -> torch.optim.AdamW:
+        """The ``torch.optim.AdamW`` over ``params``: a list of parameters,
+        or of param groups ``{"params": [...], "lr_mult": m}``. A group's lr
+        is the schedule's times its ``lr_mult`` (1 by default), which scales
+        its decoupled decay step too: JAX's ``chain(tx, scale(m))`` partition
+        (MIRO's encoders, ``trainer.py:319-335``)."""
+        params = list(params)
+        if not params or not isinstance(params[0], dict):
+            params = [{"params": params}]
+        groups = [dict(g, lr_mult=float(g.get("lr_mult", 1.0))) for g in params]
+        return torch.optim.AdamW(groups, lr=self.lr_schedule(0), betas=self.betas, eps=self.eps,
                                  weight_decay=self.wd_schedule(0))
 
     def update(self, opt: torch.optim.AdamW, step: int) -> torch.Tensor:
         """One update from the parameters' ``.grad``; returns the global norm
-        of the gradients before clipping. A parameter that got no gradient
-        takes a zero one, as in JAX, so its moments and weight decay still
-        advance."""
-        params = [p for group in opt.param_groups for p in group["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        norm = global_norm(grads)
-        if self.clip_grad_norm is not None:
-            coef = torch.clamp(self.clip_grad_norm / norm, max=1.0)
-            for g in grads:
-                g.mul_(coef.to(g.dtype))
+        of the optimizer's gradients before clipping. A parameter that got no
+        gradient takes a zero one, as in JAX, so its moments and weight decay
+        still advance. Each param group clips by its own norm, as each
+        partition of an optax ``multi_transform`` runs its own chain."""
+        lr, wd = self.lr_schedule(step), self.wd_schedule(step)
+        norms = []
         for group in opt.param_groups:
-            group["lr"] = self.lr_schedule(step)
-            group["weight_decay"] = self.wd_schedule(step)
+            group["lr"] = lr * group.get("lr_mult", 1.0)
+            group["weight_decay"] = wd
+            if not group["params"]:
+                continue
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in group["params"]]
+            norm = global_norm(grads)
+            norms.append(norm)
+            if self.clip_grad_norm is not None:
+                coef = torch.clamp(self.clip_grad_norm / norm, max=1.0)
+                for g in grads:
+                    g.mul_(coef.to(g.dtype))
         opt.step()
-        return norm
+        return norms[0] if len(norms) == 1 else torch.linalg.vector_norm(torch.stack(norms))
 
 
 def make_optimizer(name: str, opt_params: Dict, *, lr_schedule: Schedule, total_steps: int,

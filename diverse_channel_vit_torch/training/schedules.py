@@ -130,3 +130,22 @@ def make_lr_schedule(name: str, base_lr: float, params: Dict, *, num_epochs: int
         return timm_multistep_schedule(base_lr, steps_per_epoch=steps_per_epoch,
                                        convert_to_batch=convert_to_batch, **params)
     raise NotImplementedError(f"Not implemented scheduler: {name}")
+
+
+def swad_schedule(base: Schedule, swa_step0: int, swa_lr: float,
+                  anneal_steps: int = 10) -> Schedule:
+    """The lr under SWAD (JAX ``trainer.py:273-307``): ``base`` until update
+    ``swa_step0`` (the first update past epoch ``swa_start``), then the base
+    schedule frozen at its last value and cosine-annealed to ``swa_lr`` over
+    ``anneal_steps`` updates (torch ``SWALR``'s default ``anneal_epochs``,
+    stepped per batch after the optimizer step), then constant."""
+    frozen = base(swa_step0 - 1)
+
+    def fn(step: int) -> float:
+        if step < swa_step0:
+            return base(min(step, swa_step0 - 1))
+        t = min(max((step - swa_step0) / anneal_steps, 0.0), 1.0)
+        alpha = 0.5 * (1.0 - math.cos(math.pi * t))
+        return (1.0 - alpha) * frozen + alpha * swa_lr
+
+    return fn

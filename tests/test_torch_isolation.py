@@ -5,8 +5,10 @@ In a fresh interpreter with ``jax``, ``flax`` and ``optax`` set to None in
 ``diverse_channel_vit_torch`` (``training/`` included) and ``chip_smoke``
 must import (the benchmark scripts of ``scripts/`` and ``bench`` too, the
 training entry point: ``main``, ``trainer``, the data layer, and CHAMMI's
-modules: ``data/morphem70k``, ``data/tps``, ``native``, ``evaluation/*``, and the
-novel-channel synthesis, ``ops/novel_channels``), and no
+modules: ``data/morphem70k``, ``data/tps``, ``native``, ``evaluation/*``, the
+novel-channel synthesis, ``ops/novel_channels``, and the Trainer's runtime:
+``training/freeze``, ``training/miro``, ``training/preemption``,
+``models/import_torch``), and no
 ``diverse_channel_vit_tpu`` module may appear in ``sys.modules``. Importing
 ``main`` parses no command line: the probe's argv holds an option that
 ``main``'s parser would refuse.
@@ -42,7 +44,9 @@ assert "diverse_channel_vit_torch.bench" in sys.modules
 for name in ("main", "trainer", "data.loaders", "config.loader", "ops.augment",
              "training.checkpoint", "logging_utils", "utils.misc", "data.morphem70k",
              "data.tps", "native", "evaluation", "evaluation.knn", "evaluation.metrics",
-             "evaluation.benchmark", "evaluation.morphem_eval", "ops.novel_channels"):
+             "evaluation.benchmark", "evaluation.morphem_eval", "ops.novel_channels",
+             "training.freeze", "training.miro", "training.preemption",
+             "models.import_torch"):
     assert "diverse_channel_vit_torch." + name in sys.modules, name
 """
 
@@ -52,4 +56,4 @@ def test_port_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 55, proc.stdout
+    assert n_modules >= 59, proc.stdout

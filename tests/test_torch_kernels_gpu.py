@@ -357,10 +357,11 @@ def _grads(fn, inputs, cotangent, plain):
 
 
 @pytest.mark.parametrize("with_residual", [False, True])
-def test_attend_project_function_grads_match_plain_route(gen, with_residual, heads=6):
+def test_attend_project_function_grads_match_plain_route(gen, with_residual, heads=6, d=384):
     """Gradients of every input through AttendProjectFn: the kernel route
-    (B1 forward, B2 backward) against the plain route, on the card."""
-    b, n, d, n_valid = 2, 640, 384, 589
+    (B1 forward, B2 backward) against the plain route, on the card. Without
+    the residual this is DropPath's training route."""
+    b, n, n_valid = 2, 640, 589
     inputs = [_rnd(gen, b, n, d), _rnd(gen, 3 * d, d, scale=d ** -0.5), _rnd(gen, 3 * d),
               _rnd(gen, d, d, scale=d ** -0.5), _rnd(gen, d), _rnd(gen, b, n, d)]
 
@@ -387,6 +388,12 @@ def test_attend_project_function_grads_match_plain_route_dh128(gen, with_residua
     test_attend_project_function_grads_match_plain_route(gen, with_residual, heads=3)
 
 
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_attend_project_function_grads_match_plain_route_d768(gen, with_residual):
+    """The same at the base preset's widths, D = 768 in 12 heads of 64."""
+    test_attend_project_function_grads_match_plain_route(gen, with_residual, heads=12, d=768)
+
+
 @pytest.mark.parametrize("residual,grid", [
     (False, (2, 640)),
     (True, (2, 640)),
@@ -395,7 +402,8 @@ def test_attend_project_function_grads_match_plain_route_dh128(gen, with_residua
 ])
 def test_ln_mlp_function_grads_match_plain_route(gen, residual, grid, d=384):
     """Gradients of every input through LnMlpFn: the kernel route (B3
-    forward, B4 backward) against the plain route, on the card."""
+    forward, B4 backward) against the plain route, on the card. Without the
+    residual this is DropPath's training route."""
     hid = 4 * d
     inputs = [_rnd(gen, *grid, d), _rnd(gen, d, scale=0.1, dtype=torch.float32) + 1.0,
               _rnd(gen, d, scale=0.1, dtype=torch.float32), _rnd(gen, hid, d, scale=d ** -0.5),

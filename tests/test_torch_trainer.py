@@ -32,7 +32,12 @@
   CHAMMI), and so do those it refused before the novel-channel port
   (``model.new_channel_inits``, ``eval.eval_subset_channels``: the parity
   run's evals with the key equal JAX's; CHAMMI on a chunk subset builds
-  JAX's mixed loader); ``build_mapper`` equals JAX's.
+  JAX's mixed loader); ``build_mapper`` equals JAX's. The runtime keys it
+  refused before the runtime port (SWA/SWAD, MIRO, freezing, ``pretrained``,
+  ``plot_attn``, ``profile_dir``, ``max_host_rss_gb``) build a Trainer that
+  takes them up; ``model.pretrained`` for a ConvNeXt trunk raises (A9).
+- SWA and SWAD: the lr per update and the averages equal the JAX Trainer's
+  schedule and ``_swa_update``, and the model adopts the average.
 - ``train.log_memory`` logs JAX's memory keys (ROADMAP C6).
 - Devices: with the device unset the Trainer and ``main`` run on the card,
   so they raise without one.
@@ -41,6 +46,7 @@
 import os
 import types
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -210,16 +216,9 @@ def test_dcs_k_draws_equal_jax(tmp_path):
 REFUSED = [
     ("chammi_cfg", ["eval.umap=True"], "ROADMAP A7"),
     ("cifar10_cfg", [], "ROADMAP A6"),
-    ("synthetic_cfg", ["train.swa=True"], "ROADMAP A6"),
-    ("synthetic_cfg", ["train.swad=True"], "ROADMAP A6"),
-    ("synthetic_cfg", ["train.miro=True"], "ROADMAP A6"),
     ("synthetic_cfg", ["train.ssl=True"], "ROADMAP A6"),
-    ("synthetic_cfg", ["model.freeze_other=True"], "ROADMAP A6"),
-    ("synthetic_cfg", ["model.unfreeze_last_n_layers=2"], "ROADMAP A6"),
-    ("synthetic_cfg", ["model.pretrained=True"], "ROADMAP A9"),
-    ("synthetic_cfg", ["train.plot_attn=True"], "ROADMAP A6"),
-    ("synthetic_cfg", ["train.profile_dir=/nonexistent"], "ROADMAP A6"),
-    ("synthetic_cfg", ["train.max_host_rss_gb=8"], "ROADMAP A6"),
+    ("synthetic_cfg", ["model.name=convnext_base", "model.pretrained=/nonexistent.pth"],
+     "ROADMAP A9"),
     ("synthetic_cfg", ["hardware.mesh.data=2"], "ROADMAP A10"),
     ("synthetic_cfg", ["hardware.mesh.model=2"], "ROADMAP A10"),
     ("synthetic_cfg", ["hardware.zero1=True"], "ROADMAP A10"),
@@ -238,6 +237,38 @@ def test_unported_keys_raise(name, over, match, tmp_path):
     cfg = load_config(name, TINY + over + [f"train.checkpoints={tmp_path}"])
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, device="cpu")
+
+
+# keys the Trainer refused before the runtime port and now honours: each
+# builds a Trainer that takes it up (tests/test_torch_runtime.py and
+# tests/test_torch_preemption.py hold what each does against JAX)
+RUNTIME_KEYS = [
+    ("synthetic_cfg", ["train.swa=True"], lambda t: t.swa and t.swa_params is None),
+    ("synthetic_cfg", ["train.swad=True"],
+     lambda t: t.swad and t.lr_schedule(10**6) == pytest.approx(0.05)),
+    ("synthetic_cfg", ["train.miro=True"],
+     lambda t: t.miro_pre is not None and len(t.model.miro_encoders) == 2),
+    ("synthetic_cfg", ["model.freeze_other=True"], lambda t: bool(t.state.frozen)),
+    ("synthetic_cfg", ["model.unfreeze_last_n_layers=2"], lambda t: t.state.frozen == {
+        "feature_extractor.cls_token", "feature_extractor.pos_embed"}),
+    ("synthetic_cfg", ["model.pretrained=True"], lambda t: True),
+    ("synthetic_cfg", ["train.plot_attn=True"], lambda t: True),
+    ("synthetic_cfg", ["train.profile_dir=/nonexistent"], lambda t: True),
+    ("synthetic_cfg", ["train.max_host_rss_gb=8"], lambda t: not t._should_recycle(1)),
+]
+
+
+@pytest.mark.parametrize("name,over,taken", RUNTIME_KEYS,
+                         ids=[f"{n}-{'-'.join(o)}" for n, o, _ in RUNTIME_KEYS])
+def test_formerly_refused_runtime_keys_build(name, over, taken, tmp_path):
+    """The Trainer builds with each key and takes it up: ``pretrained=True``
+    without ``pretrained_ckpt`` names no file and loads nothing (JAX
+    ``trainer.py:352-357``); an 8 GB cap is above this process's RSS; with
+    both of the test preset's blocks trainable, ``unfreeze_last_n_layers=2``
+    freezes the tokens' tables alone (JAX's labels: neither interface, block
+    nor head)."""
+    cfg = load_config(name, TINY + over + [f"train.checkpoints={tmp_path}"])
+    assert taken(Trainer(cfg, device="cpu"))
 
 
 # keys the Trainer refused before the CHAMMI port and now honours (CHAMMI) or
@@ -325,6 +356,56 @@ def test_build_mapper_equals_jax(dataset):
     name = "synthetic_cfg" if dataset == "synthetic" else "chammi_cfg"
     args = [] if dataset == "synthetic" else [f"dataset={dataset}"]
     assert build_mapper(load_config(name, args)) == jbuild_mapper(jload_config(name, args))
+
+
+@pytest.mark.parametrize("key", ["swa", "swad"])
+def test_swa_and_swad_equal_jax(key, tmp_path):
+    """SWA (averaged once an epoch past ``swa_start``) and SWAD (once a
+    batch, under its frozen-then-cosine lr): the port's lr per update equals
+    the JAX Trainer's schedule (rtol 5e-6, f32 against double), its count of
+    updates and its average equal JAX ``Trainer._swa_update`` replayed on
+    the port's parameters at each update (atol 1e-7: the same f32
+    arithmetic), and the model adopts the average at the end of the run.
+    The JAX Trainer starts from the port's weights (no flax init) and
+    trains nothing: its schedule and its averaging are what is held."""
+    from diverse_channel_vit_tpu import trainer as jtm
+    from diverse_channel_vit_tpu.models.import_torch import load_reference_checkpoint
+
+    over = PARITY + [f"++train.{key}=True", "++train.swa_start=1", "train.num_epochs=3",
+                     "++eval.only_eval_first_and_last=True", "++train.swa_lr=0.01",
+                     f"train.checkpoints={tmp_path}"]
+    pt = Trainer(load_config("synthetic_cfg", over), device="cpu")
+
+    def jparams():
+        return load_reference_checkpoint(
+            {k: v.detach().numpy().copy() for k, v in pt.model.state_dict().items()})[0]
+
+    real = jtm.create_train_state
+    params0 = jparams()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtm, "create_train_state",
+                   lambda model, tx, **kw: real(model, tx, **{**kw, "params": params0}))
+        jt = jtm.Trainer(jload_config("synthetic_cfg", over))
+    n = pt.total_epochs * pt.updates_per_epoch
+    np.testing.assert_allclose([pt.lr_schedule(s) for s in range(n + 3)],
+                               [float(jt.lr_schedule(s)) for s in range(n + 3)], rtol=5e-6)
+    stub = types.SimpleNamespace(swa_n=0, swa_params=None, state=None)
+    update = pt._swa_update
+
+    def replay():
+        update()
+        stub.state = types.SimpleNamespace(params=jparams())
+        JTrainer._swa_update(stub)
+
+    pt._swa_update = replay
+    pt.train()
+    assert pt.swa_n == stub.swa_n == (2 if key == "swa" else 2 * pt.updates_per_epoch)
+    names = [name for name, _ in pt.model.named_parameters()]
+    want = params_from_jax(jax.device_get(stub.swa_params))
+    for name, avg in zip(names, pt.swa_params):
+        np.testing.assert_allclose(avg.numpy(), want[name].numpy(), rtol=0, atol=1e-7,
+                                   err_msg=name)
+        assert torch.equal(dict(pt.model.named_parameters())[name].detach(), avg), name
 
 
 def test_save_model_best_raises_as_jax(tmp_path):

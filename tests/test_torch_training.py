@@ -145,8 +145,12 @@ def test_channel_sampling_raises_until_ported():
 
 @pytest.mark.parametrize("key", ["drop_path_rate", "drop_rate", "attn_drop_rate"])
 def test_dropout_and_drop_path_are_refused(key):
-    """DropPath (``drop_path_rate`` > 0) is refused until it is ported. No
-    JAX factory reads ``drop_rate`` or ``attn_drop_rate`` (JAX
+    """DropPath (``drop_path_rate`` > 0) was refused until it was ported; now
+    the factory builds it, its rate rising linearly over the blocks (JAX
+    ``models/channel_vit.py:263``), and an eval forward gives the logits of
+    a model without it (DropPath acts in training only;
+    tests/test_torch_runtime.py holds its train steps against JAX). No JAX
+    factory reads ``drop_rate`` or ``attn_drop_rate`` (JAX
     ``models/dichavit.py``), so JAX trains such a config without dropout:
     the port ignores both too, and a build with either at 0.1 gives the same
     logits as one without (ROADMAP C4)."""
@@ -158,12 +162,16 @@ def test_dropout_and_drop_path_are_refused(key):
                       "pretrained_model_name": "test", **extra})
         return build_model("dichavit", cfg, {"x": [0, 1]}, NC, device="cpu", seed=0)
 
-    if key == "drop_path_rate":
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            model(**{key: 0.1})
-        return
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 2, IMG, IMG))
                          .astype(np.float32))
+    if key == "drop_path_rate":
+        m = model(**{key: 0.1})
+        depth = len(m.feature_extractor.blocks)
+        assert [b.drop_path for b in m.feature_extractor.blocks] == [
+            0.1 * i / max(depth - 1, 1) for i in range(depth)]
+        got, want = (mm.eval()(x, torch.arange(2))[0] for mm in (m, model()))
+        assert torch.equal(got, want)
+        return
     got, want = (m.train()(x, torch.arange(2))[0] for m in (model(**{key: 0.1}), model()))
     assert torch.equal(got, want)
 
