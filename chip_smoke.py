@@ -153,10 +153,29 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     (DCS, DropPath, SWAD, MIRO) that a SIGTERM stops in the middle of its
     second epoch, resumed by the next Trainer, against the uninterrupted
     run, every parameter bit for bit;
-13. print the ``kernels`` JSON line (each kernel's launches from its main
+13. the last training knobs at full width and depth (DiChaViT-S, B = 64),
+    each ``phase`` line beside the plain step's images/s and p50 with the
+    port's kernels by launch over one profiled step and the worst parity
+    figures: ``samplers``, the train step with ``lowest_cosine_prob_proj``,
+    ``lowest_cosine_prob_resnet34`` (a random-init ResNet-34 scorer) and
+    ``hcs_per_sample`` at k = 4 of 8 channels (B1-B4 x 11 a step at N = 832,
+    n_valid 785), 2 steps through the kernels against 2 through the plain
+    versions drawing the same channels, then 5 timed steps; ``optimizers``,
+    SGD (Nesterov momentum), Adam, AdamP and AdamW with a bf16 first moment:
+    3 updates on the card against a CPU copy within 1e-6, then 3 timed
+    steps; ``ppt``, ``block_type=block_v2`` with token pruning and with
+    channel pruning (kc = 4): the eval forward and one train step against
+    the plain route (12 B5 a forward, 12 B5 and 12 B6 a step, no B1-B4, at
+    the grids each block's pruning leaves), then 5 timed steps; and
+    ``hcs_dropout``, ``random`` and ``channel`` at kc = 4 (B1-B4 x 11 at N =
+    832, n_valid 785), one step against the plain route, then 5 timed
+    steps; then ``main`` with the ResNet-34 sampler, Adam and PPT token
+    pruning for one short epoch, and the C7 check (a ``Trainer.train`` that
+    raises leaves SIGTERM's handler as it found it);
+14. print the ``kernels`` JSON line (each kernel's launches from its main
     paths, per Trainer epoch, and the CHAMMI, novel-channel and CHAMMI
-    subset runs', and per step of the runtime phase's runs), the card line,
-    and last
+    subset runs', and per step of the runtime and training-knob phases'
+    runs), the card line, and last
     the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -226,6 +245,39 @@ TRAIN_GRAD_REL_TOL = 5e-2
 # the last two blocks trainable
 DROP_PATH_RATE, MIRO_LD, MIRO_LR_MULT, UNFREEZE_LAST = 0.1, 0.01, 10.0, 2
 RUNTIME_PARITY_STEPS = 2
+# the train step's default optimizer (optimizer/adamw_jumpcp.yaml)
+ADAMW_JUMPCP = dict(lr=2.5e-4, betas=[0.9, 0.999], eps=1e-6, weight_decay=0.04,
+                    weight_decay_end=0.4, amsgrad=False)
+# the training knobs' phases: the three samplers at a fixed k, PPT and HCS
+# dropout at kc = token_keep_channels, and the other optimizers (the
+# configs' hyper-parameters: optimizer/sgd.yaml with Nesterov momentum,
+# optimizer/adam.yaml with a coupled decay, timm's AdamP defaults, and
+# AdamW with a bf16 first moment)
+KNOB_K, KNOB_KC = 4, 4
+# the samplers at the config's hcs_sampling_temp (at the recipe's 1000 the
+# Gumbel noise outweighs any score)
+SAMPLER_TEMP = 0.1
+SAMPLERS = ("lowest_cosine_prob_proj", "lowest_cosine_prob_resnet34", "hcs_per_sample")
+OPTIMIZERS = {
+    "sgd": ("sgd", dict(lr=0.01, momentum=0.9, nesterov=True, weight_decay=5e-4)),
+    "adam": ("adam", dict(lr=1e-4, betas=[0.9, 0.999], eps=1e-8, weight_decay=1e-4)),
+    "adamp": ("adamp", dict(lr=1e-4, betas=[0.9, 0.999], eps=1e-8, weight_decay=1e-2,
+                            wd_ratio=0.1, nesterov=True)),
+    "adamw mu_dtype=bfloat16": ("adamw", dict(ADAMW_JUMPCP, mu_dtype="bfloat16")),
+}
+# an optimizer's update on the card against the same update on the CPU,
+# each tensor's max|diff| / max|ref| (f32 arithmetic in another order)
+OPT_REL_TOL = 1e-6
+# the grids (n_valid) PPT's 12 blocks attend over at 8 channels and kc = 4:
+# token pruning keeps max(1, n * 4 // 8) of the n non-CLS tokens at each
+# block, channel pruning 4 channels at block 0; HCS dropout keeps 4 * 196
+# tokens, 785 with the CLS row, padded to 832
+PPT_GRIDS = {"token_pruning": (1569, 785, 393, 197, 99, 50, 25, 13, 7, 4, 2, 2),
+             "channel_pruning": (1569,) + (785,) * 11}
+HCS_DROP_GRID = (832, 785)
+# the (N, n_valid) grids of the kernel route's attention calls in the last
+# train_parity run of each label (attention_grids)
+LAST_GRIDS = {}
 
 
 # the other grids B3 and B4 meet, (images, tokens): a last 128-row tile half
@@ -237,6 +289,11 @@ LN_MLP_GRIDS = ((3, 64), (8, 256), (8, 768), (1, 100))
 # channels (k 196 + 1 tokens), and serving's one-image bucket
 AP_GRIDS = ((B, 1152, 1098), (B, 768, 768), (B, 576, 537), (B, 1024, 981), (B, 640, 589),
             (B, 256, 197), (1, 1600, 1569))
+
+
+def stamp(label: str, t_start: float) -> None:
+    """The run's seconds so far, after a phase."""
+    print(f"[{time.perf_counter() - t_start:.1f} s] {label} done", flush=True)
 
 
 def card_line() -> str:
@@ -1397,15 +1454,25 @@ def model_config(depth: int, **extra):
     })
 
 
+_BUILT: dict = {}
+
+
 def build(depth: int, **extra):
-    """DiChaViT-S on the card, random weights from seed 0, bf16 compute."""
+    """DiChaViT-S on the card, random weights from seed 0, bf16 compute. The
+    first build of a configuration is kept and later ones are copies of it
+    (the same seeded weights, without drawing them again on the host)."""
+    import copy
+
     import torch
 
     from diverse_channel_vit_torch.models import build_model
 
-    return build_model("dichavit", model_config(depth, **extra),
-                       {"JUMP-CP": list(range(CHANNELS))}, CLASSES, device="cuda",
-                       dtype=torch.bfloat16, seed=0)
+    key = (depth, tuple(sorted((k, repr(v)) for k, v in extra.items())))
+    if key not in _BUILT:
+        _BUILT[key] = build_model("dichavit", model_config(depth, **extra),
+                                  {"JUMP-CP": list(range(CHANNELS))}, CLASSES, device="cuda",
+                                  dtype=torch.bfloat16, seed=0)
+    return copy.deepcopy(_BUILT[key])
 
 
 def check_counts(label: str, launches: dict, units: int, unit: str, want: dict) -> None:
@@ -1442,6 +1509,72 @@ def kept_differences(own, ref, forced: bool) -> list:
         ids_own, ids_ref = a, b
     return out
 
+
+
+def prune_seams(model, extra: dict):
+    """The blocks whose pruning choice one route can force on the other,
+    with the names of their chosen and forced indices: PPT's every block,
+    EViT's three pruning layers, or none."""
+    blocks = model.feature_extractor.blocks
+    if extra.get("block_type") == "block_v2":
+        return list(blocks), "kept", "forced"
+    if extra.get("keep_rate"):
+        return evit_blocks(model), "evit_kept", "evit_forced"
+    return [], None, None
+
+
+def pick_differences(own, ref) -> list:
+    """Per PPT block, how many of the tokens (summed over the images) or
+    channels that ``own`` chose ``ref`` did not, both on ``ref``'s grids
+    (the forced route's choices index the same grids)."""
+    out = []
+    for a, b in zip(own, ref):
+        if a is None or b is None:
+            out.append(0 if a is None and b is None else -1)
+            continue
+        rows = [(a.cpu(),), (b.cpu(),)] if a.ndim == 1 else [a.cpu(), b.cpu()]
+        out.append(int(sum(len(x) - len(set(x.tolist()) & set(y.tolist()))
+                           for x, y in zip(*rows))))
+    return out
+
+
+@contextlib.contextmanager
+def attention_grids(fb):
+    """Record the (N, n_valid) of every attention call inside the block:
+    ``flash_attention_packed`` (B5 / B6) as the blocks call it, before it
+    pads, and ``attend_project`` (B1 / B2)."""
+    from diverse_channel_vit_torch.models import vit
+
+    seen = []
+    real_flash, real_ap = vit.flash_attention_packed, fb.attend_project
+
+    def flash(q, k, v, num_heads, sm_scale=None, valid_len=None):
+        seen.append(("flash", q.shape[1], q.shape[1] if valid_len is None else int(valid_len)))
+        return real_flash(q, k, v, num_heads, sm_scale, valid_len)
+
+    def attend_project(y, *args):
+        valid_len = args[7] if len(args) > 7 else None
+        seen.append(("attend_project", y.shape[1],
+                     y.shape[1] if valid_len is None else int(valid_len)))
+        return real_ap(y, *args)
+
+    vit.flash_attention_packed, fb.attend_project = flash, attend_project
+    try:
+        yield seen
+    finally:
+        vit.flash_attention_packed, fb.attend_project = real_flash, real_ap
+
+
+def resnet_scorer(torch):
+    """The ``_resnet34`` sampler's scorer as the Trainer builds it without
+    ``model.resnet34_ckpt``: a ResNet-34 trunk, random init from seed 0, bf16,
+    on the card."""
+    from diverse_channel_vit_torch.models.resnet import (RESNET34_LAYERS, ResNetFeatures,
+                                                         per_channel_features)
+
+    net = ResNetFeatures(RESNET34_LAYERS, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(0), device="cuda")
+    return lambda x: per_channel_features(net, x)
 
 
 def logits_close(label: str, got, want) -> float:
@@ -1746,7 +1879,7 @@ def recipe_ks(n_draws: int = 48) -> list:
     return [int(rng.integers(1, CHANNELS + 1)) for _ in range(n_draws)]
 
 
-def train_setup(depth: int, torch, ks=None, runtime=None, **extra):
+def train_setup(depth: int, torch, ks=None, runtime=None, knobs=None, **extra):
     """Model, train state and steps as a user builds them: DiChaViT-S with
     f32 parameters from seed 0 and bf16 compute; AdamW with the JUMP-CP
     weight-decay schedule (optimizer/adamw_jumpcp.yaml) under the cosine lr
@@ -1760,12 +1893,17 @@ def train_setup(depth: int, torch, ks=None, runtime=None, **extra):
     ``MIRO_LR_MULT`` times the others') and ``MIRO_LD`` times MIRO's loss;
     ``{"unfreeze_last_n_layers": n}`` leaves the frozen parameters out of
     the optimizer. DropPath is the model key ``drop_path_rate``; each step
-    function draws its masks from a generator of its own seeded with 0."""
+    function draws its masks (and HCS token dropout its kept tokens) from a
+    generator of its own seeded with 0. ``knobs``: ``{"sampler": method}``
+    samples ``KNOB_K`` channels a step by that method (the ``_resnet34``
+    one scored by a randomly initialised ResNet-34, :func:`resnet_scorer`),
+    drawing from a generator of its own seeded with 0; ``{"optimizer":
+    (name, params)}`` takes that optimizer in AdamW's place."""
     from diverse_channel_vit_torch.training import (
         TrainState, make_lr_schedule, make_optimizer, make_train_step)
 
     model = build(depth, **extra)
-    runtime = runtime or {}
+    runtime, knobs = runtime or {}, knobs or {}
     kw = dict(channel_ids=range(CHANNELS), loss_type="ce", extra_loss_lambda=1.0)
     frozen, mult = set(), None
     if runtime.get("miro"):
@@ -1785,10 +1923,15 @@ def train_setup(depth: int, torch, ks=None, runtime=None, **extra):
         t_initial="FILL_LATER", lr_min=1e-6, cycle_mul=1.0, cycle_decay=0.5, cycle_limit=1,
         warmup_t=3, warmup_lr_init=1e-5, warmup_prefix=False, t_in_epochs=True, k_decay=1.0,
     ), num_epochs=100, steps_per_epoch=100)
-    tx = make_optimizer("adamw", dict(lr=2.5e-4, betas=[0.9, 0.999], eps=1e-6,
-                                      weight_decay=0.04, weight_decay_end=0.4, amsgrad=False),
-                        lr_schedule=lr, total_steps=10_000)
+    opt_name, opt_params = knobs.get("optimizer", ("adamw", ADAMW_JUMPCP))
+    tx = make_optimizer(opt_name, dict(opt_params), lr_schedule=lr, total_steps=10_000)
     state = TrainState(model, tx, frozen=frozen, miro_lr_mult=mult)
+    if knobs.get("sampler"):
+        method = knobs["sampler"]
+        kw.update(k=KNOB_K, hcs_method=method, hcs_temp=SAMPLER_TEMP,
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+        if method.endswith("_resnet34"):
+            kw["feature_fn"] = resnet_scorer(torch)
     if ks is None:
         return model, state, [make_train_step(model, **kw)]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1804,17 +1947,19 @@ def synthetic_batch(torch):
     return {"image": torch.from_numpy(imgs).cuda(), "label": torch.from_numpy(labels).cuda()}
 
 
-def train(fb, torch, label: str, want: dict, runtime=None, **extra):
+def train(fb, torch, label: str, want: dict, runtime=None, knobs=None, warm=2, timed=10,
+          table=True, **extra):
     """The DiChaViT-S train step on the card at full width: counts set to 0
-    just before 2 warm-up and 10 timed steps and read just after, each kernel
-    ``want[name]`` launches per step; then one profiled step. ``runtime``
-    and ``extra`` as in :func:`train_setup`."""
+    just before ``warm`` warm-up and ``timed`` timed steps and read just
+    after, each kernel ``want[name]`` launches per step; then one profiled
+    step, printed as a table by device time, or without ``table`` kept as
+    the port's kernels by launch (``timing["profiled"]``). ``runtime``,
+    ``knobs`` and ``extra`` as in :func:`train_setup`."""
     batch = synthetic_batch(torch)
-    model, state, (step,) = train_setup(DEPTH, torch, runtime=runtime, **extra)
+    model, state, (step,) = train_setup(DEPTH, torch, runtime=runtime, knobs=knobs, **extra)
     n_params = sum(p.numel() for p in model.parameters())
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("the model's parameters are not f32")
-    warm, timed = 2, 10
     torch.cuda.reset_peak_memory_stats()
     fb.reset_launches()
     lats, losses = [], []
@@ -1824,7 +1969,7 @@ def train(fb, torch, label: str, want: dict, runtime=None, **extra):
         torch.cuda.synchronize()
         if i >= warm:
             lats.append(time.perf_counter() - t)
-        losses.append({k: float(v) for k, v in m.items()})
+        losses.append({k: float(v) for k, v in m.items() if k != "sampled_channels"})
     launches, steps = dict(fb.LAUNCHES), warm + timed
     check_counts(label, launches, steps, "step", want)
     for i, m in enumerate(losses):
@@ -1840,7 +1985,10 @@ def train(fb, torch, label: str, want: dict, runtime=None, **extra):
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"{label} " + json.dumps(timing))
     phase_line(label, timing["imgs_per_s"], timing["p50_ms"], torch)
-    profile_call(lambda: step(state, batch), f"one {label} step (64 images)", torch)
+    if table:
+        profile_call(lambda: step(state, batch), f"one {label} step (64 images)", torch)
+    else:
+        timing["profiled"] = profiled_launches(lambda: step(state, batch), torch)
     del model, state, step
     torch.cuda.empty_cache()
     return launches, steps, timing
@@ -1903,7 +2051,7 @@ def train_recipe(fb, torch, want: dict, label: str = "DCS recipe train", **extra
 
 
 def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks=None,
-                 runtime=None, **extra):
+                 runtime=None, knobs=None, **extra):
     """Kernel route against plain route from the same weights: ``n_steps``
     steps at ``depth`` (with ``ks``, the recipe's steps at those k, both
     routes drawing from generators of the same seed), losses within
@@ -1914,30 +2062,41 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
     how many tokens the kernel route would have kept otherwise is printed.
     ``runtime`` as in :func:`train_setup`: both routes draw the same DropPath
     masks (each step function's own generator seeded with 0), and the frozen
-    parameters must come out of the steps unchanged on both."""
+    parameters must come out of the steps unchanged on both. ``knobs`` as
+    there: both routes draw the same channels and HCS token drops; PPT's
+    kept tokens or channels (``block_type="block_v2"``) are forced as
+    EViT's are. With ``grids`` a dict, the (N, n_valid) of the kernel
+    route's attention calls go into ``grids[label]``."""
     batch = synthetic_batch(torch)
     runs = {}
     for route in ("plain", "kernels"):
-        model, state, steps = train_setup(depth, torch, ks=ks, runtime=runtime, **extra)
+        model, state, steps = train_setup(depth, torch, ks=ks, runtime=runtime, knobs=knobs,
+                                          **extra)
         frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
                    if n in state.frozen}
-        blocks = evit_blocks(model) if extra.get("keep_rate") else []
+        blocks, kept_attr, forced_attr = prune_seams(model, extra)
         before = dict(fb.LAUNCHES)
-        ctx = fb.plain_versions() if route == "plain" else contextlib.nullcontext()
+        ctx = fb.plain_versions() if route == "plain" else attention_grids(fb)
         route_losses, grads0, kept, flips, drawn = [], None, [], [], []
-        with ctx:
+        with ctx as seen:
             for i in range(n_steps):
                 if route == "kernels":
                     for blk, idx in zip(blocks, runs["plain"][3][i]):
-                        blk.evit_forced = idx
+                        setattr(blk, forced_attr, idx)
                 state, m = steps[i % len(steps)](state, batch)
                 route_losses.append(float(m["loss"]))
                 drawn.append(m["sampled_channels"].tolist() if "sampled_channels" in m else None)
-                kept.append([blk.evit_kept.clone() for blk in blocks])
+                kept.append([None if getattr(blk, kept_attr) is None
+                             else getattr(blk, kept_attr).clone() for blk in blocks])
                 if route == "kernels":
-                    flips.append(kept_differences(kept[-1], runs["plain"][3][i], forced=True))
+                    flips.append(kept_differences(kept[-1], runs["plain"][3][i], forced=True)
+                                 if extra.get("keep_rate")
+                                 else pick_differences(kept[-1], runs["plain"][3][i]))
                 if i == 0:
-                    grads0 = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+                    grads0 = {n: p.grad.float().clone() for n, p in model.named_parameters()
+                              if p.grad is not None}
+        if route == "kernels":
+            LAST_GRIDS[label] = list(seen)
         torch.cuda.synchronize()
         counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
         for n, p in model.named_parameters():
@@ -1950,10 +2109,10 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
     if any(np_.values()):
         raise AssertionError(f"{label}: the plain training run launched kernels: {np_}")
     check_counts(f"{label}, kernel route", nk, n_steps, "step", want)
-    if extra.get("keep_rate"):
-        print(f"{label}: tokens the kernel route would have kept otherwise, per step and "
-              f"EViT layer, of {B} images: {flips}")
-    if ks is not None:
+    if extra.get("keep_rate") or extra.get("block_type") == "block_v2":
+        print(f"{label}: picks the kernel route would have made otherwise, per step and "
+              f"pruning layer, of {B} images: {flips}")
+    if ks is not None or any(dk):
         print(f"{label}: channels drawn per step, kernel route {dk}, plain route {dp}")
         if dk != dp:
             raise AssertionError(f"{label}: the two routes drew other channels")
@@ -1972,6 +2131,7 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
           f"{worst[0]:.3e} ({worst[1]}) (tolerance {TRAIN_GRAD_REL_TOL} of max|g|)")
     if not worst[0] <= TRAIN_GRAD_REL_TOL:
         raise AssertionError(f"{label}: gradient of {worst[1]} disagrees")
+    return {"loss_rel": loss_rel, "grad_rel": worst[0], "grad_worst": worst[1]}
 
 
 # the training entry point (``python -m diverse_channel_vit_torch.main``) at
@@ -2392,6 +2552,224 @@ def preempt_on_card(torch, tmp: str) -> None:
     if where != (5, 5 // upe + 1, 5 % upe) or tb2.state.step != ta.state.step or differ:
         raise AssertionError("Trainer preemption: the resumed run differs from the "
                              "uninterrupted one")
+
+
+def profiled_launches(fn, torch) -> dict:
+    """The port's kernels (``dcvit::``) by launch count over one call of
+    ``fn``, from the profiler (the device's own record of the launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][:60]: e.count for e in prof.key_averages()
+            if "dcvit::" in e.key}
+
+
+def knob_train(fb, torch, label: str, want: dict, knobs=None, warm=1, timed=5, **extra):
+    """A knob's timed steps at full width (:func:`train`), the port's
+    kernels by launch over one more step from the profiler. Returns the path
+    and the timing."""
+    launches, steps, timing = train(fb, torch, label, want, knobs=knobs, warm=warm,
+                                    timed=timed, table=False, **extra)
+    return (launches, steps, "step"), timing
+
+
+def knob_line(phase: str, key: str, timing: dict, parity: dict, bare: dict) -> None:
+    print(f"phase {phase} {key}: {timing['imgs_per_s']:.2f} images/s, p50 "
+          f"{timing['p50_ms']:.3f} ms (the plain step {bare['imgs_per_s']:.2f} images/s, p50 "
+          f"{bare['p50_ms']:.3f} ms); launches in one profiled step "
+          f"{json.dumps(timing['profiled'])}; worst parity {json.dumps(parity)}; "
+          f"card {card_line()}", flush=True)
+
+
+def check_grids(label: str, seen, want: set) -> None:
+    got = {tuple(g) for g in seen}
+    print(f"{label}: attention grids (kind, N, n_valid) {sorted(got)}")
+    if got != want:
+        raise AssertionError(f"{label}: attention grids {sorted(got)}, want {sorted(want)}")
+
+
+def ppt_forward_parity(fb, torch, pruning: str, extra: dict) -> dict:
+    """PPT's eval forward at full width and depth, kernel route against
+    plain route from the same weights, the plain route's kept tokens or
+    channels forced on the kernel route: logits within LOGITS_REL_TOL, 12
+    B5 launches and nothing else, at ``PPT_GRIDS[pruning]``."""
+    x = synthetic_batch(torch)["image"]
+    cids = torch.arange(CHANNELS, device="cuda")
+    runs = {}
+    for route in ("plain", "kernels"):
+        model = build(DEPTH, **extra).eval()
+        blocks = list(model.feature_extractor.blocks)
+        if route == "kernels":
+            for blk, idx in zip(blocks, runs["plain"][1]):
+                blk.forced = idx
+        before = dict(fb.LAUNCHES)
+        ctx = fb.plain_versions() if route == "plain" else attention_grids(fb)
+        with ctx as seen, torch.no_grad():
+            out = model(x, cids)[0].float().cpu()
+        torch.cuda.synchronize()
+        counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
+        runs[route] = (out, [blk.kept for blk in blocks], counts, seen)
+        del model
+        torch.cuda.empty_cache()
+    (ok, kk, ck, seen), (op, kp, cp, _) = runs["kernels"], runs["plain"]
+    label = f"ppt {pruning} forward"
+    if any(cp.values()):
+        raise AssertionError(f"{label}: the plain route launched kernels: {cp}")
+    check_counts(f"{label}, kernel route", ck, 1, "forward", {"flash_packed_fwd": DEPTH})
+    grids = tuple(nv for kind, n, nv in seen)
+    print(f"{label}: n_valid per block {grids}; picks the kernel route would have made "
+          f"otherwise {pick_differences(kk, kp)}")
+    if grids != PPT_GRIDS[pruning] or any(kind != "flash" for kind, _, _ in seen):
+        raise AssertionError(f"{label}: grids {seen}, want {PPT_GRIDS[pruning]}")
+    return {"logits_rel": logits_close(label, ok, op)}
+
+
+def optimizer_updates(torch) -> dict:
+    """Each optimizer of OPTIMIZERS on the card against the same optimizer
+    on a CPU copy: 3 updates of f32 tensors of a block's shapes on fixed f32
+    gradients, clipped at global norm 1; every parameter (and the bf16 first
+    moment) within OPT_REL_TOL of its tensor's largest entry. The last
+    tensor's gradients are orthogonal to its rows, so AdamP projects it."""
+    from diverse_channel_vit_torch.training import make_optimizer
+
+    rng = np.random.default_rng(20)
+    shapes = [(3 * D, D), (3 * D,), (HID, D), (D, D)]
+    params = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+    p_last = params[-1].astype(np.float64)
+    grads = []
+    for _ in range(3):
+        g = [0.02 * rng.standard_normal(sh) for sh in shapes]
+        g[-1] = g[-1] - p_last * ((p_last * g[-1]).sum(1, keepdims=True)
+                                  / (p_last * p_last).sum(1, keepdims=True))
+        grads.append([a.astype(np.float32) for a in g])
+    out = {}
+    for label, (name, hp) in OPTIMIZERS.items():
+        sides = {}
+        for dev in ("cpu", "cuda"):
+            tx = make_optimizer(name, dict(hp), lr_schedule=lambda s, lr=hp["lr"]: float(lr),
+                                total_steps=3, clip_grad_norm=1.0)
+            ps = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(dev)) for a in params]
+            o = tx.init(ps)
+            for t, g in enumerate(grads):
+                for p, a in zip(ps, g):
+                    p.grad = torch.from_numpy(a.copy()).to(dev)
+                tx.update(o, t)
+            moments = [o.state[p].get("exp_avg") for p in ps]
+            sides[dev] = [p.detach().cpu() for p in ps], [
+                None if m is None else m.cpu() for m in moments]
+        worst = 0.0
+        card = sides["cuda"]
+        for (a, b) in zip(card[0] + [m for m in card[1] if m is not None],
+                          sides["cpu"][0] + [m for m in sides["cpu"][1] if m is not None]):
+            if a.dtype != b.dtype:
+                raise AssertionError(f"optimizer {label}: the card keeps {a.dtype}, the CPU "
+                                     f"{b.dtype}")
+            worst = max(worst, float((a.float() - b.float()).abs().max() / b.float().abs().max()))
+        moved = float((card[0][0] - torch.from_numpy(params[0])).abs().max())
+        print(f"optimizer {label}: 3 updates on the card against the CPU, worst rel "
+              f"{worst:.3e} (tolerance {OPT_REL_TOL}); largest move {moved:.3e}; first moment "
+              f"{card[1][0].dtype if card[1][0] is not None else 'none'}")
+        if not (worst <= OPT_REL_TOL and moved > 0):
+            raise AssertionError(f"optimizer {label}: the card's update disagrees with the CPU's")
+        out[label] = worst
+    return out
+
+
+def sigterm_after_a_raise(torch, tmp: str) -> None:
+    """ROADMAP C7 on the card: a ``Trainer.train`` that raises
+    (``train.save_model=best``, refused after the first epoch) leaves
+    SIGTERM's handler as it found it."""
+    import signal
+
+    from diverse_channel_vit_torch.config import load_config
+    from diverse_channel_vit_torch.trainer import Trainer
+
+    before = signal.getsignal(signal.SIGTERM)
+    t = Trainer(load_config("synthetic_cfg", TRAINER_OVERRIDES + [
+        "train.num_epochs=1", "dataset.num_train_samples=64", "train.save_model=best",
+        "++eval.skip_eval_first_epoch=True", f"train.checkpoints={tmp}/c7"]))
+    try:
+        t.train()
+    except NotImplementedError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("C7 check: train.save_model=best did not raise")
+    after = signal.getsignal(signal.SIGTERM)
+    print(f"C7 check: Trainer.train raised ({raised}); SIGTERM's handler before {before!r}, "
+          f"after {after!r}")
+    if after is not before:
+        raise AssertionError("C7 check: a raising Trainer.train left its SIGTERM handler")
+
+
+def training_knobs(fb, torch, bare: dict) -> dict:
+    """The last training knobs of DiChaViT at full width and depth
+    (DiChaViT-S, B = 64): the samplers, the optimizers, PPT and HCS
+    dropout, each held against the plain route and timed beside the plain
+    step (``bare``); ``main`` with a sampler, an optimizer and PPT together;
+    the C7 check. Returns the paths by label."""
+    import tempfile
+
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    plain_step = dict.fromkeys(fused4, DEPTH - 1)
+    ppt_step = {"flash_packed_fwd": DEPTH, "flash_packed_bwd": DEPTH}
+    dropped = {("attend_project", *HCS_DROP_GRID)}
+    paths = {}
+    # samplers: k = KNOB_K of 8 channels (785 tokens in 832)
+    for method in SAMPLERS:
+        knobs = {"sampler": method}
+        label = f"samplers {method}"
+        parity = train_parity(fb, torch, f"{label} train parity", DEPTH, RUNTIME_PARITY_STEPS,
+                              plain_step, knobs=knobs)
+        check_grids(label, LAST_GRIDS[f"{label} train parity"], dropped)
+        paths[f"{label} train"], timing = knob_train(fb, torch, f"{label} train", plain_step,
+                                                     knobs=knobs)
+        knob_line("samplers", method, timing, parity, bare)
+    # optimizers: the card's update against the CPU's, then 3 timed steps
+    updates = optimizer_updates(torch)
+    for label, opt in OPTIMIZERS.items():
+        paths[f"optimizers {label} train"], timing = knob_train(
+            fb, torch, f"optimizers {label} train", plain_step, knobs={"optimizer": opt},
+            timed=3)
+        knob_line("optimizers", label, timing, {"update_rel": updates[label]}, bare)
+    # PPT: every block a BlockV2 on the unpadded grid, B5 / B6 alone
+    for pruning in ("token_pruning", "channel_pruning"):
+        extra = dict(block_type="block_v2", dropout_tokens_hcs=pruning,
+                     token_keep_channels=KNOB_KC)
+        parity = ppt_forward_parity(fb, torch, pruning, extra)
+        parity.update(train_parity(fb, torch, f"ppt {pruning} train parity", DEPTH, 1,
+                                   ppt_step, **extra))
+        grids = tuple(nv for kind, n, nv in LAST_GRIDS[f"ppt {pruning} train parity"])
+        if grids != PPT_GRIDS[pruning]:
+            raise AssertionError(f"ppt {pruning} train: grids {grids}")
+        paths[f"ppt {pruning} train"], timing = knob_train(fb, torch, f"ppt {pruning} train",
+                                                           ppt_step, **extra)
+        knob_line("ppt", pruning, timing, parity, bare)
+    # HCS token and channel dropout: B1-B4 on the dropped grid
+    for mode in ("random", "channel"):
+        extra = dict(dropout_tokens_hcs=mode, token_keep_channels=KNOB_KC)
+        label = f"hcs_dropout {mode}"
+        parity = train_parity(fb, torch, f"{label} train parity", DEPTH, 1, plain_step, **extra)
+        check_grids(label, LAST_GRIDS[f"{label} train parity"], dropped)
+        paths[f"{label} train"], timing = knob_train(fb, torch, f"{label} train", plain_step,
+                                                     **extra)
+        knob_line("hcs_dropout", mode, timing, parity, bare)
+    with tempfile.TemporaryDirectory(prefix="dcvit_knobs_") as tmp:
+        over = TRAINER_OVERRIDES + [
+            "train.num_epochs=1", "dataset.num_train_samples=256", "train.save_model=none",
+            f"train.checkpoints={tmp}", "++model.enable_sample=True",
+            "++model.hcs_sampling=lowest_cosine_prob_resnet34", "optimizer=adam",
+            "++model.block_type=block_v2", "++model.dropout_tokens_hcs=token_pruning"]
+        probe, launches, steps = run_trainer(fb, torch, "Trainer training knobs",
+                                             "synthetic_cfg", over, ppt_step,
+                                             {"flash_packed_fwd": DEPTH})
+        paths["Trainer training knobs"] = (launches, len(probe.epochs), "epoch")
+        del probe
+        sigterm_after_a_raise(torch, tmp)
+    torch.cuda.empty_cache()
+    return paths
 
 
 def host_batch(trainer) -> None:
@@ -3053,6 +3431,7 @@ def main() -> int:
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
+    stamp("kernel checks", t_start)
 
     # each path: the counts by kernel and the units (forwards or steps) they
     # were read over; the kernels line takes each kernel's launches from its
@@ -3090,6 +3469,7 @@ def main() -> int:
     train_parity(fb, torch, "DCS recipe train parity", PARITY_DEPTH, 3,
                  dict.fromkeys(fused4, PARITY_DEPTH - 1), ks=(2, 5, 8))
     torch.cuda.empty_cache()
+    stamp("small preset serving and training", t_start)
 
     # the small_tpu preset (3 heads of 128) at full width and depth, as the
     # JAX bench's mxu_native, int8_dh128 and dh-128 EViT recipe cells: every
@@ -3115,6 +3495,7 @@ def main() -> int:
     train_parity(fb, torch, "small_tpu EViT recipe train parity", PARITY_DEPTH, 3, evit_parity,
                  ks=(2, 5, 8), keep_rate=KEEP_RATE, **tpu)
     torch.cuda.empty_cache()
+    stamp("small_tpu preset", t_start)
 
     # the base preset (DiChaViT-B) at full width and depth: serving, train,
     # and the 3-step parity at depth 4, in bf16 and in int8 (B7 / B8 at D =
@@ -3134,16 +3515,24 @@ def main() -> int:
     train_parity(fb, torch, "base int8 train parity", PARITY_DEPTH, 3,
                  dict.fromkeys(int8_train, PARITY_DEPTH - 1), quantization="int8", **base)
     torch.cuda.empty_cache()
+    stamp("base preset", t_start)
     paths.update(run_geometries(fb, torch, dict.fromkeys(fused4, DEPTH - 1)))
     # the benchmark scripts: S1-S3 run only there, S1 and S2 also at 3 heads
     for (name, args, _), counts in zip(SCRIPT_RUNS, run_scripts(fb).values()):
         paths[script_label(name, args)] = (counts, 1, "run")
     # the training entry point: main -> config -> data -> Trainer -> eval ->
     # checkpoint, at full width
+    stamp("geometries and benchmark scripts", t_start)
     paths.update(trainer_paths(fb, torch, bare["imgs_per_s"]))
+    stamp("trainer paths", t_start)
     # the Trainer's runtime: DropPath, MIRO, freezing, SWAD, the attention
     # maps, the profiler trace, preemption and resume
     paths.update(trainer_runtime(fb, torch, bare))
+    stamp("trainer runtime", t_start)
+    # the last training knobs: the samplers, the optimizers, PPT, HCS
+    # dropout, main with them, the C7 check
+    paths.update(training_knobs(fb, torch, bare))
+    stamp("training knobs", t_start)
 
     # each kernel's main paths, first the one its launches are read from
     dh128 = "_dh128"
@@ -3191,8 +3580,10 @@ def main() -> int:
             for label in ("EViT train", "DCS recipe train"):
                 counts, units, _ = paths[label]
                 entry[f"launches_per_step_{label.replace(' ', '_')}"] = counts[name] / units
-        for label in ("Trainer", "Trainer int8", "Trainer runtime",
-                      *(p for p in paths if p.startswith("runtime "))):
+        for label in ("Trainer", "Trainer int8", "Trainer runtime", "Trainer training knobs",
+                      *(p for p in paths if p.startswith(("runtime ", "samplers ",
+                                                          "optimizers ", "ppt ",
+                                                          "hcs_dropout ")))):
             counts, units, unit = paths[label]
             if name in counts and counts[name]:
                 entry[f"launches_per_{unit}_{label.replace(' ', '_')}"] = counts[name] / units

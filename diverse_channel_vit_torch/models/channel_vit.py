@@ -4,8 +4,8 @@
 Tokens stay channel-grouped ``(B, C, N, D)`` through the patch embedding and
 enter the blocks as the flat ``(B, 1 + C*N, D)`` grid in channel-major order,
 padded once to the kernels' multiple (``ops/attention.maybe_pad_tokens``).
-The forward is the JAX module's forward for ``block_type="block"`` with no
-dropout and no token dropping, with DropPath at ``drop_path_rate`` (rising
+The forward is the JAX module's forward without dropout, with DropPath at
+``drop_path_rate`` (rising
 linearly with depth, JAX ``models/channel_vit.py:263``; the per-sample
 masks drawn by :meth:`ChannelVisionTransformer.draw_drop_path`). With ``keep_rate < 1`` the blocks at layers
 depth // 4, depth // 2 and 3 * depth // 4 run as EViT blocks
@@ -20,6 +20,28 @@ proxies. Given a ``taps`` dict the forward fills it with every block's output
 (MIRO's taps, ``training/miro.py``) and runs the last block at all rows, and
 with ``attention_layer`` it adds that block's dense attention probabilities
 (:func:`attention_maps`).
+
+HCS token dropout (``dropout_tokens_hcs``, JAX
+``models/channel_vit.py:211-222``): in training, with ``block_type="block"``,
+``"random"`` and ``"token_random50"`` keep ``kc * N`` of the C * N patch
+tokens and ``"channel"`` and ``"channel_random50"`` keep the token groups of
+``kc`` channels (``kc`` = ``token_keep_channels``, by default ceil(C / 2)), drawn
+uniformly and the same for every sample, before the grid is padded: the
+fused route then runs on the dropped grid (785 tokens padded to 832 at 8
+channels of 196 patches and kc = 4).
+
+PPT (``block_type="block_v2"``, JAX ``models/channel_vit.py:278-300``):
+every block is a :class:`~.vit.BlockV2` on the **unpadded** grid, as in the
+JAX package, with ``dropout_tokens_hcs`` ``"token_pruning"`` (each block
+keeps ``max(1, cur_n * kc // C)`` of its ``cur_n`` non-CLS tokens) or
+``"channel_pruning"`` (block 0 keeps ``kc`` channels); any other value
+prunes nothing. The port's pad-once rule (ROADMAP C, "the pad rule") holds
+for the grids it pads: a PPT grid changes length at every block, and its
+channel pruning needs the channel-major grid without pad rows, so it is not
+padded in the model; ``flash_attention_packed`` pads each block's q, k and
+v to its multiple of 64 and slices the output back, so pad tokens enter
+neither the attention nor the significance scores. No readout or EViT
+layer applies, as in the JAX loop.
 """
 
 from __future__ import annotations
@@ -37,7 +59,10 @@ from ..ops.attention import maybe_pad_tokens
 from ..ops.initializers import conv_patch_, normal_div8_, orthogonal_, trunc_normal_
 from ..ops.losses import orthogonal_projection_loss, proxy_loss
 from ..ops.patch_embed import add_channel_embedding, per_channel_patch_embed
-from .vit import Block
+from ..ops.token_pruning import draw_kept, random_channel_drop, random_token_drop
+from .vit import Block, BlockV2
+
+BLOCK_TYPES = ("block", "block_v2")
 
 
 def _torch_bicubic_1d(size_in: int, size_out: int, scale: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -151,9 +176,16 @@ class ChannelVisionTransformer(nn.Module):
                  use_square: bool = False, temperature: float = 0.11111,
                  attention_impl: str = "auto", cls_only_readout: bool = True, keep_rate: Optional[float] = None,
                  gelu_exact: bool = False, quantization: str = "none",
-                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.0, block_type: str = "block",
+                 dropout_tokens_hcs: Optional[str] = "none",
+                 token_keep_channels: Optional[int] = None, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if block_type not in BLOCK_TYPES:
+            raise ValueError(f"block_type {block_type!r}: want one of {BLOCK_TYPES}")
+        self.block_type = block_type
+        self.dropout_tokens_hcs = dropout_tokens_hcs or "none"
+        self.token_keep_channels = token_keep_channels
         self.num_total_channels = num_total_channels
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -176,8 +208,9 @@ class ChannelVisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, (img_size // patch_size) ** 2 + 1, embed_dim))
         self.drop_path_rate = float(drop_path_rate)
         dpr = [self.drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
+        block = BlockV2 if block_type == "block_v2" else Block
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, gelu_exact=gelu_exact,
+            block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, gelu_exact=gelu_exact,
                   quantization=quantization, attention_impl=attention_impl, drop_path=rate)
             for rate in dpr
         )
@@ -225,10 +258,36 @@ class ChannelVisionTransformer(nn.Module):
                                for _ in range(2)))
         return masks
 
+    def keep_channels(self, c: int) -> int:
+        """``kc``: ``token_keep_channels``, or ceil(C / 2) of the forward's C
+        channels (JAX ``models/channel_vit.py:214``)."""
+        return self.token_keep_channels or max(1, math.ceil(0.5 * c))
+
+    def token_dropout_on(self) -> bool:
+        """Whether a training forward drops tokens (HCS token dropout)."""
+        return self.block_type == "block" and self.dropout_tokens_hcs not in ("none", None)
+
+    def draw_token_drop(self, c: int, n: int, generator: Optional[torch.Generator] = None,
+                        device=None) -> Optional[torch.Tensor]:
+        """The sorted indices HCS token dropout keeps in a training forward
+        of ``c`` channels of ``n`` patches: ``kc * n`` tokens of ``c * n`` or
+        ``kc`` channels of ``c``, drawn from ``generator``; None when the
+        model drops nothing."""
+        if not self.token_dropout_on():
+            return None
+        kc = self.keep_channels(c)
+        device = self.cls_token.device if device is None else device
+        if self.dropout_tokens_hcs in ("random", "token_random50"):
+            return draw_kept(c * n, kc * n, generator, device)
+        if self.dropout_tokens_hcs in ("channel", "channel_random50"):
+            return draw_kept(c, kc, generator, device)
+        raise ValueError(f"Unknown dropout_tokens_hcs: {self.dropout_tokens_hcs}")
+
     def forward(self, x: torch.Tensor, channel_ids: torch.Tensor,
                 channel_embed_override: Optional[torch.Tensor] = None, *,
                 taps: Optional[dict] = None, drop_path: Optional[list] = None,
-                attention_layer: Optional[int] = None):
+                attention_layer: Optional[int] = None,
+                token_drop: Optional[torch.Tensor] = None):
         """x: (B, C, H, W) with the channels already selected; channel_ids:
         (C,) global ids indexing the channel-embedding table.
         ``channel_embed_override``, (C, D) or per-sample (B, C, D), takes the
@@ -242,7 +301,11 @@ class ChannelVisionTransformer(nn.Module):
         torch's default generator when a train-mode forward at a rate above
         0 is given none. ``attention_layer``: also put that block's dense
         attention probabilities on its input into ``taps["attn_probs"]`` and
-        the valid token count of its grid into ``taps["attn_valid"]``."""
+        the valid token count of its grid into ``taps["attn_valid"]``.
+        ``token_drop``: the indices HCS token dropout keeps
+        (:meth:`draw_token_drop`), used in train mode only; drawn from
+        torch's default generator when a training forward that drops tokens
+        is given none."""
         b, c, h, w = x.shape
         p, dim, dt = self.patch_size, self.embed_dim, self.dtype
         n = (h // p) * (w // p)
@@ -271,17 +334,27 @@ class ChannelVisionTransformer(nn.Module):
         pos = interpolate_pos_embed(self.pos_embed, h // p, w // p, num_channels=c).to(dt)
         tokens = tokens + pos[:, 1:].repeat(1, c, 1)  # per-channel copy of the table
         cls = (self.cls_token.to(dt) + pos[:, :1]).expand(b, 1, dim)
-        xseq, valid_len = maybe_pad_tokens(torch.cat([cls, tokens], dim=1))
+        xseq = torch.cat([cls, tokens], dim=1)
+        if self.training and self.token_dropout_on():
+            if token_drop is None:
+                token_drop = self.draw_token_drop(c, n, device=x.device)
+            if self.dropout_tokens_hcs in ("random", "token_random50"):
+                xseq = random_token_drop(xseq, token_drop.numel(), idx=token_drop)
+            else:
+                xseq = random_channel_drop(xseq, c, token_drop.numel(), idx=token_drop)
         depth = len(self.blocks)
-        evit_on = self.keep_rate is not None and float(self.keep_rate) < 1.0
-        evit_layers = {depth // 4, depth // 2, (3 * depth) // 4} if evit_on else set()
         masks = [None] * depth
         if self.training and self.drop_path_rate > 0:
             masks = self.draw_drop_path(b, device=x.device) if drop_path is None else drop_path
-        # a tap sees every row of the last block, so it takes the full route
-        readout = self.cls_only_readout and taps is None
         if attention_layer is not None:
             attention_layer %= depth
+        if self.block_type == "block_v2":
+            return self._ppt_blocks(xseq, c, masks, taps, attention_layer), extra_loss
+        xseq, valid_len = maybe_pad_tokens(xseq)
+        evit_on = self.keep_rate is not None and float(self.keep_rate) < 1.0
+        evit_layers = {depth // 4, depth // 2, (3 * depth) // 4} if evit_on else set()
+        # a tap sees every row of the last block, so it takes the full route
+        readout = self.cls_only_readout and taps is None
         for i, blk in enumerate(self.blocks):
             if i == attention_layer:
                 taps["attn_probs"] = blk.attention_probs(xseq, valid_len)
@@ -297,10 +370,34 @@ class ChannelVisionTransformer(nn.Module):
                        drop=masks[i])
             if taps is not None:  # the real tokens' rows, not the pad
                 taps[f"block_{i}"] = xseq[:, :valid_len]
+        return self._cls_norm(xseq), extra_loss
+
+    def _cls_norm(self, xseq: torch.Tensor) -> torch.Tensor:
         # LayerNorm is per token: norm only the CLS row that is read
-        cls_out = F.layer_norm(xseq[:, :1].float(), (dim,), self.norm.weight, self.norm.bias,
-                               self.norm.eps)
-        return cls_out[:, 0], extra_loss
+        cls_out = F.layer_norm(xseq[:, :1].float(), (self.embed_dim,), self.norm.weight,
+                               self.norm.bias, self.norm.eps)
+        return cls_out[:, 0]
+
+    def _ppt_blocks(self, xseq: torch.Tensor, c: int, masks: list, taps: Optional[dict],
+                    attention_layer: Optional[int]) -> torch.Tensor:
+        """The ``block_v2`` loop (JAX ``models/channel_vit.py:278-300``) on
+        the unpadded grid: block i keeps ``max(1, cur_n * kc // c)`` tokens
+        under token pruning, block 0 keeps ``kc`` channels under channel
+        pruning. Returns the final CLS embedding."""
+        kc = self.keep_channels(c)
+        pruning = self.dropout_tokens_hcs
+        if pruning not in ("token_pruning", "channel_pruning"):
+            pruning = None
+        for i, blk in enumerate(self.blocks):
+            if i == attention_layer:
+                taps["attn_probs"] = blk.attention_probs(xseq)
+                taps["attn_valid"] = xseq.shape[1]
+            cur_n = xseq.shape[1] - 1
+            xseq = blk(xseq, pruning=pruning, keep_tokens=max(1, (cur_n * kc) // c),
+                       keep_channels=kc if i == 0 else None, nc=c, drop=masks[i])
+            if taps is not None:
+                taps[f"block_{i}"] = xseq
+        return self._cls_norm(xseq)
 
 
 def attention_maps(model: nn.Module, x: torch.Tensor, channel_ids: torch.Tensor,

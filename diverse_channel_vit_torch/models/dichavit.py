@@ -15,9 +15,12 @@ The other keys the JAX factory reads are honoured or refused:
 ``attention_impl`` (``auto``, ``pallas`` or ``xla``) routes the blocks as
 the JAX ``Block._fused_ok`` does (``xla`` takes the unfused route);
 ``drop_path_rate`` sets DropPath's rate at the last block (0 at the first,
-rising linearly); the HCS token dropout (``dropout_tokens_hcs`` other than
-``"none"``, ``token_keep_channels``) raises ``NotImplementedError`` until it
-is ported. ``drop_rate`` and
+rising linearly); ``block_type`` (``block``, or ``block_v2`` for PPT's
+pruning blocks), ``dropout_tokens_hcs`` (HCS token or channel dropout in
+training: ``random``, ``token_random50``, ``channel``, ``channel_random50``;
+PPT's ``token_pruning`` or ``channel_pruning`` with ``block_v2``) and
+``token_keep_channels`` (kc, by default ceil(C / 2)) as the JAX factory
+passes them on (``models/channel_vit.py``). ``drop_rate`` and
 ``attn_drop_rate`` are ignored, as the JAX factories ignore them: no JAX
 factory reads either key, so JAX trains such a config without dropout.
 """
@@ -35,12 +38,6 @@ from .wrappers import ChannelAdaptiveClassifier
 
 def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.dtype,
                        generator: Optional[torch.Generator]) -> ChannelAdaptiveClassifier:
-    if (cfg_model.get("block_type", "block") or "block") != "block":
-        raise NotImplementedError("block_type other than 'block' (PPT blocks, ROADMAP A8)")
-    if (cfg_model.get("dropout_tokens_hcs", "none") or "none") != "none" \
-            or cfg_model.get("token_keep_channels") is not None:
-        raise NotImplementedError("dropout_tokens_hcs / token_keep_channels: HCS token and "
-                                  "channel dropout are not ported (ROADMAP A8.4)")
     preset = apply_preset_overrides(
         SIZE_PRESETS[cfg_model.get("pretrained_model_name", "small")], cfg_model
     )
@@ -66,6 +63,9 @@ def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.d
         gelu_exact=bool(cfg_model.get("gelu_exact", False)),
         quantization=cfg_model.get("quantization") or "none",
         drop_path_rate=float(cfg_model.get("drop_path_rate", 0.0) or 0.0),
+        block_type=cfg_model.get("block_type", "block") or "block",
+        dropout_tokens_hcs=cfg_model.get("dropout_tokens_hcs", "none") or "none",
+        token_keep_channels=cfg_model.get("token_keep_channels"),
         dtype=dtype,
         generator=generator,
         **preset,

@@ -42,6 +42,13 @@ residual.
 :meth:`Block.evit` is the JAX package's ``BlockEViT`` on the same parameters:
 the unfused attention, then the top ``int(keep_rate * (n_valid - 1))``
 tokens by head-mean CLS attention, then the dense MLP.
+
+:class:`BlockV2` is the JAX package's PPT block (``block_type="block_v2"``)
+on the same parameter names: :class:`AttentionWithScores` (the attention
+output through ``flash_attention_packed``, so the B5 and B6 kernels on the
+card, and PPT's significance scores recomputed from the CLS query row), then
+token or channel pruning by those scores, then the dense MLP, all on the
+unpadded grid (see ``models/channel_vit.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ from torch import nn
 
 from ..ops import activations, fused_block
 from ..ops.attention import MASK_VALUE, flash_attention_packed, plain_attention
-from ..ops.token_pruning import select_tokens, topk_token_select
+from ..ops.token_pruning import select_tokens, topk_channel_select, topk_token_select
 
 
 def _layer_norm_f32(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -155,6 +162,32 @@ class Attention(nn.Module):
         return self.attend(*self.project_qkv(y), valid_len)
 
 
+class AttentionWithScores(Attention):
+    """PPT's attention (the JAX ``AttentionWithScores``, reference
+    ``PPTAttention``): the attention output and each non-CLS token's
+    significance, CLS attention summed over heads times the token's value
+    norm, normalised to sum 1. The dense (B, H, N, N) matrix is never made:
+    its CLS row is recomputed from q's CLS row at O(N * dh) in f32, as in
+    the JAX module (``ops/token_pruning.ppt_significance_scores`` is the
+    dense oracle). The scores only choose indices, so they carry no
+    gradient. The grid has no padding: every key is a token."""
+
+    def forward(self, y: torch.Tensor, valid_len: Optional[int] = None):
+        q, k, v = self.project_qkv(y)
+        return self.attend(q, k, v), self.significance(q, k, v)
+
+    @torch.no_grad()
+    def significance(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """(B, N - 1) f32 PPT scores of the non-CLS tokens."""
+        b, n, d = k.shape
+        h = self.num_heads
+        logits = torch.einsum("bhd,bnhd->bhn", q[:, 0].float().reshape(b, h, d // h),
+                              k.float().reshape(b, n, h, d // h)) * self.scale
+        sig = (torch.softmax(logits, dim=-1).sum(dim=1)
+               * torch.linalg.vector_norm(v.float(), dim=2))[:, 1:]
+        return sig / sig.sum(dim=1, keepdim=True)
+
+
 class Mlp(nn.Module):
     """The dense MLP of the unfused route: fc1, GELU (tanh, or erf when
     ``exact``), fc2, the weights cast to the input's dtype."""
@@ -179,6 +212,8 @@ class Block(nn.Module):
     ``evit_kept`` ((B, keep) int64, or None when it kept every token) and,
     when ``evit_forced`` holds indices, keeps those instead."""
 
+    attention_cls = Attention
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32,
                  gelu_exact: bool = False, quantization: str = "none",
@@ -192,7 +227,7 @@ class Block(nn.Module):
         self.drop_path = float(drop_path)
         self.quantization = fused_block.check_quantization(quantization)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
+        self.attn = self.attention_cls(dim, num_heads, qkv_bias, qk_scale)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.evit_kept: Optional[torch.Tensor] = None
@@ -307,3 +342,51 @@ class Block(nn.Module):
         xc = x[:, :1] + drop_branch(a, m1, self.drop_path)
         y2 = _layer_norm_f32(xc, self.norm2).to(dt)
         return xc + drop_branch(self.mlp(y2, self.gelu_exact), m2, self.drop_path)
+
+
+class BlockV2(Block):
+    """Pre-norm block with PPT pruning (the JAX ``BlockV2``, reference
+    ``vit.py:402-492``), on :class:`Block`'s parameter names. On the
+    unpadded grid ``x`` (B, 1 + N, D): LN1 in f32 -> :class:`AttentionWithScores`
+    -> with ``pruning="token_pruning"`` the CLS row and the top
+    ``keep_tokens`` other tokens by score (in descending order) of both the
+    residual stream and the attention output, when ``keep_tokens`` < N; with
+    ``"channel_pruning"`` the ``keep_channels`` channels of ``nc`` with the
+    highest batch-summed scores, when ``keep_channels`` < ``nc`` -> residual
+    -> LN2 in f32 -> the dense MLP -> residual. The keep counts are static,
+    as in the JAX package (the reference redraws one per block).
+
+    ``kept`` and ``forced`` are a seam for comparing two routes, as
+    ``evit_kept`` and ``evit_forced`` are for EViT: the pruning leaves the
+    indices it chose in ``kept`` (tokens (B, keep), or channels (keep,); None
+    when it pruned nothing) and keeps ``forced`` instead when that is set."""
+
+    attention_cls = AttentionWithScores
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kept: Optional[torch.Tensor] = None
+        self.forced: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor, *, pruning: Optional[str] = None,
+                keep_tokens: Optional[int] = None, keep_channels: Optional[int] = None,
+                nc: int = 0, drop=None) -> torch.Tensor:
+        dt = self.dtype
+        m1, m2 = (None, None) if drop is None else drop
+        y, scores = self.attn(_layer_norm_f32(x, self.norm1).to(dt))
+        self.kept = None
+        if pruning == "token_pruning" and keep_tokens is not None \
+                and keep_tokens < x.shape[1] - 1:
+            kept, self.kept = topk_token_select(x, scores, keep_tokens)
+            idx = self.kept if self.forced is None else self.forced
+            x = kept if self.forced is None else select_tokens(x, idx)
+            y = select_tokens(y, idx)
+        elif pruning == "channel_pruning" and keep_channels is not None and keep_channels < nc:
+            kept, self.kept = topk_channel_select(x, scores, nc, keep_channels)
+            idx = self.kept if self.forced is None else self.forced
+            x = kept if self.forced is None else topk_channel_select(
+                x, scores, nc, keep_channels, idx)[0]
+            y = topk_channel_select(y, scores, nc, keep_channels, idx)[0]
+        x = x + drop_branch(y, m1, self.drop_path)
+        z = self.mlp(_layer_norm_f32(x, self.norm2).to(dt), self.gelu_exact)
+        return x + drop_branch(z, m2, self.drop_path)

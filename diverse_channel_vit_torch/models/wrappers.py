@@ -42,8 +42,8 @@ class ChannelAdaptiveClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor, channel_ids: torch.Tensor,
                 channel_embed_override: Optional[torch.Tensor] = None, **backbone_kw):
-        """``backbone_kw``: the backbone's ``taps``, ``drop_path`` and
-        ``attention_layer``."""
+        """``backbone_kw``: the backbone's ``taps``, ``drop_path``,
+        ``attention_layer`` and ``token_drop``."""
         emb, extra_loss = self.feature_extractor(x, channel_ids, channel_embed_override,
                                                  **backbone_kw)
         out = emb if self.classifer_head is None else self.classifer_head(emb)

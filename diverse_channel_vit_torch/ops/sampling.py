@@ -12,9 +12,12 @@ generator's draws (``jax.random.randint`` of the anchor and
 ``jax.random.gumbel`` of the noise, in JAX's order), so both packages pick
 the same channels.
 
-Ported: ``uniform``, ``lowest_cosine``, ``highest_cosine`` and
-``lowest_cosine_prob``. The ``_proj`` and ``_resnet34`` scorers and
-``hcs_per_sample`` raise ``NotImplementedError`` (ROADMAP A4).
+Every method of the JAX package: ``uniform``, ``lowest_cosine``,
+``highest_cosine``, ``lowest_cosine_prob`` and its ``_proj`` and
+``_resnet34`` variants, which score the channels by a batch-mean cosine
+matrix (:func:`batch_cosine_matrix`, given as ``cos_matrix``) instead of the
+channel embeddings, and ``hcs_per_sample``'s independent subset per sample
+(:func:`per_sample_uniform_subsets`, whose seam is a (B, C) ``gumbel``).
 """
 
 from __future__ import annotations
@@ -23,13 +26,12 @@ from typing import Optional
 
 import torch
 
-NOT_PORTED = ("lowest_cosine_prob_proj", "lowest_cosine_prob_resnet34", "hcs_per_sample")
-
-
 def gumbel_noise(generator: torch.Generator, n: int, device: torch.device) -> torch.Tensor:
     """(n,) standard Gumbel noise, -log(-log(u)) with u uniform in
-    [tiny, 1), drawn on the generator's device and moved to ``device``."""
-    u = torch.rand(n, generator=generator, device=generator.device)
+    [tiny, 1), drawn on the generator's device (torch's default generator of
+    ``device`` when None) and moved to ``device``."""
+    u = torch.rand(n, generator=generator,
+                   device=device if generator is None else generator.device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return (-torch.log(-torch.log(u))).to(device)
 
@@ -67,7 +69,30 @@ def cosine_similarity_matrix(emb: torch.Tensor, eps: float = 1e-12) -> torch.Ten
     return e @ e.t()
 
 
-def dcs_select(k: int, method: Optional[str], *, channel_embed: torch.Tensor,
+def batch_cosine_matrix(features: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """(B, C, F) features -> the batch mean of each sample's (C, C) cosine
+    matrix of its channels' features, in f32 (the JAX
+    ``batch_cosine_matrix``; the ``_proj`` and ``_resnet34`` scores)."""
+    f = features.float()
+    f = f / torch.clamp_min(torch.linalg.vector_norm(f, dim=-1, keepdim=True), eps)
+    return torch.einsum("bcd,bed->bce", f, f).mean(dim=0)
+
+
+def per_sample_uniform_subsets(b: int, c: int, k: int, *, device: torch.device,
+                               generator: Optional[torch.Generator] = None,
+                               gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, k) independent uniform subsets of range(c), one per sample
+    (``hcs_per_sample``; the JAX ``per_sample_uniform_subsets``): each row
+    the top k of its own Gumbel noise. ``gumbel`` (B, C) replaces the
+    generator's draw (JAX draws row i from the i-th of ``split(key, B)``)."""
+    if gumbel is None:
+        u = torch.rand(b, c, generator=generator, device=generator.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.topk(gumbel.to(device).float(), k, dim=-1).indices
+
+
+def dcs_select(k: int, method: Optional[str], *, channel_embed: Optional[torch.Tensor] = None,
+               cos_matrix: Optional[torch.Tensor] = None,
                temp: float = 0.1, generator: Optional[torch.Generator] = None,
                anchor: Optional[torch.Tensor] = None,
                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -81,22 +106,32 @@ def dcs_select(k: int, method: Optional[str], *, channel_embed: torch.Tensor,
       anchor forced in.
     - ``"lowest_cosine_prob"``: k channels without replacement with
       probability softmax((1 - cos) / temp) against the anchor, the anchor
-      forced in.
+      forced in; ``"lowest_cosine_prob_proj"`` and
+      ``"lowest_cosine_prob_resnet34"`` the same over ``cos_matrix``, the
+      (C, C) batch-mean cosines of the step's per-channel features.
 
-    Draws: the anchor (``randint``), then for ``lowest_cosine_prob`` the
-    Gumbel noise, from ``generator``, unless given as ``anchor`` (0-d
-    integer) and ``gumbel`` ((C,) f32)."""
-    if method in NOT_PORTED:
-        raise NotImplementedError(f"hcs_sampling={method!r} is not ported yet (ROADMAP A4)")
-    c, device = channel_embed.shape[0], channel_embed.device
+    ``cos_matrix``, when given, takes the place of the embeddings' cosines
+    for every method (the JAX ``dcs_select``); the ``_proj`` and
+    ``_resnet34`` methods need it.
+
+    Draws: the anchor (``randint``), then for the ``lowest_cosine_prob``
+    methods the Gumbel noise, from ``generator``, unless given as ``anchor``
+    (0-d integer) and ``gumbel`` ((C,) f32)."""
+    src = channel_embed if channel_embed is not None else cos_matrix
+    c, device = src.shape[0], src.device
     if method in (None, "none", "uniform"):
         return uniform_subset(c, k, device=device, generator=generator, gumbel=gumbel)
-    if method not in ("lowest_cosine", "highest_cosine", "lowest_cosine_prob"):
+    if method not in ("lowest_cosine", "highest_cosine") \
+            and not method.startswith("lowest_cosine_prob"):
         raise ValueError(f"Invalid hcs_sampling: {method!r}")
+    if cos_matrix is None:
+        if method.endswith(("_proj", "_resnet34")):
+            raise ValueError(f"dcs_select({method!r}) needs the features' cos_matrix")
+        cos_matrix = cosine_similarity_matrix(channel_embed)
     if anchor is None:
         anchor = torch.randint(0, c, (), generator=generator, device=generator.device)
     anchor = anchor.to(device)
-    cos = cosine_similarity_matrix(channel_embed)[anchor]  # (C,)
+    cos = cos_matrix[anchor]  # (C,)
     if method == "lowest_cosine":
         idx = torch.topk(-cos, k).indices
     elif method == "highest_cosine":

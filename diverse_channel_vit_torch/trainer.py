@@ -74,7 +74,6 @@ from .models import build_model
 from .ops.novel_channels import (dynamic_input_corr, flatten_training_channels, synthesis_plan,
                                  synthesize_rows)
 from .ops.patch_embed import per_channel_patch_embed
-from .ops.sampling import NOT_PORTED
 from .training import (TrainState, make_eval_step, make_grad_step, make_lr_schedule,
                        make_optimizer, make_train_step)
 from .training.checkpoint import (load_checkpoint, load_meta, load_tree, save_checkpoint,
@@ -151,8 +150,6 @@ def check_supported(cfg) -> None:
          "model.fused_block: false, the process-wide unfused route (ROADMAP A6)"),
         (cfg.get("attn_pooling") is not None, "attn_pooling: channel attention pooling "
                                               "(ROADMAP A8.3)"),
-        (bool(model.get("enable_sample")) and model.get("hcs_sampling") in NOT_PORTED,
-         f"model.hcs_sampling={model.get('hcs_sampling')!r} (ROADMAP A4)"),
     ]
     for refused, what in refusals:
         if refused:
@@ -430,7 +427,7 @@ class Trainer:
                 hcs_temp=self.hcs_temp, generator=self.generator, loss_type=self.loss_type,
                 extra_loss_lambda=self.extra_loss_lambda, learnable_temp=self.learnable_temp,
                 temperature=self.temperature, augment_fn=self._device_augment_fn(),
-                **self._miro_kw(),
+                **self._step_kw(),
             )
         return self._train_steps[key]
 
@@ -441,12 +438,43 @@ class Trainer:
                 self.model, channel_ids=channel_ids, k=k, hcs_method=self.hcs_method,
                 hcs_temp=self.hcs_temp, generator=self.generator, loss_type=self.loss_type,
                 extra_loss_lambda=self.extra_loss_lambda, learnable_temp=self.learnable_temp,
-                temperature=self.temperature, **self._miro_kw(),
+                temperature=self.temperature, **self._step_kw(),
             )
         return self._grad_steps[key]
 
-    def _miro_kw(self) -> dict:
-        return dict(miro_pre=self.miro_pre, miro_ld=self.miro_ld if self.miro else 0.0)
+    def _step_kw(self) -> dict:
+        return dict(miro_pre=self.miro_pre, miro_ld=self.miro_ld if self.miro else 0.0,
+                    feature_fn=self._hcs_feature_fn())
+
+    def _hcs_feature_fn(self):
+        """The frozen ResNet-34 channel scorer of ``hcs_sampling=*_resnet34``
+        (JAX ``trainer.py:700-739``; reference ``dichavit.py:68-79``,
+        ``:162-167``): ``x`` (B, C, H, W) -> (B, C, 512) features of each
+        channel replicated to RGB, in the model's dtype, for the step's
+        batch-mean cosine scores. The reference downloads timm's pretrained
+        ResNet-34; the port reads a local torchvision-layout state dict from
+        ``model.resnet34_ckpt`` and otherwise starts from a random init,
+        seeded by the run's seed, and says so. None for other samplers."""
+        if not (self.hcs_method or "").endswith("_resnet34"):
+            return None
+        if getattr(self, "_resnet34_fn", None) is None:
+            from .models.resnet import (RESNET34_LAYERS, ResNetFeatures, load_state_dict_file,
+                                        load_torch_resnet_state, per_channel_features)
+
+            net = ResNetFeatures(RESNET34_LAYERS, dtype=self.dtype,
+                                 generator=torch.Generator().manual_seed(self.seed))
+            ckpt = self.cfg.model.get("resnet34_ckpt")
+            if ckpt:
+                load_torch_resnet_state(net, load_state_dict_file(str(ckpt)))
+                self.logger.info(f"hcs resnet34 scorer: weights from {ckpt}")
+            else:
+                self.logger.info(
+                    "hcs resnet34 scorer: model.resnet34_ckpt unset — "
+                    "random-init backbone (provide a local torchvision "
+                    "resnet34 state dict for reference-equivalent sampling)")
+            net.to(self.device)
+            self._resnet34_fn = lambda x, _net=net: per_channel_features(_net, x)
+        return self._resnet34_fn
 
     def _device_augment_fn(self):
         """On-device JUMP-CP augmentation when the loader ships raw crops."""
@@ -477,80 +505,89 @@ class Trainer:
             self._preempt_guard = PreemptionGuard().install()
         except ValueError:  # signal.signal outside the main thread: unguarded
             self._preempt_guard = PreemptionGuard()
-        profile_dir = self.cfg.train.get("profile_dir")
-        prof = self._start_profile() if profile_dir else None
-        # pre-training evaluation (trainer.py:329-333)
-        if (not self.debug and not ev.get("skip_eval_first_epoch", False)
-                and not ev.get("only_eval_first_and_last", False) and self.start_epoch == 1):
-            eval0 = self.evaluate_model(0)
-            self.logger.info({f"eval/{k}": v for k, v in eval0.items()} | {"epoch": 0},
-                             pref_msg="[eval 0]")
-        for epoch in range(self.start_epoch, self.total_epochs + 1):
-            self._epoch_interrupted = False
-            start_batch = self._resume_start_batch if epoch == self.start_epoch else 0
-            # a whole epoch is train_one_epoch(epoch), the signature before
-            # resume points existed
-            train_metrics = (self.train_one_epoch(epoch, start_batch=start_batch) if start_batch
-                             else self.train_one_epoch(epoch))
-            if self._preempt_guard.triggered:
-                # an interrupted epoch resumes where it stopped: the
-                # checkpoint records (epoch, batch) and the generators
-                completed = epoch - 1 if self._epoch_interrupted else epoch
-                self._save_preempt(
-                    completed, resume_epoch=epoch if self._epoch_interrupted else None,
-                    resume_batch=self._interrupted_at_batch if self._epoch_interrupted else None)
-                self._stop_profile(prof)
-                self._preempt_guard.restore()
-                self.logger.finish(f"preempted during epoch {epoch}; checkpoint saved for "
-                                   "auto-resume")
-                return best_acc
-            self.logger.info({f"train/{k}": v for k, v in train_metrics.items()}
-                             | {"epoch": epoch, "lr": float(self.lr_schedule(self.state.step))},
-                             pref_msg=f"[epoch {epoch}/{self.total_epochs}]")
-            if self.cfg.train.get("log_memory", False):
-                self._log_memory()
-            if self.channel_counter:
-                self.logger.info({f"channel_usage/{c}": n
-                                  for c, n in sorted(self.channel_counter.items())})
-            every_n = int(ev.get("every_n_epochs", 1) or 1)
-            is_last = epoch == self.total_epochs
-            if (epoch % every_n == 0 or is_last) and not (
-                    self.debug and ev.get("skip_eval_for_debug", False)):
-                if not (ev.get("only_eval_first_and_last", False) and not (epoch == 1 or is_last)):
-                    eval_metrics = self.evaluate_model(epoch)
-                    acc = eval_metrics.get("accuracy", 0.0)
-                    if acc > best_acc:
-                        best_acc, best_epoch = acc, epoch  # BestResult tracker
-                    self.logger.info({f"eval/{k}": v for k, v in eval_metrics.items()}
-                                     | {"epoch": epoch}, pref_msg=f"[eval {epoch}]")
-            self._maybe_save(epoch, best_acc)
-            done = epoch - self.start_epoch + 1
-            self.logger.info(f"epoch {epoch} done in {timer.lap():.1f}s, ETA "
-                             f"{timer.eta(done, self.total_epochs - self.start_epoch + 1):.0f}s")
-            if self._should_recycle(epoch):
-                # host-RSS recycling (trainer.py:912-944): save the stable
-                # checkpoint, re-execute this process, and the relaunch
-                # resumes at the next epoch
-                self._save_preempt(epoch)
-                self._stop_profile(prof)
-                self._preempt_guard.restore()
-                self.logger.finish(f"host RSS over train.max_host_rss_gb after epoch {epoch}: "
-                                   f"recycling the process (auto-resume continues at epoch "
-                                   f"{epoch + 1})")
-                self._reexec()
-                return best_acc  # reached only when _reexec is stubbed
-        self._stop_profile(prof)
-        if (self.swa or self.swad) and self.swa_params is not None:
-            # adopt the averaged weights (trainer.py:899-902), in place
-            with torch.no_grad():
-                torch._foreach_copy_(self.state.params, self.swa_params)
-            self.logger.info(f"adopted SWA weights (averaged over {self.swa_n} updates)")
-        self._preempt_guard.restore()
-        # a clean finish: the stable-path SIGTERM checkpoint must not shadow
-        # the next fresh launch of this (dataset, seed)
-        shutil.rmtree(self.preempt_dir, ignore_errors=True)
-        self.logger.finish(f"training done: best_acc={best_acc:.4f} (epoch {best_epoch})")
-        return best_acc
+        # the guard leaves on every way out, an exception included: a raise
+        # that left the handler installed would turn SIGTERM into a flag
+        # nobody polls for the rest of the process
+        try:
+            profile_dir = self.cfg.train.get("profile_dir")
+            prof = self._start_profile() if profile_dir else None
+            # pre-training evaluation (trainer.py:329-333)
+            if (not self.debug and not ev.get("skip_eval_first_epoch", False)
+                    and not ev.get("only_eval_first_and_last", False) and self.start_epoch == 1):
+                eval0 = self.evaluate_model(0)
+                self.logger.info({f"eval/{k}": v for k, v in eval0.items()} | {"epoch": 0},
+                                 pref_msg="[eval 0]")
+            for epoch in range(self.start_epoch, self.total_epochs + 1):
+                self._epoch_interrupted = False
+                start_batch = self._resume_start_batch if epoch == self.start_epoch else 0
+                # a whole epoch is train_one_epoch(epoch), the signature
+                # before resume points existed
+                train_metrics = (self.train_one_epoch(epoch, start_batch=start_batch)
+                                 if start_batch else self.train_one_epoch(epoch))
+                if self._preempt_guard.triggered:
+                    # an interrupted epoch resumes where it stopped: the
+                    # checkpoint records (epoch, batch) and the generators
+                    completed = epoch - 1 if self._epoch_interrupted else epoch
+                    self._save_preempt(
+                        completed, resume_epoch=epoch if self._epoch_interrupted else None,
+                        resume_batch=(self._interrupted_at_batch if self._epoch_interrupted
+                                      else None))
+                    self._stop_profile(prof)
+                    self._preempt_guard.restore()
+                    self.logger.finish(f"preempted during epoch {epoch}; checkpoint saved for "
+                                       "auto-resume")
+                    return best_acc
+                lr = float(self.lr_schedule(self.state.step))
+                self.logger.info({f"train/{k}": v for k, v in train_metrics.items()}
+                                 | {"epoch": epoch, "lr": lr},
+                                 pref_msg=f"[epoch {epoch}/{self.total_epochs}]")
+                if self.cfg.train.get("log_memory", False):
+                    self._log_memory()
+                if self.channel_counter:
+                    self.logger.info({f"channel_usage/{c}": n
+                                      for c, n in sorted(self.channel_counter.items())})
+                every_n = int(ev.get("every_n_epochs", 1) or 1)
+                is_last = epoch == self.total_epochs
+                if (epoch % every_n == 0 or is_last) and not (
+                        self.debug and ev.get("skip_eval_for_debug", False)):
+                    if not (ev.get("only_eval_first_and_last", False)
+                            and not (epoch == 1 or is_last)):
+                        eval_metrics = self.evaluate_model(epoch)
+                        acc = eval_metrics.get("accuracy", 0.0)
+                        if acc > best_acc:
+                            best_acc, best_epoch = acc, epoch  # BestResult tracker
+                        self.logger.info({f"eval/{k}": v for k, v in eval_metrics.items()}
+                                         | {"epoch": epoch}, pref_msg=f"[eval {epoch}]")
+                self._maybe_save(epoch, best_acc)
+                done = epoch - self.start_epoch + 1
+                eta = timer.eta(done, self.total_epochs - self.start_epoch + 1)
+                self.logger.info(f"epoch {epoch} done in {timer.lap():.1f}s, ETA {eta:.0f}s")
+                if self._should_recycle(epoch):
+                    # host-RSS recycling (trainer.py:912-944): save the stable
+                    # checkpoint, re-execute this process, and the relaunch
+                    # resumes at the next epoch
+                    self._save_preempt(epoch)
+                    self._stop_profile(prof)
+                    self._preempt_guard.restore()
+                    self.logger.finish(f"host RSS over train.max_host_rss_gb after epoch {epoch}: "
+                                       f"recycling the process (auto-resume continues at epoch "
+                                       f"{epoch + 1})")
+                    self._reexec()
+                    return best_acc  # reached only when _reexec is stubbed
+            self._stop_profile(prof)
+            if (self.swa or self.swad) and self.swa_params is not None:
+                # adopt the averaged weights (trainer.py:899-902), in place
+                with torch.no_grad():
+                    torch._foreach_copy_(self.state.params, self.swa_params)
+                self.logger.info(f"adopted SWA weights (averaged over {self.swa_n} updates)")
+            self._preempt_guard.restore()
+            # a clean finish: the stable-path SIGTERM checkpoint must not shadow
+            # the next fresh launch of this (dataset, seed)
+            shutil.rmtree(self.preempt_dir, ignore_errors=True)
+            self.logger.finish(f"training done: best_acc={best_acc:.4f} (epoch {best_epoch})")
+            return best_acc
+        finally:
+            self._preempt_guard.restore()
 
     def _start_profile(self):
         """``train.profile_dir``: a ``torch.profiler`` trace of the run, host

@@ -1,5 +1,6 @@
 """Training of the port (counterpart of the JAX package's ``training/``):
-schedules, the AdamW optimizer, the train state, the train step and CHAMMI's per-chunk grad step."""
+schedules, the optimizers (AdamW, Adam, SGD, AdamP), the train state, the train
+step and CHAMMI's per-chunk grad step."""
 
 from .optim import AdamW, make_optimizer
 from .schedules import make_lr_schedule, timm_cosine_schedule, wd_cosine_schedule

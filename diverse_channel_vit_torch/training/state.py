@@ -20,12 +20,12 @@ from typing import Iterable, Optional
 import torch
 
 from .miro import MIRO_KEY
-from .optim import AdamW, global_norm
+from .optim import ScheduledOptimizer, global_norm
 
 
 class TrainState:
-    def __init__(self, model: torch.nn.Module, tx: AdamW, *, frozen: Iterable[str] = (),
-                 miro_lr_mult: Optional[float] = None):
+    def __init__(self, model: torch.nn.Module, tx: ScheduledOptimizer, *,
+                 frozen: Iterable[str] = (), miro_lr_mult: Optional[float] = None):
         self.model = model
         self.tx = tx
         named = list(model.named_parameters())  # each Parameter once

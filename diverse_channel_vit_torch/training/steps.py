@@ -37,11 +37,18 @@ channels in eval mode without gradient, and ``miro_ld * miro_vlb`` joins the
 loss (JAX ``training/steps.py:131-185``); the metrics gain ``miro_loss``.
 The encoders are the model's ``miro_encoders``.
 
-``feature_fn`` is accepted and passed to the channel selection; only the
-``_resnet34`` sampler reads it, and that sampler is not ported yet.
+The samplers (``hcs_method``, JAX ``_select_channels``): the DCS methods
+score the channel embeddings of the batch's ids; ``*_proj`` scores the
+batch-mean cosine of each channel's projected patches (the patch embedding
+without its bias, under ``no_grad``); ``*_resnet34`` that of
+``feature_fn(x)`` (B, C, F), the Trainer's frozen ResNet-34
+(``models/resnet.py``); ``hcs_per_sample`` draws a subset per sample and
+trains with the (B, k, D) rows of the channel-embedding table as the
+forward's override, so the table's gradient flows through the gather.
+HCS token dropout draws its kept indices from the step's generator after
+the DropPath masks; ``draws["token_drop"]`` replaces them.
 
-Ported for one device. The ``_proj`` / ``_resnet34`` / ``hcs_per_sample``
-samplers and the multi-device mesh are not ported yet.
+Ported for one device. The multi-device mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,7 +59,8 @@ import torch
 
 from ..models.wrappers import model_scale
 from ..ops.losses import cross_entropy_loss, proxy_logits
-from ..ops.sampling import NOT_PORTED, dcs_select
+from ..ops.patch_embed import per_channel_patch_embed
+from ..ops.sampling import batch_cosine_matrix, dcs_select, per_sample_uniform_subsets
 from .miro import MIRO_KEY, miro_vlb
 from .state import TrainState
 
@@ -61,27 +69,54 @@ def _select_channels(model, x: torch.Tensor, cids: torch.Tensor, *, k: Optional[
                      method: str, temp: float, generator: Optional[torch.Generator],
                      draws: Optional[dict], feature_fn: Optional[Callable] = None):
     """Gather a sampled channel subset of the batch (the JAX
-    ``_select_channels`` for the ported methods): ``(x_sel, cids_sel)``,
-    both left on the device. ``k`` None or >= C keeps every channel. The
-    cosine scores use the model's channel embeddings of the batch's ids,
-    without gradient (the selection is not differentiable); ``uniform``
-    reads only their count and device. ``feature_fn`` is the frozen scorer
-    of the ``_resnet34`` sampler (JAX ``steps.py:105-118``), which no ported
-    method reads yet."""
-    if k is None or k >= x.shape[1]:
-        return x, cids
+    ``_select_channels``): ``(x_sel, cids_sel, override)``, all left on the
+    device. ``k`` None or >= C keeps every channel. The scores carry no
+    gradient (the selection is not differentiable): the channel embeddings
+    of the batch's ids, or for ``*_proj`` / ``*_resnet34`` the batch-mean
+    cosine of per-channel features. ``uniform`` reads only the count.
+    ``hcs_per_sample`` returns the (B, k) gather, the first sample's ids
+    and the (B, k, D) override of the table's rows, which does carry the
+    gradient (JAX ``steps.py:83-93``); the others return no override.
+    ``feature_fn`` is the ``_resnet34`` scorer (JAX ``steps.py:111-124``)."""
+    b, c = x.shape[:2]
+    if k is None or k >= c:
+        return x, cids, None
+    pe = model.feature_extractor.patch_embed
+    picked = {n: v for n, v in (draws or {}).items() if n in ("anchor", "gumbel")}
+    if method == "hcs_per_sample":
+        idx = per_sample_uniform_subsets(b, c, k, device=x.device, generator=generator,
+                                         gumbel=picked.get("gumbel"))  # (B, k)
+        x_sel = torch.gather(x, 1, idx[:, :, None, None].expand(-1, -1, *x.shape[2:]))
+        override = pe.channel_embed.weight.index_select(0, cids)[idx]  # (B, k, D)
+        return x_sel, cids.index_select(0, idx[0]), override
+    cos = None
+    scored = method not in (None, "none", "uniform")
+    if scored and method.endswith("_proj"):
+        p = model.feature_extractor.patch_size
+        with torch.no_grad():  # the reference samples under no_grad
+            kernel = pe.proj.weight.reshape(pe.proj.weight.shape[0], p * p).t()
+            toks = per_channel_patch_embed(x, kernel, None, patch_size=p)
+            cos = batch_cosine_matrix(toks.reshape(b, c, -1))
+    elif scored and method.endswith("_resnet34"):
+        if feature_fn is None:
+            raise ValueError(
+                "hcs_sampling=*_resnet34 needs the trainer-provided frozen "
+                "backbone (model.resnet34_ckpt); see trainer._hcs_feature_fn")
+        with torch.no_grad():
+            cos = batch_cosine_matrix(feature_fn(x))
     with torch.no_grad():
-        emb = model.feature_extractor.patch_embed.channel_embed.weight.index_select(0, cids)
-    idx = dcs_select(k, method, channel_embed=emb, temp=temp, generator=generator,
-                     **{n: v for n, v in (draws or {}).items() if n != "drop_path"})
-    return x.index_select(1, idx), cids.index_select(0, idx)
+        emb = None if cos is not None else pe.channel_embed.weight.index_select(0, cids)
+    idx = dcs_select(k, method, channel_embed=emb, cos_matrix=cos, temp=temp,
+                     generator=generator, **picked)
+    return x.index_select(1, idx), cids.index_select(0, idx), None
 
 
 def _loss_and_metrics(model, x, cids, y, *, loss_type: str, extra_loss_lambda: float,
                       learnable_temp: bool, temperature: float, drop_path=None,
-                      miro_pre=None, miro_ld: float = 0.0):
+                      miro_pre=None, miro_ld: float = 0.0, override=None, token_drop=None):
     feats = None if miro_pre is None else {}
-    out, extra = model(x, cids, taps=feats, drop_path=drop_path)
+    out, extra = model(x, cids, override, taps=feats, drop_path=drop_path,
+                       token_drop=token_drop)
     logits = out
     if loss_type == "proxy":
         logits = proxy_logits(model.proxies, out,
@@ -94,7 +129,7 @@ def _loss_and_metrics(model, x, cids, y, *, loss_type: str, extra_loss_lambda: f
         # (the reference's torch.no_grad, trainer.py:885-910)
         pre_feats: dict = {}
         with torch.no_grad():
-            miro_pre(x, cids, taps=pre_feats)
+            miro_pre(x, cids, taps=pre_feats)  # no override, as JAX's (steps.py:176)
         vlb = miro_vlb(getattr(model, MIRO_KEY), feats, pre_feats)
         total = total + miro_ld * vlb
         metrics["miro_loss"] = vlb.detach()
@@ -130,17 +165,20 @@ def make_train_step(
 
     ``k`` < C samples k channels per step by ``hcs_method`` (``"none"`` /
     ``"uniform"``, ``"lowest_cosine"``, ``"highest_cosine"``,
-    ``"lowest_cosine_prob"``) at temperature ``hcs_temp``, drawing from
-    ``generator`` (by default one seeded with 0 on the batch's device).
-    ``draws`` ({"anchor": ..., "gumbel": ...}, see ``ops.sampling.dcs_select``)
-    replaces one step's random draws.
+    ``"lowest_cosine_prob"``, ``"lowest_cosine_prob_proj"``,
+    ``"lowest_cosine_prob_resnet34"``, ``"hcs_per_sample"``) at temperature
+    ``hcs_temp``, drawing from ``generator`` (by default one seeded with 0
+    on the batch's device). ``draws`` ({"anchor": ..., "gumbel": ...}, see
+    ``ops.sampling.dcs_select``; a (B, C) ``gumbel`` for
+    ``hcs_per_sample``) replaces one step's random draws.
 
     ``augment_fn(generator, images) -> images`` augments the batch first,
     drawing from the same generator before the channel sampling does (the
     JAX step's order).
 
     ``draws["drop_path"]`` (the list ``draw_drop_path`` returns) replaces
-    the step's DropPath masks. ``miro_pre`` (the frozen pre-featurizer) and
+    the step's DropPath masks, ``draws["token_drop"]`` (``draw_token_drop``)
+    its HCS token dropout. ``miro_pre`` (the frozen pre-featurizer) and
     ``miro_ld`` add MIRO's loss (``miro_loss`` in the metrics);
     ``feature_fn`` goes to the channel selection."""
     grad_step = make_grad_step(
@@ -185,9 +223,6 @@ def make_grad_step(
     (``state.apply_gradients()``, which returns the summed gradient's norm
     before clipping). The arguments and the metrics are
     :func:`make_train_step`'s, without ``grad_norm``."""
-    if k is not None and k < len(channel_ids) and hcs_method in NOT_PORTED:
-        raise NotImplementedError(
-            f"hcs_sampling={hcs_method!r} is not ported yet (ROADMAP A4)")
     ids = torch.tensor(list(channel_ids), dtype=torch.long)
     cids_on = {}
     gen = [generator]
@@ -199,22 +234,31 @@ def make_grad_step(
             cids = cids_on[x.device] = ids.to(x.device)
         fe = model.feature_extractor
         if gen[0] is None and (augment_fn is not None or k is not None and k < x.shape[1]
-                               or fe.drop_path_rate > 0):
+                               or fe.drop_path_rate > 0 or fe.token_dropout_on()):
             gen[0] = torch.Generator(device=x.device).manual_seed(0)
         if augment_fn is not None:
             x = augment_fn(gen[0], x)
         model.train()
-        xs, cs = _select_channels(model, x, cids, k=k, method=hcs_method, temp=hcs_temp,
-                                  generator=gen[0], draws=draws, feature_fn=feature_fn)
+        xs, cs, override = _select_channels(model, x, cids, k=k, method=hcs_method,
+                                            temp=hcs_temp, generator=gen[0], draws=draws,
+                                            feature_fn=feature_fn)
+        draws = draws or {}
         masks = None
         if fe.drop_path_rate > 0:
-            masks = (draws or {}).get("drop_path")
+            masks = draws.get("drop_path")
             if masks is None:
                 masks = fe.draw_drop_path(xs.shape[0], gen[0], xs.device)
+        token_drop = None
+        if fe.token_dropout_on():
+            token_drop = draws.get("token_drop")
+            if token_drop is None:
+                p = fe.patch_size
+                token_drop = fe.draw_token_drop(
+                    xs.shape[1], (xs.shape[2] // p) * (xs.shape[3] // p), gen[0], xs.device)
         total, metrics = _loss_and_metrics(
             model, xs, cs, y, loss_type=loss_type, extra_loss_lambda=extra_loss_lambda,
             learnable_temp=learnable_temp, temperature=temperature, drop_path=masks,
-            miro_pre=miro_pre, miro_ld=miro_ld)
+            miro_pre=miro_pre, miro_ld=miro_ld, override=override, token_drop=token_drop)
         total.backward()
         if cs is not cids:
             metrics["sampled_channels"] = cs

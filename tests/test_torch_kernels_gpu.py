@@ -109,6 +109,7 @@ def _rel(a, b):
     (2, 192, 12, 150, True, 768, 1.0),   # ragged n_valid, N = 192
     (2, 1152, 12, 1098, True, 768, 1.0),  # the EViT grid after layer 3
     (2, 192, 8, 150, False, 512, 1.0),   # 8 heads
+    (2, 832, 6, 785, True, 384, 1.0),    # HCS dropout and k = 4 of 8 channels: 785 in 832
 ])
 def test_attend_project_kernel_matches_plain(gen, batch, n, heads, n_valid, residual, d_out,
                                              bias, dh=64):
@@ -187,6 +188,7 @@ D768_EDGES = [
     ((4, 256, 384), True, 1.0, None),   # the recipe's smallest grid (k = 1)
     ((2, 1152, 384), False, 1.0, None),  # the EViT grid after layer 3
     ((2, 1600, 384), True, 1.0, None),  # the flagship grid
+    ((2, 832, 384), True, 1.0, None),   # HCS dropout and k = 4 of 8 channels
     # the base preset's width, D = 768 (128 x 256-tile GEMMs)
     ((2, 1600, 768), True, 1.0, None),  # the flagship grid
     ((2, 1600, 768), False, 0.0, None),  # the products alone
@@ -237,6 +239,7 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(gen):
     (1, 192, 6, 150),    # B N = 192 rows: the row pass's last 128-row block half full
     (2, 640, 12, 589),   # D = 768
     (2, 128, 1, 100),    # one head, D = D_out = 64: half-empty 128-column tiles
+    (2, 832, 6, 785),    # HCS dropout and k = 4 of 8 channels
 ])
 def test_attend_project_bwd_kernel_matches_plain(gen, batch, n, heads, n_valid, dh=64):
     d = heads * dh
@@ -282,6 +285,7 @@ def test_attend_project_bwd_kernel_matches_plain_dh128(gen, batch, n, heads, n_v
     ((3, 64, 384), False, None),
     ((4, 256, 384), False, None),  # the recipe's smallest grid (k = 1)
     ((2, 1152, 384), True, None),  # the EViT grid after layer 3
+    ((2, 832, 384), True, None),   # HCS dropout and k = 4 of 8 channels
     # D = 768: dy a 128 x 256-tile GEMM, then the LayerNorm backward
     ((2, 1600, 768), True, None),  # the flagship grid
     ((2, 1600, 768), False, None),
@@ -616,6 +620,12 @@ def test_backward_wrappers_raise_on_what_they_do_not_take(gen):
     (2, 1600, 6, 1569),  # the flagship grid
     (2, 640, 12, 589),   # D = 768: 12 heads (the base preset's width)
     (2, 768, 12, 768),   # 12 heads, nothing masked
+    # PPT's grids, each padded to a multiple of 64: token pruning's last
+    # blocks (2 and 7 tokens), a middle one (99), channel pruning's 785
+    (2, 64, 6, 2),
+    (2, 64, 6, 7),
+    (2, 128, 6, 99),
+    (2, 832, 6, 785),
 ])
 def test_flash_packed_kernels_match_plain(gen, batch, n, heads, n_valid, dh=64):
     d, sm = heads * dh, dh ** -0.5
@@ -733,6 +743,32 @@ def test_flash_packed_function_grads_match_plain_route(gen, n_valid):
     assert fb.LAUNCHES["flash_packed_bwd"] == before["flash_packed_bwd"] + 1
     for j, name in enumerate("qkv"):
         assert _rel(got[..., j * d:(j + 1) * d], want[..., j * d:(j + 1) * d]) <= TOL, name
+
+
+@pytest.mark.parametrize("n", [2, 7, 99, 785])
+def test_flash_packed_public_op_at_ppt_grids_matches_plain_route(gen, n):
+    """PPT's blocks call the public op on their unpadded grids: it pads q, k
+    and v to a multiple of 64, masks the pad keys and returns the first n
+    rows. Output and gradients of the kernel route (B5 forward, B6 backward)
+    against the plain route, on the card."""
+    b, d, heads = 2, 384, 6
+
+    def fn(qkv):
+        return at.flash_attention_packed(*qkv.split(d, dim=-1), heads)
+
+    qkv, cot = _rnd(gen, b, n, 3 * d), _rnd(gen, b, n, d)
+    with torch.no_grad():
+        got = fn(qkv)
+        with fb.plain_versions():
+            want = fn(qkv)
+    assert got.shape == (b, n, d) and _rel(got, want) <= TOL
+    before = dict(fb.LAUNCHES)
+    (g,) = _grads(fn, [qkv], cot, plain=False)
+    assert fb.LAUNCHES["flash_packed_fwd"] == before["flash_packed_fwd"] + 1
+    assert fb.LAUNCHES["flash_packed_bwd"] == before["flash_packed_bwd"] + 1
+    (w,) = _grads(fn, [qkv], cot, plain=True)
+    for j, name in enumerate("qkv"):
+        assert _rel(g[..., j * d:(j + 1) * d], w[..., j * d:(j + 1) * d]) <= TOL, name
 
 
 def test_flash_packed_wrappers_raise_on_what_they_do_not_take(gen):

@@ -9,7 +9,7 @@ key into the anchor's key (``randint``) and the noise's key (``gumbel``);
 ``uniform`` draws the noise from the key itself; the train step first splits
 its key in three and samples with the first.
 
-- ``dcs_select`` for the four ported methods, many keys and every k: the
+- ``dcs_select`` for the four embedding-scored methods, many keys and every k: the
   same indices in the same order (exact: the same f32 cosines and noise, a
   top-k with no ties).
 - The recipe: three steps of the JUMP-CP DiChaViT recipe
@@ -94,12 +94,14 @@ def test_dcs_select_matches_jax_given_its_draws(method):
 
 def test_dcs_select_draws_from_a_generator():
     """Without given draws: k distinct channels, the anchor kept, the same
-    channels from the same seed; the methods not ported raise."""
+    channels from the same seed; a feature-scored method without its
+    features' cosines raises, as JAX's ``dcs_select`` does without an
+    embedding source, and so does an unknown method."""
     emb = torch.from_numpy(np.random.default_rng(8).normal(size=(C, 16)).astype(np.float32))
     picks = [sampling.dcs_select(5, "lowest_cosine_prob", channel_embed=emb, temp=TEMP,
                                  generator=torch.Generator().manual_seed(s)) for s in (1, 1, 2)]
     assert torch.equal(picks[0], picks[1]) and len(set(picks[0].tolist())) == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cos_matrix"):
         sampling.dcs_select(3, "lowest_cosine_prob_proj", channel_embed=emb)
     with pytest.raises(ValueError, match="hcs_sampling"):
         sampling.dcs_select(3, "bogus", channel_embed=emb)

@@ -44,6 +44,7 @@
 """
 
 import os
+import signal
 import types
 
 import jax
@@ -225,8 +226,6 @@ REFUSED = [
     ("synthetic_cfg", ["hardware.zero3=True"], "ROADMAP A10"),
     ("synthetic_cfg", ["model.fused_block=False"], "ROADMAP A6"),
     ("synthetic_cfg", ["attn_pooling=param1"], "ROADMAP A8"),
-    ("synthetic_cfg", ["model.enable_sample=True", "model.hcs_sampling=hcs_per_sample"],
-     "ROADMAP A4"),
     ("synthetic_cfg", ["train.adaptive_interface_epochs=2"], "adaptive_interface_epochs"),
 ]
 
@@ -239,9 +238,12 @@ def test_unported_keys_raise(name, over, match, tmp_path):
         Trainer(cfg, device="cpu")
 
 
-# keys the Trainer refused before the runtime port and now honours: each
-# builds a Trainer that takes it up (tests/test_torch_runtime.py and
-# tests/test_torch_preemption.py hold what each does against JAX)
+# keys the Trainer refused before the runtime port, and those it or the
+# factory refused before the samplers, the optimizers, PPT and HCS dropout
+# were ported, and now honours: each builds a Trainer that takes it up
+# (tests/test_torch_runtime.py, tests/test_torch_preemption.py,
+# tests/test_torch_samplers.py, tests/test_torch_optimizers.py and
+# tests/test_torch_ppt.py hold what each does against JAX)
 RUNTIME_KEYS = [
     ("synthetic_cfg", ["train.swa=True"], lambda t: t.swa and t.swa_params is None),
     ("synthetic_cfg", ["train.swad=True"],
@@ -255,6 +257,23 @@ RUNTIME_KEYS = [
     ("synthetic_cfg", ["train.plot_attn=True"], lambda t: True),
     ("synthetic_cfg", ["train.profile_dir=/nonexistent"], lambda t: True),
     ("synthetic_cfg", ["train.max_host_rss_gb=8"], lambda t: not t._should_recycle(1)),
+    ("synthetic_cfg", ["model.enable_sample=True", "model.hcs_sampling=hcs_per_sample"],
+     lambda t: t.hcs_method == "hcs_per_sample" and t._hcs_feature_fn() is None),
+    ("synthetic_cfg", ["model.enable_sample=True",
+                       "model.hcs_sampling=lowest_cosine_prob_resnet34"],
+     lambda t: t._hcs_feature_fn()(torch.zeros(1, 2, 32, 32)).shape == (1, 2, 512)),
+    ("synthetic_cfg", ["optimizer=sgd"], lambda t: isinstance(t.state.optimizer,
+                                                              torch.optim.SGD)),
+    ("synthetic_cfg", ["optimizer=adam"], lambda t: isinstance(t.state.optimizer,
+                                                               torch.optim.Adam)),
+    ("synthetic_cfg", ["optimizer.name=adamp"],
+     lambda t: type(t.state.optimizer).__name__ == "AdamPOptimizer"),
+    ("synthetic_cfg", ["++optimizer.params.mu_dtype=bfloat16"],
+     lambda t: t.state.optimizer.mu_dtype == torch.bfloat16),
+    ("synthetic_cfg", ["model.block_type=block_v2", "model.dropout_tokens_hcs=token_pruning"],
+     lambda t: all(type(b).__name__ == "BlockV2" for b in t.model.feature_extractor.blocks)),
+    ("synthetic_cfg", ["model.dropout_tokens_hcs=channel", "++model.token_keep_channels=3"],
+     lambda t: t.model.feature_extractor.keep_channels(8) == 3),
 ]
 
 
@@ -266,7 +285,10 @@ def test_formerly_refused_runtime_keys_build(name, over, taken, tmp_path):
     ``trainer.py:352-357``); an 8 GB cap is above this process's RSS; with
     both of the test preset's blocks trainable, ``unfreeze_last_n_layers=2``
     freezes the tokens' tables alone (JAX's labels: neither interface, block
-    nor head)."""
+    nor head); the ``_resnet34`` sampler gets its frozen scorer (random
+    init: no ``model.resnet34_ckpt``), each optimizer name its torch
+    optimizer, ``block_v2`` PPT blocks and ``token_keep_channels`` the
+    model's kc."""
     cfg = load_config(name, TINY + over + [f"train.checkpoints={tmp_path}"])
     assert taken(Trainer(cfg, device="cpu"))
 
@@ -414,6 +436,49 @@ def test_save_model_best_raises_as_jax(tmp_path):
         "eval.skip_eval_first_epoch=True", f"train.checkpoints={tmp_path}"]), device="cpu")
     with pytest.raises(NotImplementedError, match="save_model='best'"):
         t.train()
+
+
+@pytest.mark.parametrize("found", ["default", "handler"])
+def test_a_train_that_raises_restores_sigterm(found, tmp_path):
+    """ROADMAP C7: ``Trainer.train`` installs its preemption guard on
+    SIGTERM and must restore the handler it found on every way out, an
+    exception included; before the repair a raise left the guard installed,
+    so SIGTERM only set a flag nobody polled (and the JAX package's
+    tests/test_preemption.py, later on the same worker, failed)."""
+    before = signal.getsignal(signal.SIGTERM)
+    if found == "handler":
+        signal.signal(signal.SIGTERM, lambda signum, frame: None)
+    try:
+        want = signal.getsignal(signal.SIGTERM)
+        t = Trainer(load_config("synthetic_cfg", TINY + [
+            "train.save_model=best", "train.num_epochs=1", "dataset.num_train_samples=16",
+            "eval.skip_eval_first_epoch=True", f"train.checkpoints={tmp_path}"]), device="cpu")
+        with pytest.raises(NotImplementedError, match="save_model='best'"):
+            t.train()
+        assert signal.getsignal(signal.SIGTERM) is want
+    finally:
+        signal.signal(signal.SIGTERM, before)
+
+
+def test_sigterm_is_default_after_save_model_best_raises(tmp_path):
+    """The interaction the suite hit: test_save_model_best_raises_as_jax's
+    case, then SIGTERM's handler is the default again, as the JAX package's
+    tests/test_preemption.py expects when it runs next on the worker."""
+    test_save_model_best_raises_as_jax(tmp_path)
+    assert signal.getsignal(signal.SIGTERM) is signal.SIG_DFL
+
+
+def test_main_runs_the_new_training_knobs(tmp_path):
+    """``main`` with the keys of this port's last training knobs together,
+    as chip_smoke.py runs them on the card: the ResNet-34 sampler (random
+    init), Adam, PPT blocks with token pruning, one short epoch to its end
+    with finite losses."""
+    best = port_main.main([
+        "-cn", "synthetic_cfg", *TINY, "train.num_epochs=1", "++hardware.device=cpu",
+        "++model.enable_sample=True", "++model.hcs_sampling=lowest_cosine_prob_resnet34",
+        "optimizer=adam", "++model.block_type=block_v2",
+        "++model.dropout_tokens_hcs=token_pruning", f"train.checkpoints={tmp_path}"])
+    assert np.isfinite(best)
 
 
 def test_device_defaults_to_the_card(tmp_path):

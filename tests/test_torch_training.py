@@ -131,16 +131,60 @@ def test_adamw_matches_optax_chain(clip):
 
 @pytest.mark.parametrize("name", ["sgd", "adam", "adamp"])
 def test_optimizers_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(name, {}, lr_schedule=lambda s: 1e-3, total_steps=1)
+    """SGD, Adam and AdamP raised until they were ported; now each builds
+    from the config the recipes name (the port's ``optimizer/sgd.yaml`` and
+    ``adam.yaml``, AdamP with the keys JAX reads) and one update of random
+    parameters equals the JAX chain's within 1e-6 relative, max|diff| /
+    max|ref| (tests/test_torch_optimizers.py holds three updates, clipping,
+    the bf16 moment, the param groups and the checkpoints, and says why the
+    bound is per tensor)."""
+    from diverse_channel_vit_torch.config import load_config
+
+    if name == "adamp":
+        opt = dict(lr=1e-3, betas=[0.9, 0.999], eps=1e-8, weight_decay=1e-2, nesterov=True)
+    else:
+        opt = load_config("synthetic_cfg", [f"optimizer={name}"]).optimizer.params.to_dict()
+    rng = np.random.default_rng(0)
+    params = [rng.normal(size=s).astype(np.float32) for s in [(6, 5), (5,)]]
+    grads = [rng.normal(size=a.shape).astype(np.float32) for a in params]
+    jtx = j_make_optimizer(name, dict(opt), lr_schedule=lambda s: 1e-2, total_steps=1)
+    jp = [jnp.asarray(p) for p in params]
+    upd, _ = jtx.update([jnp.asarray(g) for g in grads], jtx.init(jp), jp)
+    tx = make_optimizer(name, dict(opt), lr_schedule=lambda s: 1e-2, total_steps=1)
+    tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+    o = tx.init(tp)
+    for p, g in zip(tp, grads):
+        p.grad = torch.from_numpy(g.copy())
+    tx.update(o, 0)
+    for p, w in zip(tp, optax.apply_updates(jp, upd)):
+        w = np.asarray(w)
+        assert np.abs(p.detach().numpy() - w).max() <= 1e-6 * np.abs(w).max()
+    assert not np.array_equal(tp[0].detach().numpy(), params[0])
 
 
 def test_channel_sampling_raises_until_ported():
-    """DCS is ported (tests/test_torch_sampling.py); the samplers that are
-    not yet raise when the step is made."""
+    """The ``_proj``, ``_resnet34`` and ``hcs_per_sample`` samplers raised
+    until they were ported; now each makes a step that trains on k of the
+    channels (tests/test_torch_samplers.py holds them against JAX). The
+    ``_resnet34`` sampler without its scorer raises JAX's ``ValueError``."""
+    from diverse_channel_vit_torch.models.resnet import (RESNET18_LAYERS, ResNetFeatures,
+                                                         per_channel_features)
+
+    net = ResNetFeatures(RESNET18_LAYERS, generator=torch.Generator().manual_seed(0))
+    bb = ChannelVisionTransformer(C, IMG, P, 64, 1, 2, **LOSS_KW)
+    model = ChannelAdaptiveClassifier(bb, 64, NC, with_head=True)
+    batch = {"image": torch.randn(2, C, IMG, IMG), "label": torch.tensor([0, 2])}
     for method in ("lowest_cosine_prob_proj", "lowest_cosine_prob_resnet34", "hcs_per_sample"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            make_train_step(torch.nn.Linear(1, 1), channel_ids=range(8), k=3, hcs_method=method)
+        state = TrainState(model, make_optimizer("adamw", {}, lr_schedule=lambda s: 1e-3,
+                                                 total_steps=1))
+        step = make_train_step(model, channel_ids=range(C), k=3, hcs_method=method,
+                               feature_fn=lambda x: per_channel_features(net, x))
+        _, m = step(state, batch)
+        assert np.isfinite(float(m["loss"])) and m["sampled_channels"].shape == (3,)
+    step = make_train_step(model, channel_ids=range(C), k=3,
+                           hcs_method="lowest_cosine_prob_resnet34")
+    with pytest.raises(ValueError, match="resnet34"):
+        step(state, batch)
 
 
 @pytest.mark.parametrize("key", ["drop_path_rate", "drop_rate", "attn_drop_rate"])
@@ -179,18 +223,65 @@ def test_dropout_and_drop_path_are_refused(key):
 @pytest.mark.parametrize("key,value", [("dropout_tokens_hcs", "channel"),
                                        ("dropout_tokens_hcs", "random"),
                                        ("token_keep_channels", 4)])
-def test_hcs_token_dropout_is_refused(key, value):
+def test_hcs_token_dropout_is_refused(key, value, monkeypatch):
     """The JAX factory reads ``dropout_tokens_hcs`` and
     ``token_keep_channels`` (JAX ``models/dichavit.py:52,54``) and drops
-    tokens or whole channels in training; until that is ported the port's
-    factory refuses both (ROADMAP C2, A8.4)."""
+    tokens or whole channels in training; the port's factory refused both
+    until they were ported (ROADMAP C2, A8.4), and now neither is dropped
+    without a word: built by the factory (5 channels; ``token_keep_channels``
+    4 with ``random`` dropout, where the default keeps ceil(5 / 2) = 3),
+    the training forward keeps what JAX's keeps, given JAX's drawn indices
+    (rtol 1e-5), and differs from the forward without the key; the eval
+    forward is unchanged."""
     from diverse_channel_vit_torch.config import Config
     from diverse_channel_vit_torch.models import build_model
+    from diverse_channel_vit_tpu.models.import_torch import load_reference_checkpoint
 
-    cfg = Config({"in_channel_names": ["a", "b"], "img_size": [IMG], "patch_size": P,
-                  "pretrained_model_name": "test", key: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.4"):
-        build_model("dichavit", cfg, {"x": [0, 1]}, NC, device="cpu")
+    c, hw = 5, (IMG // P) ** 2
+    keys = {key: value} if key == "dropout_tokens_hcs" else {
+        key: value, "dropout_tokens_hcs": "random"}
+
+    def model(**extra):
+        cfg = Config({"in_channel_names": list("abcde"), "img_size": [IMG], "patch_size": P,
+                      "pretrained_model_name": "test", **extra})
+        return build_model("dichavit", cfg, {"x": list(range(c))}, NC, device="cpu", seed=0)
+
+    seen = []
+    real_t, real_c = jtp.random_token_drop, jtp.random_channel_drop
+
+    def record(idx):
+        jax.debug.callback(lambda i: seen.append(np.array(i)), idx)
+
+    def token(k, x, keep):
+        record(jnp.sort(jtp.uniform_subset(k, x.shape[1] - 1, keep)))
+        return real_t(k, x, keep)
+
+    def channel(k, x, nc, keep):
+        record(jnp.sort(jtp.uniform_subset(k, nc, keep)))
+        return real_c(k, x, nc, keep)
+
+    monkeypatch.setattr(jtp, "random_token_drop", token)
+    monkeypatch.setattr(jtp, "random_channel_drop", channel)
+    port, plain = model(**keys), model()
+    params = load_reference_checkpoint({k: v.numpy() for k, v in port.state_dict().items()})[0]
+    bb = jcv.ChannelVisionTransformer(num_total_channels=c, img_size=IMG, patch_size=P,
+                                      embed_dim=64, depth=2, num_heads=2, attention_impl="xla",
+                                      **{k: v for k, v in keys.items()})
+    jmodel = JClassifier(backbone=bb, embed_dim=64, num_classes=NC, with_head=True)
+    x = np.random.default_rng(0).normal(size=(2, c, IMG, IMG)).astype(np.float32)
+    want = jax.jit(lambda p, x: jmodel.apply({"params": p}, x, jnp.arange(c), train=True,
+                                             rngs={"dropout": jax.random.key(4)})[0])(
+        params, jnp.asarray(x))
+    jax.effects_barrier()
+    (idx,) = seen
+    kc = value if key == "token_keep_channels" else 3
+    assert idx.shape == ((kc,) if value == "channel" else (kc * hw,))
+    xt, cids = torch.from_numpy(x), torch.arange(c)
+    got = port.train()(xt, cids, token_drop=torch.from_numpy(idx).long())[0]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    assert not torch.allclose(got, plain.train()(xt, cids)[0])
+    with torch.no_grad():
+        assert torch.equal(port.eval()(xt, cids)[0], plain.eval()(xt, cids)[0])
 
 
 def test_train_step_after_an_inference_forward():
