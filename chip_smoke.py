@@ -138,7 +138,12 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     strategies zero, avg_2 and replicate, 1 epoch): B1-B4 x 22 per step,
     B1 / B3 x 11 per eval forward, the CHAMMI score per strategy and CP's
     features (all five of its channels novel) different between zero and
-    avg_2; a ``phase`` line each;
+    avg_2; before the novel-channel evals, ``main`` with ``jump_cp_cfg`` and
+    ``model=vit_adapt``, then ``model=hypervit_adapt``, one epoch each on the
+    JUMP-CP fixture (B1-B4 x 11 per step and B1 / B3 x 11 per eval forward,
+    every call at N = 256, n_valid 197), and ``cifar10_cfg`` for one epoch on
+    a CIFAR pickle tree the script writes (ChannelViT-S on 3 channels at 32^2,
+    patch 8: every call at N = 64, n_valid 49); a ``phase`` line each;
 12. the Trainer's runtime at full width and depth (DiChaViT-S, B = 64):
     for DropPath (rate 0.1; B1 without its residual and B3 / B4 with
     ``residual=False`` in blocks 1-10), MIRO (24 B1 and 24 B3 a step, the
@@ -172,9 +177,24 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     steps; then ``main`` with the ResNet-34 sampler, Adam and PPT token
     pruning for one short epoch, and the C7 check (a ``Trainer.train`` that
     raises leaves SIGTERM's handler as it found it);
-14. print the ``kernels`` JSON line (each kernel's launches from its main
+14. the paper's four baseline ViTs (``vit_adapt``, ``depthwisevit_adapt``
+    with ``channel_weights`` and with ``attention`` pooling,
+    ``hypervit_adapt``, ``templatemixingvit``) at the small preset, full width
+    and depth, JUMP-CP geometry (197 tokens padded to 256), B = 64: first
+    B1-B4 against their plain versions at (N, n_valid) = (256, 197), (64,
+    17) and (64, 49); then for each model serving as phase 4 (B1 / B3 x 11
+    per forward, logits against the plain route), 2 train steps through the
+    kernels against 2 through the plain versions (B1-B4 x 11 a step, every
+    call at (256, 197); losses and step-0 gradients within the train
+    tolerances), 10 timed steps (``phase`` line) and a profiled one, beside
+    the plain DiChaViT step; ``vit_adapt`` at 32^2 with patch 8 (B1 / B3 at
+    (64, 17)) against the plain route; ``fused_block: false`` on DiChaViT at depth 4
+    (B5 / B6 alone, no B1-B4) and ``vit_adapt`` with ``quantization: int8``
+    at depth 4 (B7 / B8), each against the plain route;
+15. print the ``kernels`` JSON line (each kernel's launches from its main
     paths, per Trainer epoch, and the CHAMMI, novel-channel and CHAMMI
-    subset runs', and per step of the runtime and training-knob phases'
+    subset runs', per step of the runtime, training-knob and baseline
+    phases' runs, and per epoch of the baselines' and CIFAR's Trainer
     runs), the card line, and last
     the result line
     ``{"ok": true, "device": {...}}``.
@@ -278,6 +298,28 @@ HCS_DROP_GRID = (832, 785)
 # the (N, n_valid) grids of the kernel route's attention calls in the last
 # train_parity run of each label (attention_grids)
 LAST_GRIDS = {}
+# the paper's four baseline ViTs (ROADMAP A8.3) at the small preset (D = 384,
+# 6 heads of 64, depth 12, MLP 1536) and JUMP-CP geometry: each a trunk over
+# 196 patch tokens and the CLS row, 197 tokens padded to 256, so B1-B4 at
+# (256, 197); their configs' yaml values (hidden_dim 128, num_templates 10,
+# the attn_pooling/param1 group)
+ATTN_POOLING_PARAM1 = dict(depth=1, dim_head=16, heads=4, mlp_dim=4, dropout=0.0,
+                           use_cls_token=False, use_channel_tokens=False)
+BASELINES = {
+    "vit_adapt": dict(model_name="vit_adapt"),
+    "depthwisevit_adapt channel_weights": dict(model_name="depthwisevit_adapt",
+                                               pooling_channel_type="channel_weights"),
+    "depthwisevit_adapt attention": dict(model_name="depthwisevit_adapt",
+                                         pooling_channel_type="attention",
+                                         attn_pooling=ATTN_POOLING_PARAM1),
+    "hypervit_adapt": dict(model_name="hypervit_adapt", z_dim=64, hidden_dim=128),
+    "templatemixingvit": dict(model_name="templatemixingvit", num_templates=10),
+}
+BASELINE_GRID = (256, 197)
+# the grids of the smaller geometries, (N, n_valid): a baseline at So2Sat's
+# 32^2 with patch 8 (16 patches and the CLS row in 64), and CIFAR's ChannelViT
+# (3 channels of 16 patches and the CLS row in 64)
+SMALL_GRIDS = ((64, 17), (64, 49))
 
 
 # the other grids B3 and B4 meet, (images, tokens): a last 128-row tile half
@@ -1458,9 +1500,11 @@ _BUILT: dict = {}
 
 
 def build(depth: int, **extra):
-    """DiChaViT-S on the card, random weights from seed 0, bf16 compute. The
-    first build of a configuration is kept and later ones are copies of it
-    (the same seeded weights, without drawing them again on the host)."""
+    """DiChaViT-S on the card, random weights from seed 0, bf16 compute, or
+    with ``model_name`` in ``extra`` that model (``attn_pooling``: its
+    config group). The first build of a configuration is kept and later ones
+    are copies of it (the same seeded weights, without drawing them again on
+    the host)."""
     import copy
 
     import torch
@@ -1469,9 +1513,11 @@ def build(depth: int, **extra):
 
     key = (depth, tuple(sorted((k, repr(v)) for k, v in extra.items())))
     if key not in _BUILT:
-        _BUILT[key] = build_model("dichavit", model_config(depth, **extra),
+        extra = dict(extra)
+        name, attn_pooling = extra.pop("model_name", "dichavit"), extra.pop("attn_pooling", None)
+        _BUILT[key] = build_model(name, model_config(depth, **extra),
                                   {"JUMP-CP": list(range(CHANNELS))}, CLASSES, device="cuda",
-                                  dtype=torch.bfloat16, seed=0)
+                                  dtype=torch.bfloat16, seed=0, attn_pooling=attn_pooling)
     return copy.deepcopy(_BUILT[key])
 
 
@@ -2342,7 +2388,8 @@ def trainer_paths(fb, torch, bare_imgs_per_s: float) -> dict:
     recipe and int8 through the Trainer; the JUMP-CP augmentation on the
     card against the CPU; the card's packages (pandas and pyarrow must
     import), one JUMP-CP epoch from a fixture through the Trainer with the
-    augmentation on the card; the novel-channel evals on that fixture;
+    augmentation on the card; two baselines on that fixture and CIFAR-10
+    (:func:`baseline_trainers`); the novel-channel evals on that fixture;
     CHAMMI on every chunk and on Allen_HPA. Returns the paths by label."""
     import tempfile
 
@@ -2425,6 +2472,7 @@ def trainer_paths(fb, torch, bare_imgs_per_s: float) -> dict:
         if not probe.trainer.train_loader.dataset.device_augment:
             raise AssertionError("Trainer JUMP-CP fixture: the augmentation ran on the host")
         del probe
+        paths.update(baseline_trainers(fb, torch, root, tmp))
         paths["Trainer novel channels"] = novel_trainer(fb, torch, root, tmp)
         t0 = time.perf_counter()
         chammi_root = write_chammi_fixture(tmp)
@@ -2769,6 +2817,151 @@ def training_knobs(fb, torch, bare: dict) -> dict:
         del probe
         sigterm_after_a_raise(torch, tmp)
     torch.cuda.empty_cache()
+    return paths
+
+
+def check_baseline_grids(fb, torch) -> dict:
+    """B1-B4 against their plain versions at the grids the baselines and the
+    smaller geometries give them (BASELINE_GRID and SMALL_GRIDS) at B = 64,
+    D = 384, 6 heads of 64, hidden 1536, bf16: B1 with its residual, B2 from
+    B1's o and lse (padded key rows' dk and dv exactly 0), B3 with its
+    residual, B4 without. Returns each kernel's (N, n_valid, max_abs_err,
+    rel_err) per grid."""
+    rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(21))
+    dh = D // HEADS
+    s, bb = rnd(D, scale=0.1, dtype=torch.float32) + 1.0, rnd(D, scale=0.1, dtype=torch.float32)
+    w1, b1 = rnd(HID, D, scale=D ** -0.5), rnd(HID)
+    w2, b2 = rnd(D, HID, scale=HID ** -0.5), rnd(D)
+    wp, bp = rnd(D, D, scale=D ** -0.5), rnd(D)
+    out = {k: [] for k in ("attend_project_fwd", "attend_project_bwd", "ln_mlp_fwd",
+                           "ln_mlp_bwd")}
+    for n, nv in (BASELINE_GRID,) + SMALL_GRIDS:
+        label = f"{B} x ({n}, {nv})"
+        qkv, x, do = rnd(B, n, 3 * D), rnd(B, n, D), rnd(B, n, D)
+        a = (qkv, x, wp, bp, HEADS, dh ** -0.5, nv)
+        (o, lse, xo), ref = (fb.attend_project_fwd(*a, need_o=True),
+                             fb.attend_project_fwd_plain(*a, need_o=True))
+        errs = {"attend_project_fwd": hold("attend_project_fwd", label, (
+            ("xo", xo, ref[2]), ("o", o, ref[0]), ("lse", lse, ref[1])))}
+        a = (qkv, o, lse, wp, do, HEADS, dh ** -0.5, nv)
+        got = fb.attend_project_bwd(*a)
+        errs["attend_project_bwd"] = hold("attend_project_bwd", label, list(zip(
+            ("dqkv", "dwp", "dbp", "db_qkv"), got, fb.attend_project_bwd_plain(*a))))
+        if torch.count_nonzero(got[0][:, nv:, D:]).item() != 0:
+            raise AssertionError(f"attend_project_bwd ({label}): padded key rows have dk or "
+                                 "dv != 0")
+        a = (x, s, bb, w1, b1, w2, b2, True)
+        errs["ln_mlp_fwd"] = hold("ln_mlp_fwd", label, (("out", fb.ln_mlp(*a),
+                                                         fb.ln_mlp_plain(*a)),))
+        a = (x, s, bb, w1, b1, w2, do, False)
+        errs["ln_mlp_bwd"] = hold("ln_mlp_bwd", label, list(zip(
+            ("dx", "dw1", "db1", "dw2", "db2", "ds", "db"), fb.ln_mlp_bwd(*a),
+            fb.ln_mlp_bwd_plain(*a))))
+        for name, (err, rel) in errs.items():
+            out[name].append(dict(n=n, n_valid=nv, max_abs_err=err, rel_err=rel))
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_geometry_forward(fb, torch) -> None:
+    """``vit_adapt`` at So2Sat's geometry (32^2, patch 8, at full width and
+    depth): a 64-image eval forward through the kernels against the plain
+    versions, B1 / B3 x 11 at (64, 17), logits within LOGITS_REL_TOL."""
+    extra = dict(BASELINES["vit_adapt"], img_size=[32], patch_size=8)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (B, CHANNELS, 32, 32), dtype=np.float32)).cuda().to(torch.bfloat16)
+    cids = torch.arange(CHANNELS, device="cuda")
+    model = build(DEPTH, **extra)
+    label = "baselines vit_adapt 32^2 patch 8 forward"
+    before = dict(fb.LAUNCHES)
+    with attention_grids(fb) as seen, torch.inference_mode():
+        got = model(x, cids)[0].float().cpu()
+    counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
+    check_counts(label, counts, 1, "forward", dict.fromkeys(("attend_project_fwd",
+                                                            "ln_mlp_fwd"), DEPTH - 1))
+    check_grids(label, seen, {("attend_project", *SMALL_GRIDS[0])})
+    before = dict(fb.LAUNCHES)
+    with fb.plain_versions(), torch.inference_mode():
+        want = model(x, cids)[0].float().cpu()
+    if dict(fb.LAUNCHES) != before:
+        raise AssertionError(f"{label}: the plain run launched a kernel")
+    logits_close(label, got, want)
+    del model
+
+
+def baselines(fb, torch, bare: dict) -> dict:
+    """The paper's four baseline ViTs at full width and depth (BASELINES,
+    DepthwiseViT with both poolings; B = 64, JUMP-CP geometry): for each,
+    serving as phase 4 (logits against the plain route), 2 train steps
+    through the kernels against 2 through the plain versions from the same
+    weights (B1-B4 x 11 a step, every call at BASELINE_GRID), then 2 + 10
+    timed steps and a profiled one, beside the plain DiChaViT step
+    (``bare``); ``vit_adapt`` at
+    So2Sat's 32^2 with patch 8; ``fused_block: false`` on DiChaViT (B5 / B6
+    alone) and ``vit_adapt`` with ``quantization: int8`` (B7 / B8), each at
+    PARITY_DEPTH against the plain route. Returns the paths by label."""
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    int8_train = ("attend_project_fwd", "attend_project_bwd", "ln_mlp_q_fwd", "ln_mlp_q_bwd")
+    per_step = dict.fromkeys(fused4, DEPTH - 1)
+    paths = {}
+    for label, extra in BASELINES.items():
+        t0 = time.perf_counter()
+        label = f"baselines {label}"
+        paths[f"{label} serving"] = (*serve(fb, torch, f"{label} serving", **extra), "forward")
+        parity = train_parity(fb, torch, f"{label} train parity", DEPTH, RUNTIME_PARITY_STEPS,
+                              per_step, **extra)
+        check_grids(label, LAST_GRIDS[f"{label} train parity"],
+                    {("attend_project", *BASELINE_GRID)})
+        launches, steps, timing = train(fb, torch, f"{label} train", per_step, **extra)
+        paths[f"{label} train"] = (launches, steps, "step")
+        print(f"{label}: train {timing['imgs_per_s']:.2f} images/s, p50 {timing['p50_ms']:.3f} "
+              f"ms (the plain DiChaViT-S step {bare['imgs_per_s']:.2f} images/s, p50 "
+              f"{bare['p50_ms']:.3f} ms); worst parity {json.dumps(parity)}; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    small_geometry_forward(fb, torch)
+    # model.fused_block: false, the unfused route in every block but the
+    # readout: B5 / B6 and none of B1-B4
+    label = "fused_block false train parity"
+    unfused = {"flash_packed_fwd": PARITY_DEPTH - 1, "flash_packed_bwd": PARITY_DEPTH - 1}
+    train_parity(fb, torch, label, PARITY_DEPTH, 1, unfused, fused_block=False)
+    check_grids(label, LAST_GRIDS[label], {("flash", -(-N_VALID // 64) * 64, N_VALID)})
+    train_parity(fb, torch, "baselines vit_adapt int8 train parity", PARITY_DEPTH,
+                 RUNTIME_PARITY_STEPS, dict.fromkeys(int8_train, PARITY_DEPTH - 1),
+                 quantization="int8", **BASELINES["vit_adapt"])
+    torch.cuda.empty_cache()
+    return paths
+
+
+def baseline_trainers(fb, torch, root: str, tmp: str) -> dict:
+    """``main`` with ``jump_cp_cfg`` and ``model=vit_adapt``, then
+    ``model=hypervit_adapt``, one epoch each on the JUMP-CP fixture at
+    ``root`` (B1-B4 x 11 a step and B1 / B3 x 11 an eval forward, every call
+    at BASELINE_GRID); then ``cifar10_cfg`` (ChannelViT-S on 3 channels at
+    32^2, patch 8) for one epoch on a CIFAR pickle tree written here
+    (``scripts/make_cifar_fixture``: 320 train and 128 test images), every
+    call at (64, 49). Returns the paths by label."""
+    import os
+
+    from diverse_channel_vit_torch.scripts.make_cifar_fixture import main as make_cifar
+
+    fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
+    per_step = dict.fromkeys(fused4, DEPTH - 1)
+    per_fwd = dict.fromkeys(("attend_project_fwd", "ln_mlp_fwd"), DEPTH - 1)
+    one = ["train.batch_size=64", "train.num_epochs=1", "train.save_model=none",
+           "eval.skip_eval_first_epoch=True", f"train.checkpoints={tmp}"]
+    runs = [(f"Trainer baselines {m}", "jump_cp_cfg", [
+        f"model={m}", f"++dataset.root_dir={root}", "train.device_augment=True", *one],
+        BASELINE_GRID) for m in ("vit_adapt", "hypervit_adapt")]
+    cifar = make_cifar(os.path.join(tmp, "cifar"), n_per_batch=64, n_test=128)
+    runs.append(("Trainer CIFAR-10", "cifar10_cfg", [
+        f"++dataset.root_dir={cifar}", "eval.every_n_epochs=1", *one], SMALL_GRIDS[1]))
+    paths = {}
+    for label, config, over, grid in runs:
+        with attention_grids(fb) as seen:
+            probe, launches, _ = run_trainer(fb, torch, label, config, over, per_step, per_fwd)
+        check_grids(label, seen, {("attend_project", *grid)})
+        paths[label] = (launches, 1, "epoch")
+        del probe
     return paths
 
 
@@ -3533,6 +3726,14 @@ def main() -> int:
     # dropout, main with them, the C7 check
     paths.update(training_knobs(fb, torch, bare))
     stamp("training knobs", t_start)
+    # the paper's baseline ViTs: serving, training and their parity at full
+    # width, fused_block false, an int8 baseline (their main runs are in
+    # trainer_paths); B1-B4 at the baselines' and the smaller geometries'
+    # grids
+    for name, grids in check_baseline_grids(fb, torch).items():
+        results[name]["baseline_grids"] = grids
+    paths.update(baselines(fb, torch, bare))
+    stamp("baselines", t_start)
 
     # each kernel's main paths, first the one its launches are read from
     dh128 = "_dh128"
@@ -3581,9 +3782,11 @@ def main() -> int:
                 counts, units, _ = paths[label]
                 entry[f"launches_per_step_{label.replace(' ', '_')}"] = counts[name] / units
         for label in ("Trainer", "Trainer int8", "Trainer runtime", "Trainer training knobs",
+                      "Trainer CIFAR-10",
                       *(p for p in paths if p.startswith(("runtime ", "samplers ",
                                                           "optimizers ", "ppt ",
-                                                          "hcs_dropout ")))):
+                                                          "hcs_dropout ", "baselines ",
+                                                          "Trainer baselines ")))):
             counts, units, unit = paths[label]
             if name in counts and counts[name]:
                 entry[f"launches_per_{unit}_{label.replace(' ', '_')}"] = counts[name] / units
@@ -3602,7 +3805,7 @@ def main() -> int:
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
         for key in ("per_grid", "per_variant", "sibling_max_abs_diff", "b6_max_abs_diff",
-                    "sibling_code_share", "sibling_ms", "sub_ms"):
+                    "sibling_code_share", "sibling_ms", "sub_ms", "baseline_grids"):
             if key in r:
                 entry[key] = r[key]
         line.append(entry)

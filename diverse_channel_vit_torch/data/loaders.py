@@ -19,7 +19,8 @@ Replaces the reference's DataLoader orchestration
   mixed-chunk loader (``MixedChunkLoader``, built by
   ``make_random_instance_train_loader``) with fixed per-chunk quotas.
 
-Building a ``cifar*`` split raises ``NotImplementedError``.
+- **CIFAR**: the local pickles (``data/cifar.py``), each chunk's channel
+  ids naming recompositions in ``dataset.in_channel_names``.
 """
 
 from __future__ import annotations
@@ -402,8 +403,10 @@ CP_CLASSES = list(TRAIN_CLASS_DICTS["CP"])
 def get_classes(dataset: str, file_name: str = "", training_chunks: Optional[List[str]] = None,
                 root_dir: str = ""):
     if dataset in ("cifar10", "cifar100"):
-        raise NotImplementedError(f"dataset {dataset!r}: the CIFAR loader downloads through "
-                                  "torchvision and is left out of the port (ROADMAP A6)")
+        from .cifar import load_cifar_classes
+
+        classes = load_cifar_classes(root_dir, dataset)
+        return classes, classes
     if dataset in ("Allen", "CP", "HPA", "morphem70k"):
         allen = ALLEN_V2 if "morphem70k_v2" in (file_name or "") else ALLEN_V1
         if dataset == "Allen":
@@ -440,9 +443,6 @@ def _build_split(name: str, cfg_dataset, chunk_channels, split: str, is_train: b
                  **chammi):
     """One split's dataset; ``chammi``: CHAMMI's train-side keywords
     (``tps_prob``, ``train_classes_dict``)."""
-    if name in ("cifar10", "cifar100"):
-        raise NotImplementedError(f"dataset {name!r}: the CIFAR loader downloads through "
-                                  "torchvision and is left out of the port (ROADMAP A6)")
     cls = DATASET_REGISTRY.get(name)
     if cls is None:
         raise ValueError(f"dataset {name!r} not registered; have {sorted(DATASET_REGISTRY)}")
@@ -488,6 +488,18 @@ def _build_split(name: str, cfg_dataset, chunk_channels, split: str, is_train: b
             img_size=cfg_dataset.get("img_size", 224),
             **chammi,
         )
+    if name in ("cifar10", "cifar100"):
+        # chunk values are channel ids into in_channel_names, which may name
+        # recompositions ("red", "avg_red_green", "zero", ...)
+        names = list(cfg_dataset.in_channel_names)
+        return cls(
+            cfg_dataset.root_dir,
+            chunk_name=getattr(cfg_dataset, "_chunk_name", "train"),
+            data_channels=[names[int(i)] for i in chunk_channels],
+            split=split,
+            is_train=is_train,
+            seed=seed,
+        )
     raise ValueError(f"dataset {name} not valid!")
 
 
@@ -507,8 +519,10 @@ def get_train_val_test_loaders(
     mixed-chunk loader) and returns None in its place.
     """
     name = cfg.dataset.name
-    # annotate the dataset cfg with the train-side flag the dataset ctor needs
+    # annotate the dataset cfg with what the dataset ctors need: the train
+    # side's flag, and the chunk that prefixes CIFAR's split-json keys
     cfg.dataset._device_augment = bool(cfg.train.get("device_augment", False))
+    cfg.dataset._chunk_name = chunk_name
     bs = cfg.train.batch_size
     eval_bs = cfg.eval.get("batch_size") or bs
     nw = cfg.hardware.get("num_workers", 0) or 0

@@ -12,7 +12,8 @@ torchvision/albumentations/cv2:
 
 All functions take (C, H, W) float32 arrays and an ``np.random.Generator``;
 randomness is explicit so loaders are reproducible per (seed, epoch, index).
-CIFAR's channel recomposition comes with that dataset (ROADMAP A6).
+:func:`get_channel` recomposes CIFAR's RGB into a chunk's channel list
+(``dataset_utils.py:316-360``).
 """
 
 from __future__ import annotations
@@ -211,6 +212,46 @@ def coarse_dropout(
         x = int(rng.integers(0, max(1, w - hole_w)))
         img[:, y : y + hole_h, x : x + hole_w] = fill
     return img
+
+
+_CIFAR_CHANNEL_MAP = {"red": 0, "green": 1, "blue": 2}
+
+
+def get_channel(dataset: str, data_channels, x: np.ndarray) -> np.ndarray:
+    """Synthetic-channel expansion (``dataset_utils.py:316-360``): cifar10/100
+    recompose (B, 3, H, W) RGB batches into a channel list; the microscopy
+    datasets pass through."""
+    if dataset in ("cifar10", "cifar100"):
+        return _get_channel_cifar(data_channels, x)
+    if dataset in ("Allen", "CP", "HPA", "morphem70k"):
+        return x
+    raise NotImplementedError(f"get_channel: dataset {dataset!r}")
+
+
+def _get_channel_cifar(data_channels, x: np.ndarray) -> np.ndarray:
+    """x: (B, 3, H, W) RGB. Each entry of ``data_channels`` is "red" /
+    "green" / "blue", "avg_<c1>_<c2>..." (channel mean), or "zero"
+    (``dataset_utils.py:325-360``)."""
+    assert len(data_channels) <= 3
+    if sorted(data_channels) == sorted(_CIFAR_CHANNEL_MAP):
+        return x
+    b, c, h, w = x.shape
+    out = []
+    for channel in data_channels:
+        if channel in _CIFAR_CHANNEL_MAP:
+            ci = _CIFAR_CHANNEL_MAP[channel]
+            out.append(x[:, ci : ci + 1])
+            continue
+        splits = channel.split("_")
+        reduce, channel_list = splits[0].lower(), splits[1:]
+        if reduce == "avg":
+            idx = [_CIFAR_CHANNEL_MAP[cn] for cn in channel_list]
+            out.append(x[:, idx].mean(axis=1, keepdims=True))
+        elif reduce == "zero":
+            out.append(np.zeros((b, 1, h, w), x.dtype))
+        else:
+            raise ValueError(f"unknown channel spec {channel!r}")
+    return np.concatenate(out, axis=1)
 
 
 def mask_channels(img: np.ndarray, channel_mask) -> np.ndarray:

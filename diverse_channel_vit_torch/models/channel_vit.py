@@ -60,7 +60,7 @@ from ..ops.initializers import conv_patch_, normal_div8_, orthogonal_, trunc_nor
 from ..ops.losses import orthogonal_projection_loss, proxy_loss
 from ..ops.patch_embed import add_channel_embedding, per_channel_patch_embed
 from ..ops.token_pruning import draw_kept, random_channel_drop, random_token_drop
-from .vit import Block, BlockV2
+from .vit import Block, BlockV2, draw_drop_path, init_block_
 
 BLOCK_TYPES = ("block", "block_v2")
 
@@ -178,7 +178,8 @@ class ChannelVisionTransformer(nn.Module):
                  gelu_exact: bool = False, quantization: str = "none",
                  drop_path_rate: float = 0.0, block_type: str = "block",
                  dropout_tokens_hcs: Optional[str] = "none",
-                 token_keep_channels: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 token_keep_channels: Optional[int] = None, fused_block: bool = True,
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if block_type not in BLOCK_TYPES:
@@ -211,7 +212,8 @@ class ChannelVisionTransformer(nn.Module):
         block = BlockV2 if block_type == "block_v2" else Block
         self.blocks = nn.ModuleList(
             block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype=dtype, gelu_exact=gelu_exact,
-                  quantization=quantization, attention_impl=attention_impl, drop_path=rate)
+                  quantization=quantization, attention_impl=attention_impl, drop_path=rate,
+                  fused=fused_block)
             for rate in dpr
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
@@ -233,30 +235,15 @@ class ChannelVisionTransformer(nn.Module):
         trunc_normal_(self.cls_token, generator=g)
         trunc_normal_(self.pos_embed, generator=g)
         for blk in self.blocks:
-            for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
-                trunc_normal_(lin.weight, generator=g)
-                if lin.bias is not None:
-                    lin.bias.zero_()
-            for ln in (blk.norm1, blk.norm2):
-                ln.reset_parameters()
+            init_block_(blk, g)
         self.norm.reset_parameters()
 
     def draw_drop_path(self, batch: int, generator: Optional[torch.Generator] = None,
                        device=None) -> list:
-        """DropPath's per-sample keep masks of one training forward: for each
-        block at a rate above 0, two (B,) bools (its attention branch, then
-        its MLP branch, each ``uniform < 1 - rate`` as JAX's ``bernoulli``)
-        drawn from ``generator``, block by block; None for a block at rate 0."""
-        device = self.cls_token.device if device is None else device
-        masks = []
-        for blk in self.blocks:
-            if blk.drop_path <= 0.0:
-                masks.append(None)
-                continue
-            keep = 1.0 - blk.drop_path
-            masks.append(tuple(torch.rand(batch, generator=generator, device=device) < keep
-                               for _ in range(2)))
-        return masks
+        """DropPath's per-sample keep masks of one training forward
+        (:func:`~.vit.draw_drop_path`), on the model's device by default."""
+        return draw_drop_path(self.blocks, batch, generator,
+                              self.cls_token.device if device is None else device)
 
     def keep_channels(self, c: int) -> int:
         """``kc``: ``token_keep_channels``, or ceil(C / 2) of the forward's C

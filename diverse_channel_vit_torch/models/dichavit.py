@@ -13,7 +13,9 @@ port's parameters always use the reference layout.
 The other keys the JAX factory reads are honoured or refused:
 ``freeze_channel_emb`` stops the channel-embedding table's gradient;
 ``attention_impl`` (``auto``, ``pallas`` or ``xla``) routes the blocks as
-the JAX ``Block._fused_ok`` does (``xla`` takes the unfused route);
+the JAX ``Block._fused_ok`` does (``xla`` takes the unfused route), and so
+does ``fused_block`` (``false`` takes the unfused route: JAX's process-wide
+``set_fused_block`` from the same key, here a term of each block's gate);
 ``drop_path_rate`` sets DropPath's rate at the last block (0 at the first,
 rising linearly); ``block_type`` (``block``, or ``block_v2`` for PPT's
 pruning blocks), ``dropout_tokens_hcs`` (HCS token or channel dropout in
@@ -66,6 +68,7 @@ def _build_channel_vit(cfg_model, mapper: dict, num_classes: int, dtype: torch.d
         block_type=cfg_model.get("block_type", "block") or "block",
         dropout_tokens_hcs=cfg_model.get("dropout_tokens_hcs", "none") or "none",
         token_keep_channels=cfg_model.get("token_keep_channels"),
+        fused_block=bool(cfg_model.get("fused_block", True)),
         dtype=dtype,
         generator=generator,
         **preset,

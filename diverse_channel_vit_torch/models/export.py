@@ -2,7 +2,8 @@
 ``state_dict`` (the port's own copy of the mapping in the JAX package's
 ``models/export.py``).
 
-The target is the PyTorch reference's layout, which the port's modules use:
+The target is the PyTorch reference's layout, which the port's modules use
+(ChannelViT / DiChaViT below; the baselines in :func:`_baseline_state`):
 
 - ``proj_kernel (p*p, D)``      -> ``patch_embed.proj.weight (D, 1, 1, p, p)``
 - ``attn.{wq,wk,wv}.kernel.T``  -> rows ``[q | k | v]`` of ``attn.qkv.weight``
@@ -62,18 +63,33 @@ def _block_state(out: "OrderedDict[str, np.ndarray]", prefix: str, blk: Dict[str
         out[prefix + f"mlp.{fc}.bias"] = _np(blk["mlp"][fc]["bias"])
 
 
-def params_from_jax(params: Dict[str, Any], *,
-                    prefix: str = "feature_extractor.") -> "OrderedDict[str, torch.Tensor]":
-    """Flax param tree (nested dicts of arrays, numpy or any array type
-    ``np.asarray`` reads) -> the port's ``state_dict``.
+def _baseline_state(out: "OrderedDict[str, np.ndarray]", prefix: str, tree: Dict[str, Any]):
+    """A baseline backbone's tree (``vit_adapt``, ``depthwisevit_adapt``,
+    ``hypervit_adapt``, ``templatemixingvit``): the JAX ``trunk`` submodule's
+    leaves at the backbone's top level, ``block_{i}`` as ChannelViT's
+    blocks, a Dense's ``kernel`` transposed into ``weight``, a LayerNorm's
+    ``scale`` into ``weight``, every other leaf (the banks, tables, channel
+    weights, the hypernetwork's ``W``/``b``/``W_out``/``b_out``/``W_out_h``)
+    under its own path."""
+    for key, node in tree.items():
+        if key == "trunk":
+            _baseline_state(out, prefix, node)
+        elif re.fullmatch(r"block_\d+", key):
+            _block_state(out, f"{prefix}blocks.{key.split('_')[1]}.", node)
+        elif not hasattr(node, "items"):
+            out[prefix + key] = _np(node)
+        elif "kernel" in node:  # Dense
+            out[f"{prefix}{key}.weight"] = _np(node["kernel"]).T
+            if "bias" in node:
+                out[f"{prefix}{key}.bias"] = _np(node["bias"])
+        elif "scale" in node:  # LayerNorm
+            out[f"{prefix}{key}.weight"] = _np(node["scale"])
+            out[f"{prefix}{key}.bias"] = _np(node["bias"])
+        else:
+            _baseline_state(out, f"{prefix}{key}.", node)
 
-    Accepts the trainer's full tree (``{"backbone": ..., "proxies",
-    ["logit_scale"], ["classifier_head"], ["miro_encoders"]}``) or a bare
-    backbone tree.
-    """
-    bb = params.get("backbone", params)
-    out: "OrderedDict[str, np.ndarray]" = OrderedDict()
 
+def _channel_vit_state(out: "OrderedDict[str, np.ndarray]", prefix: str, bb: Dict[str, Any]):
     pk = _np(bb["proj_kernel"])  # (p*p, D)
     p = int(math.isqrt(pk.shape[0]))
     if p * p != pk.shape[0]:
@@ -100,6 +116,25 @@ def params_from_jax(params: Dict[str, Any], *,
 
     out[prefix + "norm.weight"] = _np(bb["norm"]["scale"])
     out[prefix + "norm.bias"] = _np(bb["norm"]["bias"])
+
+
+def params_from_jax(params: Dict[str, Any], *,
+                    prefix: str = "feature_extractor.") -> "OrderedDict[str, torch.Tensor]":
+    """Flax param tree (nested dicts of arrays, numpy or any array type
+    ``np.asarray`` reads) -> the port's ``state_dict``, for ChannelViT /
+    DiChaViT (a tree with ``proj_kernel``) and the baselines.
+
+    Accepts the trainer's full tree (``{"backbone": ..., "proxies",
+    ["logit_scale"], ["classifier_head"], ["miro_encoders"]}``) or a bare
+    backbone tree. A gradient tree of the same structure carries over the
+    same way.
+    """
+    bb = params.get("backbone", params)
+    out: "OrderedDict[str, np.ndarray]" = OrderedDict()
+    if "proj_kernel" in bb:
+        _channel_vit_state(out, prefix, bb)
+    else:
+        _baseline_state(out, prefix, bb)
 
     if "backbone" in params:
         if "proxies" in params:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -21,10 +22,12 @@ def register_model(name: str):
 
 def build_model(name: str, cfg_model, mapper: dict, num_classes: int, *,
                 device: Optional[Union[str, torch.device]] = None,
-                dtype: torch.dtype = torch.float32, seed: int = 0) -> torch.nn.Module:
+                dtype: torch.dtype = torch.float32, seed: int = 0, **extra) -> torch.nn.Module:
     """Build a registered model with weights drawn from ``seed``, on
     ``device`` (the card unless ``"cpu"`` is asked for), in eval mode.
-    ``dtype`` is the compute dtype, as in the JAX package."""
+    ``dtype`` is the compute dtype, as in the JAX package. ``extra`` (the
+    Trainer's ``attn_pooling``) goes to the factories that take it, as the
+    JAX ``build_model`` passes it."""
     if name not in MODEL_REGISTRY:
         raise KeyError(f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
     device = resolve_device(device)
@@ -41,6 +44,9 @@ def build_model(name: str, cfg_model, mapper: dict, num_classes: int, *,
                 f"mapper channel id {max_id} out of range for {len(icn)} "
                 "model.in_channel_names"
             )
+    fn = MODEL_REGISTRY[name]
+    accepted = inspect.signature(fn).parameters
+    kwargs = {k: v for k, v in extra.items() if k in accepted}
     generator = torch.Generator().manual_seed(seed)
-    model = MODEL_REGISTRY[name](cfg_model, mapper, num_classes, dtype=dtype, generator=generator)
+    model = fn(cfg_model, mapper, num_classes, dtype=dtype, generator=generator, **kwargs)
     return model.to(device).eval()

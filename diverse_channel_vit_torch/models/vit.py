@@ -13,20 +13,20 @@ inference (the JAX package's ``Block.__call__`` routing with dropout and
 attention dropout 0, which is all the port takes):
 
 - the fused route, where :func:`fused_route_ok` allows it (``attention_impl``
-  ``auto`` or ``pallas``, bf16, at most 8192 tokens, a width that is a
-  multiple of 128, head width a multiple of 64, tanh-GELU): LN1 in
-  f32 -> the wide qkv GEMM -> ``attend_project`` with the residual fused ->
-  ``ln_mlp`` with the residual fused (each an autograd Function over its
-  forward and backward kernels when a gradient is wanted). With
+  ``auto`` or ``pallas``, ``fused_block`` on, bf16, at most 8192 tokens, a
+  width that is a multiple of 128, head width a multiple of 64, tanh-GELU):
+  LN1 in f32 -> the wide qkv GEMM -> ``attend_project`` with the residual
+  fused -> ``ln_mlp`` with the residual fused (each an autograd Function
+  over its forward and backward kernels when a gradient is wanted). With
   ``quantization="int8"`` (or inside ``fused_block.quantization("int8")``)
   ``ln_mlp`` runs its int8 kernels; as in the JAX package, only this MLP is
   quantised: the attention projections, the unfused ``Mlp``, the EViT blocks
   and the readout stay in the compute dtype;
 - the unfused route otherwise (f32, ``gelu_exact``, ``attention_impl``
-  ``xla``, a grid past 8192 tokens, a width such as the ``tiny`` preset's
-  D = 192): LN1 in f32 -> :class:`Attention` (the qkv GEMM,
-  ``flash_attention_packed`` on the q/k/v views, the proj GEMM) -> residual
-  -> LN2 in f32 -> :class:`Mlp` (fc1, GELU, fc2) -> residual;
+  ``xla``, ``fused_block: false``, a grid past 8192 tokens, a width such as
+  the ``tiny`` preset's D = 192): LN1 in f32 -> :class:`Attention` (the
+  qkv GEMM, ``flash_attention_packed`` on the q/k/v views, the proj GEMM) ->
+  residual -> LN2 in f32 -> :class:`Mlp` (fc1, GELU, fc2) -> residual;
 - the CLS-only readout of the last block (``cls_query``): only the CLS row's
   query, attention row and MLP are computed, as dense ops.
 
@@ -61,6 +61,7 @@ from torch import nn
 
 from ..ops import activations, fused_block
 from ..ops.attention import MASK_VALUE, flash_attention_packed, plain_attention
+from ..ops.initializers import trunc_normal_
 from ..ops.token_pruning import select_tokens, topk_channel_select, topk_token_select
 
 
@@ -113,18 +114,19 @@ ATTENTION_IMPLS = ("auto", "pallas", "xla")
 
 
 def fused_route_ok(x: torch.Tensor, dtype: torch.dtype, num_heads: int, gelu_exact: bool,
-                   attention_impl: str = "auto") -> bool:
+                   attention_impl: str = "auto", fused: bool = True) -> bool:
     """The JAX package's ``Block._fused_ok`` without its TPU-only terms: the
-    fused kernels take ``attention_impl`` ``auto`` or ``pallas``, bf16, a
-    token count that is a multiple of 8 and at most
-    :data:`MAX_SINGLE_PASS_N`, a width that is a multiple of 128 with head
-    width a multiple of 64, and tanh-GELU. The gate is the same on the CPU
-    and the card, so the port routes (and so rounds) as the JAX package
-    does."""
+    fused kernels take ``attention_impl`` ``auto`` or ``pallas``, ``fused``
+    (the model key ``fused_block``; JAX's process-wide
+    ``FUSED_BLOCK_DEFAULT``, set from the same key), bf16, a token count
+    that is a multiple of 8 and at most :data:`MAX_SINGLE_PASS_N`, a width
+    that is a multiple of 128 with head width a multiple of 64, and
+    tanh-GELU. The gate is the same on the CPU and the card, so the port
+    routes (and so rounds) as the JAX package does."""
     n, d = x.shape[1], x.shape[-1]
-    return (attention_impl in ("auto", "pallas") and dtype == torch.bfloat16 and n % 8 == 0
-            and n <= MAX_SINGLE_PASS_N and d % 128 == 0 and (d // num_heads) % 64 == 0
-            and not gelu_exact)
+    return (attention_impl in ("auto", "pallas") and fused and dtype == torch.bfloat16
+            and n % 8 == 0 and n <= MAX_SINGLE_PASS_N and d % 128 == 0
+            and (d // num_heads) % 64 == 0 and not gelu_exact)
 
 
 def drop_branch(branch: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:
@@ -135,6 +137,35 @@ def drop_branch(branch: torch.Tensor, mask: Optional[torch.Tensor], rate: float)
         return branch
     keep = mask.view((-1,) + (1,) * (branch.ndim - 1))
     return torch.where(keep, branch / (1.0 - rate), branch.new_zeros(()))
+
+
+@torch.no_grad()
+def init_block_(blk: "Block", generator: Optional[torch.Generator] = None) -> None:
+    """The reference init of a block: dense kernels trunc-normal(0.02), zero
+    biases, LayerNorm (1, 0)."""
+    for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+        trunc_normal_(lin.weight, generator=generator)
+        if lin.bias is not None:
+            lin.bias.zero_()
+    for ln in (blk.norm1, blk.norm2):
+        ln.reset_parameters()
+
+
+def draw_drop_path(blocks, batch: int, generator: Optional[torch.Generator],
+                   device) -> list:
+    """DropPath's per-sample keep masks of one training forward: for each
+    block at a rate above 0, two (B,) bools (its attention branch, then its
+    MLP branch, each ``uniform < 1 - rate`` as JAX's ``bernoulli``) drawn
+    from ``generator``, block by block; None for a block at rate 0."""
+    masks = []
+    for blk in blocks:
+        if blk.drop_path <= 0.0:
+            masks.append(None)
+            continue
+        keep = 1.0 - blk.drop_path
+        masks.append(tuple(torch.rand(batch, generator=generator, device=device) < keep
+                           for _ in range(2)))
+    return masks
 
 
 class Attention(nn.Module):
@@ -203,9 +234,10 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block; ``dtype`` is the compute dtype and
+    """Pre-norm transformer block; ``dtype`` is the compute dtype,
     ``gelu_exact`` picks the erf GELU (which only the unfused route and the
-    readout compute).
+    readout compute) and ``fused=False`` (the model key ``fused_block:
+    false``) keeps the block off the fused route.
 
     ``evit_kept`` and ``evit_forced`` are a seam for comparing two routes of
     one model: :meth:`evit` leaves the indices of the tokens it chose in
@@ -217,13 +249,15 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, dtype: torch.dtype = torch.float32,
                  gelu_exact: bool = False, quantization: str = "none",
-                 attention_impl: str = "auto", drop_path: float = 0.0):
+                 attention_impl: str = "auto", drop_path: float = 0.0,
+                 fused: bool = True):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {attention_impl!r}: want one of {ATTENTION_IMPLS}")
         self.dtype = dtype
         self.gelu_exact = gelu_exact
         self.attention_impl = attention_impl
+        self.fused = bool(fused)
         self.drop_path = float(drop_path)
         self.quantization = fused_block.check_quantization(quantization)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
@@ -241,7 +275,8 @@ class Block(nn.Module):
         if cls_query:
             return self._cls_readout(x, valid_len, m1, m2)
         dt, rate = self.dtype, self.drop_path
-        if not fused_route_ok(x, dt, self.attn.num_heads, self.gelu_exact, self.attention_impl):
+        if not fused_route_ok(x, dt, self.attn.num_heads, self.gelu_exact, self.attention_impl,
+                              self.fused):
             y = _layer_norm_f32(x, self.norm1).to(dt)
             x = x + drop_branch(self.attn(y, valid_len), m1, rate)
             return x + drop_branch(

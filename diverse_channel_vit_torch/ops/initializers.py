@@ -53,3 +53,30 @@ def orthogonal_(t: torch.Tensor, generator: Optional[torch.Generator] = None) ->
     w = torch.empty(t.shape, dtype=torch.float32)
     torch.nn.init.orthogonal_(w, generator=generator)
     return t.copy_(w)
+
+
+@torch.no_grad()
+def normal_(t: torch.Tensor, std: float = 1.0,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """N(0, std^2) (``torch.randn`` scaled): the reference's hypernetwork
+    biases and channel-pooling CLS token."""
+    return t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+@torch.no_grad()
+def kaiming_normal_(t: torch.Tensor, fan_in: Optional[int] = None, gain: float = math.sqrt(2.0),
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """N(0, gain^2 / fan_in), torch's ``kaiming_normal_`` in fan_in mode:
+    ``fan_in`` defaults to ``shape[1] * prod(shape[2:])`` (``shape[0]`` for a
+    vector), as torch computes it on the same shape."""
+    if fan_in is None:
+        fan_in = t.shape[1] * math.prod(t.shape[2:]) if t.ndim > 1 else t.shape[0]
+    return normal_(t, gain / math.sqrt(fan_in), generator)
+
+
+@torch.no_grad()
+def lecun_normal_(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Truncated normal of variance 1 / fan_in over a ``nn.Linear`` weight
+    (out, in): the default kernel init of a flax ``Dense``."""
+    std = t.shape[1] ** -0.5 / 0.87962566103423978  # the std of N(0, 1) cut at +-2
+    return trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)

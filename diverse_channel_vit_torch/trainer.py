@@ -3,7 +3,10 @@
 
 Builds loaders, model, optimizer, schedules and logger in ``__init__``,
 then runs the epoch loop with evaluation and checkpoints, as the JAX
-Trainer does for JUMP-CP, So2Sat, CHAMMI and the synthetic config:
+Trainer does for JUMP-CP, So2Sat, CHAMMI, CIFAR and the synthetic config,
+for every ViT the JAX package registers (DiChaViT, ChannelViT and the
+baselines ``vit_adapt``, ``depthwisevit_adapt``, ``hypervit_adapt`` and
+``templatemixingvit``; the ConvNeXt family is refused, ROADMAP A9):
 
 - the channel-count draw of DCS (``k ~ U[1, C]``) comes from the numpy
   ``host_rng`` seeded with ``train.seed``, one step function per k, all
@@ -130,15 +133,22 @@ def training_chunk_list(cfg):
     return [c for c in str(tc).split("_") if c]
 
 
+# the JAX package's ConvNeXt factories, by the ``name:`` keys of their yaml
+# files in ``config/configs/model/`` (two file names differ from theirs:
+# sliceparam.yaml, template_mixing_conv.yaml)
+CONVNEXT_MODELS = ("convnext_base", "shared_convnext", "sliceparamconvnext",
+                   "templatemixingconvnext", "hyperconvnext", "depthwiseconvnext")
+
+
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for each key the port's Trainer does
-    not honour yet, naming its ROADMAP item."""
+    not honour yet, naming its ROADMAP item. A model name that no package
+    registers is left to the registry's ``KeyError``."""
     tr, model, ev, hw = cfg.train, cfg.model, cfg.eval, cfg.hardware
-    name = cfg.dataset.name
-    chammi = name == "morphem70k"
+    chammi = cfg.dataset.name == "morphem70k"
     refusals = [
-        (name in ("cifar10", "cifar100"), f"dataset {name!r}: the CIFAR loader downloads "
-                                          "through torchvision and is left out (ROADMAP A6)"),
+        (str(model.get("name")) in CONVNEXT_MODELS,
+         f"model {model.get('name')!r}: the ConvNeXt family (ROADMAP A9)"),
         (bool(tr.get("ssl")), "train.ssl (ROADMAP A6)"),
         (bool(_pretrained_path(cfg)) and "convnext" in str(model.get("name")),
          "model.pretrained for a ConvNeXt trunk: the ConvNeXt family (ROADMAP A9)"),
@@ -146,10 +156,6 @@ def check_supported(cfg) -> None:
         (any(int(v) > 1 for v in _as_dict(hw.get("mesh") or {}).values()),
          "hardware.mesh with more than one device (ROADMAP A10)"),
         (bool(hw.get("zero1")) or bool(hw.get("zero3")), "hardware.zero1 / zero3 (ROADMAP A10)"),
-        (not bool(_default(model.get("fused_block"), True)),
-         "model.fused_block: false, the process-wide unfused route (ROADMAP A6)"),
-        (cfg.get("attn_pooling") is not None, "attn_pooling: channel attention pooling "
-                                              "(ROADMAP A8.3)"),
     ]
     for refused, what in refusals:
         if refused:
@@ -214,7 +220,8 @@ class Trainer:
         # -- data ------------------------------------------------------------
         self._build_dataset()
         train_classes, _ = get_classes(self.dataset_name, cfg.dataset.get("file_name") or "",
-                                       training_chunks=training_chunk_list(cfg))
+                                       training_chunks=training_chunk_list(cfg),
+                                       root_dir=cfg.dataset.get("root_dir") or "")
         self.num_classes = (int(cfg.dataset.get("num_classes", 10)) if train_classes is None
                             else len(train_classes))
 
@@ -224,8 +231,13 @@ class Trainer:
         icn = cfg.model.get("in_channel_names")
         if not icn or isinstance(icn, str):
             cfg.model.in_channel_names = cfg.dataset.in_channel_names
+        # the attn_pooling config group goes to the factories that take it
+        # (JAX trainer.py:236-241)
+        attn_pooling = cfg.get("attn_pooling")
         self.model = build_model(cfg.model.name, cfg.model, self.mapper, self.num_classes,
-                                 device=self.device, dtype=self.dtype, seed=self.seed)
+                                 device=self.device, dtype=self.dtype, seed=self.seed,
+                                 attn_pooling=None if attn_pooling is None
+                                 else _as_dict(attn_pooling))
         self.learnable_temp = bool(cfg.model.get("learnable_temp", False))
         self.temperature = float(cfg.model.get("temperature", 0.11111))
         self.extra_loss_lambda = float(cfg.train.get("extra_loss_lambda", 0.0) or 0.0)
@@ -883,21 +895,31 @@ class Trainer:
         plt.close(fig)
         return path
 
-    # the per-channel table the synthesis strategies rebuild, per model
-    # (``trainer.py:1220``; the port registers these two models)
-    OVERRIDE_TABLES = {"dichavit": "channel_embed", "channelvit_adapt": "channel_embed"}
+    # the per-channel table the synthesis strategies rebuild, per model, by
+    # its name in the backbone (JAX ``trainer.py:1219-1229``; the ConvNeXt
+    # rows come with ROADMAP A9)
+    OVERRIDE_TABLES = {"dichavit": "patch_embed.channel_embed.weight",
+                       "channelvit_adapt": "patch_embed.channel_embed.weight",
+                       "depthwisevit_adapt": "channel_embed",
+                       "hypervit_adapt": "conv1_emb",
+                       "templatemixingvit": "conv1_coefs"}
 
     def _training_channels(self) -> list:
         return flatten_training_channels(self.mapper,
                                          self.cfg.train.get("training_chunks") or "train")
 
     def _channel_embed(self) -> torch.Tensor:
-        return self.model.feature_extractor.patch_embed.channel_embed.weight.detach()
+        """The model's own override table: ChannelViT's channel embeddings
+        (C_total, D), DepthwiseViT's, HyperViT's z-vectors (C_total, z_dim)
+        or TemplateMixingViT's coefficients (C_total, T)."""
+        name = self.OVERRIDE_TABLES[self.cfg.model.name]
+        return self.model.feature_extractor.get_parameter(name).detach()
 
     def _synthesis_override(self, split: str, new_channel_init) -> Optional[torch.Tensor]:
-        """The (C, D) channel embeddings of ``split``'s channels under a
-        leave-one-out strategy (``trainer.py:1231-1250``), or None for no
-        strategy, ``as_is`` or a model without a table. ``random_input_corr``
+        """The rows of the model's table (:meth:`_channel_embed`) for
+        ``split``'s channels under a leave-one-out strategy
+        (``trainer.py:1231-1250``), or None for no strategy, ``as_is`` or a
+        model without a table (``vit_adapt``). ``random_input_corr``
         draws from ``host_rng`` as JAX does, so later k draws stay JAX's. An
         unknown strategy, a dynamic one included, raises at the first novel
         channel, and ``fixed_input_corr`` always does (no channel map)."""
@@ -923,13 +945,22 @@ class Trainer:
     def _dynamic_override(self, split: str, strategy: str, x: torch.Tensor) -> torch.Tensor:
         """The per-sample (B, C, D) override of ``dynamic_input_corr_{1..6}``
         for the images ``x`` (``trainer.py:1280-1305``): a trained channel's
-        own row, a novel channel's :func:`dynamic_input_corr` row."""
+        own row, a novel channel's :func:`dynamic_input_corr` row. They need
+        channel embeddings, and variants 5 and 6 ChannelViT's patch
+        projection too: another model raises ``ValueError`` (JAX
+        ``KeyError``)."""
         variant = int(str(strategy)[-1])
         training_channels = self._training_channels()
+        fe = self.model.feature_extractor
+        table = self.OVERRIDE_TABLES.get(self.cfg.model.name, "")
+        if not table.startswith(("patch_embed.channel_embed", "channel_embed")) or (
+                variant in (5, 6) and not hasattr(fe, "patch_embed")):
+            raise ValueError(f"new_channel_inits={strategy!r} reads the channel embeddings"
+                             f"{' and the patch projection' if variant in (5, 6) else ''}, "
+                             f"which model {self.cfg.model.name!r} does not have")
         ce = self._channel_embed()
         proj_fn = None
         if variant in (5, 6):
-            fe = self.model.feature_extractor
             p = fe.patch_size
             kernel = fe.patch_embed.proj.weight.detach().reshape(fe.embed_dim, p * p).t()
 

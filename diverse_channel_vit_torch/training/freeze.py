@@ -25,10 +25,15 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-# the channel-specific first layer of the port's models: the patch
-# projection, the channel-embedding table and its CDL proxies (JAX:
-# proj_kernel, proj_bias, channel_embed, channel_emb_proxies)
-INTERFACE_PATTERNS = (r"channel_embed", r"channel_emb_proxies", r"(^|\.)patch_embed\.proj\.")
+# the channel-specific first layer of the port's models (JAX's list, by the
+# port's names): ChannelViT's patch projection, channel-embedding table and
+# CDL proxies (JAX: proj_kernel, proj_bias, channel_embed,
+# channel_emb_proxies); ViTAdapt's bank and bias; DepthwiseViT's bank and
+# channel pooling; HyperViT's z-vectors and hypernetwork; TemplateMixingViT's
+# coefficients and template bank
+INTERFACE_PATTERNS = (r"channel_embed", r"channel_emb_proxies", r"(^|\.)patch_embed\.proj\.",
+                      r"proj_bank", r"proj_bias", r"depthwise_bank", r"conv1_emb",
+                      r"conv1_coefs", r"conv1_param_bank", r"hypernet", r"attn_pooling")
 HEAD_PATTERNS = (r"proxies", r"classifer_head", r"logit_scale", r"(^|\.)norm(\.|$)",
                  r"miro_encoders")
 _BLOCK_RE = re.compile(r"(^|\.)blocks\.(\d+)\.")

@@ -65,6 +65,24 @@ from .miro import MIRO_KEY, miro_vlb
 from .state import TrainState
 
 
+# the per-channel tables a sampler reads, by the port's parameter name
+# (ChannelViT's modules, DepthwiseViT's parameter)
+_TABLES = {"channel_embed": ("patch_embed.channel_embed.weight", "channel_embed"),
+           "patch_embed.proj": ("patch_embed.proj.weight",)}
+
+
+def _table(model, key: str, method: str) -> torch.Tensor:
+    """The backbone's ``key`` table for the sampler ``method``, or
+    ``ValueError`` naming it when the model has none."""
+    params = dict(model.feature_extractor.named_parameters())
+    for name in _TABLES[key]:
+        if name in params:
+            return params[name]
+    raise ValueError(f"hcs_sampling={method!r} reads the model's {key} table, which "
+                     f"{type(model.feature_extractor).__name__} does not have; "
+                     "hcs_sampling=uniform samples channels for every model")
+
+
 def _select_channels(model, x: torch.Tensor, cids: torch.Tensor, *, k: Optional[int],
                      method: str, temp: float, generator: Optional[torch.Generator],
                      draws: Optional[dict], feature_fn: Optional[Callable] = None):
@@ -77,24 +95,29 @@ def _select_channels(model, x: torch.Tensor, cids: torch.Tensor, *, k: Optional[
     ``hcs_per_sample`` returns the (B, k) gather, the first sample's ids
     and the (B, k, D) override of the table's rows, which does carry the
     gradient (JAX ``steps.py:83-93``); the others return no override.
-    ``feature_fn`` is the ``_resnet34`` scorer (JAX ``steps.py:111-124``)."""
+    ``feature_fn`` is the ``_resnet34`` scorer (JAX ``steps.py:111-124``).
+    ``uniform`` and ``_resnet34`` work for every model; a method that reads
+    a table the model lacks (the channel embeddings, or ``_proj``'s patch
+    projection, which only ChannelViT and DiChaViT have; DepthwiseViT has
+    channel embeddings) raises ``ValueError`` naming it, where JAX raises
+    ``KeyError``."""
     b, c = x.shape[:2]
     if k is None or k >= c:
         return x, cids, None
-    pe = model.feature_extractor.patch_embed
     picked = {n: v for n, v in (draws or {}).items() if n in ("anchor", "gumbel")}
     if method == "hcs_per_sample":
         idx = per_sample_uniform_subsets(b, c, k, device=x.device, generator=generator,
                                          gumbel=picked.get("gumbel"))  # (B, k)
         x_sel = torch.gather(x, 1, idx[:, :, None, None].expand(-1, -1, *x.shape[2:]))
-        override = pe.channel_embed.weight.index_select(0, cids)[idx]  # (B, k, D)
+        override = _table(model, "channel_embed", method).index_select(0, cids)[idx]  # (B, k, D)
         return x_sel, cids.index_select(0, idx[0]), override
     cos = None
     scored = method not in (None, "none", "uniform")
     if scored and method.endswith("_proj"):
         p = model.feature_extractor.patch_size
+        weight = _table(model, "patch_embed.proj", method)
         with torch.no_grad():  # the reference samples under no_grad
-            kernel = pe.proj.weight.reshape(pe.proj.weight.shape[0], p * p).t()
+            kernel = weight.reshape(weight.shape[0], p * p).t()
             toks = per_channel_patch_embed(x, kernel, None, patch_size=p)
             cos = batch_cosine_matrix(toks.reshape(b, c, -1))
     elif scored and method.endswith("_resnet34"):
@@ -104,8 +127,10 @@ def _select_channels(model, x: torch.Tensor, cids: torch.Tensor, *, k: Optional[
                 "backbone (model.resnet34_ckpt); see trainer._hcs_feature_fn")
         with torch.no_grad():
             cos = batch_cosine_matrix(feature_fn(x))
-    with torch.no_grad():
-        emb = None if cos is not None else pe.channel_embed.weight.index_select(0, cids)
+    emb = None
+    if cos is None:  # uniform reads only the count, as JAX's zeros (C, 1) give it
+        emb = (_table(model, "channel_embed", method).detach().index_select(0, cids) if scored
+               else x.new_zeros(c, 1))
     idx = dcs_select(k, method, channel_embed=emb, cos_matrix=cos, temp=temp,
                      generator=generator, **picked)
     return x.index_select(1, idx), cids.index_select(0, idx), None

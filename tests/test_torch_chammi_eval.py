@@ -151,8 +151,8 @@ def test_channelvit_adapt_matches_jax():
     assert got.shape == (2, 5)
     want = np.asarray(want)
     assert np.max(np.abs(got.numpy() - want)) / np.max(np.abs(want)) <= 1e-4
-    with pytest.raises(KeyError):
-        build_model("vit_adapt", cfg.model, mapper, 5, device="cpu")
+    with pytest.raises(KeyError):  # a name that no package registers
+        build_model("no_such_model", cfg.model, mapper, 5, device="cpu")
 
 
 # train_scripts.sh:8 (DiChaViT) and :17 (ChannelViT), the hydra -m flag and

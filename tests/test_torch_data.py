@@ -12,9 +12,12 @@ the JAX one bit for bit (``np.array_equal`` on images, labels and the
   channel subsets;
 
 each eval loader padding its last batch (``pad_last``) with a ``valid``
-mask; and ``get_classes``. CHAMMI's loaders are held in
-tests/test_torch_chammi_data.py.
+mask; and ``get_classes`` (CIFAR's without a tree: the fallback
+vocabulary). CHAMMI's loaders are held in tests/test_torch_chammi_data.py,
+CIFAR's in tests/test_torch_cifar.py.
 """
+
+import pickle
 
 import numpy as np
 import pandas as pd
@@ -151,36 +154,58 @@ def test_so2sat_batches_equal_jax(so2sat_root):
 
 
 @pytest.mark.parametrize("dataset", ["so2sat_city", "jump_cp", "synthetic", "Allen", "HPA", "CP",
-                                     "morphem70k"])
+                                     "morphem70k", "cifar10", "cifar100"])
 def test_get_classes_equal_jax(dataset):
     kw = dict(file_name="morphem70k_v2.csv")
     assert loaders.get_classes(dataset, **kw) == jloaders.get_classes(dataset, **kw)
 
 
-@pytest.mark.parametrize("name", ["cifar10"])
-def test_unported_datasets_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        loaders._build_split(name, None, [0], "train", True, 0)
-
-
-@pytest.mark.parametrize("name", ["morphem70k"])
+@pytest.mark.parametrize("name", ["morphem70k", "cifar10", "cifar100"])
 def test_formerly_refused_datasets_build_as_jax(name, tmp_path):
-    """CHAMMI's split builds since the CHAMMI port (it raised before): a
-    chunk's train and eval datasets equal the JAX package's, example for
-    example (tests/test_torch_chammi_data.py holds the loaders)."""
+    """CHAMMI's split builds since the CHAMMI port, CIFAR's since the CIFAR
+    port (each raised before): a chunk's train and eval datasets equal the
+    JAX package's, example for example (tests/test_torch_chammi_data.py and
+    tests/test_torch_cifar.py hold the loaders). CIFAR reads the pickle
+    fixture of ``make_cifar_fixture`` (cifar100 as the cifar-100-python
+    layout of the same arrays) through a recomposed channel list."""
     import os
+    import shutil
     import sys
 
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from scripts.make_chammi_fixture import main as make_fixture
+    if name == "morphem70k":
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        from scripts.make_chammi_fixture import main as make_fixture
 
-    make_fixture(str(tmp_path), n=8, img=32)
-    over = [f"++dataset.root_dir={tmp_path}", "++dataset.img_size=24"]
+        make_fixture(str(tmp_path), n=8, img=32)
+        config, chunk, sizes = "chammi_cfg", "HPA", (4, 8)
+        over = [f"++dataset.root_dir={tmp_path}", "++dataset.img_size=24"]
+    else:
+        from diverse_channel_vit_torch.scripts.make_cifar_fixture import main as make_fixture
+
+        make_fixture(str(tmp_path), n_per_batch=2, n_test=3)
+        config, chunk, sizes = "cifar10_cfg", [2, 0, 1], (10, 3)
+        over = [f"++dataset.root_dir={tmp_path}", f"++dataset.name={name}",
+                "++dataset.in_channel_names=[red,avg_green_blue,zero]"]
+        if name == "cifar100":  # one train and one test pickle, fine labels
+            base = tmp_path / "cifar-10-batches-py"
+            new = tmp_path / "cifar-100-python"
+            new.mkdir()
+            for split, files in (("train", [f"data_batch_{i}" for i in range(1, 6)]),
+                                 ("test", ["test_batch"])):
+                data, labels = [], []
+                for f in files:
+                    with open(base / f, "rb") as fh:
+                        d = pickle.load(fh)
+                    data.append(d[b"data"])
+                    labels += d[b"labels"]
+                with open(new / split, "wb") as fh:
+                    pickle.dump({b"data": np.concatenate(data), b"fine_labels": labels}, fh)
+            shutil.rmtree(base)
     for is_train in (True, False):
-        args = (name, load_config("chammi_cfg", over).dataset, "HPA", "train", is_train, 0)
+        args = (name, load_config(config, over).dataset, chunk, "train", is_train, 0)
         ds = loaders._build_split(*args)
-        jds = jloaders._build_split(args[0], jload_config("chammi_cfg", over).dataset, *args[2:])
-        assert len(ds) == len(jds) == (4 if is_train else 8)
+        jds = jloaders._build_split(args[0], jload_config(config, over).dataset, *args[2:])
+        assert len(ds) == len(jds) == sizes[0 if is_train else 1]
         for i in range(len(ds)):
             a = ds.get_example(i, rng=np.random.default_rng(i))
             b = jds.get_example(i, rng=np.random.default_rng(i))

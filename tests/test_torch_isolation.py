@@ -8,8 +8,12 @@ training entry point: ``main``, ``trainer``, the data layer, and CHAMMI's
 modules: ``data/morphem70k``, ``data/tps``, ``native``, ``evaluation/*``, the
 novel-channel synthesis, ``ops/novel_channels``, and the Trainer's runtime:
 ``training/freeze``, ``training/miro``, ``training/preemption``,
-``models/import_torch``, and the ResNet-34 channel scorer,
-``models/resnet``), and no
+``models/import_torch``, the ResNet-34 channel scorer,
+``models/resnet``, and the baselines' modules: ``models/trunk``,
+``models/vit_adapt``, ``models/channel_attention_pooling``,
+``models/depthwise_vit``, ``models/hypernet``, ``models/hyper_vit``,
+``models/template_mixing_vit``, ``data/cifar`` and
+``scripts/make_cifar_fixture``), and no
 ``diverse_channel_vit_tpu`` module may appear in ``sys.modules``. Importing
 ``main`` parses no command line: the probe's argv holds an option that
 ``main``'s parser would refuse.
@@ -48,7 +52,10 @@ for name in ("main", "trainer", "data.loaders", "config.loader", "ops.augment",
              "evaluation.benchmark", "evaluation.morphem_eval", "ops.novel_channels",
              "training.freeze", "training.miro", "training.preemption",
              "models.import_torch", "models.resnet", "ops.token_pruning",
-             "training.optim"):
+             "training.optim", "models.trunk", "models.vit_adapt",
+             "models.channel_attention_pooling", "models.depthwise_vit", "models.hypernet",
+             "models.hyper_vit", "models.template_mixing_vit", "data.cifar",
+             "scripts.make_cifar_fixture"):
     assert "diverse_channel_vit_torch." + name in sys.modules, name
 """
 
@@ -58,4 +65,4 @@ def test_port_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 60, proc.stdout
+    assert n_modules >= 73, proc.stdout

@@ -52,7 +52,11 @@ B7's, bit for bit, at D = 384 and at D = 768 (a cluster of two blocks per
 are, and the base preset in int8 launches them at D = 768. The public
 ``attend_project`` and ``flash_attention_packed`` pad an N that is not a
 multiple of 64 and are held at N = 1569 against the plain route, forward and
-gradient.
+gradient. B1-B4 are held at the paper's baselines' grid (N = 256, n_valid
+197) and at the smaller geometries' (64, 17) and (64, 49); each baseline
+model's forward and one train step through the kernels against the same
+model under ``plain_versions()`` (logits and gradients within 5e-2 of their
+max, ``chip_smoke.py``'s limits).
 """
 
 import contextlib
@@ -1225,3 +1229,90 @@ def test_bench_script_wrappers_raise_on_what_they_do_not_take(gen):
     with pytest.raises(NotImplementedError, match="int8_ln_mlp"):  # D = 256
         s3.int8_ln_mlp(x2, torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
                        c1, t1, _rnd(gen, 1024), c2, t2, _rnd(gen, 256))
+
+
+# the grids of the paper's baseline ViTs and the smaller geometries,
+# (images, N, n_valid): 196 patches and the CLS row in 256 (224^2, patch 16),
+# 16 and the CLS row in 64 (So2Sat's 32^2, patch 8), 3 channels of 16 and the
+# CLS row in 64 (CIFAR's ChannelViT)
+@pytest.mark.parametrize("batch,n,n_valid", [(2, 256, 197), (2, 64, 17), (2, 64, 49)])
+def test_fused_block_kernels_match_plain_at_the_baselines_grids(gen, batch, n, n_valid):
+    """B1 (residual fused) and B2 from its o and lse, B3 (residual fused)
+    and B4, 6 heads of 64 at D = 384, hidden 1536: every output within TOL
+    of its plain version, padded key rows' dk and dv exactly 0."""
+    d, heads, hid = 384, 6, 1536
+    qkv, x, do = _rnd(gen, batch, n, 3 * d), _rnd(gen, batch, n, d), _rnd(gen, batch, n, d)
+    wp, bp = _rnd(gen, d, d, scale=d ** -0.5), _rnd(gen, d)
+    a = (qkv, x, wp, bp, heads, 0.125, n_valid)
+    got, want = fb.attend_project_fwd(*a, need_o=True), fb.attend_project_fwd_plain(*a,
+                                                                                    need_o=True)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= TOL
+    a = (qkv, got[0], got[1], wp, do, heads, 0.125, n_valid)
+    bwd = fb.attend_project_bwd(*a)
+    for g, w in zip(bwd, fb.attend_project_bwd_plain(*a)):
+        assert g.shape == w.shape and _rel(g, w) <= TOL
+    assert torch.count_nonzero(bwd[0][:, n_valid:, d:]) == 0
+    s, b = 1.0 + _rnd(gen, d, scale=0.1, dtype=torch.float32), _rnd(gen, d, scale=0.1,
+                                                                    dtype=torch.float32)
+    w1, b1 = _rnd(gen, hid, d, scale=d ** -0.5), _rnd(gen, hid)
+    w2, b2 = _rnd(gen, d, hid, scale=hid ** -0.5), _rnd(gen, d)
+    a = (x, s, b, w1, b1, w2, b2, True)
+    assert _rel(fb.ln_mlp(*a), fb.ln_mlp_plain(*a)) <= TOL
+    a = (x, s, b, w1, b1, w2, do, False)
+    for g, w in zip(fb.ln_mlp_bwd(*a), fb.ln_mlp_bwd_plain(*a)):
+        assert g.shape == w.shape and _rel(g, w) <= TOL
+
+
+BASELINE_MODELS = {
+    "vit_adapt": ("vit_adapt", {}),
+    "depthwise_weights": ("depthwisevit_adapt", {"pooling_channel_type": "channel_weights"}),
+    "depthwise_attention": ("depthwisevit_adapt", {"pooling_channel_type": "attention"}),
+    "hypervit": ("hypervit_adapt", {"hidden_dim": 128}),
+    "templatemixing": ("templatemixingvit", {"num_templates": 10}),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(BASELINE_MODELS))
+def test_baseline_forward_and_step_match_plain_route(gen, variant):
+    """Each baseline at the small preset, depth 3 (blocks 0-1 on the fused
+    route at (256, 197), block 2 the readout), 8 channels at 224^2, bf16:
+    the eval logits and one CE step's loss and gradients through the kernels
+    against the same model under ``plain_versions()``; logits within 5e-2 of
+    max|logit| and each gradient within 5e-2 of its max|g| (chip_smoke.py's
+    limits), B1 / B3 twice a forward, B1-B4 twice a step."""
+    import copy
+
+    from diverse_channel_vit_torch.config import Config
+    from diverse_channel_vit_torch.models import build_model
+
+    name, extra = BASELINE_MODELS[variant]
+    cfg = Config({"in_channel_names": [f"c{i}" for i in range(8)], "img_size": [224],
+                  "patch_size": 16, "pretrained_model_name": "small", "depth": 3, **extra})
+    model = build_model(name, cfg, {"train": list(range(8))}, 5, device="cuda",
+                        dtype=torch.bfloat16, attn_pooling={})
+    plain = copy.deepcopy(model)
+    x, cids = _rnd(gen, 2, 8, 224, 224), torch.arange(8, device="cuda")
+    y = torch.tensor([1, 3], device="cuda")
+    out = {}
+    for route, m in (("kernels", model), ("plain", plain)):
+        before = dict(fb.LAUNCHES)
+        with fb.plain_versions() if route == "plain" else contextlib.nullcontext():
+            with torch.no_grad():
+                logits = m(x, cids)[0].float()
+            m.train()
+            loss = torch.nn.functional.cross_entropy(m(x, cids)[0].float(), y)
+            loss.backward()
+        torch.cuda.synchronize()
+        counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
+        out[route] = (logits, float(loss), {n: p.grad for n, p in m.named_parameters()
+                                            if p.grad is not None}, counts)
+    (lk, loss_k, gk, ck), (lp, loss_p, gp, cp) = out["kernels"], out["plain"]
+    assert not any(cp.values())
+    assert {k: v for k, v in ck.items() if v} == {"attend_project_fwd": 4, "ln_mlp_fwd": 4,
+                                                   "attend_project_bwd": 2, "ln_mlp_bwd": 2}
+    assert bool(torch.isfinite(lk).all()) and _rel(lk, lp) <= 5e-2
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    assert sorted(gk) == sorted(gp)
+    for n, g in gk.items():
+        assert _rel(g, gp[n]) <= 5e-2, n

@@ -35,7 +35,12 @@
   JAX's mixed loader); ``build_mapper`` equals JAX's. The runtime keys it
   refused before the runtime port (SWA/SWAD, MIRO, freezing, ``pretrained``,
   ``plot_attn``, ``profile_dir``, ``max_host_rss_gb``) build a Trainer that
-  takes them up; ``model.pretrained`` for a ConvNeXt trunk raises (A9).
+  takes them up, and so do ``attn_pooling`` and the four baseline models
+  refused before the baselines' port; ``model.fused_block: false`` (refused
+  before too) trains its bf16 step unfused, as JAX's under
+  ``set_fused_block(False)``; every ConvNeXt model and ``model.pretrained``
+  for a ConvNeXt trunk raise (A9), and a model name no package knows keeps
+  the registry's ``KeyError`` (C9).
 - SWA and SWAD: the lr per update and the averages equal the JAX Trainer's
   schedule and ``_swa_update``, and the model adopts the average.
 - ``train.log_memory`` logs JAX's memory keys (ROADMAP C6).
@@ -216,7 +221,6 @@ def test_dcs_k_draws_equal_jax(tmp_path):
 
 REFUSED = [
     ("chammi_cfg", ["eval.umap=True"], "ROADMAP A7"),
-    ("cifar10_cfg", [], "ROADMAP A6"),
     ("synthetic_cfg", ["train.ssl=True"], "ROADMAP A6"),
     ("synthetic_cfg", ["model.name=convnext_base", "model.pretrained=/nonexistent.pth"],
      "ROADMAP A9"),
@@ -224,9 +228,12 @@ REFUSED = [
     ("synthetic_cfg", ["hardware.mesh.model=2"], "ROADMAP A10"),
     ("synthetic_cfg", ["hardware.zero1=True"], "ROADMAP A10"),
     ("synthetic_cfg", ["hardware.zero3=True"], "ROADMAP A10"),
-    ("synthetic_cfg", ["model.fused_block=False"], "ROADMAP A6"),
-    ("synthetic_cfg", ["attn_pooling=param1"], "ROADMAP A8"),
     ("synthetic_cfg", ["train.adaptive_interface_epochs=2"], "adaptive_interface_epochs"),
+    # C9: the ConvNeXt family by its yaml files (the model names are their
+    # name: keys; sliceparam and template_mixing_conv are named otherwise)
+    *(("synthetic_cfg", [f"model={m}"], "ROADMAP A9")
+      for m in ("convnext_base", "shared_convnext", "sliceparam", "template_mixing_conv",
+                "hyperconvnext", "depthwiseconvnext")),
 ]
 
 
@@ -235,6 +242,13 @@ REFUSED = [
 def test_unported_keys_raise(name, over, match, tmp_path):
     cfg = load_config(name, TINY + over + [f"train.checkpoints={tmp_path}"])
     with pytest.raises(NotImplementedError, match=match):
+        Trainer(cfg, device="cpu")
+
+
+def test_a_model_name_no_package_knows_keeps_the_registry_error(tmp_path):
+    cfg = load_config("synthetic_cfg", TINY + ["model.name=no_such_model",
+                                               f"train.checkpoints={tmp_path}"])
+    with pytest.raises(KeyError, match="Unknown model"):
         Trainer(cfg, device="cpu")
 
 
@@ -274,6 +288,19 @@ RUNTIME_KEYS = [
      lambda t: all(type(b).__name__ == "BlockV2" for b in t.model.feature_extractor.blocks)),
     ("synthetic_cfg", ["model.dropout_tokens_hcs=channel", "++model.token_keep_channels=3"],
      lambda t: t.model.feature_extractor.keep_channels(8) == 3),
+    # refused before the baselines were ported: attn_pooling goes to the
+    # factories that take it (DiChaViT's does not, as JAX's build_model
+    # passes it), and the four baseline models build
+    ("synthetic_cfg", ["attn_pooling=param1"],
+     lambda t: not hasattr(t.model.feature_extractor, "attn_pooling")),
+    ("synthetic_cfg", ["model=depthwisevit_adapt", "model.pooling_channel_type=attention",
+                       "attn_pooling=param1"],
+     lambda t: t.model.feature_extractor.attn_pooling.depth == 1),
+    *(("synthetic_cfg", [f"model={m}"], lambda t, c=c: type(t.model.feature_extractor).__name__
+       == c) for m, c in (("vit_adapt", "SlicedPatchVisionTransformer"),
+                          ("depthwisevit_adapt", "DepthwiseViT"),
+                          ("hypervit_adapt", "HyperNetViT"),
+                          ("templatemixingvit", "TemplateMixingViT"))),
 ]
 
 
@@ -288,9 +315,83 @@ def test_formerly_refused_runtime_keys_build(name, over, taken, tmp_path):
     nor head); the ``_resnet34`` sampler gets its frozen scorer (random
     init: no ``model.resnet34_ckpt``), each optimizer name its torch
     optimizer, ``block_v2`` PPT blocks and ``token_keep_channels`` the
-    model's kc."""
+    model's kc; ``attn_pooling`` the depthwise model's channel pooling (and
+    not DiChaViT, whose factory does not take it), each baseline model its
+    backbone (tests/test_torch_zoo.py holds them against JAX)."""
     cfg = load_config(name, TINY + over + [f"train.checkpoints={tmp_path}"])
     assert taken(Trainer(cfg, device="cpu"))
+
+
+def test_fused_block_false_step_matches_jax(tmp_path, monkeypatch):
+    """``model.fused_block: false`` (refused before): JAX turns the fused
+    route off for the process from the key (``set_fused_block``), the port
+    per block. In bf16 at a width the fused route takes (``synthetic_cfg``,
+    D = 128 in 2 heads of 64, depth 2, ``attention_impl`` auto: block 0 on
+    the fused route unless the key is off, block 1 the readout), the port's
+    Trainer with the key calls neither fused wrapper in a train step, where
+    the same model without it calls both; and the step's loss equals the JAX
+    bf16 step's under ``set_fused_block(False)`` from the same weights
+    within 1e-2 relative, each gradient the JAX f32 step's within 3e-2 of
+    its max|g| and the JAX bf16 step's within 3e-2 plus that step's own
+    distance from f32, both on the f32 max|g| (JAX sums bias gradients in
+    bf16: the patch bias lands about 50% of max|g| from f32 at this size),
+    the bounds tests/test_torch_training.py holds a bf16 step to."""
+    from diverse_channel_vit_tpu.models import build_model as jbuild_model
+    from diverse_channel_vit_tpu.models.import_torch import load_reference_checkpoint
+    from diverse_channel_vit_tpu.ops import fused_block as jfb
+    from diverse_channel_vit_tpu.training.steps import make_grad_step as jmake_grad_step
+    from diverse_channel_vit_torch.ops import fused_block as fb
+    from diverse_channel_vit_torch.training import make_grad_step
+
+    over = [o for o in TINY if "attention_impl" not in o] + [
+        "++model.embed_dim=128", "++model.num_heads=2", f"train.checkpoints={tmp_path}"]
+    calls = []
+    for name in ("attend_project", "ln_mlp"):
+        real = getattr(fb, name)
+        monkeypatch.setattr(fb, name, lambda *a, real=real, name=name, **kw:
+                            calls.append(name) or real(*a, **kw))
+    batch = None
+    for key in (True, False):
+        pt = Trainer(load_config("synthetic_cfg", over + [f"model.fused_block={key}"]),
+                     device="cpu")
+        assert pt.dtype == torch.bfloat16
+        if batch is None:
+            raw = next(iter(pt.train_loader))
+            batch = {"image": raw["image"], "label": raw["label"]}
+        pt.model.zero_grad(set_to_none=True)
+        step = make_grad_step(pt.model, channel_ids=range(8), loss_type="ce",
+                              extra_loss_lambda=pt.extra_loss_lambda)
+        del calls[:]
+        m = step({k: torch.from_numpy(v) for k, v in batch.items()})
+        assert sorted(set(calls)) == ([] if not key else ["attend_project", "ln_mlp"]), key
+    params = load_reference_checkpoint(
+        {k: v.detach().numpy().copy() for k, v in pt.model.state_dict().items()})[0]
+    jcfg = jload_config("synthetic_cfg", over + ["model.fused_block=False"])
+    jcfg.model.in_channel_names = jcfg.dataset.in_channel_names
+    jbatch = {k: jax.numpy.asarray(v) for k, v in batch.items()}
+    saved = jfb.FUSED_BLOCK_DEFAULT
+    jfb.set_fused_block(False)
+    try:
+        want = {}
+        for dtype in (jax.numpy.bfloat16, jax.numpy.float32):
+            jmodel = jbuild_model("dichavit", jcfg.model, pt.mapper, pt.num_classes, dtype=dtype)
+            grads, jm = jmake_grad_step(jmodel, channel_ids=range(8), loss_type="ce",
+                                        extra_loss_lambda=pt.extra_loss_lambda)(
+                params, jbatch, jax.random.key(0))
+            want[dtype] = (float(jm["loss"]), params_from_jax(jax.device_get(grads)))
+    finally:
+        jfb.set_fused_block(saved)
+    loss16, want16 = want[jax.numpy.bfloat16]
+    _, want32 = want[jax.numpy.float32]
+    assert abs(float(m["loss"]) - loss16) <= 1e-2 * abs(loss16)
+
+    for name, p in pt.model.named_parameters():
+        w16, w32 = want16[name].numpy(), want32[name].numpy()
+        g = np.zeros_like(w32) if p.grad is None else p.grad.numpy()
+        scale = max(np.abs(w32).max(), 1e-12)  # every distance on the f32 gradient's scale
+        d32, d16, jax16 = (np.abs(a - b).max() / scale for a, b in ((g, w32), (g, w16),
+                                                                      (w16, w32)))
+        assert d32 <= 3e-2 and d16 <= 3e-2 + jax16, (name, d32, d16, jax16)
 
 
 # keys the Trainer refused before the CHAMMI port and now honours (CHAMMI) or
