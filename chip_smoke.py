@@ -191,7 +191,25 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     (64, 17)) against the plain route; ``fused_block: false`` on DiChaViT at depth 4
     (B5 / B6 alone, no B1-B4) and ``vit_adapt`` with ``quantization: int8``
     at depth 4 (B7 / B8), each against the plain route;
-15. print the ``kernels`` JSON line (each kernel's launches from its main
+15. the ConvNeXt family, DINOv2 and the feature-extraction CLI, where no
+    kernel of the port runs (the counts set to 0 first must read 0 at the
+    end, and no ``dcvit`` kernel shows in a profile): each of the six
+    ConvNeXt models at full ConvNeXt-Tiny width and depth, JUMP-CP
+    geometry, with its yaml's values: its f32 forward on the card (TF32
+    off) against the CPU's at B = 4 within 1e-3 of max|logit|, the bf16
+    forward within LOGITS_REL_TOL, one bf16 train step against the f32 CPU
+    step (loss, every gradient within TRAIN_GRAD_REL_TOL of its max|g|),
+    12 timed steps at B = 64 and a profiled one (``phase convnext`` lines:
+    images/s, p50, peak memory, the device's busy share), serving p50 at
+    buckets 1 and 64; DINOv2 at the ``dinov2_vits14_reg`` shape against the
+    CPU in f32 and timed; ``main`` with ``convnext_base`` on a JUMP-CP
+    fixture from a timm-layout checkpoint it writes
+    (``pretrained_pad_random``), with ``shared_convnext`` (from that
+    checkpoint, ``pretrained_pad_avg``) and ``depthwiseconvnext``
+    (Allen_HPA, three novel-channel strategies) on a CHAMMI fixture of 96
+    images a chunk with the embedding figures; the CLI with ``dinov2_jax``, ``resnet18_jax``
+    and ``convnext_jax`` on that fixture into ``run_benchmark``;
+16. print the ``kernels`` JSON line (each kernel's launches from its main
     paths, per Trainer epoch, and the CHAMMI, novel-channel and CHAMMI
     subset runs', per step of the runtime, training-knob and baseline
     phases' runs, and per epoch of the baselines' and CIFAR's Trainer
@@ -1456,10 +1474,24 @@ def get_json(port: int, path: str) -> dict:
         return json.loads(resp.read())
 
 
+def device_time(e, torch) -> float:
+    """The device microseconds of one ``key_averages()`` item, 0 for a host
+    item and for a range that ``record_function`` marks on the device's
+    timeline (a user annotation, the optimizer's
+    ``Optimizer.step#AdamW.step``): such a range spans kernels counted
+    already."""
+    if (getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU
+            or getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer.")):
+        return 0
+    return getattr(e, "self_device_time_total", 0) or 0
+
+
 def profile_call(fn, label: str, torch):
     """Device time by kernel over one call of ``fn``, and the device's busy
-    share of its wall time: the 16 largest items, then every other kernel of
-    the port (``dcvit::``)."""
+    share of its wall time: prints the 16 largest items, then every other
+    kernel of the port (``dcvit::``). Returns the rows (device us, name,
+    count), largest first, and the busy share (None where the profiler
+    recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1468,21 +1500,18 @@ def profile_call(fn, label: str, torch):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total", 0) or 0
-        if dev > 0 and getattr(e, "device_type", None) != torch.autograd.DeviceType.CPU:
-            rows.append((dev, e.key, e.count))
+    rows = sorted(((device_time(e, torch), e.key, e.count) for e in prof.key_averages()
+                   if device_time(e, torch) > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"profile of {label}: the profiler recorded no device time; breakdown not measured")
-        return
-    rows.sort(reverse=True)
+        return [], None
     print(f"profile of {label}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)")
     for i, (dev, key, count) in enumerate(rows):
         if i < 16 or "dcvit::" in key:
             print(f"  {100 * dev / busy:5.1f}%  {dev / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
+    return rows, busy / wall_us
 
 
 def model_config(depth: int, **extra):
@@ -2246,8 +2275,7 @@ class TrainerProbe:
             # its start-up and teardown stay out of the busy share
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 out = timed(trainer, epoch, start_batch)
-            probe.busy_us = sum(getattr(e, "self_device_time_total", 0) or 0
-                                for e in prof.key_averages())
+            probe.busy_us = sum(device_time(e, torch) for e in prof.key_averages())
             return out
 
         def draw_k(trainer, c):
@@ -2304,9 +2332,9 @@ class TrainerProbe:
         def make_eval_step(model):
             step = probe.saved_eval(model)
 
-            def counted(x, cids, override=None):
+            def counted(x, cids, override=None, **chunk_kw):
                 probe.eval_forwards += 1
-                return step(x, cids, override)
+                return step(x, cids, override, **chunk_kw)
 
             return counted
 
@@ -3073,19 +3101,20 @@ CHAMMI_RECIPE = [
 CHAMMI_SEED = 2025
 
 
-def write_chammi_fixture(tmp: str) -> str:
+def write_chammi_fixture(tmp: str, n_train: int = CHAMMI_TRAIN, n_test: int = CHAMMI_TEST,
+                         name: str = "chammi_fixture") -> str:
     """A CHAMMI tree: ``morphem70k_v2.csv``, every tape in one packed blob
     (``chammi_packed.bin`` and its ``.index.json``, read without PIL), and
     ``Allen|HPA|CP/enriched_meta.csv`` with the MorphEm task columns and
-    HPA's ``cell_type`` and CP's ``Plate``. Each chunk has CHAMMI_TRAIN Train
-    rows and CHAMMI_TEST rows spread over its tasks, uint8 tapes at its own
+    HPA's ``cell_type`` and CP's ``Plate``. Each chunk has ``n_train`` Train
+    rows and ``n_test`` rows spread over its tasks, uint8 tapes at its own
     size: a class prototype per channel plus noise. Returns the root."""
     import json
     import os
 
     import pandas as pd
 
-    root = os.path.join(tmp, "chammi_fixture")
+    root = os.path.join(tmp, name)
     os.makedirs(root)
     rng = np.random.default_rng(0)
     rows, index, off = [], {}, 0
@@ -3093,8 +3122,7 @@ def write_chammi_fixture(tmp: str) -> str:
         for chunk, (h, w, c) in CHAMMI_CHUNKS.items():
             classes, tasks = CHAMMI_CLASSES[chunk], CHAMMI_TASKS[chunk]
             protos = rng.integers(20, 180, size=(len(classes), c), dtype=np.uint8)
-            splits = ["Train"] * CHAMMI_TRAIN + [tasks[i % len(tasks)]
-                                                 for i in range(CHAMMI_TEST)]
+            splits = ["Train"] * n_train + [tasks[i % len(tasks)] for i in range(n_test)]
             meta = []
             for i, split in enumerate(splits):
                 label = classes[i % len(classes)]
@@ -3555,6 +3583,579 @@ def chammi_subset(fb, torch, tmp: str, root: str):
     return launches, steps, "step"
 
 
+# the ConvNeXt family (ROADMAP A9) at JUMP-CP geometry (8 channels, 224^2,
+# 161 classes), full ConvNeXt-Tiny width and depth, each with its yaml's
+# values; DINOv2 at the dinov2_vits14_reg shape; the feature-extraction CLI's
+# three backbones. No kernel of the port lies on these paths.
+CONVNEXT = {
+    "convnext_base": dict(model_name="convnext_base"),
+    "shared_convnext": dict(model_name="shared_convnext"),
+    "sliceparamconvnext": dict(model_name="sliceparamconvnext"),
+    "templatemixingconvnext": dict(model_name="templatemixingconvnext", num_templates=64,
+                                   separate_coef=True),
+    "hyperconvnext": dict(model_name="hyperconvnext", z_dim=64, hidden_dim=128),
+    "depthwiseconvnext": dict(model_name="depthwiseconvnext", kernels_per_channel=16,
+                              pooling_channel_type="weighted_sum_random"),
+}
+CONVNEXT_PARITY_B = 4
+# the CHAMMI fixture of the ConvNeXt phase: Train and test rows a chunk
+# (half the CHAMMI phase's: the host reads the tapes, and the phase's
+# budget is 120 s)
+CONVNEXT_CHAMMI_ROWS = (64, 32)
+# the parity checks set every block's layer scale to this (the seeded init's
+# 1e-6 would leave the blocks out of the output)
+CONVNEXT_GAMMA = 0.3
+# the card in f32 with TF32 off against the CPU in f32: the same arithmetic
+# in other summation orders (cuDNN's and the CPU's convolution algorithms)
+F32_REL_TOL = 1e-3
+DINO = dict(dim=384, heads=6, depth=12, patch=14, registers=4, grid=37)
+FEATURE_BACKBONES = ("dinov2_jax", "resnet18_jax", "convnext_jax")
+
+
+def convnext_model(name: str, device: str, dtype, extra: dict, mapper=None):
+    """A ConvNeXt-family model at JUMP-CP geometry from seed 0 (the same
+    weights whatever the device and dtype), on ``mapper`` or else the one the
+    Trainer builds for a single-chunk dataset (``train``, ``valid``,
+    ``test``: the first key's stems and tables; DepthwiseConvNeXt
+    average-pools), every block's layer scale at CONVNEXT_GAMMA."""
+    import torch
+
+    from diverse_channel_vit_torch.models import build_model
+
+    extra = dict(extra)
+    ids = list(range(CHANNELS))
+    model = build_model(extra.pop("model_name"), model_config(DEPTH, **extra),
+                        mapper or {"train": ids, "valid": ids, "test": ids}, CLASSES,
+                        device=device, dtype=dtype, seed=0)
+    with torch.no_grad():
+        for blk in model.feature_extractor.trunk.blocks:
+            blk.gamma.fill_(CONVNEXT_GAMMA)
+    return model
+
+
+def rel_close(label: str, what: str, got, want, tol: float) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{label}: {what} not finite")
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"{label}: {what} rel {rel:.3e} (tolerance {tol})")
+    if not rel <= tol:
+        raise AssertionError(f"{label}: {what} disagrees")
+    return rel
+
+
+def no_port_kernels(label: str, names) -> None:
+    """Raise if a kernel of the port (namespace ``dcvit``) ran."""
+    ours = [n for n in names if "dcvit" in n]
+    if ours:
+        raise AssertionError(f"{label}: the profiler saw the port's kernels {ours[:3]}")
+
+
+def convnext_checks(fb, torch, label: str, extra: dict, bare: dict) -> dict:
+    """One ConvNeXt-family model at full width: its f32 forward on the card
+    (TF32 off) against the CPU's at B = 4 within F32_REL_TOL, the bf16
+    forward within LOGITS_REL_TOL; a bf16 train step on the card against the
+    f32 CPU step (AdamW, CE), the loss within TRAIN_LOSS_REL_TOL and every
+    gradient within TRAIN_GRAD_REL_TOL of its own max|g|; 2 + 10 timed
+    bf16 steps at B = 64 and one profiled (the device's busy share, no kernel
+    of the port); serving p50 at buckets 1 and 64. Returns its figures."""
+    import copy
+
+    from diverse_channel_vit_torch.serving import ServingEngine
+    from diverse_channel_vit_torch.training import (TrainState, make_lr_schedule,
+                                                    make_optimizer, make_train_step)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((CONVNEXT_PARITY_B, CHANNELS, IMG, IMG),
+                                             dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, CLASSES, size=CONVNEXT_PARITY_B))
+    cids = list(range(CHANNELS))
+    cpu = convnext_model(label, "cpu", torch.float32, extra)
+    card = convnext_model(label, "cuda", torch.bfloat16, extra)
+    n_params = sum(p.numel() for p in cpu.parameters())
+    card32 = copy.deepcopy(cpu).cuda()
+    out = {"params": n_params}
+    with torch.no_grad():
+        want = cpu(x, torch.tensor(cids))[0].numpy()
+        got32 = card32(x.cuda(), torch.tensor(cids, device="cuda"))[0].float().cpu().numpy()
+        got16 = card(x.cuda(), torch.tensor(cids, device="cuda"))[0].float().cpu().numpy()
+    out["f32_rel"] = rel_close(label, "f32 logits, card vs CPU", got32, want, F32_REL_TOL)
+    out["bf16_rel"] = rel_close(label, "bf16 logits, card vs CPU f32", got16, want,
+                                LOGITS_REL_TOL)
+    del card32
+    lr = make_lr_schedule("none", ADAMW_JUMPCP["lr"], {}, num_epochs=1, steps_per_epoch=1)
+    grads, losses = {}, {}
+    for side, model, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        state = TrainState(model, make_optimizer("adamw", dict(ADAMW_JUMPCP), lr_schedule=lr,
+                                                 total_steps=10))
+        step = make_train_step(model, channel_ids=cids, loss_type="ce")
+        _, m = step(state, {"image": x.to(dev), "label": y.to(dev)})
+        losses[side] = float(m["loss"])
+        grads[side] = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                       if p.grad is not None}
+        del state, step
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    worst = max(((grads["card"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
+                for n, g in grads["cpu"].items())
+    print(f"{label}: bf16 card step vs f32 CPU step: loss {losses['card']:.6f} vs "
+          f"{losses['cpu']:.6f}, rel {loss_rel:.3e} (tolerance {TRAIN_LOSS_REL_TOL}); "
+          f"{len(grads['cpu'])} gradients, worst rel {worst[0]:.3e} ({worst[1]}) (tolerance "
+          f"{TRAIN_GRAD_REL_TOL} of its max|g|)")
+    if not (loss_rel <= TRAIN_LOSS_REL_TOL and worst[0] <= TRAIN_GRAD_REL_TOL
+            and set(grads["card"]) == set(grads["cpu"])):
+        raise AssertionError(f"{label}: the card's step disagrees with the CPU's")
+    out.update(loss_rel=loss_rel, grad_rel=worst[0], grad_worst=worst[1])
+    del cpu, grads
+    # 2 + 10 timed bf16 steps at B = 64, then one profiled
+    batch = synthetic_batch(torch)
+    state = TrainState(card, make_optimizer("adamw", dict(ADAMW_JUMPCP), lr_schedule=lr,
+                                            total_steps=100))
+    step = make_train_step(card, channel_ids=cids, loss_type="ce")
+    torch.cuda.reset_peak_memory_stats()
+    lats = []
+    for i in range(12):
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= 2:
+            lats.append(time.perf_counter() - t)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"{label}: step {i} loss not finite")
+    lats = np.asarray(lats)
+    out.update(train_p50_ms=float(np.percentile(lats, 50)) * 1e3,
+               train_imgs_per_s=B * len(lats) / float(lats.sum()),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    rows, busy = profile_call(lambda: step(state, batch), f"one {label} step (64 images)", torch)
+    no_port_kernels(label, [k for _, k, _ in rows])
+    out["busy"] = busy
+    del state, step, batch
+    card.eval()
+    engine = ServingEngine(card, buckets=(1, 64), device="cuda")
+    engine.warmup(cids, (IMG, IMG))
+    imgs = rng.standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)
+    for bucket, reps in ((1, 20), (64, 8)):
+        lat = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            logits = engine.predict(imgs[:bucket], cids)
+            lat.append(time.perf_counter() - t)
+        if not np.isfinite(logits).all() or logits.shape != (bucket, CLASSES):
+            raise AssertionError(f"{label}: serving logits {logits.shape} not finite")
+        out[f"serve_p50_ms_{bucket}"] = float(np.percentile(lat, 50)) * 1e3
+    engine.stop()
+    print(f"phase convnext {label}: train {out['train_imgs_per_s']:.2f} images/s, p50 "
+          f"{out['train_p50_ms']:.3f} ms, peak memory {out['peak_gb']:.3f} GB, device busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} of a profiled step; "
+          f"serving p50 {out['serve_p50_ms_1']:.3f} ms at bucket 1, "
+          f"{out['serve_p50_ms_64']:.3f} ms at bucket 64; {n_params:,} parameters; the plain "
+          f"DiChaViT-S step {bare['p50_ms']:.3f} ms; {time.perf_counter() - t0:.1f} s; card "
+          f"{card_line()}", flush=True)
+    del card, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def depthwise_chammi_step(torch) -> dict:
+    """DepthwiseConvNeXt on CHAMMI's mapper (its per-chunk patch embedding;
+    HPA's 4 channels at 224^2, B = 4, the proxy loss) against the CPU's f32
+    step. Held: the card's f32 step (TF32 off), the loss and every gradient
+    within F32_REL_TOL (of its own max|g|); the card's bf16 step's loss
+    within TRAIN_LOSS_REL_TOL. Printed, not held: the bf16 step's
+    gradients, each as a share of its own max|g|. Two of them are small
+    differences of large terms, which bf16's rounding of the terms
+    dominates: the patch embedding's bias, whose gradient is the sum over
+    pixels of the patch-embedded map's gradient (the bias-free 1x1 conv and
+    the InstanceNorm after the 3x3 bank take out a constant shift, so the
+    sum nearly cancels: |sum g| / sum |g| by channel, from the CPU's step,
+    is printed), and the softmax channel weights ``weighted_sum_pooling``
+    (the softmax's backward subtracts the weighted mean of the channels'
+    terms). Returns the readings."""
+    import diverse_channel_vit_torch.models.convnext_variants as cv
+    from diverse_channel_vit_torch.training import (TrainState, make_lr_schedule,
+                                                    make_optimizer, make_train_step)
+
+    label, chunk = "depthwiseconvnext CHAMMI", "HPA"
+    mapper = {"Allen": [5, 2, 6], "HPA": [3, 6, 5, 0], "CP": [5, 0, 7, 1, 4]}
+    rng = np.random.default_rng(37)
+    x = torch.from_numpy(rng.standard_normal((CONVNEXT_PARITY_B, len(mapper[chunk]), IMG, IMG),
+                                             dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, CLASSES, size=CONVNEXT_PARITY_B))
+    lr = make_lr_schedule("none", ADAMW_JUMPCP["lr"], {}, num_epochs=1, steps_per_epoch=1)
+    bias = f"feature_extractor.patch_emb_bias_{chunk}"
+    held = {}
+    real_conv = cv._conv
+
+    def keep_patch_map(x_, w, b=None, **kw):
+        out = real_conv(x_, w, b, **kw)
+        if b is not None and "map" not in held and out.requires_grad:
+            held["map"] = out
+            out.retain_grad()
+        return out
+
+    runs = {}
+    for side, dev, dtype in (("cpu", "cpu", torch.float32), ("card f32", "cuda", torch.float32),
+                             ("card bf16", "cuda", torch.bfloat16)):
+        model = convnext_model(label, dev, dtype, CONVNEXT["depthwiseconvnext"], mapper)
+        state = TrainState(model, make_optimizer("adamw", dict(ADAMW_JUMPCP), lr_schedule=lr,
+                                                 total_steps=10))
+        step = make_train_step(model, channel_ids=mapper[chunk], loss_type="proxy", chunk=chunk)
+        if side == "cpu":
+            cv._conv = keep_patch_map
+        try:
+            _, m = step(state, {"image": x.to(dev), "label": y.to(dev)})
+        finally:
+            cv._conv = real_conv
+        runs[side] = (float(m["loss"]), {n: p.grad.float().cpu() for n, p in
+                                         model.named_parameters() if p.grad is not None})
+        del model, state, step
+    g_map = held.pop("map").grad.double()
+    cancel = (g_map.sum(dim=(0, 2, 3)).abs() / g_map.abs().sum(dim=(0, 2, 3))).tolist()
+    loss, want = runs["cpu"]
+    out = {"cancellation": cancel}
+    for side, loss_tol in (("card f32", F32_REL_TOL), ("card bf16", TRAIN_LOSS_REL_TOL)):
+        got_loss, got = runs[side]
+        loss_rel = abs(got_loss - loss) / abs(loss)
+        rels = {n: (got[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                for n, g in want.items()}
+        worst = sorted(((r, n) for n, r in rels.items()), reverse=True)
+        out[side] = dict(loss_rel=loss_rel, grad_rel=worst[0][0], bias_rel=rels[bias])
+        if side == "card f32":
+            grads = (f"worst rel {worst[0][0]:.3e} ({worst[0][1]}) (tolerance {F32_REL_TOL} of "
+                     f"its max|g|)")
+            ok = worst[0][0] <= F32_REL_TOL and set(got) == set(want)
+        else:
+            grads = ("not held, the largest rel " + ", ".join(f"{r:.3e} ({n})" for r, n in
+                                                             worst[:4]) + f"; {bias} "
+                     f"{rels[bias]:.3e}")
+            ok = set(got) == set(want)
+        print(f"{label}: {side} step vs f32 CPU step: loss rel {loss_rel:.3e} (tolerance "
+              f"{loss_tol}); {len(rels)} gradients, {grads}", flush=True)
+        if not (loss_rel <= loss_tol and ok):
+            raise AssertionError(f"{label}: the card's {side} step disagrees with the CPU's")
+    print(f"{label}: {bias}'s gradient, the sum over pixels of the patch-embedded map's, "
+          f"cancels to |sum g| / sum |g| = {', '.join(f'{c:.3e}' for c in cancel)} by channel; "
+          f"card {card_line()}", flush=True)
+    return out
+
+
+def dinov2_state(rng) -> dict:
+    """A hub-layout DINOv2 state dict of the dinov2_vits14_reg shape (D =
+    384, 6 heads, depth 12, patch 14, 4 registers, the 37 x 37 grid), drawn
+    by numpy: the random stand-in for the published weights."""
+    d, p, g = DINO["dim"], DINO["patch"], DINO["grid"]
+    sd = {"cls_token": rng.normal(size=(1, 1, d)) * 0.02,
+          "pos_embed": rng.normal(size=(1, 1 + g * g, d)) * 0.02,
+          "register_tokens": rng.normal(size=(1, DINO["registers"], d)) * 0.02,
+          "mask_token": np.zeros((1, d)),
+          "patch_embed.proj.weight": rng.normal(size=(d, 3, p, p)) / (p * np.sqrt(3)),
+          "patch_embed.proj.bias": np.zeros(d), "norm.weight": np.ones(d), "norm.bias": np.zeros(d)}
+    for i in range(DINO["depth"]):
+        o = f"blocks.{i}."
+        for ln in ("norm1", "norm2"):
+            sd[o + ln + ".weight"], sd[o + ln + ".bias"] = np.ones(d), np.zeros(d)
+        for name, (n_out, n_in) in (("attn.qkv", (3 * d, d)), ("attn.proj", (d, d)),
+                                    ("mlp.fc1", (4 * d, d)), ("mlp.fc2", (d, 4 * d))):
+            sd[o + name + ".weight"] = rng.normal(size=(n_out, n_in)) / np.sqrt(n_in)
+            sd[o + name + ".bias"] = np.zeros(n_out)
+        sd[o + "ls1.gamma"] = np.full(d, 0.1)
+        sd[o + "ls2.gamma"] = np.full(d, 0.1)
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def timm_convnext_state(rng) -> dict:
+    """A timm ``convnext_tiny`` state dict drawn by numpy (the shapes of
+    ``convnext_tiny.fb_in22k``, its head included): the random stand-in for
+    the pretrained checkpoint."""
+    from diverse_channel_vit_torch.models.convnext import TINY
+
+    dims = TINY["dims"]
+    sd = {"stem.0.weight": rng.normal(size=(96, 3, 4, 4)) * 0.1, "stem.0.bias": np.zeros(96),
+          "stem.1.weight": np.ones(96), "stem.1.bias": np.zeros(96),
+          "head.norm.weight": np.ones(768), "head.norm.bias": np.zeros(768),
+          "head.fc.weight": rng.normal(size=(1000, 768)) * 0.02, "head.fc.bias": np.zeros(1000)}
+    for s, (depth, dim) in enumerate(zip(TINY["depths"], dims)):
+        if s:
+            sd[f"stages.{s}.downsample.0.weight"] = np.ones(dims[s - 1])
+            sd[f"stages.{s}.downsample.0.bias"] = np.zeros(dims[s - 1])
+            sd[f"stages.{s}.downsample.1.weight"] = rng.normal(
+                size=(dim, dims[s - 1], 2, 2)) / np.sqrt(4 * dims[s - 1])
+            sd[f"stages.{s}.downsample.1.bias"] = np.zeros(dim)
+        for b in range(depth):
+            p = f"stages.{s}.blocks.{b}."
+            sd[p + "conv_dw.weight"] = rng.normal(size=(dim, 1, 7, 7)) / 7
+            sd[p + "conv_dw.bias"] = np.zeros(dim)
+            sd[p + "norm.weight"], sd[p + "norm.bias"] = np.ones(dim), np.zeros(dim)
+            sd[p + "mlp.fc1.weight"] = rng.normal(size=(4 * dim, dim)) / np.sqrt(dim)
+            sd[p + "mlp.fc1.bias"] = np.zeros(4 * dim)
+            sd[p + "mlp.fc2.weight"] = rng.normal(size=(dim, 4 * dim)) / np.sqrt(4 * dim)
+            sd[p + "mlp.fc2.bias"] = np.zeros(dim)
+            sd[p + "gamma"] = np.full(dim, 0.1)
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def resnet18_state(rng) -> dict:
+    """A torchvision-layout ResNet-18 state dict drawn by numpy, BatchNorm
+    statistics and ``fc`` included: the random stand-in for the pretrained
+    ResNet-18."""
+    sd = {}
+
+    def conv_bn(conv, bn, cout, cin, k):
+        sd[conv + ".weight"] = rng.normal(size=(cout, cin, k, k)) * np.sqrt(2.0 / (cin * k * k))
+        sd[bn + ".weight"], sd[bn + ".bias"] = np.ones(cout), np.zeros(cout)
+        sd[bn + ".running_mean"], sd[bn + ".running_var"] = np.zeros(cout), np.ones(cout)
+
+    conv_bn("conv1", "bn1", 64, 3, 7)
+    cin = 64
+    for li, (n, cout) in enumerate(zip((2, 2, 2, 2), (64, 128, 256, 512))):
+        for bi in range(n):
+            t = f"layer{li + 1}.{bi}"
+            conv_bn(t + ".conv1", t + ".bn1", cout, cin, 3)
+            conv_bn(t + ".conv2", t + ".bn2", cout, cout, 3)
+            if (li > 0 and bi == 0) or cin != cout:
+                conv_bn(t + ".downsample.0", t + ".downsample.1", cout, cin, 1)
+            cin = cout
+    sd["fc.weight"], sd["fc.bias"] = rng.normal(size=(1000, 512)) * 0.02, np.zeros(1000)
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def save_state(path: str, sd: dict) -> str:
+    import torch
+
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return path
+
+
+def dinov2_checks(torch) -> dict:
+    """DINOv2 at the dinov2_vits14_reg shape with random weights: the card's
+    f32 forward against the CPU's at B = 4 (224^2: the 37 x 37 grid
+    resampled to 16 x 16) within F32_REL_TOL, hub and HuggingFace layouts
+    alike; the card's CLS features of 64 images timed (10 calls after 2)."""
+    from diverse_channel_vit_torch.models import dinov2
+
+    sd = dinov2_state(np.random.default_rng(41))
+    cfg = dinov2.config_from_state_dict(sd)
+    model = dinov2.load_torch_dinov2_state(dinov2.DinoV2ViT(**cfg), sd).eval()
+    x = torch.from_numpy(np.random.default_rng(42).standard_normal((CONVNEXT_PARITY_B, 3, IMG,
+                                                                   IMG), dtype=np.float32))
+    with torch.no_grad():
+        want = model.forward_features(x)
+        card = model.cuda()
+        got = card.forward_features(x.cuda())
+    out = {k: rel_close("dinov2", f"{k}, card f32 vs CPU", got[k].cpu(), want[k], F32_REL_TOL)
+           for k in ("x_norm_clstoken", "x_norm_patchtokens")}
+    xb = torch.from_numpy(np.random.default_rng(43).standard_normal(
+        (B, 3, IMG, IMG), dtype=np.float32)).cuda()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: card(xb), 10)
+    out["ms_64"] = ms
+    print(f"phase dinov2 (vits14_reg shape, f32, {cfg}): CLS features of 64 images in {ms:.3f} "
+          f"ms ({B / ms * 1e3:.2f} images/s); card {card_line()}", flush=True)
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def pretrained_stems(torch, config: str, over, path: str) -> None:
+    """A Trainer built from ``config`` with ``over`` (``model.pretrained`` the
+    timm state dict at ``path``): each stem of the model holds the
+    pretrained 3-channel stem on its first three input channels, and under
+    ``pretrained_pad_avg`` channel 3 + i the mean of pretrained channels i
+    to i + n_avg - 1 (n_avg 2 for a 5-channel stem, else 3)."""
+    from diverse_channel_vit_torch.config import load_config
+    from diverse_channel_vit_torch.trainer import Trainer
+
+    t = Trainer(load_config(config, over))
+    pre = torch.load(path, weights_only=True)["stem.0.weight"]
+    avg = t.cfg.model.init_first_layer == "pretrained_pad_avg"
+    fe, shapes = t.model.feature_extractor, {}
+    for name, p in fe.named_parameters():
+        if not name.startswith("stem_conv") or name == "stem_conv1x1.weight":
+            continue
+        stem = p.detach().cpu()
+        n_avg = 2 if stem.shape[1] == 5 else 3
+        ok = torch.equal(stem[:, :3], pre) and (not avg or all(
+            torch.allclose(stem[:, 3 + i], pre[:, i:i + n_avg].mean(dim=1))
+            for i in range(stem.shape[1] - 3)))
+        shapes[name] = tuple(stem.shape)
+        if not ok:
+            raise AssertionError(f"{config}: {name} was not widened from the pretrained stem")
+    print(f"{config} {t.cfg.model.name} pretrained ({t.cfg.model.init_first_layer}): stems "
+          f"{shapes} hold the pretrained {tuple(pre.shape)} stem as the rule says")
+    if not shapes:
+        raise AssertionError(f"{config}: no stem to check")
+    del t
+
+
+def convnext_trainers(fb, torch, tmp: str) -> str:
+    """``main`` on the card with ConvNeXt models, the counts set to 0 before
+    each and read after (every one 0: no kernel of the port on these paths):
+    ``jump_cp_cfg`` with ``convnext_base`` for one epoch on the JUMP-CP
+    fixture, ``model.pretrained`` a timm-layout state dict written here and
+    ``init_first_layer: pretrained_pad_random`` (``pretrained_pad_avg``
+    widens 3 channels to at most 6: at JUMP-CP's 8 the reference averages an
+    empty window into NaN, and the port raises); ``chammi_cfg`` with
+    ``shared_convnext`` on every chunk from that state dict under
+    ``pretrained_pad_avg`` (each chunk's stem widened to 3, 4 and 5
+    channels), and with ``depthwiseconvnext`` on
+    ``train.training_chunks=Allen_HPA`` with the novel-channel strategies
+    zero, avg_2 and replicate, one epoch each on the CHAMMI fixture, with
+    the embedding figures (``eval.umap``). A Trainer built from each
+    pretrained config first shows the widened stems
+    (:func:`pretrained_stems`). Returns the CHAMMI fixture's root."""
+    from diverse_channel_vit_torch import main as port_main
+
+    root = write_jumpcp_fixture(tmp)
+    path = save_state(os.path.join(tmp, "convnext_tiny.pth"),
+                      timm_convnext_state(np.random.default_rng(44)))
+    over = [f"++dataset.root_dir={root}", "model=convnext_base", "train.batch_size=64",
+            "train.num_epochs=1", "train.save_model=none", "eval.skip_eval_first_epoch=True",
+            "train.device_augment=True", f"++model.pretrained={path}",
+            "++model.init_first_layer=pretrained_pad_random", f"train.checkpoints={tmp}"]
+    pretrained_stems(torch, "jump_cp_cfg", over, path)
+    probe, launches, _ = run_trainer(fb, torch, "Trainer convnext_base", "jump_cp_cfg", over, {},
+                                     {})
+    del probe
+    chammi_root = write_chammi_fixture(tmp, *CONVNEXT_CHAMMI_ROWS)
+    pretrained = [f"++model.pretrained={path}", "++model.init_first_layer=pretrained_pad_avg"]
+    pretrained_stems(torch, "chammi_cfg", ["model=shared_convnext", *pretrained,
+                                           f"++dataset.root_dir={chammi_root}",
+                                           f"++train.checkpoints={tmp}/stems"], path)
+    for label, model, extra in (
+            ("Trainer CHAMMI shared_convnext", "shared_convnext", pretrained),
+            ("Trainer CHAMMI depthwiseconvnext", "depthwiseconvnext", [
+                "++train.training_chunks=Allen_HPA",
+                f"++model.new_channel_inits=[{','.join(CHAMMI_STRATEGIES)}]"])):
+        out = os.path.join(tmp, model)
+        argv = ["-cn", "chammi_cfg", f"model={model}", "++train.batch_size=64",
+                "++train.num_epochs=1", "++eval.skip_eval_first_epoch=True", "++eval.umap=True",
+                f"++dataset.root_dir={chammi_root}", f"++eval.root_dir={chammi_root}",
+                f"++eval.feature_dir={out}/feat/{{FOLDER_NAME}}",
+                f"++eval.dest_dir={out}/res/{{FOLDER_NAME}}", f"++train.checkpoints={out}/ck",
+                *extra]
+        print(f"== {label}: python -m diverse_channel_vit_torch.main {' '.join(argv)}",
+              flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fb.reset_launches()
+        with TrainerProbe(torch) as probe:
+            port_main.main(argv)
+        secs = time.perf_counter() - t0
+        t = probe.trainer
+        if any(fb.LAUNCHES.values()):
+            raise AssertionError(f"{label}: the port's kernels launched: {dict(fb.LAUNCHES)}")
+        steps, res = len(probe.steps), probe.evals[-1]
+        novel = model == "depthwiseconvnext"
+        strategies = list(CHAMMI_STRATEGIES) if novel else [None]
+        scores = {s: res[("" if s is None else f"{s}/") + "knn_cosine/chammi_score"]
+                  for s in strategies}
+        figures = sorted(n for n in os.listdir(f"{out}/res/epoch1_seed{t.seed}")
+                         if n.endswith((".png", ".npy")))
+        pooling = {k: v for k, v in t.model.feature_extractor.named_parameters()
+                   if k.startswith("weighted_sum_pooling")}
+        ok = (steps == t.updates_per_epoch and all(np.isfinite(v) for m in probe.steps
+                                                   for v in m.values())
+              and all(0.0 <= v <= 1.0 for v in scores.values()) and len(figures) >= 3)
+        if novel:
+            moved = float(np.abs(probe.features["zero", "CP"]
+                                 - probe.features["avg_2", "CP"]).max())
+            ok = ok and moved > 0 and sorted(t.train_loader.quotas) == ["Allen", "HPA"]
+        e = probe.epochs[1]
+        print(f"phase {label}: {e['imgs_per_sec_per_chip']:.2f} images/s (Trainer steady), "
+              f"{steps} steps, epoch {e['wall_s']:.3f} s; CHAMMI score {scores}; eval "
+              f"{res['wall_s']:.3f} s (forward {res['split']['forward']:.3f} s, benchmark and "
+              f"figures {res['split']['benchmark']:.3f} s), eval peak memory "
+              f"{res['peak_gb']:.3f} GB; figures {figures}; pooling weights "
+              f"{sorted(pooling)}; no kernel of the port launched; {secs:.1f} s; card "
+              f"{card_line()}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: a step, a score or a figure is wrong")
+        del probe, t
+    return chammi_root
+
+
+def feature_cli(torch, root: str, tmp: str) -> dict:
+    """``python -m diverse_channel_vit_torch.evaluation.feature_extraction``
+    through its ``main``, with ``dinov2_jax``, ``resnet18_jax`` and
+    ``convnext_jax`` from state dicts written here, on every dataset of the
+    CHAMMI fixture at 224^2, into MorphEm's ``run_benchmark`` with the
+    embedding figures; which of scikit-learn and matplotlib import, each
+    backbone's images/s (host loading included) and CHAMMI score."""
+    from diverse_channel_vit_torch.evaluation import benchmark
+    from diverse_channel_vit_torch.evaluation import feature_extraction as fe
+
+    have = {}
+    for mod in ("sklearn", "matplotlib", "umap"):
+        try:
+            __import__(mod)
+            have[mod] = True
+        except ImportError:
+            have[mod] = False
+    print("feature extraction: " + ", ".join(f"{m} {'imports' if ok else 'missing'}"
+                                             for m, ok in have.items()))
+    weights = {"dinov2_jax": save_state(os.path.join(tmp, "dinov2.pth"),
+                                        dinov2_state(np.random.default_rng(45))),
+               "resnet18_jax": save_state(os.path.join(tmp, "resnet18.pth"),
+                                          resnet18_state(np.random.default_rng(46))),
+               "convnext_jax": save_state(os.path.join(tmp, "convnext_fe.pth"),
+                                          timm_convnext_state(np.random.default_rng(47)))}
+    out = {}
+    for model in FEATURE_BACKBONES:
+        feat_dir = os.path.join(tmp, "fe", model)
+        n, dims = 0, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for dataset in ("Allen", "HPA", "CP"):
+            path = fe.main(["--root_dir", root, "--dataset", dataset, "--dest", feat_dir,
+                            "--model", model, "--weights", weights[model], "--img_size",
+                            str(IMG), "--batch_size", "64"])
+            feats = np.load(path)
+            if not np.isfinite(feats).all():
+                raise AssertionError(f"feature extraction {model} {dataset}: not finite")
+            n += len(feats)
+            dims[dataset] = feats.shape[1]
+        secs = time.perf_counter() - t0
+        dest = os.path.join(tmp, "fe_res", model)
+        df = benchmark.run_benchmark(root, dest, feat_dir, "features.npy", umap=True,
+                                     knn_metric="cosine", device="cuda")
+        score = benchmark.chammi_score(df)
+        figures = sorted(x for x in os.listdir(dest) if x.endswith((".png", ".npy")))
+        print(f"phase feature extraction {model}: {n} images in {secs:.3f} s ({n / secs:.2f} "
+              f"images/s, host loading included), feature widths {dims}; CHAMMI score "
+              f"{score:.4f}; figures {figures}; card {card_line()}", flush=True)
+        if not (0.0 <= score <= 1.0 and len(figures) >= 3):
+            raise AssertionError(f"feature extraction {model}: the benchmark or its figures "
+                                 "failed")
+        out[model] = n / secs
+    return out
+
+
+def convnext_family(fb, torch, bare: dict) -> None:
+    """The ConvNeXt family, DINOv2 and the feature-extraction CLI on the card
+    (ROADMAP A9, A7): each of the six models (:func:`convnext_checks`),
+    DINOv2 (:func:`dinov2_checks`), ``main`` with three of them
+    (:func:`convnext_trainers`) and the CLI (:func:`feature_cli`). The
+    counts are set to 0 first and must read 0 at the end."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    fb.reset_launches()
+    figures = {}
+    for label, extra in CONVNEXT.items():
+        figures[label] = convnext_checks(fb, torch, label, extra, bare)
+    figures["depthwiseconvnext CHAMMI"] = depthwise_chammi_step(torch)
+    figures["dinov2"] = dinov2_checks(torch)
+    with tempfile.TemporaryDirectory(prefix="dcvit_convnext_") as tmp:
+        chammi_root = convnext_trainers(fb, torch, tmp)
+        figures["feature extraction images/s"] = feature_cli(torch, chammi_root, tmp)
+    if any(fb.LAUNCHES.values()):
+        raise AssertionError(f"convnext family: the port's kernels launched: "
+                             f"{dict(fb.LAUNCHES)}")
+    print(f"convnext family: {json.dumps(figures)}; no kernel of the port launched; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -3734,6 +4335,10 @@ def main() -> int:
         results[name]["baseline_grids"] = grids
     paths.update(baselines(fb, torch, bare))
     stamp("baselines", t_start)
+    # the ConvNeXt family, DINOv2 and the feature-extraction CLI: no kernel
+    # of the port on their paths (the kernels line is unchanged)
+    convnext_family(fb, torch, bare)
+    stamp("convnext family", t_start)
 
     # each kernel's main paths, first the one its launches are read from
     dh128 = "_dh128"

@@ -12,8 +12,8 @@ Parity port of the benchmark *protocol* (``morphem/benchmark.py:31-90``,
   and writes the same json/csv artifacts
 
 The kNN runs on ``device`` (the card unless ``"cpu"`` is asked for). The
-SGD classifier imports scikit-learn when it is built. The embedding figures
-(``umap=True``) are not ported (ROADMAP A7) and raise.
+SGD classifier imports scikit-learn when it is built. ``umap=True`` draws
+the 2-D embedding figures (:func:`create_embedding_figure`).
 """
 
 from __future__ import annotations
@@ -115,6 +115,82 @@ def evaluate(
     }
 
 
+def pca_2d(train: np.ndarray):
+    """A 2-component PCA fitted on ``train``: scikit-learn's ``PCA`` where it
+    imports (what the JAX package uses), else the same numpy computation
+    (centre, SVD, the signs of ``svd_flip``: each component's largest
+    absolute loading positive, scikit-learn's rule since 1.5). Returns
+    ``transform(x) -> (N, 2)``."""
+    try:
+        from sklearn.decomposition import PCA
+    except ImportError:
+        return numpy_pca_2d(train)
+    return PCA(n_components=2).fit(train).transform
+
+
+def numpy_pca_2d(train: np.ndarray):
+    """:func:`pca_2d` without scikit-learn."""
+    x = np.asarray(train, np.float64)
+    mean = x.mean(axis=0)
+    _, _, vt = np.linalg.svd(x - mean, full_matrices=False)
+    comps = vt[:2]
+    signs = np.sign(comps[np.arange(len(comps)), np.argmax(np.abs(comps), axis=1)])
+    comps = comps * np.where(signs == 0, 1.0, signs)[:, None]
+    return lambda q: (np.asarray(q, np.float64) - mean) @ comps.T
+
+
+def create_embedding_figure(dataset: str, features_path: str, df_path: str, dest_dir: str,
+                            label_col: str) -> str:
+    """The 2-D embedding figure of one dataset (``morphem/evaluation.py:
+    18-60``, JAX ``create_embedding_figure``): fitted on the Train split, one
+    panel per test task, coloured by ``label_col`` (``label`` when the
+    metadata lacks it). UMAP (``n_neighbors=15``) where ``umap`` imports, else
+    a PCA (:func:`pca_2d`), as JAX does. Where matplotlib does not import,
+    the port saves each task's 2-D embedding as
+    ``{dataset}_{task}_{method}.npy`` instead of the figure (a difference
+    from JAX, which needs matplotlib). Returns the figure's path, or
+    ``dest_dir`` when it wrote the arrays."""
+    os.makedirs(dest_dir, exist_ok=True)
+    features = np.load(features_path)
+    df = pd.read_csv(df_path)
+    tasks = [t for t in df["train_test_split"].unique() if t != "Train"]
+    train_idx = np.where(df["train_test_split"] == "Train")[0]
+    try:
+        import umap as _umap
+
+        transform = _umap.UMAP(n_neighbors=15, n_components=2).fit(features[train_idx]).transform
+        method = "umap"
+    except ImportError:
+        transform, method = pca_2d(features[train_idx]), "pca"
+    labels = df[label_col] if label_col in df.columns else df.get("label", None)
+    panels = []
+    for task in tasks:
+        idx = np.where(df[task])[0]
+        lab = labels.iloc[idx] if labels is not None else pd.Series(np.zeros(len(idx)))
+        panels.append((task, transform(features[idx]), lab))
+    try:
+        import matplotlib
+    except ImportError:
+        for task, emb, _ in panels:
+            np.save(os.path.join(dest_dir, f"{dataset}_{task}_{method}.npy"), emb)
+        return dest_dir
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(1, max(len(tasks), 1), figsize=(5 * max(len(tasks), 1), 4))
+    for ax, (task, emb, lab) in zip(np.atleast_1d(axes), panels):
+        for value in pd.unique(lab):
+            m = np.asarray(lab == value)
+            ax.scatter(emb[m, 0], emb[m, 1], s=4, label=str(value)[:18])
+        ax.set_title(f"{dataset} {task} ({method})")
+        ax.legend(fontsize=6, markerscale=2)
+    fig.tight_layout()
+    path = os.path.join(dest_dir, f"{dataset}_{method}.png")
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
+
+
 def run_benchmark(
     root_dir: str,
     dest_dir: str,
@@ -125,20 +201,25 @@ def run_benchmark(
     knn_metric: str = "l2",
     device=None,
 ) -> pd.DataFrame:
-    """``morphem/benchmark.py:31-90`` parity. ``umap=True``, the reference's
-    2-D embedding figures (``morphem/evaluation.py:18-60``), raises
-    ``NotImplementedError`` (ROADMAP A7)."""
-    if umap:
-        raise NotImplementedError("eval.umap: the embedding figures (create_embedding_figure) "
-                                  "are not ported yet (ROADMAP A7)")
+    """``morphem/benchmark.py:31-90`` parity. ``umap=True`` first draws each
+    dataset's embedding figure (:func:`create_embedding_figure`, coloured by
+    Allen's ``Structure``, HPA's ``cell_type``, CP's ``source``); a figure
+    that fails prints why and never fails the benchmark, as in JAX."""
     task_rows = [
-        ("Allen", None, None),
-        ("HPA", "Task_three", "cell_type"),
-        ("CP", "Task_four", "Plate"),
+        ("Allen", None, None, "Structure"),
+        ("HPA", "Task_three", "cell_type", "cell_type"),
+        ("CP", "Task_four", "Plate", "source"),
     ]
     full = []
     os.makedirs(dest_dir, exist_ok=True)
-    for dataset, leave_out, leaveout_label in task_rows:
+    for dataset, leave_out, leaveout_label, umap_label in task_rows:
+        if umap:
+            try:
+                create_embedding_figure(dataset, os.path.join(feature_dir, dataset, feature_file),
+                                        os.path.join(root_dir, dataset, "enriched_meta.csv"),
+                                        dest_dir, umap_label)
+            except Exception as e:  # figures must never fail the benchmark
+                print(f"[run_benchmark] embedding figure for {dataset} failed: {e}")
         results = evaluate(
             os.path.join(feature_dir, dataset, feature_file),
             os.path.join(root_dir, dataset, "enriched_meta.csv"),

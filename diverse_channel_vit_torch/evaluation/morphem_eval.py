@@ -34,6 +34,8 @@ def extract_features(trainer, chunk: str, loader, new_channel_init=None) -> np.n
     synthesis."""
     cids = torch.tensor(trainer._chunk_channel_ids(chunk), device=trainer.device)
     override = trainer._synthesis_override(chunk, new_channel_init)
+    bound = trainer.bound_chunk(chunk)  # a ConvNeXt model's per-chunk stem
+    chunk_kw = {} if bound is None else {"chunk": bound}
     feats = []
     max_batches = 3 if trainer.debug else math.inf
     for i, batch in enumerate(loader):
@@ -44,7 +46,7 @@ def extract_features(trainer, chunk: str, loader, new_channel_init=None) -> np.n
         if valid is not None and not valid.all():
             img = img[np.asarray(valid)]
         x = torch.from_numpy(np.ascontiguousarray(img)).to(trainer.device)
-        feats.append(trainer._eval_step(x, cids, override).float().cpu().numpy())
+        feats.append(trainer._eval_step(x, cids, override, **chunk_kw).float().cpu().numpy())
     return np.concatenate(feats, axis=0)
 
 

@@ -6,6 +6,7 @@ from . import vit_adapt  # noqa: F401
 from . import depthwise_vit  # noqa: F401  (registers depthwisevit_adapt)
 from . import hyper_vit  # noqa: F401  (registers hypervit_adapt)
 from . import template_mixing_vit  # noqa: F401  (registers templatemixingvit)
+from . import convnext_variants  # noqa: F401  (registers the six ConvNeXt models)
 
 from .channel_vit import SIZE_PRESETS, ChannelVisionTransformer
 from .wrappers import ChannelAdaptiveClassifier

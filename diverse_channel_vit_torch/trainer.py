@@ -4,9 +4,9 @@
 Builds loaders, model, optimizer, schedules and logger in ``__init__``,
 then runs the epoch loop with evaluation and checkpoints, as the JAX
 Trainer does for JUMP-CP, So2Sat, CHAMMI, CIFAR and the synthetic config,
-for every ViT the JAX package registers (DiChaViT, ChannelViT and the
+for every model the JAX package registers (DiChaViT, ChannelViT, the
 baselines ``vit_adapt``, ``depthwisevit_adapt``, ``hypervit_adapt`` and
-``templatemixingvit``; the ConvNeXt family is refused, ROADMAP A9):
+``templatemixingvit``, and the six ConvNeXt models):
 
 - the channel-count draw of DCS (``k ~ U[1, C]``) comes from the numpy
   ``host_rng`` seeded with ``train.seed``, one step function per k, all
@@ -30,9 +30,15 @@ baselines ``vit_adapt``, ``depthwisevit_adapt``, ``hypervit_adapt`` and
   (``evaluation/morphem_eval.py``), ``accuracy`` being the CHAMMI score,
   once per strategy of ``model.new_channel_inits`` when the run trained on
   a ``train.training_chunks`` subset;
+- a ConvNeXt model whose stem depends on the chunk (per-chunk stems and
+  tables) gets each CHAMMI micro-batch's chunk and each test chunk's in the
+  eval (JAX ``bind_chunk``); single-chunk datasets leave it to the model
+  (the mapper's first key), as JAX's ``_default_chunk`` does;
 - a checkpoint is ``training/checkpoint.py``'s torch file and meta.json;
 - the runtime of JAX ``trainer.py``: ``model.pretrained`` (a warm start from
-  a local reference checkpoint, ``models/import_torch.py``); freezing
+  a local reference checkpoint, ``models/import_torch.py``; for a ConvNeXt
+  model a local timm ``convnext_tiny`` state dict, its stem widened by
+  ``model.init_first_layer``, ``models/convnext.py``); freezing
   (``model.freeze_other``, ``model.unfreeze_last_n_layers``,
   ``training/freeze.py``); MIRO (``train.miro``, ``miro_ld``,
   ``miro_lr_mult``, ``training/miro.py``); SWA (averaged once an epoch past
@@ -133,8 +139,8 @@ def training_chunk_list(cfg):
     return [c for c in str(tc).split("_") if c]
 
 
-# the JAX package's ConvNeXt factories, by the ``name:`` keys of their yaml
-# files in ``config/configs/model/`` (two file names differ from theirs:
+# the ConvNeXt factories, by the ``name:`` keys of their yaml files in
+# ``config/configs/model/`` (two file names differ from theirs:
 # sliceparam.yaml, template_mixing_conv.yaml)
 CONVNEXT_MODELS = ("convnext_base", "shared_convnext", "sliceparamconvnext",
                    "templatemixingconvnext", "hyperconvnext", "depthwiseconvnext")
@@ -142,17 +148,18 @@ CONVNEXT_MODELS = ("convnext_base", "shared_convnext", "sliceparamconvnext",
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for each key the port's Trainer does
-    not honour yet, naming its ROADMAP item. A model name that no package
-    registers is left to the registry's ``KeyError``."""
-    tr, model, ev, hw = cfg.train, cfg.model, cfg.eval, cfg.hardware
-    chammi = cfg.dataset.name == "morphem70k"
+    not honour yet, naming its ROADMAP item, and ``ValueError`` for
+    ``train.plot_attn`` on a ConvNeXt model, which has no attention. A model
+    name that no package registers is left to the registry's ``KeyError``."""
+    tr, model, hw = cfg.train, cfg.model, cfg.hardware
+    convnext = str(model.get("name")) in CONVNEXT_MODELS
+    if convnext and tr.get("plot_attn"):
+        raise ValueError(f"train.plot_attn: model {model.get('name')!r} has no attention to "
+                         "plot (the JAX Trainer fails there too)")
     refusals = [
-        (str(model.get("name")) in CONVNEXT_MODELS,
-         f"model {model.get('name')!r}: the ConvNeXt family (ROADMAP A9)"),
         (bool(tr.get("ssl")), "train.ssl (ROADMAP A6)"),
-        (bool(_pretrained_path(cfg)) and "convnext" in str(model.get("name")),
-         "model.pretrained for a ConvNeXt trunk: the ConvNeXt family (ROADMAP A9)"),
-        (chammi and bool(ev.get("umap")), "eval.umap: the embedding figures (ROADMAP A7)"),
+        (convnext and bool(tr.get("miro")),
+         "train.miro for a ConvNeXt model: its block taps (ROADMAP A9)"),
         (any(int(v) > 1 for v in _as_dict(hw.get("mesh") or {}).values()),
          "hardware.mesh with more than one device (ROADMAP A10)"),
         (bool(hw.get("zero1")) or bool(hw.get("zero3")), "hardware.zero1 / zero3 (ROADMAP A10)"),
@@ -338,6 +345,16 @@ class Trainer:
         path = _pretrained_path(self.cfg)
         if not path:
             return
+        if self.cfg.model.name in CONVNEXT_MODELS:
+            from .models.convnext import apply_pretrained_convnext
+            from .models.resnet import load_state_dict_file
+
+            loaded = apply_pretrained_convnext(
+                self.model, load_state_dict_file(str(path)), self.cfg.model.name,
+                init_first_layer=self.cfg.model.get("init_first_layer"), mapper=self.mapper)
+            self.logger.info(f"loaded pretrained ConvNeXt weights from {path} "
+                             f"({len(loaded)} tensors)")
+            return
         from .models.import_torch import load_reference_checkpoint, merge_into_template
 
         imported, _ = load_reference_checkpoint(path)
@@ -425,6 +442,12 @@ class Trainer:
     def _chunk_channel_ids(self, chunk_or_split: str):
         return list(self.mapper[chunk_or_split])
 
+    def bound_chunk(self, chunk: Optional[str]) -> Optional[str]:
+        """The ``chunk=`` a step or eval forward passes: the CHAMMI chunk for a
+        model whose stem depends on it (the ConvNeXt family's
+        ``chunk_aware``), else None (JAX ``bind_chunk``)."""
+        return chunk if getattr(self.model.feature_extractor, "chunk_aware", False) else None
+
     def _draw_k(self, c: int) -> Optional[int]:
         """HCS channel-count draw Cin_new ~ U[1, C] (``channel_vit.py:79-82``)."""
         if not self.hcs_enabled:
@@ -443,14 +466,14 @@ class Trainer:
             )
         return self._train_steps[key]
 
-    def _get_grad_step(self, channel_ids, k):
-        key = (tuple(channel_ids), k)
+    def _get_grad_step(self, channel_ids, k, chunk=None):
+        key = (tuple(channel_ids), k, chunk)
         if key not in self._grad_steps:
             self._grad_steps[key] = make_grad_step(
                 self.model, channel_ids=channel_ids, k=k, hcs_method=self.hcs_method,
                 hcs_temp=self.hcs_temp, generator=self.generator, loss_type=self.loss_type,
                 extra_loss_lambda=self.extra_loss_lambda, learnable_temp=self.learnable_temp,
-                temperature=self.temperature, **self._step_kw(),
+                temperature=self.temperature, chunk=chunk, **self._step_kw(),
             )
         return self._grad_steps[key]
 
@@ -747,12 +770,26 @@ class Trainer:
                                  pref_msg=f"  [e{epoch} b{i + 1}/{len(loader)}]")
         if self.swa and not self.swad and epoch > self.swa_start and not self._epoch_interrupted:
             self._swa_update()  # plain SWA averages once an epoch
+        self._log_pooling_weights()
         out = {k: m.avg for k, m in meters.items()}
         if t_first_step_done is not None and n_images > n_warmup:
             steady = time.perf_counter() - t_first_step_done
             if steady > 0:
                 out["imgs_per_sec_per_chip"] = (n_images - n_warmup) / steady
         return out
+
+    def _log_pooling_weights(self) -> None:
+        """The learned channel-pooling weights, once an epoch (JAX
+        ``trainer.py:1063-1075``; reference ``trainer.py:816-820``):
+        DepthwiseConvNeXt's ``weighted_sum_pooling`` table(s) and
+        DepthwiseViT's ``channel_weights``, as ``weights/{name}/w_{i}``."""
+        logged = {}
+        for name, p in self.model.feature_extractor.named_parameters():
+            if name.startswith("weighted_sum_pooling") or name == "channel_weights":
+                for i, w in enumerate(p.detach().float().cpu().reshape(-1).tolist()):
+                    logged[f"weights/{name}/w_{i}"] = round(float(w), 5)
+        if logged:
+            self.logger.info(logged)
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """A host batch on the device, images in the compute dtype (JAX
@@ -791,7 +828,7 @@ class Trainer:
         for chunk, sub in batch.items():
             cids = self._chunk_channel_ids(chunk)
             k = self._draw_k(len(cids))
-            metrics = self._get_grad_step(cids, k)(sub)
+            metrics = self._get_grad_step(cids, k, self.bound_chunk(chunk))(sub)
             cs = metrics.pop("sampled_channels", None)
             if cs is not None:
                 sampled.append(cs)
@@ -896,13 +933,15 @@ class Trainer:
         return path
 
     # the per-channel table the synthesis strategies rebuild, per model, by
-    # its name in the backbone (JAX ``trainer.py:1219-1229``; the ConvNeXt
-    # rows come with ROADMAP A9)
+    # its name in the backbone (JAX ``trainer.py:1219-1229``)
     OVERRIDE_TABLES = {"dichavit": "patch_embed.channel_embed.weight",
                        "channelvit_adapt": "patch_embed.channel_embed.weight",
                        "depthwisevit_adapt": "channel_embed",
                        "hypervit_adapt": "conv1_emb",
-                       "templatemixingvit": "conv1_coefs"}
+                       "templatemixingvit": "conv1_coefs",
+                       "hyperconvnext": "conv1_emb",
+                       "templatemixingconvnext": "conv1_coefs",
+                       "depthwiseconvnext": "conv1depthwise_param_bank"}
 
     def _training_channels(self) -> list:
         return flatten_training_channels(self.mapper,
@@ -910,10 +949,19 @@ class Trainer:
 
     def _channel_embed(self) -> torch.Tensor:
         """The model's own override table: ChannelViT's channel embeddings
-        (C_total, D), DepthwiseViT's, HyperViT's z-vectors (C_total, z_dim)
-        or TemplateMixingViT's coefficients (C_total, T)."""
+        (C_total, D), DepthwiseViT's, the z-vectors (C_total, z_dim) of
+        HyperViT and HyperConvNeXt, the coefficients (C_total, T) of
+        TemplateMixingViT and TemplateMixingConvNeXt, or DepthwiseConvNeXt's
+        kernels as (C_total, k, 3, 3) (JAX ``trainer.py:1244-1246``). A
+        ConvNeXt model built with per-chunk tables (``separate_coef``,
+        ``separate_emb``) has no such table and raises ``AttributeError``,
+        where JAX raises ``KeyError``."""
         name = self.OVERRIDE_TABLES[self.cfg.model.name]
-        return self.model.feature_extractor.get_parameter(name).detach()
+        fe = self.model.feature_extractor
+        table = fe.get_parameter(name).detach()
+        if self.cfg.model.name == "depthwiseconvnext":
+            table = table.reshape(-1, fe.kernels_per_channel, 3, 3)
+        return table
 
     def _synthesis_override(self, split: str, new_channel_init) -> Optional[torch.Tensor]:
         """The rows of the model's table (:meth:`_channel_embed`) for

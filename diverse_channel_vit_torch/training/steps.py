@@ -136,12 +136,19 @@ def _select_channels(model, x: torch.Tensor, cids: torch.Tensor, *, k: Optional[
     return x.index_select(1, idx), cids.index_select(0, idx), None
 
 
+def _chunk_kw(chunk: Optional[str]) -> dict:
+    """The ``chunk=`` of a ConvNeXt model whose stem depends on the chunk;
+    nothing for every other call."""
+    return {} if chunk is None else {"chunk": chunk}
+
+
 def _loss_and_metrics(model, x, cids, y, *, loss_type: str, extra_loss_lambda: float,
                       learnable_temp: bool, temperature: float, drop_path=None,
-                      miro_pre=None, miro_ld: float = 0.0, override=None, token_drop=None):
+                      miro_pre=None, miro_ld: float = 0.0, override=None, token_drop=None,
+                      chunk: Optional[str] = None):
     feats = None if miro_pre is None else {}
     out, extra = model(x, cids, override, taps=feats, drop_path=drop_path,
-                       token_drop=token_drop)
+                       token_drop=token_drop, **_chunk_kw(chunk))
     logits = out
     if loss_type == "proxy":
         logits = proxy_logits(model.proxies, out,
@@ -179,6 +186,7 @@ def make_train_step(
     miro_pre: Optional[torch.nn.Module] = None,
     miro_ld: float = 0.0,
     feature_fn: Optional[Callable] = None,
+    chunk: Optional[str] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch, draws=None) -> (state, metrics)`` for a
     single-chunk batch ``{"image": (B, C, H, W) f32, "label": (B,) int}`` on
@@ -205,12 +213,15 @@ def make_train_step(
     the step's DropPath masks, ``draws["token_drop"]`` (``draw_token_drop``)
     its HCS token dropout. ``miro_pre`` (the frozen pre-featurizer) and
     ``miro_ld`` add MIRO's loss (``miro_loss`` in the metrics);
-    ``feature_fn`` goes to the channel selection."""
+    ``feature_fn`` goes to the channel selection. ``chunk`` goes to the
+    forward of a model whose stem depends on the chunk (the ConvNeXt
+    family's per-chunk stems and tables; JAX's ``bind_chunk``); None leaves
+    it to the model (the mapper's first key)."""
     grad_step = make_grad_step(
         model, channel_ids=channel_ids, k=k, hcs_method=hcs_method, hcs_temp=hcs_temp,
         generator=generator, loss_type=loss_type, extra_loss_lambda=extra_loss_lambda,
         learnable_temp=learnable_temp, temperature=temperature, augment_fn=augment_fn,
-        miro_pre=miro_pre, miro_ld=miro_ld, feature_fn=feature_fn)
+        miro_pre=miro_pre, miro_ld=miro_ld, feature_fn=feature_fn, chunk=chunk)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: Optional[dict] = None):
         state.zero_grad()
@@ -237,6 +248,7 @@ def make_grad_step(
     miro_pre: Optional[torch.nn.Module] = None,
     miro_ld: float = 0.0,
     feature_fn: Optional[Callable] = None,
+    chunk: Optional[str] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``grad_step(batch, draws=None) -> metrics``: one batch's forward,
     loss and backward, its gradients added into the parameters' ``.grad``,
@@ -283,7 +295,8 @@ def make_grad_step(
         total, metrics = _loss_and_metrics(
             model, xs, cs, y, loss_type=loss_type, extra_loss_lambda=extra_loss_lambda,
             learnable_temp=learnable_temp, temperature=temperature, drop_path=masks,
-            miro_pre=miro_pre, miro_ld=miro_ld, override=override, token_drop=token_drop)
+            miro_pre=miro_pre, miro_ld=miro_ld, override=override, token_drop=token_drop,
+            chunk=chunk)
         total.backward()
         if cs is not cids:
             metrics["sampled_channels"] = cs
@@ -293,17 +306,19 @@ def make_grad_step(
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable[..., torch.Tensor]:
-    """``eval_step(images, channel_ids, override=None) -> out``: the model's
-    eval-mode forward without gradient (the JAX ``make_eval_step``):
-    logits for a model with a head, else the CLS embedding. ``override`` is
-    the channel-embedding override of the novel-channel evals, (C, D) or
-    per-sample (B, C, D), in place of the table's rows for ``channel_ids``."""
+    """``eval_step(images, channel_ids, override=None, chunk=None) -> out``:
+    the model's eval-mode forward without gradient (the JAX
+    ``make_eval_step``): logits for a model with a head, else the CLS
+    embedding. ``override`` is the channel-embedding override of the
+    novel-channel evals, (C, D) or per-sample (B, C, D), in place of the
+    table's rows for ``channel_ids``; ``chunk`` as in :func:`make_train_step`."""
 
     def eval_step(x: torch.Tensor, cids: torch.Tensor,
-                  override: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  override: Optional[torch.Tensor] = None,
+                  chunk: Optional[str] = None) -> torch.Tensor:
         model.eval()
         with torch.no_grad():
-            out, _ = model(x, cids, channel_embed_override=override)
+            out, _ = model(x, cids, channel_embed_override=override, **_chunk_kw(chunk))
         return out
 
     return eval_step

@@ -13,7 +13,9 @@ novel-channel synthesis, ``ops/novel_channels``, and the Trainer's runtime:
 ``models/vit_adapt``, ``models/channel_attention_pooling``,
 ``models/depthwise_vit``, ``models/hypernet``, ``models/hyper_vit``,
 ``models/template_mixing_vit``, ``data/cifar`` and
-``scripts/make_cifar_fixture``), and no
+``scripts/make_cifar_fixture``, and the ConvNeXt family, DINOv2 and the
+feature-extraction CLI: ``models/convnext``, ``models/convnext_variants``,
+``models/dinov2``, ``evaluation/feature_extraction``), and no
 ``diverse_channel_vit_tpu`` module may appear in ``sys.modules``. Importing
 ``main`` parses no command line: the probe's argv holds an option that
 ``main``'s parser would refuse.
@@ -55,7 +57,8 @@ for name in ("main", "trainer", "data.loaders", "config.loader", "ops.augment",
              "training.optim", "models.trunk", "models.vit_adapt",
              "models.channel_attention_pooling", "models.depthwise_vit", "models.hypernet",
              "models.hyper_vit", "models.template_mixing_vit", "data.cifar",
-             "scripts.make_cifar_fixture"):
+             "scripts.make_cifar_fixture", "models.convnext", "models.convnext_variants",
+             "models.dinov2", "evaluation.feature_extraction"):
     assert "diverse_channel_vit_torch." + name in sys.modules, name
 """
 

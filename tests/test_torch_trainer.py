@@ -38,8 +38,10 @@
   takes them up, and so do ``attn_pooling`` and the four baseline models
   refused before the baselines' port; ``model.fused_block: false`` (refused
   before too) trains its bf16 step unfused, as JAX's under
-  ``set_fused_block(False)``; every ConvNeXt model and ``model.pretrained``
-  for a ConvNeXt trunk raise (A9), and a model name no package knows keeps
+  ``set_fused_block(False)``; the six ConvNeXt models (refused before their
+  port) build, ``model.pretrained`` loads a timm checkpoint into one,
+  CHAMMI's ``eval.umap`` passes, MIRO on a ConvNeXt model raises (A9) and
+  ``plot_attn`` there ``ValueError``; a model name no package knows keeps
   the registry's ``KeyError`` (C9).
 - SWA and SWAD: the lr per update and the averages equal the JAX Trainer's
   schedule and ``_swa_update``, and the model adopts the average.
@@ -63,7 +65,7 @@ from diverse_channel_vit_tpu.utils.misc import set_seeds as jset_seeds
 from diverse_channel_vit_torch import main as port_main
 from diverse_channel_vit_torch.config import load_config
 from diverse_channel_vit_torch.models.export import params_from_jax
-from diverse_channel_vit_torch.trainer import Trainer
+from diverse_channel_vit_torch.trainer import Trainer, check_supported
 
 TINY = ["train.num_epochs=2", "train.batch_size=16", "++dataset.num_train_samples=64",
         "++dataset.num_eval_samples=32", "hardware.num_workers=0", "hardware.mesh.data=1",
@@ -220,20 +222,13 @@ def test_dcs_k_draws_equal_jax(tmp_path):
 
 
 REFUSED = [
-    ("chammi_cfg", ["eval.umap=True"], "ROADMAP A7"),
     ("synthetic_cfg", ["train.ssl=True"], "ROADMAP A6"),
-    ("synthetic_cfg", ["model.name=convnext_base", "model.pretrained=/nonexistent.pth"],
-     "ROADMAP A9"),
+    ("synthetic_cfg", ["model=shared_convnext", "train.miro=True"], "ROADMAP A9"),
     ("synthetic_cfg", ["hardware.mesh.data=2"], "ROADMAP A10"),
     ("synthetic_cfg", ["hardware.mesh.model=2"], "ROADMAP A10"),
     ("synthetic_cfg", ["hardware.zero1=True"], "ROADMAP A10"),
     ("synthetic_cfg", ["hardware.zero3=True"], "ROADMAP A10"),
     ("synthetic_cfg", ["train.adaptive_interface_epochs=2"], "adaptive_interface_epochs"),
-    # C9: the ConvNeXt family by its yaml files (the model names are their
-    # name: keys; sliceparam and template_mixing_conv are named otherwise)
-    *(("synthetic_cfg", [f"model={m}"], "ROADMAP A9")
-      for m in ("convnext_base", "shared_convnext", "sliceparam", "template_mixing_conv",
-                "hyperconvnext", "depthwiseconvnext")),
 ]
 
 
@@ -301,6 +296,24 @@ RUNTIME_KEYS = [
                           ("depthwisevit_adapt", "DepthwiseViT"),
                           ("hypervit_adapt", "HyperNetViT"),
                           ("templatemixingvit", "TemplateMixingViT"))),
+    # refused before the ConvNeXt family was ported: every model builds by its
+    # yaml file (the model names are their name: keys; sliceparam and
+    # template_mixing_conv are named otherwise), freeze_other labels it as
+    # JAX does (tests/test_torch_convnext.py holds them against JAX)
+    *(("synthetic_cfg", [f"model={m}"], lambda t, c=c: type(t.model.feature_extractor).__name__
+       == c) for m, c in (("convnext_base", "ConvNeXtBase"),
+                          ("shared_convnext", "SharedConvNeXt"),
+                          ("sliceparam", "SliceParamConvNeXt"),
+                          ("template_mixing_conv", "TemplateMixingConvNeXt"),
+                          ("hyperconvnext", "HyperConvNeXt"),
+                          ("depthwiseconvnext", "DepthwiseConvNeXt"))),
+    ("synthetic_cfg", ["model=convnext_base", "++model.is_conv_small=True",
+                       "++model.drop_path_rate=0.1"],
+     lambda t: [len(s.blocks) for s in t.model.feature_extractor.trunk.stages] == [3, 3, 8, 2]
+     and t.model.feature_extractor.trunk.blocks[-1].drop_path == pytest.approx(0.1)),
+    ("synthetic_cfg", ["model=shared_convnext", "model.freeze_other=True"],
+     lambda t: "feature_extractor.stem_conv_train" not in t.state.frozen
+     and "feature_extractor.trunk.stages.0.blocks.0.conv_dw.weight" in t.state.frozen),
 ]
 
 
@@ -320,6 +333,45 @@ def test_formerly_refused_runtime_keys_build(name, over, taken, tmp_path):
     backbone (tests/test_torch_zoo.py holds them against JAX)."""
     cfg = load_config(name, TINY + over + [f"train.checkpoints={tmp_path}"])
     assert taken(Trainer(cfg, device="cpu"))
+
+
+def test_chammi_umap_and_convnext_plot_attn(tmp_path):
+    """``eval.umap`` on CHAMMI (refused before the embedding figures were
+    ported) passes ``check_supported``; ``train.plot_attn`` on a ConvNeXt
+    model, which has no attention, raises ``ValueError``."""
+    check_supported(load_config("chammi_cfg", ["eval.umap=True"]))
+    with pytest.raises(ValueError, match="no attention"):
+        Trainer(load_config("synthetic_cfg", TINY + ["model=convnext_base",
+                                                     "train.plot_attn=True",
+                                                     f"train.checkpoints={tmp_path}"]),
+                device="cpu")
+
+
+def test_convnext_pretrained_loads_a_timm_checkpoint(tmp_path):
+    """``model.pretrained`` for a ConvNeXt model (refused before the port):
+    a timm ``convnext_tiny`` state dict on disk loads into the trunk, and the
+    stem widens from 3 to the 8 channels by ``pretrained_pad_random``, as
+    JAX's ``apply_pretrained_convnext`` does (tests/test_torch_convnext.py
+    holds it against JAX); ``pretrained_pad_avg`` cannot fill 8 channels
+    from 3 (JAX averages an empty window into NaN) and raises."""
+    from test_torch_convnext import _timm_state
+
+    sd = _timm_state(np.random.default_rng(0))
+    path = str(tmp_path / "convnext_tiny.pth")
+    torch.save({"state_dict": {"module." + k: v for k, v in sd.items()}}, path)
+    over = TINY + ["model=convnext_base", f"model.pretrained={path}",
+                   f"train.checkpoints={tmp_path}"]
+    t = Trainer(load_config("synthetic_cfg", over + [
+        "model.init_first_layer=pretrained_pad_random"]), device="cpu")
+    fe = t.model.feature_extractor
+    assert torch.equal(fe.trunk.stages[2].blocks[8].mlp.fc1.weight,
+                       sd["stages.2.blocks.8.mlp.fc1.weight"])
+    assert fe.stem_conv.shape == (96, 8, 4, 4)
+    assert torch.equal(fe.stem_conv[:, :3], sd["stem.0.weight"])
+    assert torch.equal(fe.stem_bias, sd["stem.0.bias"])
+    with pytest.raises(ValueError, match="pretrained_pad_random"):
+        Trainer(load_config("synthetic_cfg", over + [
+            "model.init_first_layer=pretrained_pad_avg"]), device="cpu")
 
 
 def test_fused_block_false_step_matches_jax(tmp_path, monkeypatch):
