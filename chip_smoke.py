@@ -44,7 +44,29 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    L2; B1 at 12 heads of 64 and at 3 of 128 split by launch as at 6; then B7
    and B8 at D = 768 (a cluster of two blocks per 64 rows
    each) as at D = 384, also on a grid with a half-full last 128-row tile;
-4. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
+4. phase f32 (``train.dtype=float32``, the reference's own precision: every
+   block takes the unfused route, and B5 and B6 run their f32 kernels,
+   ``csrc/flash_f32.cuh``, 3xTF32 products with P kept in f32): B5-f32 and
+   B6-f32 against their plain versions in full f32 at EViT's three grids,
+   the DCS recipe's k = 1 grid (256, 197) and PPT channel pruning's (832,
+   785), B = 64, at 6 heads of 64 and 3 of 128 (``_f32`` and ``_f32_dh128``
+   names), o within 2e-5 of max|o|, lse within 1e-5, dq, dk and dv within
+   1e-4 of each max|g|, padded dk / dv rows exactly 0 and B6 twice bit for
+   bit, timed beside the bound (one TF32 pass), the plain version and SDPA
+   in f32 with TF32 off; 12 f32 train steps of DiChaViT-S at full width and
+   depth, B = 64 (B5-f32 and B6-f32 x 11 a step, nothing else) and a
+   profiled one; 2 steps at depth 3 through the kernels against the plain
+   route (losses within 1e-5, step-0 gradients within 1e-4 of max|g|); the
+   card's f32 logits at full depth against the CPU's (B = 4, within 1e-4 of
+   max|logit|); ``main`` with ``++train.dtype=float32`` (2 epochs of 256
+   images, evals; TF32 off inside, the flags restored after); an f32
+   ``ServingEngine`` from ``build_model``'s default dtype at buckets 1 and
+   64 (B5-f32 x 11 per forward, logits against the plain route); EViT (3
+   steps at depth 4 over EViT's grids), PPT token pruning (a step at full
+   depth over its unpadded grids) and the DCS recipe (k = 1, 3, 8 at depth
+   3: N 256 to 1600), each against the plain route; the ``small_tpu``
+   preset (3 heads of 128) timed and against the plain route;
+5. build full-width DiChaViT-S (8 channels, 224^2, patch 16, depth 12, 161
    classes, seeded random weights, bf16 compute) and serve requests through
    ``ServingEngine`` (``predict``, ``submit``) and ``ServingHTTPServer`` on
    localhost, with the kernel launch counts set to 0 just before and read
@@ -54,7 +76,7 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    B5 at layers 3, 6 and 9, B1 / B3 at the other eight) and, for one
    forward and its profile, with ``gelu_exact`` (every block unfused:
    B5 x 11);
-5. train the model (f32 parameters, bf16 compute) with the port's
+6. train the model (f32 parameters, bf16 compute) with the port's
    ``make_optimizer`` / ``make_lr_schedule`` / ``TrainState`` /
    ``make_train_step`` on one synthetic batch of 64 images: CE + CDL + TDL,
    AdamW with the JUMP-CP weight-decay schedule; counts set to 0 just before
@@ -63,28 +85,28 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    steps through the plain versions from the same weights, at depth 4. The
    same with EViT pruning (B5, B6 3 launches per step, B1-B4 8), and one
    ``gelu_exact`` step at depth 3, kernels against plain versions;
-6. int8 (``quantization="int8"``): serve buckets 1-64 through an int8
+7. int8 (``quantization="int8"``): serve buckets 1-64 through an int8
    ``ServingEngine`` and HTTP (B7 and B1 x 11 per forward, no B3) beside an
    unquantised engine on the same model; train 12 int8 steps (B1, B2, B7,
    B8 x 11 per step) and 3 at depth 4 against the plain route;
-7. the DCS recipe: 48 steps at B = 64 with k drawn from the JAX benchmark's
+8. the DCS recipe: 48 steps at B = 64 with k drawn from the JAX benchmark's
    mixture (``lowest_cosine_prob``, temperature 1000), each k warmed once
    first, images/s and launches per step (B1-B4 x 11); 3 steps at k = 2, 5
    and 8 at depth 4 against the plain route, both drawing the same channels;
-8. the ``small_tpu`` preset (3 heads of 128, every attention kernel at head
+9. the ``small_tpu`` preset (3 heads of 128, every attention kernel at head
    width 128) at full width and depth, as the JAX benchmark's ``mxu_native``
    flagship and recipe, ``int8_dh128`` and dh-128 EViT recipe cells: serving
-   as phase 4 (buckets 1-64, a k = 3 subset, logits against the plain
+   as phase 5 (buckets 1-64, a k = 3 subset, logits against the plain
    route), 12 train steps and the 3-step parity at depth 4, the DCS recipe,
    12 int8 train steps (B1, B2, B7, B8) and their parity, and the DCS recipe
    with EViT (keep_rate 0.7: B5 and B6 at layers 3, 6 and 9) and its parity
    at k = 2, 5 and 8; each path prints its images/s, p50 ms and peak memory
    beside the card;
-9. the ``base`` preset (DiChaViT-B: D = 768, 12 heads, MLP 3072) at full
-   width and depth: serving as phase 4 (buckets 1-64, a k = 3 subset,
+10. the ``base`` preset (DiChaViT-B: D = 768, 12 heads, MLP 3072) at full
+   width and depth: serving as phase 5 (buckets 1-64, a k = 3 subset,
    logits against the plain route), 12 train steps at B = 64 and the 3-step
    parity at depth 4, each with its ``phase`` line; the same three with
-   ``quantization: int8`` (serving as phase 6: B7 and B1 x 11 per forward,
+   ``quantization: int8`` (serving as phase 7: B7 and B1 x 11 per forward,
    no B3; train B1, B2, B7 and B8 x 11 per step, no B3 / B4); then the
    port's geometry smoke
    (``diverse_channel_vit_torch.scripts.smoke_geometries``) through its
@@ -92,13 +114,13 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    proxy loss, DCS at k = 5 of 12, base, head width 128, So2Sat's 18
    channels at 32^2 with patch 8), 6 train steps each, every loss finite,
    B1-B4 x 11 per step, a ``phase`` line each;
-10. run the port's three benchmark scripts through their entry points at
+11. run the port's three benchmark scripts through their entry points at
    their defaults (``bench_attn`` chain, bwd-variants, step and small-k,
    ``bench_block_fusion``, ``bench_int8_lnmlp``) and S1's and S2's at 3
    heads (``bench_attn bwd-variants --heads 3``, ``bench_block_fusion`` at
    3 heads), their output echoed, the counts set to 0 just before each and
    read just after;
-11. the training entry point, ``diverse_channel_vit_torch.main.main`` in
+12. the training entry point, ``diverse_channel_vit_torch.main.main`` in
     this process (config tree -> data layer -> Trainer -> eval ->
     checkpoint), each run with the counts set to 0 just before and read
     just after: DiChaViT-S on ``synthetic_cfg`` at the flagship geometry
@@ -144,7 +166,7 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     every call at N = 256, n_valid 197), and ``cifar10_cfg`` for one epoch on
     a CIFAR pickle tree the script writes (ChannelViT-S on 3 channels at 32^2,
     patch 8: every call at N = 64, n_valid 49); a ``phase`` line each;
-12. the Trainer's runtime at full width and depth (DiChaViT-S, B = 64):
+13. the Trainer's runtime at full width and depth (DiChaViT-S, B = 64):
     for DropPath (rate 0.1; B1 without its residual and B3 / B4 with
     ``residual=False`` in blocks 1-10), MIRO (24 B1 and 24 B3 a step, the
     live forward's and the pre-featurizer's, 12 B2 and 12 B4) and
@@ -158,7 +180,7 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     (DCS, DropPath, SWAD, MIRO) that a SIGTERM stops in the middle of its
     second epoch, resumed by the next Trainer, against the uninterrupted
     run, every parameter bit for bit;
-13. the last training knobs at full width and depth (DiChaViT-S, B = 64),
+14. the last training knobs at full width and depth (DiChaViT-S, B = 64),
     each ``phase`` line beside the plain step's images/s and p50 with the
     port's kernels by launch over one profiled step and the worst parity
     figures: ``samplers``, the train step with ``lowest_cosine_prob_proj``,
@@ -177,12 +199,12 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     steps; then ``main`` with the ResNet-34 sampler, Adam and PPT token
     pruning for one short epoch, and the C7 check (a ``Trainer.train`` that
     raises leaves SIGTERM's handler as it found it);
-14. the paper's four baseline ViTs (``vit_adapt``, ``depthwisevit_adapt``
+15. the paper's four baseline ViTs (``vit_adapt``, ``depthwisevit_adapt``
     with ``channel_weights`` and with ``attention`` pooling,
     ``hypervit_adapt``, ``templatemixingvit``) at the small preset, full width
     and depth, JUMP-CP geometry (197 tokens padded to 256), B = 64: first
     B1-B4 against their plain versions at (N, n_valid) = (256, 197), (64,
-    17) and (64, 49); then for each model serving as phase 4 (B1 / B3 x 11
+    17) and (64, 49); then for each model serving as phase 5 (B1 / B3 x 11
     per forward, logits against the plain route), 2 train steps through the
     kernels against 2 through the plain versions (B1-B4 x 11 a step, every
     call at (256, 197); losses and step-0 gradients within the train
@@ -191,7 +213,7 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     (64, 17)) against the plain route; ``fused_block: false`` on DiChaViT at depth 4
     (B5 / B6 alone, no B1-B4) and ``vit_adapt`` with ``quantization: int8``
     at depth 4 (B7 / B8), each against the plain route;
-15. the ConvNeXt family, DINOv2 and the feature-extraction CLI, where no
+16. the ConvNeXt family, DINOv2 and the feature-extraction CLI, where no
     kernel of the port runs (the counts set to 0 first must read 0 at the
     end, and no ``dcvit`` kernel shows in a profile): each of the six
     ConvNeXt models at full ConvNeXt-Tiny width and depth, JUMP-CP
@@ -209,7 +231,7 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
     (Allen_HPA, three novel-channel strategies) on a CHAMMI fixture of 96
     images a chunk with the embedding figures; the CLI with ``dinov2_jax``, ``resnet18_jax``
     and ``convnext_jax`` on that fixture into ``run_benchmark``;
-16. print the ``kernels`` JSON line (each kernel's launches from its main
+17. print the ``kernels`` JSON line (each kernel's launches from its main
     paths, per Trainer epoch, and the CHAMMI, novel-channel and CHAMMI
     subset runs', per step of the runtime, training-knob and baseline
     phases' runs, and per epoch of the baselines' and CIFAR's Trainer
@@ -257,6 +279,10 @@ EVIT_GRIDS = ((1600, 1569), (1152, 1098), (768, 768))
 GELU_PARITY_DEPTH = 3
 # H100 SXM published dense peaks
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+# the dense TF32 peak: the f32 attention kernels' bound is one TF32 pass of
+# their FLOPs (their 3xTF32 products take three, so they reach a third of it
+# at most)
+PEAK_TF32_FLOPS = 494.7e12
 # the DCS recipe (bench.py:85-94): lowest_cosine_prob at temperature 1000
 HCS_METHOD, HCS_TEMP = "lowest_cosine_prob", 1000.0
 # int8 codes that may differ between an int8 kernel and its plain version: a
@@ -278,6 +304,19 @@ LOGITS_REL_TOL = 5e-2
 # differences above, carried through 4 layers forward and back)
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
+# the f32 phase (train.dtype=float32: every block unfused, B5 and B6 in f32):
+# the f32 kernels against their plain versions (full f32, TF32 off), o within
+# F32_O_TOL of max|o|, lse within LSE_REL_TOL, dq, dk and dv within
+# F32_GRAD_TOL of each max|g|, at EViT's grids, the DCS recipe's k = 1 grid
+# (197 tokens in 256) and PPT channel pruning's 785 tokens (padded to 832);
+# the kernel route against the plain route at F32_PARITY_DEPTH, losses
+# within F32_LOSS_TOL and step-0 gradients within F32_GRAD_TOL of each
+# max|g|; the card's logits against the CPU's within F32_LOGITS_TOL of
+# max|logit|. Each f32 tolerance is an f32 sum in another order, a few
+# hundred ulps; one TF32 pass would miss the kernel's by about 1e-3.
+F32_GRIDS = EVIT_GRIDS + ((256, 197), (832, 785))
+F32_O_TOL, F32_GRAD_TOL, F32_LOSS_TOL, F32_LOGITS_TOL = 2e-5, 1e-4, 1e-5, 1e-4
+F32_PARITY_DEPTH = 3
 # the Trainer runtime phase: DropPath at the last block's rate, MIRO at the
 # JAX Trainer's defaults (train.miro_ld 0.01, train.miro_lr_mult 10), and
 # the last two blocks trainable
@@ -378,9 +417,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def hold(name: str, label: str, pairs) -> tuple:
+def hold(name: str, label: str, pairs, tol: float = KERNEL_REL_TOL) -> tuple:
     """Raise unless every kernel output in ``pairs`` ((what, kernel, plain),
-    ...) is finite and within KERNEL_REL_TOL of max|plain|; return the
+    ...) is finite and within ``tol`` of max|plain|; return the
     (max_abs_err, rel_err) of the output with the largest rel_err."""
     import torch
 
@@ -392,8 +431,8 @@ def hold(name: str, label: str, pairs) -> tuple:
         err = (got.float() - ref.float()).abs().max().item()
         rel = err / (ref.float().abs().max().item() + 1e-12)
         print(f"{name} ({label}): {what} max_abs_err {err:.3e} rel {rel:.3e} "
-              f"(tolerance rel <= {KERNEL_REL_TOL})")
-        if not rel <= KERNEL_REL_TOL:
+              f"(tolerance rel <= {tol})")
+        if not rel <= tol:
             raise AssertionError(f"{name} ({label}): {what} disagrees with its plain version")
         errs.append((err, rel))
     return max(errs, key=lambda e: e[1])
@@ -1082,7 +1121,7 @@ def check_q_kernels(fb, torch, F, kernels, d=D, hid=HID, seed=3):
     return results
 
 
-def check_flash_kernels(torch, F, core, heads=HEADS):
+def check_flash_kernels(torch, F, core, heads=HEADS, dtype=None):
     """Phase 3, B5 and B6 (flash_attention_packed) against their plain
     versions at the grids the EViT path gives them (EVIT_GRIDS, B = 64,
     ``heads`` heads: 6 of 64, or 3 of 128 for the small_tpu preset; bf16),
@@ -1095,25 +1134,36 @@ def check_flash_kernels(torch, F, core, heads=HEADS):
     bound, the plain version and the library call (SDPA; for B6 autograd
     through it), and printed beside B1's and B2's from ``core`` (the
     results of check_kernels and check_bwd_kernels), which run on the same
-    flash core."""
+    flash core. With ``dtype`` f32, the f32 kernels (``_f32`` names; phase
+    f32) at F32_GRIDS, o within F32_O_TOL, the gradients within
+    F32_GRAD_TOL, the library call in f32 with TF32 off, the bound at one
+    TF32 pass."""
     from diverse_channel_vit_torch.ops import attention as at
 
+    f32 = dtype == torch.float32
     rnd = _rnd(torch, torch.Generator(device="cuda").manual_seed(2))
+    dt = torch.float32 if f32 else torch.bfloat16
     dh, scale = D // heads, (D // heads) ** -0.5
-    fname, bname = kernel_name("flash_packed_fwd", heads), kernel_name("flash_packed_bwd", heads)
+    sfx = "_f32" if f32 else ""
+    fname = kernel_name("flash_packed_fwd" + sfx, heads)
+    bname = kernel_name("flash_packed_bwd" + sfx, heads)
     ap_f, ap_b = kernel_name("attend_project_fwd", heads), kernel_name("attend_project_bwd", heads)
-    fwd = dict(source="diverse_channel_vit_torch/csrc/flash_packed.cu",
-               replaces="diverse_channel_vit_tpu/ops/attention.py:243", grids=[])
-    bwd = dict(source="diverse_channel_vit_torch/csrc/flash_packed_bwd.cu",
-               replaces="diverse_channel_vit_tpu/ops/attention.py:297", grids=[])
-    for n, n_valid in EVIT_GRIDS:
+    o_tol, g_tol = (F32_O_TOL, F32_GRAD_TOL) if f32 else (KERNEL_REL_TOL, KERNEL_REL_TOL)
+    csrc = "diverse_channel_vit_torch/csrc/"
+    fwd = dict(source=csrc + ("flash_f32.cuh" if f32 else "flash_packed.cu"),
+               replaces="diverse_channel_vit_tpu/ops/attention.py:243", grids=[],
+               tolerance=o_tol)
+    bwd = dict(source=csrc + ("flash_f32.cuh" if f32 else "flash_packed_bwd.cu"),
+               replaces="diverse_channel_vit_tpu/ops/attention.py:297", grids=[],
+               tolerance=g_tol)
+    for n, n_valid in (F32_GRIDS if f32 else EVIT_GRIDS):
         label = f"N {n}, n_valid {n_valid}"
-        qkv = rnd(B, n, 3 * D)
+        qkv = rnd(B, n, 3 * D, dtype=dt)
         q, k, v = qkv.split(D, dim=-1)
-        do = rnd(B, n, D)
+        do = rnd(B, n, D, dtype=dt)
         o, lse = at.flash_packed_fwd(q, k, v, heads, scale, n_valid, need_lse=True)
         o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, scale, n_valid, need_lse=True)
-        err_f, rel_f = hold(fname, label, (("o", o, o_p), ("lse", lse, lse_p)))
+        err_f, rel_f = hold(fname, label, (("o", o, o_p), ("lse", lse, lse_p)), o_tol)
         rel_lse = ((lse - lse_p).abs().max() / lse_p.abs().max()).item()
         print(f"{fname} ({label}): lse rel {rel_lse:.3e} (tolerance rel <= "
               f"{LSE_REL_TOL})")
@@ -1125,7 +1175,7 @@ def check_flash_kernels(torch, F, core, heads=HEADS):
         want = at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads, scale, n_valid)
         err_b, rel_b = hold(bname, label,
                             (("dq", got[0], want[0]), ("dk", got[1], want[1]),
-                             ("dv", got[2], want[2])))
+                             ("dv", got[2], want[2])), g_tol)
         pad = int(torch.count_nonzero(got[1][:, n_valid:])) + \
             int(torch.count_nonzero(got[2][:, n_valid:]))
         if pad:
@@ -1158,15 +1208,15 @@ def check_flash_kernels(torch, F, core, heads=HEADS):
         timing_b["library_ms"] = cuda_ms(
             lambda: torch.autograd.grad(lib_out, lq, do_h, retain_graph=True), 10)
         del lib_out, lq
-        rows = B * n_valid
+        rows, size, peak = B * n_valid, qkv.element_size(), PEAK_TF32_FLOPS if f32 \
+            else PEAK_BF16_FLOPS
         for entry, err, rel, timing, flops, nbytes in (
-                (fwd, err_f, rel_f, timing_f, 4 * rows * n_valid * D, 2 * 4 * rows * D),
+                (fwd, err_f, rel_f, timing_f, 4 * rows * n_valid * D, size * 4 * rows * D),
                 (bwd, err_b, rel_b, timing_b, 10 * rows * n_valid * D,
-                 2 * 8 * rows * D + 4 * rows * heads)):
+                 size * 8 * rows * D + 4 * rows * heads)):
             entry["grids"].append(dict(n=n, n_valid=n_valid, max_abs_err=err, rel_err=rel,
                                        flops=flops, bytes=nbytes, **timing,
-                                       bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS,
-                                                          nbytes / PEAK_BYTES)))
+                                       bound_ms=1e3 * max(flops / peak, nbytes / PEAK_BYTES)))
         del qkv, q, k, v, o, lse, do
         torch.cuda.empty_cache()
     results = {}
@@ -1178,9 +1228,18 @@ def check_flash_kernels(torch, F, core, heads=HEADS):
                         for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")},
                      per_grid=[{k: g[k] for k in ("n", "n_valid", "ms", "bound_ms", "plain_ms",
                                                   "library_ms")} for g in grids])
+        if f32:  # bounded at the TF32 rate, not the bf16 one
+            entry["tf32_flops"] = entry.pop("flops")
+            entry["flops"] = 0
         results[name] = entry
     per_grid = {name: ", ".join(f"{g['ms']:.4f}" for g in results[name]["per_grid"])
                 for name in results}
+    if f32:
+        print(f"f32 flash kernels (flash_f32.cuh), head width {dh}: B5-f32 "
+              f"{results[fname]['ms']:.4f} ms ({per_grid[fname]}) and B6-f32 "
+              f"{results[bname]['ms']:.4f} ms ({per_grid[bname]}) over the grids "
+              f"{[g[0:2] for g in F32_GRIDS]}")
+        return results
     print(f"flash core (flash_wgmma.cuh), head width {dh}: B1 {core[ap_f]['ms']:.4f} ms and B2 "
           f"{core[ap_b]['ms']:.4f} ms at N 1600; B5 {results[fname]['ms']:.4f} ms "
           f"({per_grid[fname]}) and B6 {results[bname]['ms']:.4f} ms ({per_grid[bname]}) over "
@@ -1420,7 +1479,7 @@ def run_geometries(fb, torch, want: dict) -> dict:
 
 
 def run_scripts(fb):
-    """Phase 8: each benchmark script through its entry point (``main``, what
+    """Phase 11: each benchmark script through its entry point (``main``, what
     ``python -m diverse_channel_vit_torch.scripts.<name>`` calls) at its
     defaults and at 3 heads of 128 (SCRIPT_RUNS), its output echoed; the
     counts set to 0 just before each run and read just after, and each
@@ -1529,9 +1588,9 @@ _BUILT: dict = {}
 
 
 def build(depth: int, **extra):
-    """DiChaViT-S on the card, random weights from seed 0, bf16 compute, or
-    with ``model_name`` in ``extra`` that model (``attn_pooling``: its
-    config group). The first build of a configuration is kept and later ones
+    """DiChaViT-S on the card, random weights from seed 0, bf16 compute (or
+    ``dtype`` in ``extra``), or with ``model_name`` in ``extra`` that model
+    (``attn_pooling``: its config group). The first build of a configuration is kept and later ones
     are copies of it (the same seeded weights, without drawing them again on
     the host)."""
     import copy
@@ -1544,9 +1603,10 @@ def build(depth: int, **extra):
     if key not in _BUILT:
         extra = dict(extra)
         name, attn_pooling = extra.pop("model_name", "dichavit"), extra.pop("attn_pooling", None)
+        dtype = extra.pop("dtype", torch.bfloat16)
         _BUILT[key] = build_model(name, model_config(depth, **extra),
                                   {"JUMP-CP": list(range(CHANNELS))}, CLASSES, device="cuda",
-                                  dtype=torch.bfloat16, seed=0, attn_pooling=attn_pooling)
+                                  dtype=dtype, seed=0, attn_pooling=attn_pooling)
     return copy.deepcopy(_BUILT[key])
 
 
@@ -1665,7 +1725,7 @@ def logits_close(label: str, got, want) -> float:
 
 
 def serve(fb, torch, label: str = "serving", **extra):
-    """Phase 4: full-width DiChaViT-S (or with ``extra`` another preset of
+    """Phase 5: full-width DiChaViT-S (or with ``extra`` another preset of
     the same width) through the serving entry points."""
     from diverse_channel_vit_torch.serving import ServingEngine
     from diverse_channel_vit_torch.serving_http import ServingHTTPServer
@@ -1752,7 +1812,7 @@ def serve(fb, torch, label: str = "serving", **extra):
 
 
 def serve_int8(fb, torch, label: str = "int8 serving", **extra):
-    """Phase 4d: int8 serving of DiChaViT-S (or with ``extra`` another
+    """Phase 5d: int8 serving of DiChaViT-S (or with ``extra`` another
     preset, such as the base one). One bf16 model behind two engines:
     ``ServingEngine(quantization="int8")`` serves buckets 1-64 through
     ``predict``, ``submit`` and ``ServingHTTPServer``, the counts set to 0
@@ -1836,7 +1896,7 @@ def serve_int8(fb, torch, label: str = "int8 serving", **extra):
 
 
 def serve_evit(fb, torch):
-    """Phase 4b: EViT-pruned DiChaViT-S (keep_rate 0.7) through
+    """Phase 5b: EViT-pruned DiChaViT-S (keep_rate 0.7) through
     ``ServingEngine`` and one HTTP request, the counts set to 0 just before
     and read just after: per forward B5 at the three pruning layers and B1 /
     B3 at the other eight non-readout blocks. The HTTP request (bucket 1)
@@ -1917,7 +1977,7 @@ def serve_evit(fb, torch):
 
 
 def serve_gelu_exact(fb, torch):
-    """Phase 4c: DiChaViT-S with ``gelu_exact`` at full width, one 64-image
+    """Phase 5c: DiChaViT-S with ``gelu_exact`` at full width, one 64-image
     ``predict``: every non-readout block takes the unfused route (B5 x 11,
     no B1 / B3); a profile of a second predict; the logits against the plain
     route on the card."""
@@ -2126,7 +2186,8 @@ def train_recipe(fb, torch, want: dict, label: str = "DCS recipe train", **extra
 
 
 def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks=None,
-                 runtime=None, knobs=None, **extra):
+                 runtime=None, knobs=None, loss_tol=TRAIN_LOSS_REL_TOL,
+                 grad_tol=TRAIN_GRAD_REL_TOL, **extra):
     """Kernel route against plain route from the same weights: ``n_steps``
     steps at ``depth`` (with ``ks``, the recipe's steps at those k, both
     routes drawing from generators of the same seed), losses within
@@ -2140,8 +2201,9 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
     parameters must come out of the steps unchanged on both. ``knobs`` as
     there: both routes draw the same channels and HCS token drops; PPT's
     kept tokens or channels (``block_type="block_v2"``) are forced as
-    EViT's are. With ``grids`` a dict, the (N, n_valid) of the kernel
-    route's attention calls go into ``grids[label]``."""
+    EViT's are. The (N, n_valid) of the kernel route's attention calls go
+    into ``LAST_GRIDS[label]``. ``loss_tol`` and ``grad_tol`` replace the
+    bf16 tolerances (the f32 phase's are tighter)."""
     batch = synthetic_batch(torch)
     runs = {}
     for route in ("plain", "kernels"):
@@ -2193,8 +2255,8 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
             raise AssertionError(f"{label}: the two routes drew other channels")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     print(f"{label} (depth {depth}, {n_steps} steps): losses kernels {lk} plain {lp}, "
-          f"max rel {loss_rel:.3e} (tolerance {TRAIN_LOSS_REL_TOL})")
-    if not loss_rel <= TRAIN_LOSS_REL_TOL:
+          f"max rel {loss_rel:.3e} (tolerance {loss_tol})")
+    if not loss_rel <= loss_tol:
         raise AssertionError(f"{label}: losses of the kernel and plain routes disagree")
     worst = (0.0, "")
     for name, g in gk.items():
@@ -2203,8 +2265,8 @@ def train_parity(fb, torch, label: str, depth: int, n_steps: int, want: dict, ks
         rel = (g - ref).abs().max().item() / scale if scale else (g - ref).abs().max().item()
         worst = max(worst, (rel, name))
     print(f"{label}: step-0 gradients of {len(gk)} parameter tensors, worst rel "
-          f"{worst[0]:.3e} ({worst[1]}) (tolerance {TRAIN_GRAD_REL_TOL} of max|g|)")
-    if not worst[0] <= TRAIN_GRAD_REL_TOL:
+          f"{worst[0]:.3e} ({worst[1]}) (tolerance {grad_tol} of max|g|)")
+    if not worst[0] <= grad_tol:
         raise AssertionError(f"{label}: gradient of {worst[1]} disagrees")
     return {"loss_rel": loss_rel, "grad_rel": worst[0], "grad_worst": worst[1]}
 
@@ -2239,6 +2301,7 @@ class TrainerProbe:
         self.trainer, self.epochs, self.draws, self.evals = None, {}, [], []
         self.eval_forwards, self.busy_us, self.steps, self.plots = 0, None, [], 0
         self.feature_rows, self.features, self.split = {}, {}, {}
+        self.tf32 = None  # TF32 for (matmul, cuDNN) as Trainer.train found it
 
     def __enter__(self):
         from diverse_channel_vit_torch import trainer as tm
@@ -2255,6 +2318,7 @@ class TrainerProbe:
 
         def train(trainer):
             probe.trainer = trainer
+            probe.tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
             return saved["train"](trainer)
 
         def timed(trainer, epoch, start_batch=0):
@@ -2920,7 +2984,7 @@ def small_geometry_forward(fb, torch) -> None:
 def baselines(fb, torch, bare: dict) -> dict:
     """The paper's four baseline ViTs at full width and depth (BASELINES,
     DepthwiseViT with both poolings; B = 64, JUMP-CP geometry): for each,
-    serving as phase 4 (logits against the plain route), 2 train steps
+    serving as phase 5 (logits against the plain route), 2 train steps
     through the kernels against 2 through the plain versions from the same
     weights (B1-B4 x 11 a step, every call at BASELINE_GRID), then 2 + 10
     timed steps and a profiled one, beside the plain DiChaViT step
@@ -4156,6 +4220,172 @@ def convnext_family(fb, torch, bare: dict) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase f32: train.dtype=float32, the reference's precision
+# ---------------------------------------------------------------------------
+
+
+def f32_serving(fb, torch) -> tuple:
+    """An f32 ``ServingEngine`` at buckets 1 and 64 over DiChaViT-S built
+    with ``build_model``'s default dtype (f32): every block unfused, B5-f32
+    x 11 per forward and no other kernel; p50 and p99 per bucket; the
+    64-image logits against the plain route on the card within
+    F32_LOGITS_TOL."""
+    from diverse_channel_vit_torch.models import build_model
+    from diverse_channel_vit_torch.serving import ServingEngine
+
+    model = build_model("dichavit", model_config(DEPTH), {"JUMP-CP": list(range(CHANNELS))},
+                        CLASSES, device="cuda", seed=0)
+    blocks = model.feature_extractor.blocks
+    if any(blk.dtype != torch.float32 for blk in blocks):
+        raise AssertionError("f32 serving: build_model's default dtype is not f32")
+    engine = ServingEngine(model, buckets=(1, B), device="cuda")
+    imgs = np.random.default_rng(0).standard_normal((B, CHANNELS, IMG, IMG), dtype=np.float32)
+    full = list(range(CHANNELS))
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    engine.n_forwards = 0
+    engine.warmup(full, (IMG, IMG))
+    out64 = engine.predict(imgs, full)
+    timings = {}
+    for bucket, reps in ((1, 20), (B, 8)):
+        lats = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            engine.predict(imgs[:bucket], full)
+            lats.append(time.perf_counter() - t)
+        lats = np.asarray(lats)
+        timings[bucket] = {"imgs_per_s": bucket * reps / float(lats.sum()),
+                           "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+                           "p99_ms": float(np.percentile(lats, 99)) * 1e3, "reps": reps}
+    launches, forwards = dict(fb.LAUNCHES), engine.n_forwards
+    check_counts("f32 serving", launches, forwards, "forward",
+                 {"flash_packed_fwd_f32": DEPTH - 1})
+    if out64.shape != (B, CLASSES):
+        raise AssertionError(f"f32 serving: logits of shape {out64.shape}")
+    with fb.plain_versions(), torch.inference_mode():
+        ref = model(torch.from_numpy(imgs).cuda(), torch.arange(CHANNELS, device="cuda"))[0]
+    rel_close("f32 serving", "64-image logits vs the plain route", out64, ref.cpu().numpy(),
+              F32_LOGITS_TOL)
+    print("f32 serving " + json.dumps({"buckets": timings}))
+    phase_line("f32 serving, bucket 64", timings[B]["imgs_per_s"], timings[B]["p50_ms"], torch)
+    print(f"phase f32 serving, bucket 1: p50 {timings[1]['p50_ms']:.3f} ms, p99 "
+          f"{timings[1]['p99_ms']:.3f} ms; bucket 64: p50 {timings[B]['p50_ms']:.3f} ms, p99 "
+          f"{timings[B]['p99_ms']:.3f} ms; card {card_line()}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return launches, forwards
+
+
+def f32_card_vs_cpu(fb, torch) -> float:
+    """DiChaViT-S in f32 at full width and depth, the same seeded weights on
+    the card (the kernels: B5-f32 x 11) and on the CPU, 4 images: the card's
+    logits within F32_LOGITS_TOL of max|logit| of the CPU's (the CPU tests
+    hold the CPU path against JAX)."""
+    from diverse_channel_vit_torch.models import build_model
+
+    x = np.random.default_rng(7).standard_normal((4, CHANNELS, IMG, IMG), dtype=np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model("dichavit", model_config(DEPTH), {"JUMP-CP": list(range(CHANNELS))},
+                            CLASSES, device=dev, dtype=torch.float32, seed=0)
+        before = dict(fb.LAUNCHES)
+        with torch.no_grad():
+            out[dev] = model(torch.from_numpy(x).to(dev),
+                             torch.arange(CHANNELS, device=dev))[0].cpu().numpy()
+        counts = {k: fb.LAUNCHES[k] - before[k] for k in before}
+        check_counts(f"f32 forward on {dev}", counts, 1, "forward",
+                     {"flash_packed_fwd_f32": DEPTH - 1} if dev == "cuda" else {})
+        del model
+    return rel_close("f32 forward", "logits, card (kernels) vs CPU", out["cuda"], out["cpu"],
+                     F32_LOGITS_TOL)
+
+
+def f32_trainer(fb, torch, step: dict) -> tuple:
+    """``main`` with ``++train.dtype=float32`` on ``synthetic_cfg`` at the
+    flagship geometry, 2 epochs of 256 images with an eval before and after
+    each: B5-f32 and B6-f32 x 11 a step, B5-f32 x 11 an eval forward. TF32
+    is turned on for matmuls and cuDNN before the call: the Trainer must
+    find both off and ``main`` must leave both on again."""
+    import tempfile
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="dcvit_f32_") as tmp:
+            over = TRAINER_OVERRIDES + ["train.num_epochs=2", "dataset.num_train_samples=256",
+                                        f"train.checkpoints={tmp}", "++train.dtype=float32"]
+            probe, launches, steps = run_trainer(fb, torch, "Trainer f32", "synthetic_cfg", over,
+                                                 step, {"flash_packed_fwd_f32": DEPTH - 1})
+        after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    print(f"Trainer f32: TF32 (matmul, cuDNN) {probe.tf32} inside main, {after} after it")
+    if probe.tf32 != (False, False) or after != (True, True):
+        raise AssertionError("Trainer f32: main did not turn TF32 off for the run and restore it")
+    return launches, len(probe.epochs), "epoch"
+
+
+def f32_models(fb, torch, F, results: dict) -> dict:
+    """Phase f32: ``train.dtype=float32`` (the reference's own precision) on
+    the card, where every block takes the unfused route and B5 and B6 run
+    their f32 kernels (``csrc/flash_f32.cuh``). The f32 kernels against
+    their plain versions at F32_GRIDS, 6 heads of 64 and 3 of 128 (into
+    ``results``, the kernels line's entries); 12 f32 train steps of
+    DiChaViT-S at full width and depth, B = 64 (B5-f32 and B6-f32 x 11 a
+    step, nothing else) and a profiled one; the kernel route against the
+    plain route at F32_PARITY_DEPTH; the card's f32 logits against the
+    CPU's; ``main`` with ``++train.dtype=float32``; an f32 ServingEngine;
+    EViT (3 steps at PARITY_DEPTH over EVIT_GRIDS), PPT token pruning (a
+    step at full depth over its unpadded grids) and the DCS recipe (k = 1,
+    3 and 8: N 256 to 1600), each against the plain route; the small_tpu
+    preset (3 heads of 128) timed and against the plain route. Returns the
+    paths by label."""
+    f32 = dict(dtype=torch.float32, loss_tol=F32_LOSS_TOL, grad_tol=F32_GRAD_TOL)
+    t0 = time.perf_counter()
+    for heads in (HEADS, HEADS_TPU):
+        results.update(check_flash_kernels(torch, F, results, heads, dtype=torch.float32))
+    torch.cuda.empty_cache()
+
+    def per(n: int) -> dict:
+        return {"flash_packed_fwd_f32": n, "flash_packed_bwd_f32": n}
+
+    step, parity = per(DEPTH - 1), per(F32_PARITY_DEPTH - 1)
+    paths = {}
+    launches, steps, timing = train(fb, torch, "f32 train", step, dtype=torch.float32)
+    paths["f32 train"] = (launches, steps, "step")
+    train_parity(fb, torch, "f32 train parity", F32_PARITY_DEPTH, 2, parity, **f32)
+    f32_card_vs_cpu(fb, torch)
+    paths["Trainer f32"] = f32_trainer(fb, torch, step)
+    paths["f32 serving"] = (*f32_serving(fb, torch), "forward")
+    # EViT at PARITY_DEPTH: pruning layers 1, 2 and 3, every block on B5 / B6
+    train_parity(fb, torch, "f32 EViT train parity", PARITY_DEPTH, 3, per(PARITY_DEPTH),
+                 keep_rate=KEEP_RATE, **f32)
+    check_grids("f32 EViT", LAST_GRIDS["f32 EViT train parity"],
+                {("flash", n, nv) for n, nv in EVIT_GRIDS})
+    ppt = dict(block_type="block_v2", dropout_tokens_hcs="token_pruning",
+               token_keep_channels=KNOB_KC)
+    train_parity(fb, torch, "f32 ppt token_pruning train parity", DEPTH, 1, per(DEPTH),
+                 **ppt, **f32)
+    grids = tuple(nv for _, _, nv in LAST_GRIDS["f32 ppt token_pruning train parity"])
+    if grids != PPT_GRIDS["token_pruning"]:
+        raise AssertionError(f"f32 ppt token_pruning train: grids {grids}")
+    train_parity(fb, torch, "f32 DCS recipe train parity", F32_PARITY_DEPTH, 3, parity,
+                 ks=(1, 3, 8), **f32)
+    check_grids("f32 DCS recipe", LAST_GRIDS["f32 DCS recipe train parity"],
+                {("flash", 256, 197), ("flash", 640, 589), ("flash", 1600, 1569)})
+    tpu = dict(pretrained_model_name=TPU_PRESET, dtype=torch.float32)
+    paths["small_tpu f32 train"] = (*train(fb, torch, "small_tpu f32 train", step, warm=1,
+                                           timed=3, table=False, **tpu)[:2], "step")
+    train_parity(fb, torch, "small_tpu f32 train parity", F32_PARITY_DEPTH, 2, parity,
+                 pretrained_model_name=TPU_PRESET, **f32)
+    torch.cuda.empty_cache()
+    print(f"phase f32: {time.perf_counter() - t0:.1f} s; f32 step p50 {timing['p50_ms']:.3f} ms, "
+          f"{timing['imgs_per_s']:.2f} images/s, peak memory {timing['peak_mem_gb']:.3f} GB; "
+          f"card {card_line()}")
+    return paths
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -4215,22 +4445,26 @@ def main() -> int:
         fb, torch, F, HEADS_BASE, rnd, D_BASE)
     # B7 and B8 at D = 768 (a cluster of two blocks per 64 rows each)
     results.update(check_q_kernels(fb, torch, F, kernels, D_BASE, HID_BASE, seed=13))
+    torch.cuda.empty_cache()
+    stamp("kernel checks", t_start)
+    # phase f32: train.dtype=float32, B5 and B6 in f32 (their kernels' checks
+    # join the kernels line)
+    paths = f32_models(fb, torch, F, results)
+    stamp("f32 models", t_start)
     for name, r in results.items():
         # each product at the unit that runs it: bf16 FLOPs and int8 operations
-        t_ops = r.pop("flops") / PEAK_BF16_FLOPS + r.pop("int8_ops", 0) / PEAK_INT8_OPS
+        t_ops = (r.pop("flops") / PEAK_BF16_FLOPS + r.pop("int8_ops", 0) / PEAK_INT8_OPS
+                 + r.pop("tf32_flops", 0) / PEAK_TF32_FLOPS)
         t_bytes = r.pop("bytes") / PEAK_BYTES
         r["bound_ms"] = max(t_ops, t_bytes) * 1e3
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         lib = "not measured" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    torch.cuda.empty_cache()
-    stamp("kernel checks", t_start)
 
     # each path: the counts by kernel and the units (forwards or steps) they
     # were read over; the kernels line takes each kernel's launches from its
     # main paths
-    paths = {}
     fused4 = ("attend_project_fwd", "ln_mlp_fwd", "attend_project_bwd", "ln_mlp_bwd")
     evit4 = {**dict.fromkeys(fused4, DEPTH - 4), "flash_packed_fwd": 3, "flash_packed_bwd": 3}
     int8_train = ("attend_project_fwd", "attend_project_bwd", "ln_mlp_q_fwd", "ln_mlp_q_bwd")
@@ -4367,6 +4601,10 @@ def main() -> int:
         kernel_name("attend_project_bwd", HEADS_BASE, D_BASE): ("base train",),
         width_name("ln_mlp_q_fwd", D_BASE): ("base int8 serving", "base int8 train"),
         width_name("ln_mlp_q_bwd", D_BASE): ("base int8 train",),
+        "flash_packed_fwd_f32": ("f32 serving", "f32 train"),
+        "flash_packed_bwd_f32": ("f32 train",),
+        "flash_packed_fwd_f32" + dh128: ("small_tpu f32 train",),
+        "flash_packed_bwd_f32" + dh128: ("small_tpu f32 train",),
     }
     d768 = f"_d{D_BASE}"
     line = []
@@ -4387,7 +4625,7 @@ def main() -> int:
                 counts, units, _ = paths[label]
                 entry[f"launches_per_step_{label.replace(' ', '_')}"] = counts[name] / units
         for label in ("Trainer", "Trainer int8", "Trainer runtime", "Trainer training knobs",
-                      "Trainer CIFAR-10",
+                      "Trainer CIFAR-10", "Trainer f32",
                       *(p for p in paths if p.startswith(("runtime ", "samplers ",
                                                           "optimizers ", "ppt ",
                                                           "hcs_dropout ", "baselines ",
@@ -4406,7 +4644,7 @@ def main() -> int:
         if "code_flips" in r:
             entry.update(code_flips=r["code_flips"])
         entry.update(max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],
-                     tolerance=KERNEL_REL_TOL, ms=r["ms"], kernel_ms=r["ms"],
+                     tolerance=r.get("tolerance", KERNEL_REL_TOL), ms=r["ms"], kernel_ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
         for key in ("per_grid", "per_variant", "sibling_max_abs_diff", "b6_max_abs_diff",

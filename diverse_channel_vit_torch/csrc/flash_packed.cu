@@ -41,6 +41,9 @@
 //   With `lse` the kernel also writes each row's per-head log-sum-exp of
 //   the scaled scores (f32), which the backward (flash_packed_bwd.cu) uses to
 //   recompute P tile by tile.
+// - In f32 (`dcvit_flash_packed_fwd_f32`) the kernel is flash_f32.cuh's:
+//   3xTF32 `mma.sync` products, P kept in f32, bound and design there.
+#include "flash_f32.cuh"
 #include "flash_packed.cuh"
 
 // Plain C entry point (loaded with ctypes). head_dim 64 or 128. q, k, v:
@@ -70,4 +73,25 @@ extern "C" int dcvit_flash_packed_fwd(const void* q, const void* k, const void* 
   auto launch = head_dim == 64 ? launch_flash_fwd<true, 64> : launch_flash_fwd<true, 128>;
   return (int)launch(q_map, k_map, v_map, o_map, 0, 0, 0, static_cast<float*>(lse), batch, n,
                      heads, n_valid, sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 forward (flash_f32.cuh): the same arguments as
+// dcvit_flash_packed_fwd, q, k, v, o and lse f32, row strides a multiple of
+// 4 (16 bytes).
+extern "C" int dcvit_flash_packed_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                          void* lse, int batch, int n, int heads, int head_dim,
+                                          long long stride_q, long long stride_k,
+                                          long long stride_v, int n_valid, float sm_scale,
+                                          void* stream) {
+  using namespace dcvit;
+  const long long d = (long long)heads * head_dim;
+  if (!fw::head_width_built(head_dim) || n % f32a::kRows != 0 || n_valid < 1 || n_valid > n ||
+      batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || stride_q < d ||
+      stride_k < d || stride_v < d || (stride_q | stride_k | stride_v) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto launch = head_dim == 64 ? f32a::launch_fwd<64> : f32a::launch_fwd<128>;
+  return (int)launch(static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), stride_q, stride_k, stride_v,
+                     static_cast<float*>(o), static_cast<float*>(lse), batch, n, heads, n_valid,
+                     sm_scale, static_cast<cudaStream_t>(stream));
 }

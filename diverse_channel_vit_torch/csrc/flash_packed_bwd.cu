@@ -51,6 +51,10 @@
 //   rank-3 TMA map with its own row stride; dq, dk and dv leave by TMA into
 //   one (B, N, 3D) buffer, [dq | dk | dv], the layout the qkv GEMM's
 //   backward reads.
+// - In f32 (`dcvit_flash_packed_bwd_f32`) the passes are flash_f32.cuh's:
+//   the same three, on 3xTF32 `mma.sync` products with P and dS in f32,
+//   into an f32 [dq | dk | dv] buffer; bound and design there.
+#include "flash_f32.cuh"
 #include "flash_packed.cuh"
 
 // Plain C entry point (loaded with ctypes). head_dim 64 or 128. q, k, v:
@@ -91,4 +95,28 @@ extern "C" int dcvit_flash_packed_bwd(const void* q, const void* k, const void* 
                   static_cast<const bf16*>(dout), static_cast<const float*>(lse),
                   static_cast<float*>(di), static_cast<bf16*>(grads), batch, n, heads, n_valid,
                   sm_scale, st);
+}
+
+// The f32 backward (flash_f32.cuh): the same arguments as
+// dcvit_flash_packed_bwd, every tensor f32, row strides a multiple of 4 (16
+// bytes); grads (B, N, 3 * H * head_dim) f32.
+extern "C" int dcvit_flash_packed_bwd_f32(const void* q, const void* k, const void* v,
+                                          const void* o, const void* dout, const void* lse,
+                                          void* grads, void* di, int batch, int n, int heads,
+                                          int head_dim, long long stride_q, long long stride_k,
+                                          long long stride_v, int n_valid, float sm_scale,
+                                          void* stream) {
+  using namespace dcvit;
+  const long long d = (long long)heads * head_dim;
+  if (!fw::head_width_built(head_dim) || n % f32a::kRows != 0 || n_valid < 1 || n_valid > n ||
+      batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || stride_q < d ||
+      stride_k < d || stride_v < d || (stride_q | stride_k | stride_v) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto run = head_dim == 64 ? f32a::launch_bwd<64> : f32a::launch_bwd<128>;
+  return (int)run(static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(o),
+                  static_cast<const float*>(dout), stride_q, stride_k, stride_v,
+                  static_cast<const float*>(lse), static_cast<float*>(di),
+                  static_cast<float*>(grads), batch, n, heads, n_valid, sm_scale,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,9 @@
-"""Device resolution for the package's entry points."""
+"""Device resolution for the package's entry points, and the TF32 switch
+of an f32 run."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -21,3 +23,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """f32 products in full f32 inside the block: TF32 off for matmuls and
+    for cuDNN's convolutions (PyTorch leaves the second on by default), both
+    flags restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -15,26 +15,14 @@ maximum (CUDA ``topk`` promises no order among equal values).
 
 from __future__ import annotations
 
-from contextlib import contextmanager
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, tf32_off
 
 QUERY_BLOCK = 1024
-
-
-@contextmanager
-def _full_f32_matmul():
-    """TF32 off for the matmuls inside, restored after."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _nearest_block(queries: torch.Tensor, bank: torch.Tensor, *, metric: str,
@@ -79,7 +67,7 @@ class KNeighbors:
     def kneighbors(self, X: np.ndarray):
         X = np.ascontiguousarray(X, np.float32)
         all_val, all_idx = [], []
-        with _full_f32_matmul():
+        with tf32_off():
             for s in range(0, X.shape[0], QUERY_BLOCK):
                 q = torch.from_numpy(X[s:s + QUERY_BLOCK]).to(self.device)
                 vals, idx = _nearest_block(q, self._bank, metric=self.metric,

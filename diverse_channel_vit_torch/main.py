@@ -9,6 +9,10 @@ own config tree (``config/configs``). Training runs on the card
 (``hardware.device: cuda``) unless ``++hardware.device=cpu`` asks for the
 CPU. One process, one card: no distributed init (ROADMAP A10). Importing
 this module parses nothing and starts nothing.
+
+An f32 run (``++train.dtype=float32``, the reference's own precision) runs
+its f32 products in full f32: ``main`` turns TF32 off for matmuls and cuDNN
+for the run and restores both flags on return.
 """
 
 from __future__ import annotations
@@ -29,14 +33,21 @@ def parse_args(argv):
 def main(argv=None) -> float:
     """Compose the config, build the Trainer, train; returns the best eval
     accuracy."""
+    import contextlib
+
+    import torch
+
     from .config import load_config
-    from .trainer import Trainer
+    from .device import tf32_off
+    from .trainer import Trainer, compute_dtype
 
     args = parse_args(argv if argv is not None else sys.argv[1:])
     cfg = load_config(args.config_name, args.overrides)
-    trainer = Trainer(cfg)
-    trainer.logger.log_config(cfg)
-    return trainer.train()
+    f32 = compute_dtype(cfg) == torch.float32
+    with tf32_off() if f32 else contextlib.nullcontext():
+        trainer = Trainer(cfg)
+        trainer.logger.log_config(cfg)
+        return trainer.train()
 
 
 if __name__ == "__main__":

@@ -12,8 +12,10 @@ are never read, so the padding does not change any real row.
 ``csrc/flash_packed.cu`` (replaces the TPU kernel ``_packed_fwd_kernel``),
 backward kernel ``csrc/flash_packed_bwd.cu`` (replaces
 ``_packed_bwd_kernel``), inside :class:`FlashPackedFn` when a gradient is
-wanted; both run on the ``wgmma`` + TMA flash core ``csrc/flash_wgmma.cuh``
-that the attend_project kernels share. The wrappers follow ``ops/dispatch.py``: the plain version for a CPU
+wanted; in bf16 both run on the ``wgmma`` + TMA flash core
+``csrc/flash_wgmma.cuh`` that the attend_project kernels share, in f32 on
+``csrc/flash_f32.cuh`` (3xTF32 ``mma.sync`` products, P kept in f32, as the
+TPU kernels run an f32 model's attention). The wrappers follow ``ops/dispatch.py``: the plain version for a CPU
 tensor; the kernel, or an exception, for a CUDA one. The kernels take q, k
 and v as strided views (each row contiguous, rows ``stride`` elements apart),
 each through a TMA map of its own, so the three thirds of one packed
@@ -43,6 +45,9 @@ PAD_MULTIPLE = 64
 # the head widths the attention kernels are built for (the flash core's
 # template instantiations); the TPU kernels take any multiple of 64
 HEAD_WIDTHS = (64, 128)
+# the dtypes flash_attention_packed's kernels take, each with its C function
+# and launch count; the TPU kernels take any float dtype
+FLASH_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 
 
 def maybe_pad_tokens(xseq: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
@@ -149,47 +154,58 @@ def flash_packed_bwd_plain(q, k, v, o, do, lse, num_heads: int, sm_scale: float,
 
 
 def _row_stride(name: str, t: torch.Tensor, b: int, n: int, d: int, device) -> int:
-    """The row stride of a (B, N, D) bf16 view whose rows are contiguous and
-    16-byte aligned, rows ``stride`` elements apart and images ``N *
-    stride`` apart (a third of a packed qkv tensor, or a contiguous one)."""
+    """The row stride of a (B, N, D) bf16 or f32 view whose rows are
+    contiguous and 16-byte aligned, rows ``stride`` elements apart (16 bytes
+    a multiple: 8 bf16 or 4 f32 elements) and images ``N * stride`` apart (a
+    third of a packed qkv tensor, or a contiguous one)."""
     if tuple(t.shape) != (b, n, d) or t.device != device:
         raise ValueError(f"{name}: want shape {(b, n, d)} on {device}, "
                          f"got {tuple(t.shape)} on {t.device}")
     s0, s1, s2 = t.stride()
-    if s2 != 1 or s1 < d or s1 % 8 or (b > 1 and s0 != n * s1) or t.data_ptr() % 16:
+    if s2 != 1 or s1 < d or (s1 * t.element_size()) % 16 or (b > 1 and s0 != n * s1) \
+            or t.data_ptr() % 16:
         raise NotImplementedError(
             f"flash_attention_packed kernel: {name} with strides {t.stride()} (want rows "
             "contiguous, 16-byte aligned, images N rows apart; ROADMAP B5)")
     return s1
 
 
-def _flash_check(q, num_heads: int, n_valid: int):
+def _flash_check(q, k, v, num_heads: int, n_valid: int):
+    """``(b, n, d, suffix)`` of a kernel call: the dtype's suffix of the C
+    function and launch count (:data:`FLASH_DTYPES`)."""
     b, n, d = q.shape
     dh = d // num_heads
-    if q.dtype != torch.bfloat16 or dh not in HEAD_WIDTHS or dh * num_heads != d \
-            or n % PAD_MULTIPLE:
+    if q.dtype not in FLASH_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(
-            f"flash_attention_packed kernel: {q.dtype}, head width {dh}, N={n} (built for "
-            f"bf16, head width {HEAD_WIDTHS} and N a multiple of {PAD_MULTIPLE}; ROADMAP B5)")
+            f"flash_attention_packed kernel: q, k, v in {q.dtype}, {k.dtype}, {v.dtype} (built "
+            "for bf16 and f32, all three alike; ROADMAP B.5)")
+    if dh not in HEAD_WIDTHS or dh * num_heads != d:
+        raise NotImplementedError(
+            f"flash_attention_packed kernel: head width {d / num_heads:g} (built for "
+            f"{HEAD_WIDTHS}; ROADMAP B.3)")
+    if n % PAD_MULTIPLE:
+        raise NotImplementedError(
+            f"flash_attention_packed kernel: N={n} (built for N a multiple of {PAD_MULTIPLE}, "
+            "which flash_attention_packed pads to; ROADMAP B5)")
     if not 1 <= n_valid <= n:
         raise ValueError(f"flash_attention_packed kernel: n_valid={n_valid} not in [1, {n}]")
-    return b, n, d
+    return b, n, d, FLASH_DTYPES[q.dtype]
 
 
 def _flash_fwd_cuda(q, k, v, num_heads, sm_scale, n_valid, need_lse):
-    b, n, d = _flash_check(q, num_heads, n_valid)
+    b, n, d, suffix = _flash_check(q, k, v, num_heads, n_valid)
     dev = q.device
     strides = [_row_stride(nm, t, b, n, d, dev) for nm, t in (("q", q), ("k", k), ("v", v))]
     o = torch.empty((b, n, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev) if need_lse else None
-    fn = kernels.function("flash_packed")
+    fn = kernels.function("flash_packed" + suffix)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  None if lse is None else lse.data_ptr(), b, n, num_heads, d // num_heads,
                  *strides, int(n_valid), float(sm_scale),
                  torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch("flash_packed_fwd", err)
-    LAUNCHES["flash_packed_fwd"] += 1
+    _check_launch("flash_packed_fwd" + suffix, err)
+    LAUNCHES["flash_packed_fwd" + suffix] += 1
     return o, lse
 
 
@@ -204,7 +220,7 @@ def flash_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_head
 
 
 def _flash_bwd_cuda(q, k, v, o, do, lse, num_heads, sm_scale, n_valid):
-    b, n, d = _flash_check(q, num_heads, n_valid)
+    b, n, d, suffix = _flash_check(q, k, v, num_heads, n_valid)
     dev, f32 = q.device, torch.float32
     strides = [_row_stride(nm, t, b, n, d, dev) for nm, t in (("q", q), ("k", k), ("v", v))]
     _check("o", o, q.dtype, (b, n, d), dev)
@@ -215,14 +231,14 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, num_heads, sm_scale, n_valid):
     # dq | dk | dv in one (B, N, 3D) buffer, as the qkv GEMM's backward reads it
     grads = torch.empty((b, n, 3 * d), dtype=q.dtype, device=dev)
     di = torch.empty((b, num_heads, n), dtype=f32, device=dev)
-    fn = kernels.function("flash_packed_bwd")
+    fn = kernels.function("flash_packed_bwd" + suffix)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), grads.data_ptr(), di.data_ptr(), b, n, num_heads,
                  d // num_heads, *strides, int(n_valid), float(sm_scale),
                  torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch("flash_packed_bwd", err)
-    LAUNCHES["flash_packed_bwd"] += 1
+    _check_launch("flash_packed_bwd" + suffix, err)
+    LAUNCHES["flash_packed_bwd" + suffix] += 1
     return grads.split(d, dim=-1)
 
 

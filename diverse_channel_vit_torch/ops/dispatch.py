@@ -20,6 +20,8 @@ import torch
 # call, however many CUDA launches it takes)
 LAUNCHES = {"attend_project_fwd": 0, "ln_mlp_fwd": 0, "attend_project_bwd": 0, "ln_mlp_bwd": 0,
             "flash_packed_fwd": 0, "flash_packed_bwd": 0, "ln_mlp_q_fwd": 0, "ln_mlp_q_bwd": 0,
+            # B5 and B6 on f32 tensors (their f32 kernels)
+            "flash_packed_fwd_f32": 0, "flash_packed_bwd_f32": 0,
             # the benchmark scripts' kernels (diverse_channel_vit_torch/scripts/)
             "bwd_call": 0, "qkv_flash_fwd": 0, "int8_ln_mlp": 0}
 

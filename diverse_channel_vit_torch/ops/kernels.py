@@ -58,6 +58,11 @@ KERNELS = {
 
 # further C functions of those libraries: name -> (library, C function, argtypes)
 SYMBOLS = {
+    # B5 and B6 in f32 (csrc/flash_f32.cuh): the bf16 entry points' arguments
+    "flash_packed_f32": ("flash_packed", "dcvit_flash_packed_fwd_f32",
+                         KERNELS["flash_packed"][2]),
+    "flash_packed_bwd_f32": ("flash_packed_bwd", "dcvit_flash_packed_bwd_f32",
+                             KERNELS["flash_packed_bwd"][2]),
     # B7's GELU on a range of float bit patterns, for checking what it relies on
     "gelu_tanh_rn_table": ("ln_mlp_q", "dcvit_gelu_tanh_rn_table",
                            [_P, ctypes.c_uint, _LL, _P]),

@@ -19,6 +19,10 @@
   stays as it is for other engines and for training. The mode is entered
   around each forward in the thread that runs it (the caller's for
   ``predict``, the collector's for ``submit``).
+- An f32 model (``build_model``'s default dtype) serves in full f32: every
+  block takes the unfused route (B5 in f32 on the card), and each forward
+  runs with TF32 off for matmuls and cuDNN (``device.tf32_off``, the
+  process-wide flags restored after the forward).
 
 PyTorch runs eagerly, so there is nothing to compile per bucket; ``warmup``
 runs each bucket once (it builds the CUDA kernels on first use).
@@ -39,7 +43,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import resolve_device, tf32_off
 from .ops import fused_block
 
 __all__ = ["ServingEngine", "ServingStats"]
@@ -77,7 +81,8 @@ class ServingEngine:
     ``model`` follows the zoo's call signature ``(x, channel_ids) ->
     (out, extra_loss)``; it is moved to ``device`` (the card unless
     ``"cpu"`` is asked for) and put in eval mode. Images go to the device as
-    f32; the model casts them to its own compute dtype. ``quantization``
+    f32; the model casts them to its own compute dtype (TF32 off around the
+    forwards of an f32 model). ``quantization``
     (``"none"`` or ``"int8"``) pins this engine's forwards to that mode;
     None keeps the model's own (``model.quantization`` of its config).
     """
@@ -91,6 +96,10 @@ class ServingEngine:
         self.quantization = quantization
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        # f32 compute (the backbone's dtype, the first module that has one):
+        # the forwards' products in full f32
+        self.full_f32 = next((m.dtype for m in self.model.modules() if hasattr(m, "dtype")),
+                             None) == torch.float32
         self.buckets = sorted(set(int(b) for b in buckets))
         self.max_batch = int(max_batch or self.buckets[-1])
         if self.max_batch not in self.buckets:
@@ -119,7 +128,8 @@ class ServingEngine:
         cid = self._channel_ids(cids)
         mode = (contextlib.nullcontext() if self.quantization is None
                 else fused_block.quantization(self.quantization))
-        with self._lock, torch.inference_mode(), mode:
+        precision = tf32_off() if self.full_f32 else contextlib.nullcontext()
+        with self._lock, torch.inference_mode(), mode, precision:
             out, _ = self.model(torch.from_numpy(chunk).to(self.device), cid)
             self.n_forwards += 1
             return out.float().cpu().numpy()

@@ -185,6 +185,15 @@ def _trainer_device(cfg, device) -> torch.device:
     return resolve_device(device)
 
 
+def compute_dtype(cfg) -> torch.dtype:
+    """The compute dtype of ``train.dtype``, as the JAX Trainer reads it:
+    bf16 for ``bfloat16`` (the default), f32 for any other value;
+    ``train.use_amp`` forces bf16 (its AMP flag)."""
+    if cfg.train.get("use_amp", False) or cfg.train.get("dtype", "bfloat16") == "bfloat16":
+        return torch.bfloat16
+    return torch.float32
+
+
 class Trainer:
     def __init__(self, cfg, device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
@@ -195,10 +204,7 @@ class Trainer:
         self.host_rng = set_seeds(self.seed)
         self.dataset_name = cfg.dataset.name
         self.logger = MyLogging(cfg)
-        dtype_name = cfg.train.get("dtype", "bfloat16")
-        if cfg.train.get("use_amp", False):
-            dtype_name = "bfloat16"  # AMP flag parity: bf16 compute
-        self.dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+        self.dtype = compute_dtype(cfg)
 
         # -- chunk (CHAMMI) or split -> channel-id mapper (_build_mapper) ----
         self.chammi = self.dataset_name == "morphem70k"
@@ -303,7 +309,9 @@ class Trainer:
             cfg.train.get("miro_lr_mult", 10.0) or 10.0))
         n_params = sum(p.numel() for p in self.state.params)
         self.logger.info(f"model {cfg.model.name}: {n_params:,} params ({len(frozen)} tensors "
-                         f"frozen), device {self.device}, dtype {dtype_name}")
+                         f"frozen), device {self.device}, dtype {str(self.dtype)[6:]}, TF32 "
+                         f"matmul {torch.backends.cuda.matmul.allow_tf32} cudnn "
+                         f"{torch.backends.cudnn.allow_tf32}")
 
         # -- step caches: one train step per (channels, k), all drawing from
         # one generator on the device --------------------------------------

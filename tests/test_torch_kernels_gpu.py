@@ -30,7 +30,15 @@ through the kernels are held against the same Functions under
 (``flash_attention_packed``) are held the same way, on q, k and v given as
 the strided thirds of one packed qkv tensor, as the model passes them, and
 as tensors of their own (``bench_block_fusion``'s layout, and a mix of row
-strides); two B6 calls on the same inputs must agree bit for bit.
+strides); two B6 calls on the same inputs must agree bit for bit. B5 and
+B6 in f32 (csrc/flash_f32.cuh, 3xTF32 products, P kept in f32; an f32
+model's route) are held against their plain versions in full f32, TF32
+off: o within 2e-5 of max|o|, lse within 1e-5, dq, dk and dv within 1e-4
+of each max|g| (f32 sums in other orders; one TF32 pass would miss o by
+about 1e-3), padded key rows exactly 0 and two B6 calls bit for bit, at
+head widths 64 and 128 on the grids above, the DCS recipe's k = 1 grid and
+PPT's, and through ``FlashPackedFn`` on PPT's unpadded grids; float16
+still raises (ROADMAP B.5), as does head width 192 (B.3).
 
 The benchmark scripts' kernels (``diverse_channel_vit_torch/scripts/``) are
 held the same way against their plain versions and against their package
@@ -67,6 +75,7 @@ import numpy as np
 import pytest
 import torch
 
+from diverse_channel_vit_torch.device import tf32_off
 from diverse_channel_vit_torch.ops import attention as at
 from diverse_channel_vit_torch.ops import fused_block as fb
 from diverse_channel_vit_torch.scripts import bench_attn as s1
@@ -777,21 +786,120 @@ def test_flash_packed_public_op_at_ppt_grids_matches_plain_route(gen, n):
 
 def test_flash_packed_wrappers_raise_on_what_they_do_not_take(gen):
     q, k, v = _rnd(gen, 1, 64, 3 * 384).split(384, dim=-1)
-    with pytest.raises(NotImplementedError, match="B5"):  # f32
-        at.flash_packed_fwd(q.float(), k.float(), v.float(), 6, 0.125, 64)
-    with pytest.raises(NotImplementedError, match="B5"):  # head width 192
+    with pytest.raises(NotImplementedError, match="B.5"):  # float16
+        at.flash_packed_fwd(q.half(), k.half(), v.half(), 6, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="B.5"):  # q and k, v of two dtypes
+        at.flash_packed_fwd(q.float(), k, v, 6, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="B.3"):  # head width 192
         at.flash_packed_fwd(q, k, v, 2, 0.125, 64)
+    with pytest.raises(NotImplementedError, match="B.3"):  # head width 192 in f32
+        at.flash_packed_fwd(q.float(), k.float(), v.float(), 2, 0.125, 64)
     with pytest.raises(NotImplementedError, match="B5"):  # N not a multiple of 64
         at.flash_packed_fwd(q[:, :60], k[:, :60], v[:, :60], 6, 0.125, 60)
     qt = _rnd(gen, 1, 384, 64).transpose(1, 2)  # columns not contiguous
     with pytest.raises(NotImplementedError, match="B5"):
         at.flash_packed_fwd(qt, k, v, 6, 0.125, 64)
+    # f32 rows 386 elements apart: not a multiple of 16 bytes
+    q_odd = _rnd(gen, 1, 64, 386, dtype=torch.float32)[..., :384]
+    with pytest.raises(NotImplementedError, match="B5"):
+        at.flash_packed_fwd(q_odd, k.float(), v.float(), 6, 0.125, 64)
     o, lse = at.flash_packed_fwd(q, k, v, 6, 0.125, 64, need_lse=True)
-    with pytest.raises(NotImplementedError, match="B5"):  # f32 backward
-        at.flash_packed_bwd(q.float(), k.float(), v.float(), o.float(), o.float(), lse, 6,
+    with pytest.raises(NotImplementedError, match="B.5"):  # float16 backward
+        at.flash_packed_bwd(q.half(), k.half(), v.half(), o.half(), o.half(), lse, 6,
                             0.125, 64)
     with pytest.raises(NotImplementedError, match="B5"):
         at.flash_packed_bwd(qt, k, v, o, o, lse, 6, 0.125, 64)
+
+
+# B5 and B6 in f32 (csrc/flash_f32.cuh, 3xTF32 products, P in f32) against
+# their plain versions in full f32 (TF32 off): o within 2e-5 of max|o|, lse
+# within 1e-5, dq, dk and dv within 1e-4 of each max|g|. Both sum f32
+# products in other orders; one TF32 pass would miss o by about 1e-3.
+F32_O_TOL, F32_GRAD_TOL = 2e-5, 1e-4
+
+
+@pytest.fixture
+def full_f32(gen):
+    with tf32_off():
+        yield gen
+
+
+def _f32_qkv(gen, layout, batch, n, d):
+    """f32 q, k and v: the thirds of one packed qkv tensor ("packed", as the
+    model passes them), or another layout of :func:`_qkv_views`."""
+    if layout == "packed":
+        return _rnd(gen, batch, n, 3 * d, dtype=torch.float32).split(d, dim=-1)
+    return tuple(t.float() for t in _qkv_views(gen, layout, batch, n, d))
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("batch,n,d,n_valid,layout", [
+    (1, 64, 384, 64, "packed"),      # one tile, nothing masked
+    (2, 640, 384, 70, "packed"),     # n_valid far below N: most key tiles wholly padded
+    (2, 128, 128, 100, "packed"),    # two heads of 64 or one of 128, a ragged last tile
+    (3, 576, 384, 537, "packed"),    # the EViT grid after layer 9
+    (2, 1600, 384, 1569, "packed"),  # the flagship grid
+    (2, 256, 384, 197, "packed"),    # the DCS recipe at k = 1
+    (2, 64, 384, 2, "packed"),       # PPT token pruning's last blocks
+    (2, 832, 384, 785, "packed"),    # PPT channel pruning
+    (2, 768, 768, 768, "packed"),    # D = 768, nothing masked
+    (2, 1152, 384, 1098, "separate"),
+    (2, 640, 768, 589, "mixed"),
+])
+def test_flash_packed_f32_kernels_match_plain(full_f32, batch, n, d, n_valid, layout, dh):
+    gen, heads, sm = full_f32, d // dh, dh ** -0.5
+    q, k, v = _f32_qkv(gen, layout, batch, n, d)
+    before = dict(fb.LAUNCHES)
+    o, lse = at.flash_packed_fwd(q, k, v, heads, sm, n_valid, need_lse=True)
+    assert fb.LAUNCHES["flash_packed_fwd_f32"] == before["flash_packed_fwd_f32"] + 1
+    assert fb.LAUNCHES["flash_packed_fwd"] == before["flash_packed_fwd"]
+    o_p, lse_p = at.flash_packed_fwd_plain(q, k, v, heads, sm, n_valid, need_lse=True)
+    assert o.dtype == torch.float32 and o.shape == o_p.shape
+    assert _rel(o, o_p) <= F32_O_TOL
+    assert _rel(lse, lse_p) <= 1e-5
+    do = _rnd(gen, batch, n, d, dtype=torch.float32)
+    got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, sm, n_valid)
+    assert fb.LAUNCHES["flash_packed_bwd_f32"] == before["flash_packed_bwd_f32"] + 1
+    assert fb.LAUNCHES["flash_packed_bwd"] == before["flash_packed_bwd"]
+    for name, g, w in zip("qkv", got, at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads,
+                                                                 sm, n_valid)):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape, name
+        assert _rel(g, w) <= F32_GRAD_TOL, name
+    assert torch.count_nonzero(got[1][:, n_valid:]) == 0
+    assert torch.count_nonzero(got[2][:, n_valid:]) == 0
+    again = at.flash_packed_bwd(q, k, v, o, do, lse, heads, sm, n_valid)
+    for name, g1, g2 in zip("qkv", got, again):
+        assert torch.equal(g1, g2), name
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("n,n_valid", [(99, None), (785, None), (640, 589)])
+def test_flash_packed_f32_function_grads_match_plain_route(full_f32, n, n_valid, dh):
+    """The public op in f32 through FlashPackedFn (B5-f32 forward, B6-f32
+    backward), on PPT's unpadded grids (padded inside the op) and a masked
+    padded one: output and the packed qkv's gradient against the plain
+    route."""
+    gen, b, d = full_f32, 2, 384
+    heads = d // dh
+
+    def fn(qkv):
+        return at.flash_attention_packed(*qkv.split(d, dim=-1), heads, valid_len=n_valid)
+
+    qkv = _rnd(gen, b, n, 3 * d, dtype=torch.float32)
+    cot = _rnd(gen, b, n, d, dtype=torch.float32)
+    with torch.no_grad():
+        got = fn(qkv)
+        with fb.plain_versions():
+            want = fn(qkv)
+    assert got.shape == (b, n, d) and _rel(got, want) <= F32_O_TOL
+    before = dict(fb.LAUNCHES)
+    (g,) = _grads(fn, [qkv], cot, plain=False)
+    assert fb.LAUNCHES["flash_packed_fwd_f32"] == before["flash_packed_fwd_f32"] + 1
+    assert fb.LAUNCHES["flash_packed_bwd_f32"] == before["flash_packed_bwd_f32"] + 1
+    (w,) = _grads(fn, [qkv], cot, plain=True)
+    assert fb.LAUNCHES["flash_packed_bwd_f32"] == before["flash_packed_bwd_f32"] + 1
+    for j, name in enumerate("qkv"):
+        assert _rel(g[..., j * d:(j + 1) * d], w[..., j * d:(j + 1) * d]) <= F32_GRAD_TOL, name
 
 
 def _mlp_inputs(gen, shape, bias=1.0):
