@@ -53,11 +53,14 @@ Phases (each one either succeeds or ends the run with a non-zero exit):
    names), o within 2e-5 of max|o|, lse within 1e-5, dq, dk and dv within
    1e-4 of each max|g|, padded dk / dv rows exactly 0 and B6 twice bit for
    bit, timed beside the bound (one TF32 pass), the plain version and SDPA
-   in f32 with TF32 off; 12 f32 train steps of DiChaViT-S at full width and
-   depth, B = 64 (B5-f32 and B6-f32 x 11 a step, nothing else) and a
-   profiled one; 2 steps at depth 3 through the kernels against the plain
-   route (losses within 1e-5, step-0 gradients within 1e-4 of max|g|); the
-   card's f32 logits at full depth against the CPU's (B = 4, within 1e-4 of
+   in f32 with TF32 off, and at (1600, 1569) split by launch, each pass
+   beside its own bound (B5-f32's forward at one TF32 pass; B6-f32's di by
+   bytes, its dk/dv and dq passes at one TF32 pass of their own products);
+   the f32 kernels' registers, spills and shared memory; 12 f32 train steps
+   of DiChaViT-S at full width and depth, B = 64 (B5-f32 and B6-f32 x 11 a
+   step, nothing else) and a profiled one; 2 steps at depth 3 through the
+   kernels against the plain route (losses within 1e-5, step-0 gradients
+   within 1e-4 of max|g|); the card's f32 logits at full depth against the CPU's (B = 4, within 1e-4 of
    max|logit|); ``main`` with ``++train.dtype=float32`` (2 epochs of 256
    images, evals; TF32 off inside, the flags restored after); an f32
    ``ServingEngine`` from ``build_model``'s default dtype at buckets 1 and
@@ -1201,6 +1204,11 @@ def check_flash_kernels(torch, F, core, heads=HEADS, dtype=None):
                        10),
             plain_ms=cuda_ms(lambda: at.flash_packed_bwd_plain(q, k, v, o, do, lse, heads, scale,
                                                                n_valid), 2, warmup=1))
+        if f32 and (n, n_valid) == F32_GRIDS[0]:
+            fwd["sub_ms"], bwd["sub_ms"] = f32_passes(
+                fname, bname, lambda: at.flash_packed_fwd(q, k, v, heads, scale, n_valid),
+                lambda: at.flash_packed_bwd(q, k, v, o, do, lse, heads, scale, n_valid),
+                n, n_valid, heads)
         lq = qkv.detach().clone().requires_grad_()
         lib_out = F.scaled_dot_product_attention(
             *lq.view(B, n, 3, heads, dh).permute(2, 0, 3, 1, 4), attn_mask=keep)
@@ -1245,6 +1253,43 @@ def check_flash_kernels(torch, F, core, heads=HEADS, dtype=None):
           f"({per_grid[fname]}) and B6 {results[bname]['ms']:.4f} ms ({per_grid[bname]}) over "
           "the EViT grids")
     return results
+
+
+# B5-f32 and B6-f32 by launch: (profiler substrings, label)
+F32_FWD_PARTS = (("f32a::fwd_kernel", "forward"),)
+F32_BWD_PARTS = (("f32a::di_kernel", "di"),
+                 (("f32a::kv_kernel", "legacy::flash_f32_kv_kernel"), "dk/dv"),
+                 (("f32a::q_kernel", "legacy::flash_f32_q_kernel"), "dq"))
+
+
+def f32_passes(fname: str, bname: str, fwd, bwd, n: int, n_valid: int, heads: int) -> tuple:
+    """B5-f32 and B6-f32 (calls ``fwd`` and ``bwd``) at one grid split by
+    launch, each pass beside its own bound: di (o and do read, di written)
+    by bytes; the forward (S and P V), the dk/dv pass (S^T, dP^T, dV, dK)
+    and the dq pass (S, dP, dQ) at one TF32 pass of their products over the
+    real keys and queries. Returns both splits {label: ms}."""
+    elems, pair = B * n * D, 2 * B * n_valid * n_valid * D  # a product's FLOPs
+    fwd_b = {"forward": 2 * pair / PEAK_TF32_FLOPS}
+    bwd_b = {"di": 4 * (2 * elems + B * heads * n) / PEAK_BYTES,
+             "dk/dv": 4 * pair / PEAK_TF32_FLOPS, "dq": 3 * pair / PEAK_TF32_FLOPS}
+    return (launch_split(fname, fwd, F32_FWD_PARTS, fwd_b),
+            launch_split(bname, bwd, F32_BWD_PARTS, bwd_b))
+
+
+def f32_smem() -> None:
+    """The f32 kernels' dynamic shared memory a block (ptxas reports static
+    shared memory only)."""
+    from diverse_channel_vit_torch.ops import kernels
+    import ctypes
+
+    for name, labels in (("flash_f32_smem_fwd", ("fwd_kernel<64>", "fwd_kernel<128>")),
+                         ("flash_f32_smem_bwd", ("kv_kernel<64>", "q_kernel<64>",
+                                                 "legacy::flash_f32_kv_kernel<128>",
+                                                 "legacy::flash_f32_q_kernel<128>"))):
+        out = (ctypes.c_int * len(labels))()
+        kernels.function(name)(ctypes.addressof(out), len(labels))
+        print("f32 kernels' dynamic shared memory a block: " + ", ".join(
+            f"{label} {size} bytes" for label, size in zip(labels, out)))
 
 
 # the benchmark scripts' default geometry (scripts/bench_attn.py,
@@ -4343,6 +4388,7 @@ def f32_models(fb, torch, F, results: dict) -> dict:
     paths by label."""
     f32 = dict(dtype=torch.float32, loss_tol=F32_LOSS_TOL, grad_tol=F32_GRAD_TOL)
     t0 = time.perf_counter()
+    f32_smem()
     for heads in (HEADS, HEADS_TPU):
         results.update(check_flash_kernels(torch, F, results, heads, dtype=torch.float32))
     torch.cuda.empty_cache()

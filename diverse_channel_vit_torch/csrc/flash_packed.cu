@@ -42,7 +42,8 @@
 //   the scaled scores (f32), which the backward (flash_packed_bwd.cu) uses to
 //   recompute P tile by tile.
 // - In f32 (`dcvit_flash_packed_fwd_f32`) the kernel is flash_f32.cuh's:
-//   3xTF32 `mma.sync` products, P kept in f32, bound and design there.
+//   3xTF32 `wgmma` products on tiles fed by TMA and split into tf32 hi / lo
+//   in shared memory, P kept in f32; bound and design there.
 #include "flash_f32.cuh"
 #include "flash_packed.cuh"
 
@@ -89,9 +90,21 @@ extern "C" int dcvit_flash_packed_fwd_f32(const void* q, const void* k, const vo
       batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || stride_q < d ||
       stride_k < d || stride_v < d || (stride_q | stride_k | stride_v) % 4 != 0)
     return (int)cudaErrorInvalidValue;
+  const int dc = (int)d;
+  f32a::RawMaps maps{};
+  cudaError_t err;
+  if ((err = tensor_map3_f32(&maps.q, q, batch, n, dc, f32a::kT, stride_q)) != cudaSuccess ||
+      (err = tensor_map3_f32(&maps.k, k, batch, n, dc, f32a::kT, stride_k)) != cudaSuccess ||
+      (err = tensor_map3_f32(&maps.v, v, batch, n, dc, f32a::kT, stride_v)) != cudaSuccess)
+    return (int)err;
   auto launch = head_dim == 64 ? f32a::launch_fwd<64> : f32a::launch_fwd<128>;
-  return (int)launch(static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), stride_q, stride_k, stride_v,
-                     static_cast<float*>(o), static_cast<float*>(lse), batch, n, heads, n_valid,
-                     sm_scale, static_cast<cudaStream_t>(stream));
+  return (int)launch(maps, static_cast<float*>(o), static_cast<float*>(lse), batch, n, heads,
+                     n_valid, sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 forward's dynamic shared memory a block, for reports (ptxas prints
+// static shared memory only): out[0] at head width 64, out[1] at 128.
+extern "C" void dcvit_flash_f32_smem_fwd(int* out, int n) {
+  const int sizes[] = {dcvit::f32a::kFwdSmem<64>, dcvit::f32a::kFwdSmem<128>};
+  for (int i = 0; i < n && i < 2; ++i) out[i] = sizes[i];
 }

@@ -52,8 +52,10 @@
 //   one (B, N, 3D) buffer, [dq | dk | dv], the layout the qkv GEMM's
 //   backward reads.
 // - In f32 (`dcvit_flash_packed_bwd_f32`) the passes are flash_f32.cuh's:
-//   the same three, on 3xTF32 `mma.sync` products with P and dS in f32,
-//   into an f32 [dq | dk | dv] buffer; bound and design there.
+//   the same three, on 3xTF32 `wgmma` products with P and dS in f32 (at
+//   head width 128 its first port's `mma.sync` passes), into an f32
+//   [dq | dk | dv] buffer, the passes splitting q, k, v and do into tf32
+//   hi / lo in shared memory; bound and design there.
 #include "flash_f32.cuh"
 #include "flash_packed.cuh"
 
@@ -97,9 +99,9 @@ extern "C" int dcvit_flash_packed_bwd(const void* q, const void* k, const void* 
                   sm_scale, st);
 }
 
-// The f32 backward (flash_f32.cuh): the same arguments as
-// dcvit_flash_packed_bwd, every tensor f32, row strides a multiple of 4 (16
-// bytes); grads (B, N, 3 * H * head_dim) f32.
+// The f32 backward (flash_f32.cuh): the arguments of dcvit_flash_packed_bwd,
+// every tensor f32, row strides a multiple of 4 (16 bytes); grads (B, N,
+// 3 * H * head_dim) f32.
 extern "C" int dcvit_flash_packed_bwd_f32(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* grads, void* di, int batch, int n, int heads,
@@ -112,11 +114,32 @@ extern "C" int dcvit_flash_packed_bwd_f32(const void* q, const void* k, const vo
       batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || stride_q < d ||
       stride_k < d || stride_v < d || (stride_q | stride_k | stride_v) % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  auto run = head_dim == 64 ? f32a::launch_bwd<64> : f32a::launch_bwd<128>;
-  return (int)run(static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<const float*>(o),
-                  static_cast<const float*>(dout), stride_q, stride_k, stride_v,
-                  static_cast<const float*>(lse), static_cast<float*>(di),
-                  static_cast<float*>(grads), batch, n, heads, n_valid, sm_scale,
-                  static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (head_dim == 128)
+    return (int)f32a::launch_bwd<128>(nullptr, f(q), f(k), f(v), f(o), f(dout), stride_q,
+                                      stride_k, stride_v, f(lse), static_cast<float*>(di),
+                                      static_cast<float*>(grads), batch, n, heads, n_valid,
+                                      sm_scale, st);
+  const int dc = (int)d;
+  f32a::RawMaps maps{};
+  cudaError_t err;
+  if ((err = tensor_map3_f32(&maps.q, q, batch, n, dc, f32a::kT, stride_q)) != cudaSuccess ||
+      (err = tensor_map3_f32(&maps.k, k, batch, n, dc, f32a::kT, stride_k)) != cudaSuccess ||
+      (err = tensor_map3_f32(&maps.v, v, batch, n, dc, f32a::kT, stride_v)) != cudaSuccess ||
+      (err = tensor_map3_f32(&maps.dO, dout, batch, n, dc, f32a::kT, d)) != cudaSuccess)
+    return (int)err;
+  return (int)f32a::launch_bwd<64>(&maps, f(q), f(k), f(v), f(o), f(dout), stride_q, stride_k,
+                                   stride_v, f(lse), static_cast<float*>(di),
+                                   static_cast<float*>(grads), batch, n, heads, n_valid,
+                                   sm_scale, st);
+}
+
+// The f32 backward passes' dynamic shared memory a block, for reports (ptxas
+// prints static shared memory only): the dk/dv and dq passes at head width
+// 64, then the legacy passes at 128.
+extern "C" void dcvit_flash_f32_smem_bwd(int* out, int n) {
+  using namespace dcvit::f32a;
+  const int sizes[] = {kKvSmem<64>, kQSmem<64>, legacy::kBwdSmem<128>, legacy::kBwdSmem<128>};
+  for (int i = 0; i < n && i < 4; ++i) out[i] = sizes[i];
 }

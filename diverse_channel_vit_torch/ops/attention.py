@@ -14,8 +14,9 @@ backward kernel ``csrc/flash_packed_bwd.cu`` (replaces
 ``_packed_bwd_kernel``), inside :class:`FlashPackedFn` when a gradient is
 wanted; in bf16 both run on the ``wgmma`` + TMA flash core
 ``csrc/flash_wgmma.cuh`` that the attend_project kernels share, in f32 on
-``csrc/flash_f32.cuh`` (3xTF32 ``mma.sync`` products, P kept in f32, as the
-TPU kernels run an f32 model's attention). The wrappers follow ``ops/dispatch.py``: the plain version for a CPU
+``csrc/flash_f32.cuh`` (3xTF32 ``wgmma`` products, P kept in f32, as the
+TPU kernels run an f32 model's attention; each pass splits its q, k, v and
+do tiles into tf32 hi / lo in shared memory). The wrappers follow ``ops/dispatch.py``: the plain version for a CPU
 tensor; the kernel, or an exception, for a CUDA one. The kernels take q, k
 and v as strided views (each row contiguous, rows ``stride`` elements apart),
 each through a TMA map of its own, so the three thirds of one packed

@@ -63,6 +63,9 @@ SYMBOLS = {
                          KERNELS["flash_packed"][2]),
     "flash_packed_bwd_f32": ("flash_packed_bwd", "dcvit_flash_packed_bwd_f32",
                              KERNELS["flash_packed_bwd"][2]),
+    # their dynamic shared memory a block, for reports: (int array, count)
+    "flash_f32_smem_fwd": ("flash_packed", "dcvit_flash_f32_smem_fwd", [_P, _I]),
+    "flash_f32_smem_bwd": ("flash_packed_bwd", "dcvit_flash_f32_smem_bwd", [_P, _I]),
     # B7's GELU on a range of float bit patterns, for checking what it relies on
     "gelu_tanh_rn_table": ("ln_mlp_q", "dcvit_gelu_tanh_rn_table",
                            [_P, ctypes.c_uint, _LL, _P]),

@@ -37,8 +37,10 @@ off: o within 2e-5 of max|o|, lse within 1e-5, dq, dk and dv within 1e-4
 of each max|g| (f32 sums in other orders; one TF32 pass would miss o by
 about 1e-3), padded key rows exactly 0 and two B6 calls bit for bit, at
 head widths 64 and 128 on the grids above, the DCS recipe's k = 1 grid and
-PPT's, and through ``FlashPackedFn`` on PPT's unpadded grids; float16
-still raises (ROADMAP B.5), as does head width 192 (B.3).
+PPT's, through ``FlashPackedFn`` on PPT's unpadded grids, and at B = 2 with
+image 1's rows 10^4 times image 0's (image 0 held at its own scale: no
+tile reads the next image's rows); float16 still raises (ROADMAP B.5), as does
+head width 192 (B.3).
 
 The benchmark scripts' kernels (``diverse_channel_vit_torch/scripts/``) are
 held the same way against their plain versions and against their package
@@ -900,6 +902,33 @@ def test_flash_packed_f32_function_grads_match_plain_route(full_f32, n, n_valid,
     assert fb.LAUNCHES["flash_packed_bwd_f32"] == before["flash_packed_bwd_f32"] + 1
     for j, name in enumerate("qkv"):
         assert _rel(g[..., j * d:(j + 1) * d], w[..., j * d:(j + 1) * d]) <= F32_GRAD_TOL, name
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("n,n_valid", [(1600, 1569), (576, 537), (64, 40)])
+def test_flash_packed_f32_image_rows_stay_in_their_image(full_f32, n, n_valid, dh):
+    """B = 2 with image 1's q, k, v and do 10^4 times image 0's: image 0's o,
+    lse and gradients within the f32 limits of image 0's own scale, so no
+    tile of image 0 read image 1's rows (N = 1600 and 576 are no multiple of
+    the f32 kernels' 128-row blocks)."""
+    gen, d = full_f32, 384
+    heads, sm = d // dh, dh ** -0.5
+    scale = torch.tensor([1.0, 1e4], device="cuda")[:, None, None]
+    qkv = _rnd(gen, 2, n, 3 * d, dtype=torch.float32) * scale
+    q, k, v = qkv.split(d, dim=-1)
+    do = _rnd(gen, 2, n, d, dtype=torch.float32) * scale
+    o, lse = at.flash_packed_fwd(q, k, v, heads, sm, n_valid, need_lse=True)
+    o_p, lse_p = at.flash_packed_fwd_plain(q[:1], k[:1], v[:1], heads, sm, n_valid,
+                                           need_lse=True)
+    assert _rel(o[:1], o_p) <= F32_O_TOL
+    assert _rel(lse[:1], lse_p) <= 1e-5
+    got = at.flash_packed_bwd(q, k, v, o, do, lse, heads, sm, n_valid)
+    want = at.flash_packed_bwd_plain(q[:1], k[:1], v[:1], o[:1], do[:1], lse[:1], heads, sm,
+                                     n_valid)
+    for name, g, w in zip("qkv", got, want):
+        assert _rel(g[:1], w) <= F32_GRAD_TOL, name
+    assert torch.count_nonzero(got[1][:, n_valid:]) == 0
+    assert torch.count_nonzero(got[2][:, n_valid:]) == 0
 
 
 def _mlp_inputs(gen, shape, bias=1.0):
